@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, each ``csrc/*.cu`` source is compiled by its own ``nvcc``
+process (all started together) for ``sm_90a`` and the objects are linked into
+one shared library with a plain C interface under
+``build/repro_torch_kernels/`` at the root of the checkout.  The library's
+name carries a hash of the sources and flags, so an edit rebuilds it and an
+unchanged tree reuses it.  It is loaded with ``ctypes``; every entry point
+returns ``cudaGetLastError()`` and the wrappers raise when it is not 0.
+
+No ``nvcc`` means no kernels: :func:`library` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("rmsnorm.cu", "swiglu.cu", "decode_attention.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+CFLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+#: C entry point -> argument types (all return an int cudaError_t)
+SIGNATURES = {
+    "rt_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
+    "rt_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler on ``PATH`` or under ``$CUDA_HOME/bin``; raise if absent."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin: the CUDA kernels cannot be built"
+    )
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; return their output, raise on a failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    return logs
+
+
+def build(build_dir: Path = BUILD_DIR) -> tuple[Path, float]:
+    """Compile the library if this source digest has not been built yet.
+
+    Returns the library's path and the seconds spent building (0 when reused).
+    The compiler's report (registers, shared memory, spills) is kept beside
+    the library as ``<name>.log``.
+    """
+    lib = build_dir / f"librepro_torch_kernels_{source_digest()}.so"
+    if lib.is_file():
+        return lib, 0.0
+    nvcc = nvcc_path()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tag = f"{os.getpid()}"
+    objs = [build_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    logs = _run_all([
+        [nvcc, *CFLAGS, "-c", str(CSRC / s), "-o", str(o)] for s, o in zip(SOURCES, objs)
+    ])
+    tmp = lib.with_suffix(f".{tag}.tmp")
+    logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
+    lib.with_suffix(".log").write_text("\n".join(logs))
+    os.replace(tmp, lib)
+    for o in objs:
+        o.unlink()
+    return lib, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
