@@ -8,17 +8,28 @@ prints no result line):
 
 1. card: the card's name and power limit from ``nvidia-smi``; TF32 off.
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-   qwen1.5-0.5b serving shapes and a small shape, fp32 and bf16; then its
-   time beside its plain version's, one PyTorch library call's, and its
-   bound from bytes and operations.
+3. kernels: each kernel against its plain PyTorch version on the card, fp32
+   and bf16: the serving kernels at the qwen1.5-0.5b serving shapes and a
+   small shape, rmsnorm and swiglu_mlp also at the training shape; flash
+   attention forward and backward at the five sweep shapes of
+   ``tests/test_kernels.py``, a GQA shape (G 8, hd 128) and the training
+   shape; the RMSNorm and SwiGLU backward at the training shape
+   and a small one.  Then each kernel's time beside its plain version's,
+   one PyTorch library call's, and its bound from bytes and operations.
 4. full width: qwen1.5-0.5b in fp32, one ``decode_step`` on the card against
-   the same weights on the CPU.
+   the same weights on the CPU; then, cut to 4 layers, ``loss`` and every
+   gradient leaf on a (2, 200) batch against the CPU.
 5. serve: a small fp32 serve on the card against the CPU, token for token;
    then qwen1.5-0.5b in bf16 through ``repro_torch.launch.serve.main``
    (8 requests, prompt 128, 32 new tokens) with the kernels' launch counts
    set to 0 just before and read just after.
-6. output: one ``{"kernels": [...]}`` line, then the last line
+6. train: qwen1.5-0.5b in bf16, full width and depth, through
+   ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
+   checkpoint in a temporary directory under ``build/``), with the launch
+   counts set to 0 just before and checked per step just after; then 8
+   steps on one fixed batch, whose loss must fall by 0.05.
+7. output: one ``{"serve": ...}``, one ``{"train": ...}`` and one
+   ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -26,11 +37,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,11 +56,31 @@ ARCH = "qwen1.5-0.5b"
 SERVE = dict(requests=8, prompt_len=128, new_tokens=32)
 CACHE_LEN = SERVE["prompt_len"] + SERVE["new_tokens"] + 8      # as launch/serve.py sizes it
 VALID = SERVE["prompt_len"] + SERVE["new_tokens"]              # visible positions, last step
+TRAIN = dict(batch=8, seq=512, steps=6)
+TRAIN_ROWS = TRAIN["batch"] * TRAIN["seq"]
 TOL = {  # tests/test_kernels.py
     "rmsnorm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
     "swiglu_mlp": {torch.float32: 1e-4, torch.bfloat16: 5e-2},
     "decode_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+    "flash_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
 }
+#: gradients: fp32 sums in another order; bf16 outputs rounded once
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+#: (B, Hq, Hkv, Sq, Skv, hd, causal, window): the sweep of tests/test_kernels.py:32-36,
+#: then GQA with G 8 and hd 128, then the training shape
+FLASH_SHAPES = (
+    (1, 2, 2, 128, 128, 32, True, 0),
+    (2, 4, 2, 256, 256, 64, True, 0),
+    (1, 8, 2, 192, 192, 32, True, 64),
+    (2, 2, 2, 128, 256, 64, False, 0),
+    (1, 4, 4, 100, 100, 16, True, 0),
+    (1, 16, 2, 300, 300, 128, True, 0),
+    (TRAIN["batch"], 16, 16, TRAIN["seq"], TRAIN["seq"], 64, True, 0),
+)
+#: kernel launches per training step of qwen1.5-0.5b (24 layers)
+TRAIN_PER_STEP = {"rmsnorm": 2 * 24 + 1, "rmsnorm_bwd": 2 * 24 + 1, "swiglu": 24,
+                  "swiglu_bwd": 24, "flash_attention": 24, "flash_attention_bwd": 24,
+                  "decode_attention": 0}
 #: dense peak rates by input type (NVIDIA H100 SXM data sheet, no sparsity)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -68,27 +103,46 @@ def randn(gen, shape, dtype, scale=1.0, device="cuda"):
     return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
 
 
-def time_ms(fn, arg_sets, rounds: int) -> float:
+def time_ms(fn, arg_sets, rounds: int, warmup: int = 2, issue: bool = False):
     """Milliseconds per call, CUDA events around back-to-back calls that cycle
     through ``arg_sets`` (distinct weights keep the L2 cache cold, as in the
-    model's walk over its layers)."""
-    for args in arg_sets[:2]:
-        fn(*args)
+    model's walk over its layers), after ``warmup`` calls.  With ``issue``,
+    also the host's milliseconds per call to issue them: when the two are
+    equal, the host, not the device, sets the pace."""
+    for i in range(warmup):
+        fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    calls = rounds * len(arg_sets)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(rounds):
         for args in arg_sets:
             fn(*args)
     end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
     end.synchronize()
-    return start.elapsed_time(end) / (rounds * len(arg_sets))
+    ms = start.elapsed_time(end) / calls
+    return (ms, host_ms) if issue else ms
 
 
 def max_err(got, want, tol) -> float:
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    return float((got.float() - want.float()).abs().max())
+    got, want = got.detach().float(), want.detach().float()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    return float((got - want).abs().max())
+
+
+def grad_ms(out_fn, inputs, dout, rounds: int, issue: bool = False):
+    """(backward ms, forward + backward ms) of autograd through ``out_fn``;
+    with ``issue``, each as ``time_ms``'s (ms, host issue ms)."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = out_fn(*leaves)
+    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), [()],
+                  rounds, warmup=3, issue=issue)
+    both = time_ms(lambda: torch.autograd.grad(out_fn(*leaves), leaves, dout), [()], rounds,
+                   warmup=3, issue=issue)
+    return bwd, both
 
 
 def bound(bytes_moved: float, ops: float, dtype, rate: float) -> tuple[float, str]:
@@ -125,31 +179,48 @@ def phase_build() -> None:
 
 
 def check_rmsnorm(gen, ops, ref, rate):
+    """The serving shape, the training shape and a small one; the row times the
+    serving shape, its ``train_*`` keys the training shape.  At the serving
+    shape also the autograd Function that training calls, beside the direct
+    call that ``ops.rmsnorm`` makes when no gradient is needed, each with the
+    host's time to issue it."""
     errs = {}
-    for rows, D in ((SERVE["requests"], 1024), (37, 96)):
+    for rows, D in ((SERVE["requests"], 1024), (TRAIN_ROWS, 1024), (37, 96)):
         for dt in (torch.float32, torch.bfloat16):
             x, g = randn(gen, (rows, D), dt), randn(gen, (D,), dt)
             got = ops.rmsnorm(x, g, eps=1e-5)
             errs[(rows, D, dt)] = max_err(got, ref.rmsnorm_ref(x, g, 1e-5),
                                           TOL["rmsnorm"][dt])
     print(f"[kernels] rmsnorm errors {errs}")
-    N, D, dt = SERVE["requests"], 1024, torch.bfloat16
-    sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt)) for _ in range(24)]
-    esize = 2
-    b_ms, b_by = bound((2 * N * D + D) * esize, 4 * N * D, dt, rate)
-    return {
-        "name": "rmsnorm", "shape": f"x ({N}, {D}) bf16",
-        "max_abs_err": errs[(N, D, dt)],
-        "ms": time_ms(lambda x, g: ops.rmsnorm(x, g, eps=1e-5), sets, 20),
-        "plain_ms": time_ms(lambda x, g: ref.rmsnorm_ref(x, g, 1e-5), sets, 20),
-        "library_ms": time_ms(lambda x, g: F.rms_norm(x, (D,), g, 1e-5), sets, 20),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+    row = {"name": "rmsnorm"}
+    for prefix, N, n_sets in (("", SERVE["requests"], 24), ("train_", TRAIN_ROWS, 8)):
+        D, dt = 1024, torch.bfloat16
+        sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt)) for _ in range(n_sets)]
+        b_ms, b_by = bound((2 * N * D + D) * 2, 4 * N * D, dt, rate)
+        ms, issue = time_ms(lambda x, g: ops.rmsnorm(x, g, eps=1e-5), sets, 20, issue=True)
+        row.update({
+            f"{prefix}shape": f"x ({N}, {D}) bf16",
+            f"{prefix}max_abs_err": errs[(N, D, dt)],
+            f"{prefix}ms": ms, f"{prefix}issue_ms": issue,
+            f"{prefix}plain_ms": time_ms(lambda x, g: ref.rmsnorm_ref(x, g, 1e-5), sets, 20),
+            f"{prefix}library_ms": time_ms(lambda x, g: F.rms_norm(x, (D,), g, 1e-5), sets, 20),
+            f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
+        })
+        if not prefix:
+            row["function_ms"], row["function_issue_ms"] = time_ms(
+                lambda x, g: ops.RMSNorm.apply(x, g, 1e-5), sets, 20, issue=True)
+    return row
+
+
+def _swiglu_lib(x, wg, wu, wd):
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
 
 
 def check_swiglu(gen, ops, ref, rate):
+    """The serving shape, the training shape and a small one; the row times the
+    serving shape, its ``train_*`` keys the training shape."""
     errs = {}
-    for N, D, Fd in ((SERVE["requests"], 1024, 2816), (20, 96, 224)):
+    for N, D, Fd in ((SERVE["requests"], 1024, 2816), (TRAIN_ROWS, 1024, 2816), (20, 96, 224)):
         for dt in (torch.float32, torch.bfloat16):
             x = randn(gen, (N, D), dt)
             wg, wu = randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (D, Fd), dt, D ** -0.5)
@@ -158,19 +229,22 @@ def check_swiglu(gen, ops, ref, rate):
             errs[(N, D, Fd, dt)] = max_err(got, ref.swiglu_ref(x, wg, wu, wd),
                                            TOL["swiglu_mlp"][dt])
     print(f"[kernels] swiglu_mlp errors {errs}")
-    N, D, Fd, dt = SERVE["requests"], 1024, 2816, torch.bfloat16
-    sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
-             randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5))
-            for _ in range(24)]
-    b_ms, b_by = bound((2 * N * D + 3 * D * Fd) * 2, 6 * N * D * Fd + 4 * N * Fd, dt, rate)
-    return {
-        "name": "swiglu_mlp", "shape": f"x ({N}, {D}), d_ff {Fd} bf16",
-        "max_abs_err": errs[(N, D, Fd, dt)],
-        "ms": time_ms(ops.swiglu_mlp, sets, 5),
-        "plain_ms": time_ms(ref.swiglu_ref, sets, 5),
-        "library_ms": time_ms(lambda x, wg, wu, wd: (F.silu(x @ wg) * (x @ wu)) @ wd, sets, 5),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+    row = {"name": "swiglu_mlp"}
+    for prefix, N, n_sets, rounds in (("", SERVE["requests"], 24, 5), ("train_", TRAIN_ROWS, 2, 3)):
+        D, Fd, dt = 1024, 2816, torch.bfloat16
+        sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
+                 randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5))
+                for _ in range(n_sets)]
+        b_ms, b_by = bound((2 * N * D + 3 * D * Fd) * 2, 6 * N * D * Fd + 4 * N * Fd, dt, rate)
+        row.update({
+            f"{prefix}shape": f"x ({N}, {D}), d_ff {Fd} bf16",
+            f"{prefix}max_abs_err": errs[(N, D, Fd, dt)],
+            f"{prefix}ms": time_ms(ops.swiglu_mlp, sets, rounds),
+            f"{prefix}plain_ms": time_ms(ref.swiglu_ref, sets, rounds),
+            f"{prefix}library_ms": time_ms(_swiglu_lib, sets, rounds),
+            f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
+        })
+    return row
 
 
 def _sdpa(q, k, v, valid):
@@ -219,6 +293,157 @@ def check_decode_attention(gen, ops, ref, rate):
     }
 
 
+def flash_bound(B, H, S, hd, causal, rate, *, backward: bool) -> tuple[float, str]:
+    """Bytes: q, k, v, out (and dO, dq, dk, dv) once, lse in fp32; operations:
+    4 hd per visible pair forward, 10 hd backward (bf16 rate)."""
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    elems = B * H * S * hd
+    if backward:
+        return bound(8 * elems * 2 + 2 * B * H * S * 4, 10 * hd * pairs, torch.bfloat16, rate)
+    return bound(4 * elems * 2 + B * H * S * 4, 4 * hd * pairs, torch.bfloat16, rate)
+
+
+def check_flash(gen, ops, ref, rate):
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import flash_attention_bwd as kb
+
+    errs, gerrs = {}, {}
+    for B, Hq, Hkv, Sq, Skv, hd, causal, window in FLASH_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            mask = dict(causal=causal, window=window)
+            q = randn(gen, (B, Hq, Sq, hd), dt)
+            # k, v and dO as the model hands them over: transposed views
+            k = randn(gen, (B, Skv, Hkv, hd), dt).transpose(1, 2)
+            v = randn(gen, (B, Skv, Hkv, hd), dt).transpose(1, 2)
+            dout = randn(gen, (B, Sq, Hq, hd), dt).transpose(1, 2)
+            out, lse = kf.flash_attention_cuda(q, k, v, **mask)
+            want, want_lse = ref.flash_attention_ref(q, k, v, **mask)
+            tol = TOL["flash_attention"][dt]
+            key = (B, Hq, Hkv, Sq, Skv, hd, causal, window, str(dt)[6:])
+            errs[key] = max(max_err(out, want, tol), max_err(lse, want_lse, tol))
+            got = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
+            exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask)
+            gerrs[key] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp))
+    print(f"[kernels] flash_attention errors {errs}")
+    print(f"[kernels] flash_attention_bwd errors {gerrs}")
+
+    # autograd through ops.flash_attention equals the plain backward
+    q, k, v, dout = (randn(gen, (2, 4, 100, 32), torch.float32) for _ in range(4))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(ops.flash_attention(*leaves), leaves, dout)
+    want, want_lse = ref.flash_attention_ref(q, k, v)
+    for a, b in zip(auto, ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout)):
+        max_err(a, b, GRAD_TOL[torch.float32])
+
+    B, H, _, S, _, hd, causal, _ = FLASH_SHAPES[-1]
+    dt = torch.bfloat16
+    sets = [tuple(randn(gen, (B, H, S, hd), dt) for _ in range(4)) for _ in range(2)]
+    fwd_sets = [s[:3] for s in sets]
+    saved = [(q, k, v, *kf.flash_attention_cuda(q, k, v), do) for q, k, v, do in sets]
+    shape = f"q, k, v ({B}, {H}, {S}, {hd}) causal bf16"
+    key = (B, H, H, S, S, hd, causal, 0, "bfloat16")
+    b_ms, b_by = flash_bound(B, H, S, hd, causal, rate, backward=False)
+    fwd = {
+        "name": "flash_attention", "shape": shape, "max_abs_err": errs[key],
+        "ms": time_ms(lambda q, k, v: kf.flash_attention_cuda(q, k, v), fwd_sets, 5),
+        "plain_ms": time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v), fwd_sets, 3),
+        "library_ms": time_ms(
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True), fwd_sets, 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    q, k, v, dout = sets[0]
+    lib_bwd, lib_both = grad_ms(
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True), (q, k, v),
+        dout, 5)
+    b_ms, b_by = flash_bound(B, H, S, hd, causal, rate, backward=True)
+    bwd = {
+        "name": "flash_attention_bwd", "shape": shape, "max_abs_err": gerrs[key],
+        "ms": time_ms(kb.flash_attention_bwd_cuda, saved, 5),
+        "plain_ms": time_ms(ref.flash_attention_bwd_ref, saved, 3),
+        "library_ms": lib_bwd,
+        "fwd_bwd_ms": time_ms(lambda q, k, v, do: torch.autograd.grad(
+            ops.flash_attention(q, k, v), (q, k, v), do),
+            [tuple(t.detach().requires_grad_() for t in s[:3]) + (s[3],) for s in sets], 5),
+        "library_fwd_bwd_ms": lib_both,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    return fwd, bwd
+
+
+def check_rmsnorm_bwd(gen, ops, ref, rate):
+    from repro_torch.kernels import rmsnorm_bwd as kb
+
+    errs = {}
+    for rows, D in ((TRAIN_ROWS, 1024), (37, 96), (SERVE["requests"], 1024)):
+        for dt in (torch.float32, torch.bfloat16):
+            x, g, dy = randn(gen, (rows, D), dt), randn(gen, (D,), dt), randn(gen, (rows, D), dt)
+            got = kb.rmsnorm_bwd_cuda(x, g, dy, 1e-5)
+            exp = ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
+            errs[(rows, D, str(dt)[6:])] = max(max_err(a, b, GRAD_TOL[dt])
+                                               for a, b in zip(got, exp))
+    print(f"[kernels] rmsnorm_bwd errors {errs}")
+    N, D, dt = TRAIN_ROWS, 1024, torch.bfloat16
+    sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt), randn(gen, (N, D), dt))
+            for _ in range(8)]
+    x, g, dy = sets[0]
+    # A call here is a few microseconds of device work: each time is given
+    # beside the host's time to issue the calls, which sets the pace when equal.
+    (lib_bwd, lib_bwd_issue), (lib_both, lib_both_issue) = grad_ms(
+        lambda x, g: F.rms_norm(x, (D,), g, 1e-5), (x, g), dy, 20, issue=True)
+    leaves = [(x.requires_grad_(), g.requires_grad_(), dy) for x, g, dy in
+              ((a.clone(), b.clone(), c) for a, b, c in sets)]
+    ms, issue = time_ms(lambda x, g, dy: kb.rmsnorm_bwd_cuda(x, g, dy, 1e-5), sets, 20,
+                        issue=True)
+    both, both_issue = time_ms(lambda x, g, dy: torch.autograd.grad(
+        ops.rmsnorm(x, g, eps=1e-5), (x, g), dy), leaves, 20, issue=True)
+    b_ms, b_by = bound((3 * N * D + 2 * D) * 2, 8 * N * D, dt, rate)
+    return {
+        "name": "rmsnorm_bwd", "shape": f"x, dy ({N}, {D}) bf16",
+        "max_abs_err": errs[(N, D, "bfloat16")],
+        "ms": ms, "issue_ms": issue,
+        "plain_ms": time_ms(lambda x, g, dy: ref.rmsnorm_bwd_ref(x, g, dy, 1e-5), sets, 20),
+        "library_ms": lib_bwd, "library_issue_ms": lib_bwd_issue,
+        "fwd_bwd_ms": both, "fwd_bwd_issue_ms": both_issue,
+        "library_fwd_bwd_ms": lib_both, "library_fwd_bwd_issue_ms": lib_both_issue,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def check_swiglu_bwd(gen, ops, ref, rate):
+    from repro_torch.kernels import swiglu_bwd as kb
+
+    errs = {}
+    for N, D, Fd in ((TRAIN_ROWS, 1024, 2816), (20, 96, 224)):
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = randn(gen, (N, D), dt), randn(gen, (N, D), dt)
+            wg, wu = randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (D, Fd), dt, D ** -0.5)
+            wd = randn(gen, (Fd, D), dt, Fd ** -0.5)
+            got = kb.swiglu_bwd_cuda(x, wg, wu, wd, dy)
+            exp = ref.swiglu_bwd_ref(x, wg, wu, wd, dy)
+            errs[(N, D, Fd, str(dt)[6:])] = max(max_err(a, b, GRAD_TOL[dt])
+                                                for a, b in zip(got, exp))
+    print(f"[kernels] swiglu_mlp_bwd errors {errs}")
+    N, D, Fd, dt = TRAIN_ROWS, 1024, 2816, torch.bfloat16
+    sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
+             randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5),
+             randn(gen, (N, D), dt)) for _ in range(2)]
+    lib_bwd, lib_both = grad_ms(_swiglu_lib, sets[0][:4], sets[0][4], 5)
+    leaves = [tuple(t.clone().requires_grad_() for t in s[:4]) + (s[4],) for s in sets]
+    b_ms, b_by = bound((3 * N * D + 6 * D * Fd) * 2, 16 * N * D * Fd + 10 * N * Fd, dt, rate)
+    bwd = {
+        "name": "swiglu_mlp_bwd", "shape": f"x, dy ({N}, {D}), d_ff {Fd} bf16",
+        "max_abs_err": errs[(N, D, Fd, "bfloat16")],
+        "ms": time_ms(kb.swiglu_bwd_cuda, sets, 5),
+        "plain_ms": time_ms(ref.swiglu_bwd_ref, sets, 5),
+        "library_ms": lib_bwd,
+        "fwd_bwd_ms": time_ms(lambda x, wg, wu, wd, dy: torch.autograd.grad(
+            ops.swiglu_mlp(x, wg, wu, wd), (x, wg, wu, wd), dy), leaves, 3),
+        "library_fwd_bwd_ms": lib_both,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    return bwd
+
+
 def phase_full_width() -> None:
     """qwen1.5-0.5b in fp32: one decode_step on the card against the CPU."""
     from repro_torch.configs import ARCHS
@@ -251,6 +476,46 @@ def phase_full_width() -> None:
           f"argmax equal")
 
 
+def _loss_and_grads(model, params, batch):
+    from repro_torch.models import params as PM
+
+    leaves = PM.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = model.loss(leaves, batch)
+    grads = torch.autograd.grad(loss, PM.tree_leaves(leaves))
+    return float(loss.detach()), grads
+
+
+def phase_full_width_grad() -> None:
+    """qwen1.5-0.5b at full width in fp32, cut to 4 layers: loss and every
+    gradient leaf on the card against the CPU.  Batch (2, 200): no tile
+    divides 200, so the kernels' ragged tails run."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="float32", n_layers=4)
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    p_cpu = cpu.init_params(gen)
+    p_gpu = PM.tree_map(lambda t: t.to("cuda"), p_cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 201), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want, g_cpu = _loss_and_grads(cpu, p_cpu, batch)
+    got, g_gpu = _loss_and_grads(gpu, p_gpu, {k: t.cuda() for k, t in batch.items()})
+    if not (math.isfinite(got) and abs(got - want) <= 2e-3):
+        raise AssertionError(f"4-layer fp32 loss: card {got} cpu {want}")
+    worst = 0.0
+    for a, b in zip(g_gpu, g_cpu):
+        scale = float(b.abs().max())
+        diff = float((a.cpu() - b).abs().max())
+        if not diff <= 2e-3 * scale:
+            raise AssertionError(f"gradient leaf {tuple(b.shape)}: max diff {diff} > "
+                                 f"2e-3 x {scale}")
+        worst = max(worst, diff / scale)
+    print(f"[full-width] fp32 4-layer loss card {got:.6f} cpu {want:.6f}; {len(g_cpu)} "
+          f"gradient leaves, worst max |diff| / max |grad| {worst:.3e}")
+
+
 def phase_serve(kernel_modules) -> dict:
     from repro_torch.launch import serve
 
@@ -279,13 +544,80 @@ def phase_serve(kernel_modules) -> dict:
             "ms_per_step": res["ms_per_step"]}
 
 
+def phase_train(kernel_modules) -> dict:
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    for m in kernel_modules:
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+        res = train.main(["--full-config", "--device", "cuda", "--dtype", "bfloat16",
+                          "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+                          "--steps", str(TRAIN["steps"]), "--ckpt-dir", ckpt_dir])
+        ckpt_bytes = sum(p.stat().st_size for p in Path(ckpt_dir).rglob("*") if p.is_file())
+    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernel_modules}
+    peak = torch.cuda.max_memory_allocated()
+    if res["restarts"]:
+        raise AssertionError(f"the train run restarted {res['restarts']} times")
+    losses = res["losses"]
+    if len(losses) != TRAIN["steps"] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    for name, per_step in TRAIN_PER_STEP.items():
+        if counts[name] != per_step * TRAIN["steps"]:
+            raise AssertionError(f"{name}: {counts[name]} launches in the train run, expected "
+                                 f"{per_step} x {TRAIN['steps']} steps")
+    step_ms = statistics.median(res["step_ms"][1:])
+    tokens_per_s = TRAIN_ROWS / (step_ms / 1e3)
+    print(f"[train] launches {counts}; losses {losses}; median step {step_ms:.3f} ms over "
+          f"steps 2-{TRAIN['steps']}, {tokens_per_s:.1f} tokens/s, peak "
+          f"{peak / 2**30:.3f} GiB; final checkpoint {ckpt_bytes / 2**30:.3f} GiB in "
+          f"{res['ckpt_seconds']:.2f} s")
+
+    # tests/test_train.py::test_loss_decreases_on_fixed_batch at full width
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    model = build_model(cfg, device="cuda")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    params, opt = init_train_state(model, torch.Generator().manual_seed(0), opt_cfg)
+    rng = np.random.default_rng(0)
+    batch = {name: torch.as_tensor(rng.integers(0, cfg.vocab, (4, 64))).cuda()
+             for name in ("tokens", "labels")}
+    step = make_train_step(model, opt_cfg)
+    fixed = []
+    for _ in range(8):
+        params, opt, metrics = step(params, opt, batch)
+        fixed.append(float(metrics["loss"]))
+    if not fixed[-1] < fixed[0] - 0.05:
+        raise AssertionError(f"fixed-batch losses did not fall by 0.05: {fixed}")
+    print(f"[train] fixed batch (4, 64), 8 steps: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
+    return {"counts": counts, "steps": TRAIN["steps"], "batch": TRAIN["batch"],
+            "seq": TRAIN["seq"], "losses": losses, "step_ms": res["step_ms"],
+            "median_step_ms": step_ms, "tokens_per_s": tokens_per_s,
+            "peak_memory_bytes": peak, "ckpt_bytes": ckpt_bytes,
+            "ckpt_seconds": res["ckpt_seconds"], "fixed_batch_losses": fixed}
+
+
+#: kernel -> (what it replaces, source, launches per serving decode step)
 REPLACES = {
     "rmsnorm": ("src/repro/kernels/rmsnorm.py:19", "csrc/rmsnorm.cu", 2 * 24 + 1),
     "swiglu_mlp": ("src/repro/kernels/swiglu.py:20", "csrc/swiglu.cu", 24),
     "decode_attention": ("src/repro/kernels/decode_attention.py:30",
                          "csrc/decode_attention.cu", 24),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:33",
+                        "csrc/flash_attention.cu", 0),
+    "flash_attention_bwd": ("XLA autodiff of src/repro/models/layers.py:101 "
+                            "blockwise_attention", "csrc/flash_attention_bwd.cu", 0),
+    "rmsnorm_bwd": ("XLA autodiff of src/repro/models/layers.py:31 rms_norm",
+                    "csrc/rmsnorm_bwd.cu", 0),
+    "swiglu_mlp_bwd": ("XLA autodiff of src/repro/models/layers.py:240 swiglu",
+                       "csrc/swiglu_bwd.cu", 0),
 }
-MODULE_OF = {"rmsnorm": "rmsnorm", "swiglu_mlp": "swiglu", "decode_attention": "decode_attention"}
+MODULE_OF = {"rmsnorm": "rmsnorm", "swiglu_mlp": "swiglu", "decode_attention": "decode_attention",
+             "flash_attention": "flash_attention", "flash_attention_bwd": "flash_attention_bwd",
+             "rmsnorm_bwd": "rmsnorm_bwd", "swiglu_mlp_bwd": "swiglu_bwd"}
 
 
 def main() -> None:
@@ -297,25 +629,40 @@ def main() -> None:
     from repro_torch.kernels import KERNEL_MODULES, ops, ref
 
     gen = torch.Generator().manual_seed(0)
-    rows = [check_rmsnorm(gen, ops, ref, rate), check_swiglu(gen, ops, ref, rate),
-            check_decode_attention(gen, ops, ref, rate)]
+    rows = {"rmsnorm": check_rmsnorm(gen, ops, ref, rate),
+            "swiglu_mlp": check_swiglu(gen, ops, ref, rate)}
+    rows["decode_attention"] = check_decode_attention(gen, ops, ref, rate)
+    rows["flash_attention"], rows["flash_attention_bwd"] = check_flash(gen, ops, ref, rate)
+    rows["rmsnorm_bwd"] = check_rmsnorm_bwd(gen, ops, ref, rate)
+    rows["swiglu_mlp_bwd"] = check_swiglu_bwd(gen, ops, ref, rate)
     torch.cuda.synchronize()
+    print(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
     phase_full_width()
+    phase_full_width_grad()
     served = phase_serve(KERNEL_MODULES)
+    trained = phase_train(KERNEL_MODULES)
+    print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
-    for row in rows:
+    for row in rows.values():
         replaces, src, per_step = REPLACES[row["name"]]
-        launches = served["counts"][MODULE_OF[row["name"]]]
+        module = MODULE_OF[row["name"]]
+        launches = served["counts"][module]
         if launches != per_step * served["steps"]:
             raise AssertionError(f"{row['name']}: {launches} launches in the serve run, "
                                  f"expected {per_step} x {served['steps']} steps")
+        if per_step == 0:
+            launches = trained["counts"][module]
+        else:
+            row["train_launches"] = trained["counts"][module]
         row.update(route="cuda", source=f"src/repro_torch/kernels/{src}", replaces=replaces,
                    launches=launches)
-    print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "shape")
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"serve": {k: served[k] for k in ("tokens_per_s", "ms_per_step", "steps")}}))
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"train": {k: v for k, v in trained.items() if k != "counts"}}))
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                   **{k: v for k, v in r.items() if k not in keys}}
+                                  for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,4 +1,4 @@
-"""PyTorch and CUDA port of the Hoard reproduction's model-serving path.
+"""PyTorch and CUDA port of the Hoard reproduction's model path: serving and training.
 
 ``repro_torch`` stands beside the JAX package ``repro`` and is held against it
 on the same inputs and weights.  It imports ``torch``, ``numpy`` and the

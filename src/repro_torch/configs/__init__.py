@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-This slice of the port serves the dense qwen1.5-0.5b; the other families of
+The port serves and trains the dense qwen1.5-0.5b; the other families of
 the JAX package's registry arrive with the slices that port them.
 """
 

@@ -5,8 +5,20 @@
 kernel module keeps a ``launches`` count of its kernel launches.
 """
 
-from . import decode_attention, ops, ref, rmsnorm, swiglu
+from . import (
+    decode_attention,
+    flash_attention,
+    flash_attention_bwd,
+    ops,
+    ref,
+    rmsnorm,
+    rmsnorm_bwd,
+    swiglu,
+    swiglu_bwd,
+)
 
-KERNEL_MODULES = (rmsnorm, swiglu, decode_attention)
+KERNEL_MODULES = (rmsnorm, swiglu, decode_attention, flash_attention, flash_attention_bwd,
+                  rmsnorm_bwd, swiglu_bwd)
 
-__all__ = ["KERNEL_MODULES", "decode_attention", "ops", "ref", "rmsnorm", "swiglu"]
+__all__ = ["KERNEL_MODULES", "decode_attention", "flash_attention", "flash_attention_bwd", "ops",
+           "ref", "rmsnorm", "rmsnorm_bwd", "swiglu", "swiglu_bwd"]

@@ -23,7 +23,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rmsnorm.cu", "swiglu.cu", "decode_attention.cu")
+SOURCES = ("rmsnorm.cu", "swiglu.cu", "decode_attention.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "swiglu_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -31,12 +32,17 @@ CFLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 #: C entry point -> argument types (all return an int cudaError_t)
 SIGNATURES = {
     "rt_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
     "rt_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _P, *(_I,) * 9, _F, _I, _P),
+    "rt_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 9, _F, _I, _P),
+    "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "rt_swiglu_gate_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 

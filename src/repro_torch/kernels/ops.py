@@ -1,8 +1,15 @@
-"""Kernel dispatch on the tensor's device.
+"""Kernel dispatch on the tensor's device, forward and backward.
 
 A CUDA tensor launches the hand-written kernel (or the launch raises); a CPU
 tensor takes the kernel's plain PyTorch version in ``ref``.  Nothing else
-decides, and no failure falls back to the other path.
+decides, and no failure falls back to the other path.  ``rmsnorm``,
+``swiglu_mlp`` and ``flash_attention`` are ``torch.autograd.Function``s whose
+backward dispatches the same way, so on the CPU autograd runs the same
+backward formulas that the card's backward kernels are held to.  When no
+input needs a gradient (``torch.no_grad``, as in serving) they skip the
+Function and call the forward dispatch directly, which spares its host time
+on the host-bound decode step (``chip_smoke.py`` times both at the serving
+shape).
 """
 
 from __future__ import annotations
@@ -10,9 +17,13 @@ from __future__ import annotations
 import torch
 
 from . import decode_attention as _decode_attention
+from . import flash_attention as _flash_attention
+from . import flash_attention_bwd as _flash_attention_bwd
 from . import ref
 from . import rmsnorm as _rmsnorm
+from . import rmsnorm_bwd as _rmsnorm_bwd
 from . import swiglu as _swiglu
+from . import swiglu_bwd as _swiglu_bwd
 
 
 def _on_cuda(x: torch.Tensor, op: str) -> bool:
@@ -23,16 +34,99 @@ def _on_cuda(x: torch.Tensor, op: str) -> bool:
     raise ValueError(f"{op}: no kernel for device {x.device}")
 
 
-def rmsnorm(x, gamma, *, eps: float = 1e-5):
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _rmsnorm_fwd(x, gamma, eps):
     if _on_cuda(x, "rmsnorm"):
         return _rmsnorm.rmsnorm_cuda(x, gamma, eps)
     return ref.rmsnorm_ref(x, gamma, eps)
 
 
-def swiglu_mlp(x, w_gate, w_up, w_down):
+def _swiglu_fwd(x, w_gate, w_up, w_down):
     if _on_cuda(x, "swiglu_mlp"):
         return _swiglu.swiglu_cuda(x, w_gate, w_up, w_down)
     return ref.swiglu_ref(x, w_gate, w_up, w_down)
+
+
+def _flash_fwd(q, k, v, mask):
+    if _on_cuda(q, "flash_attention"):
+        return _flash_attention.flash_attention_cuda(q, k, v, **mask)
+    return ref.flash_attention_ref(q, k, v, **mask)
+
+
+class RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        x, gamma = x.contiguous(), gamma.contiguous()
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        if _on_cuda(x, "rmsnorm_bwd"):
+            dx, dgamma = _rmsnorm_bwd.rmsnorm_bwd_cuda(x, gamma, dy, ctx.eps)
+        else:
+            dx, dgamma = ref.rmsnorm_bwd_ref(x, gamma, dy, ctx.eps)
+        return dx, dgamma, None
+
+
+class SwiGLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        return _swiglu_fwd(x, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_gate, w_up, w_down = ctx.saved_tensors
+        if _on_cuda(x, "swiglu_mlp_bwd"):
+            return _swiglu_bwd.swiglu_bwd_cuda(x, w_gate, w_up, w_down, dy)
+        return ref.swiglu_bwd_ref(x, w_gate, w_up, w_down, dy)
+
+
+class FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        mask = dict(causal=causal, window=window, q_offset=q_offset)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = _flash_fwd(q, k, v, mask)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if _on_cuda(q, "flash_attention_bwd"):
+            grads = _flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                                  **ctx.mask)
+        else:
+            grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **ctx.mask)
+        return (*grads, None, None, None)
+
+
+def rmsnorm(x, gamma, *, eps: float = 1e-5):
+    if _needs_grad(x, gamma):
+        return RMSNorm.apply(x, gamma, eps)
+    return _rmsnorm_fwd(x, gamma, eps)
+
+
+def swiglu_mlp(x, w_gate, w_up, w_down):
+    if _needs_grad(x, w_gate, w_up, w_down):
+        return SwiGLU.apply(x, w_gate, w_up, w_down)
+    return _swiglu_fwd(x, w_gate, w_up, w_down)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+    """q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd) -> (B, Hq, Sq, hd)."""
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _flash_fwd(q, k, v, dict(causal=causal, window=window, q_offset=q_offset))[0]
 
 
 def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):

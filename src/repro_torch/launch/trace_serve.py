@@ -8,8 +8,8 @@ cache of the serving shape (8 requests, prompt 128, cache 168) and runs
 work that ends in a synchronize, and once under ``torch.profiler``.  From the
 trace it prints the device's busy time per step (the sum of kernel durations;
 one stream, so kernels do not overlap), its idle share of the traced wall
-time, the kernel launches per step, and the kernels by device time.  Needs a
-CUDA card.
+time, the kernel launches per step, the time by kernel group and the
+kernels by device time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from collections import defaultdict
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -25,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import ARCHS
 from ..models import build_model
 from ..serve import ServingEngine
+from .trace import device_summary
 
 
 def main(argv=None) -> dict:
@@ -62,28 +62,8 @@ def main(argv=None) -> dict:
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    by_name: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += 1
-            by_name[e.name][1] += e.time_range.elapsed_us()
-    if not by_name:
-        raise RuntimeError("the profiler recorded no device time")
-    busy_ms = sum(v[1] for v in by_name.values()) / 1e3 / args.steps
-    launches = sum(v[0] for v in by_name.values()) / args.steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    res = {
-        "card": torch.cuda.get_device_name(0),
-        "host_ms_per_step": host_ms,
-        "traced_ms_per_step": traced_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": 1 - busy_ms / traced_ms,
-        "kernel_launches_per_step": launches,
-        "top_kernels": [
-            {"name": n[:80], "per_step": c / args.steps, "ms_per_step": us / 1e3 / args.steps}
-            for n, (c, us) in top
-        ],
-    }
+    res = {"card": torch.cuda.get_device_name(0), "host_ms_per_step": host_ms,
+           **device_summary(prof, args.steps, traced_ms)}
     print(json.dumps(res, indent=1))
     return res
 

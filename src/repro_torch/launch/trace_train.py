@@ -1,0 +1,80 @@
+"""Where a training step spends its time on the card.
+
+    python -m repro_torch.launch.trace_train [--batch 8] [--seq 512] [--steps 3] \\
+        [--trace out.json]
+
+Builds qwen1.5-0.5b at full width in bf16 from a seeded init with a fresh
+AdamW state and runs ``make_train_step`` on one batch of the training
+corpus: two warm-up steps, ``--steps`` steps timed on the host clock around
+work that ends in a synchronize, and ``--steps`` more under
+``torch.profiler``.  From the trace it prints the device's busy time per
+step (the sum of kernel durations; one stream, so kernels do not overlap),
+its idle share of the traced wall time, the kernel launches per step, the
+time by kernel group (the port's kernels by name, cuBLAS, PyTorch's other
+ops) and the kernels by device time.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..configs import ARCHS
+from ..data import TokenDatasetSpec, TokenLoader
+from ..models import build_model
+from ..train import AdamWConfig, init_train_state, make_train_step
+from .train import ITEMS_PER_CHUNK
+from .trace import device_summary
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=sorted(ARCHS))
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    args = ap.parse_args(argv)
+
+    model = build_model(ARCHS[args.arch], device="cuda")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
+    params, opt = init_train_state(model, torch.Generator().manual_seed(args.seed), opt_cfg)
+    spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, args.batch * 32),
+                            seq_len=args.seq, vocab=model.cfg.vocab, seed=args.seed)
+    toks, labels = next(iter(TokenLoader(spec, batch=args.batch, items_per_chunk=ITEMS_PER_CHUNK)))
+    batch = {"tokens": torch.from_numpy(toks).long().cuda(),
+             "labels": torch.from_numpy(labels).long().cuda()}
+    step = make_train_step(model, opt_cfg)
+
+    def run(n: int) -> None:
+        nonlocal params, opt
+        for _ in range(n):
+            params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+
+    run(2)
+    t0 = time.perf_counter()
+    run(args.steps)
+    host_ms = (time.perf_counter() - t0) / args.steps * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(args.steps)
+        traced_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    res = {"card": torch.cuda.get_device_name(0), "host_ms_per_step": host_ms,
+           "tokens_per_step": args.batch * args.seq,
+           **device_summary(prof, args.steps, traced_ms, top=20)}
+    print(json.dumps(res, indent=1))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,16 @@
-"""Shared model primitives of the serving path: norm, RoPE, decode attention, MLP.
+"""Shared model primitives: norm, RoPE, blockwise and decode attention, MLP.
 
-``rms_norm``, ``decode_attention`` and ``swiglu`` go through
-:mod:`repro_torch.kernels.ops`: the hand-written kernels on the card, their
-plain versions on the CPU.  Their rounding follows the kernels, which differ
-from the JAX package's XLA layers in two places (bf16 only; identical in
-fp32 up to the order of sums):
+``rms_norm``, ``blockwise_attention``, ``decode_attention`` and ``swiglu`` go
+through :mod:`repro_torch.kernels.ops`: the hand-written kernels on the
+card, their plain versions on the CPU, forward and backward.  Their rounding
+follows the kernels, which differ from the JAX package's XLA layers in these
+places (bf16 only; identical in fp32 up to the order of sums):
 
 * ``rms_norm`` multiplies by gamma in fp32 and casts once; the JAX layer
   casts first and multiplies in the input dtype;
-* ``decode_attention`` scales the scores in fp32 after the dot; the JAX layer
-  scales q in the input dtype before it.
+* ``decode_attention`` and ``blockwise_attention`` scale the scores in fp32
+  after the dot; the JAX layers scale q in the input dtype before it, and
+  ``blockwise_attention`` also casts p to v's dtype before ``p @ v``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,17 @@ def rope(x, positions, theta: float = 10000.0):
     x1, x2 = x[..., :half], x[..., half:]
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return rot.to(x.dtype)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+    """Online-softmax attention.  q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd).
+
+    Queries sit at ``q_offset + arange(Sq)``.  The JAX layer's tiling knobs
+    (``q_block``, ``kv_block``, ``pairs``, ``mask_mode``) shape XLA's loops and
+    do not change the result; the flash kernel picks its own tiles and walks
+    only the causal / window band.
+    """
+    return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):

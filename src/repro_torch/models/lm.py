@@ -1,9 +1,13 @@
-"""Decoder LM, dense GQA path: the port of ``repro.models.lm.DecoderLM`` decode.
+"""Decoder LM, dense GQA path: the port of ``repro.models.lm.DecoderLM``.
 
 Parameters are passed in as a nested dict with the JAX package's layout, as
 the JAX methods take them, so a JAX parameter tree runs here unchanged
 (``params.params_from_jax``).  The layers run in a Python loop where JAX scans
-over the stacked layer axis.  ``decode_step`` writes the new token's K and V
+over the stacked layer axis; each stacked leaf is split once with
+``unbind``, whose backward stacks the layers' gradients into one leaf of the
+stacked shape again.  ``loss`` and ``backbone`` are differentiable with
+autograd through the kernels' backward; ``prefill`` and ``decode_step`` run
+under ``torch.no_grad``.  ``decode_step`` writes the new token's K and V
 into the cache IN PLACE and returns that same cache object, where JAX returns
 an updated copy.
 
@@ -20,7 +24,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from . import params as PM
-from .layers import decode_attention, rms_norm, rope, swiglu
+from .layers import blockwise_attention, decode_attention, rms_norm, rope, swiglu
 
 
 def _attn_layout(cfg: ModelConfig) -> dict:
@@ -103,6 +107,48 @@ class DecoderLM(nn.Module):
             return h @ params["embed"].T
         return h @ params["lm_head"]
 
+    @staticmethod
+    def _layer_params(params) -> list[dict]:
+        """Per-layer views of the stacked ``params["layers"]``, split once per leaf."""
+        split = PM.tree_map(lambda t: t.unbind(0), params["layers"])
+        n = len(split["attn"]["ln"])
+        return [PM.tree_map(lambda parts: parts[i], split) for i in range(n)]
+
+    def _attention(self, p, x, positions, *, window: int):
+        """Full-sequence causal attention block (dense branch of the JAX ``_attention``)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        q = h @ p["wq"]
+        k = h @ p["wk"]
+        v = h @ p["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q.view(B, S, H, hd).transpose(1, 2)
+        k = k.view(B, S, Hkv, hd).transpose(1, 2)
+        v = v.view(B, S, Hkv, hd).transpose(1, 2)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if cfg.rope_theta:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        out = blockwise_attention(q, k, v, causal=True, window=window)
+        out = out.transpose(1, 2).reshape(B, S, H * hd)
+        return x + out @ p["wo"]
+
+    def _layer(self, p, x, positions):
+        x = self._attention(p["attn"], x, positions, window=self.cfg.sliding_window)
+        return self._mlp(p["mlp"], x)
+
+    def backbone(self, params, x, positions):
+        """Embedding-space input -> (final hidden states, aux loss 0.0 of the dense model)."""
+        for p in self._layer_params(params):
+            x = self._layer(p, x, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return rms_norm(x, params["final_ln"], self.cfg.norm_eps), aux
+
     def _mlp(self, p, x):
         h = rms_norm(x, p["ln"], self.cfg.norm_eps)
         return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
@@ -144,6 +190,32 @@ class DecoderLM(nn.Module):
         v_cache[:, :, slot] = v[:, :, 0]
         out = decode_attention(q, k_cache, v_cache, valid, window=0)
         return x + out.view(B, 1, H * hd) @ p["wo"]
+
+    # --------------------------------------------------------------- train
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy; returns ``(total, {"nll", "aux"})``.
+
+        batch: ``tokens`` and ``labels``, (B, S) integer tensors on the model's
+        device.  Logits are cast to fp32 before the log-sum-exp, as in JAX.
+        """
+        tokens, labels = batch["tokens"], batch["labels"]
+        x = self.embed(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        h, aux = self.backbone(params, x, positions)
+        logits = self.unembed(params, h).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = (lse - gold).mean()
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+    # ------------------------------------------------------------ serving
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """Full-sequence forward returning the last position's fp32 logits (B, 1, vocab)."""
+        x = self.embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        h, _ = self.backbone(params, x, positions)
+        return self.unembed(params, h[:, -1:]).float()
 
     # -------------------------------------------------------------- decode
     @torch.no_grad()

@@ -83,17 +83,29 @@ def zeros_cache(layout, *, device, dtype) -> dict:
     return tree_map(lambda i: torch.zeros(i.shape, dtype=dt, device=device), layout)
 
 
+def _tensor_from_numpy(a, *, device, dtype=None) -> torch.Tensor:
+    """A numpy leaf as a new tensor: cast to ``dtype``, or, with ``dtype=None``,
+    in the leaf's own type (a 2-byte ``bfloat16`` leaf of ``ml_dtypes``, as
+    JAX hands it over, becomes ``torch.bfloat16``)."""
+    a = np.asarray(a)
+    if dtype is not None:
+        return torch.tensor(a.astype(np.float32), dtype=as_dtype(dtype), device=device)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
 def params_from_jax(tree, *, device, dtype) -> dict:
-    """Carry a JAX parameter tree (leaves as numpy arrays) into the port.
+    """Carry a JAX parameter or optimizer-state tree (leaves as numpy arrays)
+    into the port.
 
     The port keeps the JAX layout, so each leaf is converted as it is: no
     transpose, no reshape.  Each leaf is copied, so the port may update it in
-    place (the decode cache) without touching the caller's array.
+    place (the decode cache, the optimizer) without touching the caller's
+    array.  ``dtype`` casts every leaf to one type; ``dtype=None`` keeps each
+    leaf's own (an optimizer state's int32 ``count`` and fp32 moments).
     """
-    dt = as_dtype(dtype)
-    return tree_map(
-        lambda a: torch.tensor(np.asarray(a, np.float32), dtype=dt, device=device), tree
-    )
+    return tree_map(lambda a: _tensor_from_numpy(a, device=device, dtype=dtype), tree)
 
 
 def cache_from_jax(tree, *, device, dtype) -> dict:

@@ -11,6 +11,7 @@ checked as far as the CPU reaches.
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,13 +19,18 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode_attention
+from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro.kernels.swiglu import swiglu_mlp as pallas_swiglu
 from repro.models import layers as jlayers
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as k_decode
+from repro_torch.kernels import flash_attention as k_flash
+from repro_torch.kernels import flash_attention_bwd as k_flash_bwd
 from repro_torch.kernels import rmsnorm as k_rmsnorm
+from repro_torch.kernels import rmsnorm_bwd as k_rmsnorm_bwd
 from repro_torch.kernels import swiglu as k_swiglu
+from repro_torch.kernels import swiglu_bwd as k_swiglu_bwd
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -204,3 +210,163 @@ def test_source_digest_tracks_the_sources(monkeypatch, tmp_path):
     a = build.source_digest()
     (tmp_path / "rmsnorm.cu").write_text((tmp_path / "rmsnorm.cu").read_text() + "\n// edit\n")
     assert build.source_digest() != a
+
+
+# ------------------------------------------------------------ training kernels
+#: (B, Hq, Hkv, Sq, Skv, hd, causal, window, block_q, block_k): tests/test_kernels.py:32-36
+FLASH_SWEEP = [
+    (1, 2, 2, 128, 128, 32, True, 0, 64, 64),
+    (2, 4, 2, 256, 256, 64, True, 0, 128, 64),
+    (1, 8, 2, 192, 192, 32, True, 64, 64, 64),      # SWA + ragged blocks
+    (2, 2, 2, 128, 256, 64, False, 0, 64, 128),     # cross attention
+    (1, 4, 4, 100, 100, 16, True, 0, 64, 64),       # unaligned seq
+]
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def _flash_inputs(rng, shape, dtype):
+    B, Hq, Hkv, Sq, Skv, hd = shape[:6]
+    return [_pair(rng, s, dtype) for s in ((B, Hq, Sq, hd), (B, Hkv, Skv, hd), (B, Hkv, Skv, hd),
+                                           (B, Hq, Sq, hd))]
+
+
+def _grads_close(got, want, dtype):
+    for g, w in zip(got, want):
+        tol = GRAD_TOL[dtype]
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SWEEP, ids=lambda s: "x".join(map(str, s[:8])))
+def test_flash_attention_plain_matches_jax(dtype, shape):
+    """Against the oracle, the interpret-mode Pallas kernel and the XLA layer."""
+    B, Hq, Hkv, Sq, Skv, hd, causal, window, bq, bk = shape
+    (q, jq), (k, jk), (v, jv), _ = _flash_inputs(np.random.default_rng(Sq + hd), shape, dtype)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, jref.attention_ref(jq, jk, jv, causal=causal, window=window), dtype)
+    _close(got, pallas_flash_attention(jq, jk, jv, causal=causal, window=window, block_q=bq,
+                                       block_k=bk, interpret=True), dtype)
+    _close(got, jlayers.blockwise_attention(jq, jk, jv, causal=causal, window=window,
+                                            q_block=bq, kv_block=bk), dtype)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, Sq)
+    assert torch.isfinite(lse).all() and torch.equal(out, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [FLASH_SWEEP[i] for i in (1, 2, 3, 4)],
+                         ids=lambda s: "x".join(map(str, s[:8])))
+def test_flash_attention_bwd_plain_matches_jax_vjp(dtype, shape):
+    """dq, dk, dv of the plain FA2 backward against ``jax.vjp`` of the oracle,
+    and against torch autograd through the plain forward."""
+    causal, window = shape[6], shape[7]
+    (q, jq), (k, jk), (v, jv), (do, jdo) = _flash_inputs(np.random.default_rng(7), shape, dtype)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
+    assert [g.dtype for g in got] == [q.dtype] * 3
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(a, b, c, causal=causal, window=window),
+                     jq, jk, jv)
+    _grads_close(got, vjp(jdo), dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(ops.flash_attention(*leaves, causal=causal, window=window),
+                               leaves, do)
+    plain = torch.autograd.grad(
+        ref.flash_attention_ref(*leaves, causal=causal, window=window)[0], leaves, do)
+    _grads_close(auto, [p.float().numpy() for p in plain], dtype)
+
+
+def test_flash_attention_q_offset_and_empty_rows():
+    """Queries placed at ``q_offset`` see keys up to their absolute position,
+    as ``blockwise_attention(q_offset=...)``; a row that sees no key gives zero
+    output, ``lse = -inf`` and zero gradients, not NaN."""
+    rng = np.random.default_rng(3)
+    (q, jq), (k, jk), (v, jv), (do, _) = _flash_inputs(rng, (1, 4, 2, 40, 96, 32), "float32")
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=56)
+    want = jlayers.blockwise_attention(jq, jk, jv, causal=True, q_block=16, kv_block=32,
+                                       q_offset=56)
+    _close(got, want, "float32")
+    out, lse = ref.flash_attention_ref(q, k, v, causal=True, window=4, q_offset=-8)
+    assert torch.isinf(lse[:, :, :8]).all() and torch.isfinite(lse[:, :, 8:]).all()
+    assert torch.count_nonzero(out[:, :, :8]) == 0
+    grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True, window=4,
+                                        q_offset=-8)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert torch.count_nonzero(grads[0][:, :, :8]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_plain_matches_jax_vjp(dtype):
+    rng = np.random.default_rng(11)
+    (x, jx), (g, jg), (dy, jdy) = (_pair(rng, s, dtype) for s in ((3, 7, 96), (96,), (3, 7, 96)))
+    dx, dgamma = ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
+    assert dx.dtype == x.dtype and dgamma.dtype == g.dtype
+    _, vjp = jax.vjp(lambda a, b: jref.rmsnorm_ref(a, b, 1e-5), jx, jg)
+    _grads_close((dx, dgamma), vjp(jdy), dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, g)]
+    auto = torch.autograd.grad(ops.rmsnorm(*leaves, eps=1e-5), leaves, dy)
+    plain = torch.autograd.grad(ref.rmsnorm_ref(*leaves, 1e-5), leaves, dy)
+    _grads_close(auto, [p.float().numpy() for p in plain], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swiglu_bwd_plain_matches_jax_vjp(dtype):
+    rng = np.random.default_rng(12)
+    x, jx = _pair(rng, (2, 10, 64), dtype, 0.5)
+    wg, jwg = _pair(rng, (64, 160), dtype, 0.1)
+    wu, jwu = _pair(rng, (64, 160), dtype, 0.1)
+    wd, jwd = _pair(rng, (160, 64), dtype, 0.1)
+    dy, jdy = _pair(rng, (2, 10, 64), dtype)
+    got = ref.swiglu_bwd_ref(x, wg, wu, wd, dy)
+    assert [t.shape for t in got] == [x.shape, wg.shape, wu.shape, wd.shape]
+    _, vjp = jax.vjp(jref.swiglu_ref, jx, jwg, jwu, jwd)
+    _grads_close(got, vjp(jdy), dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+    auto = torch.autograd.grad(ops.swiglu_mlp(*leaves), leaves, dy)
+    plain = torch.autograd.grad(ref.swiglu_ref(*leaves), leaves, dy)
+    _grads_close(auto, [p.float().numpy() for p in plain], dtype)
+
+
+def test_swiglu_gate_bwd_plain_is_the_silu_derivative():
+    a = torch.linspace(-6, 6, 97, dtype=torch.float64).float().requires_grad_()
+    b, dh = torch.randn(97), torch.randn(97)
+    h, da, db = ref.swiglu_gate_bwd_ref(a.detach(), b, dh)
+    y = torch.nn.functional.silu(a) * b
+    (want_da,) = torch.autograd.grad(y, a, dh)
+    torch.testing.assert_close(h, y.detach())
+    torch.testing.assert_close(da, want_da)
+    torch.testing.assert_close(db, dh * torch.nn.functional.silu(a.detach()))
+
+
+@pytest.mark.parametrize("fn", [k_flash.flash_attention_cuda, k_flash_bwd.flash_attention_bwd_cuda,
+                                k_rmsnorm_bwd.rmsnorm_bwd_cuda, k_swiglu_bwd.swiglu_bwd_cuda])
+def test_training_cuda_wrappers_refuse_cpu_tensors(fn):
+    """The training kernels' wrappers launch on CUDA tensors only."""
+    q = torch.ones(1, 2, 4, 8)
+    args = {
+        k_flash.flash_attention_cuda: (q, q, q),
+        k_flash_bwd.flash_attention_bwd_cuda: (q, q, q, q, torch.ones(1, 2, 4), q),
+        k_rmsnorm_bwd.rmsnorm_bwd_cuda: (torch.ones(2, 8), torch.ones(8), torch.ones(2, 8)),
+        k_swiglu_bwd.swiglu_bwd_cuda: (torch.ones(2, 8), torch.ones(8, 4), torch.ones(8, 4),
+                                       torch.ones(4, 8), torch.ones(2, 8)),
+    }[fn]
+    modules = (k_flash, k_flash_bwd, k_rmsnorm_bwd, k_swiglu_bwd)
+    before = [m.launches for m in modules]
+    with pytest.raises(ValueError, match="expected one GPU"):
+        fn(*args)
+    assert [m.launches for m in modules] == before
+
+
+def test_flash_wrapper_argument_checks():
+    f32 = torch.ones
+    k_flash.check_args(f32(2, 8, 5, 64), f32(2, 2, 7, 64), f32(2, 2, 7, 64))
+    with pytest.raises(ValueError):
+        k_flash.check_args(f32(2, 3, 5, 64), f32(2, 2, 7, 64), f32(2, 2, 7, 64))
+    with pytest.raises(ValueError):
+        k_flash.check_args(f32(2, 2, 5, 256), f32(2, 2, 7, 256), f32(2, 2, 7, 256))
+    with pytest.raises(ValueError):
+        k_flash.check_args(f32(2, 2, 5, 64), f32(2, 2, 7, 64), f32(2, 2, 6, 64))
+    with pytest.raises(TypeError):
+        k_flash.check_args(f32(2, 2, 5, 64), f32(2, 2, 7, 64, dtype=torch.bfloat16),
+                           f32(2, 2, 7, 64))

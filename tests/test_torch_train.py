@@ -1,0 +1,353 @@
+"""The port's training slice on the CPU against the JAX package.
+
+Parameters and optimizer state come from the JAX side and carry over with
+``params_from_jax``; batches are drawn with numpy from a seed.  At fp32 on
+the qwen1.5-0.5b smoke config the port reproduces JAX's loss within 1e-5,
+every gradient leaf within 1e-4 of its largest entry, one AdamW update
+within 1e-6, and three train steps' loss, grad norm and learning rate
+within 1e-4.  Checkpoints written by either package restore in the other.
+"""
+
+import dataclasses
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS
+from repro.core import build_cluster
+from repro.data import TokenDatasetSpec as JTokenDatasetSpec
+from repro.data import TokenLoader as JTokenLoader
+from repro.data import materialize_token_dataset
+from repro.models import build_model as jbuild_model
+from repro.models import params as JPM
+from repro.train import AdamWConfig as JAdamWConfig
+from repro.train import CheckpointManager as JCheckpointManager
+from repro.train import SamplerState as JSamplerState
+from repro.train import adamw_update as jadamw_update
+from repro.train import compress_int8 as jcompress_int8
+from repro.train import config_digest as jconfig_digest
+from repro.train import init_opt_state as jinit_opt_state
+from repro.train import make_train_step as jmake_train_step
+from repro.train import token_batch_from_bytes as jtoken_batch_from_bytes
+from repro_torch.configs import ARCHS
+from repro_torch.data import TokenDatasetSpec, TokenLoader
+from repro_torch.launch import train as port_train
+from repro_torch.models import build_model
+from repro_torch.models import params as PM
+from repro_torch.train import (
+    AdamWConfig,
+    CheckpointManager,
+    SamplerState,
+    adamw_update,
+    compress_int8,
+    config_digest,
+    decompress_int8,
+    init_opt_state,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+    token_batch_from_bytes,
+)
+
+ARCH = "qwen1.5-0.5b"
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _port(tree):
+    """A JAX tree as port tensors, each leaf in its own dtype."""
+    return PM.params_from_jax(_np(tree), device="cpu", dtype=None)
+
+
+def _batch(vocab, shape=(2, 48), seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, shape).astype(np.int32)
+    labels = rng.integers(0, vocab, shape).astype(np.int32)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    return {"tokens": torch.from_numpy(toks).long(), "labels": torch.from_numpy(labels).long()}, jb
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(jax model, jax fp32 params, port model, port params) for the smoke config."""
+    jcfg = JARCHS[ARCH].smoke()
+    jmodel = jbuild_model(jcfg, mesh=None)
+    jparams = JPM.materialize(jmodel.layout(), jax.random.PRNGKey(0), jcfg.dtype)
+    model = build_model(ARCHS[ARCH].smoke(), device="cpu")
+    return jmodel, jparams, model, _port(jparams)
+
+
+def _assert_tree_close(port_tree, jax_tree, tol):
+    got, want = PM.tree_leaves(port_tree), jax.tree.leaves(jax_tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), rtol=tol,
+                                   atol=tol)
+
+
+def test_loss_and_grads_match_jax(pair):
+    jmodel, jparams, model, params = pair
+    batch, jbatch = _batch(model.cfg.vocab)
+    (jloss, jaux), jgrads = jax.value_and_grad(jmodel.loss, has_aux=True)(jparams, jbatch)
+    leaves = PM.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, aux = model.loss(leaves, batch)
+    grads = torch.autograd.grad(loss, PM.tree_leaves(leaves))
+    assert abs(float(loss.detach()) - float(jloss)) < 1e-5
+    assert abs(float(aux["nll"].detach()) - float(jaux["nll"])) < 1e-5
+    assert float(aux["aux"]) == 0.0
+    jleaves = jax.tree.leaves(jgrads)
+    assert [tuple(g.shape) for g in grads] == [j.shape for j in jleaves]
+    for g, j in zip(grads, jleaves):
+        j = np.asarray(j)
+        assert np.abs(g.numpy() - j).max() <= 1e-4 * np.abs(j).max()
+
+
+def test_eval_step_is_the_loss(pair):
+    _, _, model, params = pair
+    batch, _ = _batch(model.cfg.vocab)
+    metrics = make_eval_step(model)(params, batch)
+    loss, _ = model.loss(params, batch)
+    assert float(metrics["loss"]) == pytest.approx(float(loss.detach()))
+
+
+def test_prefill_matches_jax_and_own_decode(pair):
+    """Prefill logits at the last position equal JAX's prefill, and feeding the
+    tokens one by one through the port's own decode (tests/test_models.py:64)."""
+    jmodel, jparams, model, params = pair
+    toks = np.random.default_rng(7).integers(0, model.cfg.vocab, (1, 16), dtype=np.int32)
+    got = model.prefill(params, {"tokens": torch.from_numpy(toks).long()})
+    assert got.shape == (1, 1, model.cfg.vocab) and got.dtype == torch.float32
+    want = jax.jit(jmodel.prefill)(jparams, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    cache = model.init_cache(1, 20)
+    for t in range(16):
+        logits, cache = model.decode_step(params, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
+                                                   "cache": cache, "index": t})
+    np.testing.assert_allclose(logits.numpy(), got.numpy(), rtol=2e-3, atol=2e-3)
+
+
+def test_adamw_update_matches_jax(pair):
+    """One update from identical grads, params and (non-trivial) state, within 1e-6."""
+    _, jparams, _, _ = pair
+    rng = np.random.default_rng(4)
+    cfg = JAdamWConfig(lr=1e-3, warmup_steps=3)
+    jgrads = jax.tree.map(lambda p: jnp.asarray(rng.normal(size=p.shape), jnp.float32), jparams)
+    jstate = jinit_opt_state(jparams, cfg)
+    jstate["mu"] = jax.tree.map(lambda p: jnp.asarray(rng.normal(size=p.shape) * 0.01,
+                                                      jnp.float32), jparams)
+    jstate["nu"] = jax.tree.map(lambda p: jnp.asarray(rng.random(p.shape) * 0.01,
+                                                      jnp.float32), jparams)
+    jstate["count"] = jnp.asarray(2, jnp.int32)
+    params, state, grads = _port(jparams), _port(jstate), _port(jgrads)
+    assert state["count"].dtype == torch.int32 and state["mu"]["embed"].dtype == torch.float32
+    port_cfg = AdamWConfig(**dataclasses.asdict(cfg))
+    new_p, new_s, metrics = adamw_update(grads, state, params, port_cfg)
+    jnew_p, jnew_s, jmetrics = jadamw_update(jgrads, jstate, jparams, cfg)
+    _assert_tree_close(new_p, jnew_p, 1e-6)
+    for name in ("mu", "nu", "master"):
+        _assert_tree_close(new_s[name], jnew_s[name], 1e-6)
+    assert int(new_s["count"]) == int(jnew_s["count"]) == 3
+    for name in ("grad_norm", "lr"):
+        assert float(metrics[name]) == pytest.approx(float(jmetrics[name]), rel=1e-6)
+
+
+def test_three_train_steps_match_jax(pair):
+    jmodel, jparams, model, _ = pair
+    cfg = JAdamWConfig(lr=1e-3, warmup_steps=2)
+    jstate = jinit_opt_state(jparams, cfg)
+    params, state = _port(jparams), _port(jstate)
+    jstep = jax.jit(jmake_train_step(jmodel, cfg))
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2))
+    for i in range(3):
+        batch, jbatch = _batch(model.cfg.vocab, seed=i)
+        jparams_i, jstate, jm = jstep(jparams if i == 0 else jparams_i, jstate, jbatch)
+        params, state, m = step(params, state, batch)
+        for name in ("loss", "grad_norm", "lr"):
+            assert abs(float(m[name]) - float(jm[name])) <= 1e-4, (i, name)
+    _assert_tree_close(params, jparams_i, 1e-4)
+
+
+def test_loss_decreases_on_fixed_batch():
+    """The port of tests/test_train.py::test_loss_decreases_on_fixed_batch."""
+    model = build_model(ARCHS[ARCH].smoke(), device="cpu")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    params, opt = init_train_state(model, torch.Generator().manual_seed(0), opt_cfg)
+    rng = np.random.default_rng(0)
+    batch = {name: torch.as_tensor(rng.integers(0, model.cfg.vocab, (4, 64)))
+             for name in ("tokens", "labels")}
+    step = make_train_step(model, opt_cfg)
+    losses = []
+    for _ in range(8):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0] - 0.05
+    assert float(m["grad_norm"]) > 0
+
+
+def test_int8_compression_matches_jax():
+    g = np.random.default_rng(3).normal(size=(256,)).astype(np.float32)
+    err = np.zeros_like(g)
+    q, scale, new_err = compress_int8(torch.from_numpy(g), torch.from_numpy(err))
+    jq, jscale, jerr = jcompress_int8(jnp.asarray(g), jnp.asarray(err))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    assert float(scale) == pytest.approx(float(jscale), rel=1e-7)
+    np.testing.assert_allclose(new_err.numpy(), np.asarray(jerr), atol=1e-7)
+    assert float((decompress_int8(q, scale) - torch.from_numpy(g)).abs().max()) <= float(scale)
+
+
+def test_token_batch_from_bytes_matches_jax():
+    rng = np.random.default_rng(5)
+    payloads = [rng.integers(-2**31, 2**31 - 1, 40, dtype=np.int64).astype(np.int32).tobytes()
+                for _ in range(3)]
+    got = token_batch_from_bytes(payloads, 32, 512, device="cpu")
+    want = jtoken_batch_from_bytes(payloads, 32, 512)
+    for name in ("tokens", "labels"):
+        assert got[name].dtype == torch.int64
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]))
+    with pytest.raises(ValueError):
+        token_batch_from_bytes(payloads, 64, 512, device="cpu")
+
+
+def test_token_loader_matches_jax_and_resumes(tmp_path):
+    """Batches equal the JAX loader's over a materialised store, across an
+    epoch boundary, and a SamplerState resumes the stream where it stopped."""
+    clock, topo, store, cache, engine = build_cluster()
+    store.root = str(tmp_path)
+    jspec = JTokenDatasetSpec("train-corpus", n_sequences=40, seq_len=12, vocab=512, seed=3)
+    materialize_token_dataset(store, cache, jspec, topo.nodes[:4], items_per_chunk=16)
+    spec = TokenDatasetSpec("train-corpus", n_sequences=40, seq_len=12, vocab=512, seed=3)
+    jit = iter(JTokenLoader(store, jspec, topo.nodes[0], batch=8))
+    loader = TokenLoader(spec, batch=8, items_per_chunk=16)
+    it = iter(loader)
+    for _ in range(7):                  # 5 batches an epoch: crosses into epoch 2
+        (jt, jl), (t, l) = next(jit), next(it)
+        np.testing.assert_array_equal(t, jt)
+        np.testing.assert_array_equal(l, jl)
+    assert (loader.state.epoch, loader.state.step_in_epoch) == (1, 2)
+    resumed = iter(TokenLoader(spec, batch=8, items_per_chunk=16,
+                               state=SamplerState(**dataclasses.asdict(loader.state))))
+    for _ in range(4):
+        np.testing.assert_array_equal(next(resumed)[0], next(it)[0])
+
+
+def test_config_digest_equals_jax():
+    for cfg, jcfg in ((ARCHS[ARCH], JARCHS[ARCH]), (ARCHS[ARCH].smoke(), JARCHS[ARCH].smoke())):
+        assert config_digest(cfg) == jconfig_digest(jcfg)
+
+
+def test_checkpoint_round_trip_prune_and_torn_write(tmp_path, pair):
+    _, _, model, params = pair
+    opt = init_opt_state(params, AdamWConfig())
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    for step in (1, 2, 3):
+        mgr.save(step, params, opt, sampler=SamplerState(epoch=step, step_in_epoch=4, seed=9))
+    mgr.wait()
+    assert sorted(os.listdir(tmp_path)) == ["step_000002", "step_000003"]
+    os.makedirs(tmp_path / "step_000004")                  # a torn write: no _COMMITTED
+    assert mgr.latest_step() == 3
+    step, p2, o2, sampler = mgr.restore(template={"params": params, "opt": opt})
+    assert step == 3 and sampler == SamplerState(3, 4, 9)
+    for a, b in zip(PM.tree_leaves({"p": params, "o": opt}), PM.tree_leaves({"p": p2, "o": o2})):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    manifest = json.loads((tmp_path / "step_000003" / "manifest.json").read_text())
+    assert manifest["leaf_dtypes"][0] == "int32"           # opt/count sorts first
+
+
+def test_checkpoint_bf16_leaf_round_trip(tmp_path):
+    """numpy has no bfloat16: the leaf is written as 2-byte records and read
+    back as bfloat16 from ``leaf_dtypes``."""
+    params = {"w": (torch.randn(5, 3) * 3).to(torch.bfloat16)}
+    opt = {"count": torch.tensor(7, dtype=torch.int32)}
+    mgr = CheckpointManager(str(tmp_path), async_write=False)
+    mgr.save(1, params, opt)
+    raw = np.load(tmp_path / "step_000001" / "leaf_00001.npy")
+    assert raw.dtype.itemsize == 2 and raw.dtype.kind == "V"
+    _, p2, o2, _ = mgr.restore(template={"params": params, "opt": opt})
+    assert p2["w"].dtype == torch.bfloat16 and torch.equal(p2["w"], params["w"])
+    assert o2["count"].dtype == torch.int32 and int(o2["count"]) == 7
+
+
+def test_checkpoints_cross_between_packages(tmp_path, pair):
+    """fp32: a JAX-written checkpoint restores in the port and a port-written
+    one in JAX, leaf for leaf, with the sampler state."""
+    _, jparams, _, _ = pair
+    jopt = jinit_opt_state(jparams, JAdamWConfig())
+    jopt["count"] = jnp.asarray(5, jnp.int32)
+    JCheckpointManager(str(tmp_path / "jax"), async_write=False).save(
+        5, jparams, jopt, sampler=JSamplerState(1, 2, 3))
+    params, opt = _port(jparams), _port(jopt)
+    template = {"params": PM.tree_map(torch.zeros_like, params),
+                "opt": PM.tree_map(torch.zeros_like, opt)}
+    step, p, o, sampler = CheckpointManager(str(tmp_path / "jax")).restore(template=template)
+    assert step == 5 and sampler == SamplerState(1, 2, 3) and o["count"].dtype == torch.int32
+    _assert_tree_close({"params": p, "opt": o}, {"params": jparams, "opt": jopt}, 0)
+
+    CheckpointManager(str(tmp_path / "port"), async_write=False).save(
+        6, params, opt, sampler=SamplerState(4, 5, 6))
+    jstep, jp, jo, jsampler = JCheckpointManager(str(tmp_path / "port")).restore(
+        template={"params": jparams, "opt": jopt})
+    assert jstep == 6 and jsampler == JSamplerState(4, 5, 6)
+    _assert_tree_close({"params": params, "opt": opt}, {"params": jp, "opt": jo}, 0)
+
+
+def test_train_launcher_on_cpu_checkpoints_and_resumes(tmp_path, capsys, monkeypatch):
+    argv = ["--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "24",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    res = port_train.main(argv)
+    assert len(res["losses"]) == 3 and all(np.isfinite(res["losses"]))
+    assert res["restarts"] == 0 and res["final_step"] == 3
+    assert sorted(os.listdir(tmp_path)) == ["step_000002", "step_000003"]
+    assert (tmp_path / "step_000003" / "_COMMITTED").is_file()
+    manifest = json.loads((tmp_path / "step_000003" / "manifest.json").read_text())
+    assert manifest["config_digest"] == jconfig_digest(JARCHS[ARCH].smoke())
+    assert manifest["sampler"] == {"epoch": 0, "step_in_epoch": 3, "seed": 0}
+
+    crashed = {"n": 0}
+    real_step = port_train.make_train_step
+
+    def flaky_step(*a, **k):
+        fn = real_step(*a, **k)
+
+        def step(*args):
+            if crashed["n"] == 0:
+                crashed["n"] += 1
+                raise RuntimeError("injected fault")
+            return fn(*args)
+        return step
+
+    monkeypatch.setattr(port_train, "make_train_step", flaky_step)
+    res = port_train.main(argv[:3] + ["5"] + argv[4:])
+    out = capsys.readouterr().out
+    assert res["restarts"] == 1 and "[restore] resumed from step 3" in out
+    assert len(res["losses"]) == 2 and res["final_step"] == 5
+
+
+def test_train_entry_points_need_cuda_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        token_batch_from_bytes([np.zeros(4, np.int32).tobytes()], 4, 8)
+
+
+def test_trace_groups_only_the_port_kernels_by_name():
+    """The step breakdown names the kernels of ``kernels/csrc``; PyTorch's own
+    kernels in anonymous namespaces count as PyTorch's."""
+    from repro_torch.launch.trace import PORT_KERNELS, kernel_group
+
+    assert {"flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+            "rmsnorm_bwd_kernel", "swiglu_gate_bwd_kernel"} <= PORT_KERNELS
+    assert kernel_group("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 16>(x)") \
+        == "flash_fwd_kernel"
+    assert kernel_group("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT") == "cublas"
+    for name in ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+                 "(anonymous namespace)::pow_tensor_scalar_kernel_impl<float>>(int)",
+                 "void at::native::(anonymous namespace)::CatArrayBatchedCopy<x>(y)"):
+        assert kernel_group(name) == "torch_other"
