@@ -16,9 +16,13 @@ prints no result line):
    shape; the RMSNorm and SwiGLU backward at the training shape
    and a small one.  Then each kernel's time beside its plain version's,
    one PyTorch library call's, and its bound from bytes and operations.
+   Also the mLSTM forward and backward (xlstm-1.3b's core) at the sweep of
+   ``tests/test_kernels.py:130-141`` and the training shape, fp32 and bf16.
 4. full width: qwen1.5-0.5b in fp32, one ``decode_step`` on the card against
    the same weights on the CPU; then, cut to 4 layers, ``loss`` and every
-   gradient leaf on a (2, 200) batch against the CPU.
+   gradient leaf on a (2, 200) batch against the CPU; then xlstm-1.3b in
+   fp32 cut to 8 layers (7 mLSTM + 1 sLSTM), ``loss``, every gradient leaf
+   and ``prefill`` on a (1, 256) batch against the CPU.
 5. serve: a small fp32 serve on the card against the CPU, token for token;
    then qwen1.5-0.5b in bf16 through ``repro_torch.launch.serve.main``
    (8 requests, prompt 128, 32 new tokens) with the kernels' launch counts
@@ -28,14 +32,20 @@ prints no result line):
    checkpoint in a temporary directory under ``build/``), with the launch
    counts set to 0 just before and checked per step just after; then 8
    steps on one fixed batch, whose loss must fall by 0.05.
-7. output: one ``{"serve": ...}``, one ``{"train": ...}`` and one
-   ``{"kernels": [...]}`` line, then the last line
+7. train xLSTM: ``launch.train.main`` for xlstm-1.3b at its smoke config on
+   the card, with a checkpoint; then xlstm-1.3b in bf16 at full width and
+   depth (48 layers), batch 4 x seq 512 from the launcher's corpus, 4 steps
+   of ``make_train_step`` with the launch counts set to 0 just before and
+   checked per step just after, and 8 steps on a fixed (2, 128) batch.
+8. output: one ``{"serve": ...}``, ``{"train": ...}``, ``{"train_xlstm":
+   ...}`` and ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -81,6 +91,20 @@ FLASH_SHAPES = (
 TRAIN_PER_STEP = {"rmsnorm": 2 * 24 + 1, "rmsnorm_bwd": 2 * 24 + 1, "swiglu": 24,
                   "swiglu_bwd": 24, "flash_attention": 24, "flash_attention_bwd": 24,
                   "decode_attention": 0}
+XLSTM = "xlstm-1.3b"
+XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
+#: kernel launches per training step of xlstm-1.3b (42 mLSTM blocks: 2 norms and
+#: one scan each; 6 sLSTM blocks: 3 norms and one SwiGLU each; the final norm)
+XLSTM_PER_STEP = {"rmsnorm": 2 * 42 + 3 * 6 + 1, "rmsnorm_bwd": 2 * 42 + 3 * 6 + 1,
+                  "swiglu": 6, "swiglu_bwd": 6, "mlstm_scan": 42, "mlstm_scan_bwd": 42,
+                  "flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0}
+#: (B, H, S, dqk, dv, chunk): the sweep of tests/test_kernels.py:130-141, then the
+#: training shape of xlstm-1.3b (dqk 512, dv 1024, chunk 128)
+MLSTM_SHAPES = tuple((2, 2, 256, dqk, dv, chunk) for chunk in (32, 64, 128)
+                     for dqk, dv in ((16, 32), (32, 32))) + ((4, 4, 512, 512, 1024, 128),)
+#: mLSTM outputs and gradients, relative to the largest entry (entries grow with
+#: dqk): tests/test_kernels.py:154 in fp32, one bf16 rounding in bf16
+MLSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: dense peak rates by input type (NVIDIA H100 SXM data sheet, no sparsity)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -444,6 +468,112 @@ def check_swiglu_bwd(gen, ops, ref, rate):
     return bwd
 
 
+def rel_err(got, want, tol) -> tuple[float, float]:
+    """(max |got - want|, the same over want's largest entry); the second must
+    be within ``tol``."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (math.isfinite(err) and err <= tol * scale):
+        raise AssertionError(f"max |diff| {err} > {tol} x max |want| {scale}")
+    return err, err / max(scale, 1e-30)
+
+
+def mlstm_inputs(gen, B, H, S, dqk, dv, dt):
+    """q, k, v, i_raw, log_f as tests/test_kernels.py draws them, and a dh."""
+    q, k = randn(gen, (B, H, S, dqk), dt), randn(gen, (B, H, S, dqk), dt)
+    v, i_raw = randn(gen, (B, H, S, dv), dt), randn(gen, (B, H, S), dt)
+    log_f = torch.log(torch.rand((B, H, S), generator=gen) * 0.3 + 0.7).to("cuda", dt)
+    return (q, k, v, i_raw, log_f), randn(gen, (B, H, S, dv), dt)
+
+
+def mlstm_bound(B, H, S, dqk, dv, chunk, rate, *, backward: bool) -> tuple[float, str]:
+    """Operations the forward needs, per (b, h): ``q k^T`` and ``S v`` over each
+    chunk's causal pairs, L (L + 1) / 2 of them at 2 (dqk + dv) each; the
+    read-out ``q C`` of every chunk but the first (C is 0 there) and the state
+    update of every chunk but the last (its state is never read), 2 L dqk dv
+    each.  Bytes: q, k, v, i, f read and h written once in bf16.  The backward
+    does each product's two gradient products (twice the operations), reads
+    q, k, v, i, f and dh and writes their five gradients once."""
+    L = min(chunk, S)
+    nc = S // L
+    bht = B * H * S
+    ops_fwd = B * H * (nc * L * (L + 1) * (dqk + dv) + 2 * (nc - 1) * 2 * L * dqk * dv)
+    if backward:
+        return bound(bht * (4 * dqk + 3 * dv + 4) * 2, 2 * ops_fwd, torch.bfloat16, rate)
+    return bound(bht * (2 * dqk + 2 * dv + 2) * 2, ops_fwd, torch.bfloat16, rate)
+
+
+def check_mlstm(gen, ops, ref, rate):
+    """mlstm_scan and its backward against the plain versions at MLSTM_SHAPES:
+    h and the chunk-start states C and n, then the five gradients from each
+    side's own saved state; autograd through ``ops.mlstm_scan`` against the
+    plain backward; times at the training shape in bf16."""
+    from repro_torch.kernels import mlstm_scan as kf
+    from repro_torch.kernels import mlstm_scan_bwd as kb
+
+    errs, gerrs = {}, {}
+    for B, H, S, dqk, dv, chunk in MLSTM_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, dh = mlstm_inputs(gen, B, H, S, dqk, dv, dt)
+            out, saved = kf.mlstm_scan_cuda(*x, chunk=chunk)
+            h, C, n, m = ref.mlstm_scan_ref(*x, chunk=chunk)
+            tol = MLSTM_TOL[dt]
+            key = (B, H, S, dqk, dv, chunk, str(dt)[6:])
+            # the states are fp32 on both sides, whatever the inputs' type
+            states = MLSTM_TOL[torch.float32]
+            errs[key] = max(rel_err(out, h, tol), rel_err(saved.C, C, states),
+                            rel_err(saved.n, n, states), key=lambda e: e[1])
+            got = kb.mlstm_scan_bwd_cuda(*x, saved, dh, chunk=chunk)
+            want = ref.mlstm_scan_bwd_ref(*x, C, n, m, dh, chunk=chunk)
+            gerrs[key] = max((rel_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, want)),
+                             key=lambda e: e[1])
+    torch.cuda.synchronize()
+    print(f"[kernels] mlstm_scan (h, C, n) errors, (max abs, over the largest entry) {errs}")
+    print(f"[kernels] mlstm_scan_bwd errors (dq, dk, dv, di, df), (max abs, over the "
+          f"largest entry) {gerrs}")
+
+    # autograd through ops.mlstm_scan equals the plain backward
+    x, dh = mlstm_inputs(gen, 2, 2, 128, 32, 64, torch.float32)
+    leaves = [t.requires_grad_() for t in x]
+    auto = torch.autograd.grad(ops.mlstm_scan(*leaves, chunk=32), leaves, dh)
+    _, C, n, m = ref.mlstm_scan_ref(*x, chunk=32)
+    for a, b in zip(auto, ref.mlstm_scan_bwd_ref(*x, C, n, m, dh, chunk=32)):
+        rel_err(a, b, GRAD_TOL[torch.float32])
+
+    B, H, S, dqk, dv, chunk = MLSTM_SHAPES[-1]
+    dt = torch.bfloat16
+    sets = [mlstm_inputs(gen, B, H, S, dqk, dv, dt) for _ in range(2)]
+    fwd_sets = [x for x, _ in sets]
+    saved = [(*x, kf.mlstm_scan_cuda(*x, chunk=chunk)[1], dh) for x, dh in sets]
+    plain_saved = [(*x, *ref.mlstm_scan_ref(*x, chunk=chunk)[1:], dh) for x, dh in sets]
+    shape = f"q, k ({B}, {H}, {S}, {dqk}), v ({B}, {H}, {S}, {dv}), chunk {chunk} bf16"
+    key = (B, H, S, dqk, dv, chunk, "bfloat16")
+    note = "no PyTorch call computes the chunked mLSTM"
+    b_ms, b_by = mlstm_bound(B, H, S, dqk, dv, chunk, rate, backward=False)
+    fwd = {
+        "name": "mlstm_scan", "shape": shape, "max_abs_err": errs[key][0],
+        "max_rel_err": errs[key][1],
+        "ms": time_ms(lambda *x: kf.mlstm_scan_cuda(*x, chunk=chunk), fwd_sets, 5),
+        "plain_ms": time_ms(lambda *x: ref.mlstm_scan_ref(*x, chunk=chunk), fwd_sets, 3),
+        "library_ms": None, "library_note": note,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    b_ms, b_by = mlstm_bound(B, H, S, dqk, dv, chunk, rate, backward=True)
+    bwd = {
+        "name": "mlstm_scan_bwd", "shape": shape, "max_abs_err": gerrs[key][0],
+        "max_rel_err": gerrs[key][1],
+        "ms": time_ms(lambda *a: kb.mlstm_scan_bwd_cuda(*a, chunk=chunk), saved, 3),
+        "plain_ms": time_ms(lambda *a: ref.mlstm_scan_bwd_ref(*a, chunk=chunk), plain_saved, 3),
+        "fwd_bwd_ms": time_ms(lambda *a: torch.autograd.grad(
+            ops.mlstm_scan(*a[:5], chunk=chunk), a[:5], a[5]),
+            [tuple(t.detach().requires_grad_() for t in x) + (dh,) for x, dh in sets], 3),
+        "library_ms": None, "library_note": note,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    return fwd, bwd
+
+
 def phase_full_width() -> None:
     """qwen1.5-0.5b in fp32: one decode_step on the card against the CPU."""
     from repro_torch.configs import ARCHS
@@ -514,6 +644,39 @@ def phase_full_width_grad() -> None:
         worst = max(worst, diff / scale)
     print(f"[full-width] fp32 4-layer loss card {got:.6f} cpu {want:.6f}; {len(g_cpu)} "
           f"gradient leaves, worst max |diff| / max |grad| {worst:.3e}")
+
+
+def phase_xlstm_full_width() -> None:
+    """xlstm-1.3b at full width in fp32, cut to 8 layers (one group: 7 mLSTM
+    blocks and 1 sLSTM block): ``loss``, every gradient leaf and ``prefill``
+    on a (1, 256) batch, two chunks of 128 so that the carried state is
+    crossed, on the card against the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+
+    cfg = dataclasses.replace(ARCHS[XLSTM], dtype="float32", n_layers=8)
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    gen = torch.Generator().manual_seed(2)
+    p_cpu = cpu.init_params(gen)
+    p_gpu = PM.tree_map(lambda t: t.to("cuda"), p_cpu)
+    toks = torch.randint(0, cfg.vocab, (1, 257), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want, g_cpu = _loss_and_grads(cpu, p_cpu, batch)
+    got, g_gpu = _loss_and_grads(gpu, p_gpu, {k: t.cuda() for k, t in batch.items()})
+    if not (math.isfinite(got) and abs(got - want) <= 2e-3):
+        raise AssertionError(f"8-layer fp32 xLSTM loss: card {got} cpu {want}")
+    worst = max(rel_err(a.cpu(), b, 2e-3)[1] for a, b in zip(g_gpu, g_cpu))
+    l_cpu = cpu.prefill(p_cpu, {"tokens": batch["tokens"]})
+    l_gpu = gpu.prefill(p_gpu, {"tokens": batch["tokens"].cuda()}).cpu()
+    if l_gpu.shape != (1, 1, cfg.vocab) or not torch.isfinite(l_gpu).all():
+        raise AssertionError(f"prefill logits of shape {tuple(l_gpu.shape)} or not finite")
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=2e-3, atol=2e-3)
+    if not torch.equal(l_gpu.argmax(-1), l_cpu.argmax(-1)):
+        raise AssertionError("prefill argmax differs between the card and the CPU")
+    print(f"[full-width] fp32 8-layer xLSTM loss card {got:.6f} cpu {want:.6f}; "
+          f"{len(g_cpu)} gradient leaves, worst max |diff| / max |grad| {worst:.3e}; prefill "
+          f"max |logit diff| {float((l_gpu - l_cpu).abs().max()):.3e}, argmax equal")
 
 
 def phase_serve(kernel_modules) -> dict:
@@ -600,6 +763,116 @@ def phase_train(kernel_modules) -> dict:
             "ckpt_seconds": res["ckpt_seconds"], "fixed_batch_losses": fixed}
 
 
+def phase_train_xlstm(kernel_modules) -> dict:
+    """xlstm-1.3b on the card.  First ``launch.train.main`` at the smoke config
+    (seq 64, 2 steps, its checkpoint in a temporary directory under
+    ``build/``), so the launcher's path runs on the card.  Then the full
+    model in bf16 at full width and depth, batch 4 x 512 from the launcher's
+    corpus (``TokenDatasetSpec``, ``TokenLoader``, AdamW as the launcher sets
+    it), parameters drawn on a CUDA generator, 4 steps of ``make_train_step``
+    with the launch counts set to 0 just before and checked per step just
+    after; then 8 steps on a fixed (2, 128) batch, whose loss must fall by
+    0.05.  Cut: the launcher's final checkpoint, 41 GB at this size, is not
+    written at full depth."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenDatasetSpec, TokenLoader
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+        res = train.main(["--arch", XLSTM, "--device", "cuda", "--steps", "2", "--batch", "2",
+                          "--seq", "64", "--ckpt-dir", ckpt_dir])
+        if not (Path(ckpt_dir) / "step_000002" / "_COMMITTED").is_file():
+            raise AssertionError("the xLSTM launcher wrote no final checkpoint")
+    if res["restarts"] or not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"xLSTM launcher: {res['restarts']} restarts, losses {res['losses']}")
+    print(f"[train_xlstm] launcher at the smoke config on the card: losses {res['losses']}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S, steps = XLSTM_TRAIN["batch"], XLSTM_TRAIN["seq"], XLSTM_TRAIN["steps"]
+    model = build_model(ARCHS[XLSTM], device="cuda")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
+    t0 = time.perf_counter()
+    params, opt = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, B * 32), seq_len=S,
+                            vocab=model.cfg.vocab, seed=0)
+    it = iter(TokenLoader(spec, batch=B, items_per_chunk=train.ITEMS_PER_CHUNK))
+    step = make_train_step(model, opt_cfg)
+    for m in kernel_modules:
+        m.launches = 0
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        toks, labels = next(it)
+        batch = {"tokens": torch.from_numpy(toks).long().cuda(),
+                 "labels": torch.from_numpy(labels).long().cuda()}
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))      # waits for the step to finish
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernel_modules}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"xLSTM train losses {losses}")
+    for name, per_step in XLSTM_PER_STEP.items():
+        if counts[name] != per_step * steps:
+            raise AssertionError(f"{name}: {counts[name]} launches in the xLSTM train run, "
+                                 f"expected {per_step} x {steps} steps")
+    median = statistics.median(step_ms[1:])
+    tokens_per_s = B * S / (median / 1e3)
+    print(f"[train_xlstm] launches {counts}; losses {losses}; step ms {step_ms}; median "
+          f"{median:.3f} ms over steps 2-{steps}, {tokens_per_s:.1f} tokens/s, peak "
+          f"{peak / 2**30:.3f} GiB; init {init_s:.2f} s")
+
+    rng = np.random.default_rng(0)
+    fixed_batch = {name: torch.as_tensor(rng.integers(0, model.cfg.vocab, (2, 128))).cuda()
+                   for name in ("tokens", "labels")}
+    fixed_step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2))
+    fixed = []
+    for _ in range(8):
+        params, opt, metrics = fixed_step(params, opt, fixed_batch)
+        fixed.append(float(metrics["loss"]))
+    if not fixed[-1] < fixed[0] - 0.05:
+        raise AssertionError(f"fixed-batch losses did not fall by 0.05: {fixed}")
+    print(f"[train_xlstm] fixed batch (2, 128), 8 steps: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
+    blocks = xlstm_block_ms(model, params, B, S)
+    print(f"[train_xlstm] one block forward + backward at ({B}, {S}): {blocks}")
+    return {"counts": counts, "steps": steps, "batch": B, "seq": S, "losses": losses,
+            "step_ms": step_ms, "median_step_ms": median, "tokens_per_s": tokens_per_s,
+            "peak_memory_bytes": peak, "init_seconds": init_s, "fixed_batch_losses": fixed,
+            "launcher_smoke_losses": res["losses"], **blocks}
+
+
+def xlstm_block_ms(model, params, B, S) -> dict:
+    """Host milliseconds (ending in a synchronize) of one mLSTM and one sLSTM
+    block's forward and backward at the training shape, median of 3 after a
+    warm-up: what 42 and 6 of them take of a step."""
+    from repro_torch.models import params as PM
+
+    mlstm, slstm = model._group_params(params)[0]
+    out = {}
+    for name, block, p in (("mlstm", model._mlstm_block, mlstm[0]),
+                           ("slstm", model._slstm_block, slstm)):
+        leaves = PM.tree_map(lambda t: t.detach().requires_grad_(), p)
+        x = torch.randn((B, S, model.cfg.d_model), device="cuda", dtype=model.dtype,
+                        requires_grad=True)
+        dy = torch.randn_like(x)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.autograd.grad(block(leaves, x), [x, *PM.tree_leaves(leaves)], dy)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_block_fwd_bwd_ms"] = statistics.median(times[1:])
+    return out
+
+
 #: kernel -> (what it replaces, source, launches per serving decode step)
 REPLACES = {
     "rmsnorm": ("src/repro/kernels/rmsnorm.py:19", "csrc/rmsnorm.cu", 2 * 24 + 1),
@@ -614,10 +887,19 @@ REPLACES = {
                     "csrc/rmsnorm_bwd.cu", 0),
     "swiglu_mlp_bwd": ("XLA autodiff of src/repro/models/layers.py:240 swiglu",
                        "csrc/swiglu_bwd.cu", 0),
+    "mlstm_scan": ("src/repro/kernels/mlstm_scan.py:25", "csrc/mlstm_scan.cu", 0),
+    "mlstm_scan_bwd": ("XLA autodiff of src/repro/models/xlstm.py:36 mlstm_chunked",
+                       "csrc/mlstm_scan_bwd.cu", 0),
 }
 MODULE_OF = {"rmsnorm": "rmsnorm", "swiglu_mlp": "swiglu", "decode_attention": "decode_attention",
              "flash_attention": "flash_attention", "flash_attention_bwd": "flash_attention_bwd",
-             "rmsnorm_bwd": "rmsnorm_bwd", "swiglu_mlp_bwd": "swiglu_bwd"}
+             "rmsnorm_bwd": "rmsnorm_bwd", "swiglu_mlp_bwd": "swiglu_bwd",
+             "mlstm_scan": "mlstm_scan", "mlstm_scan_bwd": "mlstm_scan_bwd"}
+#: the run whose launches a row reports as ``launches``: its slice's main path
+MAIN_RUN = {"rmsnorm": "serve", "swiglu_mlp": "serve", "decode_attention": "serve",
+            "flash_attention": "train", "flash_attention_bwd": "train", "rmsnorm_bwd": "train",
+            "swiglu_mlp_bwd": "train", "mlstm_scan": "train_xlstm",
+            "mlstm_scan_bwd": "train_xlstm"}
 
 
 def main() -> None:
@@ -635,31 +917,38 @@ def main() -> None:
     rows["flash_attention"], rows["flash_attention_bwd"] = check_flash(gen, ops, ref, rate)
     rows["rmsnorm_bwd"] = check_rmsnorm_bwd(gen, ops, ref, rate)
     rows["swiglu_mlp_bwd"] = check_swiglu_bwd(gen, ops, ref, rate)
+    rows["mlstm_scan"], rows["mlstm_scan_bwd"] = check_mlstm(gen, ops, ref, rate)
     torch.cuda.synchronize()
     print(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
     phase_full_width()
     phase_full_width_grad()
-    served = phase_serve(KERNEL_MODULES)
-    trained = phase_train(KERNEL_MODULES)
+    phase_xlstm_full_width()
+    print(f"[full-width] done at {time.perf_counter() - t0:.1f} s")
+    runs = {"serve": phase_serve(KERNEL_MODULES)}
+    runs["train"] = phase_train(KERNEL_MODULES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train_xlstm"] = phase_train_xlstm(KERNEL_MODULES)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
+    served = runs["serve"]
     for row in rows.values():
         replaces, src, per_step = REPLACES[row["name"]]
         module = MODULE_OF[row["name"]]
-        launches = served["counts"][module]
-        if launches != per_step * served["steps"]:
-            raise AssertionError(f"{row['name']}: {launches} launches in the serve run, "
-                                 f"expected {per_step} x {served['steps']} steps")
-        if per_step == 0:
-            launches = trained["counts"][module]
-        else:
-            row["train_launches"] = trained["counts"][module]
+        if served["counts"][module] != per_step * served["steps"]:
+            raise AssertionError(f"{row['name']}: {served['counts'][module]} launches in the "
+                                 f"serve run, expected {per_step} x {served['steps']} steps")
+        main_run = MAIN_RUN[row["name"]]
+        for run, res in runs.items():
+            if run != main_run:
+                row[f"{run}_launches"] = res["counts"][module]
         row.update(route="cuda", source=f"src/repro_torch/kernels/{src}", replaces=replaces,
-                   launches=launches)
+                   launches=runs[main_run]["counts"][module], launches_from=main_run)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"serve": {k: served[k] for k in ("tokens_per_s", "ms_per_step", "steps")}}))
-    print(json.dumps({"train": {k: v for k, v in trained.items() if k != "counts"}}))
+    for run in ("train", "train_xlstm"):
+        print(json.dumps({run: {k: v for k, v in runs[run].items() if k != "counts"}}))
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: v for k, v in r.items() if k not in keys}}
                                   for r in rows.values()]}))

@@ -2,15 +2,28 @@
 
 The fields and their defaults are those of the JAX package, so that a config
 built here describes the same model, including ``rope_theta=10000`` and
-``norm_eps=1e-5``, on which parity depends.  The family-specific blocks
-(``moe``, ``mla``, ``ssm``, ``encdec``, ``vlm``, ``hybrid``) are kept as fields
-and stay ``None`` until the slices that port those families define them.
+``norm_eps=1e-5``, on which parity depends, and ``repr`` (hence
+``config_digest``) is the JAX config's.  Of the family-specific blocks,
+``ssm`` (:class:`SSMConfig`, xLSTM) is ported; ``moe``, ``mla``, ``encdec``,
+``vlm`` and ``hybrid`` are kept as fields and stay ``None`` until the slices
+that port those families define them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Any, Optional
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Matrix-memory recurrences: xLSTM mLSTM/sLSTM and Mamba-style heads."""
+
+    state_dim: int = 16                # hymba per-head SSM state
+    conv_width: int = 4
+    expand: int = 2                    # up-projection factor (mLSTM / mamba)
+    slstm_every: int = 8               # xLSTM: one sLSTM block per this many
+    chunk: int = 128                   # chunked-scan length
 
 
 @dataclass(frozen=True)
@@ -32,7 +45,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     moe: Optional[Any] = None
     mla: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     encdec: Optional[Any] = None
     vlm: Optional[Any] = None
     hybrid: Optional[Any] = None
@@ -56,8 +69,8 @@ class ModelConfig:
         return self.n_heads // max(1, self.n_kv_heads)
 
     def smoke(self) -> "ModelConfig":
-        """A reduced same-family config for CPU tests (dense families)."""
-        blocks = ("moe", "mla", "ssm", "encdec", "vlm", "hybrid")
+        """A reduced same-family config for CPU tests (dense and xLSTM families)."""
+        blocks = ("moe", "mla", "encdec", "vlm", "hybrid")
         if any(getattr(self, f) is not None for f in blocks):
             raise NotImplementedError(f"{self.arch}: family {self.family!r} is not ported yet")
         cfg = replace(
@@ -73,6 +86,8 @@ class ModelConfig:
             kv_block=64,
             dtype="float32",
         )
+        if cfg.ssm:
+            cfg = replace(cfg, ssm=replace(cfg.ssm, chunk=32, slstm_every=4))
         if self.sliding_window:
             cfg = replace(cfg, sliding_window=64)
         return cfg

@@ -9,6 +9,8 @@ from . import (
     decode_attention,
     flash_attention,
     flash_attention_bwd,
+    mlstm_scan,
+    mlstm_scan_bwd,
     ops,
     ref,
     rmsnorm,
@@ -18,7 +20,8 @@ from . import (
 )
 
 KERNEL_MODULES = (rmsnorm, swiglu, decode_attention, flash_attention, flash_attention_bwd,
-                  rmsnorm_bwd, swiglu_bwd)
+                  rmsnorm_bwd, swiglu_bwd, mlstm_scan, mlstm_scan_bwd)
 
-__all__ = ["KERNEL_MODULES", "decode_attention", "flash_attention", "flash_attention_bwd", "ops",
-           "ref", "rmsnorm", "rmsnorm_bwd", "swiglu", "swiglu_bwd"]
+__all__ = ["KERNEL_MODULES", "decode_attention", "flash_attention", "flash_attention_bwd",
+           "mlstm_scan", "mlstm_scan_bwd", "ops", "ref", "rmsnorm", "rmsnorm_bwd", "swiglu",
+           "swiglu_bwd"]

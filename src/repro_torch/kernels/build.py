@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rmsnorm.cu", "swiglu.cu", "decode_attention.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "swiglu_bwd.cu")
+           "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "swiglu_bwd.cu", "mlstm_scan.cu",
+           "mlstm_scan_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,6 +44,8 @@ SIGNATURES = {
     "rt_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 9, _F, _I, _P),
     "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "rt_swiglu_gate_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "rt_mlstm_scan": (*(_P,) * 14, *(_I,) * 5, _F, _I, _P),
+    "rt_mlstm_scan_bwd": (*(_P,) * 32, *(_I,) * 5, _F, _I, _P),
 }
 
 

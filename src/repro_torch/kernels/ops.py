@@ -3,9 +3,10 @@
 A CUDA tensor launches the hand-written kernel (or the launch raises); a CPU
 tensor takes the kernel's plain PyTorch version in ``ref``.  Nothing else
 decides, and no failure falls back to the other path.  ``rmsnorm``,
-``swiglu_mlp`` and ``flash_attention`` are ``torch.autograd.Function``s whose
-backward dispatches the same way, so on the CPU autograd runs the same
-backward formulas that the card's backward kernels are held to.  When no
+``swiglu_mlp``, ``flash_attention`` and ``mlstm_scan`` are
+``torch.autograd.Function``s whose backward dispatches the same way, so on
+the CPU autograd runs the same backward formulas that the card's backward
+kernels are held to.  When no
 input needs a gradient (``torch.no_grad``, as in serving) they skip the
 Function and call the forward dispatch directly, which spares its host time
 on the host-bound decode step (``chip_smoke.py`` times both at the serving
@@ -19,6 +20,8 @@ import torch
 from . import decode_attention as _decode_attention
 from . import flash_attention as _flash_attention
 from . import flash_attention_bwd as _flash_attention_bwd
+from . import mlstm_scan as _mlstm_scan
+from . import mlstm_scan_bwd as _mlstm_scan_bwd
 from . import ref
 from . import rmsnorm as _rmsnorm
 from . import rmsnorm_bwd as _rmsnorm_bwd
@@ -54,6 +57,15 @@ def _flash_fwd(q, k, v, mask):
     if _on_cuda(q, "flash_attention"):
         return _flash_attention.flash_attention_cuda(q, k, v, **mask)
     return ref.flash_attention_ref(q, k, v, **mask)
+
+
+def _mlstm_fwd(q, k, v, i_raw, log_f, chunk):
+    """``(h, saved)``: the kernel's :class:`MLSTMSaved` on the card, the plain
+    version's chunk-start states ``(C, n, m)`` on the CPU."""
+    if _on_cuda(q, "mlstm_scan"):
+        return _mlstm_scan.mlstm_scan_cuda(q, k, v, i_raw, log_f, chunk=chunk)
+    h, *states = ref.mlstm_scan_ref(q, k, v, i_raw, log_f, chunk=chunk)
+    return h, states
 
 
 class RMSNorm(torch.autograd.Function):
@@ -110,6 +122,25 @@ class FlashAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+class MLSTMScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, i_raw, log_f, chunk):
+        out, saved = _mlstm_fwd(q, k, v, i_raw, log_f, chunk)
+        ctx.save_for_backward(q, k, v, i_raw, log_f, *saved)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dh):
+        inputs, saved = ctx.saved_tensors[:5], ctx.saved_tensors[5:]
+        if _on_cuda(dh, "mlstm_scan_bwd"):
+            grads = _mlstm_scan_bwd.mlstm_scan_bwd_cuda(
+                *inputs, _mlstm_scan.MLSTMSaved(*saved), dh, chunk=ctx.chunk)
+        else:
+            grads = ref.mlstm_scan_bwd_ref(*inputs, *saved, dh, chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def rmsnorm(x, gamma, *, eps: float = 1e-5):
     if _needs_grad(x, gamma):
         return RMSNorm.apply(x, gamma, eps)
@@ -134,3 +165,13 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):
         return _decode_attention.decode_attention_cuda(q, k_cache, v_cache, valid_len,
                                                        window=window)
     return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, window=window)
+
+
+def mlstm_scan(q, k, v, i_raw, log_f, *, chunk: int = 128):
+    """Chunked mLSTM: q, k (B, H, S, dqk); v (B, H, S, dv); i_raw, log_f (B, H,
+    S) -> h (B, H, S, dv) in v's dtype.  ``S`` must be a multiple of
+    ``min(chunk, S)``: the kernel's wrapper or the plain version checks."""
+    q, k, v, i_raw, log_f = (t.contiguous() for t in (q, k, v, i_raw, log_f))
+    if _needs_grad(q, k, v, i_raw, log_f):
+        return MLSTMScan.apply(q, k, v, i_raw, log_f, chunk)
+    return _mlstm_fwd(q, k, v, i_raw, log_f, chunk)[0]

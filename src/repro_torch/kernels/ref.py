@@ -190,3 +190,154 @@ def decode_attention_ref(q, k_cache, v_cache, valid_len, *, window: int = 0) -> 
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()) / torch.where(l == 0, 1.0, l)
     return out.reshape(B, Hq, 1, -1).to(v_cache.dtype)
+
+
+def mlstm_chunk_len(q, k, v, i_raw, log_f, chunk: int) -> int:
+    """The chunk length ``L = min(chunk, S)``; raise unless q, k (B, H, S, dqk),
+    v (B, H, S, dv) and i_raw, log_f (B, H, S) fit and L divides ``S``."""
+    if q.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"mlstm_scan: q {tuple(q.shape)} and v {tuple(v.shape)}; expected "
+                         "(B, H, S, dqk) and (B, H, S, dv)")
+    B, H, S, _ = q.shape
+    if k.shape != q.shape or v.shape[:3] != (B, H, S) or i_raw.shape != (B, H, S) \
+            or log_f.shape != (B, H, S):
+        raise ValueError(f"mlstm_scan: k {tuple(k.shape)}, v {tuple(v.shape)}, i_raw "
+                         f"{tuple(i_raw.shape)}, log_f {tuple(log_f.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    L = min(chunk, S)
+    if L < 1 or S % L:
+        raise ValueError(f"mlstm_scan: sequence length {S} is not a multiple of the chunk {L}")
+    return L
+
+
+def _mlstm_gates(ii, ff, m_prev):
+    """Gate algebra of one chunk, all (B, H, L) fp32 but ``decay``, ``m_next`` (B, H).
+
+    ``b`` is the cumulative log forget gate within the chunk, ``m_t = b +
+    max(m_prev, cummax(i - b))`` the stabilizer; ``inter`` weighs the carried
+    state in row t, ``w`` row s of the chunk-end state update and ``decay``
+    the carried state in that update.  With ``m_prev = -1e30`` (the first
+    chunk) ``inter`` and ``decay`` are exactly 0.
+    """
+    b = torch.cumsum(ff, dim=-1)
+    r = torch.cummax(ii - b, dim=-1).values
+    m_t = b + torch.maximum(m_prev[..., None], r)
+    inter = torch.exp(b + m_prev[..., None] - m_t)
+    m_next = b[..., -1] + torch.maximum(m_prev, r[..., -1])
+    w = torch.exp(b[..., -1:] - b + ii - m_next[..., None])
+    decay = torch.exp(b[..., -1] + m_prev - m_next)
+    return b, m_t, inter, w, decay, m_next
+
+
+def _mlstm_scores(qs, kc, b, ii, m_t):
+    """``(S, D)`` of one chunk: ``D_ts = exp(b_t - b_s + i_s - m_t)`` for s <= t,
+    else 0 (the exponent is masked before ``exp``, so no inf meets a 0), and
+    ``S = (qs k^T) * D``."""
+    L = b.shape[-1]
+    tri = torch.ones((L, L), dtype=torch.bool, device=b.device).tril()
+    logD = b[..., :, None] - b[..., None, :] + ii[..., None, :] - m_t[..., :, None]
+    D = torch.exp(logD.masked_fill(~tri, float("-inf")))
+    return (qs @ kc.transpose(-1, -2)) * D, D
+
+
+def _mlstm_inputs(q, k, v, i_raw, log_f, chunk):
+    L = mlstm_chunk_len(q, k, v, i_raw, log_f, chunk)
+    f32 = (q.float() * q.shape[-1] ** -0.5, k.float(), v.float(), i_raw.float(), log_f.float())
+    return (*f32, L, q.shape[2] // L)
+
+
+def mlstm_scan_ref(q, k, v, i_raw, log_f, *, chunk: int):
+    """Chunkwise stabilized mLSTM in the Pallas kernel's order (``mlstm_scan.py:34-68``).
+
+    q, k: (B, H, S, dqk); v: (B, H, S, dv); i_raw, log_f: (B, H, S).  In fp32,
+    with q scaled by ``dqk ** -0.5``; per chunk of ``L = min(chunk, S)`` steps
+    ``num = S v + inter (q C)``, ``den = rowsum(S) + inter (q . n)`` and ``h =
+    num / max(|den|, exp(-m_t))``, then the chunk-end update of (C, n, m) from
+    C = 0, n = 0, m = -1e30.  Returns ``(h, C, n, m)``: h in v's dtype and the
+    fp32 states at the START of each chunk, C (B, H, nc, dqk, dv), n (B, H, nc,
+    dqk), m (B, H, nc), which the backward reads.
+    """
+    qs, kf, vf, ii, ff, L, nc = _mlstm_inputs(q, k, v, i_raw, log_f, chunk)
+    B, H, _, dqk = q.shape
+    C = qs.new_zeros((B, H, dqk, vf.shape[-1]))
+    n = qs.new_zeros((B, H, dqk))
+    m = qs.new_full((B, H), _NEG_INF)
+    hs, Cs, ns, ms = [], [], [], []
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L)
+        Cs.append(C)
+        ns.append(n)
+        ms.append(m)
+        qc, kc, vc, ic = qs[..., sl, :], kf[..., sl, :], vf[..., sl, :], ii[..., sl]
+        b, m_t, inter, w, decay, m = _mlstm_gates(ic, ff[..., sl], m)
+        s, _ = _mlstm_scores(qc, kc, b, ic, m_t)
+        num = s @ vc + inter[..., None] * (qc @ C)
+        den = s.sum(-1) + inter * (qc @ n[..., None])[..., 0]
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
+        kw = kc * w[..., None]
+        C = decay[..., None, None] * C + kw.transpose(-1, -2) @ vc
+        n = decay[..., None] * n + kw.sum(-2)
+    h = torch.cat(hs, dim=2).to(v.dtype)
+    return h, torch.stack(Cs, 2), torch.stack(ns, 2), torch.stack(ms, 2)
+
+
+def mlstm_scan_bwd_ref(q, k, v, i_raw, log_f, C, n, m, dh, *, chunk: int):
+    """Gradients ``(dq, dk, dv, di, df)`` of :func:`mlstm_scan_ref`, each in its
+    input's dtype, from the saved chunk-start states ``(C, n, m)``.
+
+    The stabilizer drops out of h (``num`` and ``den`` both carry
+    ``exp(-m_t)``), so every ``m`` is held constant: no derivative of cummax.
+    In reverse over chunks, carrying dC (dqk, dv) and dn (dqk) of the
+    chunk-end state, each chunk's forward is rebuilt in fp32 and
+    ``dnum = dh / g`` with ``g = max(|den|, exp(-m_t))``, ``dden = -sign(den)
+    rowsum(dh * h) / g`` where ``|den| > exp(-m_t)``, else 0; ``dS = dnum v^T +
+    dden`` on s <= t; ``dP = dS * D`` feeds dq and dk, ``dlogD = dS * S`` feeds
+    ``di_s`` (column sums) and ``db`` (row minus column sums); the ``inter``
+    terms and the state update add to dq, dk, dv, ``db`` and the carried dC and
+    dn; ``df`` is the reverse cumulative sum of ``db`` within the chunk, since
+    ``b`` restarts each chunk.  Mirrors the CUDA kernel's factorisation.
+    """
+    qs, kf, vf, ii, ff, L, nc = _mlstm_inputs(q, k, v, i_raw, log_f, chunk)
+    dqk = q.shape[-1]
+    scale = dqk ** -0.5
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    dhf = dh.float()
+    dCe = torch.zeros_like(C[:, :, 0])
+    dne = torch.zeros_like(n[:, :, 0])
+    out: list[list[torch.Tensor]] = [[] for _ in range(5)]
+    for c in reversed(range(nc)):
+        sl = slice(c * L, (c + 1) * L)
+        qc, kc, vc, ic, dhc = qs[..., sl, :], kf[..., sl, :], vf[..., sl, :], ii[..., sl], \
+            dhf[..., sl, :]
+        Cc, ncur = C[:, :, c], n[:, :, c]
+        b, m_t, inter, w, decay, _ = _mlstm_gates(ic, ff[..., sl], m[:, :, c])
+        s, D = _mlstm_scores(qc, kc, b, ic, m_t)
+        qn = (qc @ ncur[..., None])[..., 0]
+        num = s @ vc + inter[..., None] * (qc @ Cc)
+        den = s.sum(-1) + inter * qn
+        floor = torch.exp(-m_t)
+        g = torch.maximum(den.abs(), floor)
+        h = num / g[..., None]
+        dnum = dhc / g[..., None]
+        dden = torch.where(den.abs() > floor, -torch.sign(den) * (dhc * h).sum(-1) / g, 0.0)
+        dS = torch.where(tri, dnum @ vc.transpose(-1, -2) + dden[..., None], 0.0)
+        dlogD, dP = dS * s, dS * D
+        G = dnum @ Cc.transpose(-1, -2)                      # (L, dqk): C dnum_t
+        Hk = vc @ dCe.transpose(-1, -2)                      # (L, dqk): dC v_s
+        dq = (dP @ kc + inter[..., None] * G + (inter * dden)[..., None] * ncur[..., None, :]) \
+            * scale
+        dlog_inter = inter * ((qc * G).sum(-1) + dden * qn)
+        dk = dP.transpose(-1, -2) @ qc + w[..., None] * Hk + w[..., None] * dne[..., None, :]
+        dlogw = w * ((kc * Hk).sum(-1) + (kc @ dne[..., None])[..., 0])
+        dv = s.transpose(-1, -2) @ dnum + w[..., None] * (kc @ dCe)
+        ddecay = (dCe * Cc).sum((-1, -2)) + (dne * ncur).sum(-1)
+        col = dlogD.sum(-2)
+        db = dlogD.sum(-1) - col + dlog_inter - dlogw
+        db[..., -1] += dlogw.sum(-1) + ddecay * decay
+        df = db.flip(-1).cumsum(-1).flip(-1)
+        for acc, t in zip(out, (dq, dk, dv, col + dlogw, df)):
+            acc.append(t)
+        dCe = decay[..., None, None] * dCe + (qc * inter[..., None]).transpose(-1, -2) @ dnum
+        dne = decay[..., None] * dne + ((inter * dden)[..., None] * qc).sum(-2)
+    grads = [torch.cat(acc[::-1], dim=2) for acc in out]
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v, i_raw, log_f)))

@@ -1,9 +1,12 @@
 """Where a training step spends its time on the card.
 
-    python -m repro_torch.launch.trace_train [--batch 8] [--seq 512] [--steps 3] \\
-        [--trace out.json]
+    python -m repro_torch.launch.trace_train [--arch qwen1.5-0.5b|xlstm-1.3b] [--batch 8] \\
+        [--seq 512] [--steps 3] [--trace out.json]
 
-Builds qwen1.5-0.5b at full width in bf16 from a seeded init with a fresh
+Builds the architecture (default qwen1.5-0.5b) at full width and depth in
+bf16 from a seeded init drawn on the card (xlstm-1.3b's 2.92 B draws are
+slow on the host, and the values do not change what is timed;
+``launch.train`` draws on the host instead), with a fresh
 AdamW state and runs ``make_train_step`` on one batch of the training
 corpus: two warm-up steps, ``--steps`` steps timed on the host clock around
 work that ends in a synchronize, and ``--steps`` more under
@@ -43,7 +46,8 @@ def main(argv=None) -> dict:
 
     model = build_model(ARCHS[args.arch], device="cuda")
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
-    params, opt = init_train_state(model, torch.Generator().manual_seed(args.seed), opt_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params, opt = init_train_state(model, gen, opt_cfg)
     spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, args.batch * 32),
                             seq_len=args.seq, vocab=model.cfg.vocab, seed=args.seed)
     toks, labels = next(iter(TokenLoader(spec, batch=args.batch, items_per_chunk=ITEMS_PER_CHUNK)))

@@ -1,18 +1,20 @@
 """Training launcher: the synthetic token corpus -> train loop with checkpoints.
 
-    python -m repro_torch.launch.train --arch qwen1.5-0.5b [--full-config] \\
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b|xlstm-1.3b [--full-config] \\
         [--device cuda|cpu] [--dtype bfloat16|float32] --steps 50 --batch 8 \\
         --seq 128 --ckpt-dir DIR
 
 The port of ``repro.launch.train``: its flags and loop.  The corpus is
 the JAX launcher's (``TokenDatasetSpec(dataset_id, max(256, batch * 32),
 seq, vocab, seed)`` at 16 items per chunk), read by :class:`TokenLoader`, so
-the batches are byte for byte the JAX loader's.  Each step is
-``DecoderLM.loss`` -> gradient -> ``adamw_update``; a checkpoint every
-``--ckpt-every`` steps and a final blocking one; a ``StragglerMonitor``, a
-``PreemptionGuard`` and ``run_with_restarts`` around the loop, which
-re-raises once its restart budget is spent.  The Hoard cluster that the
-JAX launcher stripes the corpus over (``build_cluster``,
+the batches are byte for byte the JAX loader's.  Each step is the model's
+``loss`` (``DecoderLM`` or ``XLSTM``) -> gradient -> ``adamw_update``; the
+initial parameters are drawn on the host from ``--seed`` and moved to the
+model's device, so a seed gives the same weights on every device.  A
+checkpoint every ``--ckpt-every`` steps and a final blocking one; a
+``StragglerMonitor``, a ``PreemptionGuard`` and ``run_with_restarts`` around
+the loop, which re-raises once its restart budget is spent.  The Hoard
+cluster that the JAX launcher stripes the corpus over (``build_cluster``,
 ``materialize_token_dataset``) is host-side simulator code that arrives with
 the stripe-store slice, and with it the JAX launcher's ``--data-root``.
 

@@ -1,7 +1,8 @@
-"""Models of the port: the dense decoder LM and its parameter layout."""
+"""Models of the port: the dense decoder LM, xLSTM and their parameter layout."""
 
 from . import params
 from .lm import DecoderLM
 from .registry import build_model
+from .xlstm import XLSTM
 
-__all__ = ["DecoderLM", "build_model", "params"]
+__all__ = ["DecoderLM", "XLSTM", "build_model", "params"]

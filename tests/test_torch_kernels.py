@@ -20,13 +20,17 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode_attention
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
+from repro.kernels.mlstm_scan import mlstm_scan as pallas_mlstm_scan
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro.kernels.swiglu import swiglu_mlp as pallas_swiglu
 from repro.models import layers as jlayers
+from repro.models.xlstm import mlstm_chunked
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import flash_attention_bwd as k_flash_bwd
+from repro_torch.kernels import mlstm_scan as k_mlstm
+from repro_torch.kernels import mlstm_scan_bwd as k_mlstm_bwd
 from repro_torch.kernels import rmsnorm as k_rmsnorm
 from repro_torch.kernels import rmsnorm_bwd as k_rmsnorm_bwd
 from repro_torch.kernels import swiglu as k_swiglu
@@ -370,3 +374,158 @@ def test_flash_wrapper_argument_checks():
     with pytest.raises(TypeError):
         k_flash.check_args(f32(2, 2, 5, 64), f32(2, 2, 7, 64, dtype=torch.bfloat16),
                            f32(2, 2, 7, 64))
+
+
+# ----------------------------------------------------------------- mLSTM scan
+def _mlstm_inputs(rng, B, H, S, dqk, dv, q_scale=1.0, f_lo=0.7):
+    """q, k, v, i_raw, log_f as tests/test_kernels.py draws them, as torch and jax pairs."""
+    arrays = [
+        (rng.normal(size=(B, H, S, dqk)) * q_scale).astype(np.float32),
+        rng.normal(size=(B, H, S, dqk)).astype(np.float32),
+        rng.normal(size=(B, H, S, dv)).astype(np.float32),
+        rng.normal(size=(B, H, S)).astype(np.float32),
+        np.log(rng.uniform(f_lo, 1.0, (B, H, S))).astype(np.float32),
+    ]
+    return [torch.from_numpy(a) for a in arrays], [jnp.asarray(a) for a in arrays]
+
+
+def _rel_close(got, want, tol):
+    """Within ``tol`` of the largest entry of ``want``."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("dqk,dv", [(16, 32), (32, 32)])
+def test_mlstm_plain_matches_jax(chunk, dqk, dv):
+    """The sweep of tests/test_kernels.py:130-141: against the interpret-mode
+    Pallas kernel and the sequential oracle (2e-3) and ``mlstm_chunked`` (1e-4)."""
+    B, H, S = 2, 2, 256
+    t, j = _mlstm_inputs(np.random.default_rng(chunk + dqk), B, H, S, dqk, dv)
+    h, C, n, m = ref.mlstm_scan_ref(*t, chunk=chunk)
+    nc = S // chunk
+    assert h.dtype == torch.float32 and h.shape == (B, H, S, dv)
+    assert C.shape == (B, H, nc, dqk, dv) and n.shape == (B, H, nc, dqk) and m.shape == (B, H, nc)
+    assert torch.count_nonzero(C[:, :, 0]) == 0 and bool((m[:, :, 0] == -1e30).all())
+    np.testing.assert_allclose(h.numpy(), np.asarray(pallas_mlstm_scan(*j, chunk=chunk,
+                                                                       interpret=True)),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jref.mlstm_ref(*j)), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(h.numpy(), np.asarray(mlstm_chunked(*j, chunk=chunk)),
+                               rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        assert torch.equal(ops.mlstm_scan(*t, chunk=chunk), h)
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 0.05], ids=["q", "small_q"])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_mlstm_bwd_plain_matches_jax_vjp(q_scale, chunk):
+    """dq, dk, dv, di, df of the plain backward (m held constant) against
+    ``jax.vjp`` of ``mlstm_chunked`` and torch autograd through the plain
+    forward, within 1e-4 of each gradient's largest entry.  With q scaled by
+    0.05 rows reach the ``exp(-m)`` floor of the denominator."""
+    B, H, S, dqk, dv = 2, 2, 256, 16, 32
+    rng = np.random.default_rng(int(q_scale * 100) + chunk)
+    t, j = _mlstm_inputs(rng, B, H, S, dqk, dv, q_scale=q_scale)
+    dh = rng.normal(size=(B, H, S, dv)).astype(np.float32)
+    h, C, n, m = ref.mlstm_scan_ref(*t, chunk=chunk)
+    got = ref.mlstm_scan_bwd_ref(*t, C, n, m, torch.from_numpy(dh), chunk=chunk)
+    assert [g.shape for g in got] == [x.shape for x in t]
+    _, vjp = jax.vjp(lambda *a: mlstm_chunked(*a, chunk=chunk), *j)
+    for g, w in zip(got, vjp(jnp.asarray(dh))):
+        _rel_close(g, w, 1e-4)
+    leaves = [x.detach().requires_grad_() for x in t]
+    auto = torch.autograd.grad(ref.mlstm_scan_ref(*leaves, chunk=chunk)[0], leaves,
+                               torch.from_numpy(dh))
+    for g, w in zip(got, auto):
+        _rel_close(g, w, 1e-4)
+    if q_scale < 1:       # some rows take the floor, so some dden are exactly 0
+        qs = t[0] * dqk ** -0.5
+        L = chunk
+        floor_hit = 0
+        for c in range(S // L):
+            sl = slice(c * L, (c + 1) * L)
+            b, m_t, inter, _, _, _ = ref._mlstm_gates(t[3][..., sl], t[4][..., sl], m[:, :, c])
+            s, _ = ref._mlstm_scores(qs[..., sl, :], t[1][..., sl, :], b, t[3][..., sl], m_t)
+            den = s.sum(-1) + inter * (qs[..., sl, :] @ n[:, :, c][..., None])[..., 0]
+            floor_hit += int((den.abs() <= torch.exp(-m_t)).sum())
+        assert floor_hit > 0
+
+
+def test_mlstm_ops_autograd_is_the_plain_backward():
+    """On the CPU, autograd through ``ops.mlstm_scan`` runs ``mlstm_scan_bwd_ref``;
+    non-contiguous inputs (the model's transposed views) give the same."""
+    rng = np.random.default_rng(21)
+    t, _ = _mlstm_inputs(rng, 1, 2, 96, 16, 32)
+    dh = torch.from_numpy(rng.normal(size=(1, 2, 96, 32)).astype(np.float32))
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in t[:3]] + t[3:]
+    leaves = [x.detach().requires_grad_() for x in views]
+    out = ops.mlstm_scan(*leaves, chunk=32)
+    auto = torch.autograd.grad(out, leaves, dh)
+    h, C, n, m = ref.mlstm_scan_ref(*t, chunk=32)
+    assert torch.equal(out.detach(), h)
+    for a, b in zip(auto, ref.mlstm_scan_bwd_ref(*t, C, n, m, dh, chunk=32)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_mlstm_ops_cpu_takes_dtypes_the_kernel_refuses():
+    """The kernel takes fp32 and bf16 only; on the CPU ``ops.mlstm_scan`` runs
+    the plain version for any float type, forward and backward."""
+    rng = np.random.default_rng(23)
+    t, _ = _mlstm_inputs(rng, 1, 2, 64, 16, 32)
+    t64 = [x.double() for x in t]
+    with pytest.raises(TypeError):
+        k_mlstm.check_args(*t64, chunk=32)
+    leaves = [x.detach().requires_grad_() for x in t64]
+    out = ops.mlstm_scan(*leaves, chunk=32)
+    h, C, n, m = ref.mlstm_scan_ref(*t64, chunk=32)
+    assert out.dtype == torch.float64 and torch.equal(out.detach(), h)
+    dh = torch.ones_like(h)
+    auto = torch.autograd.grad(out, leaves, dh)
+    for a, b in zip(auto, ref.mlstm_scan_bwd_ref(*t64, C, n, m, dh, chunk=32)):
+        assert a.dtype == torch.float64 and torch.equal(a, b)
+
+
+def test_mlstm_plain_bf16_is_fp32_inside():
+    """bf16 inputs run in fp32 and round once: the result is the fp32 result cast."""
+    rng = np.random.default_rng(22)
+    t, _ = _mlstm_inputs(rng, 1, 2, 64, 16, 32)
+    tb = [x.to(torch.bfloat16) for x in t]
+    h = ref.mlstm_scan_ref(*tb, chunk=32)[0]
+    assert h.dtype == torch.bfloat16
+    want = ref.mlstm_scan_ref(*[x.float() for x in tb], chunk=32)[0]
+    assert torch.equal(h, want.to(torch.bfloat16))
+
+
+def test_mlstm_wrappers_refuse_bad_arguments():
+    """A sequence that is not whole chunks, a wrong shape, mixed dtypes, a
+    strided view and a device without the kernel are refused, and no launch
+    is counted."""
+    f32 = torch.ones
+    good = (f32(1, 2, 64, 16), f32(1, 2, 64, 16), f32(1, 2, 64, 32), f32(1, 2, 64),
+            f32(1, 2, 64))
+    assert k_mlstm.check_args(*good, chunk=32) == 32
+    assert k_mlstm.check_args(*good, chunk=128) == 64         # L = min(chunk, S)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        k_mlstm.check_args(*good, chunk=48)
+    with pytest.raises(ValueError):
+        k_mlstm.check_args(good[0], f32(1, 2, 64, 8), *good[2:], chunk=32)
+    with pytest.raises(ValueError):
+        k_mlstm.check_args(*good[:3], f32(1, 2, 63), good[4], chunk=32)
+    with pytest.raises(TypeError):
+        k_mlstm.check_args(good[0].bfloat16(), *good[1:], chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_mlstm.check_args(good[0].transpose(1, 2).contiguous().transpose(1, 2), *good[1:],
+                           chunk=32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.mlstm_scan(*good, chunk=48)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.mlstm_scan(*(x.to("meta") for x in good), chunk=32)
+    before = (k_mlstm.launches, k_mlstm_bwd.launches)
+    with pytest.raises(ValueError, match="expected one GPU"):
+        k_mlstm.mlstm_scan_cuda(*good, chunk=32)
+    saved = k_mlstm.MLSTMSaved(*(f32(1) for _ in k_mlstm.MLSTMSaved._fields))
+    with pytest.raises(ValueError, match="expected one GPU"):
+        k_mlstm_bwd.mlstm_scan_bwd_cuda(*good, saved, f32(1, 2, 64, 32), chunk=32)
+    assert (k_mlstm.launches, k_mlstm_bwd.launches) == before

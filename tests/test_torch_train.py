@@ -344,6 +344,12 @@ def test_trace_groups_only_the_port_kernels_by_name():
 
     assert {"flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
             "rmsnorm_bwd_kernel", "swiglu_gate_bwd_kernel"} <= PORT_KERNELS
+    assert {"mlstm_gates_kernel", "mlstm_fwd_gemm_kernel", "mlstm_decay_mask_kernel",
+            "mlstm_state_scan_kernel", "mlstm_fwd_out_kernel", "mlstm_bwd_prep_kernel",
+            "mlstm_dstate_scan_kernel", "mlstm_bwd_gemm_kernel", "mlstm_bwd_ds_kernel",
+            "mlstm_bwd_combine_kernel", "mlstm_bwd_gates_kernel"} <= PORT_KERNELS
+    assert kernel_group("void (anonymous namespace)::mlstm_state_scan_kernel<__nv_bfloat16, "
+                        "__nv_bfloat16>(mlstm::Scan)") == "mlstm_state_scan_kernel"
     assert kernel_group("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 16>(x)") \
         == "flash_fwd_kernel"
     assert kernel_group("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT") == "cublas"
