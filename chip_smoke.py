@@ -17,12 +17,19 @@ prints no result line):
    and a small one.  Then each kernel's time beside its plain version's,
    one PyTorch library call's, and its bound from bytes and operations.
    Also the mLSTM forward and backward (xlstm-1.3b's core) at the sweep of
-   ``tests/test_kernels.py:130-141`` and the training shape, fp32 and bf16.
+   ``tests/test_kernels.py:130-141`` and the training shape, fp32 and bf16;
+   the SSD scan forward and backward (hymba-1.5b's core) at the sweep of
+   ``tests/test_extensions.py:19-30``, a chunk shorter than its length, a
+   padded sequence (through ``models.hymba.ssd_scan``), the smoke shape and
+   the training shape, fp32 and bf16; flash attention forward and backward
+   at hymba-1.5b's training shapes (25 query heads over 5, 2176 positions,
+   window 1024 and 0).
 4. full width: qwen1.5-0.5b in fp32, one ``decode_step`` on the card against
    the same weights on the CPU; then, cut to 4 layers, ``loss`` and every
    gradient leaf on a (2, 200) batch against the CPU; then xlstm-1.3b in
    fp32 cut to 8 layers (7 mLSTM + 1 sLSTM), ``loss``, every gradient leaf
-   and ``prefill`` on a (1, 256) batch against the CPU.
+   and ``prefill`` on a (1, 256) batch against the CPU; then hymba-1.5b in
+   fp32 cut to 4 layers and a window of 256, the same on a (1, 384) batch.
 5. serve: a small fp32 serve on the card against the CPU, token for token;
    then qwen1.5-0.5b in bf16 through ``repro_torch.launch.serve.main``
    (8 requests, prompt 128, 32 new tokens) with the kernels' launch counts
@@ -37,9 +44,13 @@ prints no result line):
    depth (48 layers), batch 4 x seq 512 from the launcher's corpus, 4 steps
    of ``make_train_step`` with the launch counts set to 0 just before and
    checked per step just after, and 8 steps on a fixed (2, 128) batch.
-8. output: one ``{"serve": ...}``, ``{"train": ...}``, ``{"train_xlstm":
-   ...}`` and ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. train Hymba: the same for hymba-1.5b: ``launch.train.main`` at its smoke
+   config with a checkpoint, then the full model in bf16 (32 layers), batch
+   2 x seq 2048 from the launcher's corpus, 4 steps with the launch counts
+   checked per step, and 8 steps on a fixed (2, 128) batch.
+9. output: one ``{"serve": ...}``, ``{"train": ...}``, ``{"train_xlstm":
+   ...}``, ``{"train_hymba": ...}`` and ``{"kernels": [...]}`` line, then
+   the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -105,6 +116,26 @@ MLSTM_SHAPES = tuple((2, 2, 256, dqk, dv, chunk) for chunk in (32, 64, 128)
 #: mLSTM outputs and gradients, relative to the largest entry (entries grow with
 #: dqk): tests/test_kernels.py:154 in fp32, one bf16 rounding in bf16
 MLSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+HYMBA = "hymba-1.5b"
+HYMBA_TRAIN = dict(batch=2, seq=2048, steps=4)
+#: kernel launches per training step of hymba-1.5b (32 blocks: 4 norms, one
+#: attention, one scan and one SwiGLU each; the final norm)
+HYMBA_PER_STEP = {"rmsnorm": 4 * 32 + 1, "rmsnorm_bwd": 4 * 32 + 1, "swiglu": 32,
+                  "swiglu_bwd": 32, "flash_attention": 32, "flash_attention_bwd": 32,
+                  "ssd_scan": 32, "ssd_scan_bwd": 32, "mlstm_scan": 0, "mlstm_scan_bwd": 0,
+                  "decode_attention": 0}
+#: (B, S, H, N, chd, chunk): the sweep of tests/test_extensions.py:19-30; a chunk
+#: longer than the sequence (L = 40, not a multiple of 16); the smoke config's
+#: shape (seq 64 + 8 meta tokens, padded to 3 chunks of 32; chd 128); the
+#: training shape of hymba-1.5b (seq 2048 + 128 meta tokens, chd 400)
+SSD_SHAPES = tuple((2, 128, 2, N, chd, chunk) for chunk in (32, 64)
+                   for N, chd in ((8, 16), (16, 32))) + (
+    (1, 40, 3, 16, 48, 128), (2, 96, 2, 16, 128, 32), (2, 2176, 8, 16, 400, 128))
+#: SSD outputs and gradients, relative to the largest entry, as the mLSTM's:
+#: fp32 sums in another order, one bf16 rounding of each output in bf16
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: (B, Hq, Hkv, S, hd, window): hymba-1.5b's attention at its training shape
+HYMBA_FLASH = ((2, 25, 5, 2176, 64, 1024), (2, 25, 5, 2176, 64, 0))
 #: dense peak rates by input type (NVIDIA H100 SXM data sheet, no sparsity)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -317,22 +348,74 @@ def check_decode_attention(gen, ops, ref, rate):
     }
 
 
-def flash_bound(B, H, S, hd, causal, rate, *, backward: bool) -> tuple[float, str]:
-    """Bytes: q, k, v, out (and dO, dq, dk, dv) once, lse in fp32; operations:
-    4 hd per visible pair forward, 10 hd backward (bf16 rate)."""
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    elems = B * H * S * hd
+def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool) -> tuple[float, str]:
+    """Causal self-attention.  Bytes: q, out (and dO, dq) over Hq heads, k, v (and
+    dk, dv) over Hkv, lse in fp32, once each; operations: 4 hd per visible (causal,
+    in-window) pair forward, 10 hd backward (bf16 rate)."""
+    visible = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    pairs = B * Hq * visible
+    q_elems, kv_elems = B * Hq * S * hd, B * Hkv * S * hd
     if backward:
-        return bound(8 * elems * 2 + 2 * B * H * S * 4, 10 * hd * pairs, torch.bfloat16, rate)
-    return bound(4 * elems * 2 + B * H * S * 4, 4 * hd * pairs, torch.bfloat16, rate)
+        return bound(4 * (q_elems + kv_elems) * 2 + B * Hq * S * 4, 10 * hd * pairs,
+                     torch.bfloat16, rate)
+    return bound(2 * (q_elems + kv_elems) * 2 + B * Hq * S * 4, 4 * hd * pairs,
+                 torch.bfloat16, rate)
+
+
+def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, dict]:
+    """Flash forward and backward times in bf16 at one causal self-attention shape,
+    beside the plain versions', SDPA's (with a boolean band mask where the
+    window bites) and the bound."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import flash_attention_bwd as kb
+
+    dt = torch.bfloat16
+    mask = ref.attention_mask(S, S, causal=True, window=window, q_offset=0, device="cuda")
+    sets = [(randn(gen, (B, Hq, S, hd), dt), randn(gen, (B, Hkv, S, hd), dt),
+             randn(gen, (B, Hkv, S, hd), dt), randn(gen, (B, Hq, S, hd), dt)) for _ in range(2)]
+    fwd_sets = [st[:3] for st in sets]
+    saved = [(q, k, v, *kf.flash_attention_cuda(q, k, v, window=window), do)
+             for q, k, v, do in sets]
+
+    def lib(q, k, v):
+        if window:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=Hq != Hkv)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=Hq != Hkv)
+
+    q, k, v, dout = sets[0]
+    lib_bwd, lib_both = grad_ms(lib, (q, k, v), dout, 5)
+    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=False)
+    fwd = {
+        "ms": time_ms(lambda q, k, v: kf.flash_attention_cuda(q, k, v, window=window),
+                      fwd_sets, 5),
+        "plain_ms": time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, window=window),
+                            fwd_sets, 3),
+        "library_ms": time_ms(lib, fwd_sets, 5), "bound_ms": b_ms, "bound_by": b_by,
+    }
+    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=True)
+    bwd = {
+        "ms": time_ms(lambda *a: kb.flash_attention_bwd_cuda(*a, window=window), saved, 5),
+        "plain_ms": time_ms(lambda *a: ref.flash_attention_bwd_ref(*a, window=window), saved, 3),
+        "library_ms": lib_bwd,
+        "fwd_bwd_ms": time_ms(lambda q, k, v, do: torch.autograd.grad(
+            ops.flash_attention(q, k, v, window=window), (q, k, v), do),
+            [tuple(t.detach().requires_grad_() for t in st[:3]) + (st[3],) for st in sets], 5),
+        "library_fwd_bwd_ms": lib_both, "bound_ms": b_ms, "bound_by": b_by,
+    }
+    return fwd, bwd
 
 
 def check_flash(gen, ops, ref, rate):
+    """Flash forward and backward against the plain versions at FLASH_SHAPES and
+    hymba-1.5b's shapes (HYMBA_FLASH), fp32 and bf16; autograd through
+    ``ops.flash_attention`` against the plain backward; times at the qwen
+    training shape (the rows) and at hymba-1.5b's (their ``hymba`` lists)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
     errs, gerrs = {}, {}
-    for B, Hq, Hkv, Sq, Skv, hd, causal, window in FLASH_SHAPES:
+    hymba = [(B, Hq, Hkv, S, S, hd, True, w) for B, Hq, Hkv, S, hd, w in HYMBA_FLASH]
+    for B, Hq, Hkv, Sq, Skv, hd, causal, window in FLASH_SHAPES + tuple(hymba):
         for dt in (torch.float32, torch.bfloat16):
             mask = dict(causal=causal, window=window)
             q = randn(gen, (B, Hq, Sq, hd), dt)
@@ -348,6 +431,7 @@ def check_flash(gen, ops, ref, rate):
             got = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
             exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask)
             gerrs[key] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp))
+            del q, k, v, dout, out, lse, want, want_lse, got, exp
     print(f"[kernels] flash_attention errors {errs}")
     print(f"[kernels] flash_attention_bwd errors {gerrs}")
 
@@ -359,38 +443,21 @@ def check_flash(gen, ops, ref, rate):
     for a, b in zip(auto, ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout)):
         max_err(a, b, GRAD_TOL[torch.float32])
 
-    B, H, _, S, _, hd, causal, _ = FLASH_SHAPES[-1]
-    dt = torch.bfloat16
-    sets = [tuple(randn(gen, (B, H, S, hd), dt) for _ in range(4)) for _ in range(2)]
-    fwd_sets = [s[:3] for s in sets]
-    saved = [(q, k, v, *kf.flash_attention_cuda(q, k, v), do) for q, k, v, do in sets]
+    B, H, _, S, _, hd, _, _ = FLASH_SHAPES[-1]
+    key = (B, H, H, S, S, hd, True, 0, "bfloat16")
+    fwd, bwd = flash_times(gen, ops, ref, rate, B, H, H, S, hd, 0)
     shape = f"q, k, v ({B}, {H}, {S}, {hd}) causal bf16"
-    key = (B, H, H, S, S, hd, causal, 0, "bfloat16")
-    b_ms, b_by = flash_bound(B, H, S, hd, causal, rate, backward=False)
-    fwd = {
-        "name": "flash_attention", "shape": shape, "max_abs_err": errs[key],
-        "ms": time_ms(lambda q, k, v: kf.flash_attention_cuda(q, k, v), fwd_sets, 5),
-        "plain_ms": time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v), fwd_sets, 3),
-        "library_ms": time_ms(
-            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True), fwd_sets, 5),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
-    q, k, v, dout = sets[0]
-    lib_bwd, lib_both = grad_ms(
-        lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True), (q, k, v),
-        dout, 5)
-    b_ms, b_by = flash_bound(B, H, S, hd, causal, rate, backward=True)
-    bwd = {
-        "name": "flash_attention_bwd", "shape": shape, "max_abs_err": gerrs[key],
-        "ms": time_ms(kb.flash_attention_bwd_cuda, saved, 5),
-        "plain_ms": time_ms(ref.flash_attention_bwd_ref, saved, 3),
-        "library_ms": lib_bwd,
-        "fwd_bwd_ms": time_ms(lambda q, k, v, do: torch.autograd.grad(
-            ops.flash_attention(q, k, v), (q, k, v), do),
-            [tuple(t.detach().requires_grad_() for t in s[:3]) + (s[3],) for s in sets], 5),
-        "library_fwd_bwd_ms": lib_both,
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+    fwd = {"name": "flash_attention", "shape": shape, "max_abs_err": errs[key], **fwd,
+           "hymba": []}
+    bwd = {"name": "flash_attention_bwd", "shape": shape, "max_abs_err": gerrs[key], **bwd,
+           "hymba": []}
+    for B, Hq, Hkv, S, _, hd, _, window in hymba:
+        key = (B, Hq, Hkv, S, S, hd, True, window, "bfloat16")
+        shape = f"q ({B}, {Hq}, {S}, {hd}), k, v ({B}, {Hkv}, {S}, {hd}), window {window} bf16"
+        f, b = flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window)
+        fwd["hymba"].append({"shape": shape, "max_abs_err": errs[key], **f})
+        bwd["hymba"].append({"shape": shape, "max_abs_err": gerrs[key], **b})
+        torch.cuda.empty_cache()
     return fwd, bwd
 
 
@@ -574,6 +641,110 @@ def check_mlstm(gen, ops, ref, rate):
     return fwd, bwd
 
 
+def ssd_inputs(gen, B, S, H, N, chd, dt):
+    """lf (fp32), b, x, c as tests/test_extensions.py draws them, and a dy."""
+    lf = torch.log(torch.rand((B, S, H), generator=gen) * 0.3 + 0.7).cuda()
+    b, c = randn(gen, (B, S, H, N), dt, 0.3), randn(gen, (B, S, H, N), dt, 0.3)
+    return (lf, b, randn(gen, (B, S, H, chd), dt), c), randn(gen, (B, S, H, chd), dt)
+
+
+def ssd_bound(B, S, H, N, chd, chunk, rate, *, backward: bool) -> tuple[float, str]:
+    """Operations the forward needs, per (b, h): ``c b^T`` and its product with
+    x over each chunk's causal pairs, L (L + 1) / 2 of them at 2 (N + chd)
+    each; the read-out ``h c`` of every chunk but the first (h is 0 there) and
+    the state update of every chunk but the last (its state is never read), 2
+    L N chd each.  Bytes: lf (fp32), b, x, c read and y (and the fp32 h_last)
+    written once.  The backward does each product's two gradient products
+    (twice the operations), reads lf, b, x, c and dy and writes their four
+    gradients once."""
+    L = min(chunk, S)
+    nc = S // L
+    bsh = B * S * H
+    ops_fwd = B * H * (nc * L * (L + 1) * (N + chd) + 2 * (nc - 1) * 2 * L * N * chd)
+    if backward:
+        return bound(bsh * (8 + (4 * N + 3 * chd) * 2), 2 * ops_fwd, torch.bfloat16, rate)
+    return bound(bsh * (4 + (2 * N + 2 * chd) * 2) + B * H * chd * N * 4, ops_fwd,
+                 torch.bfloat16, rate)
+
+
+def check_ssd(gen, ops, ref, rate):
+    """ssd_scan and its backward against the plain versions at SSD_SHAPES: y,
+    h_last and the chunk-start states, then the four gradients from each
+    side's own saved states; a padded sequence through ``models.hymba.ssd_scan``
+    and autograd through ``ops.ssd_scan`` against the plain backward; times at
+    the training shape in bf16."""
+    from repro_torch.kernels import ssd_scan as kf
+    from repro_torch.kernels import ssd_scan_bwd as kb
+    from repro_torch.models import hymba
+
+    errs, gerrs = {}, {}
+    states_tol = SSD_TOL[torch.float32]       # fp32 on both sides, whatever the inputs' type
+    for B, S, H, N, chd, chunk in SSD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = ssd_inputs(gen, B, S, H, N, chd, dt)
+            y, h_last, saved = kf.ssd_scan_cuda(*x, chunk=chunk)
+            want, want_h, states = ref.ssd_scan_ref(*x, chunk=chunk)
+            key = (B, S, H, N, chd, chunk, str(dt)[6:])
+            errs[key] = max(rel_err(y, want, SSD_TOL[dt]), rel_err(h_last, want_h, states_tol),
+                            rel_err(saved.states, states, states_tol), key=lambda e: e[1])
+            got = kb.ssd_scan_bwd_cuda(*x, saved, dy, chunk=chunk)
+            exp = ref.ssd_scan_bwd_ref(*x, states, dy, chunk=chunk)
+            gerrs[key] = max((rel_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp)),
+                             key=lambda e: e[1])
+    torch.cuda.synchronize()
+    print(f"[kernels] ssd_scan (y, h_last, states) errors, (max abs, over the largest entry) "
+          f"{errs}")
+    print(f"[kernels] ssd_scan_bwd errors (dlf, db, dx, dc), (max abs, over the largest "
+          f"entry) {gerrs}")
+
+    # a padded sequence through the model's scan, and autograd through ops.ssd_scan,
+    # against the plain forward and backward on the padded inputs
+    x, dy = ssd_inputs(gen, 2, 72, 2, 16, 128, torch.float32)
+    leaves = [t.requires_grad_() for t in x]
+    y, h_last = hymba.ssd_scan(*leaves, chunk=32)
+    auto = torch.autograd.grad(y, leaves, dy)
+    padded = [torch.cat([t.detach(), t.new_zeros((t.shape[0], 24, *t.shape[2:]))], 1) for t in x]
+    want, want_h, states = ref.ssd_scan_ref(*padded, chunk=32)
+    rel_err(y, want[:, :72], SSD_TOL[torch.float32])
+    rel_err(h_last, want_h, states_tol)
+    dy_pad = torch.cat([dy, dy.new_zeros((2, 24, 2, 128))], 1)
+    for a, b in zip(auto, ref.ssd_scan_bwd_ref(*padded, states, dy_pad, chunk=32)):
+        rel_err(a, b[:, :72], GRAD_TOL[torch.float32])
+
+    B, S, H, N, chd, chunk = SSD_SHAPES[-1]
+    dt = torch.bfloat16
+    sets = [ssd_inputs(gen, B, S, H, N, chd, dt) for _ in range(2)]
+    fwd_sets = [x for x, _ in sets]
+    saved = [(*x, kf.ssd_scan_cuda(*x, chunk=chunk)[2], dy) for x, dy in sets]
+    plain_saved = [(*x, ref.ssd_scan_ref(*x, chunk=chunk)[2], dy) for x, dy in sets]
+    shape = f"lf ({B}, {S}, {H}), b, c ({B}, {S}, {H}, {N}), x ({B}, {S}, {H}, {chd}), " \
+            f"chunk {chunk} bf16"
+    key = (B, S, H, N, chd, chunk, "bfloat16")
+    note = "no PyTorch call computes the SSD chunked scan"
+    b_ms, b_by = ssd_bound(B, S, H, N, chd, chunk, rate, backward=False)
+    fwd = {
+        "name": "ssd_scan", "shape": shape, "max_abs_err": errs[key][0],
+        "max_rel_err": errs[key][1],
+        "ms": time_ms(lambda *x: kf.ssd_scan_cuda(*x, chunk=chunk), fwd_sets, 5),
+        "plain_ms": time_ms(lambda *x: ref.ssd_scan_ref(*x, chunk=chunk), fwd_sets, 3),
+        "library_ms": None, "library_note": note,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    b_ms, b_by = ssd_bound(B, S, H, N, chd, chunk, rate, backward=True)
+    bwd = {
+        "name": "ssd_scan_bwd", "shape": shape, "max_abs_err": gerrs[key][0],
+        "max_rel_err": gerrs[key][1],
+        "ms": time_ms(lambda *a: kb.ssd_scan_bwd_cuda(*a, chunk=chunk), saved, 5),
+        "plain_ms": time_ms(lambda *a: ref.ssd_scan_bwd_ref(*a, chunk=chunk), plain_saved, 3),
+        "fwd_bwd_ms": time_ms(lambda *a: torch.autograd.grad(
+            ops.ssd_scan(*a[:4], chunk=chunk)[0], a[:4], a[4]),
+            [tuple(t.detach().requires_grad_() for t in x) + (dy,) for x, dy in sets], 5),
+        "library_ms": None, "library_note": note,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    return fwd, bwd
+
+
 def phase_full_width() -> None:
     """qwen1.5-0.5b in fp32: one decode_step on the card against the CPU."""
     from repro_torch.configs import ARCHS
@@ -646,37 +817,60 @@ def phase_full_width_grad() -> None:
           f"gradient leaves, worst max |diff| / max |grad| {worst:.3e}")
 
 
-def phase_xlstm_full_width() -> None:
-    """xlstm-1.3b at full width in fp32, cut to 8 layers (one group: 7 mLSTM
-    blocks and 1 sLSTM block): ``loss``, every gradient leaf and ``prefill``
-    on a (1, 256) batch, two chunks of 128 so that the carried state is
-    crossed, on the card against the CPU."""
-    from repro_torch.configs import ARCHS
+def full_width_vs_cpu(cfg, seed: int, seq: int, label: str) -> None:
+    """``loss``, every gradient leaf and ``prefill`` of ``cfg`` (fp32) on a (1,
+    ``seq``) batch on the card against the same weights on the CPU: the loss
+    within 2e-3, each leaf within 2e-3 of its largest entry, the logits within
+    2e-3 (absolute and relative), the same argmax."""
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
 
-    cfg = dataclasses.replace(ARCHS[XLSTM], dtype="float32", n_layers=8)
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
-    gen = torch.Generator().manual_seed(2)
+    gen = torch.Generator().manual_seed(seed)
     p_cpu = cpu.init_params(gen)
     p_gpu = PM.tree_map(lambda t: t.to("cuda"), p_cpu)
-    toks = torch.randint(0, cfg.vocab, (1, 257), generator=gen)
+    toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     want, g_cpu = _loss_and_grads(cpu, p_cpu, batch)
     got, g_gpu = _loss_and_grads(gpu, p_gpu, {k: t.cuda() for k, t in batch.items()})
     if not (math.isfinite(got) and abs(got - want) <= 2e-3):
-        raise AssertionError(f"8-layer fp32 xLSTM loss: card {got} cpu {want}")
+        raise AssertionError(f"{label} loss: card {got} cpu {want}")
     worst = max(rel_err(a.cpu(), b, 2e-3)[1] for a, b in zip(g_gpu, g_cpu))
     l_cpu = cpu.prefill(p_cpu, {"tokens": batch["tokens"]})
     l_gpu = gpu.prefill(p_gpu, {"tokens": batch["tokens"].cuda()}).cpu()
     if l_gpu.shape != (1, 1, cfg.vocab) or not torch.isfinite(l_gpu).all():
         raise AssertionError(f"prefill logits of shape {tuple(l_gpu.shape)} or not finite")
     torch.testing.assert_close(l_gpu, l_cpu, rtol=2e-3, atol=2e-3)
+    _, logit_rel = rel_err(l_gpu, l_cpu, 2e-3)
     if not torch.equal(l_gpu.argmax(-1), l_cpu.argmax(-1)):
         raise AssertionError("prefill argmax differs between the card and the CPU")
-    print(f"[full-width] fp32 8-layer xLSTM loss card {got:.6f} cpu {want:.6f}; "
-          f"{len(g_cpu)} gradient leaves, worst max |diff| / max |grad| {worst:.3e}; prefill "
-          f"max |logit diff| {float((l_gpu - l_cpu).abs().max()):.3e}, argmax equal")
+    print(f"[full-width] {label} loss card {got:.6f} cpu {want:.6f}; {len(g_cpu)} gradient "
+          f"leaves, worst max |diff| / max |grad| {worst:.3e}; prefill max |logit diff| / max "
+          f"|logit| {logit_rel:.3e}, argmax equal")
+
+
+def phase_xlstm_full_width() -> None:
+    """xlstm-1.3b at full width in fp32, cut to 8 layers (one group: 7 mLSTM
+    blocks and 1 sLSTM block), on a (1, 256) batch: two chunks of 128, so
+    that the carried state is crossed."""
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[XLSTM], dtype="float32", n_layers=8)
+    full_width_vs_cpu(cfg, 2, 256, "fp32 8-layer xLSTM")
+
+
+def phase_hymba_full_width() -> None:
+    """hymba-1.5b at full width in fp32 on a (1, 384) batch.  Cuts: 4 layers
+    (global layers 0 and 3, so one run of 2 sliding-window blocks), and a
+    window of 256 instead of 1024, so that the window bites at 384 + 128 meta
+    positions (4 chunks of 128, so that the carried state is crossed); the
+    CPU side then takes seconds."""
+    from repro_torch.configs import ARCHS
+
+    full = ARCHS[HYMBA]
+    cfg = dataclasses.replace(full, dtype="float32", n_layers=4, hybrid=dataclasses.replace(
+        full.hybrid, global_layers=(0, 3), sliding_window=256))
+    full_width_vs_cpu(cfg, 3, 384, "fp32 4-layer Hymba")
 
 
 def phase_serve(kernel_modules) -> dict:
@@ -763,17 +957,17 @@ def phase_train(kernel_modules) -> dict:
             "ckpt_seconds": res["ckpt_seconds"], "fixed_batch_losses": fixed}
 
 
-def phase_train_xlstm(kernel_modules) -> dict:
-    """xlstm-1.3b on the card.  First ``launch.train.main`` at the smoke config
-    (seq 64, 2 steps, its checkpoint in a temporary directory under
-    ``build/``), so the launcher's path runs on the card.  Then the full
-    model in bf16 at full width and depth, batch 4 x 512 from the launcher's
-    corpus (``TokenDatasetSpec``, ``TokenLoader``, AdamW as the launcher sets
-    it), parameters drawn on a CUDA generator, 4 steps of ``make_train_step``
-    with the launch counts set to 0 just before and checked per step just
-    after; then 8 steps on a fixed (2, 128) batch, whose loss must fall by
-    0.05.  Cut: the launcher's final checkpoint, 41 GB at this size, is not
-    written at full depth."""
+def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag: str):
+    """An architecture on the card.  First ``launch.train.main`` at its smoke
+    config (seq 64, 2 steps, its checkpoint in a temporary directory under
+    ``build/``), so the launcher's path runs on the card.  Then the full model
+    in bf16 at full width and depth, ``shape``'s batch x seq from the
+    launcher's corpus (``TokenDatasetSpec``, ``TokenLoader``, AdamW as the
+    launcher sets it), parameters drawn on a CUDA generator, ``shape``'s steps
+    of ``make_train_step`` with the launch counts set to 0 just before and
+    checked against ``per_step`` just after; then 8 steps on a fixed (2, 128)
+    batch, whose loss must fall by 0.05.  Tokens are the batch's text tokens.
+    Returns ``(model, params, result)``."""
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenDatasetSpec, TokenLoader
     from repro_torch.launch import train
@@ -782,19 +976,19 @@ def phase_train_xlstm(kernel_modules) -> dict:
 
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
-        res = train.main(["--arch", XLSTM, "--device", "cuda", "--steps", "2", "--batch", "2",
+        res = train.main(["--arch", arch, "--device", "cuda", "--steps", "2", "--batch", "2",
                           "--seq", "64", "--ckpt-dir", ckpt_dir])
         if not (Path(ckpt_dir) / "step_000002" / "_COMMITTED").is_file():
-            raise AssertionError("the xLSTM launcher wrote no final checkpoint")
+            raise AssertionError(f"the {arch} launcher wrote no final checkpoint")
     if res["restarts"] or not all(math.isfinite(x) for x in res["losses"]):
-        raise AssertionError(f"xLSTM launcher: {res['restarts']} restarts, losses {res['losses']}")
-    print(f"[train_xlstm] launcher at the smoke config on the card: losses {res['losses']}")
+        raise AssertionError(f"{arch} launcher: {res['restarts']} restarts, losses {res['losses']}")
+    print(f"[{tag}] launcher at the smoke config on the card: losses {res['losses']}")
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    B, S, steps = XLSTM_TRAIN["batch"], XLSTM_TRAIN["seq"], XLSTM_TRAIN["steps"]
-    model = build_model(ARCHS[XLSTM], device="cuda")
+    B, S, steps = shape["batch"], shape["seq"], shape["steps"]
+    model = build_model(ARCHS[arch], device="cuda")
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
     t0 = time.perf_counter()
     params, opt = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt_cfg)
@@ -818,14 +1012,14 @@ def phase_train_xlstm(kernel_modules) -> dict:
     counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernel_modules}
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"xLSTM train losses {losses}")
-    for name, per_step in XLSTM_PER_STEP.items():
-        if counts[name] != per_step * steps:
-            raise AssertionError(f"{name}: {counts[name]} launches in the xLSTM train run, "
-                                 f"expected {per_step} x {steps} steps")
+        raise AssertionError(f"{arch} train losses {losses}")
+    for name, n in per_step.items():
+        if counts[name] != n * steps:
+            raise AssertionError(f"{name}: {counts[name]} launches in the {arch} train run, "
+                                 f"expected {n} x {steps} steps")
     median = statistics.median(step_ms[1:])
     tokens_per_s = B * S / (median / 1e3)
-    print(f"[train_xlstm] launches {counts}; losses {losses}; step ms {step_ms}; median "
+    print(f"[{tag}] launches {counts}; losses {losses}; step ms {step_ms}; median "
           f"{median:.3f} ms over steps 2-{steps}, {tokens_per_s:.1f} tokens/s, peak "
           f"{peak / 2**30:.3f} GiB; init {init_s:.2f} s")
 
@@ -839,13 +1033,33 @@ def phase_train_xlstm(kernel_modules) -> dict:
         fixed.append(float(metrics["loss"]))
     if not fixed[-1] < fixed[0] - 0.05:
         raise AssertionError(f"fixed-batch losses did not fall by 0.05: {fixed}")
-    print(f"[train_xlstm] fixed batch (2, 128), 8 steps: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
-    blocks = xlstm_block_ms(model, params, B, S)
-    print(f"[train_xlstm] one block forward + backward at ({B}, {S}): {blocks}")
-    return {"counts": counts, "steps": steps, "batch": B, "seq": S, "losses": losses,
-            "step_ms": step_ms, "median_step_ms": median, "tokens_per_s": tokens_per_s,
-            "peak_memory_bytes": peak, "init_seconds": init_s, "fixed_batch_losses": fixed,
-            "launcher_smoke_losses": res["losses"], **blocks}
+    print(f"[{tag}] fixed batch (2, 128), 8 steps: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
+    return model, params, {
+        "counts": counts, "steps": steps, "batch": B, "seq": S, "tokens_per_step": B * S,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": median,
+        "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak, "init_seconds": init_s,
+        "fixed_batch_losses": fixed, "launcher_smoke_losses": res["losses"]}
+
+
+def phase_train_xlstm(kernel_modules) -> dict:
+    """xlstm-1.3b: ``train_full_depth`` at batch 4 x 512, then one mLSTM and one
+    sLSTM block timed.  Cut: the launcher's final checkpoint, 41 GB at this
+    size, is not written at full depth."""
+    model, params, res = train_full_depth(XLSTM, XLSTM_TRAIN, XLSTM_PER_STEP, kernel_modules,
+                                          "train_xlstm")
+    blocks = xlstm_block_ms(model, params, res["batch"], res["seq"])
+    print(f"[train_xlstm] one block forward + backward at ({res['batch']}, {res['seq']}): "
+          f"{blocks}")
+    return {**res, **blocks}
+
+
+def phase_train_hymba(kernel_modules) -> dict:
+    """hymba-1.5b: ``train_full_depth`` at batch 2 x 2048 (32 layers, 1.66 B
+    parameters).  Each step holds 4096 text tokens; the 128 meta tokens of a
+    sequence are not counted.  Cut: the launcher's final checkpoint, 23 GB at
+    this size, is not written at full depth."""
+    res = train_full_depth(HYMBA, HYMBA_TRAIN, HYMBA_PER_STEP, kernel_modules, "train_hymba")[2]
+    return {**res, "tokens_counted": "text tokens only, not the 128 meta tokens a sequence"}
 
 
 def xlstm_block_ms(model, params, B, S) -> dict:
@@ -890,16 +1104,21 @@ REPLACES = {
     "mlstm_scan": ("src/repro/kernels/mlstm_scan.py:25", "csrc/mlstm_scan.cu", 0),
     "mlstm_scan_bwd": ("XLA autodiff of src/repro/models/xlstm.py:36 mlstm_chunked",
                        "csrc/mlstm_scan_bwd.cu", 0),
+    "ssd_scan": ("src/repro/kernels/ssd_scan.py:27", "csrc/ssd_scan.cu", 0),
+    "ssd_scan_bwd": ("XLA autodiff of src/repro/models/hymba.py:126 ssd_scan",
+                     "csrc/ssd_scan_bwd.cu", 0),
 }
 MODULE_OF = {"rmsnorm": "rmsnorm", "swiglu_mlp": "swiglu", "decode_attention": "decode_attention",
              "flash_attention": "flash_attention", "flash_attention_bwd": "flash_attention_bwd",
              "rmsnorm_bwd": "rmsnorm_bwd", "swiglu_mlp_bwd": "swiglu_bwd",
-             "mlstm_scan": "mlstm_scan", "mlstm_scan_bwd": "mlstm_scan_bwd"}
+             "mlstm_scan": "mlstm_scan", "mlstm_scan_bwd": "mlstm_scan_bwd",
+             "ssd_scan": "ssd_scan", "ssd_scan_bwd": "ssd_scan_bwd"}
 #: the run whose launches a row reports as ``launches``: its slice's main path
 MAIN_RUN = {"rmsnorm": "serve", "swiglu_mlp": "serve", "decode_attention": "serve",
             "flash_attention": "train", "flash_attention_bwd": "train", "rmsnorm_bwd": "train",
             "swiglu_mlp_bwd": "train", "mlstm_scan": "train_xlstm",
-            "mlstm_scan_bwd": "train_xlstm"}
+            "mlstm_scan_bwd": "train_xlstm", "ssd_scan": "train_hymba",
+            "ssd_scan_bwd": "train_hymba"}
 
 
 def main() -> None:
@@ -918,17 +1137,22 @@ def main() -> None:
     rows["rmsnorm_bwd"] = check_rmsnorm_bwd(gen, ops, ref, rate)
     rows["swiglu_mlp_bwd"] = check_swiglu_bwd(gen, ops, ref, rate)
     rows["mlstm_scan"], rows["mlstm_scan_bwd"] = check_mlstm(gen, ops, ref, rate)
+    rows["ssd_scan"], rows["ssd_scan_bwd"] = check_ssd(gen, ops, ref, rate)
     torch.cuda.synchronize()
     print(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
     phase_full_width()
     phase_full_width_grad()
     phase_xlstm_full_width()
+    phase_hymba_full_width()
     print(f"[full-width] done at {time.perf_counter() - t0:.1f} s")
     runs = {"serve": phase_serve(KERNEL_MODULES)}
     runs["train"] = phase_train(KERNEL_MODULES)
     gc.collect()
     torch.cuda.empty_cache()
     runs["train_xlstm"] = phase_train_xlstm(KERNEL_MODULES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train_hymba"] = phase_train_hymba(KERNEL_MODULES)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     served = runs["serve"]
@@ -947,8 +1171,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"serve": {k: served[k] for k in ("tokens_per_s", "ms_per_step", "steps")}}))
-    for run in ("train", "train_xlstm"):
-        print(json.dumps({run: {k: v for k, v in runs[run].items() if k != "counts"}}))
+    for run in ("train", "train_xlstm", "train_hymba"):
+        print(json.dumps({run: runs[run]}))
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: v for k, v in r.items() if k not in keys}}
                                   for r in rows.values()]}))

@@ -4,9 +4,10 @@ The fields and their defaults are those of the JAX package, so that a config
 built here describes the same model, including ``rope_theta=10000`` and
 ``norm_eps=1e-5``, on which parity depends, and ``repr`` (hence
 ``config_digest``) is the JAX config's.  Of the family-specific blocks,
-``ssm`` (:class:`SSMConfig`, xLSTM) is ported; ``moe``, ``mla``, ``encdec``,
-``vlm`` and ``hybrid`` are kept as fields and stay ``None`` until the slices
-that port those families define them.
+``ssm`` (:class:`SSMConfig`, xLSTM and Hymba's SSM heads) and ``hybrid``
+(:class:`HybridConfig`, Hymba) are ported; ``moe``, ``mla``, ``encdec`` and
+``vlm`` are kept as fields and stay ``None`` until the slices that port those
+families define them.
 """
 
 from __future__ import annotations
@@ -24,6 +25,16 @@ class SSMConfig:
     expand: int = 2                    # up-projection factor (mLSTM / mamba)
     slstm_every: int = 8               # xLSTM: one sLSTM block per this many
     chunk: int = 128                   # chunked-scan length
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Hymba: parallel attention + SSM heads in every block."""
+
+    n_ssm_heads: int = 8
+    global_layers: tuple[int, ...] = (0, 15, 31)   # full attention; rest SWA
+    meta_tokens: int = 128
+    sliding_window: int = 1024
 
 
 @dataclass(frozen=True)
@@ -48,7 +59,7 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     encdec: Optional[Any] = None
     vlm: Optional[Any] = None
-    hybrid: Optional[Any] = None
+    hybrid: Optional[HybridConfig] = None
     # runtime knobs (overridable per run, not architecture identity)
     dtype: str = "bfloat16"
     q_block: int = 512
@@ -69,8 +80,8 @@ class ModelConfig:
         return self.n_heads // max(1, self.n_kv_heads)
 
     def smoke(self) -> "ModelConfig":
-        """A reduced same-family config for CPU tests (dense and xLSTM families)."""
-        blocks = ("moe", "mla", "encdec", "vlm", "hybrid")
+        """A reduced same-family config for CPU tests (dense, xLSTM and Hymba families)."""
+        blocks = ("moe", "mla", "encdec", "vlm")
         if any(getattr(self, f) is not None for f in blocks):
             raise NotImplementedError(f"{self.arch}: family {self.family!r} is not ported yet")
         cfg = replace(
@@ -88,6 +99,14 @@ class ModelConfig:
         )
         if cfg.ssm:
             cfg = replace(cfg, ssm=replace(cfg.ssm, chunk=32, slstm_every=4))
+        if cfg.hybrid:
+            cfg = replace(
+                cfg,
+                hybrid=replace(
+                    cfg.hybrid, n_ssm_heads=2, meta_tokens=8, sliding_window=64,
+                    global_layers=(0, cfg.n_layers - 1),
+                ),
+            )
         if self.sliding_window:
             cfg = replace(cfg, sliding_window=64)
         return cfg

@@ -15,13 +15,15 @@ from . import (
     ref,
     rmsnorm,
     rmsnorm_bwd,
+    ssd_scan,
+    ssd_scan_bwd,
     swiglu,
     swiglu_bwd,
 )
 
 KERNEL_MODULES = (rmsnorm, swiglu, decode_attention, flash_attention, flash_attention_bwd,
-                  rmsnorm_bwd, swiglu_bwd, mlstm_scan, mlstm_scan_bwd)
+                  rmsnorm_bwd, swiglu_bwd, mlstm_scan, mlstm_scan_bwd, ssd_scan, ssd_scan_bwd)
 
 __all__ = ["KERNEL_MODULES", "decode_attention", "flash_attention", "flash_attention_bwd",
-           "mlstm_scan", "mlstm_scan_bwd", "ops", "ref", "rmsnorm", "rmsnorm_bwd", "swiglu",
-           "swiglu_bwd"]
+           "mlstm_scan", "mlstm_scan_bwd", "ops", "ref", "rmsnorm", "rmsnorm_bwd", "ssd_scan",
+           "ssd_scan_bwd", "swiglu", "swiglu_bwd"]

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rmsnorm.cu", "swiglu.cu", "decode_attention.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "swiglu_bwd.cu", "mlstm_scan.cu",
-           "mlstm_scan_bwd.cu")
+           "mlstm_scan_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +46,8 @@ SIGNATURES = {
     "rt_swiglu_gate_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
     "rt_mlstm_scan": (*(_P,) * 14, *(_I,) * 5, _F, _I, _P),
     "rt_mlstm_scan_bwd": (*(_P,) * 32, *(_I,) * 5, _F, _I, _P),
+    "rt_ssd_scan": (*(_P,) * 8, *(_I,) * 7, _P),
+    "rt_ssd_scan_bwd": (*(_P,) * 11, *(_I,) * 7, _P),
 }
 
 

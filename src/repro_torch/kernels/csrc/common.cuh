@@ -38,4 +38,18 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Sum of v over the block, the same order every run; every thread gets it.
+// red holds one float per warp of the block.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  v = warp_sum(v);
+  __syncthreads();  // red may still be read by a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < static_cast<int>(blockDim.x) / 32; ++w) s += red[w];
+  return s;
+}
+
 }  // namespace rt

@@ -41,19 +41,6 @@ __device__ __forceinline__ float load(const Mat& a, long long z, long long r, lo
   return rt::to_float(static_cast<const T*>(a.p)[z * a.bs + r * a.rs + c * a.cs]);
 }
 
-// Sum of v over the block, the same order every run; every thread gets it.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  v = rt::warp_sum(v);
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < static_cast<int>(blockDim.x) / 32; ++w) s += red[w];
-  return s;
-}
-
 // out[z](m, n) = row_scale[z * rsc_bs + m] * alpha * sum_k A(m, k) B(k, n) + bias
 struct Gemm {
   Mat a, b;
@@ -188,7 +175,7 @@ __device__ __forceinline__ void scan_tile(const Scan& s) {
       }
     }
     if (s.partner) {
-      dot = block_sum(dot, red);
+      dot = rt::block_sum(dot, red);
       if (threadIdx.x == 0) s.partial[z * s.p_stride + s.p_offset + tile] = dot;
     }
     const float d = s.decay[z];

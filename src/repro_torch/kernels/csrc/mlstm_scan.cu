@@ -117,8 +117,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int d = threadIdx.x; d < dqk; d += kThreads) {
     qn += (rt::to_float(q[row * dqk + d]) * scale) * n[z * dqk + d];
   }
-  ssum = mlstm::block_sum(ssum, red);
-  qn = mlstm::block_sum(qn, red);
+  ssum = rt::block_sum(ssum, red);
+  qn = rt::block_sum(qn, red);
   const float m_t = gates[BS + row];
   const float inter = gates[2 * BS + row];
   const float den = ssum + inter * qn;

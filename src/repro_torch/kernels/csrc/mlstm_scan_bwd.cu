@@ -62,7 +62,7 @@ __global__ void __launch_bounds__(kThreads)
     delta += x * hf[row * dv + j];
     dnum[row * dv + j] = x / g;
   }
-  delta = mlstm::block_sum(delta, red);
+  delta = rt::block_sum(delta, red);
   if (threadIdx.x == 0) dden[row] = fabsf(d) > floor_ ? -(d > 0.f ? 1.f : -1.f) * delta / g : 0.f;
 }
 
@@ -133,10 +133,10 @@ __global__ void __launch_bounds__(kThreads)
     dq[o] = rt::from_float<T>((dpk[o] + inter * gq[o] + (inter * dd) * nd) * scale);
     dk[o] = rt::from_float<T>(dptq[o] + w * hk[o] + w * dnd);
   }
-  qg = mlstm::block_sum(qg, red);
-  qn = mlstm::block_sum(qn, red);
-  kh = mlstm::block_sum(kh, red);
-  kn = mlstm::block_sum(kn, red);
+  qg = rt::block_sum(qg, red);
+  qn = rt::block_sum(qn, red);
+  kh = rt::block_sum(kh, red);
+  kn = rt::block_sum(kn, red);
   if (threadIdx.x == 0) {
     dlog_inter[row] = inter * (qg + dd * qn);
     dlogw[row] = w * (kh + kn);

@@ -3,7 +3,7 @@
 A CUDA tensor launches the hand-written kernel (or the launch raises); a CPU
 tensor takes the kernel's plain PyTorch version in ``ref``.  Nothing else
 decides, and no failure falls back to the other path.  ``rmsnorm``,
-``swiglu_mlp``, ``flash_attention`` and ``mlstm_scan`` are
+``swiglu_mlp``, ``flash_attention``, ``mlstm_scan`` and ``ssd_scan`` are
 ``torch.autograd.Function``s whose backward dispatches the same way, so on
 the CPU autograd runs the same backward formulas that the card's backward
 kernels are held to.  When no
@@ -25,6 +25,8 @@ from . import mlstm_scan_bwd as _mlstm_scan_bwd
 from . import ref
 from . import rmsnorm as _rmsnorm
 from . import rmsnorm_bwd as _rmsnorm_bwd
+from . import ssd_scan as _ssd_scan
+from . import ssd_scan_bwd as _ssd_scan_bwd
 from . import swiglu as _swiglu
 from . import swiglu_bwd as _swiglu_bwd
 
@@ -66,6 +68,15 @@ def _mlstm_fwd(q, k, v, i_raw, log_f, chunk):
         return _mlstm_scan.mlstm_scan_cuda(q, k, v, i_raw, log_f, chunk=chunk)
     h, *states = ref.mlstm_scan_ref(q, k, v, i_raw, log_f, chunk=chunk)
     return h, states
+
+
+def _ssd_fwd(lf, b, x, c, chunk):
+    """``(y, h_last, saved)``: the kernel's :class:`SSDSaved` on the card, the
+    plain version's chunk-start states on the CPU."""
+    if _on_cuda(x, "ssd_scan"):
+        return _ssd_scan.ssd_scan_cuda(lf, b, x, c, chunk=chunk)
+    y, h_last, states = ref.ssd_scan_ref(lf, b, x, c, chunk=chunk)
+    return y, h_last, (states,)
 
 
 class RMSNorm(torch.autograd.Function):
@@ -141,6 +152,26 @@ class MLSTMScan(torch.autograd.Function):
         return (*grads, None)
 
 
+class SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lf, b, x, c, chunk):
+        y, h_last, saved = _ssd_fwd(lf, b, x, c, chunk)
+        ctx.save_for_backward(lf, b, x, c, *saved)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(h_last)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, _dh_last):
+        inputs, saved = ctx.saved_tensors[:4], ctx.saved_tensors[4:]
+        if _on_cuda(dy, "ssd_scan_bwd"):
+            grads = _ssd_scan_bwd.ssd_scan_bwd_cuda(*inputs, _ssd_scan.SSDSaved(*saved), dy,
+                                                    chunk=ctx.chunk)
+        else:
+            grads = ref.ssd_scan_bwd_ref(*inputs, *saved, dy, chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def rmsnorm(x, gamma, *, eps: float = 1e-5):
     if _needs_grad(x, gamma):
         return RMSNorm.apply(x, gamma, eps)
@@ -175,3 +206,15 @@ def mlstm_scan(q, k, v, i_raw, log_f, *, chunk: int = 128):
     if _needs_grad(q, k, v, i_raw, log_f):
         return MLSTMScan.apply(q, k, v, i_raw, log_f, chunk)
     return _mlstm_fwd(q, k, v, i_raw, log_f, chunk)[0]
+
+
+def ssd_scan(lf, b, x, c, *, chunk: int = 128):
+    """Mamba-2 SSD chunked scan: lf (B, S, H) fp32 log-decay; b, c (B, S, H, N);
+    x (B, S, H, chd) -> ``(y, h_last)``: y (B, S, H, chd) in x's dtype and the
+    fp32 final state (B, H, chd, N), which carries no gradient.  ``S`` must be
+    a multiple of ``min(chunk, S)``: the kernel's wrapper or the plain version
+    checks; ``models.hymba.ssd_scan`` pads to whole chunks."""
+    lf, b, x, c = (t.contiguous() for t in (lf, b, x, c))
+    if _needs_grad(lf, b, x, c):
+        return SSDScan.apply(lf, b, x, c, chunk)
+    return _ssd_fwd(lf, b, x, c, chunk)[:2]

@@ -341,3 +341,112 @@ def mlstm_scan_bwd_ref(q, k, v, i_raw, log_f, C, n, m, dh, *, chunk: int):
         dne = decay[..., None] * dne + ((inter * dden)[..., None] * qc).sum(-2)
     grads = [torch.cat(acc[::-1], dim=2) for acc in out]
     return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v, i_raw, log_f)))
+
+
+def ssd_chunk_len(lf, b, x, c, chunk: int) -> int:
+    """The chunk length ``L = min(chunk, S)``; raise unless lf (B, S, H), b, c
+    (B, S, H, N) and x (B, S, H, chd) fit and L divides ``S``."""
+    if lf.ndim != 3 or b.ndim != 4 or x.ndim != 4:
+        raise ValueError(f"ssd_scan: lf {tuple(lf.shape)}, b {tuple(b.shape)}, x "
+                         f"{tuple(x.shape)}; expected (B, S, H), (B, S, H, N), (B, S, H, chd)")
+    B, S, H = lf.shape
+    if b.shape[:3] != (B, S, H) or c.shape != b.shape or x.shape[:3] != (B, S, H):
+        raise ValueError(f"ssd_scan: b {tuple(b.shape)}, x {tuple(x.shape)}, c "
+                         f"{tuple(c.shape)} do not fit lf {tuple(lf.shape)}")
+    L = min(chunk, S)
+    if L < 1 or S % L:
+        raise ValueError(f"ssd_scan: sequence length {S} is not a multiple of the chunk {L}")
+    return L
+
+
+def _ssd_inputs(lf, b, x, c, chunk):
+    """fp32 (B, nc, L, H, ...) chunks of each input, and the inclusive ``cum`` of
+    lf within each chunk, (B, nc, L, H)."""
+    L = ssd_chunk_len(lf, b, x, c, chunk)
+    B, S = lf.shape[:2]
+    lff, bf, xf, cf = (t.float().reshape(B, S // L, L, *t.shape[2:]) for t in (lf, b, x, c))
+    return lff, bf, xf, cf, torch.cumsum(lff, dim=2)
+
+
+def _ssd_decay(cum):
+    """``D[t, s] = exp(cum_t - cum_s)`` for s <= t, else 0: (B, nc, L, L, H).  The
+    exponent is masked before ``exp``: above the diagonal it is a sum of -lf
+    over up to L - 1 steps, which overflows fp32 once it passes about 88.7."""
+    L = cum.shape[2]
+    tri = torch.ones((L, L), dtype=torch.bool, device=cum.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    return torch.exp(diff.masked_fill(~tri[None, None, :, :, None], float("-inf")))
+
+
+def ssd_scan_ref(lf, b, x, c, *, chunk: int):
+    """Mamba-2 SSD chunked scan in the Pallas kernel's arithmetic (``ssd_scan.py:34-58``).
+
+    lf: (B, S, H) per-step log-decay; b, c: (B, S, H, N); x: (B, S, H, chd);
+    ``S`` a multiple of ``L = min(chunk, S)``.  In fp32, per chunk with ``cum``
+    the inclusive sum of lf within it: ``y_t = sum_{s<=t} (c_t . b_s)
+    exp(cum_t - cum_s) x_s + exp(cum_t) h c_t`` and ``h <- exp(cum_L) h +
+    sum_s exp(cum_L - cum_s) x_s b_s^T`` from h = 0.  Returns ``(y, h_last,
+    states)``: y in x's dtype, h_last (B, H, chd, N) and the states at the
+    START of each chunk (B, H, nc, chd, N), both fp32; the backward reads the
+    states.
+    """
+    _, bf, xf, cf, cum = _ssd_inputs(lf, b, x, c, chunk)
+    B, nc, L, H, chd = xf.shape
+    y = torch.einsum("bklsh,bkshd->bklhd",
+                     torch.einsum("bklhn,bkshn->bklsh", cf, bf) * _ssd_decay(cum), xf)
+    w = torch.exp(cum[:, :, -1:] - cum)
+    own = torch.einsum("bkshd,bkshn->bkhdn", xf * w[..., None], bf)
+    decay = torch.exp(cum[:, :, -1])
+    h = xf.new_zeros((B, H, chd, b.shape[-1]))
+    states = []
+    for k in range(nc):
+        states.append(h)
+        h = decay[:, k, :, None, None] * h + own[:, k]
+    states = torch.stack(states, 2)
+    y = y + torch.einsum("bklhn,bhkdn->bklhd", cf * torch.exp(cum)[..., None], states)
+    return y.reshape(x.shape).to(x.dtype), h, states
+
+
+def ssd_scan_bwd_ref(lf, b, x, c, states, dy, *, chunk: int):
+    """Gradients ``(dlf, db, dx, dc)`` of :func:`ssd_scan_ref`'s y, each in its
+    input's dtype, from the saved chunk-start states (h_last is not
+    differentiated).
+
+    Per chunk, with ``G = (c_t . b_s) D[t, s]``, ``A = D[t, s] (dy_t . x_s)``,
+    ``w_s = exp(cum_L - cum_s)``, h the state at the chunk's start and dH the
+    gradient of the state at its end (carried over the chunks in reverse:
+    ``dH <- exp(cum_L) dH + sum_t exp(cum_t) dy_t c_t^T``, 0 after the last):
+    ``dx_s = sum_t G dy_t + w_s dH b_s``, ``db_s = sum_t A c_t + w_s dH^T
+    x_s``, ``dc_t = sum_s A b_s + exp(cum_t) h^T dy_t``; ``dcum_t = c_t .
+    dc_t - b_t . db_t`` plus, at the chunk's last step, ``sum_s b_s . (w_s
+    dH^T x_s) + exp(cum_L) sum(dH * h)``, and ``dlf`` is the reverse
+    cumulative sum of dcum within the chunk.  Mirrors the CUDA kernel's
+    factorisation.
+    """
+    _, bf, xf, cf, cum = _ssd_inputs(lf, b, x, c, chunk)
+    B, nc, L, H, chd = xf.shape
+    dyf = dy.float().reshape(xf.shape)
+    D = _ssd_decay(cum)
+    G = torch.einsum("bkthn,bkshn->bktsh", cf, bf) * D
+    A = torch.einsum("bkthd,bkshd->bktsh", dyf, xf) * D
+    w = torch.exp(cum[:, :, -1:] - cum)
+    et = torch.exp(cum)
+    decay = torch.exp(cum[:, :, -1])
+    own = torch.einsum("bkthd,bkthn->bkhdn", dyf * et[..., None], cf)
+    g = xf.new_zeros((B, H, chd, b.shape[-1]))
+    dH = []
+    for k in reversed(range(nc)):
+        dH.append(g)
+        g = decay[:, k, :, None, None] * g + own[:, k]
+    dH = torch.stack(dH[::-1], 1)
+    hs = states.transpose(1, 2)
+    dx = torch.einsum("bktsh,bkthd->bkshd", G, dyf) \
+        + w[..., None] * torch.einsum("bkhdn,bkshn->bkshd", dH, bf)
+    db_state = w[..., None] * torch.einsum("bkhdn,bkshd->bkshn", dH, xf)
+    db = torch.einsum("bktsh,bkthn->bkshn", A, cf) + db_state
+    dc = torch.einsum("bktsh,bkshn->bkthn", A, bf) \
+        + et[..., None] * torch.einsum("bkhdn,bkthd->bkthn", hs, dyf)
+    dcum = (cf * dc).sum(-1) - (bf * db).sum(-1)
+    dcum[:, :, -1] += (bf * db_state).sum((2, -1)) + decay * (dH * hs).sum((-1, -2))
+    dlf = dcum.flip(2).cumsum(2).flip(2)
+    return tuple(g.reshape(t.shape).to(t.dtype) for g, t in zip((dlf, db, dx, dc), (lf, b, x, c)))

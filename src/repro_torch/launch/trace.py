@@ -2,8 +2,10 @@
 kernels and summing them per step.
 
 The port's own kernels are named by their ``__global__`` functions in
-``kernels/csrc``; cuBLAS's products and PyTorch's other ops form one group
-each.  Used by ``launch/trace_serve.py`` and ``launch/trace_train.py``.
+``kernels/csrc`` and grouped again by source file (one per kernel wrapper,
+so the SSD scan's four forward launches form the group ``ssd_scan``);
+cuBLAS's products and PyTorch's other ops form one group each.  Used by
+``launch/trace_serve.py`` and ``launch/trace_train.py``.
 """
 
 from __future__ import annotations
@@ -15,20 +17,31 @@ import torch
 
 from ..kernels import build
 
-#: the port's kernels: the ``__global__`` functions of ``kernels/csrc``
-PORT_KERNELS = frozenset(re.findall(
-    r"__global__ void __launch_bounds__\(\w+\)\s+(\w+)\(",
-    "".join(p.read_text() for p in sorted(build.CSRC.glob("*.cu")))))
+#: the port's kernels: each ``__global__`` function of ``kernels/csrc`` -> its source's stem
+KERNEL_SOURCE = {
+    name: p.stem
+    for p in sorted(build.CSRC.glob("*.cu"))
+    for name in re.findall(r"__global__ void __launch_bounds__\(\w+\)\s+(\w+)\(", p.read_text())
+}
+PORT_KERNELS = frozenset(KERNEL_SOURCE)
 
 
 def kernel_group(name: str) -> str:
     """The port's own kernels by name, cuBLAS's products, and PyTorch's other ops."""
-    own = re.match(r"void \(anonymous namespace\)::(\w+)", name)
+    # a template kernel's name starts with its return type, a plain one's does not
+    own = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
     if own and own.group(1) in PORT_KERNELS:
         return own.group(1)
     if "nvjet" in name or "gemm" in name or "cutlass" in name:
         return "cublas"
     return "torch_other"
+
+
+def source_group(name: str) -> str:
+    """The port's kernels by source file (``ssd_scan``, ``ssd_scan_bwd``, ...: one
+    group per kernel wrapper), cuBLAS's products, and PyTorch's other ops."""
+    group = kernel_group(name)
+    return KERNEL_SOURCE.get(group, group)
 
 
 def device_summary(prof, steps: int, traced_ms: float, top: int = 12) -> dict:
@@ -45,14 +58,17 @@ def device_summary(prof, steps: int, traced_ms: float, top: int = 12) -> dict:
     busy_ms = sum(v[1] for v in by_name.values()) / 1e3 / steps
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     groups: dict[str, float] = defaultdict(float)
+    sources: dict[str, float] = defaultdict(float)
     for name, (_, us) in by_name.items():
         groups[kernel_group(name)] += us / 1e3 / steps
+        sources[source_group(name)] += us / 1e3 / steps
     return {
         "traced_ms_per_step": traced_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1 - busy_ms / traced_ms,
         "kernel_launches_per_step": sum(v[0] for v in by_name.values()) / steps,
         "ms_per_step_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "ms_per_step_by_source": dict(sorted(sources.items(), key=lambda kv: -kv[1])),
         "top_kernels": [
             {"name": n[:80], "per_step": c / steps, "ms_per_step": us / 1e3 / steps}
             for n, (c, us) in ranked

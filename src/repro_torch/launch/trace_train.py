@@ -1,7 +1,7 @@
 """Where a training step spends its time on the card.
 
-    python -m repro_torch.launch.trace_train [--arch qwen1.5-0.5b|xlstm-1.3b] [--batch 8] \\
-        [--seq 512] [--steps 3] [--trace out.json]
+    python -m repro_torch.launch.trace_train [--arch qwen1.5-0.5b|xlstm-1.3b|hymba-1.5b] \\
+        [--batch 8] [--seq 512] [--steps 3] [--trace out.json]
 
 Builds the architecture (default qwen1.5-0.5b) at full width and depth in
 bf16 from a seeded init drawn on the card (xlstm-1.3b's 2.92 B draws are
@@ -14,7 +14,9 @@ work that ends in a synchronize, and ``--steps`` more under
 step (the sum of kernel durations; one stream, so kernels do not overlap),
 its idle share of the traced wall time, the kernel launches per step, the
 time by kernel group (the port's kernels by name, cuBLAS, PyTorch's other
-ops) and the kernels by device time.  Needs a CUDA card.
+ops), the same by source (the port's kernels by their ``csrc`` file: one
+group per kernel wrapper, ``ssd_scan`` and ``ssd_scan_bwd`` for Hymba's scan)
+and the kernels by device time.  Needs a CUDA card.
 """
 
 from __future__ import annotations

@@ -1,0 +1,223 @@
+"""Hymba: parallel attention + Mamba (SSM) heads in every block.
+
+The port of ``repro.models.hymba.Hymba``'s full-sequence path (``loss`` and
+``prefill``).  Parameters are a nested dict with the JAX layout
+(``params.params_from_jax`` carries a JAX tree over unchanged): the top level
+holds ``embed``, ``meta`` (the meta tokens), ``final_ln``, an untied
+``lm_head``, one block per global layer (``global_i``) and the stacked runs
+of sliding-window blocks between them (``swa_i``), split once with
+``unbind``.  A run may hold no block (the smoke config's ``swa_0``); its
+zero-size leaves then take no part in the loss.
+
+Per block both paths see the same normed input: windowed (or, in the global
+layers, full) causal GQA attention through the flash kernel, and a selective
+scan through ``kernels.ops.ssd_scan``, the hand-written SSD chunked-scan
+kernels on the card (forward and backward), their plain versions on the CPU.
+The two outputs are RMS-normed and averaged before the output projection.
+The meta tokens are prepended to every sequence and count as positions for
+RoPE and the window, as in the JAX model.  ``jax.checkpoint`` around each
+block (``cfg.remat``) changes memory, not values, and is not ported.
+Decoding (the ring-buffer KV cache and the stepped SSM state) comes with the
+Hymba decode slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..device import resolve
+from ..kernels import ops
+from . import params as PM
+from .layers import blockwise_attention, causal_conv, rms_norm, rope, swiglu
+
+
+def ssd_scan(lf, b_in, x_in, c_out, *, chunk: int):
+    """Mamba-2 SSD chunked scan over any sequence length (``hymba.py:126``).
+
+    lf: (B, S, H) per-step log-decay (<= 0); b_in, c_out: (B, S, H, N); x_in:
+    (B, S, H, chd).  A sequence that is not whole chunks of ``L = min(chunk,
+    S)`` is padded with ``lf = 0`` and ``b = x = c = 0`` steps, which leave
+    the state as it is, and y is cut back.  Returns ``(y (B, S, H, chd) in
+    x_in's dtype, h_last (B, H, chd, N) fp32)``.
+    """
+    S = lf.shape[1]
+    L = min(chunk, S)
+    pad = -S % L
+    if pad:
+        lf, b_in, x_in, c_out = (torch.cat([t, t.new_zeros((t.shape[0], pad, *t.shape[2:]))], 1)
+                                 for t in (lf, b_in, x_in, c_out))
+    y, h_last = ops.ssd_scan(lf, b_in, x_in, c_out, chunk=L)
+    return y[:, :S], h_last
+
+
+class Hymba(nn.Module):
+    """Global attention blocks alternating with runs of sliding-window blocks."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+        super().__init__()
+        if cfg.family != "hybrid" or cfg.hybrid is None or cfg.ssm is None:
+            raise ValueError(f"{cfg.arch}: Hymba needs family 'hybrid', a hybrid and an ssm config")
+        g = sorted(cfg.hybrid.global_layers)
+        if g[0] != 0 or g[-1] != cfg.n_layers - 1:
+            raise ValueError(f"{cfg.arch}: global layers {g} must include the first and the last")
+        self.cfg = cfg
+        self.device = resolve(device)
+        self.dtype = PM.as_dtype(cfg.dtype)
+        self.ed = cfg.ssm.expand * cfg.d_model   # SSM inner width
+        self.N = cfg.ssm.state_dim
+        self.n_ssm_heads = cfg.hybrid.n_ssm_heads
+        # segment plan: global, swa run, global, swa run, ..., global
+        self.swa_runs = [g[i + 1] - g[i] - 1 for i in range(len(g) - 1)]
+        self.n_global = len(g)
+
+    # -------------------------------------------------------------- layout
+    def block_layout(self) -> dict:
+        cfg = self.cfg
+        D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        ed, N, nsh = self.ed, self.N, self.n_ssm_heads
+        return {
+            "ln": PM.ParamInfo((D,), "ones"),
+            # attention path
+            "wq": PM.ParamInfo((D, H * hd)),
+            "wk": PM.ParamInfo((D, Hkv * hd)),
+            "wv": PM.ParamInfo((D, Hkv * hd)),
+            "attn_ln": PM.ParamInfo((H * hd,), "ones"),
+            # ssm path (per-head B, C and dt)
+            "w_in": PM.ParamInfo((D, 2 * ed)),
+            "conv": PM.ParamInfo((cfg.ssm.conv_width, ed), scale=0.3),
+            "w_bc": PM.ParamInfo((ed, nsh * 2 * N), scale=0.02),
+            "w_dt": PM.ParamInfo((ed, nsh), scale=0.02),
+            "b_dt": PM.ParamInfo((nsh,), "zeros"),
+            "a_log": PM.ParamInfo((nsh,), "zeros"),
+            "d_skip": PM.ParamInfo((ed,), "ones"),
+            "ssm_proj": PM.ParamInfo((ed, H * hd)),
+            "ssm_ln": PM.ParamInfo((H * hd,), "ones"),
+            # fusion + mlp
+            "wo": PM.ParamInfo((H * hd, D)),
+            "mlp_ln": PM.ParamInfo((D,), "ones"),
+            "w_gate": PM.ParamInfo((D, cfg.d_ff)),
+            "w_up": PM.ParamInfo((D, cfg.d_ff)),
+            "w_down": PM.ParamInfo((cfg.d_ff, D)),
+        }
+
+    def layout(self) -> dict:
+        cfg = self.cfg
+        lay: dict[str, Any] = {
+            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), scale=0.02),
+            "meta": PM.ParamInfo((cfg.hybrid.meta_tokens, cfg.d_model), scale=0.02),
+            "final_ln": PM.ParamInfo((cfg.d_model,), "ones"),
+            "lm_head": PM.ParamInfo((cfg.d_model, cfg.vocab), scale=0.02),
+        }
+        for i in range(self.n_global):
+            lay[f"global_{i}"] = self.block_layout()
+        for i, run in enumerate(self.swa_runs):
+            lay[f"swa_{i}"] = PM.stack(run, self.block_layout())
+        return lay
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        return PM.init_params(self.layout(), generator, device=self.device, dtype=self.dtype)
+
+    def _segments(self, params) -> list[tuple[dict, list[dict]]]:
+        """Each global block's parameters with the run of sliding-window blocks
+        after it (empty after the last), each stacked leaf split once."""
+        out = []
+        for i in range(self.n_global):
+            run: list[dict] = []
+            if i < len(self.swa_runs):
+                split = PM.tree_map(lambda t: t.unbind(0), params[f"swa_{i}"])
+                run = [PM.tree_map(lambda parts: parts[j], split)
+                       for j in range(self.swa_runs[i])]
+            out.append((params[f"global_{i}"], run))
+        return out
+
+    # --------------------------------------------------------------- paths
+    def _ssm_path(self, p, h):
+        """Selective scan over the full sequence.  h: (B, S, D) normed input;
+        returns (B, S, H * hd)."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        N, nsh = self.N, self.n_ssm_heads
+        x_in, z = (h @ p["w_in"]).chunk(2, dim=-1)
+        xc = F.silu(causal_conv(x_in, p["conv"]))
+        bc = (xc @ p["w_bc"]).view(B, S, nsh, 2, N)       # (2, N) interleaved per head
+        dt = F.softplus(xc @ p["w_dt"] + p["b_dt"])        # (B, S, nsh) in the model dtype
+        lf = dt * -torch.exp(p["a_log"].float())           # fp32 log-decay
+        xh = xc.view(B, S, nsh, self.ed // nsh)
+        y, _ = ssd_scan(lf, dt[..., None] * bc[..., 0, :], xh, bc[..., 1, :],
+                        chunk=cfg.ssm.chunk)
+        y = y.reshape(B, S, self.ed).to(h.dtype) + xc * p["d_skip"]
+        return (y * F.silu(z)) @ p["ssm_proj"]
+
+    def _block(self, p, x, positions, *, window: int):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        q = (h @ p["wq"]).view(B, S, H, hd).transpose(1, 2)
+        k = (h @ p["wk"]).view(B, S, Hkv, hd).transpose(1, 2)
+        v = (h @ p["wv"]).view(B, S, Hkv, hd).transpose(1, 2)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        attn = blockwise_attention(q, k, v, causal=True, window=window)
+        attn = attn.transpose(1, 2).reshape(B, S, H * hd)
+        ssm = self._ssm_path(p, h)
+        fused = 0.5 * (rms_norm(attn, p["attn_ln"], cfg.norm_eps)
+                       + rms_norm(ssm, p["ssm_ln"], cfg.norm_eps))
+        x = x + fused @ p["wo"]
+        hm = rms_norm(x, p["mlp_ln"], cfg.norm_eps)
+        return x + swiglu(hm, p["w_gate"], p["w_up"], p["w_down"])
+
+    # ------------------------------------------------------------ forward
+    def backbone(self, params, x):
+        positions = torch.arange(x.shape[1], device=x.device)
+        win = self.cfg.hybrid.sliding_window
+        for g, run in self._segments(params):
+            x = self._block(g, x, positions, window=0)
+            for p in run:
+                x = self._block(p, x, positions, window=win)
+        return rms_norm(x, params["final_ln"], self.cfg.norm_eps)
+
+    def _embed_with_meta(self, params, tokens):
+        x = params["embed"][tokens].to(self.dtype)
+        meta = params["meta"].to(x.dtype)[None].expand(x.shape[0], -1, -1)
+        return torch.cat([meta, x], dim=1)
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy over the text positions; returns
+        ``(nll, {"nll", "aux": 0})``.
+
+        batch: ``tokens`` and ``labels``, (B, S) integer tensors on the model's
+        device.  The meta positions are dropped after the final norm; logits
+        are cast to fp32 before the log-sum-exp, as in JAX.
+        """
+        x = self._embed_with_meta(params, batch["tokens"])
+        h = self.backbone(params, x)[:, self.cfg.hybrid.meta_tokens:]
+        logits = (h @ params["lm_head"]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+        nll = (lse - gold).mean()
+        return nll, {"nll": nll, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """Full-sequence forward returning the last position's fp32 logits (B, 1, vocab)."""
+        x = self._embed_with_meta(params, batch["tokens"])
+        h = self.backbone(params, x)
+        return (h[:, -1:] @ params["lm_head"]).float()
+
+    # -------------------------------------------------------------- decode
+    def _decode_not_ported(self) -> NotImplementedError:
+        return NotImplementedError(
+            f"{self.cfg.arch}: Hymba decoding (the ring-buffer KV cache and the stepped SSM "
+            "state) comes with the Hymba decode slice")
+
+    def cache_layout(self, batch: int, seq: int) -> dict:
+        raise self._decode_not_ported()
+
+    def decode_step(self, params, batch):
+        raise self._decode_not_ported()

@@ -1,4 +1,5 @@
-"""Shared model primitives: norm, RoPE, blockwise and decode attention, MLP.
+"""Shared model primitives: norm, RoPE, blockwise and decode attention, MLP,
+causal depthwise convolution.
 
 ``rms_norm``, ``blockwise_attention``, ``decode_attention`` and ``swiglu`` go
 through :mod:`repro_torch.kernels.ops`: the hand-written kernels on the
@@ -16,6 +17,7 @@ places (bf16 only; identical in fp32 up to the order of sums):
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 
@@ -58,3 +60,11 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):
 
 def swiglu(x, w_gate, w_up, w_down):
     return ops.swiglu_mlp(x, w_gate, w_up, w_down)
+
+
+def causal_conv(x, w):
+    """Causal depthwise conv along time as W shifted products, the JAX models'
+    form (``F.conv1d`` would be a cuDNN kernel).  x: (B, S, C); w: (W, C)."""
+    W, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    return sum(pad[:, i:i + S] * w[i] for i in range(W))

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
+from .hymba import Hymba
 from .lm import DecoderLM
 from .xlstm import XLSTM
 
@@ -10,16 +11,17 @@ from .xlstm import XLSTM
 _LATER_SLICE = {
     "moe": "the MoE and MLA decoder slice",
     "vlm": "the VLM decoder slice",
-    "hybrid": "the Hymba slice (ssd_scan)",
     "encdec": "the Whisper encoder-decoder slice",
 }
 
 
-def build_model(cfg: ModelConfig, *, device="cuda") -> DecoderLM | XLSTM:
+def build_model(cfg: ModelConfig, *, device="cuda") -> DecoderLM | XLSTM | Hymba:
     if cfg.family == "dense":
         return DecoderLM(cfg, device=device)
     if cfg.family == "ssm":
         return XLSTM(cfg, device=device)
+    if cfg.family == "hybrid":
+        return Hymba(cfg, device=device)
     if cfg.family in _LATER_SLICE:
         raise NotImplementedError(
             f"{cfg.arch}: family {cfg.family!r} is not ported yet; it comes with "

@@ -27,7 +27,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops
 from . import params as PM
-from .layers import rms_norm, swiglu
+from .layers import causal_conv, rms_norm, swiglu
 
 _NEG = -1e30
 
@@ -117,12 +117,6 @@ class XLSTM(nn.Module):
                  PM.tree_map(lambda parts: parts[g], s_split)) for g in range(G)]
 
     # ------------------------------------------------------------- blocks
-    def _conv(self, x, w):
-        """Causal depthwise conv along time.  x: (B, S, ed); w: (W, ed)."""
-        W, S = w.shape[0], x.shape[1]
-        pad = F.pad(x, (0, 0, W - 1, 0))
-        return sum(pad[:, i:i + S] * w[i] for i in range(W))
-
     def _mlstm_qkvif(self, p, xc, xv):
         B, S, _ = xc.shape
         H = self.H
@@ -138,7 +132,7 @@ class XLSTM(nn.Module):
         B, S, _ = x.shape
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         x_in, z = (h @ p["w_up"]).chunk(2, dim=-1)
-        xc = F.silu(self._conv(x_in, p["conv"]))
+        xc = F.silu(causal_conv(x_in, p["conv"]))
         q, k, v, i_raw, log_f = self._mlstm_qkvif(p, xc, x_in)
         hh = ops.mlstm_scan(q, k, v, i_raw, log_f, chunk=cfg.ssm.chunk)
         hh = hh.transpose(1, 2).reshape(B, S, self.ed).to(x.dtype)

@@ -29,8 +29,10 @@ def make_train_step(model, opt_cfg: Optional[AdamWConfig] = None):
     def train_step(params, opt_state, batch):
         leaves = PM.tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, metrics = model.loss(leaves, batch)
-        grads = torch.autograd.grad(loss, PM.tree_leaves(leaves))
-        it = iter(grads)
+        flat = PM.tree_leaves(leaves)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        # a leaf the loss never reads (a zero-size stacked run) gets a zero gradient
+        it = iter(torch.zeros_like(t) if g is None else g for g, t in zip(grads, flat))
         grad_tree = PM.tree_map(lambda _: next(it), params)
         params, opt_state, opt_metrics = adamw_update(grad_tree, opt_state, params, opt_cfg)
         metrics = {k: v.detach() for k, v in metrics.items()}

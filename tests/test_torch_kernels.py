@@ -22,10 +22,13 @@ from repro.kernels.decode_attention import decode_attention as pallas_decode_att
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro.kernels.mlstm_scan import mlstm_scan as pallas_mlstm_scan
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro.kernels.ssd_scan import ssd_scan_kernel as pallas_ssd_scan
 from repro.kernels.swiglu import swiglu_mlp as pallas_swiglu
 from repro.models import layers as jlayers
+from repro.models.hymba import ssd_scan as jssd_scan
 from repro.models.xlstm import mlstm_chunked
 from repro_torch.kernels import build, ops, ref
+from repro_torch.models import hymba as port_hymba
 from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import flash_attention_bwd as k_flash_bwd
@@ -33,6 +36,8 @@ from repro_torch.kernels import mlstm_scan as k_mlstm
 from repro_torch.kernels import mlstm_scan_bwd as k_mlstm_bwd
 from repro_torch.kernels import rmsnorm as k_rmsnorm
 from repro_torch.kernels import rmsnorm_bwd as k_rmsnorm_bwd
+from repro_torch.kernels import ssd_scan as k_ssd
+from repro_torch.kernels import ssd_scan_bwd as k_ssd_bwd
 from repro_torch.kernels import swiglu as k_swiglu
 from repro_torch.kernels import swiglu_bwd as k_swiglu_bwd
 
@@ -529,3 +534,218 @@ def test_mlstm_wrappers_refuse_bad_arguments():
     with pytest.raises(ValueError, match="expected one GPU"):
         k_mlstm_bwd.mlstm_scan_bwd_cuda(*good, saved, f32(1, 2, 64, 32), chunk=32)
     assert (k_mlstm.launches, k_mlstm_bwd.launches) == before
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "mlstm.cuh", "ssd.cuh"])
+def test_source_digest_tracks_the_shared_headers(monkeypatch, tmp_path, header):
+    """The library's name changes when a header that the sources share changes."""
+    for path in build.CSRC.iterdir():
+        (tmp_path / path.name).write_text(path.read_text())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    a = build.source_digest()
+    (tmp_path / header).write_text((tmp_path / header).read_text() + "\n// edit\n")
+    assert build.source_digest() != a
+
+
+# ------------------------------------------------------------------ SSD scan
+def _ssd_inputs(rng, B, S, H, N, chd, dtype="float32", lf_lo=0.7):
+    """lf, b, x, c as tests/test_extensions.py:19-30 draws them, as torch and
+    jax pairs; lf stays fp32, as the model promotes it."""
+    arrays = [
+        np.log(rng.uniform(lf_lo, 1.0, (B, S, H))).astype(np.float32),
+        (rng.normal(size=(B, S, H, N)) * 0.3).astype(np.float32),
+        rng.normal(size=(B, S, H, chd)).astype(np.float32),
+        (rng.normal(size=(B, S, H, N)) * 0.3).astype(np.float32),
+    ]
+    tdt, jdt = DTYPES[dtype]
+    dts = [(torch.float32, jnp.float32)] + [(tdt, jdt)] * 3
+    return ([torch.from_numpy(a).to(t) for a, (t, _) in zip(arrays, dts)],
+            [jnp.asarray(a, j) for a, (_, j) in zip(arrays, dts)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("N,chd", [(8, 16), (16, 32)])
+def test_ssd_plain_matches_jax(dtype, chunk, N, chd):
+    """The sweep of tests/test_extensions.py:19-30: y and h_last against the
+    model's XLA ``ssd_scan``, y against the interpret-mode Pallas kernel
+    (fp32 2e-4, bf16 2e-2), and the chunk-start states against the carry."""
+    B, S, H = 2, 128, 2
+    t, j = _ssd_inputs(np.random.default_rng(chunk + N), B, S, H, N, chd, dtype)
+    y, h_last, states = ref.ssd_scan_ref(*t, chunk=chunk)
+    assert y.dtype == t[2].dtype and y.shape == (B, S, H, chd)
+    assert h_last.dtype == torch.float32 and states.shape == (B, H, S // chunk, chd, N)
+    assert torch.count_nonzero(states[:, :, 0]) == 0
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    want, want_h = jssd_scan(*j, chunk=chunk)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(want_h), rtol=2e-4, atol=2e-4)
+    got = pallas_ssd_scan(*j, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(got, np.float32), rtol=tol, atol=tol)
+    _, h_mid = jssd_scan(*(a[:, :S - chunk] for a in j), chunk=chunk)
+    np.testing.assert_allclose(states[:, :, -1].numpy(), np.asarray(h_mid), rtol=2e-4, atol=2e-4)
+    with torch.no_grad():
+        got_y, got_h = ops.ssd_scan(*t, chunk=chunk)
+    assert torch.equal(got_y, y) and torch.equal(got_h, h_last)
+
+
+def test_ssd_plain_matches_sequential_recurrence():
+    """Chunked == step by step in float64: h_t = exp(lf_t) h + x_t b_t^T; y_t = h_t c_t."""
+    B, S, H, N, chd = 1, 64, 2, 4, 8
+    t, _ = _ssd_inputs(np.random.default_rng(3), B, S, H, N, chd, lf_lo=0.6)
+    lf, b, x, c = (a.double().numpy() for a in t)
+    h = np.zeros((B, H, chd, N))
+    want = np.zeros((B, S, H, chd))
+    for s in range(S):
+        h = np.exp(lf[:, s])[..., None, None] * h + x[:, s][..., None] * b[:, s][..., None, :]
+        want[:, s] = np.einsum("bhcn,bhn->bhc", h, c[:, s])
+    y, h_last, _ = ref.ssd_scan_ref(*t, chunk=16)
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h_last.numpy(), h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("N,chd", [(8, 16), (16, 32)])
+def test_ssd_bwd_plain_matches_jax_vjp(chunk, N, chd):
+    """dlf, db, dx, dc of the plain backward against ``jax.vjp`` of the model's
+    ``ssd_scan`` and torch autograd through the plain forward, within 1e-4 of
+    each gradient's largest entry."""
+    B, S, H = 2, 128, 2
+    rng = np.random.default_rng(100 + chunk + N)
+    t, j = _ssd_inputs(rng, B, S, H, N, chd)
+    dy = rng.normal(size=(B, S, H, chd)).astype(np.float32)
+    _, _, states = ref.ssd_scan_ref(*t, chunk=chunk)
+    got = ref.ssd_scan_bwd_ref(*t, states, torch.from_numpy(dy), chunk=chunk)
+    assert [g.shape for g in got] == [a.shape for a in t]
+    _, vjp = jax.vjp(lambda *a: jssd_scan(*a, chunk=chunk)[0], *j)
+    for g, w in zip(got, vjp(jnp.asarray(dy))):
+        _rel_close(g, w, 1e-4)
+    leaves = [a.detach().requires_grad_() for a in t]
+    auto = torch.autograd.grad(ref.ssd_scan_ref(*leaves, chunk=chunk)[0], leaves,
+                               torch.from_numpy(dy))
+    for g, w in zip(got, auto):
+        _rel_close(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("S", [72, 100])
+def test_ssd_model_scan_pads_to_whole_chunks(S):
+    """The model-side ``ssd_scan`` at a sequence that is not whole chunks of 32:
+    y, h_last and the four gradients against the JAX model's, which pads the
+    same way."""
+    B, H, N, chd, chunk = 2, 2, 16, 32, 32
+    rng = np.random.default_rng(S)
+    t, j = _ssd_inputs(rng, B, S, H, N, chd)
+    dy = rng.normal(size=(B, S, H, chd)).astype(np.float32)
+    leaves = [a.detach().requires_grad_() for a in t]
+    y, h_last = port_hymba.ssd_scan(*leaves, chunk=chunk)
+    assert not h_last.requires_grad
+    want, want_h = jssd_scan(*j, chunk=chunk)
+    _rel_close(y.detach(), want, 1e-5)
+    _rel_close(h_last, want_h, 1e-5)
+    grads = torch.autograd.grad(y, leaves, torch.from_numpy(dy))
+    _, vjp = jax.vjp(lambda *a: jssd_scan(*a, chunk=chunk)[0], *j)
+    for g, w in zip(grads, vjp(jnp.asarray(dy))):
+        _rel_close(g, w, 1e-4)
+
+
+def test_ssd_plain_gradient_is_finite_where_the_upper_triangle_overflows():
+    """Chunk 128 with lf = -0.9 each step: within a chunk sum |lf| reaches 114,
+    so exp(cum_t - cum_s) above the diagonal overflows fp32.  The JAX model
+    forms it and zeroes it with ``where``, so its gradient meets 0 * inf and
+    is NaN (a limit of the reference); the plain version masks the exponent
+    before ``exp``, and its gradient is finite and equals autograd's."""
+    B, S, H, N, chd, chunk = 1, 256, 2, 16, 32, 128
+    rng = np.random.default_rng(9)
+    t, j = _ssd_inputs(rng, B, S, H, N, chd)
+    t[0] = torch.full((B, S, H), -0.9)
+    j[0] = jnp.full((B, S, H), -0.9, jnp.float32)
+    assert float(-t[0][0, :chunk, 0].sum()) > 100
+    dy = torch.from_numpy(rng.normal(size=(B, S, H, chd)).astype(np.float32))
+    _, vjp = jax.vjp(lambda *a: jssd_scan(*a, chunk=chunk)[0], *j)
+    assert np.isnan(np.asarray(vjp(jnp.asarray(dy.numpy()))[0])).any()
+    y, _, states = ref.ssd_scan_ref(*t, chunk=chunk)
+    assert torch.isfinite(y).all()
+    got = ref.ssd_scan_bwd_ref(*t, states, dy, chunk=chunk)
+    leaves = [a.detach().requires_grad_() for a in t]
+    auto = torch.autograd.grad(ref.ssd_scan_ref(*leaves, chunk=chunk)[0], leaves, dy)
+    for g, w in zip(got, auto):
+        assert torch.isfinite(g).all() and torch.isfinite(w).all()
+        _rel_close(g, w, 1e-4)
+
+
+def test_ssd_ops_autograd_is_the_plain_backward():
+    """On the CPU, autograd through ``ops.ssd_scan`` runs ``ssd_scan_bwd_ref``;
+    a strided c (the model's view into its (2, N) interleave) gives the same,
+    and h_last carries no gradient."""
+    rng = np.random.default_rng(31)
+    t, _ = _ssd_inputs(rng, 1, 64, 2, 8, 16)
+    dy = torch.from_numpy(rng.normal(size=(1, 64, 2, 16)).astype(np.float32))
+    c_view = torch.stack([torch.zeros_like(t[3]), t[3]], dim=3)[..., 1, :]
+    assert not c_view.is_contiguous()
+    leaves = [a.detach().requires_grad_() for a in t[:3]] + [c_view.requires_grad_()]
+    y, h_last = ops.ssd_scan(*leaves, chunk=32)
+    assert not h_last.requires_grad
+    auto = torch.autograd.grad(y, leaves, dy)
+    want, _, states = ref.ssd_scan_ref(*t, chunk=32)
+    assert torch.equal(y.detach(), want)
+    for a, b in zip(auto, ref.ssd_scan_bwd_ref(*t, states, dy, chunk=32)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_ssd_plain_bf16_is_fp32_inside():
+    """bf16 b, x, c run in fp32 and round once: y is the fp32 result cast."""
+    t, _ = _ssd_inputs(np.random.default_rng(32), 1, 64, 2, 8, 16, "bfloat16")
+    y = ref.ssd_scan_ref(*t, chunk=32)[0]
+    assert y.dtype == torch.bfloat16
+    want = ref.ssd_scan_ref(*[a.float() for a in t], chunk=32)[0]
+    assert torch.equal(y, want.to(torch.bfloat16))
+
+
+def test_ssd_wrappers_refuse_bad_arguments():
+    """A sequence that is not whole chunks, a chunk or a state the kernels do
+    not hold, a wrong shape, a bf16 lf, mixed dtypes, a strided view and a
+    device without the kernel are refused, and no launch is counted."""
+    f32 = torch.ones
+    good = (f32(1, 64, 2), f32(1, 64, 2, 16), f32(1, 64, 2, 32), f32(1, 64, 2, 16))
+    assert k_ssd.check_args(*good, chunk=32) == 32
+    assert k_ssd.check_args(*good, chunk=128) == 64          # L = min(chunk, S)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        k_ssd.check_args(*good, chunk=48)
+    with pytest.raises(ValueError, match="chunk 256 > 128"):
+        k_ssd.check_args(f32(1, 256, 2), f32(1, 256, 2, 16), f32(1, 256, 2, 32),
+                         f32(1, 256, 2, 16), chunk=256)
+    with pytest.raises(ValueError, match="state 65 > 64"):
+        k_ssd.check_args(good[0], f32(1, 64, 2, 65), good[2], f32(1, 64, 2, 65), chunk=32)
+    with pytest.raises(ValueError):
+        k_ssd.check_args(good[0], f32(1, 64, 2, 8), *good[2:], chunk=32)
+    with pytest.raises(ValueError):
+        k_ssd.check_args(f32(1, 64, 3), *good[1:], chunk=32)
+    with pytest.raises(TypeError, match="lf must be float32"):
+        k_ssd.check_args(good[0].bfloat16(), *good[1:], chunk=32)
+    with pytest.raises(TypeError, match="share a dtype"):
+        k_ssd.check_args(good[0], good[1].bfloat16(), *good[2:], chunk=32)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        k_ssd.check_args(good[0], *(a.double() for a in good[1:]), chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_ssd.check_args(*good[:2], good[2].transpose(1, 2).contiguous().transpose(1, 2),
+                         good[3], chunk=32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.ssd_scan(*good, chunk=48)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ssd_scan(*(a.to("meta") for a in good), chunk=32)
+    before = (k_ssd.launches, k_ssd_bwd.launches)
+    with pytest.raises(ValueError, match="expected one GPU"):
+        k_ssd.ssd_scan_cuda(*good, chunk=32)
+    saved = k_ssd.SSDSaved(f32(1, 2, 2, 32, 16), f32(1, 2, 64))
+    with pytest.raises(ValueError, match="expected one GPU"):
+        k_ssd_bwd.ssd_scan_bwd_cuda(*good, saved, f32(1, 64, 2, 32), chunk=32)
+    assert (k_ssd.launches, k_ssd_bwd.launches) == before
+
+
+def test_ssd_entry_points_take_the_wrappers_arguments():
+    """The C entry points' argument counts are those the wrappers pass."""
+    text = "\n".join((build.CSRC / s).read_text() for s in ("ssd_scan.cu", "ssd_scan_bwd.cu"))
+    for name, n_ptr in (("rt_ssd_scan", 8), ("rt_ssd_scan_bwd", 11)):
+        args = re.findall(rf'extern "C" int {name}\(([^)]*)\)', text)[0].split(",")
+        assert sum("*" in a for a in args) == n_ptr + 1                # + the stream
+        assert build.SIGNATURES[name] == (*(build._P,) * n_ptr, *(build._I,) * 7, build._P)

@@ -236,8 +236,8 @@ def test_cuda_without_cuda_raises(monkeypatch):
 
 
 def test_other_families_name_their_slice():
-    cfg = dataclasses.replace(ARCHS[ARCH].smoke(), family="hybrid")
-    with pytest.raises(NotImplementedError, match="Hymba"):
+    cfg = dataclasses.replace(ARCHS[ARCH].smoke(), family="moe")
+    with pytest.raises(NotImplementedError, match="MoE"):
         build_model(cfg, device="cpu")
 
 

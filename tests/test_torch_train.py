@@ -357,3 +357,27 @@ def test_trace_groups_only_the_port_kernels_by_name():
                  "(anonymous namespace)::pow_tensor_scalar_kernel_impl<float>>(int)",
                  "void at::native::(anonymous namespace)::CatArrayBatchedCopy<x>(y)"):
         assert kernel_group(name) == "torch_other"
+
+
+def test_trace_groups_the_port_kernels_by_source():
+    """Each kernel of ``kernels/csrc`` also counts toward its source file, one
+    group per kernel wrapper: the SSD scan's four forward launches form
+    ``ssd_scan`` and its four backward launches ``ssd_scan_bwd``, template and
+    plain kernels alike (a plain kernel's name has no return type)."""
+    from repro_torch.launch.trace import KERNEL_SOURCE, source_group
+
+    fwd = {"ssd_cumsum_kernel", "ssd_chunk_state_kernel", "ssd_state_scan_kernel",
+           "ssd_fwd_out_kernel"}
+    bwd = {"ssd_bwd_state_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_dx_kernel",
+           "ssd_bwd_dbc_kernel"}
+    assert {k for k, v in KERNEL_SOURCE.items() if v == "ssd_scan"} == fwd
+    assert {k for k, v in KERNEL_SOURCE.items() if v == "ssd_scan_bwd"} == bwd
+    assert source_group("(anonymous namespace)::ssd_cumsum_kernel(float const*, float*, "
+                        "ssd::Dims)") == "ssd_scan"
+    assert source_group("void (anonymous namespace)::ssd_bwd_dbc_kernel<__nv_bfloat16>("
+                        "(anonymous namespace)::DbcArgs)") == "ssd_scan_bwd"
+    assert source_group("void (anonymous namespace)::mlstm_state_scan_kernel<float, float>("
+                        "mlstm::Scan)") == "mlstm_scan"
+    assert source_group("nvjet_tst_128x256_64x4_1x1_h_bz_coopA_TNN") == "cublas"
+    assert source_group("void at::native::vectorized_elementwise_kernel<4, x>(int)") == \
+        "torch_other"
