@@ -10,12 +10,19 @@ prints no result line):
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card, fp32
    and bf16: the serving kernels at the qwen1.5-0.5b serving shapes and a
-   small shape, rmsnorm and swiglu_mlp also at the training shape; flash
+   small shape, rmsnorm also at the training shape; swiglu_mlp at the
+   serving, qwen training and hymba-1.5b training shapes and at ragged
+   shapes that reach each of its three routes (``SWIGLU_SHAPES``); flash
    attention forward and backward at the five sweep shapes of
-   ``tests/test_kernels.py``, a GQA shape (G 8, hd 128) and the training
-   shape; the RMSNorm and SwiGLU backward at the training shape
-   and a small one.  Then each kernel's time beside its plain version's,
-   one PyTorch library call's, and its bound from bytes and operations.
+   ``tests/test_kernels.py``, a GQA shape (G 8, hd 128), causal queries
+   behind a longer cache (q_offset 256) and the training shape; autograd
+   through ``ops.flash_attention`` against the plain backward, in bf16 at
+   the training shape through the tensor-core forward; the RMSNorm and
+   SwiGLU backward at the training shape and a small one.  Each bf16 check
+   prints the route it took.  Then each kernel's time beside its plain
+   version's, one PyTorch library call's, and its bound from bytes and
+   operations; the SwiGLU and flash forwards also beside their CUDA-core
+   kernels (``simt_ms``) on the same inputs.
    Also the mLSTM forward and backward (xlstm-1.3b's core) at the sweep of
    ``tests/test_kernels.py:130-141`` and the training shape, fp32 and bf16;
    the SSD scan forward and backward (hymba-1.5b's core) at the sweep of
@@ -33,11 +40,13 @@ prints no result line):
 5. serve: a small fp32 serve on the card against the CPU, token for token;
    then qwen1.5-0.5b in bf16 through ``repro_torch.launch.serve.main``
    (8 requests, prompt 128, 32 new tokens) with the kernels' launch counts
-   set to 0 just before and read just after.
+   set to 0 just before and read just after; every swiglu_mlp launch must
+   have taken the split-K tensor-core route.
 6. train: qwen1.5-0.5b in bf16, full width and depth, through
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
    checkpoint in a temporary directory under ``build/``), with the launch
-   counts set to 0 just before and checked per step just after; then 8
+   counts set to 0 just before and checked per step just after, every
+   swiglu_mlp and flash_attention launch on the tensor-core route; then 8
    steps on one fixed batch, whose loss must fall by 0.05.
 7. train xLSTM: ``launch.train.main`` for xlstm-1.3b at its smoke config on
    the card, with a checkpoint; then xlstm-1.3b in bf16 at full width and
@@ -47,7 +56,8 @@ prints no result line):
 8. train Hymba: the same for hymba-1.5b: ``launch.train.main`` at its smoke
    config with a checkpoint, then the full model in bf16 (32 layers), batch
    2 x seq 2048 from the launcher's corpus, 4 steps with the launch counts
-   checked per step, and 8 steps on a fixed (2, 128) batch.
+   checked per step (and the routes, as qwen's), and 8 steps on a fixed
+   (2, 128) batch.
 9. output: one ``{"serve": ...}``, ``{"train": ...}``, ``{"train_xlstm":
    ...}``, ``{"train_hymba": ...}`` and ``{"kernels": [...]}`` line, then
    the last line ``{"ok": true, "device": {...}}``.
@@ -79,6 +89,14 @@ CACHE_LEN = SERVE["prompt_len"] + SERVE["new_tokens"] + 8      # as launch/serve
 VALID = SERVE["prompt_len"] + SERVE["new_tokens"]              # visible positions, last step
 TRAIN = dict(batch=8, seq=512, steps=6)
 TRAIN_ROWS = TRAIN["batch"] * TRAIN["seq"]
+#: (N, D, F) of hymba-1.5b's SwiGLU at its training shape (2 x 2176 rows)
+HYMBA_SWIGLU = (4352, 1600, 5504)
+#: (N, D, F): the serving and the qwen training shape, ragged shapes that reach
+#: the split-K route (20 rows) and the 128-row route (333 rows) with D and F no
+#: multiple of the tiles, a bf16 shape that TMA refuses (D = 100, not a multiple
+#: of 8: the CUDA-core route), and hymba-1.5b's training shape
+SWIGLU_SHAPES = ((SERVE["requests"], 1024, 2816), (TRAIN_ROWS, 1024, 2816), (20, 96, 224),
+                 (333, 200, 712), (37, 100, 260), HYMBA_SWIGLU)
 TOL = {  # tests/test_kernels.py
     "rmsnorm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
     "swiglu_mlp": {torch.float32: 1e-4, torch.bfloat16: 5e-2},
@@ -88,7 +106,8 @@ TOL = {  # tests/test_kernels.py
 #: gradients: fp32 sums in another order; bf16 outputs rounded once
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 #: (B, Hq, Hkv, Sq, Skv, hd, causal, window): the sweep of tests/test_kernels.py:32-36,
-#: then GQA with G 8 and hd 128, then the training shape
+#: then GQA with G 8 and hd 128, causal queries behind a longer cache (q_offset =
+#: Skv - Sq, as every causal shape here takes), then the training shape
 FLASH_SHAPES = (
     (1, 2, 2, 128, 128, 32, True, 0),
     (2, 4, 2, 256, 256, 64, True, 0),
@@ -96,12 +115,18 @@ FLASH_SHAPES = (
     (2, 2, 2, 128, 256, 64, False, 0),
     (1, 4, 4, 100, 100, 16, True, 0),
     (1, 16, 2, 300, 300, 128, True, 0),
+    (1, 4, 2, 200, 456, 64, True, 0),
     (TRAIN["batch"], 16, 16, TRAIN["seq"], TRAIN["seq"], 64, True, 0),
 )
 #: kernel launches per training step of qwen1.5-0.5b (24 layers)
 TRAIN_PER_STEP = {"rmsnorm": 2 * 24 + 1, "rmsnorm_bwd": 2 * 24 + 1, "swiglu": 24,
                   "swiglu_bwd": 24, "flash_attention": 24, "flash_attention_bwd": 24,
                   "decode_attention": 0}
+#: the route every launch of these modules must take in the bf16 runs: the
+#: tensor cores at training rows (qwen and Hymba; xLSTM has only SwiGLU), with
+#: split-K at serving's 8 rows
+TRAIN_ROUTES = {"swiglu": "wgmma", "flash_attention": "wgmma"}
+SERVE_ROUTES = {"swiglu": "wgmma_split_k"}
 XLSTM = "xlstm-1.3b"
 XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
 #: kernel launches per training step of xlstm-1.3b (42 mLSTM blocks: 2 norms and
@@ -109,6 +134,7 @@ XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
 XLSTM_PER_STEP = {"rmsnorm": 2 * 42 + 3 * 6 + 1, "rmsnorm_bwd": 2 * 42 + 3 * 6 + 1,
                   "swiglu": 6, "swiglu_bwd": 6, "mlstm_scan": 42, "mlstm_scan_bwd": 42,
                   "flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0}
+XLSTM_ROUTES = {"swiglu": "wgmma"}
 #: (B, H, S, dqk, dv, chunk): the sweep of tests/test_kernels.py:130-141, then the
 #: training shape of xlstm-1.3b (dqk 512, dv 1024, chunk 128)
 MLSTM_SHAPES = tuple((2, 2, 256, dqk, dv, chunk) for chunk in (32, 64, 128)
@@ -206,6 +232,30 @@ def bound(bytes_moved: float, ops: float, dtype, rate: float) -> tuple[float, st
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def reset_counts(kernel_modules) -> None:
+    """Set every launch count, and every per-route count, to 0."""
+    for m in kernel_modules:
+        m.launches = 0
+        for name in getattr(m, "route_launches", {}):
+            m.route_launches[name] = 0
+
+
+def read_counts(kernel_modules) -> tuple[dict, dict]:
+    """(launches by module, launches by route of the modules that have routes)."""
+    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernel_modules}
+    routes = {m.__name__.rsplit(".", 1)[1]: dict(m.route_launches) for m in kernel_modules
+              if hasattr(m, "route_launches")}
+    return counts, routes
+
+
+def check_routes(routes: dict, counts: dict, want: dict, run: str) -> None:
+    """Raise unless every launch of each module in ``want`` took its route there."""
+    for module, route in want.items():
+        if routes[module][route] != counts[module]:
+            raise AssertionError(f"{module}: {counts[module]} launches in the {run} run, "
+                                 f"{routes[module]} by route; expected all {route}")
+
+
 # ------------------------------------------------------------------ phases
 def phase_card() -> tuple[str, str]:
     if not torch.cuda.is_available():
@@ -272,33 +322,46 @@ def _swiglu_lib(x, wg, wu, wd):
 
 
 def check_swiglu(gen, ops, ref, rate):
-    """The serving shape, the training shape and a small one; the row times the
-    serving shape, its ``train_*`` keys the training shape."""
-    errs = {}
-    for N, D, Fd in ((SERVE["requests"], 1024, 2816), (TRAIN_ROWS, 1024, 2816), (20, 96, 224)):
+    """SWIGLU_SHAPES in fp32 and bf16, each bf16 check with the route it took;
+    times at the serving shape (the row), the qwen training shape (its
+    ``train_*`` keys) and hymba-1.5b's (``hymba_*``), each beside the
+    CUDA-core kernel's on the same inputs (``simt_ms``)."""
+    from repro_torch.kernels import swiglu as ks
+
+    errs, routes = {}, {}
+    for N, D, Fd in SWIGLU_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             x = randn(gen, (N, D), dt)
             wg, wu = randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (D, Fd), dt, D ** -0.5)
             wd = randn(gen, (Fd, D), dt, Fd ** -0.5)
+            routes[(N, D, Fd, dt)] = ks.route(x, wg, wu, wd)
             got = ops.swiglu_mlp(x, wg, wu, wd)
             errs[(N, D, Fd, dt)] = max_err(got, ref.swiglu_ref(x, wg, wu, wd),
                                            TOL["swiglu_mlp"][dt])
+            del x, wg, wu, wd, got
     print(f"[kernels] swiglu_mlp errors {errs}")
+    print(f"[kernels] swiglu_mlp bf16 routes "
+          f"{ {k[:3]: v for k, v in routes.items() if k[3] == torch.bfloat16} }")
     row = {"name": "swiglu_mlp"}
-    for prefix, N, n_sets, rounds in (("", SERVE["requests"], 24, 5), ("train_", TRAIN_ROWS, 2, 3)):
-        D, Fd, dt = 1024, 2816, torch.bfloat16
+    for prefix, (N, D, Fd), n_sets, rounds in (("", SWIGLU_SHAPES[0], 24, 5),
+                                               ("train_", SWIGLU_SHAPES[1], 2, 3),
+                                               ("hymba_", HYMBA_SWIGLU, 2, 3)):
+        dt = torch.bfloat16
         sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
                  randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5))
                 for _ in range(n_sets)]
         b_ms, b_by = bound((2 * N * D + 3 * D * Fd) * 2, 6 * N * D * Fd + 4 * N * Fd, dt, rate)
         row.update({
             f"{prefix}shape": f"x ({N}, {D}), d_ff {Fd} bf16",
+            f"{prefix}kernel_route": routes[(N, D, Fd, dt)],
             f"{prefix}max_abs_err": errs[(N, D, Fd, dt)],
             f"{prefix}ms": time_ms(ops.swiglu_mlp, sets, rounds),
+            f"{prefix}simt_ms": time_ms(lambda *a: ks.launch("simt", *a), sets, rounds),
             f"{prefix}plain_ms": time_ms(ref.swiglu_ref, sets, rounds),
             f"{prefix}library_ms": time_ms(_swiglu_lib, sets, rounds),
             f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
         })
+        del sets
     return row
 
 
@@ -365,7 +428,8 @@ def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool) -> tuple[flo
 def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, dict]:
     """Flash forward and backward times in bf16 at one causal self-attention shape,
     beside the plain versions', SDPA's (with a boolean band mask where the
-    window bites) and the bound."""
+    window bites) and the bound; the forward also beside the CUDA-core
+    kernel's on the same inputs (``simt_ms``)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
@@ -386,8 +450,11 @@ def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, d
     lib_bwd, lib_both = grad_ms(lib, (q, k, v), dout, 5)
     b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=False)
     fwd = {
+        "kernel_route": kf.route(*fwd_sets[0]),
         "ms": time_ms(lambda q, k, v: kf.flash_attention_cuda(q, k, v, window=window),
                       fwd_sets, 5),
+        "simt_ms": time_ms(lambda q, k, v: kf.launch("simt", q, k, v, causal=True,
+                                                     window=window, q_offset=0), fwd_sets, 5),
         "plain_ms": time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, window=window),
                             fwd_sets, 3),
         "library_ms": time_ms(lib, fwd_sets, 5), "bound_ms": b_ms, "bound_by": b_by,
@@ -413,11 +480,11 @@ def check_flash(gen, ops, ref, rate):
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
-    errs, gerrs = {}, {}
+    errs, gerrs, routes = {}, {}, {}
     hymba = [(B, Hq, Hkv, S, S, hd, True, w) for B, Hq, Hkv, S, hd, w in HYMBA_FLASH]
     for B, Hq, Hkv, Sq, Skv, hd, causal, window in FLASH_SHAPES + tuple(hymba):
         for dt in (torch.float32, torch.bfloat16):
-            mask = dict(causal=causal, window=window)
+            mask = dict(causal=causal, window=window, q_offset=Skv - Sq if causal else 0)
             q = randn(gen, (B, Hq, Sq, hd), dt)
             # k, v and dO as the model hands them over: transposed views
             k = randn(gen, (B, Skv, Hkv, hd), dt).transpose(1, 2)
@@ -427,21 +494,36 @@ def check_flash(gen, ops, ref, rate):
             want, want_lse = ref.flash_attention_ref(q, k, v, **mask)
             tol = TOL["flash_attention"][dt]
             key = (B, Hq, Hkv, Sq, Skv, hd, causal, window, str(dt)[6:])
+            routes[key] = kf.route(q, k.contiguous(), v.contiguous())
             errs[key] = max(max_err(out, want, tol), max_err(lse, want_lse, tol))
             got = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
             exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask)
             gerrs[key] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp))
             del q, k, v, dout, out, lse, want, want_lse, got, exp
     print(f"[kernels] flash_attention errors {errs}")
+    print(f"[kernels] flash_attention bf16 routes "
+          f"{ {k[:8]: v for k, v in routes.items() if k[8] == 'bfloat16'} }")
     print(f"[kernels] flash_attention_bwd errors {gerrs}")
 
-    # autograd through ops.flash_attention equals the plain backward
-    q, k, v, dout = (randn(gen, (2, 4, 100, 32), torch.float32) for _ in range(4))
-    leaves = [t.requires_grad_() for t in (q, k, v)]
-    auto = torch.autograd.grad(ops.flash_attention(*leaves), leaves, dout)
-    want, want_lse = ref.flash_attention_ref(q, k, v)
-    for a, b in zip(auto, ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout)):
-        max_err(a, b, GRAD_TOL[torch.float32])
+    # autograd through ops.flash_attention equals the plain backward: fp32 at a
+    # small shape; bf16 at the training shape, where the tensor-core forward's
+    # lse feeds the backward kernel
+    B, H, _, S, _, hd, _, _ = FLASH_SHAPES[-1]
+    for shape, dt in (((2, 4, 100, 32), torch.float32), ((B, H, S, hd), torch.bfloat16)):
+        q, k, v, dout = (randn(gen, shape, dt) for _ in range(4))
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        before = dict(kf.route_launches)
+        auto = torch.autograd.grad(ops.flash_attention(*leaves), leaves, dout)
+        took = [r for r, n in kf.route_launches.items() if n != before[r]]
+        with torch.no_grad():
+            want, want_lse = ref.flash_attention_ref(q, k, v)
+            plain = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout)
+        aerr = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(auto, plain))
+        print(f"[kernels] flash autograd {shape} {str(dt)[6:]}: forward route {took}, "
+              f"gradients within {aerr:.4e} of the plain backward")
+        if dt == torch.bfloat16 and took != ["wgmma"]:
+            raise AssertionError(f"bf16 autograd forward took the routes {took}")
+        del q, k, v, dout, leaves, auto, want, want_lse, plain
 
     B, H, _, S, _, hd, _, _ = FLASH_SHAPES[-1]
     key = (B, H, H, S, S, hd, True, 0, "bfloat16")
@@ -883,21 +965,22 @@ def phase_serve(kernel_modules) -> dict:
         raise AssertionError(f"small fp32 serve: card {on_gpu.tolist()} != cpu {on_cpu.tolist()}")
     print("[serve] small fp32 serve: card tokens equal the CPU's")
 
-    for m in kernel_modules:
-        m.launches = 0
+    reset_counts(kernel_modules)
     res = serve.main(["--full-config", "--device", "cuda", "--dtype", "bfloat16",
                       "--requests", str(SERVE["requests"]),
                       "--prompt-len", str(SERVE["prompt_len"]),
                       "--new-tokens", str(SERVE["new_tokens"])])
-    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernel_modules}
+    counts, routes = read_counts(kernel_modules)
+    check_routes(routes, counts, SERVE_ROUTES, "serve")
     toks = res["tokens"]
     if toks.shape != (SERVE["requests"], SERVE["new_tokens"]):
         raise AssertionError(f"served tokens of shape {toks.shape}")
     if toks.min() < 0 or toks.max() >= 151936:
         raise AssertionError("served tokens outside the vocabulary")
-    print(f"[serve] launches {counts}; {res['tokens_per_s']:.1f} tok/s, "
+    print(f"[serve] launches {counts}, by route {routes}; {res['tokens_per_s']:.1f} tok/s, "
           f"{res['ms_per_step']:.3f} ms per decode step")
-    return {"counts": counts, "steps": res["steps"], "tokens_per_s": res["tokens_per_s"],
+    return {"counts": counts, "routes": routes, "steps": res["steps"],
+            "tokens_per_s": res["tokens_per_s"],
             "ms_per_step": res["ms_per_step"]}
 
 
@@ -908,15 +991,14 @@ def phase_train(kernel_modules) -> dict:
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     (ROOT / "build").mkdir(exist_ok=True)
-    for m in kernel_modules:
-        m.launches = 0
+    reset_counts(kernel_modules)
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
         res = train.main(["--full-config", "--device", "cuda", "--dtype", "bfloat16",
                           "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
                           "--steps", str(TRAIN["steps"]), "--ckpt-dir", ckpt_dir])
         ckpt_bytes = sum(p.stat().st_size for p in Path(ckpt_dir).rglob("*") if p.is_file())
-    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernel_modules}
+    counts, routes = read_counts(kernel_modules)
     peak = torch.cuda.max_memory_allocated()
     if res["restarts"]:
         raise AssertionError(f"the train run restarted {res['restarts']} times")
@@ -927,9 +1009,11 @@ def phase_train(kernel_modules) -> dict:
         if counts[name] != per_step * TRAIN["steps"]:
             raise AssertionError(f"{name}: {counts[name]} launches in the train run, expected "
                                  f"{per_step} x {TRAIN['steps']} steps")
+    check_routes(routes, counts, TRAIN_ROUTES, "train")
     step_ms = statistics.median(res["step_ms"][1:])
     tokens_per_s = TRAIN_ROWS / (step_ms / 1e3)
-    print(f"[train] launches {counts}; losses {losses}; median step {step_ms:.3f} ms over "
+    print(f"[train] launches {counts}, by route {routes}; losses {losses}; median step "
+          f"{step_ms:.3f} ms over "
           f"steps 2-{TRAIN['steps']}, {tokens_per_s:.1f} tokens/s, peak "
           f"{peak / 2**30:.3f} GiB; final checkpoint {ckpt_bytes / 2**30:.3f} GiB in "
           f"{res['ckpt_seconds']:.2f} s")
@@ -950,14 +1034,15 @@ def phase_train(kernel_modules) -> dict:
     if not fixed[-1] < fixed[0] - 0.05:
         raise AssertionError(f"fixed-batch losses did not fall by 0.05: {fixed}")
     print(f"[train] fixed batch (4, 64), 8 steps: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
-    return {"counts": counts, "steps": TRAIN["steps"], "batch": TRAIN["batch"],
+    return {"counts": counts, "routes": routes, "steps": TRAIN["steps"], "batch": TRAIN["batch"],
             "seq": TRAIN["seq"], "losses": losses, "step_ms": res["step_ms"],
             "median_step_ms": step_ms, "tokens_per_s": tokens_per_s,
             "peak_memory_bytes": peak, "ckpt_bytes": ckpt_bytes,
             "ckpt_seconds": res["ckpt_seconds"], "fixed_batch_losses": fixed}
 
 
-def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag: str):
+def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag: str,
+                     want_routes: dict):
     """An architecture on the card.  First ``launch.train.main`` at its smoke
     config (seq 64, 2 steps, its checkpoint in a temporary directory under
     ``build/``), so the launcher's path runs on the card.  Then the full model
@@ -965,7 +1050,8 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     launcher's corpus (``TokenDatasetSpec``, ``TokenLoader``, AdamW as the
     launcher sets it), parameters drawn on a CUDA generator, ``shape``'s steps
     of ``make_train_step`` with the launch counts set to 0 just before and
-    checked against ``per_step`` just after; then 8 steps on a fixed (2, 128)
+    checked against ``per_step`` just after, and the routes of ``want_routes``'
+    modules checked to have taken every launch; then 8 steps on a fixed (2, 128)
     batch, whose loss must fall by 0.05.  Tokens are the batch's text tokens.
     Returns ``(model, params, result)``."""
     from repro_torch.configs import ARCHS
@@ -998,8 +1084,7 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
                             vocab=model.cfg.vocab, seed=0)
     it = iter(TokenLoader(spec, batch=B, items_per_chunk=train.ITEMS_PER_CHUNK))
     step = make_train_step(model, opt_cfg)
-    for m in kernel_modules:
-        m.launches = 0
+    reset_counts(kernel_modules)
     losses, step_ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1009,7 +1094,7 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
         params, opt, metrics = step(params, opt, batch)
         losses.append(float(metrics["loss"]))      # waits for the step to finish
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernel_modules}
+    counts, routes = read_counts(kernel_modules)
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{arch} train losses {losses}")
@@ -1017,9 +1102,11 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
         if counts[name] != n * steps:
             raise AssertionError(f"{name}: {counts[name]} launches in the {arch} train run, "
                                  f"expected {n} x {steps} steps")
+    check_routes(routes, counts, want_routes, tag)
     median = statistics.median(step_ms[1:])
     tokens_per_s = B * S / (median / 1e3)
-    print(f"[{tag}] launches {counts}; losses {losses}; step ms {step_ms}; median "
+    print(f"[{tag}] launches {counts}, by route {routes}; losses {losses}; step ms "
+          f"{step_ms}; median "
           f"{median:.3f} ms over steps 2-{steps}, {tokens_per_s:.1f} tokens/s, peak "
           f"{peak / 2**30:.3f} GiB; init {init_s:.2f} s")
 
@@ -1035,7 +1122,8 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
         raise AssertionError(f"fixed-batch losses did not fall by 0.05: {fixed}")
     print(f"[{tag}] fixed batch (2, 128), 8 steps: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
     return model, params, {
-        "counts": counts, "steps": steps, "batch": B, "seq": S, "tokens_per_step": B * S,
+        "counts": counts, "routes": routes, "steps": steps, "batch": B, "seq": S,
+        "tokens_per_step": B * S,
         "losses": losses, "step_ms": step_ms, "median_step_ms": median,
         "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak, "init_seconds": init_s,
         "fixed_batch_losses": fixed, "launcher_smoke_losses": res["losses"]}
@@ -1046,7 +1134,7 @@ def phase_train_xlstm(kernel_modules) -> dict:
     sLSTM block timed.  Cut: the launcher's final checkpoint, 41 GB at this
     size, is not written at full depth."""
     model, params, res = train_full_depth(XLSTM, XLSTM_TRAIN, XLSTM_PER_STEP, kernel_modules,
-                                          "train_xlstm")
+                                          "train_xlstm", XLSTM_ROUTES)
     blocks = xlstm_block_ms(model, params, res["batch"], res["seq"])
     print(f"[train_xlstm] one block forward + backward at ({res['batch']}, {res['seq']}): "
           f"{blocks}")
@@ -1058,7 +1146,8 @@ def phase_train_hymba(kernel_modules) -> dict:
     parameters).  Each step holds 4096 text tokens; the 128 meta tokens of a
     sequence are not counted.  Cut: the launcher's final checkpoint, 23 GB at
     this size, is not written at full depth."""
-    res = train_full_depth(HYMBA, HYMBA_TRAIN, HYMBA_PER_STEP, kernel_modules, "train_hymba")[2]
+    res = train_full_depth(HYMBA, HYMBA_TRAIN, HYMBA_PER_STEP, kernel_modules, "train_hymba",
+                           TRAIN_ROUTES)[2]
     return {**res, "tokens_counted": "text tokens only, not the 128 meta tokens a sequence"}
 
 

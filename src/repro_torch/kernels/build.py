@@ -39,8 +39,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "rt_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
     "rt_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rt_swiglu_tc": (*(_P,) * 7, *(_I,) * 5, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _P, *(_I,) * 9, _F, _I, _P),
+    "rt_flash_attention_tc": (_P, _P, _P, _P, _P, *(_I,) * 9, _F, _P),
     "rt_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 9, _F, _I, _P),
     "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "rt_swiglu_gate_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),

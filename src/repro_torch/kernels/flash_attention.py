@@ -1,15 +1,25 @@
 """Flash attention forward on the card: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``_flash_kernel`` / ``flash_attention``
-(``src/repro/kernels/flash_attention.py``).  What bounds it on the H100: at
-the training shape (qwen1.5-0.5b, 8 x 512 tokens, hd 64, causal) bytes, for
-q, k, v and out read or written once; its causal band of operations
-(4 * hd per visible pair) is below the tensor cores' rate.  Its design: one
-block per (b, query head, 64 query rows), walking only the kv tiles its
-rows can see, with K/V of kv head ``h // G``; fp32 online softmax; also
-writes the fp32 row log-sum-exp (B, Hq, Sq) that the backward reads.  The
-kernel takes contiguous tensors: the wrapper copies q, k and v where they
-are views (the model's v is a transposed view of its projection).
+(``src/repro/kernels/flash_attention.py``).  A block owns one (b, query
+head) and a tile of query rows and walks only the kv tiles its rows can
+see, with K/V of kv head ``h // G``; fp32 online softmax; it also writes
+the fp32 row log-sum-exp (B, Hq, Sq) that the backward reads.
+:func:`route` picks the kernel from the dtype, hd and the pointers'
+alignment, nothing else:
+
+- ``"wgmma"`` (bf16, hd 64 or 128, 16-byte aligned): Hopper's tensor cores,
+  128 query rows a block, K/V tiles of 128 keys by TMA in a two-stage
+  mbarrier ring, ``S = Q K^T`` and ``O += P V`` by wgmma with P rounded to
+  bf16 (the plain version keeps P in fp32; the bf16 tolerance covers it).
+  Bound on the H100 by bytes at qwen's training shape (8 x 16 heads x 512,
+  hd 64: 0.010 ms) and by the 4 hd operations of each visible pair at
+  Hymba's (0.031 ms global, 0.022 ms window 1024).
+- ``"simt"`` (fp32, other hd): the CUDA-core kernel, 64 query rows a block,
+  four threads a row, fp32 FMAs.
+
+The kernels take contiguous tensors: the wrapper copies q, k and v where
+they are views (the model's v is a transposed view of its projection).
 """
 
 from __future__ import annotations
@@ -23,6 +33,10 @@ launches = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+ROUTES = ("wgmma", "simt")
+#: kernel launches by route since the counts were last set to 0
+route_launches = dict.fromkeys(ROUTES, 0)
+TC_HEAD_DIMS = (64, 128)
 
 
 def check_args(q, k, v) -> None:
@@ -49,26 +63,44 @@ def on_one_gpu(name: str, *tensors) -> None:
                          "expected one GPU")
 
 
+def route(q, k, v) -> str:
+    """The kernel that takes these (checked, contiguous) arguments, one of :data:`ROUTES`."""
+    if (q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS or k.shape[2] == 0
+            or any(t.data_ptr() % 16 for t in (q, k, v))):
+        return "simt"
+    return "wgmma"
+
+
+def launch(route_name: str, q, k, v, *, causal: bool, window: int, q_offset: int):
+    """Run ``route_name``'s kernel on checked contiguous CUDA tensors; the caller counts."""
+    lib = build.library()
+    B, Hq, Sq, hd = q.shape
+    _, Hkv, Skv, _ = k.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, Hq, Hkv, Sq, Skv, hd, int(causal), int(window), int(q_offset), float(hd ** -0.5))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route_name == "wgmma":
+            build.check(lib.rt_flash_attention_tc(*args, stream), "rt_flash_attention_tc")
+        else:
+            build.check(lib.rt_flash_attention(*args, DTYPES[q.dtype], stream),
+                        "rt_flash_attention")
+    return out, lse
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
     """Launch the kernel on CUDA tensors; returns ``(out, lse)``."""
     global launches
     on_one_gpu("flash_attention", q, k, v)
     check_args(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    lib = build.library()
-    B, Hq, Sq, hd = q.shape
-    _, Hkv, Skv, _ = k.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, hd, int(causal), int(window), int(q_offset),
-            float(hd ** -0.5), DTYPES[q.dtype], stream,
-        )
-    build.check(err, "rt_flash_attention")
+    if q.numel() == 0:
+        return torch.empty_like(q), torch.empty(q.shape[:3], dtype=torch.float32,
+                                                device=q.device)
+    name = route(q, k, v)
+    out = launch(name, q, k, v, causal=causal, window=window, q_offset=q_offset)
     launches += 1
-    return out, lse
+    route_launches[name] += 1
+    return out

@@ -98,14 +98,19 @@ def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: in
     return mask
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                        p_bf16: bool = False):
     """Attention with the flash kernel's arithmetic: ``(out, lse)``.
 
     q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd), GQA by ``h // (Hq // Hkv)``.
     Scores in fp32, scaled by ``hd ** -0.5`` after the dot; masked keys weigh
     exactly 0, and a row with no visible key gives zeros (the ``l == 0``
     guard) and ``lse = -inf``.  ``lse`` is the fp32 (B, Hq, Sq) natural-log
-    sum of exp of the visible scores, which the backward reads.
+    sum of exp of the visible scores, which the backward reads.  With
+    ``p_bf16``, P is rounded to bf16 before ``P V`` and ``l`` stays the fp32
+    sum, as in the tensor-core route; that kernel rounds P against its
+    running max and this against the row's, so the two share the rounding's
+    size, not its bits.
     """
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
@@ -118,6 +123,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offs
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * mask
     l = p.sum(dim=-1, keepdim=True)
+    if p_bf16:
+        p = p.to(torch.bfloat16).float()
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / torch.where(l == 0, 1.0, l)
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
     return out.reshape(B, Hq, Sq, hd).to(v.dtype), lse.reshape(B, Hq, Sq)

@@ -17,11 +17,14 @@ import torch
 
 from ..kernels import build
 
-#: the port's kernels: each ``__global__`` function of ``kernels/csrc`` -> its source's stem
+#: the port's kernels: each ``__global__`` function of ``kernels/csrc`` -> its source's
+#: stem.  Every kernel there is written ``__global__ void __launch_bounds__(...) name(``,
+#: the bounds an expression such as ``Layout<kWG>::kThreads, 1``.
 KERNEL_SOURCE = {
     name: p.stem
     for p in sorted(build.CSRC.glob("*.cu"))
-    for name in re.findall(r"__global__ void __launch_bounds__\(\w+\)\s+(\w+)\(", p.read_text())
+    for name in re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(",
+                           p.read_text())
 }
 PORT_KERNELS = frozenset(KERNEL_SOURCE)
 

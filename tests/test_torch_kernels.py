@@ -221,6 +221,62 @@ def test_source_digest_tracks_the_sources(monkeypatch, tmp_path):
     assert build.source_digest() != a
 
 
+def _bf16_unaligned(*shape):
+    """A contiguous bf16 tensor whose data starts 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    base = torch.zeros(n + 8, dtype=torch.bfloat16)
+    off = (-base.data_ptr() // 2) % 8 + 1      # elements to the next boundary, plus one
+    return base[off:off + n].view(shape)
+
+
+@pytest.mark.parametrize("dtype,rows,D,F,bad,want", [
+    ("bfloat16", 4096, 1024, 2816, None, "wgmma"),         # qwen training rows
+    ("bfloat16", 4352, 1600, 5504, None, "wgmma"),         # Hymba's: D is 12.5 tiles
+    ("bfloat16", 64, 96, 224, None, "wgmma"),              # the first 128-row-tile count
+    ("bfloat16", 63, 96, 224, None, "wgmma_split_k"),
+    ("bfloat16", 8, 1024, 2816, None, "wgmma_split_k"),    # serving's decode rows
+    ("bfloat16", 333, 100, 256, None, "simt"),             # D not a multiple of 8
+    ("bfloat16", 8, 96, 260, None, "simt"),                # F not a multiple of 8
+    ("bfloat16", 4096, 1024, 2816, "x", "simt"),           # x 2 bytes off a 16-byte line
+    ("bfloat16", 8, 1024, 2816, "w_down", "simt"),
+    ("float32", 4096, 1024, 2816, None, "simt"),
+    ("float32", 8, 1024, 2816, None, "simt"),
+])
+def test_swiglu_route(dtype, rows, D, F, bad, want):
+    """The route follows from the dtype, the shape and the pointers' alignment."""
+    tdt = DTYPES[dtype][0]
+    shapes = {"x": (rows, D), "w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
+    args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
+            for name, shape in shapes.items()}
+    k_swiglu.check_args(*args.values())
+    assert k_swiglu.route(*args.values()) == want
+    assert want in k_swiglu.ROUTES and set(k_swiglu.route_launches) == set(k_swiglu.ROUTES)
+
+
+def test_swiglu_route_counts_rows_over_leading_axes():
+    x = torch.empty((2, 40, 96), dtype=torch.bfloat16)          # 80 rows
+    w, wd = torch.empty((96, 224), dtype=torch.bfloat16), torch.empty((224, 96),
+                                                                      dtype=torch.bfloat16)
+    assert k_swiglu.route(x, w, w, wd) == "wgmma"
+    assert k_swiglu.route(x[:1, :30], w, w, wd) == "wgmma_split_k"
+
+
+@pytest.mark.parametrize("N,D,F,want", [
+    (8, 1024, 2816, (6, 33)),      # serving: 22 gated and 4 down column tiles on 132 SMs
+    (8, 1600, 5504, (4, 19)),      # Hymba's widths
+    (20, 96, 224, (2, 4)),         # capped by the contraction's 64-deep steps
+    (8, 64, 20000, (1, 132)),      # 157 gated column tiles fill the card alone
+])
+def test_swiglu_split_k(N, D, F, want):
+    """Split-K gives each product about one block per SM, never more blocks
+    along the contraction than it has 64-deep steps."""
+    sg, sd = k_swiglu.split_k(N, D, F, 132)
+    assert (sg, sd) == want
+    for split, cols, tile, depth in ((sg, F, 128, D), (sd, D, 256, F)):
+        assert 1 <= split <= -(-depth // 64)
+        assert split == -(-depth // 64) or split * -(-cols // tile) >= 132
+
+
 # ------------------------------------------------------------ training kernels
 #: (B, Hq, Hkv, Sq, Skv, hd, causal, window, block_q, block_k): tests/test_kernels.py:32-36
 FLASH_SWEEP = [
@@ -284,6 +340,53 @@ def test_flash_attention_bwd_plain_matches_jax_vjp(dtype, shape):
     plain = torch.autograd.grad(
         ref.flash_attention_ref(*leaves, causal=causal, window=window)[0], leaves, do)
     _grads_close(auto, [p.float().numpy() for p in plain], dtype)
+
+
+@pytest.mark.parametrize("dtype,hd,bad,want", [
+    ("bfloat16", 64, None, "wgmma"),       # both models' head width
+    ("bfloat16", 128, None, "wgmma"),
+    ("bfloat16", 32, None, "simt"),
+    ("bfloat16", 96, None, "simt"),
+    ("bfloat16", 16, None, "simt"),
+    ("bfloat16", 64, "q", "simt"),         # q 2 bytes off a 16-byte line
+    ("bfloat16", 64, "v", "simt"),
+    ("float32", 64, None, "simt"),
+    ("float32", 128, None, "simt"),
+])
+def test_flash_route(dtype, hd, bad, want):
+    """The route follows from the dtype, hd and the pointers' alignment."""
+    tdt = DTYPES[dtype][0]
+    shapes = {"q": (1, 4, 40, hd), "k": (1, 2, 96, hd), "v": (1, 2, 96, hd)}
+    args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
+            for name, shape in shapes.items()}
+    k_flash.check_args(*args.values())
+    assert k_flash.route(*args.values()) == want
+    assert want in k_flash.ROUTES and set(k_flash.route_launches) == set(k_flash.ROUTES)
+
+
+def test_flash_route_needs_keys():
+    q = torch.empty((1, 2, 4, 64), dtype=torch.bfloat16)
+    kv = torch.empty((1, 2, 0, 64), dtype=torch.bfloat16)
+    assert k_flash.route(q, kv, kv) == "simt"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [s for s in FLASH_SWEEP if s[5] == 64],
+                         ids=lambda s: "x".join(map(str, s[:8])))
+def test_flash_attention_plain_with_bf16_p_matches_jax(dtype, shape):
+    """P rounded to bf16 before ``P V``, as the tensor-core route rounds it,
+    stays within the bf16 tolerance (2e-2) of the JAX oracle and of the
+    interpret-mode Pallas kernel, which keep P in fp32; lse does not move."""
+    B, Hq, Hkv, Sq, Skv, hd, causal, window, bq, bk = shape
+    (q, jq), (k, jk), (v, jv), _ = _flash_inputs(np.random.default_rng(Sq + hd), shape, dtype)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window, p_bf16=True)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    for want in (jref.attention_ref(jq, jk, jv, causal=causal, window=window),
+                 pallas_flash_attention(jq, jk, jv, causal=causal, window=window, block_q=bq,
+                                        block_k=bk, interpret=True)):
+        np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+    assert torch.equal(lse, ref.flash_attention_ref(q, k, v, causal=causal, window=window)[1])
 
 
 def test_flash_attention_q_offset_and_empty_rows():
@@ -536,7 +639,7 @@ def test_mlstm_wrappers_refuse_bad_arguments():
     assert (k_mlstm.launches, k_mlstm_bwd.launches) == before
 
 
-@pytest.mark.parametrize("header", ["common.cuh", "mlstm.cuh", "ssd.cuh"])
+@pytest.mark.parametrize("header", ["common.cuh", "mlstm.cuh", "ssd.cuh", "hopper.cuh"])
 def test_source_digest_tracks_the_shared_headers(monkeypatch, tmp_path, header):
     """The library's name changes when a header that the sources share changes."""
     for path in build.CSRC.iterdir():

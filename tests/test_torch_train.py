@@ -359,6 +359,28 @@ def test_trace_groups_only_the_port_kernels_by_name():
         assert kernel_group(name) == "torch_other"
 
 
+def test_trace_finds_every_kernel_of_csrc():
+    """Every ``__global__`` function of ``kernels/csrc`` is in ``KERNEL_SOURCE``
+    under its own source, so no kernel of the port is counted as PyTorch's or
+    cuBLAS's, the tensor-core kernels (template launch bounds) included."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.trace import KERNEL_SOURCE, kernel_group, source_group
+
+    for path in sorted(build.CSRC.glob("*.cu")):
+        n = path.read_text().count("__global__")
+        assert sum(stem == path.stem for stem in KERNEL_SOURCE.values()) == n, path.name
+    assert {"swiglu_tc_kernel", "swiglu_splitk_sum_kernel", "rows_matmul_kernel"} == {
+        k for k, v in KERNEL_SOURCE.items() if v == "swiglu"}
+    assert {"flash_tc_kernel", "flash_fwd_kernel"} == {
+        k for k, v in KERNEL_SOURCE.items() if v == "flash_attention"}
+    name = ("void (anonymous namespace)::swiglu_tc_kernel<true, 2>(CUtensorMap_st, "
+            "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Args)")
+    assert kernel_group(name) == "swiglu_tc_kernel" and source_group(name) == "swiglu"
+    assert source_group("void (anonymous namespace)::flash_tc_kernel<64>(CUtensorMap_st, "
+                        "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::TcArgs)") \
+        == "flash_attention"
+
+
 def test_trace_groups_the_port_kernels_by_source():
     """Each kernel of ``kernels/csrc`` also counts toward its source file, one
     group per kernel wrapper: the SSD scan's four forward launches form
