@@ -14,15 +14,21 @@ prints no result line):
    serving, qwen training and hymba-1.5b training shapes and at ragged
    shapes that reach each of its three routes (``SWIGLU_SHAPES``); flash
    attention forward and backward at the five sweep shapes of
-   ``tests/test_kernels.py``, a GQA shape (G 8, hd 128), causal queries
-   behind a longer cache (q_offset 256) and the training shape; autograd
-   through ``ops.flash_attention`` against the plain backward, in bf16 at
-   the training shape through the tensor-core forward; the RMSNorm and
-   SwiGLU backward at the training shape and a small one.  Each bf16 check
-   prints the route it took.  Then each kernel's time beside its plain
+   ``tests/test_kernels.py``, their window and ragged rows again at hd 64
+   (the tensor-core route), a GQA shape (G 8, hd 128), causal queries
+   behind a longer cache (q_offset 256) and the training shape, each
+   backward called twice and its two results compared bit for bit, and
+   queries that see no key (zero gradients on the tensor-core route);
+   autograd through ``ops.flash_attention`` against the plain backward, in
+   bf16 at the training shape through the tensor-core forward; the RMSNorm
+   and SwiGLU backward at the training shape and a small one.  Each bf16
+   check prints the route it took, and the flash forward's and backward's
+   routes are asserted.  Then each kernel's time beside its plain
    version's, one PyTorch library call's, and its bound from bytes and
-   operations; the SwiGLU and flash forwards also beside their CUDA-core
-   kernels (``simt_ms``) on the same inputs.
+   operations; the SwiGLU and flash forwards and the flash backward also
+   beside their CUDA-core kernels (``simt_ms``) on the same inputs, and the
+   flash backward beside SDPA's backward by backend (each forced with
+   ``sdpa_kernel``; ``library_ms`` is the fastest that takes the inputs).
    Also the mLSTM forward and backward (xlstm-1.3b's core) at the sweep of
    ``tests/test_kernels.py:130-141`` and the training shape, fp32 and bf16;
    the SSD scan forward and backward (hymba-1.5b's core) at the sweep of
@@ -46,7 +52,8 @@ prints no result line):
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
    checkpoint in a temporary directory under ``build/``), with the launch
    counts set to 0 just before and checked per step just after, every
-   swiglu_mlp and flash_attention launch on the tensor-core route; then 8
+   swiglu_mlp and flash_attention launch (forward and backward) on the
+   tensor-core route; then 8
    steps on one fixed batch, whose loss must fall by 0.05.
 7. train xLSTM: ``launch.train.main`` for xlstm-1.3b at its smoke config on
    the card, with a checkpoint; then xlstm-1.3b in bf16 at full width and
@@ -106,14 +113,18 @@ TOL = {  # tests/test_kernels.py
 #: gradients: fp32 sums in another order; bf16 outputs rounded once
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 #: (B, Hq, Hkv, Sq, Skv, hd, causal, window): the sweep of tests/test_kernels.py:32-36,
-#: then GQA with G 8 and hd 128, causal queries behind a longer cache (q_offset =
-#: Skv - Sq, as every causal shape here takes), then the training shape
+#: its window (G 4) and ragged rows again at hd 64, where they take the
+#: tensor-core routes, then GQA with G 8 and hd 128, causal queries behind a
+#: longer cache (q_offset = Skv - Sq, as every causal shape here takes), then
+#: the training shape
 FLASH_SHAPES = (
     (1, 2, 2, 128, 128, 32, True, 0),
     (2, 4, 2, 256, 256, 64, True, 0),
     (1, 8, 2, 192, 192, 32, True, 64),
     (2, 2, 2, 128, 256, 64, False, 0),
     (1, 4, 4, 100, 100, 16, True, 0),
+    (1, 8, 2, 192, 192, 64, True, 64),
+    (1, 4, 4, 100, 100, 64, True, 0),
     (1, 16, 2, 300, 300, 128, True, 0),
     (1, 4, 2, 200, 456, 64, True, 0),
     (TRAIN["batch"], 16, 16, TRAIN["seq"], TRAIN["seq"], 64, True, 0),
@@ -125,7 +136,7 @@ TRAIN_PER_STEP = {"rmsnorm": 2 * 24 + 1, "rmsnorm_bwd": 2 * 24 + 1, "swiglu": 24
 #: the route every launch of these modules must take in the bf16 runs: the
 #: tensor cores at training rows (qwen and Hymba; xLSTM has only SwiGLU), with
 #: split-K at serving's 8 rows
-TRAIN_ROUTES = {"swiglu": "wgmma", "flash_attention": "wgmma"}
+TRAIN_ROUTES = {"swiglu": "wgmma", "flash_attention": "wgmma", "flash_attention_bwd": "wgmma"}
 SERVE_ROUTES = {"swiglu": "wgmma_split_k"}
 XLSTM = "xlstm-1.3b"
 XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
@@ -162,6 +173,8 @@ SSD_SHAPES = tuple((2, 128, 2, N, chd, chunk) for chunk in (32, 64)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: (B, Hq, Hkv, S, hd, window): hymba-1.5b's attention at its training shape
 HYMBA_FLASH = ((2, 25, 5, 2176, 64, 1024), (2, 25, 5, 2176, 64, 0))
+#: SDPA's backends timed for the flash backward's yardstick (torch.nn.attention.SDPBackend)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
 #: dense peak rates by input type (NVIDIA H100 SXM data sheet, no sparsity)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -425,11 +438,42 @@ def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool) -> tuple[flo
                  torch.bfloat16, rate)
 
 
+def sdpa_backward_ms(lib, inputs, dout) -> dict:
+    """SDPA's backward by backend at these inputs: ``library_default_ms`` (the
+    backend SDPA picks itself), each of ``SDPA_BACKENDS`` forced with
+    ``sdpa_kernel`` (ms, or why it refused the inputs), and ``library_ms``,
+    the fastest that ran, with its ``library_backend``.  Each time is
+    autograd's backward alone, forward + backward beside it, and the host's
+    time to issue the backward (``issue_ms``): where it equals ``ms``, the
+    host, not the device, set the pace."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    (default_bwd, default_issue), (default_both, _) = grad_ms(lib, inputs, dout, 5, issue=True)
+    by_backend = {}
+    for name in SDPA_BACKENDS:
+        def forced(*args, backend=getattr(SDPBackend, name)):
+            with sdpa_kernel(backend):
+                return lib(*args)
+        try:
+            (bwd, issue), (both, _) = grad_ms(forced, inputs, dout, 5, issue=True)
+        except RuntimeError as e:  # the backend does not take these inputs: no kernel ran
+            by_backend[name] = f"refused: {str(e).strip().splitlines()[0][:160]}"
+            continue
+        by_backend[name] = {"ms": bwd, "issue_ms": issue, "fwd_bwd_ms": both}
+    ran = {k: v for k, v in by_backend.items() if isinstance(v, dict)}
+    best = min(ran, key=lambda k: ran[k]["ms"])
+    return {"library_ms": ran[best]["ms"], "library_backend": best,
+            "library_issue_ms": ran[best]["issue_ms"],
+            "library_fwd_bwd_ms": ran[best]["fwd_bwd_ms"], "library_default_ms": default_bwd,
+            "library_default_issue_ms": default_issue,
+            "library_default_fwd_bwd_ms": default_both, "library_by_backend": by_backend}
+
+
 def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, dict]:
     """Flash forward and backward times in bf16 at one causal self-attention shape,
     beside the plain versions', SDPA's (with a boolean band mask where the
-    window bites) and the bound; the forward also beside the CUDA-core
-    kernel's on the same inputs (``simt_ms``)."""
+    window bites; the backward's by backend) and the bound; each also beside
+    the CUDA-core kernels' on the same inputs (``simt_ms``)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
@@ -447,7 +491,7 @@ def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, d
         return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=Hq != Hkv)
 
     q, k, v, dout = sets[0]
-    lib_bwd, lib_both = grad_ms(lib, (q, k, v), dout, 5)
+    lib_bwd = sdpa_backward_ms(lib, (q, k, v), dout)
     b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=False)
     fwd = {
         "kernel_route": kf.route(*fwd_sets[0]),
@@ -460,14 +504,18 @@ def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, d
         "library_ms": time_ms(lib, fwd_sets, 5), "bound_ms": b_ms, "bound_by": b_by,
     }
     b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=True)
+    ms, issue_ms = time_ms(lambda *a: kb.flash_attention_bwd_cuda(*a, window=window), saved, 5,
+                           issue=True)
     bwd = {
-        "ms": time_ms(lambda *a: kb.flash_attention_bwd_cuda(*a, window=window), saved, 5),
+        "kernel_route": kb.route(*saved[0][:4], saved[0][5]),
+        "ms": ms, "issue_ms": issue_ms,
+        "simt_ms": time_ms(lambda *a: kb.launch("simt", *a, causal=True, window=window,
+                                                q_offset=0), saved, 5),
         "plain_ms": time_ms(lambda *a: ref.flash_attention_bwd_ref(*a, window=window), saved, 3),
-        "library_ms": lib_bwd,
         "fwd_bwd_ms": time_ms(lambda q, k, v, do: torch.autograd.grad(
             ops.flash_attention(q, k, v, window=window), (q, k, v), do),
             [tuple(t.detach().requires_grad_() for t in st[:3]) + (st[3],) for st in sets], 5),
-        "library_fwd_bwd_ms": lib_both, "bound_ms": b_ms, "bound_by": b_by,
+        **lib_bwd, "bound_ms": b_ms, "bound_by": b_by,
     }
     return fwd, bwd
 
@@ -480,7 +528,7 @@ def check_flash(gen, ops, ref, rate):
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
-    errs, gerrs, routes = {}, {}, {}
+    errs, gerrs, routes, bwd_routes = {}, {}, {}, {}
     hymba = [(B, Hq, Hkv, S, S, hd, True, w) for B, Hq, Hkv, S, hd, w in HYMBA_FLASH]
     for B, Hq, Hkv, Sq, Skv, hd, causal, window in FLASH_SHAPES + tuple(hymba):
         for dt in (torch.float32, torch.bfloat16):
@@ -496,14 +544,43 @@ def check_flash(gen, ops, ref, rate):
             key = (B, Hq, Hkv, Sq, Skv, hd, causal, window, str(dt)[6:])
             routes[key] = kf.route(q, k.contiguous(), v.contiguous())
             errs[key] = max(max_err(out, want, tol), max_err(lse, want_lse, tol))
+            tc = dt == torch.bfloat16 and hd in kf.TC_HEAD_DIMS
+            if routes[key] != ("wgmma" if tc else "simt"):
+                raise AssertionError(f"flash_attention {key}: route {routes[key]}")
+            before = dict(kb.route_launches)
             got = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
+            bwd_routes[key] = [r for r, n in kb.route_launches.items() if n != before[r]]
+            if bwd_routes[key] != ["wgmma" if tc else "simt"]:
+                raise AssertionError(f"flash_attention_bwd {key}: routes {bwd_routes[key]}")
+            again = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {key}: two calls differ")
             exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask)
             gerrs[key] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp))
-            del q, k, v, dout, out, lse, want, want_lse, got, exp
+            del q, k, v, dout, out, lse, want, want_lse, got, again, exp
     print(f"[kernels] flash_attention errors {errs}")
     print(f"[kernels] flash_attention bf16 routes "
           f"{ {k[:8]: v for k, v in routes.items() if k[8] == 'bfloat16'} }")
     print(f"[kernels] flash_attention_bwd errors {gerrs}")
+    print(f"[kernels] flash_attention_bwd bf16 routes "
+          f"{ {k[:8]: v[0] for k, v in bwd_routes.items() if k[8] == 'bfloat16'} }; "
+          f"two calls bitwise equal at every shape")
+
+    # queries that see no key (lse = -inf: q_offset -8, window 4) get zero
+    # gradients on the tensor-core route, not NaN
+    mask = dict(causal=True, window=4, q_offset=-8)
+    q, k, v, dout = (randn(gen, shape, torch.bfloat16)
+                     for shape in ((1, 4, 160, 64), (1, 2, 200, 64), (1, 2, 200, 64),
+                                   (1, 4, 160, 64)))
+    want, want_lse = ref.flash_attention_ref(q, k, v, **mask)
+    got = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
+    exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask)
+    err = max(max_err(a, b, GRAD_TOL[torch.bfloat16]) for a, b in zip(got, exp))
+    if (kb.route(q, k, v, want, dout) != "wgmma" or torch.count_nonzero(got[0][:, :, :8])
+            or not all(torch.isfinite(g).all() for g in got)):
+        raise AssertionError("flash_attention_bwd: rows with no visible key are not zero")
+    print(f"[kernels] flash_attention_bwd wgmma, 8 rows with lse = -inf: zero, within {err:.4e}")
+    del q, k, v, dout, want, want_lse, got, exp
 
     # autograd through ops.flash_attention equals the plain backward: fp32 at a
     # small shape; bf16 at the training shape, where the tensor-core forward's
@@ -512,17 +589,20 @@ def check_flash(gen, ops, ref, rate):
     for shape, dt in (((2, 4, 100, 32), torch.float32), ((B, H, S, hd), torch.bfloat16)):
         q, k, v, dout = (randn(gen, shape, dt) for _ in range(4))
         leaves = [t.requires_grad_() for t in (q, k, v)]
-        before = dict(kf.route_launches)
+        before, before_bwd = dict(kf.route_launches), dict(kb.route_launches)
         auto = torch.autograd.grad(ops.flash_attention(*leaves), leaves, dout)
         took = [r for r, n in kf.route_launches.items() if n != before[r]]
+        took_bwd = [r for r, n in kb.route_launches.items() if n != before_bwd[r]]
         with torch.no_grad():
             want, want_lse = ref.flash_attention_ref(q, k, v)
             plain = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout)
         aerr = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(auto, plain))
         print(f"[kernels] flash autograd {shape} {str(dt)[6:]}: forward route {took}, "
+              f"backward route {took_bwd}, "
               f"gradients within {aerr:.4e} of the plain backward")
-        if dt == torch.bfloat16 and took != ["wgmma"]:
-            raise AssertionError(f"bf16 autograd forward took the routes {took}")
+        if dt == torch.bfloat16 and (took != ["wgmma"] or took_bwd != ["wgmma"]):
+            raise AssertionError(f"bf16 autograd took the routes {took} forward, "
+                                 f"{took_bwd} backward")
         del q, k, v, dout, leaves, auto, want, want_lse, plain
 
     B, H, _, S, _, hd, _, _ = FLASH_SHAPES[-1]

@@ -323,13 +323,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     hop::mbar_wait(&k_full[s], ph);
     hop::fence_regs(sc);
     hop::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk) {
-      const int off = (kk / 4) * 16384 + (kk % 4) * 32;
-      const uint64_t da = hop::desc_sw128(smem + L::kQ + off + wg * 64 * 128, 16, 1024);
-      const uint64_t db = hop::desc_sw128(ks + off, 16, 1024);
-      hop::wgmma_ss_n128<0>(sc, da, db, kk > 0);
-    }
+    hop::product_ss<kHd, 128>(sc, smem + L::kQ + wg * 64 * 128, 128, ks);
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(sc);
@@ -382,25 +376,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       o[4 * j + 3] *= corr[1];
     }
     uint32_t pa[8][4];  // P in bf16, the A operand of each 16-key step
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      pa[kk][0] = hop::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-      pa[kk][1] = hop::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = hop::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = hop::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
+    hop::pack_a<128>(pa, sc);
 
     hop::mbar_wait(&v_full[s], ph);
     hop::fence_regs(o);
     hop::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint64_t db = hop::desc_sw128(vs + kk * 2048, 16384, 1024);
-      if constexpr (kHd == 64)
-        hop::wgmma_rs_n64(o, pa[kk], db, 1);
-      else
-        hop::wgmma_rs_n128(o, pa[kk], db, 1);
-    }
+    hop::product_rs<kHd, 128>(o, pa, vs);
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(o);
@@ -427,23 +408,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// (B H, S, hd) bf16 as a 3-D TMA map (hd, S, B H) with box (64, 128, 1).
-int map_3d(CUtensorMap* m, const void* p, int bh, int S, int hd) {
-  const uint64_t dims[3] = {static_cast<uint64_t>(hd), static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(bh)};
-  const uint64_t strides[2] = {static_cast<uint64_t>(hd) * 2, static_cast<uint64_t>(S) * hd * 2};
-  const uint32_t box[3] = {64, 128, 1};
-  return hop::make_map(m, p, 3, dims, strides, box);
-}
-
 template <int kHd>
 int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Hq,
               int Hkv, int Sq, int Skv, int causal, int window, int q_offset, float scale,
               cudaStream_t s) {
   CUtensorMap tq, tk, tv;
-  int err = map_3d(&tq, q, B * Hq, Sq, kHd);
-  if (!err) err = map_3d(&tk, k, B * Hkv, Skv, kHd);
-  if (!err) err = map_3d(&tv, v, B * Hkv, Skv, kHd);
+  int err = hop::map_heads(&tq, q, B * Hq, Sq, kHd, 128);
+  if (!err) err = hop::map_heads(&tk, k, B * Hkv, Skv, kHd, 128);
+  if (!err) err = hop::map_heads(&tv, v, B * Hkv, Skv, kHd, 128);
   if (err) return err;
   auto kernel = flash_tc_kernel<kHd>;
   const int smem = TcLayout<kHd>::kSmem;

@@ -1,6 +1,8 @@
-// Hopper building blocks shared by the tensor-core kernels (swiglu.cu and
-// flash_attention.cu): TMA tensor maps and loads, mbarrier rings, wgmma
-// shared-memory descriptors and instructions, register reallocation.
+// Hopper building blocks shared by the tensor-core kernels (swiglu.cu,
+// flash_attention.cu and flash_attention_bwd.cu): TMA tensor maps and loads,
+// mbarrier rings, named barriers, wgmma shared-memory descriptors and
+// instructions, register reallocation, and the attention kernels' tile
+// products.
 //
 // Every operand tile lives in shared memory in the layout that a TMA load
 // with 128-byte swizzle writes: rows of 64 bf16 (128 bytes), the 16-byte
@@ -62,6 +64,16 @@ inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// (B H, S, hd) bf16 rows as a 3-D map (hd, S, B H) with box (64, rows, 1): a
+// box never crosses a head, and rows past S read as zeros.
+inline int map_heads(CUtensorMap* map, const void* base, int bh, int S, int hd, int rows) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(hd), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(bh)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(hd) * 2, static_cast<uint64_t>(S) * hd * 2};
+  const uint32_t box[3] = {64, static_cast<uint32_t>(rows), 1};
+  return make_map(map, base, 3, dims, strides, box);
 }
 
 // ---------------------------------------------------------------- device side
@@ -134,6 +146,13 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Wait at hardware barrier kId (1..15; 0 is __syncthreads) until kThreads
+// threads, whole warps, have arrived.
+template <int kId, int kThreads>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kId), "n"(kThreads) : "memory");
 }
 
 // A wgmma descriptor of a 128-byte-swizzled tile (layout type 1).
@@ -216,6 +235,25 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTnspB));
 }
 
+// D (64 x 64, fp32) += A (64 x 16, smem) * B (16 x 64, smem); kTnspB as above.
+template <int kTnspB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnspB));
+}
+
 // D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                              int scale_d) {
@@ -259,5 +297,52 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// ------------------------------------- tiles of the attention kernels (kHd 64 or 128)
+
+// The fp32 accumulator of a 64 x kN product as the bf16 A operands of the
+// kN / 16 steps of the next product.
+template <int kN>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[kN / 16][4], const float (&d)[kN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    pa[kk][0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  }
+}
+
+// D (64 x kN, kN 64 or 128) = A B over kHd, both from shared memory and
+// K-major: A a 64-row slice of a tile of a_rows rows, B a tile of kN rows,
+// each in boxes of 64 columns.
+template <int kHd, int kN>
+__device__ __forceinline__ void product_ss(float (&d)[kN / 2], const uint8_t* a, int a_rows,
+                                           const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < kHd / 16; ++kk) {
+    const uint64_t da = desc_sw128(a + (kk / 4) * a_rows * 128 + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = desc_sw128(b + (kk / 4) * kN * 128 + (kk % 4) * 32, 16, 1024);
+    if constexpr (kN == 128)
+      wgmma_ss_n128<0>(d, da, db, kk > 0);
+    else
+      wgmma_ss_n64<0>(d, da, db, kk > 0);
+  }
+}
+
+// D (64 x kHd) += A B over kRows: A bf16 registers (pack_a), B a tile of kRows
+// rows read through transpose-B (boxes of 64 columns kRows * 128 bytes apart).
+template <int kHd, int kRows>
+__device__ __forceinline__ void product_rs(float (&d)[kHd / 2],
+                                           const uint32_t (&pa)[kRows / 16][4],
+                                           const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 2048, kRows * 128, 1024);
+    if constexpr (kHd == 64)
+      wgmma_rs_n64(d, pa[kk], db, 1);
+    else
+      wgmma_rs_n128(d, pa[kk], db, 1);
+  }
+}
 
 }  // namespace hop

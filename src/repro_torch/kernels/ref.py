@@ -98,6 +98,10 @@ def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: in
     return mask
 
 
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
                         p_bf16: bool = False):
     """Attention with the flash kernel's arithmetic: ``(out, lse)``.
@@ -124,20 +128,23 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offs
     p = torch.exp(s - m) * mask
     l = p.sum(dim=-1, keepdim=True)
     if p_bf16:
-        p = p.to(torch.bfloat16).float()
+        p = _bf16_round(p)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / torch.where(l == 0, 1.0, l)
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
     return out.reshape(B, Hq, Sq, hd).to(v.dtype), lse.reshape(B, Hq, Sq)
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
-                            q_offset: int = 0):
+                            q_offset: int = 0, p_bf16: bool = False):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_ref`, the FA2 way.
 
     ``P`` is recomputed from q, k and the saved ``lse``; ``D = rowsum(dO * O)``
     in fp32; ``dS = P * (dO V^T - D)``; ``dq = dS K * scale``, ``dk = dS^T Q *
     scale``, ``dv = P^T dO``, summed over the G query heads of each kv head.
     Invisible pairs weigh 0, so a row with ``lse = -inf`` gives zero gradients.
+    With ``p_bf16``, P is rounded to bf16 before ``P^T dO`` and dS before
+    ``dS K`` and ``dS^T Q``, as in the tensor-core route (dS itself is formed
+    from the fp32 P there too).
     """
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
@@ -151,10 +158,12 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, win
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
     lse_g = lse.reshape(B, Hkv, G, Sq, 1)
     p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(lse_g), lse_g, 0.0)), 0.0)
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", _bf16_round(p) if p_bf16 else p, dog)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
     d_row = (dog * out.float().reshape(B, Hkv, G, Sq, hd)).sum(dim=-1, keepdim=True)
     ds = p * (dp - d_row)
+    if p_bf16:
+        ds = _bf16_round(ds)
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
     return dq.reshape(B, Hq, Sq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -364,6 +364,32 @@ def test_flash_route(dtype, hd, bad, want):
     assert want in k_flash.ROUTES and set(k_flash.route_launches) == set(k_flash.ROUTES)
 
 
+@pytest.mark.parametrize("dtype,hd,bad,want", [
+    ("bfloat16", 64, None, "wgmma"),       # both models' head width
+    ("bfloat16", 128, None, "wgmma"),
+    ("bfloat16", 32, None, "simt"),
+    ("bfloat16", 96, None, "simt"),
+    ("bfloat16", 64, "q", "simt"),         # q 2 bytes off a 16-byte line
+    ("bfloat16", 64, "k", "simt"),
+    ("bfloat16", 64, "out", "simt"),
+    ("bfloat16", 128, "dout", "simt"),
+    ("float32", 64, None, "simt"),
+    ("float32", 128, None, "simt"),
+])
+def test_flash_bwd_route(dtype, hd, bad, want):
+    """The backward's route follows from the dtype, hd and the alignment of q, k,
+    v, out and dout: the forward's rule, over two more pointers."""
+    tdt = DTYPES[dtype][0]
+    shapes = {"q": (1, 4, 40, hd), "k": (1, 2, 96, hd), "v": (1, 2, 96, hd),
+              "out": (1, 4, 40, hd), "dout": (1, 4, 40, hd)}
+    args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
+            for name, shape in shapes.items()}
+    k_flash.check_args(args["q"], args["k"], args["v"])
+    assert k_flash_bwd.route(*args.values()) == want
+    assert want in k_flash_bwd.ROUTES
+    assert set(k_flash_bwd.route_launches) == set(k_flash_bwd.ROUTES)
+
+
 def test_flash_route_needs_keys():
     q = torch.empty((1, 2, 4, 64), dtype=torch.bfloat16)
     kv = torch.empty((1, 2, 0, 64), dtype=torch.bfloat16)
@@ -387,6 +413,24 @@ def test_flash_attention_plain_with_bf16_p_matches_jax(dtype, shape):
         np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
                                    rtol=2e-2, atol=2e-2)
     assert torch.equal(lse, ref.flash_attention_ref(q, k, v, causal=causal, window=window)[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [FLASH_SWEEP[i] for i in (1, 2, 3, 4)],
+                         ids=lambda s: "x".join(map(str, s[:8])))
+def test_flash_attention_bwd_plain_with_bf16_p_matches_jax_vjp(dtype, shape):
+    """P and dS rounded to bf16 before their products, as the tensor-core
+    backward rounds them, keep dq, dk and dv within the bf16 gradient
+    tolerance (5e-2) of ``jax.vjp`` of the oracle, which keeps them in fp32."""
+    causal, window = shape[6], shape[7]
+    (q, jq), (k, jk), (v, jv), (do, jdo) = _flash_inputs(np.random.default_rng(7), shape, dtype)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window,
+                                      p_bf16=True)
+    assert [g.dtype for g in got] == [q.dtype] * 3
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(a, b, c, causal=causal, window=window),
+                     jq, jk, jv)
+    _grads_close(got, vjp(jdo), "bfloat16")
 
 
 def test_flash_attention_q_offset_and_empty_rows():
@@ -465,9 +509,11 @@ def test_training_cuda_wrappers_refuse_cpu_tensors(fn):
     }[fn]
     modules = (k_flash, k_flash_bwd, k_rmsnorm_bwd, k_swiglu_bwd)
     before = [m.launches for m in modules]
+    routes = [dict(m.route_launches) for m in (k_flash, k_flash_bwd)]
     with pytest.raises(ValueError, match="expected one GPU"):
         fn(*args)
     assert [m.launches for m in modules] == before
+    assert [dict(m.route_launches) for m in (k_flash, k_flash_bwd)] == routes
 
 
 def test_flash_wrapper_argument_checks():
