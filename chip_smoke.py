@@ -10,7 +10,9 @@ prints no result line):
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card, fp32
    and bf16: the serving kernels at the qwen1.5-0.5b serving shapes and a
-   small shape, rmsnorm also at the training shape; swiglu_mlp at the
+   small shape, rmsnorm also at the qwen and hymba-1.5b training shapes and
+   a ragged one (both its routes asserted; its device time from a replayed
+   CUDA graph, its host path step by step); swiglu_mlp at the
    serving, qwen training and hymba-1.5b training shapes and at ragged
    shapes that reach each of its three routes (``SWIGLU_SHAPES``); flash
    attention forward and backward at the five sweep shapes of
@@ -33,10 +35,13 @@ prints no result line):
    ``tests/test_kernels.py:130-141`` and the training shape, fp32 and bf16;
    the SSD scan forward and backward (hymba-1.5b's core) at the sweep of
    ``tests/test_extensions.py:19-30``, a chunk shorter than its length, a
-   padded sequence (through ``models.hymba.ssd_scan``), the smoke shape and
-   the training shape, fp32 and bf16; flash attention forward and backward
-   at hymba-1.5b's training shapes (25 query heads over 5, 2176 positions,
-   window 1024 and 0).
+   padded sequence (through ``models.hymba.ssd_scan``), the smoke shape,
+   four shapes of chunk 128 and the training shape, fp32 and bf16, the
+   tensor-core route asserted in bf16 at chunk 128 and held to the plain
+   version with its bf16 roundings, each backward called twice and compared
+   bit for bit, and timed beside the CUDA-core kernels; flash attention
+   forward and backward at hymba-1.5b's training shapes (25 query heads
+   over 5, 2176 positions, window 1024 and 0).
 4. full width: qwen1.5-0.5b in fp32, one ``decode_step`` on the card against
    the same weights on the CPU; then, cut to 4 layers, ``loss`` and every
    gradient leaf on a (2, 200) batch against the CPU; then xlstm-1.3b in
@@ -47,13 +52,13 @@ prints no result line):
    then qwen1.5-0.5b in bf16 through ``repro_torch.launch.serve.main``
    (8 requests, prompt 128, 32 new tokens) with the kernels' launch counts
    set to 0 just before and read just after; every swiglu_mlp launch must
-   have taken the split-K tensor-core route.
+   have taken the split-K tensor-core route, every rmsnorm the ``vec`` body.
 6. train: qwen1.5-0.5b in bf16, full width and depth, through
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
    checkpoint in a temporary directory under ``build/``), with the launch
    counts set to 0 just before and checked per step just after, every
    swiglu_mlp and flash_attention launch (forward and backward) on the
-   tensor-core route; then 8
+   tensor-core route and every rmsnorm on ``vec``; then 8
    steps on one fixed batch, whose loss must fall by 0.05.
 7. train xLSTM: ``launch.train.main`` for xlstm-1.3b at its smoke config on
    the card, with a checkpoint; then xlstm-1.3b in bf16 at full width and
@@ -63,7 +68,8 @@ prints no result line):
 8. train Hymba: the same for hymba-1.5b: ``launch.train.main`` at its smoke
    config with a checkpoint, then the full model in bf16 (32 layers), batch
    2 x seq 2048 from the launcher's corpus, 4 steps with the launch counts
-   checked per step (and the routes, as qwen's), and 8 steps on a fixed
+   checked per step (and the routes, as qwen's, and every SSD scan forward
+   and backward on the tensor cores), and 8 steps on a fixed
    (2, 128) batch.
 9. output: one ``{"serve": ...}``, ``{"train": ...}``, ``{"train_xlstm":
    ...}``, ``{"train_hymba": ...}`` and ``{"kernels": [...]}`` line, then
@@ -135,9 +141,10 @@ TRAIN_PER_STEP = {"rmsnorm": 2 * 24 + 1, "rmsnorm_bwd": 2 * 24 + 1, "swiglu": 24
                   "decode_attention": 0}
 #: the route every launch of these modules must take in the bf16 runs: the
 #: tensor cores at training rows (qwen and Hymba; xLSTM has only SwiGLU), with
-#: split-K at serving's 8 rows
-TRAIN_ROUTES = {"swiglu": "wgmma", "flash_attention": "wgmma", "flash_attention_bwd": "wgmma"}
-SERVE_ROUTES = {"swiglu": "wgmma_split_k"}
+#: split-K at serving's 8 rows; every rmsnorm forward on the one-warp-a-row body
+TRAIN_ROUTES = {"swiglu": "wgmma", "flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
+                "rmsnorm": "vec"}
+SERVE_ROUTES = {"swiglu": "wgmma_split_k", "rmsnorm": "vec"}
 XLSTM = "xlstm-1.3b"
 XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
 #: kernel launches per training step of xlstm-1.3b (42 mLSTM blocks: 2 norms and
@@ -145,7 +152,7 @@ XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
 XLSTM_PER_STEP = {"rmsnorm": 2 * 42 + 3 * 6 + 1, "rmsnorm_bwd": 2 * 42 + 3 * 6 + 1,
                   "swiglu": 6, "swiglu_bwd": 6, "mlstm_scan": 42, "mlstm_scan_bwd": 42,
                   "flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0}
-XLSTM_ROUTES = {"swiglu": "wgmma"}
+XLSTM_ROUTES = {"swiglu": "wgmma", "rmsnorm": "vec"}
 #: (B, H, S, dqk, dv, chunk): the sweep of tests/test_kernels.py:130-141, then the
 #: training shape of xlstm-1.3b (dqk 512, dv 1024, chunk 128)
 MLSTM_SHAPES = tuple((2, 2, 256, dqk, dv, chunk) for chunk in (32, 64, 128)
@@ -161,15 +168,24 @@ HYMBA_PER_STEP = {"rmsnorm": 4 * 32 + 1, "rmsnorm_bwd": 4 * 32 + 1, "swiglu": 32
                   "swiglu_bwd": 32, "flash_attention": 32, "flash_attention_bwd": 32,
                   "ssd_scan": 32, "ssd_scan_bwd": 32, "mlstm_scan": 0, "mlstm_scan_bwd": 0,
                   "decode_attention": 0}
+#: Hymba's routes: qwen's, and the tensor cores for every SSD scan forward and
+#: backward
+HYMBA_ROUTES = {**TRAIN_ROUTES, "ssd_scan": "wgmma", "ssd_scan_bwd": "wgmma"}
 #: (B, S, H, N, chd, chunk): the sweep of tests/test_extensions.py:19-30; a chunk
 #: longer than the sequence (L = 40, not a multiple of 16); the smoke config's
-#: shape (seq 64 + 8 meta tokens, padded to 3 chunks of 32; chd 128); the
-#: training shape of hymba-1.5b (seq 2048 + 128 meta tokens, chd 400)
+#: shape (seq 64 + 8 meta tokens, padded to 3 chunks of 32; chd 128); shapes of
+#: chunk 128 that take the tensor-core route in bf16 (N 16, 32, 48, 64; chd 64
+#: to 400, one not a multiple of 64); the training shape of hymba-1.5b (seq 2048
+#: + 128 meta tokens, chd 400)
 SSD_SHAPES = tuple((2, 128, 2, N, chd, chunk) for chunk in (32, 64)
                    for N, chd in ((8, 16), (16, 32))) + (
-    (1, 40, 3, 16, 48, 128), (2, 96, 2, 16, 128, 32), (2, 2176, 8, 16, 400, 128))
+    (1, 40, 3, 16, 48, 128), (2, 96, 2, 16, 128, 32), (2, 256, 2, 16, 64, 128),
+    (1, 256, 3, 32, 200, 128), (2, 256, 2, 48, 136, 128), (1, 256, 2, 64, 400, 128),
+    (2, 2176, 8, 16, 400, 128))
 #: SSD outputs and gradients, relative to the largest entry, as the mLSTM's:
-#: fp32 sums in another order, one bf16 rounding of each output in bf16
+#: fp32 sums in another order, one bf16 rounding of each output in bf16; the
+#: tensor-core route against the plain version with the same bf16 roundings
+#: (``bf16_products``) is held to the bf16 bound, its gradients too
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: (B, Hq, Hkv, S, hd, window): hymba-1.5b's attention at its training shape
 HYMBA_FLASH = ((2, 25, 5, 2176, 64, 1024), (2, 25, 5, 2176, 64, 0))
@@ -296,37 +312,177 @@ def phase_build() -> None:
             print(f"[build] {line.strip()}")
 
 
+#: (rows, D) of the rmsnorm checks: the serving, qwen training and hymba-1.5b
+#: training rows (the "vec" route), then a small row and a ragged one (D = 100:
+#: the "block" route)
+RMSNORM_SHAPES = ((SERVE["requests"], 1024), (TRAIN_ROWS, 1024), (4352, 1600), (37, 96),
+                  (37, 100))
+
+
+def graph_ms(fn, arg_sets, calls: int = 24, replays: int = 20):
+    """Device milliseconds per call: ``calls`` back-to-back calls cycling
+    through ``arg_sets``, captured into a CUDA graph and replayed, so that the
+    host's time to issue them is out of the measurement.  Returns ``(ms,
+    how)``; where the capture fails (a launch that does not record into a
+    graph), the profiler's kernel time of the same calls instead."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for args in arg_sets:
+                fn(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(calls):
+                fn(*arg_sets[i % len(arg_sets)])
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (calls * replays), "cuda graph replay"
+    except RuntimeError as e:
+        print(f"[kernels] CUDA graph capture failed ({str(e).splitlines()[0][:120]}); "
+              "profiler kernel time instead")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages() if ev.device_time_total > 0)
+    return total / 1e3 / calls, "profiler kernel time"
+
+
+def _enter_exit(ctx) -> None:
+    with ctx:
+        pass
+
+
+def rmsnorm_host_steps(x, g, reps: int = 2000) -> dict:
+    """Host microseconds per call of each step of the wrapper's former host
+    path (device context, ``current_stream``, checks on every call), alone,
+    and of the lean path's steps, at these inputs (the launches run too)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as kr
+
+    lib = build.library()
+    out = torch.empty_like(x)
+    D, rows = x.shape[-1], x.numel() // x.shape[-1]
+    stream = torch.cuda.current_stream().cuda_stream
+    steps = {
+        "device_check": lambda: x.is_cuda and g.is_cuda and x.device == g.device,
+        "check_args": lambda: kr.check_args(x, g),
+        "empty_like": lambda: torch.empty_like(x),
+        "device_context": lambda: _enter_exit(torch.cuda.device(x.device)),
+        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "ctypes_launch": lambda: lib.rt_rmsnorm(x.data_ptr(), g.data_ptr(), out.data_ptr(), rows,
+                                                D, 1e-5, 0 if x.dtype == torch.float32 else 1,
+                                                stream),
+        "build_check": lambda: build.check(0, "rt_rmsnorm"),
+        "lean_checked_once": lambda: build.checked_once(
+            kr._checked, (x.shape, g.shape, x.dtype, g.dtype, x.device, g.device),
+            kr._check_key, x, g),
+        "lean_raw_stream": lambda: torch._C._cuda_getCurrentRawStream(x.device.index),
+        "lean_launch": lambda: kr.launch("vec", x, g, 1e-5),
+        "lean_wrapper": lambda: kr.rmsnorm_cuda(x, g),
+        "F.rms_norm": lambda: F.rms_norm(x, (D,), g, 1e-5),
+    }
+    found = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        found[name] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+    return found
+
+
+def rmsnorm_graph_check(ops, ref, x, g) -> float:
+    """Capture one ``ops.rmsnorm`` call into a CUDA graph, write new values into
+    its input, replay, and hold the output against the plain version: the
+    ctypes launch records into a graph and reads the tensors it was given."""
+    x, g = x.clone(), g.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.rmsnorm(x, g, eps=1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.rmsnorm(x, g, eps=1e-5)
+    x.copy_(torch.flip(x, (0,)) * 0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    err = max_err(out, ref.rmsnorm_ref(x, g, 1e-5), TOL["rmsnorm"][x.dtype])
+    print(f"[kernels] rmsnorm captured in a CUDA graph: replay on new inputs within {err:.3e} "
+          "of the plain version")
+    return err
+
+
 def check_rmsnorm(gen, ops, ref, rate):
-    """The serving shape, the training shape and a small one; the row times the
-    serving shape, its ``train_*`` keys the training shape.  At the serving
-    shape also the autograd Function that training calls, beside the direct
-    call that ``ops.rmsnorm`` makes when no gradient is needed, each with the
-    host's time to issue it."""
-    errs = {}
-    for rows, D in ((SERVE["requests"], 1024), (TRAIN_ROWS, 1024), (37, 96)):
+    """RMSNORM_SHAPES in fp32 and bf16, each check with the route it took; times
+    at the serving shape (the row), the qwen training shape (``train_*``) and
+    hymba-1.5b's (``hymba_*``): host-paced ``ms`` with the host's ``issue_ms``,
+    ``device_ms`` from a replayed CUDA graph, the ``block`` body on the same inputs
+    (``block_ms``, device), ``F.rms_norm``'s host-paced and device times.  At
+    the serving shape also the autograd Function that training calls, beside
+    the direct call that ``ops.rmsnorm`` makes when no gradient is needed,
+    and each step of the wrapper's host path (``host_steps_us``)."""
+    from repro_torch.kernels import rmsnorm as kr
+
+    errs, routes = {}, {}
+    for rows, D in RMSNORM_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             x, g = randn(gen, (rows, D), dt), randn(gen, (D,), dt)
+            routes[(rows, D, dt)] = kr.route(x, g)
+            if routes[(rows, D, dt)] != ("vec" if D % 8 == 0 else "block"):
+                raise AssertionError(f"rmsnorm {(rows, D, dt)}: route {routes[(rows, D, dt)]}")
             got = ops.rmsnorm(x, g, eps=1e-5)
             errs[(rows, D, dt)] = max_err(got, ref.rmsnorm_ref(x, g, 1e-5),
                                           TOL["rmsnorm"][dt])
+            errs[(rows, D, dt, "block")] = max_err(kr.launch("block", x, g, 1e-5),
+                                                   ref.rmsnorm_ref(x, g, 1e-5),
+                                                   TOL["rmsnorm"][dt])
+    torch.cuda.synchronize()
     print(f"[kernels] rmsnorm errors {errs}")
+    print(f"[kernels] rmsnorm routes {routes}")
     row = {"name": "rmsnorm"}
-    for prefix, N, n_sets in (("", SERVE["requests"], 24), ("train_", TRAIN_ROWS, 8)):
-        D, dt = 1024, torch.bfloat16
+    for prefix, (N, D), n_sets in (("", RMSNORM_SHAPES[0], 24), ("train_", RMSNORM_SHAPES[1], 8),
+                                   ("hymba_", RMSNORM_SHAPES[2], 8)):
+        dt = torch.bfloat16
         sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt)) for _ in range(n_sets)]
         b_ms, b_by = bound((2 * N * D + D) * 2, 4 * N * D, dt, rate)
         ms, issue = time_ms(lambda x, g: ops.rmsnorm(x, g, eps=1e-5), sets, 20, issue=True)
+        device_ms, how = graph_ms(lambda x, g: ops.rmsnorm(x, g, eps=1e-5), sets)
+        lib_ms, lib_issue = time_ms(lambda x, g: F.rms_norm(x, (D,), g, 1e-5), sets, 20,
+                                    issue=True)
         row.update({
-            f"{prefix}shape": f"x ({N}, {D}) bf16",
+            f"{prefix}shape": f"x ({N}, {D}) bf16", f"{prefix}kernel_route": kr.route(*sets[0]),
             f"{prefix}max_abs_err": errs[(N, D, dt)],
             f"{prefix}ms": ms, f"{prefix}issue_ms": issue,
+            f"{prefix}device_ms": device_ms, f"{prefix}device_ms_from": how,
+            f"{prefix}block_ms": graph_ms(lambda x, g: kr.launch("block", x, g, 1e-5), sets)[0],
             f"{prefix}plain_ms": time_ms(lambda x, g: ref.rmsnorm_ref(x, g, 1e-5), sets, 20),
-            f"{prefix}library_ms": time_ms(lambda x, g: F.rms_norm(x, (D,), g, 1e-5), sets, 20),
+            f"{prefix}library_ms": lib_ms, f"{prefix}library_issue_ms": lib_issue,
+            f"{prefix}library_device_ms": graph_ms(lambda x, g: F.rms_norm(x, (D,), g, 1e-5),
+                                                   sets)[0],
             f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
         })
         if not prefix:
             row["function_ms"], row["function_issue_ms"] = time_ms(
                 lambda x, g: ops.RMSNorm.apply(x, g, 1e-5), sets, 20, issue=True)
+            row["host_steps_us"] = rmsnorm_host_steps(*sets[0])
+            row["graph_replay_max_abs_err"] = rmsnorm_graph_check(ops, ref, *sets[0])
+        del sets
+    print(f"[kernels] rmsnorm host steps (us a call) {row['host_steps_us']}")
     return row
 
 
@@ -832,32 +988,55 @@ def ssd_bound(B, S, H, N, chd, chunk, rate, *, backward: bool) -> tuple[float, s
 def check_ssd(gen, ops, ref, rate):
     """ssd_scan and its backward against the plain versions at SSD_SHAPES: y,
     h_last and the chunk-start states, then the four gradients from each
-    side's own saved states; a padded sequence through ``models.hymba.ssd_scan``
-    and autograd through ``ops.ssd_scan`` against the plain backward; times at
-    the training shape in bf16."""
+    side's own saved states; the tensor-core route (asserted wherever
+    ``route`` gives it) against the plain version with ``bf16_products``, the
+    CUDA-core route against the plain fp32 arithmetic; each backward called
+    twice, its results equal bit for bit.  A padded sequence through
+    ``models.hymba.ssd_scan`` and autograd through ``ops.ssd_scan`` against
+    the plain backward; times at the training shape in bf16, each beside the
+    CUDA-core kernels on the same inputs (``simt_ms``)."""
     from repro_torch.kernels import ssd_scan as kf
     from repro_torch.kernels import ssd_scan_bwd as kb
     from repro_torch.models import hymba
 
-    errs, gerrs = {}, {}
+    errs, gerrs, routes = {}, {}, {}
     states_tol = SSD_TOL[torch.float32]       # fp32 on both sides, whatever the inputs' type
     for B, S, H, N, chd, chunk in SSD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             x, dy = ssd_inputs(gen, B, S, H, N, chd, dt)
-            y, h_last, saved = kf.ssd_scan_cuda(*x, chunk=chunk)
-            want, want_h, states = ref.ssd_scan_ref(*x, chunk=chunk)
             key = (B, S, H, N, chd, chunk, str(dt)[6:])
-            errs[key] = max(rel_err(y, want, SSD_TOL[dt]), rel_err(h_last, want_h, states_tol),
-                            rel_err(saved.states, states, states_tol), key=lambda e: e[1])
+            L = min(chunk, S)
+            routes[key] = kf.route(L, *x[1:], dy)
+            tc = routes[key] == "wgmma"
+            if tc != (dt == torch.bfloat16 and L == 128 and N % 16 == 0 and chd % 8 == 0):
+                raise AssertionError(f"ssd_scan {key}: route {routes[key]}")
+            before, before_bwd = dict(kf.route_launches), dict(kb.route_launches)
+            y, h_last, saved = kf.ssd_scan_cuda(*x, chunk=chunk)
+            want, want_h, states = ref.ssd_scan_ref(*x, chunk=chunk, bf16_products=tc)
+            # h_last and the states take one bf16 operand on the tensor-core route
+            st_tol = SSD_TOL[dt] if tc else states_tol
+            errs[key] = max(rel_err(y, want, SSD_TOL[dt]), rel_err(h_last, want_h, st_tol),
+                            rel_err(saved.states, states, st_tol), key=lambda e: e[1])
             got = kb.ssd_scan_bwd_cuda(*x, saved, dy, chunk=chunk)
-            exp = ref.ssd_scan_bwd_ref(*x, states, dy, chunk=chunk)
-            gerrs[key] = max((rel_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp)),
+            again = kb.ssd_scan_bwd_cuda(*x, saved, dy, chunk=chunk)
+            took = [r for r, n in kf.route_launches.items() if n != before[r]]
+            took_bwd = [r for r, n in kb.route_launches.items() if n != before_bwd[r]]
+            if took != [routes[key]] or took_bwd != [routes[key]]:
+                raise AssertionError(f"ssd_scan {key}: routes {took}, backward {took_bwd}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"ssd_scan_bwd {key}: two calls differ")
+            exp = ref.ssd_scan_bwd_ref(*x, states, dy, chunk=chunk, bf16_products=tc)
+            gtol = SSD_TOL[dt] if tc else GRAD_TOL[dt]
+            gerrs[key] = max((rel_err(a, b, gtol) for a, b in zip(got, exp)),
                              key=lambda e: e[1])
+            del x, dy, y, h_last, saved, want, want_h, states, got, again, exp
     torch.cuda.synchronize()
     print(f"[kernels] ssd_scan (y, h_last, states) errors, (max abs, over the largest entry) "
           f"{errs}")
     print(f"[kernels] ssd_scan_bwd errors (dlf, db, dx, dc), (max abs, over the largest "
-          f"entry) {gerrs}")
+          f"entry) {gerrs}; two calls bitwise equal at every shape")
+    print(f"[kernels] ssd_scan routes (forward and backward) "
+          f"{ {k: v for k, v in routes.items() if k[6] == 'bfloat16'} }")
 
     # a padded sequence through the model's scan, and autograd through ops.ssd_scan,
     # against the plain forward and backward on the padded inputs
@@ -885,18 +1064,21 @@ def check_ssd(gen, ops, ref, rate):
     note = "no PyTorch call computes the SSD chunked scan"
     b_ms, b_by = ssd_bound(B, S, H, N, chd, chunk, rate, backward=False)
     fwd = {
-        "name": "ssd_scan", "shape": shape, "max_abs_err": errs[key][0],
-        "max_rel_err": errs[key][1],
+        "name": "ssd_scan", "shape": shape, "kernel_route": routes[key],
+        "max_abs_err": errs[key][0], "max_rel_err": errs[key][1],
         "ms": time_ms(lambda *x: kf.ssd_scan_cuda(*x, chunk=chunk), fwd_sets, 5),
+        "simt_ms": time_ms(lambda *x: kf.launch("simt", *x, chunk), fwd_sets, 5),
         "plain_ms": time_ms(lambda *x: ref.ssd_scan_ref(*x, chunk=chunk), fwd_sets, 3),
         "library_ms": None, "library_note": note,
         "bound_ms": b_ms, "bound_by": b_by,
     }
     b_ms, b_by = ssd_bound(B, S, H, N, chd, chunk, rate, backward=True)
+    ms, issue_ms = time_ms(lambda *a: kb.ssd_scan_bwd_cuda(*a, chunk=chunk), saved, 5, issue=True)
     bwd = {
-        "name": "ssd_scan_bwd", "shape": shape, "max_abs_err": gerrs[key][0],
-        "max_rel_err": gerrs[key][1],
-        "ms": time_ms(lambda *a: kb.ssd_scan_bwd_cuda(*a, chunk=chunk), saved, 5),
+        "name": "ssd_scan_bwd", "shape": shape, "kernel_route": routes[key],
+        "max_abs_err": gerrs[key][0], "max_rel_err": gerrs[key][1],
+        "ms": ms, "issue_ms": issue_ms,
+        "simt_ms": time_ms(lambda *a: kb.launch("simt", *a[:4], a[4], a[5], chunk), saved, 5),
         "plain_ms": time_ms(lambda *a: ref.ssd_scan_bwd_ref(*a, chunk=chunk), plain_saved, 3),
         "fwd_bwd_ms": time_ms(lambda *a: torch.autograd.grad(
             ops.ssd_scan(*a[:4], chunk=chunk)[0], a[:4], a[4]),
@@ -1227,7 +1409,7 @@ def phase_train_hymba(kernel_modules) -> dict:
     sequence are not counted.  Cut: the launcher's final checkpoint, 23 GB at
     this size, is not written at full depth."""
     res = train_full_depth(HYMBA, HYMBA_TRAIN, HYMBA_PER_STEP, kernel_modules, "train_hymba",
-                           TRAIN_ROUTES)[2]
+                           HYMBA_ROUTES)[2]
     return {**res, "tokens_counted": "text tokens only, not the 128 meta tokens a sequence"}
 
 

@@ -7,6 +7,8 @@ one shared library with a plain C interface under
 name carries a hash of the sources and flags, so an edit rebuilds it and an
 unchanged tree reuses it.  It is loaded with ``ctypes``; every entry point
 returns ``cudaGetLastError()`` and the wrappers raise when it is not 0.
+:func:`launch` is the lean way to call one: the rmsnorm forward and the
+SSD scan's wrappers go through it, and so can any other.
 
 No ``nvcc`` means no kernels: :func:`library` raises.
 """
@@ -21,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rmsnorm.cu", "swiglu.cu", "decode_attention.cu", "flash_attention.cu",
@@ -38,6 +42,7 @@ _L = ctypes.c_longlong
 #: C entry point -> argument types (all return an int cudaError_t)
 SIGNATURES = {
     "rt_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
+    "rt_rmsnorm_vec": (_P, _P, _P, _I, _I, _F, _I, _P),
     "rt_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_swiglu_tc": (*(_P,) * 7, *(_I,) * 5, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
@@ -51,6 +56,8 @@ SIGNATURES = {
     "rt_mlstm_scan_bwd": (*(_P,) * 32, *(_I,) * 5, _F, _I, _P),
     "rt_ssd_scan": (*(_P,) * 8, *(_I,) * 7, _P),
     "rt_ssd_scan_bwd": (*(_P,) * 11, *(_I,) * 7, _P),
+    "rt_ssd_scan_tc": (*(_P,) * 8, *(_I,) * 6, _P),
+    "rt_ssd_scan_bwd_tc": (*(_P,) * 11, *(_I,) * 6, _P),
 }
 
 
@@ -133,3 +140,33 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def launch(fn, name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on PyTorch's current stream
+    of ``device`` and raise if it reports an error.
+
+    The stream's raw handle comes from ``torch._C._cuda_getCurrentRawStream``,
+    the call PyTorch's own compiler launches its kernels with: no device
+    context is entered and no ``torch.cuda.Stream`` is built, which at the
+    serving shape is as long as the kernel.  Only where ``device`` is not the
+    current device does the launch enter it, so that the kernel runs there.
+    """
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    check(err, name)
+
+
+def checked_once(cache: dict, key, check_fn, *args):
+    """``check_fn(*args)``'s result (not None), computed (and raising on what the
+    kernel does not take) the first time ``key`` is seen and then read from
+    ``cache``.  The key must fix everything ``check_fn`` looks at: shapes,
+    dtypes and devices."""
+    found = cache.get(key)
+    if found is None:
+        cache[key] = found = check_fn(*args)
+    return found

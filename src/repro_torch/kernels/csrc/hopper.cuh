@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels (swiglu.cu,
-// flash_attention.cu and flash_attention_bwd.cu): TMA tensor maps and loads,
+// flash_attention.cu, flash_attention_bwd.cu and, through ssd.cuh, the SSD
+// scan's): TMA tensor maps and loads,
 // mbarrier rings, named barriers, wgmma shared-memory descriptors and
 // instructions, register reallocation, and the attention kernels' tile
 // products.
@@ -51,17 +52,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with 128-byte swizzle.  dims[0] is the contiguous axis and
-// box[0] at most 64 elements; strides[i] is the byte stride of dims[i + 1].
-// Loads outside dims are filled with zeros.  Returns a cudaError_t.
+// A bf16 tensor map, 128-byte swizzle unless `swizzle` says otherwise (box[0]
+// at most as many bytes as the swizzle span).  dims[0] is the contiguous axis;
+// strides[i] is the byte stride of dims[i + 1].  Loads outside dims are
+// filled with zeros.  Returns a cudaError_t.
 inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                    const uint64_t* strides, const uint32_t* box) {
+                    const uint64_t* strides, const uint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
                         const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -74,6 +77,21 @@ inline int map_heads(CUtensorMap* map, const void* base, int bh, int S, int hd, 
   const uint64_t strides[2] = {static_cast<uint64_t>(hd) * 2, static_cast<uint64_t>(S) * hd * 2};
   const uint32_t box[3] = {64, static_cast<uint32_t>(rows), 1};
   return make_map(map, base, 3, dims, strides, box);
+}
+
+// A (B, S, H, F) bf16 tensor as a 4-D map (F, H, S, B) with box (cols, 1,
+// rows, 1): a box holds `rows` consecutive steps of one (b, h), never another
+// head's; columns past F and steps past S read as zeros.  cols 64 with
+// 128-byte swizzle, or 16 (32 bytes) with 32-byte swizzle.
+inline int map_steps(CUtensorMap* map, const void* base, int B, int S, int H, int F, int cols,
+                     int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(F), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(F) * 2, static_cast<uint64_t>(H) * F * 2,
+                               static_cast<uint64_t>(S) * H * F * 2};
+  const uint32_t box[4] = {static_cast<uint32_t>(cols), 1, static_cast<uint32_t>(rows), 1};
+  return make_map(map, base, 4, dims, strides, box,
+                  cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------- device side
@@ -148,6 +166,22 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, TMA); a barrier after it publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Wait at hardware barrier kId (1..15; 0 is __syncthreads) until kThreads
 // threads, whole warps, have arrived.
 template <int kId, int kThreads>
@@ -162,6 +196,27 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint
   d |= static_cast<uint64_t>((sbo & 0x3FFFFu) >> 4) << 32;
   d |= 1ull << 62;
   return d;
+}
+
+// A wgmma descriptor of a 32-byte-swizzled K-major tile (layout type 3): rows
+// of 16 bf16 (32 bytes), the two 16-byte halves of row r swapped when bit 2 of
+// r is set, eight rows (256 bytes) to a swizzle atom; one 16-deep step.
+__device__ __forceinline__ uint64_t desc_sw32(const void* p) {
+  uint64_t d = (smem_u32(p) & 0x3FFFFu) >> 4;
+  d |= static_cast<uint64_t>(1) << 16;    // LBO: unused for a swizzled K-major tile
+  d |= static_cast<uint64_t>(256 >> 4) << 32;
+  d |= 3ull << 62;
+  return d;
+}
+
+// Byte offset of element (row, k) of a K-major bf16 tile written by threads
+// in the layout TMA writes: 32-byte swizzle (rows of 16) or 128-byte
+// swizzle (rows of 64).
+__device__ __forceinline__ int sw32_offset(int row, int k) {
+  return row * 32 + ((((k >> 3) & 1) ^ ((row >> 2) & 1)) << 4) + (k & 7) * 2;
+}
+__device__ __forceinline__ int sw128_offset(int row, int k) {
+  return row * 128 + ((((k >> 3) & 7) ^ (row & 7)) << 4) + (k & 7) * 2;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -294,6 +349,32 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 16, fp32) += A (64 x 16, smem) * B (16 x 16, smem); kTnspA = 1: A
+// is MN-major (the output rows contiguous), kTnspB likewise for B.
+template <int kTnspA, int kTnspB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnspA), "n"(kTnspB));
+}
+
+// D (64 x 16, fp32) += A (64 x 16, registers) * B (16 x 16, smem, K-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

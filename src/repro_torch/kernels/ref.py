@@ -394,7 +394,7 @@ def _ssd_decay(cum):
     return torch.exp(diff.masked_fill(~tri[None, None, :, :, None], float("-inf")))
 
 
-def ssd_scan_ref(lf, b, x, c, *, chunk: int):
+def ssd_scan_ref(lf, b, x, c, *, chunk: int, bf16_products: bool = False):
     """Mamba-2 SSD chunked scan in the Pallas kernel's arithmetic (``ssd_scan.py:34-58``).
 
     lf: (B, S, H) per-step log-decay; b, c: (B, S, H, N); x: (B, S, H, chd);
@@ -404,14 +404,19 @@ def ssd_scan_ref(lf, b, x, c, *, chunk: int):
     sum_s exp(cum_L - cum_s) x_s b_s^T`` from h = 0.  Returns ``(y, h_last,
     states)``: y in x's dtype, h_last (B, H, chd, N) and the states at the
     START of each chunk (B, H, nc, chd, N), both fp32; the backward reads the
-    states.
+    states.  With ``bf16_products``, operands are rounded to bf16 where the
+    tensor-core route rounds them: the decayed Gram before its product with
+    x (as the Pallas kernel rounds it to x's dtype), ``exp(cum_L - cum_s)
+    b_s`` before the chunk's own state, and the chunk-start state before
+    its read-out through c; every sum stays fp32.
     """
+    r = _bf16_round if bf16_products else (lambda t: t)
     _, bf, xf, cf, cum = _ssd_inputs(lf, b, x, c, chunk)
     B, nc, L, H, chd = xf.shape
     y = torch.einsum("bklsh,bkshd->bklhd",
-                     torch.einsum("bklhn,bkshn->bklsh", cf, bf) * _ssd_decay(cum), xf)
+                     r(torch.einsum("bklhn,bkshn->bklsh", cf, bf) * _ssd_decay(cum)), xf)
     w = torch.exp(cum[:, :, -1:] - cum)
-    own = torch.einsum("bkshd,bkshn->bkhdn", xf * w[..., None], bf)
+    own = torch.einsum("bkshd,bkshn->bkhdn", xf, r(bf * w[..., None]))
     decay = torch.exp(cum[:, :, -1])
     h = xf.new_zeros((B, H, chd, b.shape[-1]))
     states = []
@@ -419,11 +424,11 @@ def ssd_scan_ref(lf, b, x, c, *, chunk: int):
         states.append(h)
         h = decay[:, k, :, None, None] * h + own[:, k]
     states = torch.stack(states, 2)
-    y = y + torch.einsum("bklhn,bhkdn->bklhd", cf * torch.exp(cum)[..., None], states)
+    y = y + torch.exp(cum)[..., None] * torch.einsum("bklhn,bhkdn->bklhd", cf, r(states))
     return y.reshape(x.shape).to(x.dtype), h, states
 
 
-def ssd_scan_bwd_ref(lf, b, x, c, states, dy, *, chunk: int):
+def ssd_scan_bwd_ref(lf, b, x, c, states, dy, *, chunk: int, bf16_products: bool = False):
     """Gradients ``(dlf, db, dx, dc)`` of :func:`ssd_scan_ref`'s y, each in its
     input's dtype, from the saved chunk-start states (h_last is not
     differentiated).
@@ -436,19 +441,24 @@ def ssd_scan_bwd_ref(lf, b, x, c, states, dy, *, chunk: int):
     x_s``, ``dc_t = sum_s A b_s + exp(cum_t) h^T dy_t``; ``dcum_t = c_t .
     dc_t - b_t . db_t`` plus, at the chunk's last step, ``sum_s b_s . (w_s
     dH^T x_s) + exp(cum_L) sum(dH * h)``, and ``dlf`` is the reverse
-    cumulative sum of dcum within the chunk.  Mirrors the CUDA kernel's
-    factorisation.
+    cumulative sum of dcum within the chunk.  Mirrors the CUDA kernels'
+    factorisation.  With ``bf16_products``, operands are rounded to bf16
+    where the tensor-core route rounds them: ``exp(cum_t) c_t`` before the
+    chunk's own dH term, G and A before their products, and h and dH before
+    their products with dy, x and b; dcum and the last step's terms take the
+    fp32 sums.
     """
+    r = _bf16_round if bf16_products else (lambda t: t)
     _, bf, xf, cf, cum = _ssd_inputs(lf, b, x, c, chunk)
     B, nc, L, H, chd = xf.shape
     dyf = dy.float().reshape(xf.shape)
     D = _ssd_decay(cum)
-    G = torch.einsum("bkthn,bkshn->bktsh", cf, bf) * D
-    A = torch.einsum("bkthd,bkshd->bktsh", dyf, xf) * D
+    G = r(torch.einsum("bkthn,bkshn->bktsh", cf, bf) * D)
+    A = r(torch.einsum("bkthd,bkshd->bktsh", dyf, xf) * D)
     w = torch.exp(cum[:, :, -1:] - cum)
     et = torch.exp(cum)
     decay = torch.exp(cum[:, :, -1])
-    own = torch.einsum("bkthd,bkthn->bkhdn", dyf * et[..., None], cf)
+    own = torch.einsum("bkthd,bkthn->bkhdn", dyf, r(cf * et[..., None]))
     g = xf.new_zeros((B, H, chd, b.shape[-1]))
     dH = []
     for k in reversed(range(nc)):
@@ -456,12 +466,13 @@ def ssd_scan_bwd_ref(lf, b, x, c, states, dy, *, chunk: int):
         g = decay[:, k, :, None, None] * g + own[:, k]
     dH = torch.stack(dH[::-1], 1)
     hs = states.transpose(1, 2)
+    dHr, hsr = r(dH), r(hs)
     dx = torch.einsum("bktsh,bkthd->bkshd", G, dyf) \
-        + w[..., None] * torch.einsum("bkhdn,bkshn->bkshd", dH, bf)
-    db_state = w[..., None] * torch.einsum("bkhdn,bkshd->bkshn", dH, xf)
+        + w[..., None] * torch.einsum("bkhdn,bkshn->bkshd", dHr, bf)
+    db_state = w[..., None] * torch.einsum("bkhdn,bkshd->bkshn", dHr, xf)
     db = torch.einsum("bktsh,bkthn->bkshn", A, cf) + db_state
     dc = torch.einsum("bktsh,bkshn->bkthn", A, bf) \
-        + et[..., None] * torch.einsum("bkhdn,bkthd->bkthn", hs, dyf)
+        + et[..., None] * torch.einsum("bkhdn,bkthd->bkthn", hsr, dyf)
     dcum = (cf * dc).sum(-1) - (bf * db).sum(-1)
     dcum[:, :, -1] += (bf * db_state).sum((2, -1)) + decay * (dH * hs).sum((-1, -2))
     dlf = dcum.flip(2).cumsum(2).flip(2)

@@ -898,3 +898,165 @@ def test_ssd_entry_points_take_the_wrappers_arguments():
         args = re.findall(rf'extern "C" int {name}\(([^)]*)\)', text)[0].split(",")
         assert sum("*" in a for a in args) == n_ptr + 1                # + the stream
         assert build.SIGNATURES[name] == (*(build._P,) * n_ptr, *(build._I,) * 7, build._P)
+
+
+def _ssd_bf16_case(rng, B, S, H, N, chd):
+    """bf16 b, x, c (and dy) as torch tensors, and the same values in fp32 as
+    jax arrays, so that the JAX model computes on exactly the kernel's inputs."""
+    t, _ = _ssd_inputs(rng, B, S, H, N, chd, "bfloat16")
+    dy = torch.from_numpy(rng.normal(size=(B, S, H, chd)).astype(np.float32)).bfloat16()
+    j = [jnp.asarray(a.float().numpy()) for a in t]
+    return t, j, dy
+
+
+SSD_BF16_SWEEP = [(32, 8, 16), (64, 16, 32), (128, 16, 400), (128, 32, 48)]
+
+
+@pytest.mark.parametrize("chunk,N,chd", SSD_BF16_SWEEP, ids=lambda v: str(v))
+def test_ssd_plain_with_bf16_products_matches_jax(chunk, N, chd):
+    """The forward rounded where the tensor-core route rounds (the decayed
+    Gram, w o b, the chunk-start state before its read-out) stays within 2e-2
+    of the largest entry of the JAX model's y; h_last and the states, which
+    take one rounded operand each, within 2e-2 of the fp32 ones."""
+    B, S, H = 1, 256, 2
+    t, j, _ = _ssd_bf16_case(np.random.default_rng(chunk + N + chd), B, S, H, N, chd)
+    y, h_last, states = ref.ssd_scan_ref(*t, chunk=chunk, bf16_products=True)
+    assert y.dtype == torch.bfloat16 and h_last.dtype == states.dtype == torch.float32
+    want, want_h = jssd_scan(*j, chunk=chunk)
+    _rel_close(y.float(), want, 2e-2)
+    _rel_close(h_last, want_h, 2e-2)
+    _, _, plain_states = ref.ssd_scan_ref(*t, chunk=chunk)
+    _rel_close(states, plain_states, 2e-2)
+    assert not torch.equal(states, plain_states)          # the option does round
+
+
+@pytest.mark.parametrize("chunk,N,chd", SSD_BF16_SWEEP, ids=lambda v: str(v))
+def test_ssd_bwd_plain_with_bf16_products_matches_jax_vjp(chunk, N, chd):
+    """The backward rounded where the tensor-core route rounds (exp(cum) o c,
+    G, A, h and dH before their products; dcum from the fp32 sums): dlf, db,
+    dx and dc within 2e-2 of the largest entry of ``jax.vjp`` of the model."""
+    B, S, H = 1, 256, 2
+    t, j, dy = _ssd_bf16_case(np.random.default_rng(7 + chunk + N + chd), B, S, H, N, chd)
+    _, _, states = ref.ssd_scan_ref(*t, chunk=chunk, bf16_products=True)
+    got = ref.ssd_scan_bwd_ref(*t, states, dy, chunk=chunk, bf16_products=True)
+    assert [g.dtype for g in got] == [a.dtype for a in t]
+    _, vjp = jax.vjp(lambda *a: jssd_scan(*a, chunk=chunk)[0], *j)
+    for g, w in zip(got, vjp(jnp.asarray(dy.float().numpy()))):
+        _rel_close(g.float(), w, 2e-2)
+
+
+def _ssd_route_args(S, N, chd, dtype, bad):
+    shapes = {"b": (1, S, 2, N), "x": (1, S, 2, chd), "c": (1, S, 2, N), "dy": (1, S, 2, chd)}
+    tdt = DTYPES[dtype][0]
+    return {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
+            for name, shape in shapes.items()}
+
+
+@pytest.mark.parametrize("dtype,S,chunk,N,chd,bad,want", [
+    ("bfloat16", 256, 128, 16, 400, None, "wgmma"),    # hymba-1.5b's heads
+    ("bfloat16", 256, 128, 32, 48, None, "wgmma"),
+    ("bfloat16", 256, 128, 48, 136, None, "wgmma"),
+    ("bfloat16", 256, 128, 64, 448, None, "wgmma"),    # the widest chd the route holds
+    ("bfloat16", 256, 128, 64, 456, None, "simt"),
+    ("bfloat16", 256, 128, 8, 16, None, "simt"),       # N not a multiple of 16
+    ("bfloat16", 256, 128, 16, 404, None, "simt"),     # chd not a multiple of 8
+    ("bfloat16", 256, 64, 16, 400, None, "simt"),      # chunk 64
+    ("bfloat16", 96, 128, 16, 400, None, "simt"),      # L = min(chunk, S) = 96
+    ("bfloat16", 256, 128, 16, 400, "x", "simt"),      # x 2 bytes off a 16-byte line
+    ("bfloat16", 256, 128, 16, 400, "c", "simt"),
+    ("bfloat16", 256, 128, 16, 400, "dy", "simt"),     # the backward's dy
+    ("float32", 256, 128, 16, 400, None, "simt"),
+])
+def test_ssd_route(dtype, S, chunk, N, chd, bad, want):
+    """The route follows from the dtype, the chunk, N, chd and the pointers'
+    alignment (dy's too, for the backward), and the backward counts by the
+    forward's routes."""
+    a = _ssd_route_args(S, N, chd, dtype, bad)
+    lf = torch.empty((1, S, 2))
+    L = k_ssd.check_args(lf, a["b"], a["x"], a["c"], chunk)
+    assert k_ssd.route(L, a["b"], a["x"], a["c"], a["dy"]) == want
+    if bad != "dy":
+        assert k_ssd.route(L, a["b"], a["x"], a["c"]) == want
+    assert want in k_ssd.ROUTES
+    assert set(k_ssd.route_launches) == set(k_ssd_bwd.route_launches) == set(k_ssd.ROUTES)
+
+
+@pytest.mark.parametrize("dtype,D,bad,want", [
+    ("bfloat16", 1024, None, "vec"),        # qwen's rows
+    ("bfloat16", 1600, None, "vec"),        # Hymba's: 7 vectors a lane
+    ("bfloat16", 96, None, "vec"),
+    ("bfloat16", 8192, None, "vec"),        # the longest row the route holds
+    ("bfloat16", 8200, None, "block"),
+    ("bfloat16", 100, None, "block"),       # D not a multiple of 8
+    ("bfloat16", 1024, "x", "block"),       # x 2 bytes off a 16-byte line
+    ("bfloat16", 1024, "gamma", "block"),
+    ("float32", 4096, None, "vec"),
+    ("float32", 4104, None, "block"),
+    ("float32", 1020, None, "block"),
+])
+def test_rmsnorm_route(dtype, D, bad, want):
+    """The route follows from the dtype, D and the pointers' alignment."""
+    tdt = DTYPES[dtype][0]
+    shapes = {"x": (3, D), "gamma": (D,)}
+    args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
+            for name, shape in shapes.items()}
+    k_rmsnorm.check_args(*args.values())
+    assert k_rmsnorm.route(*args.values()) == want
+    assert want in k_rmsnorm.ROUTES and set(k_rmsnorm.route_launches) == set(k_rmsnorm.ROUTES)
+
+
+@pytest.mark.parametrize("case", ["gamma_shape", "float16", "mixed", "x_strided",
+                                  "gamma_strided", "cached_then_strided"])
+def test_rmsnorm_lean_wrapper_refuses_what_check_args_refuses(monkeypatch, case):
+    """The wrapper checks a (shape, dtype, device) key once and contiguity on
+    every call: each argument that ``check_args`` refuses is still refused,
+    a refused key is not remembered, and nothing is launched.  The device
+    check is passed over here (there is no card), so the others are reached."""
+    monkeypatch.setattr(k_rmsnorm, "_checked", {})
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    f32 = torch.ones
+    x, g = f32(4, 8), f32(8)
+    args, err = {
+        "gamma_shape": ((x, f32(7)), ValueError),
+        "float16": ((x.half(), g.half()), TypeError),
+        "mixed": ((x, g.bfloat16()), TypeError),
+        "x_strided": ((f32(8, 4).T, g), ValueError),
+        "gamma_strided": ((x, f32(16)[::2]), ValueError),
+        "cached_then_strided": ((f32(8, 4).T, g), ValueError),
+    }[case]
+    if case == "cached_then_strided":       # the key (4, 8) was seen, contiguous, before
+        build.checked_once(k_rmsnorm._checked, (x.shape, g.shape, x.dtype, g.dtype, x.device,
+                                                g.device), k_rmsnorm._check_key, x, g)
+    before = (k_rmsnorm.launches, dict(k_rmsnorm.route_launches), len(k_rmsnorm._checked))
+    with pytest.raises(err):
+        k_rmsnorm.rmsnorm_cuda(*args)
+    assert (k_rmsnorm.launches, dict(k_rmsnorm.route_launches),
+            len(k_rmsnorm._checked)) == before
+
+
+def test_build_checked_once_runs_each_key_once():
+    calls = []
+
+    def check(v):
+        calls.append(v)
+        if v < 0:
+            raise ValueError("negative")
+        return v * 2
+
+    cache = {}
+    assert build.checked_once(cache, "a", check, 3) == 6
+    assert build.checked_once(cache, "a", check, 3) == 6
+    with pytest.raises(ValueError):
+        build.checked_once(cache, "b", check, -1)
+    with pytest.raises(ValueError):
+        build.checked_once(cache, "b", check, -1)
+    assert calls == [3, -1, -1] and set(cache) == {"a"}
+
+
+@pytest.mark.parametrize("name,n_ptr", [("rt_ssd_scan_tc", 8), ("rt_ssd_scan_bwd_tc", 11)])
+def test_ssd_tc_entry_points_take_the_wrappers_arguments(name, n_ptr):
+    """The tensor-core entry points take the simt ones' arguments less the dtype."""
+    text = "\n".join((build.CSRC / s).read_text() for s in ("ssd_scan.cu", "ssd_scan_bwd.cu"))
+    args = re.findall(rf'extern "C" int {name}\(([^)]*)\)', text)[0].split(",")
+    assert sum("*" in a for a in args) == n_ptr + 1                    # + the stream
+    assert build.SIGNATURES[name] == (*(build._P,) * n_ptr, *(build._I,) * 6, build._P)

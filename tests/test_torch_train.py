@@ -383,21 +383,24 @@ def test_trace_finds_every_kernel_of_csrc():
 
 def test_trace_groups_the_port_kernels_by_source():
     """Each kernel of ``kernels/csrc`` also counts toward its source file, one
-    group per kernel wrapper: the SSD scan's four forward launches form
-    ``ssd_scan`` and its four backward launches ``ssd_scan_bwd``, template and
+    group per kernel wrapper: the SSD scan's forward launches (both routes)
+    form ``ssd_scan`` and its backward launches ``ssd_scan_bwd``, template and
     plain kernels alike (a plain kernel's name has no return type)."""
     from repro_torch.launch.trace import KERNEL_SOURCE, source_group
 
     fwd = {"ssd_cumsum_kernel", "ssd_chunk_state_kernel", "ssd_state_scan_kernel",
-           "ssd_fwd_out_kernel"}
+           "ssd_fwd_out_kernel", "ssd_tc_state_kernel", "ssd_tc_fwd_out_kernel"}
     bwd = {"ssd_bwd_state_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_dx_kernel",
-           "ssd_bwd_dbc_kernel"}
+           "ssd_bwd_dbc_kernel", "ssd_tc_bwd_state_kernel", "ssd_tc_bwd_dx_kernel",
+           "ssd_tc_bwd_dbc_kernel"}
     assert {k for k, v in KERNEL_SOURCE.items() if v == "ssd_scan"} == fwd
     assert {k for k, v in KERNEL_SOURCE.items() if v == "ssd_scan_bwd"} == bwd
     assert source_group("(anonymous namespace)::ssd_cumsum_kernel(float const*, float*, "
                         "ssd::Dims)") == "ssd_scan"
     assert source_group("void (anonymous namespace)::ssd_bwd_dbc_kernel<__nv_bfloat16>("
                         "(anonymous namespace)::DbcArgs)") == "ssd_scan_bwd"
+    assert source_group("void (anonymous namespace)::ssd_tc_bwd_dbc_kernel<1>(CUtensorMap_st, "
+                        "CUtensorMap_st, (anonymous namespace)::TcDbcArgs)") == "ssd_scan_bwd"
     assert source_group("void (anonymous namespace)::mlstm_state_scan_kernel<float, float>("
                         "mlstm::Scan)") == "mlstm_scan"
     assert source_group("nvjet_tst_128x256_64x4_1x1_h_bz_coopA_TNN") == "cublas"
