@@ -23,7 +23,12 @@ prints no result line):
    queries that see no key (zero gradients on the tensor-core route);
    autograd through ``ops.flash_attention`` against the plain backward, in
    bf16 at the training shape through the tensor-core forward; the RMSNorm
-   and SwiGLU backward at the training shape and a small one.  Each bf16
+   backward (``RMSNORM_BWD_SHAPES``) and the SwiGLU backward through
+   ``ops.swiglu_mlp``, whose forward saves a = x Wg and b = x Wu
+   (``SWIGLU_BWD_SHAPES``), at the qwen, hymba-1.5b and xlstm-1.3b training
+   shapes and ragged ones, fp32 and bf16, each called twice and compared bit
+   for bit, their routes asserted and their PR 12-17 kernels (``block``,
+   ``simt``) checked on the same inputs.  Each bf16
    check prints the route it took, and the flash forward's and backward's
    routes are asserted.  Then each kernel's time beside its plain
    version's, one PyTorch library call's, and its bound from bytes and
@@ -31,6 +36,11 @@ prints no result line):
    beside their CUDA-core kernels (``simt_ms``) on the same inputs, and the
    flash backward beside SDPA's backward by backend (each forced with
    ``sdpa_kernel``; ``library_ms`` is the fastest that takes the inputs).
+   The two backwards also by replayed CUDA graphs at qwen's and
+   hymba-1.5b's shapes, beside PyTorch's autograd of the same function
+   replayed the same way and their PR 12-17 kernels; the SwiGLU backward's
+   kernel alone, and the SwiGLU forward and backward together; the RMSNorm
+   backward wrapper's host path step by step.
    Also the mLSTM forward and backward (xlstm-1.3b's core) at the sweep of
    ``tests/test_kernels.py:130-141`` and the training shape, fp32 and bf16;
    the SSD scan forward and backward (hymba-1.5b's core) at the sweep of
@@ -58,13 +68,15 @@ prints no result line):
    checkpoint in a temporary directory under ``build/``), with the launch
    counts set to 0 just before and checked per step just after, every
    swiglu_mlp and flash_attention launch (forward and backward) on the
-   tensor-core route and every rmsnorm on ``vec``; then 8
-   steps on one fixed batch, whose loss must fall by 0.05.
+   tensor-core route and every rmsnorm (forward and backward) on ``vec``;
+   then 8 steps on one fixed batch, whose loss must fall by 0.05.
 7. train xLSTM: ``launch.train.main`` for xlstm-1.3b at its smoke config on
    the card, with a checkpoint; then xlstm-1.3b in bf16 at full width and
    depth (48 layers), batch 4 x seq 512 from the launcher's corpus, 4 steps
    of ``make_train_step`` with the launch counts set to 0 just before and
-   checked per step just after, and 8 steps on a fixed (2, 128) batch.
+   checked per step just after (the routes as qwen's: the SwiGLU forward and
+   backward on the tensor cores, every rmsnorm on ``vec``), and 8 steps on a
+   fixed (2, 128) batch.
 8. train Hymba: the same for hymba-1.5b: ``launch.train.main`` at its smoke
    config with a checkpoint, then the full model in bf16 (32 layers), batch
    2 x seq 2048 from the launcher's corpus, 4 steps with the launch counts
@@ -141,9 +153,10 @@ TRAIN_PER_STEP = {"rmsnorm": 2 * 24 + 1, "rmsnorm_bwd": 2 * 24 + 1, "swiglu": 24
                   "decode_attention": 0}
 #: the route every launch of these modules must take in the bf16 runs: the
 #: tensor cores at training rows (qwen and Hymba; xLSTM has only SwiGLU), with
-#: split-K at serving's 8 rows; every rmsnorm forward on the one-warp-a-row body
+#: split-K at serving's 8 rows, the SwiGLU backward too; every rmsnorm forward
+#: and backward on the one-warp-a-row body
 TRAIN_ROUTES = {"swiglu": "wgmma", "flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
-                "rmsnorm": "vec"}
+                "rmsnorm": "vec", "swiglu_bwd": "wgmma", "rmsnorm_bwd": "vec"}
 SERVE_ROUTES = {"swiglu": "wgmma_split_k", "rmsnorm": "vec"}
 XLSTM = "xlstm-1.3b"
 XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
@@ -152,7 +165,7 @@ XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
 XLSTM_PER_STEP = {"rmsnorm": 2 * 42 + 3 * 6 + 1, "rmsnorm_bwd": 2 * 42 + 3 * 6 + 1,
                   "swiglu": 6, "swiglu_bwd": 6, "mlstm_scan": 42, "mlstm_scan_bwd": 42,
                   "flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0}
-XLSTM_ROUTES = {"swiglu": "wgmma", "rmsnorm": "vec"}
+XLSTM_ROUTES = {"swiglu": "wgmma", "rmsnorm": "vec", "swiglu_bwd": "wgmma", "rmsnorm_bwd": "vec"}
 #: (B, H, S, dqk, dv, chunk): the sweep of tests/test_kernels.py:130-141, then the
 #: training shape of xlstm-1.3b (dqk 512, dv 1024, chunk 128)
 MLSTM_SHAPES = tuple((2, 2, 256, dqk, dv, chunk) for chunk in (32, 64, 128)
@@ -319,21 +332,24 @@ RMSNORM_SHAPES = ((SERVE["requests"], 1024), (TRAIN_ROWS, 1024), (4352, 1600), (
                   (37, 100))
 
 
-def graph_ms(fn, arg_sets, calls: int = 24, replays: int = 20):
+def graph_ms(fn, arg_sets, calls: int = 24, replays: int = 20, stream=None):
     """Device milliseconds per call: ``calls`` back-to-back calls cycling
     through ``arg_sets``, captured into a CUDA graph and replayed, so that the
-    host's time to issue them is out of the measurement.  Returns ``(ms,
-    how)``; where the capture fails (a launch that does not record into a
-    graph), the profiler's kernel time of the same calls instead."""
+    host's time to issue them is out of the measurement.  Warm-up and capture
+    run on ``stream`` (a new side stream by default; autograd's backward runs
+    on the stream of its forward, so a backward alone is captured on the
+    stream its forward ran on).  Returns ``(ms, how)``; where the capture
+    fails (a launch that does not record into a graph), the profiler's kernel
+    time of the same calls instead."""
     try:
-        side = torch.cuda.Stream()
+        side = stream or torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for args in arg_sets:
                 fn(*args)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             for i in range(calls):
                 fn(*arg_sets[i % len(arg_sets)])
         graph.replay()
@@ -357,6 +373,19 @@ def graph_ms(fn, arg_sets, calls: int = 24, replays: int = 20):
         torch.cuda.synchronize()
     total = sum(ev.device_time_total for ev in prof.key_averages() if ev.device_time_total > 0)
     return total / 1e3 / calls, "profiler kernel time"
+
+
+def autograd_graph_ms(out_fn, input_sets, douts, calls: int, replays: int) -> float:
+    """Device ms of the backward alone of ``out_fn`` by CUDA-graph replay: the
+    forwards run once on a side stream, the captured calls are
+    ``torch.autograd.grad`` of each retained graph in turn."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [[t.detach().clone().requires_grad_() for t in s] for s in input_sets]
+        outs = [out_fn(*lv) for lv in leaves]
+    return graph_ms(lambda i: torch.autograd.grad(outs[i], leaves[i], douts[i], retain_graph=True),
+                    [(i,) for i in range(len(input_sets))], calls, replays, stream=side)[0]
 
 
 def _enter_exit(ctx) -> None:
@@ -779,78 +808,315 @@ def check_flash(gen, ops, ref, rate):
     return fwd, bwd
 
 
-def check_rmsnorm_bwd(gen, ops, ref, rate):
+#: (rows, D) of the rmsnorm backward checks: the qwen, hymba-1.5b and xlstm-1.3b
+#: training rows and xlstm-1.3b's mLSTM output norm (8 KB rows; the "vec" body),
+#: serving's rows, a small row ("vec") and a ragged one (D = 100: "block")
+RMSNORM_BWD_SHAPES = ((TRAIN_ROWS, 1024), (4352, 1600), (2048, 2048), (2048, 4096),
+                      (SERVE["requests"], 1024), (37, 96), (37, 100))
+
+
+def rmsnorm_bwd_host_steps(x, g, dy, reps: int = 2000) -> dict:
+    """Host microseconds per call of each step of the backward wrapper's former
+    host path (the card's properties, a device context, ``current_stream``,
+    all on every call), alone, and of the lean path's steps, at these inputs
+    (the launches run too)."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import rmsnorm_bwd as kb
 
-    errs = {}
-    for rows, D in ((TRAIN_ROWS, 1024), (37, 96), (SERVE["requests"], 1024)):
+    lib = build.library()
+    D, rows = x.shape[-1], x.numel() // x.shape[-1]
+    dx, dgamma = torch.empty_like(x), torch.empty_like(g)
+    partial = torch.empty((rows, D), dtype=torch.float32, device=x.device)
+    key = (x.shape, g.shape, dy.shape, x.dtype, g.dtype, dy.dtype, x.device, g.device, dy.device)
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    steps = {
+        "device_properties": lambda: torch.cuda.get_device_properties(x.device),
+        "device_context": lambda: _enter_exit(torch.cuda.device(x.device)),
+        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "lean_checked_once": lambda: build.checked_once(kb._checked, key, kb._check_key, x, g, dy),
+        "dy_contiguous": lambda: dy.contiguous(),
+        "empty_dx_dgamma_partial": lambda: (torch.empty_like(x), torch.empty_like(g),
+                                            torch.empty((rows, D), dtype=torch.float32,
+                                                        device=x.device)),
+        "lean_raw_stream": lambda: torch._C._cuda_getCurrentRawStream(x.device.index),
+        "ctypes_launch": lambda: lib.rt_rmsnorm_bwd_vec(
+            x.data_ptr(), g.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+            dgamma.data_ptr(), rows, D, kb._shapes(x, g, dy)["vec"], 1e-5,
+            0 if x.dtype == torch.float32 else 1, stream),
+        "lean_launch": lambda: kb.launch("vec", x, g, dy, 1e-5),
+        "lean_wrapper": lambda: kb.rmsnorm_bwd_cuda(x, g, dy),
+    }
+    found = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        found[name] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+    return found
+
+
+def check_rmsnorm_bwd(gen, ops, ref, rate):
+    """RMSNORM_BWD_SHAPES in fp32 and bf16 against the plain backward, each with
+    the route it took (asserted) and two calls equal bit for bit; the ``block``
+    body on the same inputs.  Times at qwen's rows (the row) and hymba-1.5b's
+    (``hymba_*``), bf16: host-paced ``ms`` with the host's ``issue_ms``, device
+    time from a replayed CUDA graph of eight input sets (``device_ms``), the
+    ``block`` body's the same way (``block_ms``), ``F.rms_norm``'s backward
+    (``library_*``); at qwen's rows the wrapper's host path step by step on
+    serving-size rows (``host_steps_us``)."""
+    from repro_torch.kernels import rmsnorm_bwd as kb
+
+    errs, routes = {}, {}
+    for rows, D in RMSNORM_BWD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             x, g, dy = randn(gen, (rows, D), dt), randn(gen, (D,), dt), randn(gen, (rows, D), dt)
+            key = (rows, D, str(dt)[6:])
+            routes[key] = kb.route(x, g, dy)
+            want = ("vec" if D % 8 == 0 and D * x.element_size() <= kb.VEC_MAX_ROW_BYTES
+                    else "block")
+            if routes[key] != want:
+                raise AssertionError(f"rmsnorm_bwd {key}: route {routes[key]}, expected {want}")
             got = kb.rmsnorm_bwd_cuda(x, g, dy, 1e-5)
+            again = kb.rmsnorm_bwd_cuda(x, g, dy, 1e-5)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"rmsnorm_bwd {key}: two calls differ")
             exp = ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
-            errs[(rows, D, str(dt)[6:])] = max(max_err(a, b, GRAD_TOL[dt])
-                                               for a, b in zip(got, exp))
+            errs[key] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp))
+            errs[key + ("block",)] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in
+                                         zip(kb.launch("block", x, g, dy, 1e-5), exp))
+    torch.cuda.synchronize()
     print(f"[kernels] rmsnorm_bwd errors {errs}")
-    N, D, dt = TRAIN_ROWS, 1024, torch.bfloat16
-    sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt), randn(gen, (N, D), dt))
-            for _ in range(8)]
-    x, g, dy = sets[0]
-    # A call here is a few microseconds of device work: each time is given
-    # beside the host's time to issue the calls, which sets the pace when equal.
-    (lib_bwd, lib_bwd_issue), (lib_both, lib_both_issue) = grad_ms(
-        lambda x, g: F.rms_norm(x, (D,), g, 1e-5), (x, g), dy, 20, issue=True)
-    leaves = [(x.requires_grad_(), g.requires_grad_(), dy) for x, g, dy in
-              ((a.clone(), b.clone(), c) for a, b, c in sets)]
-    ms, issue = time_ms(lambda x, g, dy: kb.rmsnorm_bwd_cuda(x, g, dy, 1e-5), sets, 20,
-                        issue=True)
-    both, both_issue = time_ms(lambda x, g, dy: torch.autograd.grad(
-        ops.rmsnorm(x, g, eps=1e-5), (x, g), dy), leaves, 20, issue=True)
-    b_ms, b_by = bound((3 * N * D + 2 * D) * 2, 8 * N * D, dt, rate)
-    return {
-        "name": "rmsnorm_bwd", "shape": f"x, dy ({N}, {D}) bf16",
-        "max_abs_err": errs[(N, D, "bfloat16")],
-        "ms": ms, "issue_ms": issue,
-        "plain_ms": time_ms(lambda x, g, dy: ref.rmsnorm_bwd_ref(x, g, dy, 1e-5), sets, 20),
-        "library_ms": lib_bwd, "library_issue_ms": lib_bwd_issue,
-        "fwd_bwd_ms": both, "fwd_bwd_issue_ms": both_issue,
-        "library_fwd_bwd_ms": lib_both, "library_fwd_bwd_issue_ms": lib_both_issue,
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+    print(f"[kernels] rmsnorm_bwd routes {routes}; two calls equal bit for bit at every shape")
+    row = {"name": "rmsnorm_bwd"}
+    for prefix, (N, D) in (("", (TRAIN_ROWS, 1024)), ("hymba_", (4352, 1600))):
+        dt = torch.bfloat16
+        sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt), randn(gen, (N, D), dt))
+                for _ in range(8)]
+        x, g, dy = sets[0]
+        b_ms, b_by = bound((3 * N * D + 2 * D) * 2, 8 * N * D, dt, rate)
+        ms, issue = time_ms(lambda x, g, dy: kb.rmsnorm_bwd_cuda(x, g, dy, 1e-5), sets, 20,
+                            issue=True)
+        device_ms, how = graph_ms(lambda x, g, dy: kb.rmsnorm_bwd_cuda(x, g, dy, 1e-5), sets)
+        # A call here is a few microseconds of device work: the host-paced times
+        # are given beside the host's time to issue the calls.
+        (lib_bwd, lib_bwd_issue), (lib_both, lib_both_issue) = grad_ms(
+            lambda x, g: F.rms_norm(x, (D,), g, 1e-5), (x, g), dy, 20, issue=True)
+        leaves = [(a.clone().requires_grad_(), b.clone().requires_grad_(), c)
+                  for a, b, c in sets]
+        both, both_issue = time_ms(lambda x, g, dy: torch.autograd.grad(
+            ops.rmsnorm(x, g, eps=1e-5), (x, g), dy), leaves, 20, issue=True)
+        row.update({
+            f"{prefix}shape": f"x, dy ({N}, {D}) bf16", f"{prefix}kernel_route": kb.route(x, g, dy),
+            f"{prefix}max_abs_err": errs[(N, D, "bfloat16")],
+            f"{prefix}ms": ms, f"{prefix}issue_ms": issue,
+            f"{prefix}device_ms": device_ms, f"{prefix}device_ms_from": how,
+            f"{prefix}block_ms": graph_ms(lambda x, g, dy: kb.launch("block", x, g, dy, 1e-5),
+                                          sets)[0],
+            f"{prefix}plain_ms": time_ms(lambda x, g, dy: ref.rmsnorm_bwd_ref(x, g, dy, 1e-5),
+                                         sets, 20),
+            f"{prefix}library_ms": lib_bwd, f"{prefix}library_issue_ms": lib_bwd_issue,
+            f"{prefix}library_device_ms": autograd_graph_ms(
+                lambda x, g: F.rms_norm(x, (D,), g, 1e-5), [s[:2] for s in sets],
+                [s[2] for s in sets], 24, 20),
+            f"{prefix}fwd_bwd_ms": both, f"{prefix}fwd_bwd_issue_ms": both_issue,
+            f"{prefix}library_fwd_bwd_ms": lib_both,
+            f"{prefix}library_fwd_bwd_issue_ms": lib_both_issue,
+            f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
+            f"{prefix}device_share_of_bound": b_ms / device_ms,
+        })
+        del sets, leaves
+    row["host_steps_us"] = rmsnorm_bwd_host_steps(
+        *(randn(gen, s, torch.bfloat16) for s in ((SERVE["requests"], 1024), (1024,),
+                                                  (SERVE["requests"], 1024))))
+    print(f"[kernels] rmsnorm_bwd device ms {row['device_ms']} (qwen rows), "
+          f"{row['hymba_device_ms']} (Hymba's); host steps (us a call) {row['host_steps_us']}")
+    return row
+
+
+#: (N, D, F) of the SwiGLU backward checks: the qwen, hymba-1.5b and xlstm-1.3b
+#: training shapes, a ragged shape of 128-row tiles, serving-size rows (the
+#: forward on split-K, the backward on the tensor cores) and a bf16 shape that
+#: TMA refuses (D = 100: the recompute path and gate kernel)
+SWIGLU_BWD_SHAPES = ((TRAIN_ROWS, 1024, 2816), HYMBA_SWIGLU, (2048, 2048, 2688),
+                     (333, 200, 712), (20, 96, 224), (37, 100, 260))
+
+
+def _fwd_bwd(fn, x, wg, wu, wd, dy):
+    """The gradients of ``fn(x, wg, wu, wd)`` by autograd, its forward included."""
+    leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+    return torch.autograd.grad(fn(*leaves), leaves, dy)
+
+
+def _swiglu_bwd_inputs(gen, N, D, Fd, dt):
+    from repro_torch.kernels import swiglu as ks
+
+    x, dy = randn(gen, (N, D), dt), randn(gen, (N, D), dt)
+    wg, wu = randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (D, Fd), dt, D ** -0.5)
+    wd = randn(gen, (Fd, D), dt, Fd ** -0.5)
+    _, a, b = ks.swiglu_cuda(x, wg, wu, wd, save_ab=True)
+    return x, wg, wu, wd, dy, a, b
+
+
+#: the SwiGLU backward's gradients, in the order autograd returns them
+SWIGLU_GRADS = ("dx", "dWg", "dWu", "dWd")
+
+
+def _swiglu_bwd_f64(x, wg, wu, wd, a, b, dy):
+    """The SwiGLU backward from the saved a and b, every step in fp64: a
+    witness whose own error is far below the bf16 roundings that both the
+    kernel and the plain version make."""
+    x, wg, wu, wd, a, b, dy = (t.double() for t in (x, wg, wu, wd, a, b, dy))
+    sig = torch.sigmoid(a)
+    dh = dy @ wd.T
+    da = dh * b * (sig * (1.0 + a * (1.0 - sig)))
+    db = dh * (a * sig)
+    return da @ wg.T + db @ wu.T, x.T @ da, x.T @ db, (a * sig * b).T @ dy
+
+
+def _witness_err(got, witness, tol) -> tuple[float, float]:
+    """The largest |got - witness|, and the largest as a share of the tolerance
+    ``tol + tol |witness|`` of ``assert_close(rtol=atol=tol)``."""
+    diff = (got.double() - witness).abs()
+    return float(diff.max()), float((diff / (tol + tol * witness.abs())).max())
+
+
+def _tol_misses(got, want, tol) -> tuple[int, float, float]:
+    """Elements of ``got`` outside ``assert_close(rtol=atol=tol)`` of ``want``;
+    the largest |got - want| among them and the tolerance it had."""
+    diff = (got.double() - want.double()).abs()
+    allowed = tol + tol * want.double().abs()
+    out = diff > allowed
+    if not bool(out.any()):
+        return 0, 0.0, 0.0
+    worst = int(torch.argmax(torch.where(out, diff - allowed, -1.0)))
+    return int(out.sum()), float(diff.flatten()[worst]), float(allowed.flatten()[worst])
 
 
 def check_swiglu_bwd(gen, ops, ref, rate):
+    """SWIGLU_BWD_SHAPES in fp32 and bf16: the forward's saved a and b against
+    the plain forward's; the gradients of ``ops.swiglu_mlp`` (which saves them)
+    two calls equal bit for bit, the route asserted, and all four against the
+    plain backward (on the recompute path ``ref.swiglu_bwd_ref``, on the
+    tensor-core route ``ref.swiglu_bwd_saved_ref`` from the same a and b)
+    within GRAD_TOL.  On the tensor-core route also: the kernel's h, da and db
+    against the plain gate; each gradient, and the plain version's, against
+    an fp64 witness from the same a and b (``_swiglu_bwd_f64``), where the
+    kernel's largest error must be at most twice the plain version's; and
+    the recompute path and gate kernel of PRs 12-17 (``simt``) against its
+    plain version.  A gradient outside GRAD_TOL of the plain version passes
+    only with that witness, and is printed and returned (``plain_misses``)
+    with both errors.  Times at qwen's shape (the row) and
+    hymba-1.5b's (``hymba_*``), bf16, each from a replayed CUDA graph of two
+    input sets: the backward (``device_ms``; ``ms`` event-timed back to
+    back), its kernel alone (``kernel_device_ms``), the PR 12-17 path
+    (``simt_ms``), autograd of three ``@`` (``library_ms``), forward and
+    backward of both (``fwd_bwd_device_ms``, ``library_fwd_bwd_device_ms``)."""
     from repro_torch.kernels import swiglu_bwd as kb
 
-    errs = {}
-    for N, D, Fd in ((TRAIN_ROWS, 1024, 2816), (20, 96, 224)):
+    errs, routes, witness, misses = {}, {}, {}, {}
+    for N, D, Fd in SWIGLU_BWD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
-            x, dy = randn(gen, (N, D), dt), randn(gen, (N, D), dt)
-            wg, wu = randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (D, Fd), dt, D ** -0.5)
-            wd = randn(gen, (Fd, D), dt, Fd ** -0.5)
-            got = kb.swiglu_bwd_cuda(x, wg, wu, wd, dy)
-            exp = ref.swiglu_bwd_ref(x, wg, wu, wd, dy)
-            errs[(N, D, Fd, str(dt)[6:])] = max(max_err(a, b, GRAD_TOL[dt])
-                                                for a, b in zip(got, exp))
+            x, wg, wu, wd, dy, a, b = _swiglu_bwd_inputs(gen, N, D, Fd, dt)
+            key = (N, D, Fd, str(dt)[6:])
+            routes[key] = kb.route(x, wg, wu, wd, dy, a, b)
+            want = "wgmma" if dt == torch.bfloat16 and D % 8 == 0 and Fd % 8 == 0 else "simt"
+            if routes[key] != want or (a is None) != (want == "simt"):
+                raise AssertionError(f"swiglu_bwd {key}: route {routes[key]}, a saved "
+                                     f"{a is not None}; expected {want}")
+            if a is not None:
+                _, a0, b0 = ref.swiglu_fwd_ref(x, wg, wu, wd)
+                errs[key + ("a, b",)] = max(max_err(a, a0, TOL["swiglu_mlp"][dt]),
+                                            max_err(b, b0, TOL["swiglu_mlp"][dt]))
+            leaves = [t.clone().requires_grad_() for t in (x, wg, wu, wd)]
+            got = torch.autograd.grad(ops.swiglu_mlp(*leaves), leaves, dy)
+            again = torch.autograd.grad(ops.swiglu_mlp(*leaves), leaves, dy)
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                raise AssertionError(f"swiglu_bwd {key}: two calls differ")
+            if routes[key] == "simt":
+                exp = ref.swiglu_bwd_ref(x, wg, wu, wd, dy)
+                errs[key] = max(max_err(p, q, GRAD_TOL[dt]) for p, q in zip(got, exp))
+            else:
+                gate = kb.gate_bwd_tc(dy, wd, a, b)
+                plain_gate = ref.swiglu_gate_bwd_ref(a, b, dy.float() @ wd.float().T)
+                errs[key + ("h, da, db",)] = max(max_err(p, q, GRAD_TOL[dt])
+                                                 for p, q in zip(gate, plain_gate))
+                exp = ref.swiglu_bwd_saved_ref(x, wg, wu, wd, a, b, dy)
+                wit = _swiglu_bwd_f64(x, wg, wu, wd, a, b, dy)
+                for name, g, p, w in zip(SWIGLU_GRADS, got, exp, wit):
+                    (k_err, k_share), (p_err, p_share) = (_witness_err(t, w, GRAD_TOL[dt])
+                                                          for t in (g, p))
+                    witness[key + (name,)] = (k_err, p_err, k_share, p_share)
+                    if k_err > 2 * p_err or k_share > 2 * p_share:
+                        raise AssertionError(f"swiglu_bwd {key} {name}: {k_err} ({k_share} of "
+                                             f"GRAD_TOL) from the fp64 witness, the plain "
+                                             f"version {p_err} ({p_share})")
+                    n_out, worst, allowed = _tol_misses(g, p, GRAD_TOL[dt])
+                    if n_out:
+                        misses[key + (name,)] = {"elements": n_out, "of": g.numel(),
+                                                 "abs_err": worst, "allowed": allowed,
+                                                 "witness_err": k_err,
+                                                 "plain_witness_err": p_err,
+                                                 "witness_share_of_tol": k_share,
+                                                 "plain_witness_share_of_tol": p_share}
+                errs[key] = max(float((g.float() - p.float()).abs().max())
+                                for g, p in zip(got, exp))
+                del gate, plain_gate, wit
+            if routes[key] == "wgmma":
+                simt = kb.launch("simt", x, wg, wu, wd, dy)
+                errs[key + ("simt",)] = max(max_err(p, q, GRAD_TOL[dt]) for p, q in
+                                            zip(simt, ref.swiglu_bwd_ref(x, wg, wu, wd, dy)))
+            del x, wg, wu, wd, dy, a, b, leaves, got, again, exp
+    torch.cuda.synchronize()
     print(f"[kernels] swiglu_mlp_bwd errors {errs}")
-    N, D, Fd, dt = TRAIN_ROWS, 1024, 2816, torch.bfloat16
-    sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
-             randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5),
-             randn(gen, (N, D), dt)) for _ in range(2)]
-    lib_bwd, lib_both = grad_ms(_swiglu_lib, sets[0][:4], sets[0][4], 5)
-    leaves = [tuple(t.clone().requires_grad_() for t in s[:4]) + (s[4],) for s in sets]
-    b_ms, b_by = bound((3 * N * D + 6 * D * Fd) * 2, 16 * N * D * Fd + 10 * N * Fd, dt, rate)
-    bwd = {
-        "name": "swiglu_mlp_bwd", "shape": f"x, dy ({N}, {D}), d_ff {Fd} bf16",
-        "max_abs_err": errs[(N, D, Fd, "bfloat16")],
-        "ms": time_ms(kb.swiglu_bwd_cuda, sets, 5),
-        "plain_ms": time_ms(ref.swiglu_bwd_ref, sets, 5),
-        "library_ms": lib_bwd,
-        "fwd_bwd_ms": time_ms(lambda x, wg, wu, wd, dy: torch.autograd.grad(
-            ops.swiglu_mlp(x, wg, wu, wd), (x, wg, wu, wd), dy), leaves, 3),
-        "library_fwd_bwd_ms": lib_both,
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
-    return bwd
+    print(f"[kernels] swiglu_mlp_bwd routes {routes}; two calls equal bit for bit at every shape")
+    print(f"[kernels] swiglu_mlp_bwd against the fp64 witness (kernel's and plain version's "
+          f"largest |error|, then as shares of GRAD_TOL) {witness}")
+    print(f"[kernels] swiglu_mlp_bwd outside GRAD_TOL of the plain version: {misses or 'none'}")
+    row = {"name": "swiglu_mlp_bwd",
+           "plain_misses": {" ".join(map(str, k)): v for k, v in misses.items()}}
+    for prefix, (N, D, Fd) in (("", SWIGLU_BWD_SHAPES[0]), ("hymba_", HYMBA_SWIGLU)):
+        dt = torch.bfloat16
+        sets = [_swiglu_bwd_inputs(gen, N, D, Fd, dt) for _ in range(2)]
+        b_ms, b_by = bound((3 * N * D + 6 * D * Fd + 2 * N * Fd) * 2,
+                           12 * N * D * Fd + 10 * N * Fd, dt, rate)
+        k_ms, k_by = bound((N * D + D * Fd + 5 * N * Fd) * 2, 2 * N * D * Fd + 10 * N * Fd, dt,
+                           rate)
+        calls, replays = 4, 5
+
+        def gms(fn):
+            return graph_ms(fn, sets, calls, replays)[0]
+
+        row.update({
+            f"{prefix}shape": f"x, dy ({N}, {D}), d_ff {Fd} bf16",
+            f"{prefix}kernel_route": routes[(N, D, Fd, "bfloat16")],
+            f"{prefix}max_abs_err": errs[(N, D, Fd, "bfloat16")],
+            f"{prefix}ms": time_ms(kb.swiglu_bwd_cuda, sets, 5),
+            f"{prefix}device_ms": gms(kb.swiglu_bwd_cuda),
+            f"{prefix}kernel_device_ms": gms(lambda x, wg, wu, wd, dy, a, b:
+                                             kb.gate_bwd_tc(dy, wd, a, b)),
+            f"{prefix}kernel_bound_ms": k_ms, f"{prefix}kernel_bound_by": k_by,
+            f"{prefix}simt_ms": gms(lambda x, wg, wu, wd, dy, a, b:
+                                    kb.launch("simt", x, wg, wu, wd, dy)),
+            f"{prefix}plain_ms": time_ms(lambda x, wg, wu, wd, dy, a, b:
+                                         ref.swiglu_bwd_saved_ref(x, wg, wu, wd, a, b, dy),
+                                         sets, 3),
+            f"{prefix}library_ms": autograd_graph_ms(_swiglu_lib, [s[:4] for s in sets],
+                                                     [s[4] for s in sets], calls, replays),
+            f"{prefix}fwd_bwd_device_ms": gms(lambda *s: _fwd_bwd(ops.swiglu_mlp, *s[:5])),
+            f"{prefix}library_fwd_bwd_device_ms": gms(lambda *s: _fwd_bwd(_swiglu_lib, *s[:5])),
+            f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
+        })
+        del sets
+        torch.cuda.empty_cache()
+    print(f"[kernels] swiglu_mlp_bwd device ms: backward {row['device_ms']} / "
+          f"{row['hymba_device_ms']}, kernel {row['kernel_device_ms']} / "
+          f"{row['hymba_kernel_device_ms']}; forward + backward {row['fwd_bwd_device_ms']} / "
+          f"{row['hymba_fwd_bwd_device_ms']} against autograd of three @ "
+          f"{row['library_fwd_bwd_device_ms']} / {row['hymba_library_fwd_bwd_device_ms']}")
+    return row
 
 
 def rel_err(got, want, tol) -> tuple[float, float]:

@@ -7,8 +7,9 @@ one shared library with a plain C interface under
 name carries a hash of the sources and flags, so an edit rebuilds it and an
 unchanged tree reuses it.  It is loaded with ``ctypes``; every entry point
 returns ``cudaGetLastError()`` and the wrappers raise when it is not 0.
-:func:`launch` is the lean way to call one: the rmsnorm forward and the
-SSD scan's wrappers go through it, and so can any other.
+:func:`launch` is the lean way to call one: the rmsnorm forward and
+backward, the SwiGLU backward and the SSD scan's wrappers go through it, and
+so can any other.
 
 No ``nvcc`` means no kernels: :func:`library` raises.
 """
@@ -38,20 +39,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 
 #: C entry point -> argument types (all return an int cudaError_t)
 SIGNATURES = {
     "rt_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
     "rt_rmsnorm_vec": (_P, _P, _P, _I, _I, _F, _I, _P),
     "rt_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "rt_swiglu_tc": (*(_P,) * 7, *(_I,) * 5, _P),
+    "rt_swiglu_tc": (*(_P,) * 9, *(_I,) * 5, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _P, *(_I,) * 9, _F, _I, _P),
     "rt_flash_attention_tc": (_P, _P, _P, _P, _P, *(_I,) * 9, _F, _P),
     "rt_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 9, _F, _I, _P),
     "rt_flash_attention_bwd_tc": (*(_P,) * 10, *(_I,) * 9, _F, _P),
     "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "rt_rmsnorm_bwd_vec": (*(_P,) * 6, _I, _I, _I, _F, _I, _P),
+    "rt_rmsnorm_bwd_vec_config": (_I, _I, _IP, _IP),
     "rt_swiglu_gate_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "rt_swiglu_bwd_tc": (*(_P,) * 7, *(_I,) * 4, _P),
     "rt_mlstm_scan": (*(_P,) * 14, *(_I,) * 5, _F, _I, _P),
     "rt_mlstm_scan_bwd": (*(_P,) * 32, *(_I,) * 5, _F, _I, _P),
     "rt_ssd_scan": (*(_P,) * 8, *(_I,) * 7, _P),

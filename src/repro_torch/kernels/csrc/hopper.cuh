@@ -157,6 +157,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the TMA's bulk copy; completes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -187,6 +197,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 template <int kId, int kThreads>
 __device__ __forceinline__ void named_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(kId), "n"(kThreads) : "memory");
+}
+
+// Arrive at hardware barrier kId without waiting: kThreads counts these
+// arrivals and a named_sync's threads together.
+template <int kId, int kThreads>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(kId), "n"(kThreads) : "memory");
 }
 
 // A wgmma descriptor of a 128-byte-swizzled tile (layout type 1).
@@ -256,12 +273,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Transpose 4 x 4 32-bit values across a quad of lanes (lanes 4 q .. 4 q + 3
+// of a warp): lane t ends with lane k's v[t] in v[k].  Two rounds of two
+// shuffles: swap the off-diagonal 2 x 2 blocks between lanes t and t ^ 2,
+// then transpose each 2 x 2 block between lanes t and t ^ 1.  Every lane of
+// the warp calls it.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 2) ? v[k] : v[k + 2], 2);
+    if (t & 2)
+      v[k] = got;
+    else
+      v[k + 2] = got;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; k += 2) {
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 1) ? v[k] : v[k + 1], 1);
+    if (t & 1)
+      v[k] = got;
+    else
+      v[k + 1] = got;
+  }
+}
+
 // The fp32 accumulator of an m64nN wgmma: thread (warp w, lane) of the
 // warpgroup holds rows 16 w + lane / 4 (entries 4 j, 4 j + 1) and that row
 // + 8 (4 j + 2, 4 j + 3), columns 8 j + 2 (lane % 4) and the next.  The
 // register A operand of an m64k16 step has the same rows; its four 32-bit
 // registers hold columns (2 t, 2 t + 1) and (2 t + 8, 2 t + 9) of both rows,
-// so the accumulator of a product is the A operand of the next.
+// so the accumulator of a product is the A operand of the next.  The four
+// lanes of a quad hold the 8 columns 8 j .. 8 j + 7 of a row in 2-column
+// pairs; after quad_transpose over four pairs (j0 .. j0 + 3) lane t holds
+// all 8 columns of group j0 + t, one 16-byte store, and a row's four lanes
+// write 64 contiguous bytes.  Read the other way, 16-byte loads feed the
+// accumulator's layout.
 
 // D (64 x 128, fp32) += A (64 x 16, smem) * B (16 x 128, smem); kTnspB = 1: B is
 // MN-major.  scale_d = 0: D = A B.

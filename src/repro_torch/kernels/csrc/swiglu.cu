@@ -29,6 +29,10 @@
 //  - Training rows (N >= 64): 128-row tiles, two consumer warpgroups; the
 //    epilogue forms silu(g) * u = g / (1 + exp(-g)) * u in fp32, as the CUDA-
 //    core kernel does, or the down product's cast, and stores from registers.
+//    When a gradient is needed it also stores g and u, cast once, as a and b
+//    for the backward (2 N F bf16 more written: 46 MB at qwen's 4096 rows).
+//    XLA's autodiff of layers.swiglu keeps the same two arrays.  The gated
+//    product's stores are 16 bytes a lane (hop::quad_transpose).
 //  - Decode rows (N < 64): 64-row tiles (rows past N are the TMA's zeros), one
 //    consumer warpgroup, and the contraction split over blocks (split-K) so
 //    that about one block per SM streams the weights.  Each block writes its
@@ -168,6 +172,8 @@ struct Args {
   int split;    // blocks along the contraction (gridDim.z)
   void* out;    // (M, ldc) bf16 when split == 1
   float* part;  // (split, [2,] M, ldc) fp32 partial sums when split > 1
+  void* a_out;  // gated product, or null: (M, ldc) bf16 x Wg, saved for the backward
+  void* b_out;  // likewise x Wu (both null or both set)
 };
 
 // kGated: accumulators (x Wg, x Wu) over columns [n0, n0 + 128), out =
@@ -258,6 +264,47 @@ __global__ void __launch_bounds__(Layout<kWG>::kThreads, 1)
   const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
   const int c0 = n0 + 2 * (lane % 4);
   const size_t plane = static_cast<size_t>(args.M) * args.ldc;
+  if (kGated && args.split == 1) {
+    // h (and a, b) by 16-byte stores, a quad's 64 bytes of a row contiguous:
+    // four column groups at a time through hop::quad_transpose (ldc = F is a
+    // multiple of 8, so a group is all in or all out)
+    const int t = lane % 4;
+    const bool save = args.a_out != nullptr;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+#pragma unroll
+      for (int jb = 0; jb < 4; ++jb) {
+        uint32_t hv[4], av[4], bv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int e = 4 * (4 * jb + k) + 2 * half;
+          const float g0 = acc0[e], g1 = acc0[e + 1];
+          const float u0 = acc1[e], u1 = acc1[e + 1];
+          hv[k] = hop::pack_bf16(g0 / (1.f + expf(-g0)) * u0, g1 / (1.f + expf(-g1)) * u1);
+          av[k] = hop::pack_bf16(g0, g1);
+          bv[k] = hop::pack_bf16(u0, u1);
+        }
+        hop::quad_transpose(hv);
+        if (save) {
+          hop::quad_transpose(av);
+          hop::quad_transpose(bv);
+        }
+        const int c = n0 + 8 * (4 * jb + t);
+        if (r >= args.M || c >= args.ldc) continue;
+        const size_t at = static_cast<size_t>(r) * args.ldc + c;
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(args.out) + at) =
+            make_uint4(hv[0], hv[1], hv[2], hv[3]);
+        if (save) {
+          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(args.a_out) + at) =
+              make_uint4(av[0], av[1], av[2], av[3]);
+          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(args.b_out) + at) =
+              make_uint4(bv[0], bv[1], bv[2], bv[3]);
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -281,23 +328,21 @@ __global__ void __launch_bounds__(Layout<kWG>::kThreads, 1)
         }
         continue;
       }
+      // the down product (the gated one stored above)
       uint32_t* o = reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(args.out) + at);
-      if (kGated) {
-        if (c < args.ldc)
-          *o = hop::pack_bf16(g0 / (1.f + expf(-g0)) * u0, g1 / (1.f + expf(-g1)) * u1);
-      } else {
-        if (c < args.ldc) *o = hop::pack_bf16(g0, g1);
-        if (c + kBN < args.ldc) o[kBN / 2] = hop::pack_bf16(u0, u1);
-      }
+      if (c < args.ldc) *o = hop::pack_bf16(g0, g1);
+      if (c + kBN < args.ldc) o[kBN / 2] = hop::pack_bf16(u0, u1);
     }
   }
 }
 
-// out[i] = epilogue(sum over the split of part[z][i]), z in order.
+// out[i] = epilogue(sum over the split of part[z][i]), z in order; the gated
+// product also writes the two sums to a_out and b_out where they are set.
 template <bool kGated>
 __global__ void __launch_bounds__(256)
     swiglu_splitk_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
-                             int split, int n) {
+                             __nv_bfloat16* __restrict__ a_out,
+                             __nv_bfloat16* __restrict__ b_out, int split, int n) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     float a = 0.f;
     float b = 0.f;
@@ -306,6 +351,10 @@ __global__ void __launch_bounds__(256)
       if (kGated) b += part[(static_cast<size_t>(z) * 2 + 1) * n + i];
     }
     out[i] = __float2bfloat16(kGated ? a / (1.f + expf(-a)) * b : a);
+    if (kGated && a_out != nullptr) {
+      a_out[i] = __float2bfloat16(a);
+      b_out[i] = __float2bfloat16(b);
+    }
   }
 }
 
@@ -319,7 +368,7 @@ int map_2d(CUtensorMap* m, const void* p, int rows, int cols, int box_rows) {
 
 template <bool kGated, int kWG>
 int product(const void* a, const void* b0, const void* b1, int M, int K, int ldc, int split,
-            void* out, float* part, cudaStream_t s) {
+            void* out, float* part, void* a_out, void* b_out, cudaStream_t s) {
   using L = Layout<kWG>;
   CUtensorMap ta, tb0, tb1;
   int err = map_2d(&ta, a, M, K, 64 * kWG);
@@ -332,12 +381,14 @@ int product(const void* a, const void* b0, const void* b1, int M, int K, int ldc
   if (e != cudaSuccess) return static_cast<int>(e);
   const int cols = kGated ? kBN : 2 * kBN;
   const dim3 grid((ldc + cols - 1) / cols, (M + 64 * kWG - 1) / (64 * kWG), split);
-  kernel<<<grid, L::kThreads, L::kSmem, s>>>(ta, tb0, tb1, Args{M, K, ldc, split, out, part});
+  kernel<<<grid, L::kThreads, L::kSmem, s>>>(
+      ta, tb0, tb1, Args{M, K, ldc, split, out, part, a_out, b_out});
   e = cudaGetLastError();
   if (e != cudaSuccess || split == 1) return static_cast<int>(e);
   const int n = M * ldc;
   swiglu_splitk_sum_kernel<kGated><<<(n + 255) / 256, 256, 0, s>>>(
-      part, static_cast<__nv_bfloat16*>(out), split, n);
+      part, static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(a_out),
+      static_cast<__nv_bfloat16*>(b_out), split, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -358,16 +409,19 @@ extern "C" int rt_swiglu(const void* x, const void* wg, const void* wu, const vo
 // (decode rows, MIN_TILE_ROWS in kernels/swiglu.py): 64-row tiles.
 // split_gate, split_down: blocks along the contraction of each product;
 // where one is above 1, part holds max(2 split_gate N F, split_down N D)
-// floats.  Returns the first error (tensor map, attribute or launch), else 0.
+// floats.  a_out, b_out: null, or (N, F) bf16 each for a = x Wg and b = x Wu
+// as the gated product's fp32 sums hold them, cast once: what the backward
+// (swiglu_bwd.cu) reads instead of computing them again.  Returns the first
+// error (tensor map, attribute or launch), else 0.
 extern "C" int rt_swiglu_tc(const void* x, const void* wg, const void* wu, const void* wd,
-                            void* h, void* y, void* part, int N, int D, int F, int split_gate,
-                            int split_down, void* stream) {
+                            void* h, void* y, void* part, void* a_out, void* b_out, int N, int D,
+                            int F, int split_gate, int split_down, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   const bool decode = N < 64;
-  int err = decode ? product<true, 1>(x, wg, wu, N, D, F, split_gate, h, p, s)
-                   : product<true, 2>(x, wg, wu, N, D, F, split_gate, h, p, s);
+  int err = decode ? product<true, 1>(x, wg, wu, N, D, F, split_gate, h, p, a_out, b_out, s)
+                   : product<true, 2>(x, wg, wu, N, D, F, split_gate, h, p, a_out, b_out, s);
   if (err) return err;
-  return decode ? product<false, 1>(h, wd, wd, N, F, D, split_down, y, p, s)
-                : product<false, 2>(h, wd, wd, N, F, D, split_down, y, p, s);
+  return decode ? product<false, 1>(h, wd, wd, N, F, D, split_down, y, p, nullptr, nullptr, s)
+                : product<false, 2>(h, wd, wd, N, F, D, split_down, y, p, nullptr, nullptr, s);
 }

@@ -98,18 +98,26 @@ class RMSNorm(torch.autograd.Function):
 
 
 class SwiGLU(torch.autograd.Function):
+    """The forward saves ``a = x @ Wg`` and ``b = x @ Wu`` beside x, as XLA's
+    autodiff of ``layers.swiglu`` does; on the card only its tensor-core routes
+    write them (None from ``"simt"``, whose backward computes them again)."""
+
     @staticmethod
     def forward(ctx, x, w_gate, w_up, w_down):
         x = x.contiguous()
-        ctx.save_for_backward(x, w_gate, w_up, w_down)
-        return _swiglu_fwd(x, w_gate, w_up, w_down)
+        if _on_cuda(x, "swiglu_mlp"):
+            out, a, b = _swiglu.swiglu_cuda(x, w_gate, w_up, w_down, save_ab=True)
+        else:
+            out, a, b = ref.swiglu_fwd_ref(x, w_gate, w_up, w_down)
+        ctx.save_for_backward(x, w_gate, w_up, w_down, a, b)
+        return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, w_gate, w_up, w_down = ctx.saved_tensors
+        x, w_gate, w_up, w_down, a, b = ctx.saved_tensors
         if _on_cuda(x, "swiglu_mlp_bwd"):
-            return _swiglu_bwd.swiglu_bwd_cuda(x, w_gate, w_up, w_down, dy)
-        return ref.swiglu_bwd_ref(x, w_gate, w_up, w_down, dy)
+            return _swiglu_bwd.swiglu_bwd_cuda(x, w_gate, w_up, w_down, dy, a, b)
+        return ref.swiglu_bwd_saved_ref(x, w_gate, w_up, w_down, a, b, dy)
 
 
 class FlashAttention(torch.autograd.Function):

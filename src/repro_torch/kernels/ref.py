@@ -38,12 +38,21 @@ def rmsnorm_bwd_ref(x, gamma, dy, eps: float = 1e-5):
     return dx.to(x.dtype), dgamma.to(gamma.dtype)
 
 
+def swiglu_fwd_ref(x, w_gate, w_up, w_down):
+    """:func:`swiglu_ref`'s output, and ``a = x @ Wg``, ``b = x @ Wu`` as (N, F)
+    fp32 sums cast once to ``x.dtype``: what the tensor-core forward saves for
+    the backward."""
+    xf = x.reshape(-1, x.shape[-1]).float()
+    a, b = xf @ w_gate.float(), xf @ w_up.float()
+    h = (F.silu(a) * b).to(x.dtype)
+    y = (h.float() @ w_down.float()).to(x.dtype)
+    return y.reshape(x.shape), a.to(x.dtype), b.to(x.dtype)
+
+
 def swiglu_ref(x, w_gate, w_up, w_down) -> torch.Tensor:
     """``silu(x @ Wg) * (x @ Wu)`` in fp32, cast to ``x.dtype``, then ``@ Wd``
     accumulated in fp32 and cast to ``x.dtype``."""
-    xf = x.float()
-    h = (F.silu(xf @ w_gate.float()) * (xf @ w_up.float())).to(x.dtype)
-    return (h.float() @ w_down.float()).to(x.dtype)
+    return swiglu_fwd_ref(x, w_gate, w_up, w_down)[0]
 
 
 def swiglu_gate_bwd_ref(a, b, dh):
@@ -62,24 +71,42 @@ def swiglu_gate_bwd_ref(a, b, dh):
     return h.to(a.dtype), da.to(a.dtype), db.to(a.dtype)
 
 
-def swiglu_bwd(x, w_gate, w_up, w_down, dy, gate_bwd):
-    """Gradients of the SwiGLU MLP: ``(dx, dWg, dWu, dWd)``.
+def swiglu_bwd_products(x, w_gate, w_up, dy, h, da, db):
+    """The products of the SwiGLU backward after the gate: ``(dx, dWg, dWu,
+    dWd)``, ``torch.matmul`` in x's dtype (XLA's dots in the JAX package), dx
+    as one ``addmm`` so that ``da Wg^T`` and ``db Wu^T`` meet in its fp32 sum."""
+    D = x.shape[-1]
+    x2, dy2 = x.reshape(-1, D), dy.reshape(-1, D)
+    dx = torch.addmm(da @ w_gate.T, db, w_up.T)
+    return dx.reshape(x.shape), x2.T @ da, x2.T @ db, h.T @ dy2
 
-    The products are ``torch.matmul`` in x's dtype (XLA's dots in the JAX
-    package); ``gate_bwd(a, b, dh) -> (h, da, db)`` is the elementwise part,
-    the CUDA kernel or :func:`swiglu_gate_bwd_ref`.
+
+def swiglu_bwd(x, w_gate, w_up, w_down, dy, gate_bwd):
+    """Gradients of the SwiGLU MLP from x alone: ``(dx, dWg, dWu, dWd)``.
+
+    ``a = x Wg``, ``b = x Wu`` and ``dh = dy Wd^T`` by ``torch.matmul`` in x's
+    dtype; ``gate_bwd(a, b, dh) -> (h, da, db)`` is the elementwise part, the
+    CUDA kernel or :func:`swiglu_gate_bwd_ref`; then :func:`swiglu_bwd_products`.
     """
     D = x.shape[-1]
     x2, dy2 = x.reshape(-1, D), dy.reshape(-1, D)
-    a, b = x2 @ w_gate, x2 @ w_up
-    h, da, db = gate_bwd(a, b, dy2 @ w_down.T)
-    dx = da @ w_gate.T + db @ w_up.T
-    return dx.reshape(x.shape), x2.T @ da, x2.T @ db, h.T @ dy2
+    h, da, db = gate_bwd(x2 @ w_gate, x2 @ w_up, dy2 @ w_down.T)
+    return swiglu_bwd_products(x, w_gate, w_up, dy, h, da, db)
 
 
 def swiglu_bwd_ref(x, w_gate, w_up, w_down, dy):
     """:func:`swiglu_bwd` with the plain elementwise gate."""
     return swiglu_bwd(x, w_gate, w_up, w_down, dy, swiglu_gate_bwd_ref)
+
+
+def swiglu_bwd_saved_ref(x, w_gate, w_up, w_down, a, b, dy):
+    """Gradients of the SwiGLU MLP from the forward's saved (N, F) ``a`` and
+    ``b``, with the tensor-core kernel's arithmetic: ``dh = dy Wd^T`` kept in
+    fp32, the gate of :func:`swiglu_gate_bwd_ref` on it (one cast each of h,
+    da and db), then :func:`swiglu_bwd_products`."""
+    dh = dy.reshape(-1, x.shape[-1]).float() @ w_down.float().T
+    h, da, db = swiglu_gate_bwd_ref(a, b, dh)
+    return swiglu_bwd_products(x, w_gate, w_up, dy, h, da, db)
 
 
 def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int,

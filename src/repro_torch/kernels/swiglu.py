@@ -23,6 +23,11 @@ alignment, nothing else:
   matrices' bytes (17.3 MB a qwen layer, 0.005 ms).
 - ``"simt"`` (fp32, and bf16 that TMA cannot take): the CUDA-core kernel
   built for decode, each block 32 output columns x 8 rows.
+
+Asked with ``save_ab`` (``ops.swiglu_mlp`` when a gradient is needed), the
+tensor-core routes also write ``a = x @ Wg`` and ``b = x @ Wu`` in bf16 from
+the gated product's fp32 sums, which the backward (``swiglu_bwd.py``) reads
+instead of computing them again: 2 N F bf16 more held a layer.
 """
 
 from __future__ import annotations
@@ -92,13 +97,16 @@ def split_k(N: int, D: int, F: int, sms: int) -> tuple[int, int]:
     return split(F, 128, D), split(D, 256, F)
 
 
-def launch(route_name: str, x, w_gate, w_up, w_down) -> torch.Tensor:
-    """Run ``route_name``'s kernels on checked CUDA tensors; the caller counts."""
+def launch(route_name: str, x, w_gate, w_up, w_down, save_ab: bool = False):
+    """Run ``route_name``'s kernels on checked CUDA tensors; the caller counts.
+    Returns the output, or with ``save_ab`` ``(out, a, b)``: a and b (N, F) from
+    the tensor-core routes, None from ``"simt"``."""
     lib = build.library()
     D, F = w_gate.shape
     N = x.numel() // D
     out = torch.empty_like(x)
     h = torch.empty((N, F), dtype=x.dtype, device=x.device)
+    a = b = None
     ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
             out.data_ptr())
     with torch.cuda.device(x.device):
@@ -113,22 +121,26 @@ def launch(route_name: str, x, w_gate, w_up, w_down) -> torch.Tensor:
             # fp32 partial sums of split-K, used by the two products in turn
             part = torch.empty(max(2 * sg * N * F, sd * N * D) if sg * sd > 1 else 0,
                                dtype=torch.float32, device=x.device)
-            err = lib.rt_swiglu_tc(*ptrs, part.data_ptr(), N, D, F, sg, sd, stream)
+            if save_ab:
+                a, b = (torch.empty((N, F), dtype=x.dtype, device=x.device) for _ in range(2))
+            err = lib.rt_swiglu_tc(*ptrs, part.data_ptr(), a.data_ptr() if save_ab else 0,
+                                   b.data_ptr() if save_ab else 0, N, D, F, sg, sd, stream)
     build.check(err, entry)
-    return out
+    return (out, a, b) if save_ab else out
 
 
-def swiglu_cuda(x, w_gate, w_up, w_down) -> torch.Tensor:
-    """Launch the kernels on CUDA tensors; x: (..., D), Wg/Wu: (D, F), Wd: (F, D)."""
+def swiglu_cuda(x, w_gate, w_up, w_down, *, save_ab: bool = False):
+    """Launch the kernels on CUDA tensors; x: (..., D), Wg/Wu: (D, F), Wd: (F, D).
+    Returns the output, or with ``save_ab`` ``(out, a, b)`` as :func:`launch`."""
     global launches
     tensors = (x, w_gate, w_up, w_down)
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError(f"swiglu: tensors on {[str(t.device) for t in tensors]}, expected one GPU")
     check_args(x, w_gate, w_up, w_down)
     if x.numel() == 0:
-        return torch.empty_like(x)
+        return (torch.empty_like(x), None, None) if save_ab else torch.empty_like(x)
     name = route(x, w_gate, w_up, w_down)
-    out = launch(name, x, w_gate, w_up, w_down)
+    out = launch(name, x, w_gate, w_up, w_down, save_ab)
     launches += 1
     route_launches[name] += 1
     return out

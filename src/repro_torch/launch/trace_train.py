@@ -16,7 +16,8 @@ its idle share of the traced wall time, the kernel launches per step, the
 time by kernel group (the port's kernels by name, cuBLAS, PyTorch's other
 ops), the same by source (the port's kernels by their ``csrc`` file: one
 group per kernel wrapper, ``ssd_scan`` and ``ssd_scan_bwd`` for Hymba's scan)
-and the kernels by device time.  Needs a CUDA card.
+and the kernels by device time, and the peak device memory of the run
+(``torch.cuda.max_memory_allocated()``).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ def main(argv=None) -> dict:
 
     res = {"card": torch.cuda.get_device_name(0), "host_ms_per_step": host_ms,
            "tokens_per_step": args.batch * args.seq,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            **device_summary(prof, args.steps, traced_ms, top=20)}
     print(json.dumps(res, indent=1))
     return res

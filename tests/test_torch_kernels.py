@@ -1060,3 +1060,185 @@ def test_ssd_tc_entry_points_take_the_wrappers_arguments(name, n_ptr):
     args = re.findall(rf'extern "C" int {name}\(([^)]*)\)', text)[0].split(",")
     assert sum("*" in a for a in args) == n_ptr + 1                    # + the stream
     assert build.SIGNATURES[name] == (*(build._P,) * n_ptr, *(build._I,) * 6, build._P)
+
+
+# ------------------------------------------- backwards from saved residuals
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swiglu_bwd_from_saved_ab_matches_jax_vjp(dtype):
+    """The plain backward from the forward's saved a = x Wg and b = x Wu (dh in
+    fp32, dx by one addmm) against ``jax.vjp`` of ``layers.swiglu``; the forward
+    that saves them gives the plain forward's output."""
+    rng = np.random.default_rng(18)
+    x, jx = _pair(rng, (2, 12, 64), dtype, 0.5)
+    wg, jwg = _pair(rng, (64, 160), dtype, 0.1)
+    wu, jwu = _pair(rng, (64, 160), dtype, 0.1)
+    wd, jwd = _pair(rng, (160, 64), dtype, 0.1)
+    dy, jdy = _pair(rng, (2, 12, 64), dtype)
+    y, a, b = ref.swiglu_fwd_ref(x, wg, wu, wd)
+    assert a.shape == b.shape == (24, 160) and a.dtype == b.dtype == x.dtype
+    torch.testing.assert_close(y, ref.swiglu_ref(x, wg, wu, wd), rtol=0, atol=0)
+    xf = x.reshape(-1, 64).float()
+    torch.testing.assert_close(a, (xf @ wg.float()).to(x.dtype), rtol=0, atol=0)
+    torch.testing.assert_close(b, (xf @ wu.float()).to(x.dtype), rtol=0, atol=0)
+    got = ref.swiglu_bwd_saved_ref(x, wg, wu, wd, a, b, dy)
+    assert [t.shape for t in got] == [x.shape, wg.shape, wu.shape, wd.shape]
+    assert all(t.dtype == x.dtype for t in got)
+    _, vjp = jax.vjp(jlayers.swiglu, jx, jwg, jwu, jwd)
+    _grads_close(got, vjp(jdy), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swiglu_mlp_ops_grads_match_jax_vjp(dtype):
+    """``ops.swiglu_mlp`` on the CPU saves a and b in its forward and its
+    backward is the plain backward from them, held against ``jax.vjp`` of
+    ``layers.swiglu``."""
+    rng = np.random.default_rng(19)
+    x, jx = _pair(rng, (3, 8, 96), dtype, 0.5)
+    wg, jwg = _pair(rng, (96, 224), dtype, 0.1)
+    wu, jwu = _pair(rng, (96, 224), dtype, 0.1)
+    wd, jwd = _pair(rng, (224, 96), dtype, 0.1)
+    dy, jdy = _pair(rng, (3, 8, 96), dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+    out = ops.swiglu_mlp(*leaves)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 6 and saved[4].shape == saved[5].shape == (24, 224)
+    got = torch.autograd.grad(out, leaves, dy)
+    _, a, b = ref.swiglu_fwd_ref(x, wg, wu, wd)
+    for g, w in zip(got, ref.swiglu_bwd_saved_ref(x, wg, wu, wd, a, b, dy)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    _, vjp = jax.vjp(jlayers.swiglu, jx, jwg, jwu, jwd)
+    _grads_close(got, vjp(jdy), dtype)
+
+
+@pytest.mark.parametrize("dtype,rows,D,F,saved,bad,want", [
+    ("bfloat16", 4096, 1024, 2816, True, None, "wgmma"),     # qwen training rows
+    ("bfloat16", 4352, 1600, 5504, True, None, "wgmma"),     # Hymba's
+    ("bfloat16", 2048, 2048, 2688, True, None, "wgmma"),     # xLSTM's SwiGLU
+    ("bfloat16", 20, 96, 224, True, None, "wgmma"),          # few rows: one ragged tile
+    ("bfloat16", 4096, 1024, 2816, False, None, "simt"),     # the forward saved no a, b
+    ("bfloat16", 37, 100, 256, True, None, "simt"),          # D not a multiple of 8
+    ("bfloat16", 37, 96, 260, True, None, "simt"),           # F not a multiple of 8
+    ("bfloat16", 4096, 1024, 2816, True, "dy", "simt"),      # dy 2 bytes off a 16-byte line
+    ("bfloat16", 4096, 1024, 2816, True, "a", "simt"),
+    ("bfloat16", 4096, 1024, 2816, True, "w_down", "simt"),
+    ("float32", 4096, 1024, 2816, True, None, "simt"),
+])
+def test_swiglu_bwd_route(dtype, rows, D, F, saved, bad, want):
+    """The backward's route follows from the dtype, the shape, the pointers'
+    alignment and whether the forward saved a and b."""
+    tdt = DTYPES[dtype][0]
+    shapes = {"x": (rows, D), "w_gate": (D, F), "w_up": (D, F), "w_down": (F, D),
+              "dy": (rows, D), "a": (rows, F), "b": (rows, F)}
+    args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
+            for name, shape in shapes.items()}
+    if not saved:
+        args["a"] = args["b"] = None
+    k_swiglu.check_args(args["x"], args["w_gate"], args["w_up"], args["w_down"])
+    assert k_swiglu_bwd.route(*args.values()) == want
+    assert want in k_swiglu_bwd.ROUTES
+    assert set(k_swiglu_bwd.route_launches) == set(k_swiglu_bwd.ROUTES)
+
+
+@pytest.mark.parametrize("case", ["a_alone", "a_shape", "a_dtype", "a_strided", "dy_shape"])
+def test_swiglu_bwd_wrapper_refuses_bad_saved_residuals(monkeypatch, case):
+    """Saved a and b come together, (N, F), in x's dtype and contiguous, and dy
+    matches x; anything else is refused before a launch.  The device check is
+    passed over here (there is no card), so the others are reached."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    x, dy = torch.ones(6, 16), torch.ones(6, 16)
+    wg, wu, wd = torch.ones(16, 24), torch.ones(16, 24), torch.ones(24, 16)
+    a = b = torch.ones(6, 24)
+    a, b, dy = {
+        "a_alone": (a, None, dy),
+        "a_shape": (torch.ones(5, 24), b, dy),
+        "a_dtype": (a.bfloat16(), b, dy),
+        "a_strided": (torch.ones(24, 6).T, b, dy),
+        "dy_shape": (a, b, torch.ones(6, 8)),
+    }[case]
+    before = (k_swiglu_bwd.launches, dict(k_swiglu_bwd.route_launches))
+    with pytest.raises(ValueError):
+        k_swiglu_bwd.swiglu_bwd_cuda(x, wg, wu, wd, dy, a, b)
+    assert (k_swiglu_bwd.launches, dict(k_swiglu_bwd.route_launches)) == before
+
+
+@pytest.mark.parametrize("dtype,D,bad,want", [
+    ("bfloat16", 1024, None, "vec"),        # qwen's rows
+    ("bfloat16", 1600, None, "vec"),        # Hymba's: 7 vectors a lane
+    ("bfloat16", 2048, None, "vec"),        # xLSTM's
+    ("bfloat16", 4096, None, "vec"),        # xLSTM's mLSTM output norm: the longest row
+    ("bfloat16", 4104, None, "block"),
+    ("bfloat16", 100, None, "block"),       # D not a multiple of 8
+    ("bfloat16", 1024, "x", "block"),       # x 2 bytes off a 16-byte line
+    ("bfloat16", 1024, "gamma", "block"),
+    ("bfloat16", 1024, "dy", "block"),
+    ("float32", 2048, None, "vec"),
+    ("float32", 2056, None, "block"),
+    ("float32", 1020, None, "block"),
+])
+def test_rmsnorm_bwd_route(dtype, D, bad, want):
+    """The backward's body follows from the dtype, D and the pointers' alignment."""
+    tdt = DTYPES[dtype][0]
+    shapes = {"x": (3, D), "gamma": (D,), "dy": (3, D)}
+    args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
+            for name, shape in shapes.items()}
+    k_rmsnorm.check_args(args["x"], args["gamma"])
+    assert k_rmsnorm_bwd.route(*args.values()) == want
+    assert want in k_rmsnorm_bwd.ROUTES
+    assert set(k_rmsnorm_bwd.route_launches) == set(k_rmsnorm_bwd.ROUTES)
+
+
+@pytest.mark.parametrize("case", ["gamma_shape", "float16", "mixed", "x_strided",
+                                  "gamma_strided", "dy_shape", "dy_dtype", "too_wide",
+                                  "cached_then_strided"])
+def test_rmsnorm_bwd_lean_wrapper_refuses_what_check_args_refuses(monkeypatch, case):
+    """The backward's wrapper checks a (shape, dtype, device) key once and
+    contiguity on every call: each argument that ``check_args``, the dy checks
+    or ``MAX_D`` refuse is still refused, a refused key is not remembered, and
+    nothing is launched.  The device check is passed over here (there is no
+    card), so the others are reached."""
+    monkeypatch.setattr(k_rmsnorm_bwd, "_checked", {})
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    f32 = torch.ones
+    x, g, dy = f32(4, 8), f32(8), f32(4, 8)
+    wide = k_rmsnorm_bwd.MAX_D + 8
+    args, err = {
+        "gamma_shape": ((x, f32(7), dy), ValueError),
+        "float16": ((x.half(), g.half(), dy.half()), TypeError),
+        "mixed": ((x, g.bfloat16(), dy), TypeError),
+        "x_strided": ((f32(8, 4).T, g, dy), ValueError),
+        "gamma_strided": ((x, f32(16)[::2], dy), ValueError),
+        "dy_shape": ((x, g, f32(4, 7)), ValueError),
+        "dy_dtype": ((x, g, dy.bfloat16()), ValueError),
+        "too_wide": ((f32(1, wide), f32(wide), f32(1, wide)), ValueError),
+        "cached_then_strided": ((f32(8, 4).T, g, dy), ValueError),
+    }[case]
+    if case == "cached_then_strided":       # the key (4, 8) was seen, contiguous, before
+        # the launch shape asks the card for its SMs and the kernel's occupancy
+        monkeypatch.setattr(k_rmsnorm_bwd, "_sm_count", lambda device: 132)
+        monkeypatch.setattr(k_rmsnorm_bwd, "_vec_blocks", lambda x, rows, sms: 1)
+        key = (x.shape, g.shape, dy.shape, x.dtype, g.dtype, dy.dtype, x.device, g.device,
+               dy.device)
+        build.checked_once(k_rmsnorm_bwd._checked, key, k_rmsnorm_bwd._check_key, x, g, dy)
+    before = (k_rmsnorm_bwd.launches, dict(k_rmsnorm_bwd.route_launches),
+              len(k_rmsnorm_bwd._checked))
+    with pytest.raises(err):
+        k_rmsnorm_bwd.rmsnorm_bwd_cuda(*args)
+    assert (k_rmsnorm_bwd.launches, dict(k_rmsnorm_bwd.route_launches),
+            len(k_rmsnorm_bwd._checked)) == before
+
+
+def test_backward_tc_entry_points_take_the_wrappers_arguments():
+    """The new C entry points take the arguments their wrappers pass: seven
+    pointers and four ints (N, D, F, the SM count) for the SwiGLU backward,
+    the rmsnorm backward's own less the block body's rows a block."""
+    text = (build.CSRC / "swiglu_bwd.cu").read_text() + (build.CSRC / "rmsnorm_bwd.cu").read_text()
+    args = re.findall(r'extern "C" int rt_swiglu_bwd_tc\(([^)]*)\)', text)[0].split(",")
+    assert sum("*" in a for a in args) == 8                           # + the stream
+    assert build.SIGNATURES["rt_swiglu_bwd_tc"] == (*(build._P,) * 7, *(build._I,) * 4, build._P)
+    vec = build.SIGNATURES["rt_rmsnorm_bwd_vec"]
+    block = build.SIGNATURES["rt_rmsnorm_bwd"]
+    assert vec == block[:8] + block[9:]
+    args = re.findall(r'extern "C" int rt_rmsnorm_bwd_vec_config\(([^)]*)\)', text)[0].split(",")
+    assert [a.split()[0] for a in args] == ["int", "int", "int*", "int*"]
+    assert build.SIGNATURES["rt_rmsnorm_bwd_vec_config"] == (build._I, build._I, build._IP,
+                                                             build._IP)

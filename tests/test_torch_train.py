@@ -406,3 +406,21 @@ def test_trace_groups_the_port_kernels_by_source():
     assert source_group("nvjet_tst_128x256_64x4_1x1_h_bz_coopA_TNN") == "cublas"
     assert source_group("void at::native::vectorized_elementwise_kernel<4, x>(int)") == \
         "torch_other"
+
+
+def test_trace_groups_the_backward_kernels_by_source():
+    """The SwiGLU backward's tensor-core kernel and the rmsnorm backward's
+    one-warp-a-row body count toward their wrappers' sources, beside the
+    kernels they took over from."""
+    from repro_torch.launch.trace import KERNEL_SOURCE, source_group
+
+    assert {k for k, v in KERNEL_SOURCE.items() if v == "swiglu_bwd"} == {
+        "swiglu_gate_bwd_kernel", "swiglu_bwd_tc_kernel"}
+    assert {k for k, v in KERNEL_SOURCE.items() if v == "rmsnorm_bwd"} == {
+        "rmsnorm_bwd_kernel", "rmsnorm_bwd_vec_kernel", "dgamma_reduce_kernel"}
+    assert source_group("void (anonymous namespace)::swiglu_bwd_tc_kernel<false>(CUtensorMap_st, "
+                        "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+                        "(anonymous namespace)::TcArgs)") == "swiglu_bwd"
+    assert source_group("void (anonymous namespace)::rmsnorm_bwd_vec_kernel<__nv_bfloat16, 8>("
+                        "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+                        "__nv_bfloat16*, float*, int, int, float)") == "rmsnorm_bwd"
