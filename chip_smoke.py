@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, the result line last
+    python3 chip_smoke.py --only mlstm    # card, build and one kernel check (or ssd)
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -41,8 +42,13 @@ prints no result line):
    replayed the same way and their PR 12-17 kernels; the SwiGLU backward's
    kernel alone, and the SwiGLU forward and backward together; the RMSNorm
    backward wrapper's host path step by step.
-   Also the mLSTM forward and backward (xlstm-1.3b's core) at the sweep of
-   ``tests/test_kernels.py:130-141`` and the training shape, fp32 and bf16;
+   Also the mLSTM forward and backward (xlstm-1.3b's core): the CUDA-core
+   route at the sweep of ``tests/test_kernels.py:130-141`` and the training
+   shape, fp32 and bf16; the tensor-core route at four bf16 shapes of chunk
+   128 up to the training shape, in the model's transposed layout (no copy)
+   and contiguous, held to the plain versions with its bf16 roundings, each
+   backward called twice and compared bit for bit, and timed by replayed
+   CUDA graphs beside the CUDA-core kernels;
    the SSD scan forward and backward (hymba-1.5b's core) at the sweep of
    ``tests/test_extensions.py:19-30``, a chunk shorter than its length, a
    padded sequence (through ``models.hymba.ssd_scan``), the smoke shape,
@@ -75,8 +81,10 @@ prints no result line):
    depth (48 layers), batch 4 x seq 512 from the launcher's corpus, 4 steps
    of ``make_train_step`` with the launch counts set to 0 just before and
    checked per step just after (the routes as qwen's: the SwiGLU forward and
-   backward on the tensor cores, every rmsnorm on ``vec``), and 8 steps on a
-   fixed (2, 128) batch.
+   backward on the tensor cores, every rmsnorm on ``vec``; and every mLSTM
+   scan forward and backward on the tensor cores), the peak memory of the
+   steps and of one loss and gradient alone, and 8 steps on a fixed (2, 128)
+   batch.
 8. train Hymba: the same for hymba-1.5b: ``launch.train.main`` at its smoke
    config with a checkpoint, then the full model in bf16 (32 layers), batch
    2 x seq 2048 from the launcher's corpus, 4 steps with the launch counts
@@ -165,13 +173,21 @@ XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
 XLSTM_PER_STEP = {"rmsnorm": 2 * 42 + 3 * 6 + 1, "rmsnorm_bwd": 2 * 42 + 3 * 6 + 1,
                   "swiglu": 6, "swiglu_bwd": 6, "mlstm_scan": 42, "mlstm_scan_bwd": 42,
                   "flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0}
-XLSTM_ROUTES = {"swiglu": "wgmma", "rmsnorm": "vec", "swiglu_bwd": "wgmma", "rmsnorm_bwd": "vec"}
+XLSTM_ROUTES = {"swiglu": "wgmma", "rmsnorm": "vec", "swiglu_bwd": "wgmma", "rmsnorm_bwd": "vec",
+                "mlstm_scan": "wgmma", "mlstm_scan_bwd": "wgmma"}
 #: (B, H, S, dqk, dv, chunk): the sweep of tests/test_kernels.py:130-141, then the
 #: training shape of xlstm-1.3b (dqk 512, dv 1024, chunk 128)
 MLSTM_SHAPES = tuple((2, 2, 256, dqk, dv, chunk) for chunk in (32, 64, 128)
                      for dqk, dv in ((16, 32), (32, 32))) + ((4, 4, 512, 512, 1024, 128),)
+#: (B, H, S, dqk, dv, chunk) of the tensor-core route's checks, bf16: one chunk
+#: (no carried state), dqk 64 (half of a 128-column tile), three chunks, and the
+#: training shape of xlstm-1.3b
+MLSTM_TC_SHAPES = ((1, 2, 128, 64, 64, 128), (2, 2, 256, 64, 128, 128),
+                   (1, 3, 384, 128, 256, 128), (4, 4, 512, 512, 1024, 128))
 #: mLSTM outputs and gradients, relative to the largest entry (entries grow with
-#: dqk): tests/test_kernels.py:154 in fp32, one bf16 rounding in bf16
+#: dqk): tests/test_kernels.py:154 in fp32, one bf16 rounding in bf16; the
+#: tensor-core route against the plain version with the same bf16 roundings
+#: (``bf16_products``) is held to the bf16 bound
 MLSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 HYMBA = "hymba-1.5b"
 HYMBA_TRAIN = dict(batch=2, seq=2048, steps=4)
@@ -1130,12 +1146,21 @@ def rel_err(got, want, tol) -> tuple[float, float]:
     return err, err / max(scale, 1e-30)
 
 
-def mlstm_inputs(gen, B, H, S, dqk, dv, dt):
-    """q, k, v, i_raw, log_f as tests/test_kernels.py draws them, and a dh."""
-    q, k = randn(gen, (B, H, S, dqk), dt), randn(gen, (B, H, S, dqk), dt)
-    v, i_raw = randn(gen, (B, H, S, dv), dt), randn(gen, (B, H, S), dt)
-    log_f = torch.log(torch.rand((B, H, S), generator=gen) * 0.3 + 0.7).to("cuda", dt)
-    return (q, k, v, i_raw, log_f), randn(gen, (B, H, S, dv), dt)
+def mlstm_inputs(gen, B, H, S, dqk, dv, dt, model_layout: bool = False):
+    """q, k, v, i_raw, log_f as tests/test_kernels.py draws them, and a dh; with
+    ``model_layout``, each a (B, H, S, .) view of a (B, S, H, .) tensor, as
+    ``models.xlstm`` hands them over (and as autograd hands over dh)."""
+    def draw(shape, fn):
+        if not model_layout:
+            return fn(shape)
+        return fn((shape[0], shape[2], shape[1], *shape[3:])).transpose(1, 2)
+
+    q, k = (draw((B, H, S, dqk), lambda s: randn(gen, s, dt)) for _ in range(2))
+    v, i_raw = draw((B, H, S, dv), lambda s: randn(gen, s, dt)), draw((B, H, S),
+                                                                      lambda s: randn(gen, s, dt))
+    log_f = draw((B, H, S), lambda s: torch.log(torch.rand(s, generator=gen) * 0.3 + 0.7)
+                 .to("cuda", dt))
+    return (q, k, v, i_raw, log_f), draw((B, H, S, dv), lambda s: randn(gen, s, dt))
 
 
 def mlstm_bound(B, H, S, dqk, dv, chunk, rate, *, backward: bool) -> tuple[float, str]:
@@ -1156,73 +1181,154 @@ def mlstm_bound(B, H, S, dqk, dv, chunk, rate, *, backward: bool) -> tuple[float
 
 
 def check_mlstm(gen, ops, ref, rate):
-    """mlstm_scan and its backward against the plain versions at MLSTM_SHAPES:
-    h and the chunk-start states C and n, then the five gradients from each
-    side's own saved state; autograd through ``ops.mlstm_scan`` against the
-    plain backward; times at the training shape in bf16."""
+    """mlstm_scan and its backward against the plain versions.  The CUDA-core
+    route (``simt``) at MLSTM_SHAPES, fp32 and bf16, as before: h and the
+    chunk-start states C and n, then the five gradients from each side's own
+    saved state.  The tensor-core route (``wgmma``, asserted) at
+    MLSTM_TC_SHAPES in the model's transposed layout and contiguous, held to
+    the plain versions with its roundings (``bf16_products``): h, C and n,
+    then the five gradients, each backward called twice and compared bit for
+    bit; the model's views through ``ops.mlstm_scan`` with no copy.  Autograd
+    through ``ops.mlstm_scan`` against the plain backward.  Times at the
+    training shape in bf16, in the model's layout: each kernel event-timed
+    back to back (``ms``) and by CUDA-graph replay (``dev_ms``), beside the
+    CUDA-core kernels on the same values (``simt_ms``, graph replay)."""
     from repro_torch.kernels import mlstm_scan as kf
     from repro_torch.kernels import mlstm_scan_bwd as kb
 
+    bf16, f32 = torch.bfloat16, torch.float32
     errs, gerrs = {}, {}
     for B, H, S, dqk, dv, chunk in MLSTM_SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (f32, bf16):
             x, dh = mlstm_inputs(gen, B, H, S, dqk, dv, dt)
-            out, saved = kf.mlstm_scan_cuda(*x, chunk=chunk)
+            L = min(chunk, S)
+            key = (B, H, S, dqk, dv, chunk, str(dt)[6:])
+            route = "wgmma" if dt == bf16 and L == 128 and dqk % 64 == 0 else "simt"
+            if kf.route(L, *x[:3], dh) != route:
+                raise AssertionError(f"mlstm_scan {key}: route {kf.route(L, *x[:3], dh)}")
+            out, saved = kf.launch("simt", *x, L)
             h, C, n, m = ref.mlstm_scan_ref(*x, chunk=chunk)
             tol = MLSTM_TOL[dt]
-            key = (B, H, S, dqk, dv, chunk, str(dt)[6:])
             # the states are fp32 on both sides, whatever the inputs' type
-            states = MLSTM_TOL[torch.float32]
+            states = MLSTM_TOL[f32]
             errs[key] = max(rel_err(out, h, tol), rel_err(saved.C, C, states),
                             rel_err(saved.n, n, states), key=lambda e: e[1])
-            got = kb.mlstm_scan_bwd_cuda(*x, saved, dh, chunk=chunk)
+            got = kb.launch("simt", *x, saved, dh, L)
             want = ref.mlstm_scan_bwd_ref(*x, C, n, m, dh, chunk=chunk)
             gerrs[key] = max((rel_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, want)),
                              key=lambda e: e[1])
+            del x, dh, out, saved, h, C, n, m, got, want
     torch.cuda.synchronize()
-    print(f"[kernels] mlstm_scan (h, C, n) errors, (max abs, over the largest entry) {errs}")
-    print(f"[kernels] mlstm_scan_bwd errors (dq, dk, dv, di, df), (max abs, over the "
+    print(f"[kernels] mlstm_scan simt (h, C, n) errors, (max abs, over the largest entry) {errs}")
+    print(f"[kernels] mlstm_scan_bwd simt errors (dq, dk, dv, di, df), (max abs, over the "
           f"largest entry) {gerrs}")
 
+    tc_errs, tc_gerrs = {}, {}
+    tol = MLSTM_TOL[bf16]
+    for B, H, S, dqk, dv, chunk in MLSTM_TC_SHAPES:
+        for layout in ("model", "contiguous"):
+            x, dh = mlstm_inputs(gen, B, H, S, dqk, dv, bf16, model_layout=layout == "model")
+            key = (B, H, S, dqk, dv, chunk, layout)
+            if kf.route(chunk, *x[:3], dh) != "wgmma":
+                raise AssertionError(f"mlstm_scan {key}: route {kf.route(chunk, *x[:3], dh)}")
+            if any(a is not b for a, b in zip(kf.readable(*x, chunk), x)):
+                raise AssertionError(f"mlstm_scan {key}: inputs copied")
+            before, before_bwd = dict(kf.route_launches), dict(kb.route_launches)
+            out, saved = kf.mlstm_scan_cuda(*x, chunk=chunk)
+            if not out.transpose(1, 2).is_contiguous():
+                raise AssertionError(f"mlstm_scan {key}: h is not a view of (B, S, H, dv)")
+            h, C, n, m = ref.mlstm_scan_ref(*x, chunk=chunk, bf16_products=True)
+            found = [rel_err(out, h, tol), rel_err(saved.n, n, MLSTM_TOL[f32])]
+            if S > chunk:       # C is bf16 on the route, fp32 in the plain version
+                found.append(rel_err(saved.C, C[:, :, 1:], tol))
+            tc_errs[key] = max(found, key=lambda e: e[1])
+            got = kb.mlstm_scan_bwd_cuda(*x, saved, dh, chunk=chunk)
+            again = kb.mlstm_scan_bwd_cuda(*x, saved, dh, chunk=chunk)
+            took = [r for r, c in kf.route_launches.items() if c != before[r]]
+            took_bwd = [r for r, c in kb.route_launches.items() if c != before_bwd[r]]
+            if took != ["wgmma"] or took_bwd != ["wgmma"]:
+                raise AssertionError(f"mlstm_scan {key}: routes {took}, backward {took_bwd}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"mlstm_scan_bwd {key}: two calls differ")
+            exp = ref.mlstm_scan_bwd_ref(*x, C, n, m, dh, chunk=chunk, bf16_products=True)
+            tc_gerrs[key] = max((rel_err(a, b, tol) for a, b in zip(got, exp)),
+                                key=lambda e: e[1])
+            del x, dh, out, saved, h, C, n, m, got, again, exp
+    torch.cuda.synchronize()
+    print(f"[kernels] mlstm_scan wgmma (h, n, C) errors against the plain version with its "
+          f"roundings, (max abs, over the largest entry) {tc_errs}")
+    print(f"[kernels] mlstm_scan_bwd wgmma errors (dq, dk, dv, di, df) {tc_gerrs}; two calls "
+          f"bitwise equal at every shape")
+
+    # the model's views through ops.mlstm_scan: no copy, the tensor-core route
+    # both ways, the wrappers' bits
+    B, H, S, dqk, dv, chunk = MLSTM_TC_SHAPES[1]
+    x, dh = mlstm_inputs(gen, B, H, S, dqk, dv, bf16, model_layout=True)
+    bases = [t.transpose(1, 2).detach().requires_grad_() for t in x]
+    before, before_bwd = dict(kf.route_launches), dict(kb.route_launches)
+    out = ops.mlstm_scan(*(b.transpose(1, 2) for b in bases), chunk=chunk)
+    auto = torch.autograd.grad(out, bases, dh)
+    if (kf.route_launches["wgmma"] - before["wgmma"],
+            kb.route_launches["wgmma"] - before_bwd["wgmma"]) != (1, 1):
+        raise AssertionError(f"ops.mlstm_scan: routes {kf.route_launches}, {kb.route_launches}")
+    want_out, saved = kf.mlstm_scan_cuda(*x, chunk=chunk)
+    want = kb.mlstm_scan_bwd_cuda(*x, saved, dh, chunk=chunk)
+    if not torch.equal(out, want_out) or not all(torch.equal(a.transpose(1, 2), b)
+                                                 for a, b in zip(auto, want)):
+        raise AssertionError("ops.mlstm_scan on the model's views differs from the wrappers")
+
     # autograd through ops.mlstm_scan equals the plain backward
-    x, dh = mlstm_inputs(gen, 2, 2, 128, 32, 64, torch.float32)
+    x, dh = mlstm_inputs(gen, 2, 2, 128, 32, 64, f32)
     leaves = [t.requires_grad_() for t in x]
     auto = torch.autograd.grad(ops.mlstm_scan(*leaves, chunk=32), leaves, dh)
     _, C, n, m = ref.mlstm_scan_ref(*x, chunk=32)
     for a, b in zip(auto, ref.mlstm_scan_bwd_ref(*x, C, n, m, dh, chunk=32)):
-        rel_err(a, b, GRAD_TOL[torch.float32])
+        rel_err(a, b, GRAD_TOL[f32])
 
-    B, H, S, dqk, dv, chunk = MLSTM_SHAPES[-1]
-    dt = torch.bfloat16
-    sets = [mlstm_inputs(gen, B, H, S, dqk, dv, dt) for _ in range(2)]
+    B, H, S, dqk, dv, chunk = MLSTM_TC_SHAPES[-1]
+    sets = [mlstm_inputs(gen, B, H, S, dqk, dv, bf16, model_layout=True) for _ in range(2)]
     fwd_sets = [x for x, _ in sets]
     saved = [(*x, kf.mlstm_scan_cuda(*x, chunk=chunk)[1], dh) for x, dh in sets]
-    plain_saved = [(*x, *ref.mlstm_scan_ref(*x, chunk=chunk)[1:], dh) for x, dh in sets]
-    shape = f"q, k ({B}, {H}, {S}, {dqk}), v ({B}, {H}, {S}, {dv}), chunk {chunk} bf16"
-    key = (B, H, S, dqk, dv, chunk, "bfloat16")
+    simt_fwd = [tuple(t.contiguous() for t in x) for x in fwd_sets]
+    simt_saved = [(*xc, kf.launch("simt", *xc, chunk)[1], dh.contiguous())
+                  for xc, (_, dh) in zip(simt_fwd, sets)]
+    plain_saved = [(*x, *ref.mlstm_scan_ref(*x, chunk=chunk, bf16_products=True)[1:], dh)
+                   for x, dh in sets]
+    shape = (f"q, k ({B}, {H}, {S}, {dqk}), v ({B}, {H}, {S}, {dv}), chunk {chunk} bf16, "
+             f"views of (B, S, H, .) as the model's")
+    key = (B, H, S, dqk, dv, chunk, "model")
     note = "no PyTorch call computes the chunked mLSTM"
-    b_ms, b_by = mlstm_bound(B, H, S, dqk, dv, chunk, rate, backward=False)
-    fwd = {
-        "name": "mlstm_scan", "shape": shape, "max_abs_err": errs[key][0],
-        "max_rel_err": errs[key][1],
-        "ms": time_ms(lambda *x: kf.mlstm_scan_cuda(*x, chunk=chunk), fwd_sets, 5),
-        "plain_ms": time_ms(lambda *x: ref.mlstm_scan_ref(*x, chunk=chunk), fwd_sets, 3),
-        "library_ms": None, "library_note": note,
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
-    b_ms, b_by = mlstm_bound(B, H, S, dqk, dv, chunk, rate, backward=True)
-    bwd = {
-        "name": "mlstm_scan_bwd", "shape": shape, "max_abs_err": gerrs[key][0],
-        "max_rel_err": gerrs[key][1],
-        "ms": time_ms(lambda *a: kb.mlstm_scan_bwd_cuda(*a, chunk=chunk), saved, 3),
-        "plain_ms": time_ms(lambda *a: ref.mlstm_scan_bwd_ref(*a, chunk=chunk), plain_saved, 3),
-        "fwd_bwd_ms": time_ms(lambda *a: torch.autograd.grad(
-            ops.mlstm_scan(*a[:5], chunk=chunk), a[:5], a[5]),
-            [tuple(t.detach().requires_grad_() for t in x) + (dh,) for x, dh in sets], 3),
-        "library_ms": None, "library_note": note,
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
-    return fwd, bwd
+    rows = []
+    for name, fn, simt_fn, plain_fn, arg_sets, simt_sets, plain_sets, err, backward in (
+            ("mlstm_scan", lambda *x: kf.mlstm_scan_cuda(*x, chunk=chunk),
+             lambda *x: kf.launch("simt", *x, chunk),
+             lambda *x: ref.mlstm_scan_ref(*x, chunk=chunk, bf16_products=True),
+             fwd_sets, simt_fwd, fwd_sets, tc_errs[key], False),
+            ("mlstm_scan_bwd", lambda *a: kb.mlstm_scan_bwd_cuda(*a, chunk=chunk),
+             lambda *a: kb.launch("simt", *a[:6], a[6], chunk),
+             lambda *a: ref.mlstm_scan_bwd_ref(*a, chunk=chunk, bf16_products=True),
+             saved, simt_saved, plain_saved, tc_gerrs[key], True)):
+        b_ms, b_by = mlstm_bound(B, H, S, dqk, dv, chunk, rate, backward=backward)
+        dev_ms = graph_ms(fn, arg_sets, 8, 10)[0]
+        rows.append({
+            "name": name, "shape": shape, "kernel_route": "wgmma",
+            "max_abs_err": err[0], "max_rel_err": err[1],
+            "ms": time_ms(fn, arg_sets, 5), "dev_ms": dev_ms,
+            "simt_ms": graph_ms(simt_fn, simt_sets, 4, 3)[0],
+            "plain_ms": time_ms(plain_fn, plain_sets, 3),
+            "library_ms": None, "library_note": note,
+            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / dev_ms,
+        })
+        torch.cuda.empty_cache()
+    rows[1]["fwd_bwd_ms"] = time_ms(lambda *a: torch.autograd.grad(
+        ops.mlstm_scan(*(t.transpose(1, 2) for t in a[:5]), chunk=chunk), a[:5], a[5]),
+        [tuple(t.transpose(1, 2).detach().requires_grad_() for t in x) + (dh,)
+         for x, dh in sets], 3)
+    for r in rows:
+        print(f"[kernels] {r['name']} at the training shape: {r['dev_ms']:.4f} ms by graph "
+              f"replay ({r['share_of_bound']:.3f} of the {r['bound_by']} bound "
+              f"{r['bound_ms']:.4f} ms), simt {r['simt_ms']:.4f} ms")
+    return rows[0], rows[1]
 
 
 def ssd_inputs(gen, B, S, H, N, chd, dt):
@@ -1579,13 +1685,15 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     launcher sets it), parameters drawn on a CUDA generator, ``shape``'s steps
     of ``make_train_step`` with the launch counts set to 0 just before and
     checked against ``per_step`` just after, and the routes of ``want_routes``'
-    modules checked to have taken every launch; then 8 steps on a fixed (2, 128)
+    modules checked to have taken every launch; the peak memory of those steps
+    and of one more loss and gradient alone; then 8 steps on a fixed (2, 128)
     batch, whose loss must fall by 0.05.  Tokens are the batch's text tokens.
     Returns ``(model, params, result)``."""
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenDatasetSpec, TokenLoader
     from repro_torch.launch import train
     from repro_torch.models import build_model
+    from repro_torch.models import params as PM
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1624,6 +1732,15 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts, routes = read_counts(kernel_modules)
     peak = torch.cuda.max_memory_allocated()
+    # one more loss and its gradients on the last batch, no update: the peak of
+    # the parameters, the optimizer state and what the model saves for its
+    # backward (the scans' state among it), apart from the update's temporaries
+    torch.cuda.reset_peak_memory_stats()
+    leaves = PM.tree_map(lambda t: t.detach().requires_grad_(), params)
+    grads = torch.autograd.grad(model.loss(leaves, batch)[0], PM.tree_leaves(leaves),
+                                allow_unused=True)
+    grad_peak = torch.cuda.max_memory_allocated()
+    del leaves, grads
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{arch} train losses {losses}")
     for name, n in per_step.items():
@@ -1636,7 +1753,8 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     print(f"[{tag}] launches {counts}, by route {routes}; losses {losses}; step ms "
           f"{step_ms}; median "
           f"{median:.3f} ms over steps 2-{steps}, {tokens_per_s:.1f} tokens/s, peak "
-          f"{peak / 2**30:.3f} GiB; init {init_s:.2f} s")
+          f"{peak / 2**30:.3f} GiB (loss and gradients alone {grad_peak / 2**30:.3f}); init "
+          f"{init_s:.2f} s")
 
     rng = np.random.default_rng(0)
     fixed_batch = {name: torch.as_tensor(rng.integers(0, model.cfg.vocab, (2, 128))).cuda()
@@ -1653,7 +1771,8 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
         "counts": counts, "routes": routes, "steps": steps, "batch": B, "seq": S,
         "tokens_per_step": B * S,
         "losses": losses, "step_ms": step_ms, "median_step_ms": median,
-        "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak, "init_seconds": init_s,
+        "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak,
+        "grad_peak_memory_bytes": grad_peak, "init_seconds": init_s,
         "fixed_batch_losses": fixed, "launcher_smoke_losses": res["losses"]}
 
 
@@ -1738,7 +1857,12 @@ MAIN_RUN = {"rmsnorm": "serve", "swiglu_mlp": "serve", "decode_attention": "serv
             "ssd_scan_bwd": "train_hymba"}
 
 
-def main() -> None:
+#: kernel checks that ``--only NAME`` runs alone after the card and the build
+#: phases, printing their rows and no result line
+ONLY = {"mlstm": check_mlstm, "ssd": check_ssd}
+
+
+def main(argv: list[str]) -> None:
     name, _ = phase_card()
     rate = memory_rate(name)
     t0 = time.perf_counter()
@@ -1747,6 +1871,13 @@ def main() -> None:
     from repro_torch.kernels import KERNEL_MODULES, ops, ref
 
     gen = torch.Generator().manual_seed(0)
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ONLY:
+            raise SystemExit(f"usage: chip_smoke.py [--only {{{','.join(ONLY)}}}]")
+        for row in ONLY[argv[1]](gen, ops, ref, rate):
+            print(json.dumps(row))
+        print(f"[only] {argv[1]} done at {time.perf_counter() - t0:.1f} s")
+        return
     rows = {"rmsnorm": check_rmsnorm(gen, ops, ref, rate),
             "swiglu_mlp": check_swiglu(gen, ops, ref, rate)}
     rows["decode_attention"] = check_decode_attention(gen, ops, ref, rate)
@@ -1798,4 +1929,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -8,8 +8,8 @@ name carries a hash of the sources and flags, so an edit rebuilds it and an
 unchanged tree reuses it.  It is loaded with ``ctypes``; every entry point
 returns ``cudaGetLastError()`` and the wrappers raise when it is not 0.
 :func:`launch` is the lean way to call one: the rmsnorm forward and
-backward, the SwiGLU backward and the SSD scan's wrappers go through it, and
-so can any other.
+backward, the SwiGLU backward, the SSD scan's and the mLSTM scan's
+tensor-core wrappers go through it, and so can any other.
 
 No ``nvcc`` means no kernels: :func:`library` raises.
 """
@@ -40,6 +40,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
+_LP = ctypes.POINTER(ctypes.c_longlong)
 
 #: C entry point -> argument types (all return an int cudaError_t)
 SIGNATURES = {
@@ -59,6 +60,8 @@ SIGNATURES = {
     "rt_swiglu_bwd_tc": (*(_P,) * 7, *(_I,) * 4, _P),
     "rt_mlstm_scan": (*(_P,) * 14, *(_I,) * 5, _F, _I, _P),
     "rt_mlstm_scan_bwd": (*(_P,) * 32, *(_I,) * 5, _F, _I, _P),
+    "rt_mlstm_scan_tc": (*(_P,) * 12, _LP, *(_I,) * 5, _F, _P),
+    "rt_mlstm_scan_bwd_tc": (*(_P,) * 26, _LP, *(_I,) * 5, _F, _P),
     "rt_ssd_scan": (*(_P,) * 8, *(_I,) * 7, _P),
     "rt_ssd_scan_bwd": (*(_P,) * 11, *(_I,) * 7, _P),
     "rt_ssd_scan_tc": (*(_P,) * 8, *(_I,) * 6, _P),

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels (swiglu.cu,
-// flash_attention.cu, flash_attention_bwd.cu and, through ssd.cuh, the SSD
-// scan's): TMA tensor maps and loads,
+// flash_attention.cu, flash_attention_bwd.cu and, through ssd.cuh and
+// mlstm_tc.cuh, the SSD and mLSTM scans'): TMA tensor maps and loads,
 // mbarrier rings, named barriers, wgmma shared-memory descriptors and
 // instructions, register reallocation, and the attention kernels' tile
 // products.
@@ -52,6 +52,38 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// cuCtxGetCurrent, looked up the same way; null where it is missing.
+using CtxGetCurrent = CUresult (*)(CUcontext*);
+inline CtxGetCurrent ctx_get_current() {
+  static const CtxGetCurrent fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuCtxGetCurrent", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuCtxGetCurrent", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<CtxGetCurrent>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor-map encoder fails without a current context, and a thread may
+// have none yet: PyTorch's autograd worker binds one lazily, at its first
+// runtime call, which a backward whose tensors all come from the allocator's
+// cache has not made.  Where none is current, cudaFree(nullptr) binds the
+// current device's primary context (and does nothing else); it is not called
+// otherwise, since a stream capture forbids it.  Returns a cudaError_t.
+inline int bind_context() {
+  const CtxGetCurrent get = ctx_get_current();
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return 0;
+  return static_cast<int>(cudaFree(nullptr));
+}
+
 // A bf16 tensor map, 128-byte swizzle unless `swizzle` says otherwise (box[0]
 // at most as many bytes as the swizzle span).  dims[0] is the contiguous axis;
 // strides[i] is the byte stride of dims[i + 1].  Loads outside dims are
@@ -61,6 +93,8 @@ inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t
                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const int bound = bind_context();
+  if (bound) return bound;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
                         const_cast<void*>(base), dims, strides, box, unit,
@@ -311,8 +345,8 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&v)[4]) {
 // accumulator's layout.
 
 // D (64 x 128, fp32) += A (64 x 16, smem) * B (16 x 128, smem); kTnspB = 1: B is
-// MN-major.  scale_d = 0: D = A B.
-template <int kTnspB>
+// MN-major, kTnspA = 1: A is MN-major (its rows contiguous).  scale_d = 0: D = A B.
+template <int kTnspB, int kTnspA = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int scale_d) {
   asm volatile(
@@ -322,7 +356,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -334,7 +368,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnspB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnspB), "n"(kTnspA));
 }
 
 // D (64 x 64, fp32) += A (64 x 16, smem) * B (16 x 64, smem); kTnspB as above.

@@ -1,19 +1,37 @@
 // Chunked mLSTM forward: the stabilized xLSTM matrix-memory recurrence, fp32 inside.
 //
 // Replaces the Pallas kernel _mlstm_kernel / mlstm_scan (src/repro/kernels/mlstm_scan.py).
-// q, k: (BH, S, dqk); v, out: (BH, S, dv); i_raw, log_f: (BH, S); all contiguous,
-// one storage type.  Per (b, h) and chunk of L steps, in the Pallas order:
-// q scaled by dqk^-0.5; b = cumsum(log_f); r = cummax(i - b); m_t = b +
-// max(m_prev, r); D_ts = exp(b_t - b_s + i_s - m_t) for s <= t; S = (q k^T) D;
-// num = S v + inter (q C) with inter = exp(b + m_prev - m_t); den = rowsum(S)
-// + inter (q . n); h = num / max(|den|, exp(-m_t)); then C = decay C +
-// (w k)^T v, n = decay n + (w k)^T 1, m = m_next.  C, n start at 0 and m at
-// -1e30, where inter and decay come out as exactly 0.
+// Per (b, h) and chunk of L steps, in the Pallas order: q scaled by dqk^-0.5;
+// b = cumsum(log_f); r = cummax(i - b); m_t = b + max(m_prev, r); D_ts =
+// exp(b_t - b_s + i_s - m_t) for s <= t; S = (q k^T) D; num = S v + inter (q
+// C) with inter = exp(b + m_prev - m_t); den = rowsum(S) + inter (q . n); h =
+// num / max(|den|, exp(-m_t)); then C = decay C + (w k)^T v, n = decay n +
+// (w k)^T 1, m = m_next.  C, n start at 0 and m at -1e30, where inter and
+// decay come out as exactly 0.
 //
 // The TPU kernel walks a (BH, chunk) grid whose chunk axis runs in order on
 // one core and keeps C (dqk x dv) in VMEM.  At the training shape BH is 16,
 // so one block per (b, h) would fill 16 of the H100's 132 SMs.  Here only the
-// state recurrence is sequential; the rest runs over all (b, h, chunk) at once:
+// state recurrence is sequential; the rest runs over all (b, h, chunk) at
+// once.  What bounds it on the H100: bytes (q, k, v, i, f read and h written
+// once, 50 MB a call at xlstm-1.3b's training shape, 0.015 ms at 3.35 TB/s)
+// and operations about as much (4 L dqk dv per chunk for q C and the state
+// update, 2 L^2 (dqk + dv) within the chunk: 14.5 GFLOP, 0.0147 ms on the
+// bf16 tensor cores).  Two routes, chosen by the wrapper
+// (kernels/mlstm_scan.py, route()):
+//
+// Tensor cores (bf16, chunk 128, dqk and dv multiples of 64, rows TMA can
+// read), three launches (mlstm_tc.cuh): mlstm_tc_gates_kernel (a warp per
+// chunk, shuffles), mlstm_tc_state_kernel (a block per (b, h) and 128 x 128
+// tile of C walks the chunks, C in fp32 registers, wgmma with K = 128; C
+// saved in bf16 at chunk starts, 64 MB a call fewer than fp32 at the
+// training shape), mlstm_tc_fwd_out_kernel (a block per (b, h, chunk, 128
+// columns of v): q k^T and q C by wgmma over dqk in boxes of 64, the mask
+// and the decay in registers, S v from registers).  q, k, v are read in the
+// layout they come in (the model's transposed projections, no copy) and h is
+// written (B, S, H, dv).  Nothing fp32 of size L dv or L^2 reaches memory.
+//
+// CUDA cores (fp32, other shapes; contiguous (BH, S, .) tensors), five steps:
 //   1. mlstm_gates_kernel: per (b, h), one thread walks the gates of all
 //      chunks: b, m_t, inter, w per step and decay per chunk (tiny);
 //   2. S = q k^T (tiled product), then mlstm_decay_mask_kernel multiplies by D;
@@ -23,12 +41,10 @@
 //   4. num = S v, then num += inter * (q C_start) (tiled products);
 //   5. mlstm_fwd_out_kernel: per row, den and h (and the fp32 h and den that
 //      the backward reads).
-// What bounds it on the H100: operations (4 L dqk dv per chunk for q C and
-// the state update, 2 L^2 (dqk + dv) within the chunk), which the tensor
-// cores would run at 989 TFLOP/s in bf16; this first version sums in fp32
-// on the CUDA cores (67 TFLOP/s at best), from 64 x 64 tiles in shared
-// memory, and reads each chunk's operands from device memory once per tile.
+// Every sum is fp32 on the CUDA cores (67 TFLOP/s at best), from 64 x 64
+// tiles in shared memory, each chunk's operands read once per tile.
 #include "mlstm.cuh"
+#include "mlstm_tc.cuh"
 
 namespace {
 
@@ -221,6 +237,26 @@ int forward(const void* q, const void* k, const void* v, const void* i_raw, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ tensor cores
+__global__ void __launch_bounds__(mlstm::tc::kThreads)
+    mlstm_tc_gates_kernel(const mlstm::tc::GatesArgs a) {
+  mlstm::tc::gates(a);
+}
+
+__global__ void __launch_bounds__(mlstm::tc::kThreads, 1)
+    mlstm_tc_state_kernel(const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const mlstm::tc::StateArgs a) {
+  mlstm::tc::state_walk<false>(&tk, &tv, a);
+}
+
+__global__ void __launch_bounds__(mlstm::tc::kThreads, 1)
+    mlstm_tc_fwd_out_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tc, const mlstm::tc::OutArgs a) {
+  mlstm::tc::fwd_out(&tq, &tk, &tv, &tc, a);
+}
+
 }  // namespace
 
 // q, k: (BH, S, dqk); v, out: (BH, S, dv); i_raw, log_f: (BH, S), storage type
@@ -244,4 +280,54 @@ extern "C" int rt_mlstm_scan(const void* q, const void* k, const void* v, const 
                                   f(scores), f(C), f(n), f(num), f(den), BH, S, L, dqk, dv, scale,
                                   dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Tensor-core route: q, k (B, H, S, dqk) and v (B, H, S, dv) bf16 views with
+// contiguous rows, 16-byte aligned, their (b, h, s) strides multiples of 8;
+// i_raw, log_f (B, H, S) bf16 views; `strides` holds the (b, h, s) strides
+// (elements) of q, k, v, i_raw and log_f in that order.  S a multiple of 128,
+// dqk and dv multiples of 64, dqk at most 1024.  Outputs: out (B, S, H, dv)
+// bf16; gates (5, BH, S) fp32: b, m_t, inter, w, i - b; decay (BH, nc); C
+// (BH, nc - 1, dqk, dv) bf16, C at the start of chunks 1 .. nc - 1; n (BH, nc,
+// dqk) fp32 at each chunk's start; den and qn = scale (q . n) (BH, S) fp32.
+// Three launches; returns the first error (tensor map, attribute or launch),
+// else 0.
+extern "C" int rt_mlstm_scan_tc(const void* q, const void* k, const void* v, const void* i_raw,
+                                const void* log_f, void* out, void* gates, void* decay, void* C,
+                                void* n, void* den, void* qn, const long long* strides, int B,
+                                int H, int S, int dqk, int dv, float scale, void* stream) {
+  namespace tc = mlstm::tc;
+  if (S % tc::kL || dqk % 64 || dv % 64 || dqk < 64 || dv < 64 || dqk > tc::kMaxDqk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::Dims d{B, H, S, dqk, dv, S / tc::kL};
+  const int BH = B * H;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap tq, tk, tv, tcm;
+  int pq, pk, pv;
+  int rc = tc::map_view(&tq, &pq, q, B, H, S, dqk, strides);
+  if (!rc) rc = tc::map_view(&tk, &pk, k, B, H, S, dqk, strides + 3);
+  if (!rc) rc = tc::map_view(&tv, &pv, v, B, H, S, dv, strides + 6);
+  // with one chunk there is no carried state: a map that is never read
+  if (!rc)
+    rc = d.nc > 1 ? hop::map_heads(&tcm, C, BH * (d.nc - 1), dqk, dv, 64)
+                  : hop::map_heads(&tcm, q, 1, 64, 64, 64);
+  if (rc) return rc;
+  float* g = static_cast<float*>(gates);
+  const long long BS = static_cast<long long>(BH) * S;
+  const auto* ib = static_cast<const __nv_bfloat16*>(i_raw);
+  const auto* fb = static_cast<const __nv_bfloat16*>(log_f);
+  const tc::GatesArgs ga{ib, fb, {strides[9], strides[10], strides[11]},
+                         {strides[12], strides[13], strides[14]}, g, static_cast<float*>(decay), d};
+  rc = tc::launch(mlstm_tc_gates_kernel, dim3(BH), tc::gates_smem(d), st, ga);
+  if (rc) return rc;
+  const tc::StateArgs sa{g + 3 * BS, g + 3 * BS, static_cast<float*>(decay), nullptr, nullptr,
+                         static_cast<__nv_bfloat16*>(C), static_cast<float*>(n), nullptr, pk, pv,
+                         d};
+  rc = tc::launch(mlstm_tc_state_kernel, dim3(tc::tiles(dqk) * tc::tiles(dv), BH),
+                  tc::state_smem(), st, tk, tv, sa);
+  if (rc) return rc;
+  const tc::OutArgs oa{g, static_cast<float*>(n), static_cast<__nv_bfloat16*>(out),
+                       static_cast<float*>(den), static_cast<float*>(qn), pq, pk, pv, d, scale};
+  return tc::launch(mlstm_tc_fwd_out_kernel, dim3(BH * d.nc, tc::tiles(dv)), tc::out_smem(d), st,
+                    tq, tk, tv, tcm, oa);
 }

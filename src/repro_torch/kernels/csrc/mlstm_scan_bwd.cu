@@ -17,7 +17,22 @@
 // (dn likewise with dden).  C and n at each chunk's start come from the
 // forward, which saves them.
 //
-// Launches: mlstm_bwd_prep_kernel (dnum, dden per row);
+// Two routes, the forward's (kernels/mlstm_scan.py, route()).
+//
+// Tensor cores (bf16, chunk 128, dqk and dv multiples of 64), six launches
+// (mlstm_tc.cuh): mlstm_tc_bwd_rows_kernel (g, dden and the state walk's row
+// factors, a warp per row, from dh read in its own layout and the saved bf16
+// h); mlstm_tc_bwd_state_kernel (dC = decay dC + (q o inter scale / g)^T dh
+// in reverse, a block per 128 x 128 tile, wgmma with K = 128, dC written in
+// bf16, the tiles' shares of ddecay); mlstm_tc_bwd_qside_kernel (per chunk:
+// q k^T and dh v^T by wgmma, then S, dS, dP, dlogD in registers; scale dP and
+// S / g out in bf16, 4 MB a call at the training shape); mlstm_tc_bwd_dq_kernel
+// and mlstm_tc_bwd_dkv_kernel (per chunk and 128 output columns: dh C^T,
+// (scale dP) k, v dC^T, (scale dP)^T q, k dC, (S / g)^T dh by wgmma); and
+// mlstm_tc_bwd_gates_kernel (di, df).  dnum = dh / g never reaches memory:
+// 1 / g rides on the rows of the products it enters.
+//
+// CUDA cores (fp32, other shapes): mlstm_bwd_prep_kernel (dnum, dden per row);
 // mlstm_dstate_scan_kernel (dC and dn of each chunk's end, walking the chunks
 // in reverse in 64 x 64 tiles, with each tile's share of ddecay); tiled
 // products dnum v^T, dP k, dnum C^T, dP^T q, v dC^T, S^T dnum and k dC
@@ -25,9 +40,11 @@
 // and column sums of dlogD); mlstm_bwd_combine_kernel (dq, dk, dlog_inter,
 // dlogw per row); mlstm_bwd_gates_kernel (di, df per chunk).  Tiles and the
 // sums of ddecay's partials run in a fixed order: no atomics, the same bits
-// every run.  What bounds it on the H100: operations (8 L dqk dv per chunk
-// and 2 L^2 (3 dqk + 2 dv)), run in fp32 on the CUDA cores in this version.
+// every run (on both routes).  What bounds it on the H100: operations (8 L
+// dqk dv per chunk and 2 L^2 (3 dqk + 2 dv): 29.0 GFLOP a call at xlstm-1.3b's
+// training shape, 0.029 ms on the bf16 tensor cores).
 #include "mlstm.cuh"
+#include "mlstm_tc.cuh"
 
 namespace {
 
@@ -293,6 +310,53 @@ int backward(const Buffers& p, int BH, int S, int L, int dqk, int dv, float scal
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ tensor cores
+__global__ void __launch_bounds__(mlstm::tc::kThreads)
+    mlstm_tc_bwd_rows_kernel(const mlstm::tc::RowsArgs a) {
+  mlstm::tc::bwd_rows(a);
+}
+
+__global__ void __launch_bounds__(mlstm::tc::kThreads, 1)
+    mlstm_tc_bwd_state_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tdh,
+                              const mlstm::tc::StateArgs a) {
+  mlstm::tc::state_walk<true>(&tq, &tdh, a);
+}
+
+__global__ void __launch_bounds__(mlstm::tc::kThreads, 1)
+    mlstm_tc_bwd_qside_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdh,
+                              const mlstm::tc::QsideArgs a) {
+  mlstm::tc::bwd_qside(&tq, &tk, &tv, &tdh, a);
+}
+
+__global__ void __launch_bounds__(mlstm::tc::kThreads, 1)
+    mlstm_tc_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tdh,
+                           const __grid_constant__ CUtensorMap tc,
+                           const __grid_constant__ CUtensorMap tps, const mlstm::tc::DqArgs a) {
+  mlstm::tc::bwd_dq(&tq, &tk, &tdh, &tc, &tps, a);
+}
+
+__global__ void __launch_bounds__(mlstm::tc::kThreads, 1)
+    mlstm_tc_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdh,
+                            const __grid_constant__ CUtensorMap tdc,
+                            const __grid_constant__ CUtensorMap tps,
+                            const __grid_constant__ CUtensorMap tsg, const mlstm::tc::DkvArgs a) {
+  mlstm::tc::bwd_dkv(&tq, &tk, &tv, &tdh, &tdc, &tps, &tsg, a);
+}
+
+__global__ void __launch_bounds__(mlstm::tc::kThreads)
+    mlstm_tc_bwd_gates_kernel(const mlstm::tc::GatesBwdArgs a) {
+  mlstm::tc::bwd_gates(a);
+}
+
 }  // namespace
 
 // Inputs as rt_mlstm_scan takes them, with dh (BH, S, dv) in their storage
@@ -324,4 +388,85 @@ extern "C" int rt_mlstm_scan_bwd(const void* q, const void* k, const void* v, co
   if (dtype == rt::kBFloat16)
     return backward<__nv_bfloat16>(p, BH, S, L, dqk, dv, scale, dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Tensor-core route.  q, k, v and dh: bf16 views as rt_mlstm_scan_tc's q, k
+// and v, `strides` their (b, h, s) strides in that order; h (B, S, H, dv)
+// bf16, gates, decay, C, n, den and qn as that forward wrote them.  Outputs:
+// dq, dk (B, S, H, dqk), dv (B, S, H, dv), di, df (B, S, H), all bf16.
+// Scratch: rows (4, BH, S) and dn (BH, nc, dqk) fp32; dC (BH, nc - 1, dqk,
+// dv) bf16; partial (BH, nc, tiles(dqk) tiles(dv)) fp32; dps, sg (BH, nc,
+// 128, 128) bf16; rowd, cold (BH, S) and pinter, pw (BH, S, tiles(dqk))
+// fp32.  Six launches; returns the first error (tensor map, attribute or
+// launch), else 0.
+extern "C" int rt_mlstm_scan_bwd_tc(const void* q, const void* k, const void* v, const void* dh,
+                                    const void* h, const void* gates, const void* decay,
+                                    const void* C, const void* n, const void* den, const void* qn,
+                                    void* dq, void* dk, void* dv_out, void* di, void* df,
+                                    void* rows, void* dC, void* dn, void* partial, void* dps,
+                                    void* sg, void* rowd, void* cold, void* pinter, void* pw,
+                                    const long long* strides, int B, int H, int S, int dqk,
+                                    int dv, float scale, void* stream) {
+  namespace tc = mlstm::tc;
+  using bf16 = __nv_bfloat16;
+  if (S % tc::kL || dqk % 64 || dv % 64 || dqk < 64 || dv < 64 || dqk > tc::kMaxDqk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::Dims d{B, H, S, dqk, dv, S / tc::kL};
+  const int BH = B * H;
+  const int Z = BH * d.nc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap tq, tk, tv, tdh, tcm, tdc, tps, tsg;
+  int pq, pk, pv, pdh;
+  int rc = tc::map_view(&tq, &pq, q, B, H, S, dqk, strides);
+  if (!rc) rc = tc::map_view(&tk, &pk, k, B, H, S, dqk, strides + 3);
+  if (!rc) rc = tc::map_view(&tv, &pv, v, B, H, S, dv, strides + 6);
+  if (!rc) rc = tc::map_view(&tdh, &pdh, dh, B, H, S, dv, strides + 9);
+  // with one chunk there is no carried state: maps that are never read
+  if (!rc)
+    rc = d.nc > 1 ? hop::map_heads(&tcm, C, BH * (d.nc - 1), dqk, dv, 64)
+                  : hop::map_heads(&tcm, q, 1, 64, 64, 64);
+  if (!rc)
+    rc = d.nc > 1 ? hop::map_heads(&tdc, dC, BH * (d.nc - 1), dqk, dv, 64)
+                  : hop::map_heads(&tdc, q, 1, 64, 64, 64);
+  if (!rc) rc = hop::map_heads(&tps, dps, Z, tc::kL, tc::kL, tc::kL);
+  if (!rc) rc = hop::map_heads(&tsg, sg, Z, tc::kL, tc::kL, tc::kL);
+  if (rc) return rc;
+  const long long BS = static_cast<long long>(BH) * S;
+  const float* g = static_cast<const float*>(gates);
+  float* rw = static_cast<float*>(rows);
+  const float* dec = static_cast<const float*>(decay);
+  const tc::RowsArgs ra{static_cast<const bf16*>(dh), {strides[9], strides[10], strides[11]},
+                        static_cast<const bf16*>(h), g, static_cast<const float*>(den), rw, d,
+                        scale};
+  rc = tc::launch(mlstm_tc_bwd_rows_kernel,
+                  dim3(static_cast<unsigned>((BS + tc::kWarps - 1) / tc::kWarps)), 0, st, ra);
+  if (rc) return rc;
+  const tc::StateArgs sa{rw + 2 * BS, rw + 3 * BS, dec, static_cast<const bf16*>(C),
+                         static_cast<const float*>(n), static_cast<bf16*>(dC),
+                         static_cast<float*>(dn), static_cast<float*>(partial), pq, pdh, d};
+  rc = tc::launch(mlstm_tc_bwd_state_kernel, dim3(tc::tiles(dqk) * tc::tiles(dv), BH),
+                  tc::state_smem(), st, tq, tdh, sa);
+  if (rc) return rc;
+  const tc::QsideArgs qa{g, rw, static_cast<bf16*>(dps), static_cast<bf16*>(sg),
+                         static_cast<float*>(rowd), static_cast<float*>(cold), pq, pk, pv, pdh,
+                         d, scale};
+  rc = tc::launch(mlstm_tc_bwd_qside_kernel, dim3(Z), tc::qside_smem(), st, tq, tk, tv, tdh, qa);
+  if (rc) return rc;
+  const tc::DqArgs da{g, rw, static_cast<const float*>(n), static_cast<bf16*>(dq),
+                      static_cast<float*>(pinter), pq, pk, pdh, d, scale};
+  rc = tc::launch(mlstm_tc_bwd_dq_kernel, dim3(Z, tc::tiles(dqk)), tc::grad_smem(), st, tq, tk,
+                  tdh, tcm, tps, da);
+  if (rc) return rc;
+  const tc::DkvArgs ka{g, static_cast<const float*>(dn), static_cast<bf16*>(dk),
+                       static_cast<bf16*>(dv_out), static_cast<float*>(pw), pq, pk, pv, pdh, d};
+  rc = tc::launch(mlstm_tc_bwd_dkv_kernel, dim3(Z, tc::tiles(dqk) + tc::tiles(dv)),
+                  tc::grad_smem(), st, tq, tk, tv, tdh, tdc, tps, tsg, ka);
+  if (rc) return rc;
+  const tc::GatesBwdArgs gb{g, rw, dec, static_cast<const float*>(qn),
+                            static_cast<const float*>(rowd), static_cast<const float*>(cold),
+                            static_cast<const float*>(pinter), static_cast<const float*>(pw),
+                            static_cast<const float*>(partial), static_cast<bf16*>(di),
+                            static_cast<bf16*>(df), d, tc::tiles(dqk) * tc::tiles(dv)};
+  return tc::launch(mlstm_tc_bwd_gates_kernel, dim3((Z + tc::kWarps - 1) / tc::kWarps), 0, st,
+                    gb);
 }

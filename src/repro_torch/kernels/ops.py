@@ -62,8 +62,9 @@ def _flash_fwd(q, k, v, mask):
 
 
 def _mlstm_fwd(q, k, v, i_raw, log_f, chunk):
-    """``(h, saved)``: the kernel's :class:`MLSTMSaved` on the card, the plain
-    version's chunk-start states ``(C, n, m)`` on the CPU."""
+    """``(h, saved)``: the kernel's :class:`MLSTMTcSaved` or :class:`MLSTMSaved`
+    on the card, the plain version's chunk-start states ``[C, n, m]`` on the
+    CPU."""
     if _on_cuda(q, "mlstm_scan"):
         return _mlstm_scan.mlstm_scan_cuda(q, k, v, i_raw, log_f, chunk=chunk)
     h, *states = ref.mlstm_scan_ref(q, k, v, i_raw, log_f, chunk=chunk)
@@ -142,11 +143,16 @@ class FlashAttention(torch.autograd.Function):
 
 
 class MLSTMScan(torch.autograd.Function):
+    """On the tensor-core route the saved tensors include the output h (the
+    backward reads it) and the inputs as the model's views, so nothing is
+    copied to be kept."""
+
     @staticmethod
     def forward(ctx, q, k, v, i_raw, log_f, chunk):
         out, saved = _mlstm_fwd(q, k, v, i_raw, log_f, chunk)
         ctx.save_for_backward(q, k, v, i_raw, log_f, *saved)
         ctx.chunk = chunk
+        ctx.saved_type = type(saved)
         return out
 
     @staticmethod
@@ -154,7 +160,7 @@ class MLSTMScan(torch.autograd.Function):
         inputs, saved = ctx.saved_tensors[:5], ctx.saved_tensors[5:]
         if _on_cuda(dh, "mlstm_scan_bwd"):
             grads = _mlstm_scan_bwd.mlstm_scan_bwd_cuda(
-                *inputs, _mlstm_scan.MLSTMSaved(*saved), dh, chunk=ctx.chunk)
+                *inputs, ctx.saved_type(*saved), dh, chunk=ctx.chunk)
         else:
             grads = ref.mlstm_scan_bwd_ref(*inputs, *saved, dh, chunk=ctx.chunk)
         return (*grads, None)
@@ -209,8 +215,14 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):
 def mlstm_scan(q, k, v, i_raw, log_f, *, chunk: int = 128):
     """Chunked mLSTM: q, k (B, H, S, dqk); v (B, H, S, dv); i_raw, log_f (B, H,
     S) -> h (B, H, S, dv) in v's dtype.  ``S`` must be a multiple of
-    ``min(chunk, S)``: the kernel's wrapper or the plain version checks."""
-    q, k, v, i_raw, log_f = (t.contiguous() for t in (q, k, v, i_raw, log_f))
+    ``min(chunk, S)``: the kernel's wrapper or the plain version checks.  On
+    the card, inputs that the tensor-core route reads as they lie (the
+    model's transposed projections) are not copied, and h is then a view of
+    a (B, S, H, dv) tensor; anything else is made contiguous first."""
+    if _on_cuda(q, "mlstm_scan"):
+        q, k, v, i_raw, log_f = _mlstm_scan.readable(q, k, v, i_raw, log_f, chunk)
+    else:
+        q, k, v, i_raw, log_f = (t.contiguous() for t in (q, k, v, i_raw, log_f))
     if _needs_grad(q, k, v, i_raw, log_f):
         return MLSTMScan.apply(q, k, v, i_raw, log_f, chunk)
     return _mlstm_fwd(q, k, v, i_raw, log_f, chunk)[0]

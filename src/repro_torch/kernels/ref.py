@@ -283,13 +283,22 @@ def _mlstm_scores(qs, kc, b, ii, m_t):
     return (qs @ kc.transpose(-1, -2)) * D, D
 
 
+def _mlstm_sv(s, vc, bf16_products: bool):
+    """``S v``; with ``bf16_products`` as the tensor-core route takes it, S split
+    into its bf16 rounding and the bf16 rounding of the rest, two products."""
+    if not bf16_products:
+        return s @ vc
+    hi = _bf16_round(s)
+    return hi @ vc + _bf16_round(s - hi) @ vc
+
+
 def _mlstm_inputs(q, k, v, i_raw, log_f, chunk):
     L = mlstm_chunk_len(q, k, v, i_raw, log_f, chunk)
     f32 = (q.float() * q.shape[-1] ** -0.5, k.float(), v.float(), i_raw.float(), log_f.float())
     return (*f32, L, q.shape[2] // L)
 
 
-def mlstm_scan_ref(q, k, v, i_raw, log_f, *, chunk: int):
+def mlstm_scan_ref(q, k, v, i_raw, log_f, *, chunk: int, bf16_products: bool = False):
     """Chunkwise stabilized mLSTM in the Pallas kernel's order (``mlstm_scan.py:34-68``).
 
     q, k: (B, H, S, dqk); v: (B, H, S, dv); i_raw, log_f: (B, H, S).  In fp32,
@@ -298,8 +307,14 @@ def mlstm_scan_ref(q, k, v, i_raw, log_f, *, chunk: int):
     num / max(|den|, exp(-m_t))``, then the chunk-end update of (C, n, m) from
     C = 0, n = 0, m = -1e30.  Returns ``(h, C, n, m)``: h in v's dtype and the
     fp32 states at the START of each chunk, C (B, H, nc, dqk, dv), n (B, H, nc,
-    dqk), m (B, H, nc), which the backward reads.
+    dqk), m (B, H, nc), which the backward reads.  With ``bf16_products``,
+    operands are rounded to bf16 where the tensor-core route rounds them: S
+    as two bf16 parts before ``S v`` (one rounding loses too much where the
+    causal sum cancels: h feeds dden, which 1 / g amplifies), the chunk-start
+    C before ``q C`` (the route keeps it in bf16), and ``w o k`` before the
+    state update; C is carried in fp32 and every sum stays fp32.
     """
+    r = _bf16_round if bf16_products else (lambda t: t)
     qs, kf, vf, ii, ff, L, nc = _mlstm_inputs(q, k, v, i_raw, log_f, chunk)
     B, H, _, dqk = q.shape
     C = qs.new_zeros((B, H, dqk, vf.shape[-1]))
@@ -314,17 +329,18 @@ def mlstm_scan_ref(q, k, v, i_raw, log_f, *, chunk: int):
         qc, kc, vc, ic = qs[..., sl, :], kf[..., sl, :], vf[..., sl, :], ii[..., sl]
         b, m_t, inter, w, decay, m = _mlstm_gates(ic, ff[..., sl], m)
         s, _ = _mlstm_scores(qc, kc, b, ic, m_t)
-        num = s @ vc + inter[..., None] * (qc @ C)
+        num = _mlstm_sv(s, vc, bf16_products) + inter[..., None] * (qc @ r(C))
         den = s.sum(-1) + inter * (qc @ n[..., None])[..., 0]
         hs.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
         kw = kc * w[..., None]
-        C = decay[..., None, None] * C + kw.transpose(-1, -2) @ vc
+        C = decay[..., None, None] * C + r(kw).transpose(-1, -2) @ vc
         n = decay[..., None] * n + kw.sum(-2)
     h = torch.cat(hs, dim=2).to(v.dtype)
     return h, torch.stack(Cs, 2), torch.stack(ns, 2), torch.stack(ms, 2)
 
 
-def mlstm_scan_bwd_ref(q, k, v, i_raw, log_f, C, n, m, dh, *, chunk: int):
+def mlstm_scan_bwd_ref(q, k, v, i_raw, log_f, C, n, m, dh, *, chunk: int,
+                       bf16_products: bool = False):
     """Gradients ``(dq, dk, dv, di, df)`` of :func:`mlstm_scan_ref`, each in its
     input's dtype, from the saved chunk-start states ``(C, n, m)``.
 
@@ -338,9 +354,20 @@ def mlstm_scan_bwd_ref(q, k, v, i_raw, log_f, C, n, m, dh, *, chunk: int):
     ``di_s`` (column sums) and ``db`` (row minus column sums); the ``inter``
     terms and the state update add to dq, dk, dv, ``db`` and the carried dC and
     dn; ``df`` is the reverse cumulative sum of ``db`` within the chunk, since
-    ``b`` restarts each chunk.  Mirrors the CUDA kernel's factorisation.
+    ``b`` restarts each chunk.  Mirrors the CUDA-core kernels' factorisation.
+
+    With ``bf16_products`` it takes the tensor-core route's factorisation and
+    roundings (``csrc/mlstm_tc.cuh``): the forward's roundings (C from the
+    flagged :func:`mlstm_scan_ref`, rounded as the route keeps it), h rounded
+    to bf16 as the forward returned it (dden reads it), and ``1 / g`` carried
+    on the rows of the products instead of dnum: ``scale dP`` and ``S / g``
+    rounded before their products with k, q and dh, ``q o inter scale / g``
+    before the carried ``dC += (.)^T dh``, and dC before its products with v
+    and k; the row and column sums, ddecay and the carried dC and dn are fp32.
     """
+    r = _bf16_round if bf16_products else (lambda t: t)
     qs, kf, vf, ii, ff, L, nc = _mlstm_inputs(q, k, v, i_raw, log_f, chunk)
+    qf = q.float()
     dqk = q.shape[-1]
     scale = dqk ** -0.5
     tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
@@ -352,27 +379,45 @@ def mlstm_scan_bwd_ref(q, k, v, i_raw, log_f, C, n, m, dh, *, chunk: int):
         sl = slice(c * L, (c + 1) * L)
         qc, kc, vc, ic, dhc = qs[..., sl, :], kf[..., sl, :], vf[..., sl, :], ii[..., sl], \
             dhf[..., sl, :]
-        Cc, ncur = C[:, :, c], n[:, :, c]
+        Cc, ncur = r(C[:, :, c]), n[:, :, c]
         b, m_t, inter, w, decay, _ = _mlstm_gates(ic, ff[..., sl], m[:, :, c])
         s, D = _mlstm_scores(qc, kc, b, ic, m_t)
         qn = (qc @ ncur[..., None])[..., 0]
-        num = s @ vc + inter[..., None] * (qc @ Cc)
+        num = _mlstm_sv(s, vc, bf16_products) + inter[..., None] * (qc @ Cc)
         den = s.sum(-1) + inter * qn
         floor = torch.exp(-m_t)
         g = torch.maximum(den.abs(), floor)
-        h = num / g[..., None]
-        dnum = dhc / g[..., None]
+        h = r(num / g[..., None])
         dden = torch.where(den.abs() > floor, -torch.sign(den) * (dhc * h).sum(-1) / g, 0.0)
-        dS = torch.where(tri, dnum @ vc.transpose(-1, -2) + dden[..., None], 0.0)
-        dlogD, dP = dS * s, dS * D
-        G = dnum @ Cc.transpose(-1, -2)                      # (L, dqk): C dnum_t
-        Hk = vc @ dCe.transpose(-1, -2)                      # (L, dqk): dC v_s
-        dq = (dP @ kc + inter[..., None] * G + (inter * dden)[..., None] * ncur[..., None, :]) \
-            * scale
-        dlog_inter = inter * ((qc * G).sum(-1) + dden * qn)
-        dk = dP.transpose(-1, -2) @ qc + w[..., None] * Hk + w[..., None] * dne[..., None, :]
-        dlogw = w * ((kc * Hk).sum(-1) + (kc @ dne[..., None])[..., 0])
-        dv = s.transpose(-1, -2) @ dnum + w[..., None] * (kc @ dCe)
+        if bf16_products:
+            dS = torch.where(tri, (dhc @ vc.transpose(-1, -2)) / g[..., None] + dden[..., None],
+                             0.0)
+            dlogD, dP = dS * s, dS * D
+            dPs, Sg = r(scale * dP), r(s / g[..., None])
+            Gh = dhc @ Cc.transpose(-1, -2)                  # (L, dqk): C dh_t
+            fq = scale * inter / g
+            dq = dPs @ kc + fq[..., None] * Gh \
+                + (scale * inter * dden)[..., None] * ncur[..., None, :]
+            dlog_inter = inter * ((qc * Gh).sum(-1) / g + dden * qn)
+            dCr = r(dCe)
+            Hk = vc @ dCr.transpose(-1, -2) + dne[..., None, :]   # (L, dqk): dC v_s + dn
+            dk = dPs.transpose(-1, -2) @ qf[..., sl, :] + w[..., None] * Hk
+            dlogw = w * (kc * Hk).sum(-1)
+            dv = Sg.transpose(-1, -2) @ dhc + w[..., None] * (kc @ dCr)
+            dC_add = r(qf[..., sl, :] * fq[..., None]).transpose(-1, -2) @ dhc
+        else:
+            dnum = dhc / g[..., None]
+            dS = torch.where(tri, dnum @ vc.transpose(-1, -2) + dden[..., None], 0.0)
+            dlogD, dP = dS * s, dS * D
+            G = dnum @ Cc.transpose(-1, -2)                  # (L, dqk): C dnum_t
+            Hk = vc @ dCe.transpose(-1, -2)                  # (L, dqk): dC v_s
+            dq = (dP @ kc + inter[..., None] * G
+                  + (inter * dden)[..., None] * ncur[..., None, :]) * scale
+            dlog_inter = inter * ((qc * G).sum(-1) + dden * qn)
+            dk = dP.transpose(-1, -2) @ qc + w[..., None] * Hk + w[..., None] * dne[..., None, :]
+            dlogw = w * ((kc * Hk).sum(-1) + (kc @ dne[..., None])[..., 0])
+            dv = s.transpose(-1, -2) @ dnum + w[..., None] * (kc @ dCe)
+            dC_add = (qc * inter[..., None]).transpose(-1, -2) @ dnum
         ddecay = (dCe * Cc).sum((-1, -2)) + (dne * ncur).sum(-1)
         col = dlogD.sum(-2)
         db = dlogD.sum(-1) - col + dlog_inter - dlogw
@@ -380,7 +425,7 @@ def mlstm_scan_bwd_ref(q, k, v, i_raw, log_f, C, n, m, dh, *, chunk: int):
         df = db.flip(-1).cumsum(-1).flip(-1)
         for acc, t in zip(out, (dq, dk, dv, col + dlogw, df)):
             acc.append(t)
-        dCe = decay[..., None, None] * dCe + (qc * inter[..., None]).transpose(-1, -2) @ dnum
+        dCe = decay[..., None, None] * dCe + dC_add
         dne = decay[..., None] * dne + ((inter * dden)[..., None] * qc).sum(-2)
     grads = [torch.cat(acc[::-1], dim=2) for acc in out]
     return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v, i_raw, log_f)))

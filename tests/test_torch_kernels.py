@@ -685,7 +685,164 @@ def test_mlstm_wrappers_refuse_bad_arguments():
     assert (k_mlstm.launches, k_mlstm_bwd.launches) == before
 
 
-@pytest.mark.parametrize("header", ["common.cuh", "mlstm.cuh", "ssd.cuh", "hopper.cuh"])
+def _mlstm_bf16_case(rng, B, H, S, dqk, dv):
+    """bf16 q, k, v, i_raw, log_f and dh as torch tensors, and the same values in
+    fp32 as jax arrays, so that the JAX model computes on exactly the kernel's
+    inputs."""
+    t, _ = _mlstm_inputs(rng, B, H, S, dqk, dv)
+    t = [x.bfloat16() for x in t]
+    dh = torch.from_numpy(rng.normal(size=(B, H, S, dv)).astype(np.float32)).bfloat16()
+    return t, [jnp.asarray(x.float().numpy()) for x in t], dh
+
+
+#: (chunk, dqk, dv): a short chunk, and the tensor-core route's chunk with dqk
+#: and dv of 64 and 128 each way round
+MLSTM_BF16_SWEEP = [(32, 64, 128), (128, 64, 128), (128, 128, 64)]
+
+
+@pytest.mark.parametrize("chunk,dqk,dv", MLSTM_BF16_SWEEP, ids=lambda v: str(v))
+def test_mlstm_plain_with_bf16_products_matches_jax(chunk, dqk, dv):
+    """The forward rounded where the tensor-core route rounds (S in two bf16
+    parts before S v, the chunk-start C before q C, w o k before the state
+    update) stays within 2e-2 of the largest entry of ``mlstm_chunked``'s h;
+    the carried C, which takes one rounded operand a chunk, within 2e-2 of the
+    fp32 one."""
+    B, H, S = 1, 2, 256
+    t, j, _ = _mlstm_bf16_case(np.random.default_rng(chunk + dqk), B, H, S, dqk, dv)
+    h, C, n, m = ref.mlstm_scan_ref(*t, chunk=chunk, bf16_products=True)
+    assert h.dtype == torch.bfloat16 and C.dtype == n.dtype == torch.float32
+    _rel_close(h.float(), mlstm_chunked(*j, chunk=chunk), 2e-2)
+    _, plain_C, plain_n, plain_m = ref.mlstm_scan_ref(*t, chunk=chunk)
+    _rel_close(C, plain_C, 2e-2)
+    assert torch.equal(m, plain_m) and not torch.equal(C, plain_C)    # the option does round
+    torch.testing.assert_close(n, plain_n, rtol=0, atol=0)            # n takes no rounding
+
+
+@pytest.mark.parametrize("chunk,dqk,dv", MLSTM_BF16_SWEEP, ids=lambda v: str(v))
+def test_mlstm_bwd_plain_with_bf16_products_matches_jax_vjp(chunk, dqk, dv):
+    """The backward in the tensor-core route's factorisation and roundings (h
+    the bf16 output, scale dP, S / g, q o inter scale / g and dC rounded before
+    their products): dq, dk, dv, di and df within 2e-2 of the largest entry of
+    ``jax.vjp`` of the model, and not the unflagged backward's bits."""
+    B, H, S = 1, 2, 256
+    t, j, dh = _mlstm_bf16_case(np.random.default_rng(7 + chunk + dqk), B, H, S, dqk, dv)
+    _, C, n, m = ref.mlstm_scan_ref(*t, chunk=chunk, bf16_products=True)
+    got = ref.mlstm_scan_bwd_ref(*t, C, n, m, dh, chunk=chunk, bf16_products=True)
+    assert [g.dtype for g in got] == [x.dtype for x in t]
+    _, vjp = jax.vjp(lambda *a: mlstm_chunked(*a, chunk=chunk), *j)
+    for g, w in zip(got, vjp(jnp.asarray(dh.float().numpy()))):
+        _rel_close(g.float(), w, 2e-2)
+    plain = ref.mlstm_scan_bwd_ref(*t, C, n, m, dh, chunk=chunk)
+    assert not all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def _mlstm_view(B, H, S, d, pad=0, dtype=torch.bfloat16):
+    """A (B, H, S, d) view of a (B, S, H, d + pad) tensor, as the model hands
+    q, k and v over (pad 0)."""
+    return torch.zeros((B, S, H, d + pad), dtype=dtype)[..., :d].transpose(1, 2)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16", "wgmma"),
+    ("model_views", "wgmma"),           # the model's transposed projections, as they lie
+    ("training_shape", "wgmma"),        # xlstm-1.3b: dqk 512, dv 1024
+    ("float32", "simt"),
+    ("chunk_64", "simt"),
+    ("short_sequence", "simt"),         # L = min(chunk, S) = 96
+    ("dv_96", "simt"),                  # dv not a multiple of 64
+    ("dqk_96", "simt"),
+    ("dqk_1088", "simt"),               # wider than the route's n row
+    ("row_stride_68", "simt"),          # a view whose steps are 136 bytes apart
+    ("q_unaligned", "simt"),            # 2 bytes off a 16-byte line
+    ("dh_unaligned", "simt"),           # the backward's dh
+])
+def test_mlstm_route(case, want):
+    """The route follows from the dtype, the chunk, dqk and dv, the strides and
+    the pointers' alignment (dh's too, for the backward), and both wrappers
+    count by the same routes."""
+    B, H, S, dqk, dv, chunk = 1, 2, 256, 64, 128, 128
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    if case == "chunk_64":
+        chunk = 64
+    if case == "short_sequence":
+        S = 96
+    if case == "training_shape":
+        B, H, S, dqk, dv = 1, 1, 256, 512, 1024
+    dqk = {"dqk_96": 96, "dqk_1088": 1088}.get(case, dqk)
+    dv = 96 if case == "dv_96" else dv
+    if case in ("model_views", "row_stride_68"):
+        pad = 4 if case == "row_stride_68" else 0
+        q, k, v, dh = (_mlstm_view(B, H, S, d, pad) for d in (dqk, dqk, dv, dv))
+    else:
+        q, k = (torch.zeros((B, H, S, dqk), dtype=dtype) for _ in range(2))
+        v, dh = (torch.zeros((B, H, S, dv), dtype=dtype) for _ in range(2))
+    if case == "q_unaligned":
+        q = _bf16_unaligned(B, H, S, dqk)
+    if case == "dh_unaligned":
+        dh = _bf16_unaligned(B, H, S, dv)
+    gate = torch.zeros((B, H, S), dtype=dtype)
+    if case == "model_views":                   # i_raw and log_f are read by plain loads
+        gate = torch.zeros((B, S, H), dtype=dtype).transpose(1, 2)
+    if case == "row_stride_68":
+        L = min(chunk, S)                       # check_args refuses it: see below
+    else:
+        L = k_mlstm.check_args(q, k, v, gate, gate, chunk)
+    assert k_mlstm.route(L, q, k, v, dh) == want
+    if case != "dh_unaligned":
+        assert k_mlstm.route(L, q, k, v) == want
+    assert want in k_mlstm.ROUTES
+    assert set(k_mlstm.route_launches) == set(k_mlstm_bwd.route_launches) == set(k_mlstm.ROUTES)
+
+
+def test_mlstm_wrappers_refuse_a_layout_they_do_not_read():
+    """A strided view that the tensor-core route does not read (steps 136
+    bytes apart) is refused by the wrapper and copied by ``readable``, which
+    hands the model's views over as they are; the backward refuses a saved h
+    that is not the forward's (B, S, H, dv) layout."""
+    B, H, S = 1, 2, 256
+    gate = torch.zeros((B, S, H), dtype=torch.bfloat16).transpose(1, 2)
+    bad = [_mlstm_view(B, H, S, d, pad=4) for d in (64, 64, 128)]
+    with pytest.raises(ValueError, match="contiguous"):
+        k_mlstm.check_args(*bad, gate, gate, 128)
+    copied = k_mlstm.readable(*bad, gate, gate, 128)
+    assert all(t.is_contiguous() for t in copied)
+    assert all(torch.equal(a, b) for a, b in zip(copied, (*bad, gate, gate)))
+    good = [_mlstm_view(B, H, S, d) for d in (64, 64, 128)]
+    assert k_mlstm.check_args(*good, gate, gate, 128) == 128
+    assert all(a is b for a, b in zip(k_mlstm.readable(*good, gate, gate, 128),
+                                      (*good, gate, gate)))
+    f32 = dict(dtype=torch.float32)
+    nc = S // 128
+    saved = k_mlstm.MLSTMTcSaved(
+        h=_mlstm_view(B, H, S, 128), gates=torch.zeros((5, B, H, S), **f32),
+        decay=torch.zeros((B, H, nc), **f32),
+        C=torch.zeros((B, H, nc - 1, 64, 128), dtype=torch.bfloat16),
+        n=torch.zeros((B, H, nc, 64), **f32), den=torch.zeros((B, H, S), **f32),
+        qn=torch.zeros((B, H, S), **f32))
+    k_mlstm_bwd._check_saved(saved, B, H, S, 64, 128, 128)
+    with pytest.raises(ValueError, match="saved h"):
+        k_mlstm_bwd._check_saved(saved._replace(h=torch.zeros((B, H, S, 128),
+                                                              dtype=torch.bfloat16)),
+                                 B, H, S, 64, 128, 128)
+    with pytest.raises(ValueError, match="saved C"):
+        k_mlstm_bwd._check_saved(saved._replace(C=saved.C.float()), B, H, S, 64, 128, 128)
+
+
+def test_mlstm_tc_signatures_match_the_c_entry_points():
+    """The tensor-core entry points' pointer counts, stride array and ints as
+    ``build.SIGNATURES`` declares them for ctypes."""
+    text = "\n".join((build.CSRC / s).read_text() for s in ("mlstm_scan.cu", "mlstm_scan_bwd.cu"))
+    for name, n_ptr in (("rt_mlstm_scan_tc", 12), ("rt_mlstm_scan_bwd_tc", 26)):
+        args = re.findall(rf'extern "C" int {name}\(([^)]*)\)', text)[0].split(",")
+        assert sum("void*" in a for a in args) == n_ptr + 1             # + the stream
+        assert sum("long long*" in a for a in args) == 1
+        assert build.SIGNATURES[name] == (*(build._P,) * n_ptr, build._LP, *(build._I,) * 5,
+                                          build._F, build._P)
+    assert k_mlstm.strides(torch.zeros((2, 3, 4, 8)))[:] == [96, 32, 8]
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "mlstm.cuh", "ssd.cuh", "hopper.cuh",
+                                    "mlstm_tc.cuh"])
 def test_source_digest_tracks_the_shared_headers(monkeypatch, tmp_path, header):
     """The library's name changes when a header that the sources share changes."""
     for path in build.CSRC.iterdir():

@@ -133,6 +133,38 @@ def test_prefill_matches_jax_and_own_decode(pair):
     np.testing.assert_allclose(logits.numpy(), got.numpy(), rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("master_fp32", [True, False], ids=["master", "no_master"])
+def test_adamw_update_in_slices_is_the_whole_leaf_update(monkeypatch, master_fp32):
+    """Updating each leaf in slices (7 elements here, a bf16 leaf, a leaf that
+    is not contiguous, an empty one) gives the same bits as updating it
+    whole: each element's arithmetic is the same."""
+    from repro_torch.train import optimizer
+
+    gen = torch.Generator().manual_seed(5)
+    params = {"a": torch.randn((5, 9), generator=gen), "b": torch.randn(11, generator=gen).bfloat16(),
+              "c": torch.randn((6, 4), generator=gen).t(), "d": torch.zeros((0, 3))}
+    grads = {k: torch.randn(v.shape, generator=gen).to(v.dtype) for k, v in params.items()}
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, master_fp32=master_fp32)
+    results = []
+    for slice_len in (7, 1 << 26):
+        monkeypatch.setattr(optimizer, "UPDATE_SLICE", slice_len)
+        p = {k: v.clone() for k, v in params.items()}
+        state = init_opt_state(p, cfg)
+        for _ in range(2):
+            p, state, metrics = adamw_update(grads, state, p, cfg)
+        results.append((p, state, metrics))
+    (p0, s0, m0), (p1, s1, m1) = results
+    for k in params:
+        assert torch.equal(p0[k], p1[k]) and torch.equal(s0["mu"][k], s1["mu"][k])
+        assert torch.equal(s0["nu"][k], s1["nu"][k])
+        if master_fp32:
+            assert torch.equal(s0["master"][k], s1["master"][k])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    monkeypatch.setattr(optimizer, "UPDATE_SLICE", 7)
+    assert len(optimizer._slices(params["a"], grads["a"], None)) == 1 + 44 // 7
+    assert len(optimizer._slices(params["c"], grads["c"], None)) == 1   # not contiguous
+
+
 def test_adamw_update_matches_jax(pair):
     """One update from identical grads, params and (non-trivial) state, within 1e-6."""
     _, jparams, _, _ = pair
@@ -406,6 +438,32 @@ def test_trace_groups_the_port_kernels_by_source():
     assert source_group("nvjet_tst_128x256_64x4_1x1_h_bz_coopA_TNN") == "cublas"
     assert source_group("void at::native::vectorized_elementwise_kernel<4, x>(int)") == \
         "torch_other"
+
+
+@pytest.mark.parametrize("source,kernels", [
+    ("mlstm_scan", {"mlstm_gates_kernel", "mlstm_decay_mask_kernel", "mlstm_fwd_gemm_kernel",
+                    "mlstm_state_scan_kernel", "mlstm_fwd_out_kernel", "mlstm_tc_gates_kernel",
+                    "mlstm_tc_state_kernel", "mlstm_tc_fwd_out_kernel"}),
+    ("mlstm_scan_bwd", {"mlstm_bwd_gemm_kernel", "mlstm_dstate_scan_kernel",
+                        "mlstm_bwd_prep_kernel", "mlstm_bwd_ds_kernel", "mlstm_bwd_combine_kernel",
+                        "mlstm_bwd_gates_kernel", "mlstm_tc_bwd_rows_kernel",
+                        "mlstm_tc_bwd_state_kernel", "mlstm_tc_bwd_qside_kernel",
+                        "mlstm_tc_bwd_dq_kernel", "mlstm_tc_bwd_dkv_kernel",
+                        "mlstm_tc_bwd_gates_kernel"}),
+])
+def test_trace_groups_the_mlstm_kernels_by_source(source, kernels):
+    """The mLSTM scan's tensor-core kernels count toward their wrappers'
+    sources beside the CUDA-core ones: every launch of the forward (either
+    route) is ``mlstm_scan``, every launch of the backward ``mlstm_scan_bwd``;
+    a plain kernel's demangled name has no return type."""
+    from repro_torch.launch.trace import KERNEL_SOURCE, kernel_group, source_group
+
+    assert {k for k, v in KERNEL_SOURCE.items() if v == source} == kernels
+    for name in kernels - {k for k in kernels if "_tc_" not in k}:
+        args = "mlstm::tc::Args" if name.endswith("gates_kernel") or "rows" in name \
+            else "CUtensorMap_st, mlstm::tc::Args"
+        demangled = f"(anonymous namespace)::{name}({args})"
+        assert kernel_group(demangled) == name and source_group(demangled) == source
 
 
 def test_trace_groups_the_backward_kernels_by_source():
