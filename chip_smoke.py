@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, the result line last
-    python3 chip_smoke.py --only mlstm    # card, build and one kernel check (or ssd)
+    python3 chip_smoke.py --only mlstm    # card, build and one kernel check (or ssd, decode)
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -11,7 +11,16 @@ prints no result line):
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card, fp32
    and bf16: the serving kernels at the qwen1.5-0.5b serving shapes and a
-   small shape, rmsnorm also at the qwen and hymba-1.5b training shapes and
+   small shape; decode attention also at one long request (32768 slots), 8
+   requests of 4096, qwen3-4b's (G 4, hd 128), hymba-1.5b's (G 5, window
+   1024 and none), G 16 and an hd that takes its ``simt`` route
+   (``DECODE_SHAPES``), with valid lengths 0, 1, S, S + 40 and random and
+   windows across its split plan's span edges, each call made twice and
+   compared bit for bit, held against the plain version of its split plan
+   and its ``simt`` kernel checked on the same inputs, three CUDA-graph
+   replays on new inputs and valid lengths, and its times at the serving
+   shape and two long caches by graph replay beside the ``simt`` kernel's and
+   SDPA's; rmsnorm also at the qwen and hymba-1.5b training shapes and
    a ragged one (both its routes asserted; its device time from a replayed
    CUDA graph, its host path step by step); swiglu_mlp at the
    serving, qwen training and hymba-1.5b training shapes and at ragged
@@ -68,7 +77,9 @@ prints no result line):
    then qwen1.5-0.5b in bf16 through ``repro_torch.launch.serve.main``
    (8 requests, prompt 128, 32 new tokens) with the kernels' launch counts
    set to 0 just before and read just after; every swiglu_mlp launch must
-   have taken the split-K tensor-core route, every rmsnorm the ``vec`` body.
+   have taken the split-K tensor-core route, every rmsnorm the ``vec`` body,
+   every decode_attention the ``split`` route, and the decode-attention
+   wrapper must have made no valid_len tensor (the model passes one a step).
 6. train: qwen1.5-0.5b in bf16, full width and depth, through
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
    checkpoint in a temporary directory under ``build/``), with the launch
@@ -165,7 +176,7 @@ TRAIN_PER_STEP = {"rmsnorm": 2 * 24 + 1, "rmsnorm_bwd": 2 * 24 + 1, "swiglu": 24
 #: and backward on the one-warp-a-row body
 TRAIN_ROUTES = {"swiglu": "wgmma", "flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
                 "rmsnorm": "vec", "swiglu_bwd": "wgmma", "rmsnorm_bwd": "vec"}
-SERVE_ROUTES = {"swiglu": "wgmma_split_k", "rmsnorm": "vec"}
+SERVE_ROUTES = {"swiglu": "wgmma_split_k", "rmsnorm": "vec", "decode_attention": "split"}
 XLSTM = "xlstm-1.3b"
 XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
 #: kernel launches per training step of xlstm-1.3b (42 mLSTM blocks: 2 norms and
@@ -586,43 +597,157 @@ def _sdpa(q, k, v, valid):
                                           enable_gqa=q.shape[1] != k.shape[1])
 
 
+#: (B, Hkv, S, hd, groups G, windows) of the decode sweep: the serving shape,
+#: the earlier small and hd-128 shapes, one long request (split-K), eight at
+#: 4096, qwen3-4b's layout (G 4, hd 128), hymba-1.5b's (G 5 over its 1024
+#: window and without), G 16 (two blocks a kv head) and an hd that is no
+#: multiple of 8 (the "simt" route).  "cross": a window of 1.5 spans of the
+#: split plan, whose start falls inside a span
+DECODE_SHAPES = (
+    (SERVE["requests"], 16, CACHE_LEN, 64, (1, 2), (0, 64)),
+    (2, 2, 100, 32, (1, 2), (0, 64)),
+    (1, 2, 700, 128, (8,), (0, 64)),
+    (1, 16, 32768, 64, (1,), (0, "cross")),
+    (8, 16, 4096, 64, (1,), (0, "cross")),
+    (8, 8, 4096, 128, (4,), (0, "cross")),
+    (2, 5, 2176, 64, (5,), (0, 1024)),
+    (2, 2, 3000, 128, (16,), (0, "cross")),
+    (2, 2, 100, 36, (1, 4), (0, 64)),
+)
+
+
+def decode_valid_sets(gen, B: int, S: int) -> list:
+    """int32 (B,) valid lengths on the card that together hold 0, 1, S, S + 40
+    (past the cache: the window ends past it too) and a random length."""
+    want = [0, 1, S, S + 40, int(torch.randint(1, S + 1, (1,), generator=gen))]
+    rows = [want[i:i + B] for i in range(0, len(want), B)] if B < len(want) else [want]
+    out = []
+    for r in rows:
+        fill = torch.randint(1, S + 1, (B - len(r),), generator=gen).tolist()
+        out.append(torch.tensor(r + fill, dtype=torch.int32, device="cuda"))
+    return out
+
+
+def decode_graph_check(gen, ops, ref, B, Hkv, S, hd, G) -> float:
+    """Capture one ``ops.decode_attention`` call (bf16) into a CUDA graph, write
+    new q, k, v and new valid lengths (0, 1, S and random ones) into its inputs,
+    replay, and hold the output against the plain version: the grid does not
+    depend on valid_len and the split route's scratch lives in the graph."""
+    dt = torch.bfloat16
+    q = randn(gen, (B, Hkv * G, 1, hd), dt)
+    k, v = randn(gen, (B, Hkv, S, hd), dt), randn(gen, (B, Hkv, S, hd), dt)
+    valid = torch.full((B,), S // 2, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, k, v, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, valid)
+    for t in (q, k, v):
+        t.copy_(randn(gen, t.shape, dt))
+    new = torch.randint(1, S + 1, (B,), generator=gen).to(torch.int32)
+    new[0], new[-1] = 0, S
+    if B > 2:
+        new[1] = 1
+    valid.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    err = max_err(out, ref.decode_attention_ref(q, k, v, valid), TOL["decode_attention"][dt])
+    print(f"[kernels] decode_attention {(B, Hkv, S, hd, G)} captured in a CUDA graph: replay on "
+          f"new inputs and valid lengths {new.tolist()} within {err:.3e} of the plain version")
+    return err
+
+
 def check_decode_attention(gen, ops, ref, rate):
-    errs = {}
-    shapes = ((SERVE["requests"], 16, CACHE_LEN, 64), (2, 2, 100, 32), (1, 2, 700, 128))
-    for B, Hkv, S, hd in shapes:
-        for G in (1, 2) if hd <= 64 else (8,):
-            for window in (0, 64):
+    """DECODE_SHAPES in fp32 and bf16 with valid lengths 0, 1, S, S + 40 and
+    random: each call's route asserted, the call made twice and compared bit for
+    bit, held against the plain version (and, on the split route, against the
+    plain version of its split plan), and the ``simt`` kernel on the
+    same inputs.  Two CUDA-graph replays on new inputs.  Times at the serving
+    shape (the row), at (8, 16, 4096, 64) (``s4096_*``) and (1, 16, 32768, 64)
+    (``s32768_*``), bf16, every position visible at the long shapes: ``ms`` from
+    events around back-to-back calls, ``issue_ms`` the host's time to issue
+    them, ``device_ms`` from a replayed CUDA graph, ``simt_ms`` the ``simt``
+    kernel's device time, the plain version, and SDPA host-paced
+    (``library_ms``) and by graph replay (``library_device_ms``)."""
+    from repro_torch.kernels import decode_attention as kd
+
+    errs, routes = {}, {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, Hkv, S, hd, groups, windows in DECODE_SHAPES:
+        for G in groups:
+            plan = kd.plan_splits(B, Hkv, S, hd, G, n_sm=n_sm)
+            for window in windows:
+                w = plan.span + plan.span // 2 if window == "cross" else window
                 for dt in (torch.float32, torch.bfloat16):
                     q = randn(gen, (B, Hkv * G, 1, hd), dt)
                     k, v = randn(gen, (B, Hkv, S, hd), dt), randn(gen, (B, Hkv, S, hd), dt)
-                    valid = torch.randint(1, S + 1, (B,), generator=gen).to(torch.int32)
-                    valid[0] = S
-                    if B > 1:
-                        valid[-1] = S + 40    # past the cache: the window ends past it too
-                    valid = valid.cuda()
-                    got = ops.decode_attention(q, k, v, valid, window=window)
-                    want = ref.decode_attention_ref(q, k, v, valid, window=window)
-                    errs[(B, Hkv, G, S, hd, window, dt)] = max_err(
-                        got, want, TOL["decode_attention"][dt])
+                    want_route = "split" if hd % 8 == 0 else "simt"
+                    if kd.route(q, k, v) != want_route:
+                        raise AssertionError(f"decode_attention {(B, Hkv, S, hd, G)}: route "
+                                             f"{kd.route(q, k, v)}, expected {want_route}")
+                    routes[(B, Hkv, S, hd, G)] = (want_route, plan.n_split)
+                    tol = TOL["decode_attention"][dt]
+                    key = (B, Hkv, G, S, hd, w, dt)
+                    for valid in decode_valid_sets(gen, B, S):
+                        before = dict(kd.route_launches)
+                        got = ops.decode_attention(q, k, v, valid, window=w)
+                        again = ops.decode_attention(q, k, v, valid, window=w)
+                        if kd.route_launches[want_route] != before[want_route] + 2:
+                            raise AssertionError(f"decode_attention {key}: calls took "
+                                                 f"{kd.route_launches}, not {want_route}")
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"decode_attention {key}: two calls differ")
+                        want = ref.decode_attention_ref(q, k, v, valid, window=w)
+                        e = [max_err(got, want, tol),
+                             max_err(kd.launch("simt", q, k, v, valid, w), want, tol)]
+                        if want_route == "split":
+                            e.append(max_err(got, ref.decode_attention_split_ref(
+                                q, k, v, valid, window=w, spans=plan.spans), tol))
+                        errs[key] = max(errs.get(key, 0.0), *e)
+                    del q, k, v
+    torch.cuda.synchronize()
     print(f"[kernels] decode_attention errors {errs}")
-    B, H, S, hd, dt = SERVE["requests"], 16, CACHE_LEN, 64, torch.bfloat16
-    valid = torch.full((B,), VALID, dtype=torch.int32, device="cuda")
-    sets = [(randn(gen, (B, H, 1, hd), dt), randn(gen, (B, H, S, hd), dt),
-             randn(gen, (B, H, S, hd), dt), valid) for _ in range(24)]
-    q, k, v, _ = sets[0]
-    err = max_err(ops.decode_attention(q, k, v, valid), ref.decode_attention_ref(q, k, v, valid),
-                  TOL["decode_attention"][dt])
-    b_ms, b_by = bound((2 * B * H * hd + 2 * B * H * VALID * hd) * 2 + 4 * B,
-                       4 * B * H * VALID * hd, dt, rate)
-    return {
-        "name": "decode_attention",
-        "shape": f"q ({B}, {H}, 1, {hd}), cache ({B}, {H}, {S}, {hd}), valid {VALID}, bf16",
-        "max_abs_err": err,
-        "ms": time_ms(ops.decode_attention, sets, 20),
-        "plain_ms": time_ms(ref.decode_attention_ref, sets, 20),
-        "library_ms": time_ms(_sdpa, sets, 20),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+    print(f"[kernels] decode_attention (route, n_split) {routes}")
+    row = {"name": "decode_attention",
+           "graph_replay_max_abs_err": max(
+               decode_graph_check(gen, ops, ref, SERVE["requests"], 16, CACHE_LEN, 64, 1),
+               decode_graph_check(gen, ops, ref, 8, 16, 4096, 64, 1),
+               decode_graph_check(gen, ops, ref, 2, 5, 2176, 64, 5))}
+    H, hd, dt = 16, 64, torch.bfloat16
+    for prefix, B, S, vis, n_sets, rounds in (("", SERVE["requests"], CACHE_LEN, VALID, 24, 20),
+                                              ("s4096_", 8, 4096, 4096, 2, 20),
+                                              ("s32768_", 1, 32768, 32768, 2, 20)):
+        valid = torch.full((B,), vis, dtype=torch.int32, device="cuda")
+        sets = [(randn(gen, (B, H, 1, hd), dt), randn(gen, (B, H, S, hd), dt),
+                 randn(gen, (B, H, S, hd), dt), valid) for _ in range(n_sets)]
+        q, k, v, _ = sets[0]
+        err = max_err(ops.decode_attention(q, k, v, valid),
+                      ref.decode_attention_ref(q, k, v, valid), TOL["decode_attention"][dt])
+        b_ms, b_by = bound((2 * B * H * hd + 2 * B * H * vis * hd) * 2 + 4 * B,
+                           4 * B * H * vis * hd, dt, rate)
+        ms, issue = time_ms(ops.decode_attention, sets, rounds, issue=True)
+        device_ms, how = graph_ms(ops.decode_attention, sets)
+        plan = kd.plan_splits(B, H, S, hd, n_sm=n_sm)
+        row.update({
+            f"{prefix}shape": f"q ({B}, {H}, 1, {hd}), cache ({B}, {H}, {S}, {hd}), "
+                              f"valid {vis}, bf16",
+            f"{prefix}kernel_route": kd.route(q, k, v), f"{prefix}n_split": plan.n_split,
+            f"{prefix}max_abs_err": err,
+            f"{prefix}ms": ms, f"{prefix}issue_ms": issue,
+            f"{prefix}device_ms": device_ms, f"{prefix}device_ms_from": how,
+            f"{prefix}simt_ms": graph_ms(lambda *a: kd.launch("simt", *a, 0), sets)[0],
+            f"{prefix}plain_ms": time_ms(ref.decode_attention_ref, sets, rounds),
+            f"{prefix}library_ms": time_ms(_sdpa, sets, rounds),
+            f"{prefix}library_device_ms": graph_ms(_sdpa, sets)[0],
+            f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
+        })
+        del sets, q, k, v
+    print(f"[kernels] decode_attention device ms: serve {row['device_ms']}, "
+          f"4096 {row['s4096_device_ms']}, 32768 {row['s32768_device_ms']}")
+    return row
 
 
 def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool) -> tuple[float, str]:
@@ -1599,13 +1724,26 @@ def phase_serve(kernel_modules) -> dict:
         raise AssertionError(f"small fp32 serve: card {on_gpu.tolist()} != cpu {on_cpu.tolist()}")
     print("[serve] small fp32 serve: card tokens equal the CPU's")
 
+    # the model hands every layer one int32 (B,) valid_len made once a step: the
+    # wrapper then never makes one (no allocation, no fill launch a layer)
+    from repro_torch.kernels import decode_attention as kd
+
+    made = []
+    vector = kd.valid_len_vector
+    kd.valid_len_vector = lambda *a: made.append(a[1:]) or vector(*a)
     reset_counts(kernel_modules)
-    res = serve.main(["--full-config", "--device", "cuda", "--dtype", "bfloat16",
-                      "--requests", str(SERVE["requests"]),
-                      "--prompt-len", str(SERVE["prompt_len"]),
-                      "--new-tokens", str(SERVE["new_tokens"])])
+    try:
+        res = serve.main(["--full-config", "--device", "cuda", "--dtype", "bfloat16",
+                          "--requests", str(SERVE["requests"]),
+                          "--prompt-len", str(SERVE["prompt_len"]),
+                          "--new-tokens", str(SERVE["new_tokens"])])
+    finally:
+        kd.valid_len_vector = vector
     counts, routes = read_counts(kernel_modules)
     check_routes(routes, counts, SERVE_ROUTES, "serve")
+    if made:
+        raise AssertionError(f"decode_attention made {len(made)} valid_len tensors in the "
+                             "serve run; the model passes one a step")
     toks = res["tokens"]
     if toks.shape != (SERVE["requests"], SERVE["new_tokens"]):
         raise AssertionError(f"served tokens of shape {toks.shape}")
@@ -1859,7 +1997,8 @@ MAIN_RUN = {"rmsnorm": "serve", "swiglu_mlp": "serve", "decode_attention": "serv
 
 #: kernel checks that ``--only NAME`` runs alone after the card and the build
 #: phases, printing their rows and no result line
-ONLY = {"mlstm": check_mlstm, "ssd": check_ssd}
+ONLY = {"mlstm": check_mlstm, "ssd": check_ssd,
+        "decode": lambda *a: (check_decode_attention(*a),)}
 
 
 def main(argv: list[str]) -> None:

@@ -8,8 +8,8 @@ name carries a hash of the sources and flags, so an edit rebuilds it and an
 unchanged tree reuses it.  It is loaded with ``ctypes``; every entry point
 returns ``cudaGetLastError()`` and the wrappers raise when it is not 0.
 :func:`launch` is the lean way to call one: the rmsnorm forward and
-backward, the SwiGLU backward, the SSD scan's and the mLSTM scan's
-tensor-core wrappers go through it, and so can any other.
+backward, the SwiGLU backward, decode attention, the SSD scan's and the
+mLSTM scan's tensor-core wrappers go through it, and so can any other.
 
 No ``nvcc`` means no kernels: :func:`library` raises.
 """
@@ -49,6 +49,7 @@ SIGNATURES = {
     "rt_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_swiglu_tc": (*(_P,) * 9, *(_I,) * 5, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "rt_decode_attention_split": (*(_P,) * 6, *(_I,) * 8, _F, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _P, *(_I,) * 9, _F, _I, _P),
     "rt_flash_attention_tc": (_P, _P, _P, _P, _P, *(_I,) * 9, _F, _P),
     "rt_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 9, _F, _I, _P),
@@ -142,6 +143,12 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

@@ -235,6 +235,45 @@ def decode_attention_ref(q, k_cache, v_cache, valid_len, *, window: int = 0) -> 
     return out.reshape(B, Hq, 1, -1).to(v_cache.dtype)
 
 
+def decode_attention_split_ref(q, k_cache, v_cache, valid_len, *, window: int = 0,
+                               spans) -> torch.Tensor:
+    """:func:`decode_attention_ref` as the ``"split"`` kernel forms it: each span
+    ``(start, stop)`` of ``spans`` (in order, covering the cache once) gives its
+    own ``(m, l, acc)`` over its visible positions, and the spans merge in order:
+    ``out = sum_i e^(m_i - m*) acc_i / sum_i e^(m_i - m*) l_i`` with ``m*`` their
+    largest ``m``, zeros where the sum of ``l`` is 0.  A span with no visible
+    position gives ``m = -1e30``, ``l = 0``, ``acc = 0``.
+    """
+    B, Hq, _, hd = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    G = Hq // Hkv
+    qg = q.float().reshape(B, Hkv, G, hd)
+    vl = valid_len_vector(valid_len, B, q.device)[:, None, None, None]   # (B, 1, 1, 1)
+    parts = []
+    for start, stop in spans:
+        pos = torch.arange(start, stop, device=q.device)
+        s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache[:, :, start:stop].float()) * (hd ** -0.5)
+        mask = pos < vl
+        if window > 0:
+            mask &= pos > vl - 1 - window
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m) * mask
+        acc = torch.einsum("bhgk,bhkd->bhgd", p, v_cache[:, :, start:stop].float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    m_star = parts[0][0]
+    for m, _, _ in parts[1:]:
+        m_star = torch.maximum(m_star, m)
+    l_tot = torch.zeros_like(m_star)
+    acc_tot = torch.zeros((B, Hkv, G, hd), device=q.device)
+    for m, l, acc in parts:
+        w = torch.exp(m - m_star)
+        l_tot = l_tot + w * l
+        acc_tot = acc_tot + w * acc
+    out = acc_tot / torch.where(l_tot == 0, 1.0, l_tot)
+    return out.reshape(B, Hq, 1, hd).to(v_cache.dtype)
+
+
 def mlstm_chunk_len(q, k, v, i_raw, log_f, chunk: int) -> int:
     """The chunk length ``L = min(chunk, S)``; raise unless q, k (B, H, S, dqk),
     v (B, H, S, dv) and i_raw, log_f (B, H, S) fit and L divides ``S``."""

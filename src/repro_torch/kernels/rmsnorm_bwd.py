@@ -30,7 +30,6 @@ raises its shared-memory limit on that device).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -60,9 +59,7 @@ VEC_MAX_BLOCKS_PER_SM = 2
 _checked: dict = {}
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_sm_count = build.sm_count
 
 
 def _vec_row(x: torch.Tensor) -> bool:

@@ -32,8 +32,6 @@ instead of computing them again: 2 N F bf16 more held a layer.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import build
@@ -81,9 +79,7 @@ def route(x, w_gate, w_up, w_down) -> str:
     return "wgmma" if x.numel() // D >= MIN_TILE_ROWS else "wgmma_split_k"
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_sm_count = build.sm_count
 
 
 def split_k(N: int, D: int, F: int, sms: int) -> tuple[int, int]:

@@ -27,8 +27,6 @@ PyTorch's raw stream handle without a device context.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import build
@@ -46,9 +44,7 @@ route_launches = dict.fromkeys(ROUTES, 0)
 BLOCKS_PER_SM = 16
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_sm_count = build.sm_count
 
 
 def route(x, w_gate, w_up, w_down, dy, a, b) -> str:

@@ -31,8 +31,9 @@ PORT_KERNELS = frozenset(KERNEL_SOURCE)
 
 def kernel_group(name: str) -> str:
     """The port's own kernels by name, cuBLAS's products, and PyTorch's other ops."""
-    # a template kernel's name starts with its return type, a plain one's does not
-    own = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
+    # a template kernel's name starts with its return type, a plain one's does not;
+    # a kernel may sit in a namespace inside the anonymous one
+    own = re.match(r"(?:void )?\(anonymous namespace\)::(?:\w+::)*(\w+)", name)
     if own and own.group(1) in PORT_KERNELS:
         return own.group(1)
     if "nvjet" in name or "gemm" in name or "cutlass" in name:

@@ -153,10 +153,22 @@ class DecoderLM(nn.Module):
         h = rms_norm(x, p["ln"], self.cfg.norm_eps)
         return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
-    def _decode_attn(self, p, x, k_cache, v_cache, index: int, pos):
-        """One-token attention; writes slot ``index`` of this layer's cache in place.
+    @staticmethod
+    def _cache_slot(index: int, S_cache: int, window: int) -> tuple[int, int]:
+        """(the slot the token at ``index`` is written to, the slots visible to it)."""
+        if window:
+            # ring buffer: all S_eff slots valid once warm; positions rotate
+            return index % S_cache, min(index + 1, S_cache)
+        if index < S_cache:
+            return index, index + 1
+        raise IndexError(f"decode index {index} past the cache length {S_cache}")
 
-        ``pos`` is ``index`` as a (1,) tensor on the model's device.
+    def _decode_attn(self, p, x, k_cache, v_cache, slot: int, pos, valid):
+        """One-token attention; writes ``slot`` of this layer's cache in place.
+
+        ``pos`` is the token's position as a (1,) int64 tensor and ``valid``
+        the visible slots as an int32 (B,) tensor, both on the model's device
+        and made once a step for every layer.
         """
         cfg = self.cfg
         B = x.shape[0]
@@ -177,15 +189,6 @@ class DecoderLM(nn.Module):
         if cfg.rope_theta:
             q = rope(q, pos, cfg.rope_theta)
             k = rope(k, pos, cfg.rope_theta)
-        S_cache = k_cache.shape[2]
-        window = cfg.sliding_window
-        if window:
-            # ring buffer: all S_eff slots valid once warm; positions rotate
-            slot, valid = index % S_cache, min(index + 1, S_cache)
-        elif index < S_cache:
-            slot, valid = index, index + 1
-        else:
-            raise IndexError(f"decode index {index} past the cache length {S_cache}")
         k_cache[:, :, slot] = k[:, :, 0]
         v_cache[:, :, slot] = v[:, :, 0]
         out = decode_attention(q, k_cache, v_cache, valid, window=0)
@@ -229,14 +232,16 @@ class DecoderLM(nn.Module):
         """
         cfg = self.cfg
         tokens, cache, index = batch["tokens"], batch["cache"], int(batch["index"])
-        x = self.embed(params, tokens)
-        # a fill on the device, not a copy from the host that would wait for it
-        pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
         lp, lc = params["layers"], cache["layers"]
+        slot, n_valid = self._cache_slot(index, lc["k"].shape[3], cfg.sliding_window)
+        x = self.embed(params, tokens)
+        # fills on the device, not copies from the host that would wait for it
+        pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
+        valid = torch.full((x.shape[0],), n_valid, dtype=torch.int32, device=x.device)
         for i in range(cfg.n_layers):
             attn = {name: t[i] for name, t in lp["attn"].items()}
             mlp = {name: t[i] for name, t in lp["mlp"].items()}
-            x = self._decode_attn(attn, x, lc["k"][i], lc["v"][i], index, pos)
+            x = self._decode_attn(attn, x, lc["k"][i], lc["v"][i], slot, pos, valid)
             x = self._mlp(mlp, x)
         h = rms_norm(x, params["final_ln"], cfg.norm_eps)
         return self.unembed(params, h).float(), cache

@@ -9,7 +9,9 @@ wrappers' argument checks, the dispatch and the build's C interface are
 checked as far as the CPU reaches.
 """
 
+import itertools
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -139,6 +141,182 @@ def test_decode_attention_no_visible_position_gives_zeros():
     assert torch.count_nonzero(out) == 0
 
 
+#: (G, spans, hd, dtype, windowed): every G of the port's callers and beyond,
+#: 1, 2, 3 and 7 spans, each hd with each dtype, windows with each dtype
+DECODE_SPLIT_CASES = [
+    (G, n, (32, 64, 128)[i % 3], ("float32", "bfloat16")[(i // 3) % 2], i % 2 == 1)
+    for i, (G, n) in enumerate(itertools.product((1, 2, 4, 5, 8, 16), (1, 2, 3, 7)))
+]
+
+
+@pytest.mark.parametrize("G,n_split,hd,dtype,windowed", DECODE_SPLIT_CASES,
+                         ids=lambda v: str(v))
+def test_decode_split_ref_matches_jax(G, n_split, hd, dtype, windowed):
+    """The split plain version over spans of 24 positions against the Pallas
+    kernel with ``block_k`` = the span (row by row: it takes a scalar
+    valid_len), the JAX layer with (B,) valid lengths and the unsplit plain
+    version.  Valid lengths 0 (zeros: the l == 0 guard), 40 past the cache and
+    a random one; the window (1.5 spans and 41) crosses span edges and leaves
+    the row past the cache positions to see."""
+    B, Hkv, span = 3, 2, 24
+    S = n_split * span
+    rng = np.random.default_rng(100 * G + 10 * n_split + hd)
+    q, jq = _pair(rng, (B, Hkv * G, 1, hd), dtype)
+    k, jk = _pair(rng, (B, Hkv, S, hd), dtype)
+    v, jv = _pair(rng, (B, Hkv, S, hd), dtype)
+    valid = np.array([0, S + 40, rng.integers(1, S + 1)], np.int32)
+    window = span + span // 2 + 41 if windowed else 0
+    spans = tuple((i * span, (i + 1) * span) for i in range(n_split))
+    got = ref.decode_attention_split_ref(q, k, v, torch.from_numpy(valid), window=window,
+                                         spans=spans)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.count_nonzero(got[0]) == 0
+    _close(got[1:], jlayers.decode_attention(jq[1:], jk[1:], jv[1:], jnp.asarray(valid[1:]),
+                                             window=window), dtype)
+    for b in (1, 2):
+        row = pallas_decode_attention(jq[b:b + 1], jk[b:b + 1], jv[b:b + 1], int(valid[b]),
+                                      window=window, block_k=span, interpret=True)
+        _close(got[b:b + 1], row, dtype)
+    whole = ref.decode_attention_ref(q, k, v, torch.from_numpy(valid), window=window)
+    _close(got, whole.float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("window", [0, 150])
+def test_decode_split_plan_is_right_at_every_fill_level(window):
+    """One plan, made from the shapes, serves every valid_len: the split plain
+    version over its spans (four, the last one short) equals the unsplit one
+    at fill levels from 0 to 40 past the cache."""
+    B, Hkv, S, hd, G = 2, 2, 600, 128, 2
+    plan = k_decode.plan_splits(B, Hkv, S, hd, G)
+    assert plan.n_split == 4 and plan.spans[-1][1] - plan.spans[-1][0] < plan.span
+    rng = np.random.default_rng(window)
+    q, _ = _pair(rng, (B, Hkv * G, 1, hd), "float32")
+    k, _ = _pair(rng, (B, Hkv, S, hd), "float32")
+    v, _ = _pair(rng, (B, Hkv, S, hd), "float32")
+    for n in range(0, S + 41, 37):
+        valid = torch.tensor([n, S - n // 2], dtype=torch.int32)
+        got = ref.decode_attention_split_ref(q, k, v, valid, window=window, spans=plan.spans)
+        _close(got, ref.decode_attention_ref(q, k, v, valid, window=window).numpy(), "float32")
+
+
+@pytest.mark.parametrize("B,Hkv,S,hd,G", [
+    (8, 16, 168, 64, 1), (1, 16, 32768, 64, 1), (8, 16, 4096, 64, 1), (8, 8, 4096, 128, 4),
+    (2, 5, 2176, 64, 5), (2, 2, 3000, 128, 16), (3, 2, 600, 128, 2), (1, 1, 1, 8, 1),
+    (1, 1, 0, 64, 1),
+])
+def test_plan_splits_covers_the_cache_once(B, Hkv, S, hd, G):
+    plan = k_decode.plan_splits(B, Hkv, S, hd, G)
+    assert [p for a, b in plan.spans for p in range(a, b)] == list(range(S))
+    assert plan.span % k_decode.SPAN_GRANULE == 0 and len(plan.spans) == plan.n_split
+    assert all(b > a for a, b in plan.spans) or S == 0
+
+
+def test_plan_splits_at_the_serving_and_long_shapes():
+    """One span at serving's 168 slots; at the long caches, at least two blocks
+    on each of the 132 SMs, and spans of at least 256 positions at hd 64."""
+    assert k_decode.plan_splits(8, 16, 168, 64).n_split == 1
+    for B, Hkv, S, hd, G in ((1, 16, 32768, 64, 1), (8, 16, 4096, 64, 1), (8, 8, 4096, 128, 4)):
+        plan = k_decode.plan_splits(B, Hkv, S, hd, G, n_sm=132)
+        assert plan.n_split > 1 and B * Hkv * plan.n_split >= 2 * 132
+        assert plan.span >= k_decode.MIN_SPAN_ELEMS // hd
+    assert k_decode.plan_splits(1, 16, 32768, 64) == (17, 1984, 32768)
+
+
+@pytest.mark.parametrize("dtype,hd,G,bad,want", [
+    ("bfloat16", 64, 1, None, "split"),     # qwen1.5-0.5b serving
+    ("bfloat16", 128, 4, None, "split"),    # qwen3-4b
+    ("bfloat16", 64, 5, None, "split"),     # hymba-1.5b
+    ("float32", 128, 16, None, "split"),
+    ("bfloat16", 8, 2, None, "split"),
+    ("float32", 40, 1, None, "split"),
+    ("bfloat16", 36, 1, None, "simt"),      # hd not a multiple of 8
+    ("float32", 100, 2, None, "simt"),
+    ("bfloat16", 64, 1, "k", "simt"),       # the cache 2 bytes off a 16-byte line
+    ("bfloat16", 64, 1, "q", "simt"),
+])
+def test_decode_route(dtype, hd, G, bad, want):
+    """The route follows from the dtype, hd and the pointers' alignment."""
+    tdt = DTYPES[dtype][0]
+    shapes = {"q": (2, 2 * G, 1, hd), "k": (2, 2, 50, hd), "v": (2, 2, 50, hd)}
+    args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
+            for name, shape in shapes.items()}
+    k_decode.check_args(*args.values())
+    assert k_decode.route(*args.values()) == want
+    assert want in k_decode.ROUTES and set(k_decode.route_launches) == set(k_decode.ROUTES)
+
+
+def test_decode_wrapper_host_path(monkeypatch):
+    """The lean host path, with the device check passed over and the library
+    and launch recorded (there is no card): one ``build.launch`` a call with
+    as many arguments as the C entry point takes; the split plan comes from
+    the shapes, the same at every valid_len; an int32 (B,) valid_len on the
+    device is passed as it is, an int made into one; scratch only with more
+    than one span; each call counted once, by route."""
+    monkeypatch.setattr(k_decode, "_checked", {})
+    monkeypatch.setattr(k_decode, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    calls, made = [], []
+    monkeypatch.setattr(build, "library", lambda: types.SimpleNamespace(
+        rt_decode_attention_split="split", rt_decode_attention="simt"))
+    monkeypatch.setattr(build, "launch", lambda fn, name, device, *a: calls.append((fn, a)))
+    monkeypatch.setattr(k_decode, "valid_len_vector",
+                        lambda *a: made.append(a) or ref.valid_len_vector(*a))
+    before = (k_decode.launches, dict(k_decode.route_launches))
+    for B, Hkv, S, hd, n_split in ((8, 16, 168, 64, 1), (1, 16, 4096, 64, 16),
+                                   (2, 2, 50, 36, None)):
+        q = torch.empty((B, Hkv, 1, hd), dtype=torch.bfloat16)
+        k, v = (torch.empty((B, Hkv, S, hd), dtype=torch.bfloat16) for _ in range(2))
+        for n in (S, 0, S + 40):
+            valid = torch.full((B,), n, dtype=torch.int32)
+            calls.clear()
+            k_decode.decode_attention_cuda(q, k, v, valid)
+            (fn, a), = calls
+            sig = build.SIGNATURES["rt_decode_attention" if n_split is None
+                                   else "rt_decode_attention_split"]
+            assert len(a) + 1 == len(sig) and a[3] == valid.data_ptr()
+            if n_split is None:
+                assert fn == "simt"
+            else:
+                assert fn == "split" and a[12:14] == (n_split, k_decode.plan_splits(
+                    B, Hkv, S, hd).span) and (a[5] is None) == (n_split == 1)
+    assert made == []
+    k_decode.decode_attention_cuda(q, k, v, 7)
+    assert len(made) == 1 and calls[-1][1][3] != valid.data_ptr()
+    assert k_decode.launches == before[0] + 10
+    assert k_decode.route_launches == {"split": before[1]["split"] + 6,
+                                       "simt": before[1]["simt"] + 4}
+
+
+@pytest.mark.parametrize("case", ["group", "head_dim", "float16", "mixed", "k_strided",
+                                  "cached_then_strided"])
+def test_decode_lean_wrapper_refuses_what_check_args_refuses(monkeypatch, case):
+    """The (shape, dtype, device) key is checked once and contiguity on every
+    call: each argument ``check_args`` refuses is still refused, a refused key
+    is not remembered, and nothing is counted."""
+    monkeypatch.setattr(k_decode, "_checked", {})
+    monkeypatch.setattr(k_decode, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    f32 = torch.ones
+    q, kv = f32(2, 4, 1, 64), f32(2, 2, 10, 64)
+    args, err = {
+        "group": ((f32(2, 64, 1, 64), f32(2, 2, 10, 64), f32(2, 2, 10, 64)), ValueError),
+        "head_dim": ((f32(2, 2, 1, 256), f32(2, 2, 10, 256), f32(2, 2, 10, 256)), ValueError),
+        "float16": ((q.half(), kv.half(), kv.half()), TypeError),
+        "mixed": ((q, kv.bfloat16(), kv), TypeError),
+        "k_strided": ((q, f32(2, 2, 64, 10).transpose(2, 3), kv), ValueError),
+        "cached_then_strided": ((q, f32(2, 2, 64, 10).transpose(2, 3), kv), ValueError),
+    }[case]
+    if case == "cached_then_strided":       # the key was seen, contiguous, before
+        build.checked_once(k_decode._checked, (q.shape, kv.shape, kv.shape, q.dtype, kv.dtype,
+                                               kv.dtype, q.device, kv.device, kv.device),
+                           k_decode._check_key, q, kv, kv)
+    before = (k_decode.launches, dict(k_decode.route_launches), len(k_decode._checked))
+    with pytest.raises(err):
+        k_decode.decode_attention_cuda(*args, 3)
+    assert (k_decode.launches, dict(k_decode.route_launches),
+            len(k_decode._checked)) == before
+
+
 def test_valid_len_vector_forms():
     assert ref.valid_len_vector(5, 3, "cpu").tolist() == [5, 5, 5]
     assert ref.valid_len_vector(torch.tensor(4), 2, "cpu").dtype == torch.int32
@@ -164,10 +342,12 @@ def test_cuda_wrappers_refuse_cpu_tensors(fn):
         k_decode.decode_attention_cuda: (torch.ones(1, 2, 1, 8), torch.ones(1, 2, 4, 8),
                                          torch.ones(1, 2, 4, 8), 3),
     }[fn]
-    before = (k_rmsnorm.launches, k_swiglu.launches, k_decode.launches)
+    before = (k_rmsnorm.launches, k_swiglu.launches, k_decode.launches,
+              dict(k_decode.route_launches))
     with pytest.raises(ValueError, match="expected one GPU"):
         fn(*args)
-    assert (k_rmsnorm.launches, k_swiglu.launches, k_decode.launches) == before
+    assert (k_rmsnorm.launches, k_swiglu.launches, k_decode.launches,
+            dict(k_decode.route_launches)) == before
 
 
 def test_wrapper_argument_checks():

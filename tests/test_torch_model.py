@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import TokenDatasetSpec, read_item, read_items
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import build_model, layers
+from repro_torch.models import lm as port_lm
 from repro_torch.models import params as PM
 from repro_torch.serve import ServeConfig, ServingEngine
 
@@ -146,6 +147,34 @@ def test_decode_steps_match_jax(pair):
     for name in ("k", "v"):
         np.testing.assert_allclose(cache["layers"][name].numpy(),
                                    np.asarray(jcache["layers"][name]), **TOL)
+
+
+def test_decode_step_hands_every_layer_one_valid_len(pair, monkeypatch):
+    """``decode_step`` makes one int32 (B,) valid_len a step on the model's
+    device and hands that same tensor to every layer's decode attention, so
+    no layer makes one; the logits stay within 1e-4 of JAX's."""
+    jmodel, jparams, model, params = pair
+    seen = []
+
+    def spy(q, k_cache, v_cache, valid_len, *, window=0):
+        seen.append(valid_len)
+        return layers.decode_attention(q, k_cache, v_cache, valid_len, window=window)
+
+    monkeypatch.setattr(port_lm, "decode_attention", spy)
+    B, S = 2, 12
+    jcache = JPM.materialize(jmodel.cache_layout(B, S), jax.random.PRNGKey(3), "float32")
+    cache = PM.cache_from_jax(_np_tree(jcache), device="cpu", dtype="float32")
+    toks = np.random.default_rng(13).integers(0, model.cfg.vocab, (B, 6), dtype=np.int32)
+    jdecode = jax.jit(jmodel.decode_step)
+    for t in range(6):
+        seen.clear()
+        jlogits, jcache = jdecode(jparams, {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                            "cache": jcache, "index": jnp.asarray(t, jnp.int32)})
+        logits, cache = model.decode_step(params, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
+                                                   "cache": cache, "index": t})
+        assert len(seen) == model.cfg.n_layers and all(v is seen[0] for v in seen)
+        assert seen[0].dtype == torch.int32 and seen[0].tolist() == [t + 1] * B
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
 
 
 def test_ring_buffer_decode_matches_jax():

@@ -466,6 +466,25 @@ def test_trace_groups_the_mlstm_kernels_by_source(source, kernels):
         assert kernel_group(demangled) == name and source_group(demangled) == source
 
 
+def test_trace_groups_the_decode_kernels_by_source():
+    """Decode attention's split route (its kernels in a namespace inside the
+    anonymous one) counts toward ``decode_attention`` beside the ``simt`` kernel."""
+    from repro_torch.launch.trace import KERNEL_SOURCE, kernel_group, source_group
+
+    assert {k for k, v in KERNEL_SOURCE.items() if v == "decode_attention"} == {
+        "decode_attention_kernel", "decode_split_kernel", "decode_combine_kernel"}
+    name = ("void (anonymous namespace)::split::decode_split_kernel<__nv_bfloat16, 8, 1>("
+            "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, int const*, "
+            "__nv_bfloat16*, float*, float*, float*, int, int, int, int, int, int, int, float)")
+    assert kernel_group(name) == "decode_split_kernel" and source_group(name) == \
+        "decode_attention"
+    assert source_group("void (anonymous namespace)::split::decode_combine_kernel<float>("
+                        "float const*, float const*, float const*, float*, int, int, int)") \
+        == "decode_attention"
+    assert source_group("void (anonymous namespace)::decode_attention_kernel<float>(float "
+                        "const*)") == "decode_attention"
+
+
 def test_trace_groups_the_backward_kernels_by_source():
     """The SwiGLU backward's tensor-core kernel and the rmsnorm backward's
     one-warp-a-row body count toward their wrappers' sources, beside the
