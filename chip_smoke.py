@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, the result line last
     python3 chip_smoke.py --only mlstm    # card, build and one kernel check (or ssd, decode)
+    python3 chip_smoke.py --only serve    # card, build, the decode checks and the serve runs
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -10,8 +11,13 @@ prints no result line):
 1. card: the card's name and power limit from ``nvidia-smi``; TF32 off.
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card, fp32
-   and bf16: the serving kernels at the qwen1.5-0.5b serving shapes and a
-   small shape; decode attention also at one long request (32768 slots), 8
+   and bf16: the serving kernels at every shape at which a serve run of
+   phase 5 launches them, read from the models' layouts
+   (``serve_kernel_shapes``: rmsnorm rows of 1024, 1600, 2048, 2560 and
+   4096 and qwen3-4b's q_norm and k_norm head rows (128, 128) and (32, 128);
+   SwiGLU (8, 1024, 2816), (8, 1600, 5504), (8, 2048, 2688) and (4, 2560,
+   9728); decode attention G 1 over 168 slots, G 5 over 168 and G 4 at hd
+   128 over 88) and a small shape; decode attention also at one long request (32768 slots), 8
    requests of 4096, qwen3-4b's (G 4, hd 128), hymba-1.5b's (G 5, window
    1024 and none), G 16 and an hd that takes its ``simt`` route
    (``DECODE_SHAPES``), with valid lengths 0, 1, S, S + 40 and random and
@@ -19,12 +25,14 @@ prints no result line):
    compared bit for bit, held against the plain version of its split plan
    and its ``simt`` kernel checked on the same inputs, three CUDA-graph
    replays on new inputs and valid lengths, and its times at the serving
-   shape and two long caches by graph replay beside the ``simt`` kernel's and
-   SDPA's; rmsnorm also at the qwen and hymba-1.5b training shapes and
-   a ragged one (both its routes asserted; its device time from a replayed
-   CUDA graph, its host path step by step); swiglu_mlp at the
-   serving, qwen training and hymba-1.5b training shapes and at ragged
-   shapes that reach each of its three routes (``SWIGLU_SHAPES``); flash
+   shape, at hymba-1.5b's and qwen3-4b's serving shapes and at two long
+   caches by graph replay beside the ``simt`` kernel's and SDPA's; rmsnorm
+   and SwiGLU timed at every serving shape too; rmsnorm also at the qwen
+   and hymba-1.5b training shapes and a ragged one (both its routes
+   asserted; its device time from a replayed CUDA graph, its host path step
+   by step); swiglu_mlp at the qwen and hymba-1.5b training shapes and at
+   ragged shapes that reach each of its three routes (``SWIGLU_SHAPES``),
+   the split-K route asserted at every serving shape; flash
    attention forward and backward at the five sweep shapes of
    ``tests/test_kernels.py``, their window and ragged rows again at hd 64
    (the tensor-core route), a GQA shape (G 8, hd 128), causal queries
@@ -73,13 +81,32 @@ prints no result line):
    fp32 cut to 8 layers (7 mLSTM + 1 sLSTM), ``loss``, every gradient leaf
    and ``prefill`` on a (1, 256) batch against the CPU; then hymba-1.5b in
    fp32 cut to 4 layers and a window of 256, the same on a (1, 384) batch.
-5. serve: a small fp32 serve on the card against the CPU, token for token;
-   then qwen1.5-0.5b in bf16 through ``repro_torch.launch.serve.main``
-   (8 requests, prompt 128, 32 new tokens) with the kernels' launch counts
-   set to 0 just before and read just after; every swiglu_mlp launch must
-   have taken the split-K tensor-core route, every rmsnorm the ``vec`` body,
-   every decode_attention the ``split`` route, and the decode-attention
-   wrapper must have made no valid_len tensor (the model passes one a step).
+   Decoding at full width in fp32 against the CPU with the same weights
+   (``--only serve`` runs these and phase 5): qwen3-4b cut to 4 layers, one
+   ``decode_step``, then ``loss``, every gradient leaf and ``prefill``;
+   hymba-1.5b cut to 4 layers (global 0 and 3) and a window of 64, 96
+   ``decode_step``s from index 128 (the meta offset) on a random cache, so
+   the ring of 64 slots wraps, the logits at every step and every cache leaf
+   at the end within 2e-3; xlstm-1.3b cut to 8 layers, 32 steps from the
+   zero state, the logits within 2e-3 at every step and the last within
+   2e-3 of the card's ``prefill`` of the same 32 tokens.
+5. serve: a small fp32 serve at the smoke configs of qwen1.5-0.5b,
+   hymba-1.5b and xlstm-1.3b through ``repro_torch.launch.serve.main`` on
+   the card and on the CPU (one seed names one model on both), token for
+   token; then four bf16 runs at full
+   config through ``repro_torch.launch.serve.main`` (``SERVE_RUNS``):
+   qwen1.5-0.5b, hymba-1.5b and xlstm-1.3b with 8 requests, prompt 128 and
+   32 new tokens, qwen3-4b with 4, 64 and 16.  Each with the kernels'
+   launch counts set to 0 just before and read just after, each kernel's
+   count equal to its launches per decode step times the steps; every
+   swiglu_mlp launch must have taken the split-K tensor-core route, every
+   rmsnorm the ``vec`` body, every decode_attention the ``split`` route,
+   every call at a shape that phase 3 checked (``launched_shapes``), the
+   decode-attention wrapper must have made no valid_len tensor (the models
+   pass one a step), and the tokens must lie in the config's vocabulary;
+   ms per decode step, tokens/s and peak device memory printed.  Then
+   xlstm-1.3b's plain mLSTM update alone at its serving shape, by CUDA-graph
+   replay, beside its bound.
 6. train: qwen1.5-0.5b in bf16, full width and depth, through
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
    checkpoint in a temporary directory under ``build/``), with the launch
@@ -102,14 +129,17 @@ prints no result line):
    checked per step (and the routes, as qwen's, and every SSD scan forward
    and backward on the tensor cores), and 8 steps on a fixed
    (2, 128) batch.
-9. output: one ``{"serve": ...}``, ``{"train": ...}``, ``{"train_xlstm":
-   ...}``, ``{"train_hymba": ...}`` and ``{"kernels": [...]}`` line, then
-   the last line ``{"ok": true, "device": {...}}``.
+9. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
+   ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"train": ...}``,
+   ``{"train_xlstm": ...}``, ``{"train_hymba": ...}`` and ``{"kernels":
+   [...]}`` line, then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -139,6 +169,8 @@ HYMBA_SWIGLU = (4352, 1600, 5504)
 #: the split-K route (20 rows) and the 128-row route (333 rows) with D and F no
 #: multiple of the tiles, a bf16 shape that TMA refuses (D = 100, not a multiple
 #: of 8: the CUDA-core route), and hymba-1.5b's training shape
+#: of hymba-1.5b's training shape; the other models' serving shapes join them
+#: in ``check_swiglu`` (``serve_kernel_shapes``)
 SWIGLU_SHAPES = ((SERVE["requests"], 1024, 2816), (TRAIN_ROWS, 1024, 2816), (20, 96, 224),
                  (333, 200, 712), (37, 100, 260), HYMBA_SWIGLU)
 TOL = {  # tests/test_kernels.py
@@ -229,6 +261,24 @@ SSD_SHAPES = tuple((2, 128, 2, N, chd, chunk) for chunk in (32, 64)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: (B, Hq, Hkv, S, hd, window): hymba-1.5b's attention at its training shape
 HYMBA_FLASH = ((2, 25, 5, 2176, 64, 1024), (2, 25, 5, 2176, 64, 0))
+QWEN3 = "qwen3-4b"
+#: the bf16 serve runs through ``launch.serve.main`` at full config: run -> (arch,
+#: requests, prompt length, new tokens, kernel launches per decode step; every
+#: other kernel none).  qwen1.5-0.5b: 24 layers of 2 norms, one attention and one
+#: SwiGLU, and the final norm; hymba-1.5b: 32 blocks of 4 norms, one attention and
+#: one SwiGLU; xlstm-1.3b: 42 mLSTM blocks of 2 norms, 6 sLSTM blocks of 3 norms
+#: and one SwiGLU, no attention; qwen3-4b: 36 layers of 4 norms (q_norm and
+#: k_norm among them), one attention and one SwiGLU.  qwen3-4b serves fewer and
+#: shorter requests, to bound the run's time.
+SERVE_RUNS = {
+    "serve": (ARCH, SERVE["requests"], SERVE["prompt_len"], SERVE["new_tokens"],
+              {"rmsnorm": 2 * 24 + 1, "swiglu": 24, "decode_attention": 24}),
+    "serve_hymba": (HYMBA, 8, 128, 32,
+                    {"rmsnorm": 4 * 32 + 1, "swiglu": 32, "decode_attention": 32}),
+    "serve_xlstm": (XLSTM, 8, 128, 32, {"rmsnorm": 2 * 42 + 3 * 6 + 1, "swiglu": 6}),
+    "serve_qwen3": (QWEN3, 4, 64, 16,
+                    {"rmsnorm": 4 * 36 + 1, "swiglu": 36, "decode_attention": 36}),
+}
 #: SDPA's backends timed for the flash backward's yardstick (torch.nn.attention.SDPBackend)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
 #: dense peak rates by input type (NVIDIA H100 SXM data sheet, no sparsity)
@@ -325,6 +375,113 @@ def check_routes(routes: dict, counts: dict, want: dict, run: str) -> None:
                                  f"{routes[module]} by route; expected all {route}")
 
 
+@functools.lru_cache(maxsize=1)
+def serve_kernel_shapes() -> dict:
+    """Kernel -> {shape: prefix} of the shapes at which the runs of
+    ``SERVE_RUNS`` launch it, read from each model's own layouts: rmsnorm
+    (rows, D) of every norm's gain (B rows; B x heads for q_norm and k_norm),
+    swiglu_mlp (B, D, F) of every gate weight, decode_attention (B, Hq, Hkv,
+    S, visible at the last step, hd) of every K cache.  The kernel checks hold
+    each against its plain version and time it under its prefix (the run's,
+    and the leaf's where D is not d_model); ``serve_run`` fails on a launch at
+    a shape outside the checks."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+
+    def leaves(tree, name=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], k)
+        else:
+            yield name, tree
+
+    out = {"rmsnorm": {}, "swiglu_mlp": {}, "decode_attention": {}}
+
+    def add(kernel, shape, prefix):
+        if shape not in out[kernel]:
+            taken = sum(p.startswith(prefix) for p in out[kernel].values())
+            out[kernel][shape] = f"{prefix}{taken}_" if taken else prefix
+
+    for run, (arch, B, prompt_len, new_tokens, _) in SERVE_RUNS.items():
+        cfg = ARCHS[arch]
+        model = build_model(cfg, device="cpu")
+        heads = {"q_norm": cfg.n_heads, "k_norm": cfg.n_kv_heads}
+        for name, info in leaves(model.layout()):
+            if name.endswith(("ln", "norm")):
+                D = info.shape[-1]
+                add("rmsnorm", (B * heads.get(name, 1), D),
+                    f"{run}_" if D == cfg.d_model and name not in heads else f"{run}_{name}_")
+            elif name.endswith("_gate"):
+                add("swiglu_mlp", (B, *info.shape[-2:]), f"{run}_")
+        for name, info in leaves(model.cache_layout(B, prompt_len + new_tokens + 8)):
+            if name == "k":
+                _, Hkv, S, hd = info.shape[-4:]
+                add("decode_attention", (B, cfg.n_heads, Hkv, S, prompt_len + new_tokens, hd),
+                    f"{run}_")
+    return out
+
+
+def rmsnorm_shapes() -> tuple:
+    """(rows, D) of the rmsnorm checks: ``RMSNORM_SHAPES`` and every serving row."""
+    return tuple(dict.fromkeys((*RMSNORM_SHAPES, *serve_kernel_shapes()["rmsnorm"])))
+
+
+def swiglu_shapes() -> tuple:
+    """(N, D, F) of the swiglu_mlp checks: ``SWIGLU_SHAPES`` and every serving shape."""
+    return tuple(dict.fromkeys((*SWIGLU_SHAPES, *serve_kernel_shapes()["swiglu_mlp"])))
+
+
+def decode_shapes() -> tuple:
+    """``DECODE_SHAPES`` and every serving shape that they do not cover, in
+    their (B, Hkv, S, hd, groups, windows) form."""
+    covered = {(B, Hkv * G, Hkv, S, hd) for B, Hkv, S, hd, groups, _ in DECODE_SHAPES
+               for G in groups}
+    extra = [(B, Hkv, S, hd, (Hq // Hkv,), (0,))
+             for B, Hq, Hkv, S, _, hd in serve_kernel_shapes()["decode_attention"]
+             if (B, Hq, Hkv, S, hd) not in covered]
+    return (*DECODE_SHAPES, *extra)
+
+
+def checked_shapes() -> dict:
+    """Kernel -> the set of shapes its checks cover, keyed as
+    ``launched_shapes`` records them."""
+    return {"rmsnorm": set(rmsnorm_shapes()), "swiglu_mlp": set(swiglu_shapes()),
+            "decode_attention": {(B, Hkv * G, Hkv, S, hd)
+                                 for B, Hkv, S, hd, groups, _ in decode_shapes()
+                                 for G in groups}}
+
+
+@contextlib.contextmanager
+def launched_shapes():
+    """Record the shape of every call of ``ops.rmsnorm``, ``ops.swiglu_mlp``
+    and ``ops.decode_attention`` (the models reach the kernels through them):
+    rmsnorm (rows, D), swiglu_mlp (rows, D, F), decode_attention (B, Hq, Hkv,
+    S, hd)."""
+    from repro_torch.kernels import ops
+
+    keys = {"rmsnorm": lambda x, g, **_: (x.numel() // x.shape[-1], x.shape[-1]),
+            "swiglu_mlp": lambda x, wg, *_: (x.numel() // x.shape[-1], *wg.shape),
+            "decode_attention": lambda q, k, *_, **__: (q.shape[0], q.shape[1], *k.shape[1:])}
+    seen = {name: set() for name in keys}
+    saved = {name: getattr(ops, name) for name in keys}
+
+    def recording(name):
+        fn, key, out = saved[name], keys[name], seen[name]
+
+        def call(*args, **kwargs):
+            out.add(key(*args, **kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for name in keys:
+        setattr(ops, name, recording(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
 # ------------------------------------------------------------------ phases
 def phase_card() -> tuple[str, str]:
     if not torch.cuda.is_available():
@@ -353,8 +510,9 @@ def phase_build() -> None:
 
 
 #: (rows, D) of the rmsnorm checks: the serving, qwen training and hymba-1.5b
-#: training rows (the "vec" route), then a small row and a ragged one (D = 100:
-#: the "block" route)
+#: training rows (the "vec" route), a small row and a ragged one (D = 100: the
+#: "block" route); the other models' serving rows join them in
+#: ``check_rmsnorm`` (``serve_kernel_shapes``)
 RMSNORM_SHAPES = ((SERVE["requests"], 1024), (TRAIN_ROWS, 1024), (4352, 1600), (37, 96),
                   (37, 100))
 
@@ -485,8 +643,9 @@ def rmsnorm_graph_check(ops, ref, x, g) -> float:
 
 def check_rmsnorm(gen, ops, ref, rate):
     """RMSNORM_SHAPES in fp32 and bf16, each check with the route it took; times
-    at the serving shape (the row), the qwen training shape (``train_*``) and
-    hymba-1.5b's (``hymba_*``): host-paced ``ms`` with the host's ``issue_ms``,
+    at the serving shape (the row), the qwen training shape (``train_*``),
+    hymba-1.5b's (``hymba_*``) and the other models' serving rows
+    (``serve_kernel_shapes``' prefixes): host-paced ``ms`` with the host's ``issue_ms``,
     ``device_ms`` from a replayed CUDA graph, the ``block`` body on the same inputs
     (``block_ms``, device), ``F.rms_norm``'s host-paced and device times.  At
     the serving shape also the autograd Function that training calls, beside
@@ -495,7 +654,7 @@ def check_rmsnorm(gen, ops, ref, rate):
     from repro_torch.kernels import rmsnorm as kr
 
     errs, routes = {}, {}
-    for rows, D in RMSNORM_SHAPES:
+    for rows, D in rmsnorm_shapes():
         for dt in (torch.float32, torch.bfloat16):
             x, g = randn(gen, (rows, D), dt), randn(gen, (D,), dt)
             routes[(rows, D, dt)] = kr.route(x, g)
@@ -512,7 +671,10 @@ def check_rmsnorm(gen, ops, ref, rate):
     print(f"[kernels] rmsnorm routes {routes}")
     row = {"name": "rmsnorm"}
     for prefix, (N, D), n_sets in (("", RMSNORM_SHAPES[0], 24), ("train_", RMSNORM_SHAPES[1], 8),
-                                   ("hymba_", RMSNORM_SHAPES[2], 8)):
+                                   ("hymba_", RMSNORM_SHAPES[2], 8),
+                                   *((k, shape, 24) for shape, k in
+                                     serve_kernel_shapes()["rmsnorm"].items()
+                                     if shape != RMSNORM_SHAPES[0])):
         dt = torch.bfloat16
         sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt)) for _ in range(n_sets)]
         b_ms, b_by = bound((2 * N * D + D) * 2, 4 * N * D, dt, rate)
@@ -547,14 +709,20 @@ def _swiglu_lib(x, wg, wu, wd):
 
 
 def check_swiglu(gen, ops, ref, rate):
-    """SWIGLU_SHAPES in fp32 and bf16, each bf16 check with the route it took;
-    times at the serving shape (the row), the qwen training shape (its
-    ``train_*`` keys) and hymba-1.5b's (``hymba_*``), each beside the
-    CUDA-core kernel's on the same inputs (``simt_ms``)."""
+    """SWIGLU_SHAPES in fp32 and bf16, each bf16 check with the route it took,
+    the split-K tensor-core route asserted at every serving shape; times at
+    the serving shape (the row), the qwen training shape (its ``train_*``
+    keys), hymba-1.5b's (``hymba_*``) and the other models' serving shapes
+    (``serve_kernel_shapes``' prefixes), each beside the CUDA-core kernel's on the
+    same inputs (``simt_ms``); at serving's rows also the kernel's and three
+    ``@``'s device times from replayed CUDA graphs (``device_ms``,
+    ``library_device_ms``)."""
     from repro_torch.kernels import swiglu as ks
 
+    serving = {shape: k for shape, k in serve_kernel_shapes()["swiglu_mlp"].items()
+               if shape != SWIGLU_SHAPES[0]}
     errs, routes = {}, {}
-    for N, D, Fd in SWIGLU_SHAPES:
+    for N, D, Fd in swiglu_shapes():
         for dt in (torch.float32, torch.bfloat16):
             x = randn(gen, (N, D), dt)
             wg, wu = randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (D, Fd), dt, D ** -0.5)
@@ -567,10 +735,16 @@ def check_swiglu(gen, ops, ref, rate):
     print(f"[kernels] swiglu_mlp errors {errs}")
     print(f"[kernels] swiglu_mlp bf16 routes "
           f"{ {k[:3]: v for k, v in routes.items() if k[3] == torch.bfloat16} }")
+    for shape in (SWIGLU_SHAPES[0], *serving):
+        if routes[(*shape, torch.bfloat16)] != "wgmma_split_k":
+            raise AssertionError(f"swiglu_mlp {shape} bf16: route "
+                                 f"{routes[(*shape, torch.bfloat16)]}")
     row = {"name": "swiglu_mlp"}
     for prefix, (N, D, Fd), n_sets, rounds in (("", SWIGLU_SHAPES[0], 24, 5),
                                                ("train_", SWIGLU_SHAPES[1], 2, 3),
-                                               ("hymba_", HYMBA_SWIGLU, 2, 3)):
+                                               ("hymba_", HYMBA_SWIGLU, 2, 3),
+                                               *((k, shape, 8, 10)
+                                                 for shape, k in serving.items())):
         dt = torch.bfloat16
         sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
                  randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5))
@@ -586,6 +760,11 @@ def check_swiglu(gen, ops, ref, rate):
             f"{prefix}library_ms": time_ms(_swiglu_lib, sets, rounds),
             f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
         })
+        if N < ks.MIN_TILE_ROWS:
+            # serving's rows: the host may set the pace of back-to-back calls
+            row[f"{prefix}device_ms"], row[f"{prefix}device_ms_from"] = graph_ms(
+                ops.swiglu_mlp, sets)
+            row[f"{prefix}library_device_ms"] = graph_ms(_swiglu_lib, sets)[0]
         del sets
     return row
 
@@ -600,9 +779,10 @@ def _sdpa(q, k, v, valid):
 #: (B, Hkv, S, hd, groups G, windows) of the decode sweep: the serving shape,
 #: the earlier small and hd-128 shapes, one long request (split-K), eight at
 #: 4096, qwen3-4b's layout (G 4, hd 128), hymba-1.5b's (G 5 over its 1024
-#: window and without), G 16 (two blocks a kv head) and an hd that is no
-#: multiple of 8 (the "simt" route).  "cross": a window of 1.5 spans of the
-#: split plan, whose start falls inside a span
+#: window and without), G 16 (two blocks a kv head), an hd that is no
+#: multiple of 8 (the "simt" route); the other models' serving shapes join
+#: them in ``check_decode_attention`` (``decode_shapes``).  "cross": a window
+#: of 1.5 spans of the split plan, whose start falls inside a span
 DECODE_SHAPES = (
     (SERVE["requests"], 16, CACHE_LEN, 64, (1, 2), (0, 64)),
     (2, 2, 100, 32, (1, 2), (0, 64)),
@@ -666,7 +846,8 @@ def check_decode_attention(gen, ops, ref, rate):
     bit, held against the plain version (and, on the split route, against the
     plain version of its split plan), and the ``simt`` kernel on the
     same inputs.  Two CUDA-graph replays on new inputs.  Times at the serving
-    shape (the row), at (8, 16, 4096, 64) (``s4096_*``) and (1, 16, 32768, 64)
+    shape (the row), at the other models' serving shapes
+    (``serve_kernel_shapes``' prefixes), at (8, 16, 4096, 64) (``s4096_*``) and (1, 16, 32768, 64)
     (``s32768_*``), bf16, every position visible at the long shapes: ``ms`` from
     events around back-to-back calls, ``issue_ms`` the host's time to issue
     them, ``device_ms`` from a replayed CUDA graph, ``simt_ms`` the ``simt``
@@ -676,7 +857,7 @@ def check_decode_attention(gen, ops, ref, rate):
 
     errs, routes = {}, {}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for B, Hkv, S, hd, groups, windows in DECODE_SHAPES:
+    for B, Hkv, S, hd, groups, windows in decode_shapes():
         for G in groups:
             plan = kd.plan_splits(B, Hkv, S, hd, G, n_sm=n_sm)
             for window in windows:
@@ -716,23 +897,26 @@ def check_decode_attention(gen, ops, ref, rate):
                decode_graph_check(gen, ops, ref, SERVE["requests"], 16, CACHE_LEN, 64, 1),
                decode_graph_check(gen, ops, ref, 8, 16, 4096, 64, 1),
                decode_graph_check(gen, ops, ref, 2, 5, 2176, 64, 5))}
-    H, hd, dt = 16, 64, torch.bfloat16
-    for prefix, B, S, vis, n_sets, rounds in (("", SERVE["requests"], CACHE_LEN, VALID, 24, 20),
-                                              ("s4096_", 8, 4096, 4096, 2, 20),
-                                              ("s32768_", 1, 32768, 32768, 2, 20)):
+    dt = torch.bfloat16
+    for prefix, (B, H, Hkv, S, vis, hd), n_sets, rounds in (
+            ("", (SERVE["requests"], 16, 16, CACHE_LEN, VALID, 64), 24, 20),
+            *((k, shape, 24, 20) for shape, k in serve_kernel_shapes()["decode_attention"].items()
+              if shape != (SERVE["requests"], 16, 16, CACHE_LEN, VALID, 64)),
+            ("s4096_", (8, 16, 16, 4096, 4096, 64), 2, 20),
+            ("s32768_", (1, 16, 16, 32768, 32768, 64), 2, 20)):
         valid = torch.full((B,), vis, dtype=torch.int32, device="cuda")
-        sets = [(randn(gen, (B, H, 1, hd), dt), randn(gen, (B, H, S, hd), dt),
-                 randn(gen, (B, H, S, hd), dt), valid) for _ in range(n_sets)]
+        sets = [(randn(gen, (B, H, 1, hd), dt), randn(gen, (B, Hkv, S, hd), dt),
+                 randn(gen, (B, Hkv, S, hd), dt), valid) for _ in range(n_sets)]
         q, k, v, _ = sets[0]
         err = max_err(ops.decode_attention(q, k, v, valid),
                       ref.decode_attention_ref(q, k, v, valid), TOL["decode_attention"][dt])
-        b_ms, b_by = bound((2 * B * H * hd + 2 * B * H * vis * hd) * 2 + 4 * B,
+        b_ms, b_by = bound((2 * B * H * hd + 2 * B * Hkv * vis * hd) * 2 + 4 * B,
                            4 * B * H * vis * hd, dt, rate)
         ms, issue = time_ms(ops.decode_attention, sets, rounds, issue=True)
         device_ms, how = graph_ms(ops.decode_attention, sets)
-        plan = kd.plan_splits(B, H, S, hd, n_sm=n_sm)
+        plan = kd.plan_splits(B, Hkv, S, hd, H // Hkv, n_sm=n_sm)
         row.update({
-            f"{prefix}shape": f"q ({B}, {H}, 1, {hd}), cache ({B}, {H}, {S}, {hd}), "
+            f"{prefix}shape": f"q ({B}, {H}, 1, {hd}), cache ({B}, {Hkv}, {S}, {hd}), "
                               f"valid {vis}, bf16",
             f"{prefix}kernel_route": kd.route(q, k, v), f"{prefix}n_split": plan.n_split,
             f"{prefix}max_abs_err": err,
@@ -745,8 +929,8 @@ def check_decode_attention(gen, ops, ref, rate):
             f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
         })
         del sets, q, k, v
-    print(f"[kernels] decode_attention device ms: serve {row['device_ms']}, "
-          f"4096 {row['s4096_device_ms']}, 32768 {row['s32768_device_ms']}")
+    print(f"[kernels] decode_attention device ms "
+          f"{ {k: v for k, v in row.items() if k.endswith('device_ms')} }")
     return row
 
 
@@ -1589,14 +1773,20 @@ def check_ssd(gen, ops, ref, rate):
 def phase_full_width() -> None:
     """qwen1.5-0.5b in fp32: one decode_step on the card against the CPU."""
     from repro_torch.configs import ARCHS
+
+    decode_step_vs_cpu(dataclasses.replace(ARCHS[ARCH], dtype="float32"), "fp32")
+
+
+def decode_step_vs_cpu(cfg, label: str) -> None:
+    """One ``decode_step`` of the dense ``cfg`` at index 100 of a random cache of
+    CACHE_LEN slots, on the card against the same weights and cache on the CPU:
+    the logits and the cache within 2e-3, the same argmax."""
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
 
-    cfg = dataclasses.replace(ARCHS[ARCH], dtype="float32")
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     gen = torch.Generator().manual_seed(0)
-    p_cpu = cpu.init_params(gen)
-    p_gpu = PM.tree_map(lambda t: t.to("cuda"), p_cpu)
+    p_cpu, p_gpu = weights_on_both(gpu, 0)
     B, index = SERVE["requests"], 100
     c_cpu = PM.tree_map(lambda t: torch.randn(t.shape, generator=gen),
                         cpu.cache_layout(B, CACHE_LEN))
@@ -1614,8 +1804,18 @@ def phase_full_width() -> None:
         torch.testing.assert_close(c_gpu["layers"][name].cpu(), c_cpu["layers"][name],
                                    rtol=2e-3, atol=2e-3)
     err = float((got - want).abs().max())
-    print(f"[full-width] fp32 decode_step B={B} index={index}: max |logit diff| {err:.3e}, "
-          f"argmax equal")
+    print(f"[full-width] {cfg.arch} {label} decode_step B={B} index={index}: max |logit diff| "
+          f"{err:.3e}, argmax equal")
+
+
+def weights_on_both(gpu, seed: int):
+    """(CPU parameters, card parameters) of one draw from ``seed``: drawn on the
+    card, where a full-width model's billion draws take milliseconds (seconds
+    on the host), and copied to the CPU."""
+    from repro_torch.models import params as PM
+
+    p_gpu = gpu.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    return PM.tree_map(lambda t: t.cpu(), p_gpu), p_gpu
 
 
 def _loss_and_grads(model, params, batch):
@@ -1638,8 +1838,7 @@ def phase_full_width_grad() -> None:
     cfg = dataclasses.replace(ARCHS[ARCH], dtype="float32", n_layers=4)
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     gen = torch.Generator().manual_seed(1)
-    p_cpu = cpu.init_params(gen)
-    p_gpu = PM.tree_map(lambda t: t.to("cuda"), p_cpu)
+    p_cpu, p_gpu = weights_on_both(gpu, 1)
     toks = torch.randint(0, cfg.vocab, (2, 201), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     want, g_cpu = _loss_and_grads(cpu, p_cpu, batch)
@@ -1668,8 +1867,7 @@ def full_width_vs_cpu(cfg, seed: int, seq: int, label: str) -> None:
 
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     gen = torch.Generator().manual_seed(seed)
-    p_cpu = cpu.init_params(gen)
-    p_gpu = PM.tree_map(lambda t: t.to("cuda"), p_cpu)
+    p_cpu, p_gpu = weights_on_both(gpu, seed)
     toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     want, g_cpu = _loss_and_grads(cpu, p_cpu, batch)
@@ -1714,46 +1912,198 @@ def phase_hymba_full_width() -> None:
     full_width_vs_cpu(cfg, 3, 384, "fp32 4-layer Hymba")
 
 
-def phase_serve(kernel_modules) -> dict:
+def phase_qwen3_full_width() -> None:
+    """qwen3-4b at full width in fp32, cut to 4 layers: one ``decode_step``
+    against the CPU, then ``loss``, every gradient leaf and ``prefill`` on a
+    (1, 200) batch (hd 128 and q_norm / k_norm on every head)."""
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[QWEN3], dtype="float32", n_layers=4)
+    decode_step_vs_cpu(cfg, "fp32 4-layer")
+    full_width_vs_cpu(cfg, 4, 200, "fp32 4-layer qwen3-4b")
+
+
+def decode_steps_vs_cpu(cfg, seed: int, B: int, cache_len: int, start: int, steps: int,
+                        label: str, *, random_cache: bool):
+    """``steps`` decode steps of ``cfg`` (fp32) from index ``start``, on the card
+    and on the CPU with the same weights and the same cache (random, or the
+    model's zeros): the logits within 2e-3 at every step, the same argmax,
+    and every cache leaf at the end within 2e-3 of its largest entry.
+    Returns the card's model, parameters, the tokens fed and its last logits."""
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    gen = torch.Generator().manual_seed(seed)
+    p_cpu, p_gpu = weights_on_both(gpu, seed)
+    c_cpu = (PM.tree_map(lambda i: torch.randn(i.shape, generator=gen),
+                         cpu.cache_layout(B, cache_len))
+             if random_cache else cpu.init_cache(B, cache_len))
+    c_gpu = PM.tree_map(lambda t: t.to("cuda"), c_cpu)
+    toks = torch.randint(0, cfg.vocab, (B, steps), generator=gen)
+    worst = 0.0
+    for t in range(steps):
+        batch = {"tokens": toks[:, t:t + 1], "cache": c_cpu, "index": start + t}
+        want, _ = cpu.decode_step(p_cpu, batch)
+        got, _ = gpu.decode_step(p_gpu, {**batch, "tokens": toks[:, t:t + 1].cuda(),
+                                         "cache": c_gpu})
+        got_cpu = got.cpu()
+        if got.shape != (B, 1, cfg.vocab) or not torch.isfinite(got_cpu).all():
+            raise AssertionError(f"{label}: logits of shape {tuple(got.shape)} or not finite")
+        torch.testing.assert_close(got_cpu, want, rtol=2e-3, atol=2e-3)
+        if not torch.equal(got_cpu.argmax(-1), want.argmax(-1)):
+            raise AssertionError(f"{label} step {t}: greedy tokens differ from the CPU's")
+        worst = max(worst, float((got_cpu - want).abs().max()))
+    leaf_rel = max(rel_err(a.cpu(), b, 2e-3)[1]
+                   for a, b in zip(PM.tree_leaves(c_gpu), PM.tree_leaves(c_cpu)))
+    print(f"[full-width] {label}: {steps} decode steps from index {start}, max |logit diff| "
+          f"{worst:.3e}, argmax equal; cache leaves max |diff| / max |leaf| {leaf_rel:.3e}")
+    return gpu, p_gpu, toks, got
+
+
+def phase_hymba_decode_full_width() -> None:
+    """hymba-1.5b at full width in fp32, cut to 4 layers (global layers 0 and 3)
+    and a window of 64: 96 decode steps of 2 requests from index 128 (the meta
+    offset) on a random cache of 224 slots, so the ring of 64 slots wraps."""
+    from repro_torch.configs import ARCHS
+
+    full = ARCHS[HYMBA]
+    cfg = dataclasses.replace(full, dtype="float32", n_layers=4, hybrid=dataclasses.replace(
+        full.hybrid, global_layers=(0, 3), sliding_window=64))
+    start = full.hybrid.meta_tokens
+    decode_steps_vs_cpu(cfg, 5, 2, start + 96, start, 96, "fp32 4-layer Hymba",
+                        random_cache=True)
+
+
+def phase_xlstm_decode_full_width() -> None:
+    """xlstm-1.3b at full width in fp32, cut to 8 layers: 32 decode steps of 2
+    requests from the zero state against the CPU, and the last step's logits
+    within 2e-3 of the card's ``prefill`` of the same 32 tokens."""
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[XLSTM], dtype="float32", n_layers=8)
+    gpu, params, toks, last = decode_steps_vs_cpu(cfg, 6, 2, 32, 0, 32, "fp32 8-layer xLSTM",
+                                                  random_cache=False)
+    pre = gpu.prefill(params, {"tokens": toks.cuda()})
+    torch.testing.assert_close(last, pre, rtol=2e-3, atol=2e-3)
+    print(f"[full-width] fp32 8-layer xLSTM: decode after 32 tokens within "
+          f"{float((last - pre).abs().max()):.3e} of the card's prefill")
+
+
+def serve_small_vs_cpu(arch: str) -> None:
+    """``arch``'s smoke config in fp32 through ``launch.serve.main`` (4 prompts
+    of 16 tokens, 8 new), on the card and on the CPU: one seed names one
+    model on both, so the greedy tokens must be equal."""
     from repro_torch.launch import serve
 
-    small = ["--requests", "4", "--prompt-len", "16", "--new-tokens", "8", "--dtype", "float32"]
+    small = ["--arch", arch, "--requests", "4", "--prompt-len", "16", "--new-tokens", "8",
+             "--dtype", "float32"]
     on_cpu = serve.main(small + ["--device", "cpu"])["tokens"]
     on_gpu = serve.main(small + ["--device", "cuda"])["tokens"]
     if not (on_cpu == on_gpu).all():
-        raise AssertionError(f"small fp32 serve: card {on_gpu.tolist()} != cpu {on_cpu.tolist()}")
-    print("[serve] small fp32 serve: card tokens equal the CPU's")
+        raise AssertionError(f"small fp32 {arch} serve: card {on_gpu.tolist()} != cpu "
+                             f"{on_cpu.tolist()}")
+    print(f"[serve] small fp32 {arch} serve: card tokens equal the CPU's")
 
+
+def serve_run(kernel_modules, run: str) -> dict:
+    """One of ``SERVE_RUNS`` in bf16 at full config through
+    ``launch.serve.main``, with the launch counts set to 0 just before and
+    checked just after (launches per decode step times the steps, the routes
+    of ``SERVE_ROUTES``), every kernel launched at a shape its checks cover
+    (``launched_shapes``), no valid_len tensor made by the decode-attention
+    wrapper, the tokens in the config's vocabulary, and the run's peak device
+    memory."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.launch import serve
+
+    arch, requests, prompt_len, new_tokens, per_step = SERVE_RUNS[run]
     # the model hands every layer one int32 (B,) valid_len made once a step: the
     # wrapper then never makes one (no allocation, no fill launch a layer)
-    from repro_torch.kernels import decode_attention as kd
-
     made = []
     vector = kd.valid_len_vector
     kd.valid_len_vector = lambda *a: made.append(a[1:]) or vector(*a)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts(kernel_modules)
     try:
-        res = serve.main(["--full-config", "--device", "cuda", "--dtype", "bfloat16",
-                          "--requests", str(SERVE["requests"]),
-                          "--prompt-len", str(SERVE["prompt_len"]),
-                          "--new-tokens", str(SERVE["new_tokens"])])
+        with launched_shapes() as shapes:
+            res = serve.main(["--arch", arch, "--full-config", "--device", "cuda",
+                              "--dtype", "bfloat16", "--requests", str(requests),
+                              "--prompt-len", str(prompt_len), "--new-tokens", str(new_tokens)])
     finally:
         kd.valid_len_vector = vector
     counts, routes = read_counts(kernel_modules)
-    check_routes(routes, counts, SERVE_ROUTES, "serve")
+    peak = torch.cuda.max_memory_allocated()
+    covered = checked_shapes()
+    for kernel, seen in shapes.items():
+        if not seen <= covered[kernel]:
+            raise AssertionError(f"{run}: {kernel} launched at {sorted(seen - covered[kernel])}, "
+                                 "which no kernel check covers")
+    for module, n in counts.items():
+        if n != per_step.get(module, 0) * res["steps"]:
+            raise AssertionError(f"{module}: {n} launches in the {run} run, expected "
+                                 f"{per_step.get(module, 0)} x {res['steps']} steps")
+    check_routes(routes, counts, SERVE_ROUTES, run)
     if made:
         raise AssertionError(f"decode_attention made {len(made)} valid_len tensors in the "
-                             "serve run; the model passes one a step")
-    toks = res["tokens"]
-    if toks.shape != (SERVE["requests"], SERVE["new_tokens"]):
-        raise AssertionError(f"served tokens of shape {toks.shape}")
-    if toks.min() < 0 or toks.max() >= 151936:
-        raise AssertionError("served tokens outside the vocabulary")
-    print(f"[serve] launches {counts}, by route {routes}; {res['tokens_per_s']:.1f} tok/s, "
-          f"{res['ms_per_step']:.3f} ms per decode step")
-    return {"counts": counts, "routes": routes, "steps": res["steps"],
-            "tokens_per_s": res["tokens_per_s"],
-            "ms_per_step": res["ms_per_step"]}
+                             f"{run} run; the model passes one a step")
+    toks, vocab = res["tokens"], ARCHS[arch].vocab
+    if toks.shape != (requests, new_tokens):
+        raise AssertionError(f"{run}: served tokens of shape {toks.shape}")
+    if toks.min() < 0 or toks.max() >= vocab:
+        raise AssertionError(f"{run}: served tokens outside the vocabulary of {vocab}")
+    print(f"[{run}] {arch}: launches {counts}, by route {routes}; {res['tokens_per_s']:.1f} "
+          f"tok/s, {res['ms_per_step']:.3f} ms per decode step, peak {peak / 2**30:.3f} GiB")
+    return {"arch": arch, "requests": requests, "prompt_len": prompt_len,
+            "new_tokens": new_tokens, "counts": counts, "routes": routes,
+            "shapes": {k: sorted(v) for k, v in shapes.items()}, "steps": res["steps"],
+            "tokens_per_s": res["tokens_per_s"], "ms_per_step": res["ms_per_step"],
+            "peak_memory_bytes": peak}
+
+
+def mlstm_decode_times(rate: float) -> dict:
+    """Device ms of one plain mLSTM update (``models.xlstm.mlstm_decode``) at
+    xlstm-1.3b's serving shape (8 requests, 4 heads, dqk 512, dv 1024, fp32
+    state, bf16 q, k, v and gates, as the model hands them) by CUDA-graph replay over 6 states (384 MiB of C, so
+    the L2 cache is cold as in the model's walk over its layers), its bound
+    (C read and written once) and the 42 calls of a decode step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.models.xlstm import mlstm_decode
+
+    cfg = ARCHS[XLSTM]
+    model = build_model(cfg, device="cuda")
+    B, H, dqk, dv = SERVE_RUNS["serve_xlstm"][1], model.H, model.dqk, model.dv
+    gen = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+    sets = [(randn(gen, (B, H, dqk), bf), randn(gen, (B, H, dqk), bf),
+             randn(gen, (B, H, dv), bf), randn(gen, (B, H), bf),
+             (-torch.rand((B, H), generator=gen)).to("cuda", bf),
+             (torch.zeros((B, H, dqk, dv), device="cuda"), torch.zeros((B, H, dqk), device="cuda"),
+              torch.zeros((B, H), device="cuda"))) for _ in range(6)]
+    ms, how = graph_ms(mlstm_decode, sets)
+    blocks = cfg.n_layers - cfg.n_layers // cfg.ssm.slstm_every
+    b_ms, b_by = bound(2 * B * H * dqk * dv * 4, 4 * B * H * dqk * dv, torch.float32, rate)
+    return {"mlstm_decode_shape": f"C ({B}, {H}, {dqk}, {dv}) fp32",
+            "mlstm_decode_device_ms": ms, "mlstm_decode_device_ms_from": how,
+            "mlstm_decode_bound_ms": b_ms, "mlstm_decode_bound_by": b_by,
+            "mlstm_decode_calls_per_step": blocks,
+            "mlstm_decode_device_ms_per_step": ms * blocks}
+
+
+def phase_serve(kernel_modules, rate: float) -> dict:
+    """The small fp32 serves against the CPU, then every run of ``SERVE_RUNS``;
+    xlstm-1.3b's also with the plain mLSTM update's device time."""
+    for arch in (ARCH, HYMBA, XLSTM):
+        serve_small_vs_cpu(arch)
+    runs = {run: serve_run(kernel_modules, run) for run in SERVE_RUNS}
+    runs["serve_xlstm"].update(mlstm_decode_times(rate))
+    print(f"[serve_xlstm] plain mLSTM update: {runs['serve_xlstm']['mlstm_decode_device_ms']} "
+          f"ms a call by graph replay, bound {runs['serve_xlstm']['mlstm_decode_bound_ms']}")
+    return runs
 
 
 def phase_train(kernel_modules) -> dict:
@@ -1961,26 +2311,24 @@ def xlstm_block_ms(model, params, B, S) -> dict:
     return out
 
 
-#: kernel -> (what it replaces, source, launches per serving decode step)
+#: kernel -> (what it replaces, source)
 REPLACES = {
-    "rmsnorm": ("src/repro/kernels/rmsnorm.py:19", "csrc/rmsnorm.cu", 2 * 24 + 1),
-    "swiglu_mlp": ("src/repro/kernels/swiglu.py:20", "csrc/swiglu.cu", 24),
-    "decode_attention": ("src/repro/kernels/decode_attention.py:30",
-                         "csrc/decode_attention.cu", 24),
-    "flash_attention": ("src/repro/kernels/flash_attention.py:33",
-                        "csrc/flash_attention.cu", 0),
+    "rmsnorm": ("src/repro/kernels/rmsnorm.py:19", "csrc/rmsnorm.cu"),
+    "swiglu_mlp": ("src/repro/kernels/swiglu.py:20", "csrc/swiglu.cu"),
+    "decode_attention": ("src/repro/kernels/decode_attention.py:30", "csrc/decode_attention.cu"),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:33", "csrc/flash_attention.cu"),
     "flash_attention_bwd": ("XLA autodiff of src/repro/models/layers.py:101 "
-                            "blockwise_attention", "csrc/flash_attention_bwd.cu", 0),
+                            "blockwise_attention", "csrc/flash_attention_bwd.cu"),
     "rmsnorm_bwd": ("XLA autodiff of src/repro/models/layers.py:31 rms_norm",
-                    "csrc/rmsnorm_bwd.cu", 0),
+                    "csrc/rmsnorm_bwd.cu"),
     "swiglu_mlp_bwd": ("XLA autodiff of src/repro/models/layers.py:240 swiglu",
-                       "csrc/swiglu_bwd.cu", 0),
-    "mlstm_scan": ("src/repro/kernels/mlstm_scan.py:25", "csrc/mlstm_scan.cu", 0),
+                       "csrc/swiglu_bwd.cu"),
+    "mlstm_scan": ("src/repro/kernels/mlstm_scan.py:25", "csrc/mlstm_scan.cu"),
     "mlstm_scan_bwd": ("XLA autodiff of src/repro/models/xlstm.py:36 mlstm_chunked",
-                       "csrc/mlstm_scan_bwd.cu", 0),
-    "ssd_scan": ("src/repro/kernels/ssd_scan.py:27", "csrc/ssd_scan.cu", 0),
+                       "csrc/mlstm_scan_bwd.cu"),
+    "ssd_scan": ("src/repro/kernels/ssd_scan.py:27", "csrc/ssd_scan.cu"),
     "ssd_scan_bwd": ("XLA autodiff of src/repro/models/hymba.py:126 ssd_scan",
-                     "csrc/ssd_scan_bwd.cu", 0),
+                     "csrc/ssd_scan_bwd.cu"),
 }
 MODULE_OF = {"rmsnorm": "rmsnorm", "swiglu_mlp": "swiglu", "decode_attention": "decode_attention",
              "flash_attention": "flash_attention", "flash_attention_bwd": "flash_attention_bwd",
@@ -1995,10 +2343,24 @@ MAIN_RUN = {"rmsnorm": "serve", "swiglu_mlp": "serve", "decode_attention": "serv
             "ssd_scan_bwd": "train_hymba"}
 
 
-#: kernel checks that ``--only NAME`` runs alone after the card and the build
-#: phases, printing their rows and no result line
+def decode_phases() -> None:
+    """The fp32 decode checks of this slice's models against the CPU."""
+    phase_qwen3_full_width()
+    phase_hymba_decode_full_width()
+    phase_xlstm_decode_full_width()
+
+
+def only_serve(gen, ops, ref, rate) -> list:
+    from repro_torch.kernels import KERNEL_MODULES
+
+    decode_phases()
+    return [{run: res} for run, res in phase_serve(KERNEL_MODULES, rate).items()]
+
+
+#: checks that ``--only NAME`` runs alone after the card and the build phases,
+#: printing their rows and no result line
 ONLY = {"mlstm": check_mlstm, "ssd": check_ssd,
-        "decode": lambda *a: (check_decode_attention(*a),)}
+        "decode": lambda *a: (check_decode_attention(*a),), "serve": only_serve}
 
 
 def main(argv: list[str]) -> None:
@@ -2031,8 +2393,10 @@ def main(argv: list[str]) -> None:
     phase_full_width_grad()
     phase_xlstm_full_width()
     phase_hymba_full_width()
+    decode_phases()
     print(f"[full-width] done at {time.perf_counter() - t0:.1f} s")
-    runs = {"serve": phase_serve(KERNEL_MODULES)}
+    runs = phase_serve(KERNEL_MODULES, rate)
+    print(f"[serve] done at {time.perf_counter() - t0:.1f} s")
     runs["train"] = phase_train(KERNEL_MODULES)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2042,13 +2406,9 @@ def main(argv: list[str]) -> None:
     runs["train_hymba"] = phase_train_hymba(KERNEL_MODULES)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
-    served = runs["serve"]
     for row in rows.values():
-        replaces, src, per_step = REPLACES[row["name"]]
+        replaces, src = REPLACES[row["name"]]
         module = MODULE_OF[row["name"]]
-        if served["counts"][module] != per_step * served["steps"]:
-            raise AssertionError(f"{row['name']}: {served['counts'][module]} launches in the "
-                                 f"serve run, expected {per_step} x {served['steps']} steps")
         main_run = MAIN_RUN[row["name"]]
         for run, res in runs.items():
             if run != main_run:
@@ -2057,9 +2417,8 @@ def main(argv: list[str]) -> None:
                    launches=runs[main_run]["counts"][module], launches_from=main_run)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"serve": {k: served[k] for k in ("tokens_per_s", "ms_per_step", "steps")}}))
-    for run in ("train", "train_xlstm", "train_hymba"):
-        print(json.dumps({run: runs[run]}))
+    for run, res in runs.items():
+        print(json.dumps({run: res}))
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: v for k, v in r.items() if k not in keys}}
                                   for r in rows.values()]}))

@@ -3,10 +3,13 @@
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b [--full-config] \\
         [--device cuda|cpu] [--dtype bfloat16|float32]
 
-The port of ``repro.launch.serve``.  The model runs from a seeded random
-init; prompts are items of the corpus the JAX launcher stripes into the Hoard
-cache (:mod:`repro_torch.data.tokens`), so both launchers read the same
-prompts.  ``main`` returns the generated tokens and timings as a dict.
+The port of ``repro.launch.serve``, for every arch of ``configs.ARCHS``: the
+dense decoders, ``hymba-1.5b`` and ``xlstm-1.3b``.  The model runs from a
+seeded random init drawn on the host (one ``--seed`` gives one model on the
+card and on the CPU); prompts are items of the corpus the JAX launcher
+stripes into the Hoard cache (:mod:`repro_torch.data.tokens`), so both
+launchers read the same prompts.
+``main`` returns the generated tokens and timings as a dict.
 """
 
 from __future__ import annotations

@@ -1,15 +1,16 @@
 """Where a serving decode step spends its time on the card.
 
-    python -m repro_torch.launch.trace_serve [--steps 16] [--trace out.json]
+    python -m repro_torch.launch.trace_serve [--arch hymba-1.5b] [--steps 16] [--trace out.json]
 
-Builds qwen1.5-0.5b at full width in bf16 from a seeded init, warms a KV
-cache of the serving shape (8 requests, prompt 128, cache 168) and runs
-``--steps`` decode steps twice: once untraced, timed on the host clock around
-work that ends in a synchronize, and once under ``torch.profiler``.  From the
-trace it prints the device's busy time per step (the sum of kernel durations;
-one stream, so kernels do not overlap), its idle share of the traced wall
-time, the kernel launches per step, the time by kernel group and the
-kernels by device time.  Needs a CUDA card.
+Builds ``--arch`` (qwen1.5-0.5b by default; any arch the port serves) at
+full width in bf16 from a seeded init, warms its cache at the serving shape
+(8 requests, prompt 128) and runs ``--steps`` decode steps twice: once
+untraced, timed on the host clock around work that ends in a synchronize,
+and once under ``torch.profiler``.  From the trace it prints the device's
+busy time per step (the sum of kernel durations; one stream, so kernels do
+not overlap), its idle share of the traced wall time, the kernel launches
+per step, the time by kernel group and the kernels by device time.  Needs
+a CUDA card.
 """
 
 from __future__ import annotations

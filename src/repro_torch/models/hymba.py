@@ -1,12 +1,12 @@
 """Hymba: parallel attention + Mamba (SSM) heads in every block.
 
-The port of ``repro.models.hymba.Hymba``'s full-sequence path (``loss`` and
-``prefill``).  Parameters are a nested dict with the JAX layout
-(``params.params_from_jax`` carries a JAX tree over unchanged): the top level
-holds ``embed``, ``meta`` (the meta tokens), ``final_ln``, an untied
-``lm_head``, one block per global layer (``global_i``) and the stacked runs
-of sliding-window blocks between them (``swa_i``), split once with
-``unbind``.  A run may hold no block (the smoke config's ``swa_0``); its
+The port of ``repro.models.hymba.Hymba``: the full-sequence path (``loss``
+and ``prefill``) and decoding (``decode_step``).  Parameters are a nested
+dict with the JAX layout (``params.params_from_jax`` carries a JAX tree over
+unchanged): the top level holds ``embed``, ``meta`` (the meta tokens),
+``final_ln``, an untied ``lm_head``, one block per global layer
+(``global_i``) and the stacked runs of sliding-window blocks between them
+(``swa_i``), split once with ``unbind``.  A run may hold no block (the smoke config's ``swa_0``); its
 zero-size leaves then take no part in the loss.
 
 Per block both paths see the same normed input: windowed (or, in the global
@@ -17,8 +17,17 @@ The two outputs are RMS-normed and averaged before the output projection.
 The meta tokens are prepended to every sequence and count as positions for
 RoPE and the window, as in the JAX model.  ``jax.checkpoint`` around each
 block (``cfg.remat``) changes memory, not values, and is not ported.
-Decoding (the ring-buffer KV cache and the stepped SSM state) comes with the
-Hymba decode slice.
+
+Decoding keeps, per block, a KV cache (a full one of ``seq`` slots in the
+global layers, a ring buffer of ``min(window, seq)`` slots in the
+sliding-window ones, whose window is that ring: attention over it needs no
+window of its own), the conv tail of the last ``W - 1`` inputs and the fp32
+SSM state.  ``decode_step`` updates them IN PLACE and returns the same cache
+object.  Attention goes through the decode-attention kernel, every norm
+through the rmsnorm kernel and the MLP through the SwiGLU kernel; the SSM
+step is plain PyTorch, with the JAX model's roundings.  As in JAX, the
+token's ``index`` is used as given, for RoPE and for the slot: an offset for
+the meta tokens is the caller's (the serving engine applies none).
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops
 from . import params as PM
-from .layers import blockwise_attention, causal_conv, rms_norm, rope, swiglu
+from .layers import (blockwise_attention, cache_slot, causal_conv, decode_attention, rms_norm,
+                     rope, swiglu)
 
 
 def ssd_scan(lf, b_in, x_in, c_out, *, chunk: int):
@@ -211,13 +221,108 @@ class Hymba(nn.Module):
         return (h[:, -1:] @ params["lm_head"]).float()
 
     # -------------------------------------------------------------- decode
-    def _decode_not_ported(self) -> NotImplementedError:
-        return NotImplementedError(
-            f"{self.cfg.arch}: Hymba decoding (the ring-buffer KV cache and the stepped SSM "
-            "state) comes with the Hymba decode slice")
-
     def cache_layout(self, batch: int, seq: int) -> dict:
-        raise self._decode_not_ported()
+        """Per block: ``k``, ``v`` (B, Hkv, slots, hd) and ``conv`` (B, W - 1, ed)
+        in the model dtype, ``ssm`` (B, n_ssm_heads, ed / n_ssm_heads, N) in
+        fp32; ``seq`` slots in the global blocks, ``min(window, seq)`` in the
+        stacked sliding-window runs."""
+        cfg = self.cfg
+        Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        nsh = self.n_ssm_heads
 
+        def kv(S):
+            return {
+                "k": PM.ParamInfo((batch, Hkv, S, hd), "zeros"),
+                "v": PM.ParamInfo((batch, Hkv, S, hd), "zeros"),
+                "conv": PM.ParamInfo((batch, cfg.ssm.conv_width - 1, self.ed), "zeros"),
+                "ssm": PM.ParamInfo((batch, nsh, self.ed // nsh, self.N), "zeros",
+                                    dtype="float32"),
+            }
+
+        lay: dict[str, Any] = {f"global_{i}": kv(seq) for i in range(self.n_global)}
+        for i, run in enumerate(self.swa_runs):
+            lay[f"swa_{i}"] = PM.stack(run, kv(min(cfg.hybrid.sliding_window, seq)))
+        return lay
+
+    def init_cache(self, batch: int, seq: int) -> dict:
+        return PM.zeros_cache(self.cache_layout(batch, seq), device=self.device, dtype=self.dtype)
+
+    def _ssm_step(self, p, h, c):
+        """One step of the selective scan (``_ssm_path`` with ``state``,
+        ``hymba.py:263``).  h: (B, 1, D) normed input; ``c``'s ``conv`` and
+        ``ssm`` are updated in place.  Returns (B, 1, H * hd)."""
+        B = h.shape[0]
+        N, nsh = self.N, self.n_ssm_heads
+        x_in, z = (h @ p["w_in"]).chunk(2, dim=-1)
+        conv_in = torch.cat([c["conv"], x_in], dim=1)                  # (B, W, ed)
+        c["conv"].copy_(conv_in[:, 1:])
+        W = p["conv"].shape[0]
+        xc = F.silu(sum(conv_in[:, i:i + 1] * p["conv"][i] for i in range(W)))
+        bc = (xc @ p["w_bc"]).view(B, nsh, 2, N)
+        dt = F.softplus(xc @ p["w_dt"] + p["b_dt"]).view(B, nsh)      # model dtype
+        a_t = torch.exp(dt * -torch.exp(p["a_log"].float()))           # fp32 decay
+        bx_in = dt[..., None] * bc[:, :, 0]                             # (B, nsh, N)
+        outer = xc.view(B, nsh, self.ed // nsh, 1) * bx_in[:, :, None]  # model dtype
+        state = c["ssm"].mul_(a_t[..., None, None]).add_(outer.float())
+        y = (state @ bc[:, :, 1].float()[..., None]).view(B, 1, self.ed)
+        y = y.to(h.dtype) + xc * p["d_skip"]
+        return (y * F.silu(z)) @ p["ssm_proj"]
+
+    def _decode_block(self, p, x, c, slot: int, pos, valid):
+        """One token through a block; writes ``slot`` of its KV cache and its
+        SSM state in place.  ``pos``: the token's position, a (1,) int64
+        tensor; ``valid``: the visible slots, an int32 (B,) tensor; both on the
+        model's device and made once a step for every block."""
+        cfg = self.cfg
+        B = x.shape[0]
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        q = rope((h @ p["wq"]).view(B, H, 1, hd), pos, cfg.rope_theta)
+        k = rope((h @ p["wk"]).view(B, Hkv, 1, hd), pos, cfg.rope_theta)
+        c["k"][:, :, slot] = k[:, :, 0]
+        c["v"][:, :, slot] = (h @ p["wv"]).view(B, Hkv, hd)
+        attn = decode_attention(q, c["k"], c["v"], valid, window=0).view(B, 1, H * hd)
+        ssm = self._ssm_step(p, h, c)
+        fused = 0.5 * (rms_norm(attn, p["attn_ln"], cfg.norm_eps)
+                       + rms_norm(ssm, p["ssm_ln"], cfg.norm_eps))
+        x = x + fused @ p["wo"]
+        hm = rms_norm(x, p["mlp_ln"], cfg.norm_eps)
+        return x + swiglu(hm, p["w_gate"], p["w_up"], p["w_down"])
+
+    @torch.no_grad()
     def decode_step(self, params, batch):
-        raise self._decode_not_ported()
+        """One new token given a warm cache.
+
+        batch: ``tokens`` (B, 1) integer tensor, ``cache`` from
+        :meth:`init_cache`, ``index`` the int position of the new token, used
+        as given (no meta-token offset).  Returns ``(logits (B, 1, vocab) fp32,
+        cache)``; the cache is updated in place.  An ``index`` past the global
+        layers' cache raises ``IndexError``.
+        """
+        cfg = self.cfg
+        tokens, cache, index = batch["tokens"], batch["cache"], int(batch["index"])
+        win = cfg.hybrid.sliding_window
+        x = params["embed"][tokens].to(self.dtype)
+        B = x.shape[0]
+        # one position and one valid-length tensor a step for each cache length,
+        # filled on the device and handed to every block
+        pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
+        valid: dict[int, torch.Tensor] = {}
+
+        def plan(S: int, window: int):
+            slot, n_valid = cache_slot(index, S, window)
+            if S not in valid:
+                valid[S] = torch.full((B,), n_valid, dtype=torch.int32, device=x.device)
+            return slot, valid[S]
+
+        for i, (g, run) in enumerate(self._segments(params)):
+            c = cache[f"global_{i}"]
+            slot, vl = plan(c["k"].shape[2], 0)
+            x = self._decode_block(g, x, c, slot, pos, vl)
+            if run:
+                cs = cache[f"swa_{i}"]
+                slot, vl = plan(cs["k"].shape[3], win)
+                for j, p in enumerate(run):
+                    x = self._decode_block(p, x, {n: t[j] for n, t in cs.items()}, slot, pos, vl)
+        h = rms_norm(x, params["final_ln"], cfg.norm_eps)
+        return (h @ params["lm_head"]).float(), cache

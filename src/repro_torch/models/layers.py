@@ -1,5 +1,5 @@
-"""Shared model primitives: norm, RoPE, blockwise and decode attention, MLP,
-causal depthwise convolution.
+"""Shared model primitives: norm, RoPE, blockwise and decode attention, the
+decode cache's slot rule, MLP, causal depthwise convolution.
 
 ``rms_norm``, ``blockwise_attention``, ``decode_attention`` and ``swiglu`` go
 through :mod:`repro_torch.kernels.ops`: the hand-written kernels on the
@@ -56,6 +56,22 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):
     number of valid cache positions (the new token lives at valid_len - 1).
     """
     return ops.decode_attention(q, k_cache, v_cache, valid_len, window=window)
+
+
+def cache_slot(index: int, S_cache: int, window: int) -> tuple[int, int]:
+    """(the slot the token at ``index`` is written to, the slots visible to it).
+
+    With a window the cache is a ring buffer of ``S_cache`` slots: slot
+    ``index % S_cache``, all slots visible once warm (the rule of the JAX
+    models, ``hymba.py`` ``_decode_block``).  Without one, ``index`` past the
+    cache's end raises ``IndexError``, where JAX's ``dynamic_update_slice``
+    clamps it to the last slot.
+    """
+    if window:
+        return index % S_cache, min(index + 1, S_cache)
+    if index < S_cache:
+        return index, index + 1
+    raise IndexError(f"decode index {index} past the cache length {S_cache}")
 
 
 def swiglu(x, w_gate, w_up, w_down):

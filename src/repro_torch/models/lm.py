@@ -24,7 +24,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from . import params as PM
-from .layers import blockwise_attention, decode_attention, rms_norm, rope, swiglu
+from .layers import blockwise_attention, cache_slot, decode_attention, rms_norm, rope, swiglu
 
 
 def _attn_layout(cfg: ModelConfig) -> dict:
@@ -125,12 +125,13 @@ class DecoderLM(nn.Module):
         v = h @ p["wv"]
         if cfg.qkv_bias:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        q = q.view(B, S, H, hd).transpose(1, 2)
-        k = k.view(B, S, Hkv, hd).transpose(1, 2)
-        v = v.view(B, S, Hkv, hd).transpose(1, 2)
+        q, k, v = q.view(B, S, H, hd), k.view(B, S, Hkv, hd), v.view(B, S, Hkv, hd)
         if cfg.qk_norm:
+            # per head row, so before the transpose: the kernel takes the rows
+            # as they lie, with no copy
             q = rms_norm(q, p["q_norm"], cfg.norm_eps)
             k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if cfg.rope_theta:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -152,16 +153,6 @@ class DecoderLM(nn.Module):
     def _mlp(self, p, x):
         h = rms_norm(x, p["ln"], self.cfg.norm_eps)
         return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-
-    @staticmethod
-    def _cache_slot(index: int, S_cache: int, window: int) -> tuple[int, int]:
-        """(the slot the token at ``index`` is written to, the slots visible to it)."""
-        if window:
-            # ring buffer: all S_eff slots valid once warm; positions rotate
-            return index % S_cache, min(index + 1, S_cache)
-        if index < S_cache:
-            return index, index + 1
-        raise IndexError(f"decode index {index} past the cache length {S_cache}")
 
     def _decode_attn(self, p, x, k_cache, v_cache, slot: int, pos, valid):
         """One-token attention; writes ``slot`` of this layer's cache in place.
@@ -233,7 +224,7 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         tokens, cache, index = batch["tokens"], batch["cache"], int(batch["index"])
         lp, lc = params["layers"], cache["layers"]
-        slot, n_valid = self._cache_slot(index, lc["k"].shape[3], cfg.sliding_window)
+        slot, n_valid = cache_slot(index, lc["k"].shape[3], cfg.sliding_window)
         x = self.embed(params, tokens)
         # fills on the device, not copies from the host that would wait for it
         pos = torch.full((1,), index, dtype=torch.int64, device=x.device)

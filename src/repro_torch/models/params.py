@@ -1,7 +1,8 @@
 """Parameter layout: one declarative tree yields init, caches and JAX import.
 
 A model describes its parameters as a nested dict of :class:`ParamInfo`
-(shape + initializer), the JAX package's layout without its sharding specs.
+(shape, initializer and, where it differs from the model's, a dtype), the
+JAX package's layout without its sharding specs.
 Weights are ``(in, out)`` and applied as ``x @ W``; stacked layers carry a
 leading layer axis (:func:`stack`).  With the same layout on both sides, a JAX
 parameter tree carries over leaf by leaf with no transpose
@@ -12,6 +13,9 @@ Trees are walked in sorted-key order, the order of ``jax.tree.flatten``.
 
 from __future__ import annotations
 
+import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional
 
@@ -19,6 +23,9 @@ import numpy as np
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: elements drawn from one seed on the host: a larger leaf is drawn in slices
+#: of this many, each from its own seed, on parallel threads
+DRAW_SLICE = 1 << 22
 
 
 @dataclass(frozen=True)
@@ -26,6 +33,7 @@ class ParamInfo:
     shape: tuple[int, ...]
     init: str = "normal"           # normal | zeros | ones | small
     scale: Optional[float] = None  # stddev override; default 1/sqrt(fan_in)
+    dtype: Optional[str] = None    # overrides the model dtype (fp32 state in a bf16 cache)
 
 
 def as_dtype(dtype: str | torch.dtype) -> torch.dtype:
@@ -54,7 +62,35 @@ def stack(n: int, layout):
     return tree_map(lambda i: replace(i, shape=(n, *i.shape)), layout)
 
 
+@functools.lru_cache(maxsize=1)
+def _draw_pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(max_workers=os.cpu_count() or 1)
+
+
+def _host_normal(shape, generator: torch.Generator, std: float, dtype) -> torch.Tensor:
+    """normal * ``std`` of ``shape`` in ``dtype`` on the host, from one seed taken
+    from ``generator``: slice ``i`` of :data:`DRAW_SLICE` elements is drawn
+    from seed + i, in fp32 and scaled before the cast, so the values do not
+    depend on how many threads draw them."""
+    seed = int(torch.randint(0, 1 << 62, (), generator=generator))
+    out = torch.empty(shape, dtype=dtype)
+    flat = out.view(-1)
+
+    def fill(start: int) -> None:
+        part = flat[start:start + DRAW_SLICE]
+        g = torch.Generator().manual_seed(seed + start // DRAW_SLICE)
+        part.copy_(torch.randn(part.numel(), generator=g).mul_(std))
+
+    starts = range(0, flat.numel(), DRAW_SLICE)
+    if len(starts) > 1:
+        list(_draw_pool().map(fill, starts))
+    elif starts:
+        fill(0)
+    return out
+
+
 def _init_leaf(info: ParamInfo, generator: torch.Generator, device, dtype) -> torch.Tensor:
+    dtype = as_dtype(info.dtype or dtype)
     if info.init == "zeros":
         return torch.zeros(info.shape, dtype=dtype, device=device)
     if info.init == "ones":
@@ -63,6 +99,8 @@ def _init_leaf(info: ParamInfo, generator: torch.Generator, device, dtype) -> to
     std = info.scale if info.scale is not None else fan_in ** -0.5
     if info.init == "small":
         std = 0.02
+    if generator.device.type == "cpu":
+        return _host_normal(info.shape, generator, std, dtype).to(device)
     draw = torch.randn(info.shape, generator=generator, dtype=torch.float32,
                        device=generator.device)
     return (draw * std).to(device=device, dtype=dtype)
@@ -71,16 +109,18 @@ def _init_leaf(info: ParamInfo, generator: torch.Generator, device, dtype) -> to
 def init_params(layout, generator: torch.Generator, *, device, dtype) -> dict:
     """Random parameters by the JAX package's rules (``params.py`` ``_init_leaf``):
     normal * fan_in**-0.5 unless ``scale`` overrides, ones or zeros where the
-    layout says so.  Leaves are drawn in sorted-key order from ``generator``,
-    so one seed gives one model on any device."""
-    dt = as_dtype(dtype)
-    return tree_map(lambda i: _init_leaf(i, generator, device, dt), layout)
+    layout says so, each leaf in ``info.dtype or dtype``.  Leaves take their
+    draws in sorted-key order from ``generator``.  A host generator gives each
+    leaf a seed and draws it on the host (:func:`_host_normal`, in parallel
+    slices), so one seed gives one model on any device; a generator on the
+    card draws there, with the card's own numbers."""
+    return tree_map(lambda i: _init_leaf(i, generator, device, dtype), layout)
 
 
 def zeros_cache(layout, *, device, dtype) -> dict:
-    """A zero-filled cache for a cache layout."""
-    dt = as_dtype(dtype)
-    return tree_map(lambda i: torch.zeros(i.shape, dtype=dt, device=device), layout)
+    """A zero-filled cache for a cache layout, each leaf in ``info.dtype or dtype``."""
+    return tree_map(lambda i: torch.zeros(i.shape, dtype=as_dtype(i.dtype or dtype),
+                                          device=device), layout)
 
 
 def _tensor_from_numpy(a, *, device, dtype=None) -> torch.Tensor:
@@ -108,10 +148,22 @@ def params_from_jax(tree, *, device, dtype) -> dict:
     return tree_map(lambda a: _tensor_from_numpy(a, device=device, dtype=dtype), tree)
 
 
-def cache_from_jax(tree, *, device, dtype) -> dict:
-    """Carry a JAX decode cache (``(n, B, Hkv, S, hd)`` numpy leaves) into the port."""
-    for leaf in tree_leaves(tree):
-        if np.ndim(leaf) != 5:
-            raise ValueError(f"cache leaf of shape {np.shape(leaf)}, expected (n, B, Hkv, S, hd)")
-    return params_from_jax(tree, device=device, dtype=dtype)
+def cache_from_jax(tree, layout, *, device, dtype) -> dict:
+    """Carry a JAX decode cache tree (numpy leaves of any rank) into the port.
+
+    ``layout`` is the model's ``cache_layout`` for the same batch and length:
+    the tree must have its keys and each leaf its shape.  Each leaf is cast to
+    ``info.dtype or dtype``, so an fp32 state leaf stays fp32 beside a bf16 KV
+    cache, as ``zeros_cache`` makes it.
+    """
+    if isinstance(layout, ParamInfo):
+        if np.shape(tree) != tuple(layout.shape):
+            raise ValueError(f"cache leaf of shape {np.shape(tree)}, the layout says "
+                             f"{tuple(layout.shape)}")
+        return _tensor_from_numpy(tree, device=device, dtype=layout.dtype or dtype)
+    if not isinstance(tree, dict) or sorted(tree) != sorted(layout):
+        raise ValueError(f"cache keys {sorted(tree) if isinstance(tree, dict) else tree!r}, "
+                         f"the layout says {sorted(layout)}")
+    return {k: cache_from_jax(tree[k], layout[k], device=device, dtype=dtype)
+            for k in sorted(layout)}
 

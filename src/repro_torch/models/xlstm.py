@@ -1,8 +1,8 @@
 """xLSTM: mLSTM (matrix memory, chunkwise-parallel) + sLSTM (scalar, stepped).
 
-The port of ``repro.models.xlstm.XLSTM``'s training path.  Parameters are a
-nested dict with the JAX layout (``params.params_from_jax`` carries a JAX
-tree over unchanged).  The stack is ``n_layers // slstm_every`` groups of
+The port of ``repro.models.xlstm.XLSTM``: the training path and decoding.
+Parameters are a nested dict with the JAX layout (``params.params_from_jax``
+carries a JAX tree over unchanged).  The stack is ``n_layers // slstm_every`` groups of
 ``slstm_every - 1`` mLSTM blocks and one sLSTM block; the stacked ``groups``
 leaves are split once with ``unbind``, whose backward stacks the blocks'
 gradients into one leaf of the stacked shape again.
@@ -13,8 +13,15 @@ the CPU.  The sLSTM recurrence is a true time loop that the JAX package runs
 with ``lax.scan`` and no Pallas kernel; here it is a Python loop over the
 sequence of the fp32 step.  Its post-FFN is the ``swiglu`` function, so it
 runs the SwiGLU kernel.  ``jax.checkpoint`` around each block (``cfg.remat``)
-changes memory, not values, and is not ported.  Decoding (``mlstm_decode``,
-the sLSTM step with a cache) comes with the xLSTM decode slice.
+changes memory, not values, and is not ported.
+
+Decoding carries the recurrent state in the cache, O(1) in the sequence:
+per mLSTM block C, n and m (fp32) and the conv tail (the model dtype), per
+sLSTM block c, n, m and h (fp32), all starting at zero as in JAX (m too:
+the stabiliser cancels from h).  ``decode_step`` updates them IN PLACE and
+returns the same cache object; :func:`mlstm_decode`, plain PyTorch as in JAX
+(no Pallas body), updates C where it lies.  Every norm goes through the
+rmsnorm kernel and the sLSTM post-FFN through the SwiGLU kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +37,34 @@ from . import params as PM
 from .layers import causal_conv, rms_norm, swiglu
 
 _NEG = -1e30
+
+
+def mlstm_decode(q, k, v, i_raw, log_f, state):
+    """Single-token mLSTM update (``xlstm.py:97``).  q, k: (B, H, dqk); v: (B,
+    H, dv); gates (B, H); ``state``: fp32 ``(C (B, H, dqk, dv), n (B, H, dqk),
+    m (B, H))``, updated IN PLACE.  Returns ``(h (B, H, dv) fp32, state)``.
+
+    Three kernels touch C, and none makes a temporary of its size: C scaled
+    by the forget gate, the rank-1 ``(i k) v^T`` added by a batched
+    ``baddbmm_``, then read by ``q C``.  JAX forms ``i (k v^T)`` instead, so the sums round in another
+    order (within 1e-4 of it).
+    """
+    C, n, m = state
+    B, H, dqk = q.shape
+    dv = v.shape[-1]
+    q = q.float() * dqk ** -0.5
+    k, v = k.float(), v.float()
+    m_new = torch.maximum(log_f + m, i_raw)
+    f_s = torch.exp(log_f + m - m_new)
+    i_s = torch.exp(i_raw - m_new)
+    C.mul_(f_s[..., None, None])
+    C.view(B * H, dqk, dv).baddbmm_((i_s[..., None] * k).view(B * H, dqk, 1),
+                                    v.view(B * H, 1, dv))
+    n.mul_(f_s[..., None]).add_(i_s[..., None] * k)
+    m.copy_(m_new)
+    num = torch.bmm(q.view(B * H, 1, dqk), C.view(B * H, dqk, dv)).view(B, H, dv)
+    den = torch.maximum((q * n).sum(-1).abs(), torch.exp(-m_new))
+    return num / den[..., None], state
 
 
 class XLSTM(nn.Module):
@@ -204,13 +239,83 @@ class XLSTM(nn.Module):
         return (h[:, -1:] @ params["lm_head"]).float()
 
     # -------------------------------------------------------------- decode
-    def _decode_not_ported(self) -> NotImplementedError:
-        return NotImplementedError(
-            f"{self.cfg.arch}: xLSTM decoding (the recurrent-state cache, mlstm_decode and "
-            "the sLSTM step) comes with the xLSTM decode slice")
-
     def cache_layout(self, batch: int, seq: int) -> dict:
-        raise self._decode_not_ported()
+        """The recurrent state, O(1) in ``seq``: per mLSTM block ``C`` (B, H,
+        dqk, dv), ``n`` (B, H, dqk) and ``m`` (B, H) in fp32 and ``conv`` (B,
+        W - 1, ed) in the model dtype; per sLSTM block ``c``, ``n``, ``m``, ``h``
+        (B, heads, head dim) in fp32; stacked as the parameters are."""
+        cfg = self.cfg
+        every = cfg.ssm.slstm_every
+        H, W = self.H, cfg.ssm.conv_width
+        f32 = dict(init="zeros", dtype="float32")
+        m_state = {
+            "C": PM.ParamInfo((batch, H, self.dqk, self.dv), **f32),
+            "n": PM.ParamInfo((batch, H, self.dqk), **f32),
+            "m": PM.ParamInfo((batch, H), **f32),
+            "conv": PM.ParamInfo((batch, W - 1, self.ed), "zeros"),
+        }
+        s_state = {name: PM.ParamInfo((batch, self.sh, self.sdh), **f32)
+                   for name in ("c", "n", "m", "h")}
+        return {"groups": PM.stack(cfg.n_layers // every,
+                                   {"mlstm": PM.stack(every - 1, m_state), "slstm": s_state})}
 
+    def init_cache(self, batch: int, seq: int) -> dict:
+        return PM.zeros_cache(self.cache_layout(batch, seq), device=self.device, dtype=self.dtype)
+
+    def _mlstm_decode_block(self, p, x, st):
+        cfg = self.cfg
+        B = x.shape[0]
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        x_in, z = (h @ p["w_up"]).chunk(2, dim=-1)                  # (B, 1, ed)
+        conv_in = torch.cat([st["conv"], x_in], dim=1)
+        st["conv"].copy_(conv_in[:, 1:])
+        W = p["conv"].shape[0]
+        xc = F.silu(sum(conv_in[:, i:i + 1] * p["conv"][i] for i in range(W)))
+        q, k, v, i_raw, log_f = self._mlstm_qkvif(p, xc, x_in)
+        hh, _ = mlstm_decode(q[:, :, 0], k[:, :, 0], v[:, :, 0], i_raw[:, :, 0], log_f[:, :, 0],
+                             (st["C"], st["n"], st["m"]))
+        hh = hh.reshape(B, 1, self.ed).to(x.dtype)
+        hh = rms_norm(hh, p["out_ln"], cfg.norm_eps) * F.silu(z)
+        return x + hh @ p["w_down"]
+
+    def _slstm_decode_block(self, p, x, st):
+        cfg = self.cfg
+        B, _, D = x.shape
+        sh, dh = self.sh, self.sdh
+        h = rms_norm(x, p["ln"], cfg.norm_eps)[:, 0]
+        g = (h.float() @ p["w_gates"].float().reshape(D, -1)).view(B, sh, dh, 4) \
+            + p["b_gates"].float()
+        r = p["r_gates"].float().reshape(sh, dh, dh * 4)
+        g = g + torch.bmm(st["h"].transpose(0, 1), r).transpose(0, 1).view(B, sh, dh, 4)
+        z = torch.tanh(g[..., 0])
+        i_raw = g[..., 1]
+        lf = F.logsigmoid(g[..., 2])
+        o = torch.sigmoid(g[..., 3])
+        m_new = torch.maximum(lf + st["m"], i_raw)
+        i_s = torch.exp(i_raw - m_new)
+        f_s = torch.exp(lf + st["m"] - m_new)
+        c = st["c"].mul_(f_s).add_(i_s * z)
+        n = st["n"].mul_(f_s).add_(i_s)
+        st["m"].copy_(m_new)
+        h_new = st["h"].copy_(o * c / torch.clamp(n, min=1e-6))
+        x = x + rms_norm(h_new.reshape(B, 1, D).to(x.dtype), p["out_ln"], cfg.norm_eps) \
+            @ p["w_out"]
+        hf = rms_norm(x, p["ffn_ln"], cfg.norm_eps)
+        return x + swiglu(hf, p["ffn_gate"], p["ffn_up"], p["ffn_down"])
+
+    @torch.no_grad()
     def decode_step(self, params, batch):
-        raise self._decode_not_ported()
+        """One new token given the recurrent state.
+
+        batch: ``tokens`` (B, 1) integer tensor and ``cache`` from
+        :meth:`init_cache` (an ``index`` is not needed).  Returns ``(logits
+        (B, 1, vocab) fp32, cache)``; the cache is updated in place.
+        """
+        x = params["embed"][batch["tokens"]].to(self.dtype)
+        mc, sc = batch["cache"]["groups"]["mlstm"], batch["cache"]["groups"]["slstm"]
+        for g, (mlstm, slstm) in enumerate(self._group_params(params)):
+            for j, p in enumerate(mlstm):
+                x = self._mlstm_decode_block(p, x, {n: t[g, j] for n, t in mc.items()})
+            x = self._slstm_decode_block(slstm, x, {n: t[g] for n, t in sc.items()})
+        h = rms_norm(x, params["final_ln"], self.cfg.norm_eps)
+        return (h @ params["lm_head"]).float(), batch["cache"]

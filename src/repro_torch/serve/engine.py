@@ -1,7 +1,11 @@
 """Batched serving engine: warm-cache decode over a batch of prompts.
 
-The port of ``repro.serve.engine``.  The engine runs: (1) cache init, (2)
-prefill that fills the KV cache token by token through ``decode_step``, (3) a
+The port of ``repro.serve.engine``, for every model the port serves: the
+dense ``DecoderLM`` (a KV cache), ``Hymba`` (KV caches, a ring buffer in the
+sliding-window layers, and the SSM state) and ``XLSTM`` (the recurrent state
+alone).  Each model's ``init_cache`` gives its cache and ``decode_step``
+updates it in place.  The engine runs: (1) cache init, (2) prefill that
+fills the cache token by token through ``decode_step``, (3) a
 decode loop producing one token per step for the whole batch, greedy or by
 temperature sampling from a ``torch.Generator`` seeded by ``ServeConfig.seed``.
 The sampled tokens stay on the device until the loop ends, so the host never

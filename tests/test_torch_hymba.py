@@ -250,11 +250,161 @@ def test_empty_run_takes_zero_gradients_and_updates():
     assert opt["mu"]["swa_0"]["w_in"].shape == (0, 128, 512) and int(opt["count"]) == 1
 
 
-def test_decoding_names_its_slice(pair):
-    _, _, model, params = pair
-    for call in (lambda: model.cache_layout(1, 8), lambda: model.decode_step(params, {})):
-        with pytest.raises(NotImplementedError, match="Hymba decode slice"):
-            call()
+# ------------------------------------------------------------------ decode
+def _decode_cfg(cfg):
+    """The 4-layer smoke config with a window of 8: a ring of 8 slots in the
+    sliding-window blocks, so that 20 decode steps wrap it."""
+    cfg = _four_layers(cfg.smoke())
+    return dataclasses.replace(cfg, hybrid=dataclasses.replace(cfg.hybrid, sliding_window=8))
+
+
+@pytest.fixture(scope="module")
+def decode_pair(pair):
+    """``pair``'s weights (the window leaves the layout as it is) in models of
+    the window-8 config."""
+    _, jparams, _, params = pair
+    jmodel = jbuild_model(_decode_cfg(JARCHS[ARCH]), mesh=None)
+    return jmodel, jparams, build_model(_decode_cfg(ARCHS[ARCH]), device="cpu"), params
+
+
+def _random_cache(jmodel, B, S, seed):
+    """A JAX cache tree of the layout's shapes, drawn with numpy (fp32)."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda i: rng.normal(size=i.shape).astype(np.float32),
+                        jmodel.cache_layout(B, S), is_leaf=lambda x: isinstance(x, JPM.ParamInfo))
+
+
+def test_decode_steps_match_jax_through_a_ring_wrap(decode_pair):
+    """20 steps from index ``meta_tokens`` (8) on a random cache of 32 slots: the
+    ring of 8 slots wraps twice.  Logits within 1e-4 at every step, every cache
+    leaf at the end, and the cache is the one handed in, updated in place."""
+    jmodel, jparams, model, params = decode_pair
+    B, S, nm = 2, 32, model.cfg.hybrid.meta_tokens
+    cache_np = _random_cache(jmodel, B, S, seed=4)
+    jcache = jax.tree.map(jnp.asarray, cache_np)
+    cache = PM.cache_from_jax(cache_np, model.cache_layout(B, S), device="cpu", dtype="float32")
+    toks = np.random.default_rng(11).integers(0, model.cfg.vocab, (B, 20), dtype=np.int32)
+    jdecode = jax.jit(jmodel.decode_step)
+    for t in range(20):
+        jlogits, jcache = jdecode(jparams, {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                            "cache": jcache, "index": jnp.asarray(nm + t)})
+        logits, out = model.decode_step(params, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
+                                                 "cache": cache, "index": nm + t})
+        assert out is cache
+        assert logits.shape == (B, 1, model.cfg.vocab) and logits.dtype == torch.float32
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
+    got, want = _port_paths(cache), _layout_paths(_np(jcache))
+    assert list(got) == list(want)
+    for name, t in got.items():
+        np.testing.assert_allclose(t.numpy(), want[name], rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_cache_layout_matches_jax_in_bf16():
+    """Shapes and per-leaf dtypes of a bf16 model's cache: k, v and conv in
+    bf16, the SSM state in fp32, as JAX's ``abstract`` gives them."""
+    cfg = dataclasses.replace(_decode_cfg(ARCHS[ARCH]), dtype="bfloat16")
+    jcfg = dataclasses.replace(_decode_cfg(JARCHS[ARCH]), dtype="bfloat16")
+    want = _layout_paths(JPM.abstract(jbuild_model(jcfg, mesh=None).cache_layout(3, 40),
+                                      "bfloat16"))
+    got = _port_paths(build_model(cfg, device="cpu").init_cache(3, 40))
+    assert list(got) == list(want)
+    for name, t in got.items():
+        assert tuple(t.shape) == want[name].shape, name
+        assert str(t.dtype).removeprefix("torch.") == str(want[name].dtype), name
+        assert not t.any()
+    assert got["global_0/ssm"].dtype == torch.float32 and got["swa_0/k"].shape[3] == 8
+
+
+def test_cache_from_jax_carries_mixed_ranks_and_dtypes():
+    """A bf16 JAX cache (3- to 5-dim leaves, bf16 beside fp32) carries over
+    leaf by leaf in each leaf's layout dtype; a leaf of another shape or a
+    missing key raises."""
+    cfg = dataclasses.replace(_decode_cfg(ARCHS[ARCH]), dtype="bfloat16")
+    jcfg = dataclasses.replace(_decode_cfg(JARCHS[ARCH]), dtype="bfloat16")
+    jmodel, model = jbuild_model(jcfg, mesh=None), build_model(cfg, device="cpu")
+    jcache = JPM.materialize(jmodel.cache_layout(2, 16), jax.random.PRNGKey(0), "bfloat16")
+    rng = np.random.default_rng(6)
+    jcache = jax.tree.map(lambda a: jnp.asarray(rng.normal(size=a.shape), a.dtype), jcache)
+    layout = model.cache_layout(2, 16)
+    cache = PM.cache_from_jax(_np(jcache), layout, device="cpu", dtype=model.dtype)
+    got, want = _port_paths(cache), _layout_paths(_np(jcache))
+    assert {t.ndim for t in got.values()} == {3, 4, 5}
+    for name, t in got.items():
+        assert str(t.dtype).removeprefix("torch.") == str(want[name].dtype), name
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(want[name], np.float32))
+    bad = _np(jcache)
+    bad["global_0"]["k"] = bad["global_0"]["k"][:, :, :8]
+    with pytest.raises(ValueError, match="shape"):
+        PM.cache_from_jax(bad, layout, device="cpu", dtype=model.dtype)
+    del bad["global_1"]
+    with pytest.raises(ValueError, match="keys"):
+        PM.cache_from_jax(bad, layout, device="cpu", dtype=model.dtype)
+
+
+def test_decode_step_hands_every_block_one_valid_len_per_cache_length(decode_pair, monkeypatch):
+    """One int32 (B,) valid_len a step for each cache length (32 global slots,
+    the ring of 8), the same tensor in every block of that length, and the
+    window left to the ring (``window=0``)."""
+    from repro_torch.models import hymba as port_hymba
+    from repro_torch.models import layers
+
+    jmodel, jparams, model, params = decode_pair
+    seen = []
+
+    def spy(q, k_cache, v_cache, valid_len, *, window=0):
+        seen.append((k_cache.shape[2], valid_len, window))
+        return layers.decode_attention(q, k_cache, v_cache, valid_len, window=window)
+
+    monkeypatch.setattr(port_hymba, "decode_attention", spy)
+    B, S = 2, 32
+    cache = model.init_cache(B, S)
+    for index in (0, 7, 8, 21):
+        seen.clear()
+        model.decode_step(params, {"tokens": torch.zeros((B, 1), dtype=torch.int64),
+                                   "cache": cache, "index": index})
+        assert [s for s, _, _ in seen] == [S, 8, 8, S] and {w for *_, w in seen} == {0}
+        by_len = {s: {id(v) for s2, v, _ in seen if s2 == s} for s in (S, 8)}
+        assert all(len(ids) == 1 for ids in by_len.values())
+        for s, v, _ in seen:
+            assert v.dtype == torch.int32 and v.tolist() == [min(index + 1, s)] * B
+
+
+def test_decode_past_the_global_cache_raises(decode_pair):
+    """The ring of the window layers wraps, but the global layers' cache ends:
+    JAX's ``dynamic_update_slice`` would clamp the index, the port raises."""
+    _, _, model, params = decode_pair
+    cache = model.init_cache(1, 12)
+    tok = torch.zeros((1, 1), dtype=torch.int64)
+    model.decode_step(params, {"tokens": tok, "cache": cache, "index": 11})
+    with pytest.raises(IndexError):
+        model.decode_step(params, {"tokens": tok, "cache": cache, "index": 12})
+
+
+def test_greedy_generate_matches_jax(decode_pair):
+    """Greedy tokens of the serving engines, 3 prompts of 12 tokens and 8 new
+    ones through a ring of 8 slots: the port's equal the JAX engine's."""
+    from repro.serve import ServeConfig as JServeConfig
+    from repro.serve import ServingEngine as JServingEngine
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    jmodel, jparams, model, params = decode_pair
+    prompts = np.random.default_rng(9).integers(0, model.cfg.vocab, (3, 12), dtype=np.int32)
+    jout = JServingEngine(jmodel, jparams, cache_len=28, batch=3).generate(
+        prompts, JServeConfig(max_new_tokens=8))
+    out = ServingEngine(model, params, cache_len=28, batch=3).generate(
+        prompts, ServeConfig(max_new_tokens=8))
+    assert out.dtype == np.int32 and out.shape == (3, 8)
+    np.testing.assert_array_equal(out, np.asarray(jout))
+
+
+def test_serve_launcher_on_cpu(capsys):
+    from repro_torch.launch import serve as port_serve
+
+    res = port_serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
+                           "--prompt-len", "4", "--new-tokens", "3"])
+    assert res["tokens"].shape == (2, 3) and res["steps"] == 7
+    assert 0 <= res["tokens"].min() and res["tokens"].max() < ARCHS[ARCH].smoke().vocab
+    assert "tok/s" in capsys.readouterr().out
 
 
 def test_train_launcher_on_cpu_smoke_config(tmp_path):

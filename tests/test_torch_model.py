@@ -3,7 +3,9 @@
 Parameters come from the JAX side (``PM.materialize``) and carry over with
 ``params_from_jax``; inputs are drawn with numpy from a seed.  At fp32 on the
 qwen1.5-0.5b smoke config the port reproduces JAX's decode logits and cache
-within 1e-4 and its greedy tokens exactly.
+within 1e-4 and its greedy tokens exactly.  The other dense configs (qwen3-4b
+with qk-norm and head_dim 128, phi4-mini-3.8b, phi3-medium-14b) are held at
+their smoke sizes in decode and in loss and gradients.
 """
 
 import dataclasses
@@ -34,6 +36,8 @@ from repro_torch.models import params as PM
 from repro_torch.serve import ServeConfig, ServingEngine
 
 ARCH = "qwen1.5-0.5b"
+#: the dense configs registered beside qwen1.5-0.5b
+DENSE = ("qwen3-4b", "phi4-mini-3.8b", "phi3-medium-14b")
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -99,6 +103,26 @@ def test_init_params_follows_jax_rules():
     assert abs(float(a["layers"]["mlp"]["w_down"].std()) - model.cfg.d_ff ** -0.5) < 0.01
 
 
+@pytest.mark.parametrize("workers", [1, 3])
+def test_host_draw_is_the_same_in_slices_on_any_threads(monkeypatch, workers):
+    """A host generator draws a leaf from its own seed in slices of DRAW_SLICE:
+    the values do not depend on how many threads draw them, the slices are not
+    copies of one another, and the scale and dtype are the layout's."""
+    monkeypatch.setattr(PM, "DRAW_SLICE", 1000)
+    one = PM._host_normal((7, 1000), torch.Generator().manual_seed(5), 0.5, torch.float32)
+    PM._draw_pool.cache_clear()
+    monkeypatch.setattr(PM.os, "cpu_count", lambda: workers)
+    try:
+        many = PM._host_normal((7, 1000), torch.Generator().manual_seed(5), 0.5, torch.float32)
+        half = PM._host_normal((7, 1000), torch.Generator().manual_seed(5), 0.5, torch.bfloat16)
+    finally:
+        PM._draw_pool.cache_clear()
+    assert torch.equal(one, many)
+    assert torch.equal(half, one.to(torch.bfloat16))
+    assert not torch.equal(one[0], one[1])
+    assert abs(float(one.std()) - 0.5) < 0.02
+
+
 def test_layers_match_jax_layers():
     rng = np.random.default_rng(5)
     x = rng.normal(size=(2, 3, 64)).astype(np.float32)
@@ -134,7 +158,8 @@ def test_decode_steps_match_jax(pair):
     jmodel, jparams, model, params = pair
     B, S = 2, 20
     jcache = JPM.materialize(jmodel.cache_layout(B, S), jax.random.PRNGKey(0), "float32")
-    cache = PM.cache_from_jax(_np_tree(jcache), device="cpu", dtype="float32")
+    cache = PM.cache_from_jax(_np_tree(jcache), model.cache_layout(B, S), device="cpu",
+                              dtype="float32")
     toks = np.random.default_rng(11).integers(0, model.cfg.vocab, (B, 16), dtype=np.int32)
     jdecode = jax.jit(jmodel.decode_step)
     for t in range(16):
@@ -163,7 +188,8 @@ def test_decode_step_hands_every_layer_one_valid_len(pair, monkeypatch):
     monkeypatch.setattr(port_lm, "decode_attention", spy)
     B, S = 2, 12
     jcache = JPM.materialize(jmodel.cache_layout(B, S), jax.random.PRNGKey(3), "float32")
-    cache = PM.cache_from_jax(_np_tree(jcache), device="cpu", dtype="float32")
+    cache = PM.cache_from_jax(_np_tree(jcache), model.cache_layout(B, S), device="cpu",
+                              dtype="float32")
     toks = np.random.default_rng(13).integers(0, model.cfg.vocab, (B, 6), dtype=np.int32)
     jdecode = jax.jit(jmodel.decode_step)
     for t in range(6):
@@ -275,3 +301,95 @@ def test_serve_launcher_on_cpu(capsys):
                            "--new-tokens", "3"])
     assert res["tokens"].shape == (2, 3) and res["steps"] == 7
     assert "tok/s" in capsys.readouterr().out
+
+
+# ------------------------------------------------------- other dense configs
+def _dense_pair(arch):
+    jcfg = JARCHS[arch].smoke()
+    jmodel = jbuild_model(jcfg, mesh=None)
+    jparams = JPM.materialize(jmodel.layout(), jax.random.PRNGKey(0), jcfg.dtype)
+    model = build_model(ARCHS[arch].smoke(), device="cpu")
+    return jmodel, jparams, model, PM.params_from_jax(_np_tree(jparams), device="cpu",
+                                                      dtype=None)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["smoke", "full"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_config_fields_match_jax(arch, full):
+    """The copied configs keep their published widths: every field is JAX's."""
+    cfg = ARCHS[arch] if full else ARCHS[arch].smoke()
+    jcfg = JARCHS[arch] if full else JARCHS[arch].smoke()
+    assert repr(cfg) == repr(jcfg)
+    shapes = [i.shape for i in PM.tree_leaves(build_model(cfg, device="cpu").layout())]
+    jlayout = jbuild_model(jcfg, mesh=None).layout()
+    assert shapes == [i.shape for i in jax.tree.leaves(
+        jlayout, is_leaf=lambda x: isinstance(x, JPM.ParamInfo))]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_decode_steps_match_jax(arch):
+    """8 decode steps at the smoke config: logits at every step and the cache
+    at the end within 1e-4 (qwen3-4b: q_norm and k_norm on every head)."""
+    jmodel, jparams, model, params = _dense_pair(arch)
+    B, S = 2, 12
+    jcache = JPM.materialize(jmodel.cache_layout(B, S), jax.random.PRNGKey(0), "float32")
+    cache = PM.cache_from_jax(_np_tree(jcache), model.cache_layout(B, S), device="cpu",
+                              dtype="float32")
+    toks = np.random.default_rng(12).integers(0, model.cfg.vocab, (B, 8), dtype=np.int32)
+    jdecode = jax.jit(jmodel.decode_step)
+    for t in range(8):
+        jlogits, jcache = jdecode(jparams, {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                            "cache": jcache, "index": jnp.asarray(t, jnp.int32)})
+        logits, cache = model.decode_step(params, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
+                                                   "cache": cache, "index": t})
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache["layers"][name].numpy(),
+                                   np.asarray(jcache["layers"][name]), **TOL)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_loss_and_grads_match_jax(arch):
+    """Loss within 1e-5 and every gradient leaf within 1e-4 of its largest entry."""
+    jmodel, jparams, model, params = _dense_pair(arch)
+    rng = np.random.default_rng(3)
+    toks, labels = (rng.integers(0, model.cfg.vocab, (2, 40)).astype(np.int32) for _ in "tl")
+    (jloss, _), jgrads = jax.value_and_grad(jmodel.loss, has_aux=True)(
+        jparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+    leaves = PM.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = model.loss(leaves, {"tokens": torch.from_numpy(toks).long(),
+                                  "labels": torch.from_numpy(labels).long()})
+    grads = torch.autograd.grad(loss, PM.tree_leaves(leaves))
+    assert abs(float(loss.detach()) - float(jloss)) < 1e-5
+    jleaves = jax.tree.leaves(jgrads)
+    assert [tuple(g.shape) for g in grads] == [j.shape for j in jleaves]
+    for g, j in zip(grads, jleaves):
+        j = np.asarray(j)
+        assert np.abs(g.numpy() - j).max() <= 1e-4 * np.abs(j).max()
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_serving_hands_the_kernels_contiguous_tensors(arch, monkeypatch):
+    """On the card the rmsnorm, SwiGLU and decode-attention wrappers take only
+    contiguous tensors and raise on others; on the CPU their plain versions take
+    any.  So what ``prefill`` and ``decode_step`` hand them is checked here, at
+    every arch's smoke config (qwen3-4b's q_norm and k_norm among them)."""
+    from repro_torch.kernels import ops
+
+    seen = []
+    for name in ("rmsnorm", "swiglu_mlp", "decode_attention"):
+        def spy(*args, _fn=getattr(ops, name), _name=name, **kw):
+            seen.append((_name, all(a.is_contiguous() for a in args
+                                    if isinstance(a, torch.Tensor))))
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(ops, name, spy)
+    model = build_model(ARCHS[arch].smoke(), device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, model.cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(1))
+    model.prefill(params, {"tokens": toks})
+    cache = model.init_cache(2, 8)
+    for t in range(3):
+        model.decode_step(params, {"tokens": toks[:, t:t + 1], "cache": cache, "index": t})
+    assert {"rmsnorm", "swiglu_mlp"} <= {n for n, _ in seen}
+    assert [n for n, ok in seen if not ok] == []

@@ -204,11 +204,139 @@ def test_sequence_must_be_whole_chunks(pair):
     assert torch.isfinite(model.loss(params, short)[0])
 
 
-def test_decoding_names_its_slice(pair):
+# ------------------------------------------------------------------ decode
+@pytest.mark.parametrize("start", ["zero", "random"])
+def test_mlstm_decode_matches_jax(start):
+    """One mLSTM step on numpy-drawn inputs, from the zero state (as a cache
+    starts) and from a random one: h, C, n and m within 1e-4 of JAX, and C, n
+    and m updated in place."""
+    from repro.models.xlstm import mlstm_decode as jmlstm_decode
+    from repro_torch.models.xlstm import mlstm_decode
+
+    rng = np.random.default_rng(21)
+    B, H, dqk, dv = 2, 3, 8, 16
+    q, k = (rng.normal(size=(B, H, dqk)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(B, H, dv)).astype(np.float32)
+    i_raw = rng.normal(size=(B, H)).astype(np.float32)
+    log_f = np.log(1 / (1 + np.exp(-rng.normal(size=(B, H)) - 2))).astype(np.float32)
+    if start == "zero":
+        state = [np.zeros((B, H, dqk, dv), np.float32), np.zeros((B, H, dqk), np.float32),
+                 np.zeros((B, H), np.float32)]
+    else:
+        state = [rng.normal(size=(B, H, dqk, dv)).astype(np.float32),
+                 rng.normal(size=(B, H, dqk)).astype(np.float32),
+                 rng.normal(size=(B, H)).astype(np.float32)]
+    jh, jstate = jmlstm_decode(*map(jnp.asarray, (q, k, v, i_raw, log_f)),
+                               tuple(map(jnp.asarray, state)))
+    tstate = tuple(torch.from_numpy(a.copy()) for a in state)
+    h, out = mlstm_decode(*map(torch.from_numpy, (q, k, v, i_raw, log_f)), tstate)
+    assert all(a is b for a, b in zip(out, tstate))
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-4, atol=1e-4)
+    for got, want in zip(out, jstate):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def _decode(model, params, cache, toks, t):
+    return model.decode_step(params, {"tokens": torch.from_numpy(toks[:, t:t + 1]).long(),
+                                      "cache": cache, "index": t})
+
+
+def test_decode_steps_match_jax(pair):
+    """16 steps from the zero cache: logits within 1e-4 at every step, every
+    state leaf at the end; the cache keeps its storage from step to step."""
+    jmodel, jparams, model, params = pair
+    B = 2
+    jcache = JPM.materialize(jmodel.cache_layout(B, 16), jax.random.PRNGKey(0), "float32")
+    cache = PM.cache_from_jax(_np(jcache), model.cache_layout(B, 16), device="cpu",
+                              dtype="float32")
+    ptrs = [t.data_ptr() for t in PM.tree_leaves(cache)]
+    toks = np.random.default_rng(11).integers(0, model.cfg.vocab, (B, 16), dtype=np.int32)
+    jdecode = jax.jit(jmodel.decode_step)
+    for t in range(16):
+        jlogits, jcache = jdecode(jparams, {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                            "cache": jcache, "index": jnp.asarray(t)})
+        logits, out = _decode(model, params, cache, toks, t)
+        assert out is cache
+        assert logits.shape == (B, 1, model.cfg.vocab) and logits.dtype == torch.float32
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
+    assert [t.data_ptr() for t in PM.tree_leaves(cache)] == ptrs
+    got, want = _port_paths(cache), _layout_paths(_np(jcache))
+    assert list(got) == list(want)
+    for name, t in got.items():
+        np.testing.assert_allclose(t.numpy(), want[name], rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_decode_matches_own_prefill(pair):
+    """Feeding 32 tokens one by one through ``decode_step`` reproduces the
+    port's ``prefill`` logits at the last position (tests/test_models.py:64):
+    the decode state's m starts at 0, the chunked scan's at -1e30, and the
+    stabiliser cancels from h."""
     _, _, model, params = pair
-    for call in (lambda: model.cache_layout(1, 8), lambda: model.decode_step(params, {})):
-        with pytest.raises(NotImplementedError, match="xLSTM decode slice"):
-            call()
+    toks = np.random.default_rng(8).integers(0, model.cfg.vocab, (2, 32), dtype=np.int32)
+    want = model.prefill(params, {"tokens": torch.from_numpy(toks).long()})
+    cache = model.init_cache(2, 32)
+    for t in range(32):
+        logits, cache = _decode(model, params, cache, toks, t)
+    np.testing.assert_allclose(logits.numpy(), want.numpy(), rtol=2e-3, atol=2e-3)
+
+
+def test_cache_layout_matches_jax_in_bf16():
+    """Per-leaf dtypes of a bf16 model's state: the conv tails in bf16, C, n, m
+    and the sLSTM state in fp32 (6-dim C), as JAX's ``abstract`` gives them."""
+    cfg = dataclasses.replace(ARCHS[ARCH].smoke(), dtype="bfloat16")
+    jmodel = jbuild_model(dataclasses.replace(JARCHS[ARCH].smoke(), dtype="bfloat16"), mesh=None)
+    want = _layout_paths(JPM.abstract(jmodel.cache_layout(3, 64), "bfloat16"))
+    got = _port_paths(build_model(cfg, device="cpu").init_cache(3, 64))
+    assert list(got) == list(want)
+    for name, t in got.items():
+        assert tuple(t.shape) == want[name].shape, name
+        assert str(t.dtype).removeprefix("torch.") == str(want[name].dtype), name
+        assert not t.any()
+    assert got["groups/mlstm/C"].ndim == 6 and got["groups/mlstm/C"].dtype == torch.float32
+    assert got["groups/mlstm/conv"].dtype == torch.bfloat16
+
+
+def test_cache_from_jax_carries_the_six_dim_state():
+    """A bf16 JAX state tree (4- to 6-dim leaves, fp32 beside bf16) carries over
+    in each leaf's layout dtype, values unchanged."""
+    jmodel = jbuild_model(dataclasses.replace(JARCHS[ARCH].smoke(), dtype="bfloat16"), mesh=None)
+    model = build_model(dataclasses.replace(ARCHS[ARCH].smoke(), dtype="bfloat16"), device="cpu")
+    rng = np.random.default_rng(2)
+    jcache = jax.tree.map(lambda a: jnp.asarray(rng.normal(size=a.shape), a.dtype),
+                          JPM.abstract(jmodel.cache_layout(2, 8), "bfloat16"))
+    cache = PM.cache_from_jax(_np(jcache), model.cache_layout(2, 8), device="cpu",
+                              dtype=model.dtype)
+    got, want = _port_paths(cache), _layout_paths(_np(jcache))
+    assert {t.ndim for t in got.values()} == {4, 5, 6}
+    for name, t in got.items():
+        assert str(t.dtype).removeprefix("torch.") == str(want[name].dtype), name
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(want[name], np.float32))
+
+
+def test_greedy_generate_matches_jax(pair):
+    """Greedy tokens of the serving engines, 3 prompts of 12 tokens, 8 new ones."""
+    from repro.serve import ServeConfig as JServeConfig
+    from repro.serve import ServingEngine as JServingEngine
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    jmodel, jparams, model, params = pair
+    prompts = np.random.default_rng(9).integers(0, model.cfg.vocab, (3, 12), dtype=np.int32)
+    jout = JServingEngine(jmodel, jparams, cache_len=28, batch=3).generate(
+        prompts, JServeConfig(max_new_tokens=8))
+    out = ServingEngine(model, params, cache_len=28, batch=3).generate(
+        prompts, ServeConfig(max_new_tokens=8))
+    assert out.dtype == np.int32 and out.shape == (3, 8)
+    np.testing.assert_array_equal(out, np.asarray(jout))
+
+
+def test_serve_launcher_on_cpu(capsys):
+    from repro_torch.launch import serve as port_serve
+
+    res = port_serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
+                           "--prompt-len", "4", "--new-tokens", "3"])
+    assert res["tokens"].shape == (2, 3) and res["steps"] == 7
+    assert 0 <= res["tokens"].min() and res["tokens"].max() < ARCHS[ARCH].smoke().vocab
+    assert "tok/s" in capsys.readouterr().out
 
 
 def test_train_launcher_on_cpu_checkpoints_and_resumes(tmp_path, capsys, monkeypatch):
