@@ -13,11 +13,13 @@ prints no result line):
 3. kernels: each kernel against its plain PyTorch version on the card, fp32
    and bf16: the serving kernels at every shape at which a serve run of
    phase 5 launches them, read from the models' layouts
-   (``serve_kernel_shapes``: rmsnorm rows of 1024, 1600, 2048, 2560 and
-   4096 and qwen3-4b's q_norm and k_norm head rows (128, 128) and (32, 128);
-   SwiGLU (8, 1024, 2816), (8, 1600, 5504), (8, 2048, 2688) and (4, 2560,
-   9728); decode attention G 1 over 168 slots, G 5 over 168 and G 4 at hd
-   128 over 88) and a small shape; decode attention also at one long request (32768 slots), 8
+   (``serve_kernel_shapes``: rmsnorm rows of 512 (deepseek-v2-lite-16b's
+   kv_ln), 1024, 1600, 2048, 2560 and 4096 and qwen3-4b's q_norm and k_norm
+   head rows (128, 128) and (32, 128); SwiGLU (8, 1024, 2816), (8, 1600,
+   5504), (8, 2048, 2688), (4, 2560, 9728) and deepseek-v2-lite-16b's layer0
+   (8, 2048, 10944) and shared experts (8, 2048, 2816); decode attention G
+   1 over 168 slots, G 5 over 168 and G 4 at hd 128 over 88) and a small
+   shape; decode attention also at one long request (32768 slots), 8
    requests of 4096, qwen3-4b's (G 4, hd 128), hymba-1.5b's (G 5, window
    1024 and none), G 16 and an hd that takes its ``simt`` route
    (``DECODE_SHAPES``), with valid lengths 0, 1, S, S + 40 and random and
@@ -89,24 +91,35 @@ prints no result line):
    the ring of 64 slots wraps, the logits at every step and every cache leaf
    at the end within 2e-3; xlstm-1.3b cut to 8 layers, 32 steps from the
    zero state, the logits within 2e-3 at every step and the last within
-   2e-3 of the card's ``prefill`` of the same 32 tokens.
-5. serve: a small fp32 serve at the smoke configs of qwen1.5-0.5b,
-   hymba-1.5b and xlstm-1.3b through ``repro_torch.launch.serve.main`` on
-   the card and on the CPU (one seed names one model on both), token for
-   token; then four bf16 runs at full
+   2e-3 of the card's ``prefill`` of the same 32 tokens; deepseek-v2-lite-16b
+   cut to 3 layers (layer0 and 2 MoE layers), 16 steps of 8 requests from a
+   zero cache at index 0 and 16 from a random latent cache at index 100;
+   mixtral-8x7b cut to 2 layers and a window of 64, 96 steps of 8 requests
+   from index 100 on a random cache, through the ring.  For the two MoE
+   models the routing of every MoE layer and step is compared with the
+   CPU's first: it may differ only at a near-tie (the k-th and (k+1)-th
+   router probabilities within 1e-5 on both devices), which is printed and
+   counted, the step's logits then not compared and the CPU handed the
+   card's cache; any other difference fails.
+5. serve: deepseek-v2-lite-16b's ``prefill`` and ``loss`` on the card must
+   raise from the flash wrapper (MLA's v is narrower than q and k); a small
+   fp32 serve at the smoke configs of qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b,
+   deepseek-v2-lite-16b and mixtral-8x7b through
+   ``repro_torch.launch.serve.main`` on the card and on the CPU (one seed
+   names one model on both), token for token; then five bf16 runs at full
    config through ``repro_torch.launch.serve.main`` (``SERVE_RUNS``):
-   qwen1.5-0.5b, hymba-1.5b and xlstm-1.3b with 8 requests, prompt 128 and
-   32 new tokens, qwen3-4b with 4, 64 and 16.  Each with the kernels'
-   launch counts set to 0 just before and read just after, each kernel's
-   count equal to its launches per decode step times the steps; every
-   swiglu_mlp launch must have taken the split-K tensor-core route, every
-   rmsnorm the ``vec`` body, every decode_attention the ``split`` route,
-   every call at a shape that phase 3 checked (``launched_shapes``), the
-   decode-attention wrapper must have made no valid_len tensor (the models
-   pass one a step), and the tokens must lie in the config's vocabulary;
-   ms per decode step, tokens/s and peak device memory printed.  Then
-   xlstm-1.3b's plain mLSTM update alone at its serving shape, by CUDA-graph
-   replay, beside its bound.
+   qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b and deepseek-v2-lite-16b (27 layers,
+   15.7 B parameters) with 8 requests, prompt 128 and 32 new tokens, qwen3-4b
+   with 4, 64 and 16.  Each with the kernels' launch counts set to 0 just
+   before and read just after, each kernel's count equal to its launches per
+   decode step times the steps; every swiglu_mlp launch must have taken the
+   split-K tensor-core route, every rmsnorm the ``vec`` body, every
+   decode_attention the ``split`` route, every call at a shape that phase 3
+   checked (``launched_shapes``), the decode-attention wrapper must have made
+   no valid_len tensor (the models pass one a step), and the tokens must lie
+   in the config's vocabulary; ms per decode step, tokens/s and peak device
+   memory printed.  Then xlstm-1.3b's plain mLSTM update alone at its serving
+   shape, by CUDA-graph replay, beside its bound.
 6. train: qwen1.5-0.5b in bf16, full width and depth, through
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
    checkpoint in a temporary directory under ``build/``), with the launch
@@ -130,7 +143,8 @@ prints no result line):
    and backward on the tensor cores), and 8 steps on a fixed
    (2, 128) batch.
 9. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
-   ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"train": ...}``,
+   ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"serve_deepseek":
+   ...}`` (with the MoE checks' near-ties), ``{"train": ...}``,
    ``{"train_xlstm": ...}``, ``{"train_hymba": ...}`` and ``{"kernels":
    [...]}`` line, then the last line ``{"ok": true, "device": {...}}``.
 """
@@ -262,14 +276,24 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: (B, Hq, Hkv, S, hd, window): hymba-1.5b's attention at its training shape
 HYMBA_FLASH = ((2, 25, 5, 2176, 64, 1024), (2, 25, 5, 2176, 64, 0))
 QWEN3 = "qwen3-4b"
+DEEPSEEK = "deepseek-v2-lite-16b"
+MIXTRAL = "mixtral-8x7b"
+#: router probabilities this close at the k-th and (k+1)-th place may pick another
+#: expert on the card than on the CPU in fp32: the fp32 decode checks allow a
+#: routing difference there (and only there), print it and count it
+NEAR_TIE = 1e-5
 #: the bf16 serve runs through ``launch.serve.main`` at full config: run -> (arch,
 #: requests, prompt length, new tokens, kernel launches per decode step; every
 #: other kernel none).  qwen1.5-0.5b: 24 layers of 2 norms, one attention and one
 #: SwiGLU, and the final norm; hymba-1.5b: 32 blocks of 4 norms, one attention and
 #: one SwiGLU; xlstm-1.3b: 42 mLSTM blocks of 2 norms, 6 sLSTM blocks of 3 norms
 #: and one SwiGLU, no attention; qwen3-4b: 36 layers of 4 norms (q_norm and
-#: k_norm among them), one attention and one SwiGLU.  qwen3-4b serves fewer and
-#: shorter requests, to bound the run's time.
+#: k_norm among them), one attention and one SwiGLU; deepseek-v2-lite-16b: 27
+#: layers of 3 norms (kv_ln on the MLA latent among them) and one SwiGLU
+#: (layer0's dense MLP, then the 26 MoE layers' shared experts; the routed
+#: experts are batched products), the final norm, and no decode-attention kernel
+#: (MLA's absorbed products).  qwen3-4b serves fewer and shorter requests, to
+#: bound the run's time.  mixtral-8x7b has no bf16 run: 93 GB do not fit one card.
 SERVE_RUNS = {
     "serve": (ARCH, SERVE["requests"], SERVE["prompt_len"], SERVE["new_tokens"],
               {"rmsnorm": 2 * 24 + 1, "swiglu": 24, "decode_attention": 24}),
@@ -278,6 +302,7 @@ SERVE_RUNS = {
     "serve_xlstm": (XLSTM, 8, 128, 32, {"rmsnorm": 2 * 42 + 3 * 6 + 1, "swiglu": 6}),
     "serve_qwen3": (QWEN3, 4, 64, 16,
                     {"rmsnorm": 4 * 36 + 1, "swiglu": 36, "decode_attention": 36}),
+    "serve_deepseek": (DEEPSEEK, 8, 128, 32, {"rmsnorm": 3 * 27 + 1, "swiglu": 27}),
 }
 #: SDPA's backends timed for the flash backward's yardstick (torch.nn.attention.SDPBackend)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
@@ -380,20 +405,22 @@ def serve_kernel_shapes() -> dict:
     """Kernel -> {shape: prefix} of the shapes at which the runs of
     ``SERVE_RUNS`` launch it, read from each model's own layouts: rmsnorm
     (rows, D) of every norm's gain (B rows; B x heads for q_norm and k_norm),
-    swiglu_mlp (B, D, F) of every gate weight, decode_attention (B, Hq, Hkv,
-    S, visible at the last step, hd) of every K cache.  The kernel checks hold
-    each against its plain version and time it under its prefix (the run's,
-    and the leaf's where D is not d_model); ``serve_run`` fails on a launch at
-    a shape outside the checks."""
+    swiglu_mlp (B, D, F) of every gate weight of a dense MLP or of shared
+    experts (not the routed experts' ``w_gate`` beside a ``router``: those are
+    batched products), decode_attention (B, Hq, Hkv, S, visible at the last step, hd)
+    of every K cache.  The kernel checks hold each against its plain version
+    and time it under its prefix (the run's, and the leaf's where D is not
+    d_model or the gate is a shared expert's); ``serve_run`` fails on a
+    launch at a shape outside the checks."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
 
-    def leaves(tree, name=""):
+    def leaves(tree, name="", parent=None):
         if isinstance(tree, dict):
             for k in sorted(tree):
-                yield from leaves(tree[k], k)
+                yield from leaves(tree[k], k, tree)
         else:
-            yield name, tree
+            yield name, tree, parent
 
     out = {"rmsnorm": {}, "swiglu_mlp": {}, "decode_attention": {}}
 
@@ -406,14 +433,15 @@ def serve_kernel_shapes() -> dict:
         cfg = ARCHS[arch]
         model = build_model(cfg, device="cpu")
         heads = {"q_norm": cfg.n_heads, "k_norm": cfg.n_kv_heads}
-        for name, info in leaves(model.layout()):
+        for name, info, parent in leaves(model.layout()):
             if name.endswith(("ln", "norm")):
                 D = info.shape[-1]
                 add("rmsnorm", (B * heads.get(name, 1), D),
                     f"{run}_" if D == cfg.d_model and name not in heads else f"{run}_{name}_")
-            elif name.endswith("_gate"):
-                add("swiglu_mlp", (B, *info.shape[-2:]), f"{run}_")
-        for name, info in leaves(model.cache_layout(B, prompt_len + new_tokens + 8)):
+            elif name.endswith("_gate") and not (name == "w_gate" and "router" in parent):
+                add("swiglu_mlp", (B, *info.shape[-2:]),
+                    f"{run}_{name}_" if name.startswith("shared") else f"{run}_")
+        for name, info, _ in leaves(model.cache_layout(B, prompt_len + new_tokens + 8)):
             if name == "k":
                 _, Hkv, S, hd = info.shape[-4:]
                 add("decode_attention", (B, cfg.n_heads, Hkv, S, prompt_len + new_tokens, hd),
@@ -1923,16 +1951,81 @@ def phase_qwen3_full_width() -> None:
     full_width_vs_cpu(cfg, 4, 200, "fp32 4-layer qwen3-4b")
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Record the decisions of every ``layers.moe_route`` call (``moe_block``
+    routes through it), in call order."""
+    from repro_torch.models import layers
+
+    seen = []
+    route = layers.moe_route
+
+    def call(*args, **kwargs):
+        seen.append(route(*args, **kwargs))
+        return seen[-1]
+
+    layers.moe_route = call
+    try:
+        yield seen
+    finally:
+        layers.moe_route = route
+
+
+def routing_differences(on_cpu: list, on_card: list) -> list:
+    """Compare one decode step's routing on the CPU and on the card, MoE layer by
+    layer: each token's set of experts, then which of them kept a slot (the
+    slots follow from these).  At the first layer where the sets differ, every
+    expert in or out of a token's set on one device only must lie, on both
+    devices, within ``NEAR_TIE`` of the token's k-th router probability (so
+    the k-th and (k+1)-th do too), else raise; that layer's near-ties are
+    returned, each with the gap of its k-th and (k+1)-th probabilities on
+    both devices, and the later layers, whose inputs then differ, are not
+    compared.  [] when the routing agrees everywhere."""
+    if len(on_cpu) != len(on_card):
+        raise AssertionError(f"{len(on_cpu)} routed layers on the CPU, {len(on_card)} on the card")
+    for layer, (a, b) in enumerate(zip(on_cpu, on_card)):
+        idx = [r.idx.cpu() for r in (a, b)]
+        differ = (idx[0].sort(-1).values != idx[1].sort(-1).values).any(-1)
+        if not differ.any():
+            kept = [(i * 2 + r.keep.cpu()).sort(-1).values for i, r in zip(idx, (a, b))]
+            if not torch.equal(*kept):
+                raise AssertionError(f"routed layer {layer}: the same experts, other drops")
+            continue
+        k = idx[0].shape[1]
+        ties = []
+        for t in differ.nonzero().flatten().tolist():
+            swapped = set(idx[0][t].tolist()) ^ set(idx[1][t].tolist())
+            off, gaps = [], []
+            for r in (a, b):
+                p = r.probs[t].cpu()
+                top = p.sort(descending=True).values
+                off.append(max(float((p[e] - top[k - 1]).abs()) for e in swapped))
+                gaps.append(float(top[k - 1] - top[k]))
+            if not max(off) <= NEAR_TIE:
+                raise AssertionError(
+                    f"routed layer {layer}, token {t}: experts {idx[0][t].tolist()} on the CPU, "
+                    f"{idx[1][t].tolist()} on the card, {max(off)} from the k-th probability "
+                    "(not a near-tie)")
+            ties.append({"layer": layer, "token": t, "gap_cpu": gaps[0], "gap_card": gaps[1]})
+        return ties
+    return []
+
+
 def decode_steps_vs_cpu(cfg, seed: int, B: int, cache_len: int, start: int, steps: int,
                         label: str, *, random_cache: bool):
     """``steps`` decode steps of ``cfg`` (fp32) from index ``start``, on the card
     and on the CPU with the same weights and the same cache (random, or the
     model's zeros): the logits within 2e-3 at every step, the same argmax,
-    and every cache leaf at the end within 2e-3 of its largest entry.
-    Returns the card's model, parameters, the tokens fed and its last logits."""
+    and every cache leaf at the end within 2e-3 of its largest entry.  With
+    routed experts, the routing of every MoE layer and step is compared
+    first (``routing_differences``): a step whose routing parts ways at a
+    near-tie is printed and counted, its logits are not compared, and the
+    CPU takes the card's cache after it.  Returns the card's model,
+    parameters, the tokens fed, its last logits and the near-ties."""
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
 
+    t0 = time.perf_counter()
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     gen = torch.Generator().manual_seed(seed)
     p_cpu, p_gpu = weights_on_both(gpu, seed)
@@ -1941,24 +2034,37 @@ def decode_steps_vs_cpu(cfg, seed: int, B: int, cache_len: int, start: int, step
              if random_cache else cpu.init_cache(B, cache_len))
     c_gpu = PM.tree_map(lambda t: t.to("cuda"), c_cpu)
     toks = torch.randint(0, cfg.vocab, (B, steps), generator=gen)
-    worst = 0.0
+    worst, near_ties, routed = 0.0, [], 0
     for t in range(steps):
         batch = {"tokens": toks[:, t:t + 1], "cache": c_cpu, "index": start + t}
-        want, _ = cpu.decode_step(p_cpu, batch)
-        got, _ = gpu.decode_step(p_gpu, {**batch, "tokens": toks[:, t:t + 1].cuda(),
-                                         "cache": c_gpu})
+        with recorded_routes() as routes:
+            want, _ = cpu.decode_step(p_cpu, batch)
+            n_cpu = len(routes)
+            got, _ = gpu.decode_step(p_gpu, {**batch, "tokens": toks[:, t:t + 1].cuda(),
+                                             "cache": c_gpu})
         got_cpu = got.cpu()
         if got.shape != (B, 1, cfg.vocab) or not torch.isfinite(got_cpu).all():
             raise AssertionError(f"{label}: logits of shape {tuple(got.shape)} or not finite")
+        routed += n_cpu
+        ties = routing_differences(routes[:n_cpu], routes[n_cpu:])
+        if ties:
+            print(f"[full-width] {label} step {t}: routing parts ways at near-ties {ties}")
+            near_ties += [{"step": t, **tie} for tie in ties]
+            for a, b in zip(PM.tree_leaves(c_cpu), PM.tree_leaves(c_gpu)):
+                a.copy_(b.cpu())
+            continue
         torch.testing.assert_close(got_cpu, want, rtol=2e-3, atol=2e-3)
         if not torch.equal(got_cpu.argmax(-1), want.argmax(-1)):
             raise AssertionError(f"{label} step {t}: greedy tokens differ from the CPU's")
         worst = max(worst, float((got_cpu - want).abs().max()))
     leaf_rel = max(rel_err(a.cpu(), b, 2e-3)[1]
                    for a, b in zip(PM.tree_leaves(c_gpu), PM.tree_leaves(c_cpu)))
+    routing = (f"; routing of {routed} MoE layer calls compared, {len(near_ties)} near-ties"
+               if cfg.moe else "")
     print(f"[full-width] {label}: {steps} decode steps from index {start}, max |logit diff| "
-          f"{worst:.3e}, argmax equal; cache leaves max |diff| / max |leaf| {leaf_rel:.3e}")
-    return gpu, p_gpu, toks, got
+          f"{worst:.3e}, argmax equal; cache leaves max |diff| / max |leaf| {leaf_rel:.3e}"
+          f"{routing}; {time.perf_counter() - t0:.1f} s")
+    return gpu, p_gpu, toks, got, near_ties
 
 
 def phase_hymba_decode_full_width() -> None:
@@ -1982,12 +2088,64 @@ def phase_xlstm_decode_full_width() -> None:
     from repro_torch.configs import ARCHS
 
     cfg = dataclasses.replace(ARCHS[XLSTM], dtype="float32", n_layers=8)
-    gpu, params, toks, last = decode_steps_vs_cpu(cfg, 6, 2, 32, 0, 32, "fp32 8-layer xLSTM",
-                                                  random_cache=False)
+    gpu, params, toks, last, _ = decode_steps_vs_cpu(cfg, 6, 2, 32, 0, 32, "fp32 8-layer xLSTM",
+                                                     random_cache=False)
     pre = gpu.prefill(params, {"tokens": toks.cuda()})
     torch.testing.assert_close(last, pre, rtol=2e-3, atol=2e-3)
     print(f"[full-width] fp32 8-layer xLSTM: decode after 32 tokens within "
           f"{float((last - pre).abs().max()):.3e} of the card's prefill")
+
+
+def phase_deepseek_decode_full_width() -> dict:
+    """deepseek-v2-lite-16b at full width in fp32, cut to 3 layers (layer0 and 2
+    MoE layers): 16 decode steps of 8 requests from a zero cache at index 0,
+    and 16 from a random latent cache at index 100; the routing of every MoE
+    layer and step against the CPU.  Returns the near-ties of each."""
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[DEEPSEEK], dtype="float32", n_layers=3)
+    zero = decode_steps_vs_cpu(cfg, 8, SERVE["requests"], CACHE_LEN, 0, 16,
+                               "fp32 3-layer deepseek, zero cache", random_cache=False)[-1]
+    rand = decode_steps_vs_cpu(cfg, 9, SERVE["requests"], CACHE_LEN, 100, 16,
+                               "fp32 3-layer deepseek, random latent cache",
+                               random_cache=True)[-1]
+    return {"deepseek_zero_cache": zero, "deepseek_random_cache": rand}
+
+
+def phase_mixtral_decode_full_width() -> dict:
+    """mixtral-8x7b at full width in fp32, cut to 2 layers and a window of 64:
+    96 decode steps of 8 requests from index 100 on a random cache, through
+    the ring of 64 slots (decode attention at G 4, hd 128); the routing of
+    every MoE layer and step against the CPU.  Returns the near-ties."""
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[MIXTRAL], dtype="float32", n_layers=2, sliding_window=64)
+    ties = decode_steps_vs_cpu(cfg, 10, SERVE["requests"], CACHE_LEN, 100, 96,
+                               "fp32 2-layer mixtral, window 64", random_cache=True)[-1]
+    return {"mixtral_ring": ties}
+
+
+def mla_full_sequence_raises() -> None:
+    """deepseek-v2-lite-16b's ``prefill`` and ``loss`` on the card raise from the
+    flash wrapper, which takes no v narrower than q and k (192 and 128 at full
+    width, 48 and 32 at the smoke config run here): no plain version runs in
+    the kernel's place."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+
+    model = build_model(ARCHS[DEEPSEEK].smoke(), device="cuda")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 8), dtype=torch.long, device="cuda")
+    for name, call in (("prefill", lambda: model.prefill(params, {"tokens": toks})),
+                       ("loss", lambda: model.loss(params, {"tokens": toks, "labels": toks}))):
+        try:
+            call()
+        except ValueError as e:
+            if not str(e).startswith("flash_attention"):
+                raise
+            print(f"[serve] {DEEPSEEK} {name} on the card raises from the flash wrapper: {e}")
+            continue
+        raise AssertionError(f"{DEEPSEEK} {name} ran on the card past the flash wrapper")
 
 
 def serve_small_vs_cpu(arch: str) -> None:
@@ -2028,6 +2186,7 @@ def serve_run(kernel_modules, run: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernel_modules)
+    t0 = time.perf_counter()
     try:
         with launched_shapes() as shapes:
             res = serve.main(["--arch", arch, "--full-config", "--device", "cuda",
@@ -2035,6 +2194,7 @@ def serve_run(kernel_modules, run: str) -> dict:
                               "--prompt-len", str(prompt_len), "--new-tokens", str(new_tokens)])
     finally:
         kd.valid_len_vector = vector
+    seconds = time.perf_counter() - t0
     counts, routes = read_counts(kernel_modules)
     peak = torch.cuda.max_memory_allocated()
     covered = checked_shapes()
@@ -2056,12 +2216,13 @@ def serve_run(kernel_modules, run: str) -> dict:
     if toks.min() < 0 or toks.max() >= vocab:
         raise AssertionError(f"{run}: served tokens outside the vocabulary of {vocab}")
     print(f"[{run}] {arch}: launches {counts}, by route {routes}; {res['tokens_per_s']:.1f} "
-          f"tok/s, {res['ms_per_step']:.3f} ms per decode step, peak {peak / 2**30:.3f} GiB")
+          f"tok/s, {res['ms_per_step']:.3f} ms per decode step, peak {peak / 2**30:.3f} GiB; "
+          f"{seconds:.1f} s with the host's weight draws")
     return {"arch": arch, "requests": requests, "prompt_len": prompt_len,
             "new_tokens": new_tokens, "counts": counts, "routes": routes,
             "shapes": {k: sorted(v) for k, v in shapes.items()}, "steps": res["steps"],
             "tokens_per_s": res["tokens_per_s"], "ms_per_step": res["ms_per_step"],
-            "peak_memory_bytes": peak}
+            "peak_memory_bytes": peak, "seconds": seconds}
 
 
 def mlstm_decode_times(rate: float) -> dict:
@@ -2095,9 +2256,11 @@ def mlstm_decode_times(rate: float) -> dict:
 
 
 def phase_serve(kernel_modules, rate: float) -> dict:
-    """The small fp32 serves against the CPU, then every run of ``SERVE_RUNS``;
+    """deepseek's full-sequence attention refused on the card, the small fp32
+    serves against the CPU, then every run of ``SERVE_RUNS``;
     xlstm-1.3b's also with the plain mLSTM update's device time."""
-    for arch in (ARCH, HYMBA, XLSTM):
+    mla_full_sequence_raises()
+    for arch in (ARCH, HYMBA, XLSTM, DEEPSEEK, MIXTRAL):
         serve_small_vs_cpu(arch)
     runs = {run: serve_run(kernel_modules, run) for run in SERVE_RUNS}
     runs["serve_xlstm"].update(mlstm_decode_times(rate))
@@ -2343,18 +2506,28 @@ MAIN_RUN = {"rmsnorm": "serve", "swiglu_mlp": "serve", "decode_attention": "serv
             "ssd_scan_bwd": "train_hymba"}
 
 
-def decode_phases() -> None:
-    """The fp32 decode checks of this slice's models against the CPU."""
+def decode_phases() -> dict:
+    """The fp32 decode checks of the served models against the CPU; returns the
+    MoE checks' near-ties by check."""
     phase_qwen3_full_width()
     phase_hymba_decode_full_width()
     phase_xlstm_decode_full_width()
+    near_ties = phase_deepseek_decode_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    near_ties.update(phase_mixtral_decode_full_width())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return near_ties
 
 
 def only_serve(gen, ops, ref, rate) -> list:
     from repro_torch.kernels import KERNEL_MODULES
 
-    decode_phases()
-    return [{run: res} for run, res in phase_serve(KERNEL_MODULES, rate).items()]
+    near_ties = decode_phases()
+    runs = phase_serve(KERNEL_MODULES, rate)
+    runs["serve_deepseek"]["fp32_check_near_ties"] = near_ties
+    return [{run: res} for run, res in runs.items()]
 
 
 #: checks that ``--only NAME`` runs alone after the card and the build phases,
@@ -2393,17 +2566,17 @@ def main(argv: list[str]) -> None:
     phase_full_width_grad()
     phase_xlstm_full_width()
     phase_hymba_full_width()
-    decode_phases()
+    near_ties = decode_phases()
     print(f"[full-width] done at {time.perf_counter() - t0:.1f} s")
     runs = phase_serve(KERNEL_MODULES, rate)
+    runs["serve_deepseek"]["fp32_check_near_ties"] = near_ties
     print(f"[serve] done at {time.perf_counter() - t0:.1f} s")
-    runs["train"] = phase_train(KERNEL_MODULES)
-    gc.collect()
-    torch.cuda.empty_cache()
-    runs["train_xlstm"] = phase_train_xlstm(KERNEL_MODULES)
-    gc.collect()
-    torch.cuda.empty_cache()
-    runs["train_hymba"] = phase_train_hymba(KERNEL_MODULES)
+    for run, phase in (("train", phase_train), ("train_xlstm", phase_train_xlstm),
+                       ("train_hymba", phase_train_hymba)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[run] = phase(KERNEL_MODULES)
+        print(f"[{run}] done at {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     for row in rows.values():

@@ -4,16 +4,39 @@ The fields and their defaults are those of the JAX package, so that a config
 built here describes the same model, including ``rope_theta=10000`` and
 ``norm_eps=1e-5``, on which parity depends, and ``repr`` (hence
 ``config_digest``) is the JAX config's.  Of the family-specific blocks,
-``ssm`` (:class:`SSMConfig`, xLSTM and Hymba's SSM heads) and ``hybrid``
-(:class:`HybridConfig`, Hymba) are ported; ``moe``, ``mla``, ``encdec`` and
-``vlm`` are kept as fields and stay ``None`` until the slices that port those
-families define them.
+``moe`` (:class:`MoEConfig`, mixtral-8x7b and deepseek-v2-lite-16b), ``mla``
+(:class:`MLAConfig`, deepseek-v2-lite-16b), ``ssm`` (:class:`SSMConfig`,
+xLSTM and Hymba's SSM heads) and ``hybrid`` (:class:`HybridConfig`, Hymba)
+are ported; ``encdec`` and ``vlm`` are kept as fields and stay ``None`` until
+the slices that port those families define them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Any, Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    first_dense: bool = False          # DeepSeek: layer 0 keeps a dense FFN
+    first_dense_ff: int = 0
+    capacity_factor: float = 1.25      # dispatch capacity per expert
+    router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2)."""
+
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -54,8 +77,8 @@ class ModelConfig:
     sliding_window: int = 0            # 0 = full attention
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     encdec: Optional[Any] = None
     vlm: Optional[Any] = None
@@ -80,8 +103,8 @@ class ModelConfig:
         return self.n_heads // max(1, self.n_kv_heads)
 
     def smoke(self) -> "ModelConfig":
-        """A reduced same-family config for CPU tests (dense, xLSTM and Hymba families)."""
-        blocks = ("moe", "mla", "encdec", "vlm")
+        """A reduced same-family config for CPU tests (every family but encdec and vlm)."""
+        blocks = ("encdec", "vlm")
         if any(getattr(self, f) is not None for f in blocks):
             raise NotImplementedError(f"{self.arch}: family {self.family!r} is not ported yet")
         cfg = replace(
@@ -97,6 +120,19 @@ class ModelConfig:
             kv_block=64,
             dtype="float32",
         )
+        if cfg.moe:
+            cfg = replace(
+                cfg,
+                moe=replace(
+                    cfg.moe, n_experts=4, top_k=2, d_expert=64,
+                    first_dense_ff=128 if cfg.moe.first_dense else 0,
+                ),
+            )
+        if cfg.mla:
+            cfg = replace(
+                cfg,
+                mla=MLAConfig(kv_lora_rank=32, qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32),
+            )
         if cfg.ssm:
             cfg = replace(cfg, ssm=replace(cfg.ssm, chunk=32, slstm_every=4))
         if cfg.hybrid:

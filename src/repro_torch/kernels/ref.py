@@ -133,7 +133,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offs
                         p_bf16: bool = False):
     """Attention with the flash kernel's arithmetic: ``(out, lse)``.
 
-    q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd), GQA by ``h // (Hq // Hkv)``.
+    q, k: (B, Hq, Sq, hd), (B, Hkv, Skv, hd); v: (B, Hkv, Skv, hdv), its own
+    width (MLA's 128 beside q and k's 192); GQA by ``h // (Hq // Hkv)``.
     Scores in fp32, scaled by ``hd ** -0.5`` after the dot; masked keys weigh
     exactly 0, and a row with no visible key gives zeros (the ``l == 0``
     guard) and ``lse = -inf``.  ``lse`` is the fp32 (B, Hq, Sq) natural-log
@@ -158,7 +159,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offs
         p = _bf16_round(p)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / torch.where(l == 0, 1.0, l)
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
-    return out.reshape(B, Hq, Sq, hd).to(v.dtype), lse.reshape(B, Hq, Sq)
+    return out.reshape(B, Hq, Sq, -1).to(v.dtype), lse.reshape(B, Hq, Sq)
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
@@ -168,6 +169,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, win
     ``P`` is recomputed from q, k and the saved ``lse``; ``D = rowsum(dO * O)``
     in fp32; ``dS = P * (dO V^T - D)``; ``dq = dS K * scale``, ``dk = dS^T Q *
     scale``, ``dv = P^T dO``, summed over the G query heads of each kv head.
+    v, dout and out may be narrower than q and k, as in :func:`flash_attention_ref`.
     Invisible pairs weigh 0, so a row with ``lse = -inf`` gives zero gradients.
     With ``p_bf16``, P is rounded to bf16 before ``P^T dO`` and dS before
     ``dS K`` and ``dS^T Q``, as in the tensor-core route (dS itself is formed
@@ -178,7 +180,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, win
     G = Hq // Hkv
     scale = hd ** -0.5
     qg = q.float().reshape(B, Hkv, G, Sq, hd)
-    dog = dout.float().reshape(B, Hkv, G, Sq, hd)
+    dog = dout.float().reshape(B, Hkv, G, Sq, -1)
     kf, vf = k.float(), v.float()
     mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=q_offset,
                           device=q.device)
@@ -187,7 +189,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, win
     p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(lse_g), lse_g, 0.0)), 0.0)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", _bf16_round(p) if p_bf16 else p, dog)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
-    d_row = (dog * out.float().reshape(B, Hkv, G, Sq, hd)).sum(dim=-1, keepdim=True)
+    d_row = (dog * out.float().reshape(B, Hkv, G, Sq, -1)).sum(dim=-1, keepdim=True)
     ds = p * (dp - d_row)
     if p_bf16:
         ds = _bf16_round(ds)

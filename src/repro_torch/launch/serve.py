@@ -4,7 +4,8 @@
         [--device cuda|cpu] [--dtype bfloat16|float32]
 
 The port of ``repro.launch.serve``, for every arch of ``configs.ARCHS``: the
-dense decoders, ``hymba-1.5b`` and ``xlstm-1.3b``.  The model runs from a
+dense decoders, the MoE ``mixtral-8x7b`` and ``deepseek-v2-lite-16b`` (MLA),
+``hymba-1.5b`` and ``xlstm-1.3b``.  The model runs from a
 seeded random init drawn on the host (one ``--seed`` gives one model on the
 card and on the CPU); prompts are items of the corpus the JAX launcher
 stripes into the Hoard cache (:mod:`repro_torch.data.tokens`), so both

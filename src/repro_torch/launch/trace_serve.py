@@ -9,8 +9,11 @@ untraced, timed on the host clock around work that ends in a synchronize,
 and once under ``torch.profiler``.  From the trace it prints the device's
 busy time per step (the sum of kernel durations; one stream, so kernels do
 not overlap), its idle share of the traced wall time, the kernel launches
-per step, the time by kernel group and the kernels by device time.  Needs
-a CUDA card.
+per step, the time by kernel group and the kernels by device time.  For a
+model with routed experts the batched products on the expert weights
+(``aten::bmm`` on an (E, D, F) or (E, F, D) operand, found by the shapes the
+profiler records) form a group of their own, ``routed_experts``.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -25,7 +28,23 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import ARCHS
 from ..models import build_model
 from ..serve import ServingEngine
-from .trace import device_summary
+from .trace import device_summary, kernel_group, source_group
+
+
+def split_routed_experts(prof, cfg, steps: int, res: dict) -> None:
+    """Move the device time of the routed experts' batched products out of their
+    kernels' groups in ``res`` into the group ``routed_experts``."""
+    E, D, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    weights = ([E, D, F], [E, F, D])
+    for e in prof.events():
+        if e.name != "aten::bmm" or len(e.input_shapes) < 2 or e.input_shapes[1] not in weights:
+            continue
+        for k in e.kernels:
+            ms = k.duration / 1e3 / steps
+            for key, group in (("ms_per_step_by_group", kernel_group(k.name)),
+                               ("ms_per_step_by_source", source_group(k.name))):
+                res[key][group] -= ms
+                res[key]["routed_experts"] = res[key].get("routed_experts", 0.0) + ms
 
 
 def main(argv=None) -> dict:
@@ -56,7 +75,8 @@ def main(argv=None) -> dict:
     run(P)
     host_ms = (time.perf_counter() - t0) / args.steps * 1e3
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=model.cfg.moe is not None) as prof:
         t0 = time.perf_counter()
         run(P + args.steps)
         traced_ms = (time.perf_counter() - t0) / args.steps * 1e3
@@ -65,6 +85,8 @@ def main(argv=None) -> dict:
 
     res = {"card": torch.cuda.get_device_name(0), "host_ms_per_step": host_ms,
            **device_summary(prof, args.steps, traced_ms)}
+    if model.cfg.moe is not None:
+        split_routed_experts(prof, model.cfg, args.steps, res)
     print(json.dumps(res, indent=1))
     return res
 

@@ -1,5 +1,5 @@
 """Shared model primitives: norm, RoPE, blockwise and decode attention, the
-decode cache's slot rule, MLP, causal depthwise convolution.
+decode cache's slot rule, MLP, routed experts, causal depthwise convolution.
 
 ``rms_norm``, ``blockwise_attention``, ``decode_attention`` and ``swiglu`` go
 through :mod:`repro_torch.kernels.ops`: the hand-written kernels on the
@@ -15,6 +15,9 @@ places (bf16 only; identical in fp32 up to the order of sums):
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +42,7 @@ def rope(x, positions, theta: float = 10000.0):
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
-    """Online-softmax attention.  q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd).
+    """Online-softmax attention.  q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd[v]).
 
     Queries sit at ``q_offset + arange(Sq)``.  The JAX layer's tiling knobs
     (``q_block``, ``kv_block``, ``pairs``, ``mask_mode``) shape XLA's loops and
@@ -76,6 +79,78 @@ def cache_slot(index: int, S_cache: int, window: int) -> tuple[int, int]:
 
 def swiglu(x, w_gate, w_up, w_down):
     return ops.swiglu_mlp(x, w_gate, w_up, w_down)
+
+
+class MoERoute(NamedTuple):
+    """The routing decisions of :func:`moe_route` for N tokens, E experts, top k."""
+
+    probs: torch.Tensor     # (N, E) fp32 softmax of the fp32 router logits
+    gates: torch.Tensor     # (N, k) fp32 top-k probabilities, renormalised to sum 1
+    idx: torch.Tensor       # (N, k) int64 experts, the larger probability first
+    slot: torch.Tensor      # (N, k) int64 place in the expert's queue; C - 1 where dropped
+    keep: torch.Tensor      # (N, k) bool: the pair fits the expert's capacity C
+    capacity: int           # C
+
+
+def moe_route(x, router_w, *, top_k: int, capacity_factor: float) -> MoERoute:
+    """Top-k routing with capacity, the JAX ``moe_block``'s order of arithmetic.
+
+    The router runs in fp32; softmax, then the top k, renormalised by their
+    sum (at least 1e-9).  Among equal probabilities the lower expert comes
+    first, as ``lax.top_k`` orders them (``torch.topk`` promises no order): a
+    stable sort on the probabilities, descending.  Each (token, k) pair takes
+    the next slot of its expert's queue in token-major order; pairs past the
+    capacity ``C = ceil(N k / E * capacity_factor)`` are dropped and point at
+    slot ``C - 1``.
+    """
+    N = x.shape[0]
+    E = router_w.shape[-1]
+    C = max(1, int(math.ceil(N * top_k / E * capacity_factor)))
+    logits = x.float() @ router_w.float()                                 # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    top, idx = probs.sort(dim=-1, descending=True, stable=True)
+    gates, idx = top[:, :top_k], idx[:, :top_k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    # position of each (token, k) inside its expert's capacity queue
+    flat = torch.zeros((N * top_k, E), dtype=torch.int64, device=x.device)
+    flat.scatter_(1, idx.reshape(-1, 1), 1)
+    slot = ((flat.cumsum(0) - flat) * flat).sum(-1).view(N, top_k)
+    keep = slot < C
+    slot = torch.where(keep, slot, C - 1)
+    return MoERoute(probs, gates, idx, slot, keep, C)
+
+
+def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int,
+              capacity_factor: float = 1.25, shared: Optional[tuple] = None):
+    """Top-k routed experts with capacity, gather/scatter dispatch: ``(y, aux)``.
+
+    x: (N, D); expert weights (E, D, F) / (E, F, D); ``shared`` = (w_gate,
+    w_up, w_down) of the always-on experts, which go through :func:`swiglu`
+    (the kernel).  As in JAX, every expert's (C, D) buffer is computed, empty
+    ones included.  ``aux`` is the Switch-style load-balancing loss.
+
+    The buffers are filled by an index add that gives the same bits on every
+    run: each kept slot receives exactly one nonzero source, and a dropped
+    pair adds a zeroed source into its expert's slot ``C - 1``, so the order
+    of the adds does not matter.
+    """
+    N, D = x.shape
+    E = w_gate.shape[0]
+    r = moe_route(x, router_w, top_k=top_k, capacity_factor=capacity_factor)
+    C = r.capacity
+    rows = (r.idx * C + r.slot).reshape(-1)                              # (N k,) into (E C)
+    keep = r.keep.reshape(-1)
+    src = (x[:, None] * r.keep[..., None].to(x.dtype)).reshape(N * top_k, D)   # each token k times
+    buf = x.new_zeros((E * C, D)).index_add(0, rows, src).view(E, C, D)
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    y_e = torch.bmm(h, w_down).view(E * C, D)
+    gathered = y_e[rows] * (r.gates.reshape(-1) * keep).to(x.dtype)[:, None]
+    y = gathered.view(N, top_k, D).sum(1)
+    if shared is not None:
+        y = y + swiglu(x, *shared)
+    counts = torch.zeros_like(r.probs).scatter_(1, r.idx, 1.0)           # (N, E)
+    aux = E * (r.probs.mean(0) * (counts.mean(0) / top_k)).sum()
+    return y, aux
 
 
 def causal_conv(x, w):

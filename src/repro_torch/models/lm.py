@@ -1,21 +1,29 @@
-"""Decoder LM, dense GQA path: the port of ``repro.models.lm.DecoderLM``.
+"""Decoder LM: the port of ``repro.models.lm.DecoderLM``, dense GQA, MoE
+(Mixtral-style top-k with a sliding window) and MLA + MoE (DeepSeek-V2).
 
 Parameters are passed in as a nested dict with the JAX package's layout, as
 the JAX methods take them, so a JAX parameter tree runs here unchanged
 (``params.params_from_jax``).  The layers run in a Python loop where JAX scans
 over the stacked layer axis; each stacked leaf is split once with
 ``unbind``, whose backward stacks the layers' gradients into one leaf of the
-stacked shape again.  ``loss`` and ``backbone`` are differentiable with
+stacked shape again.  DeepSeek's dense first layer is ``layer0``, outside the
+stack, as in JAX.  ``loss`` and ``backbone`` are differentiable with
 autograd through the kernels' backward; ``prefill`` and ``decode_step`` run
-under ``torch.no_grad``.  ``decode_step`` writes the new token's K and V
-into the cache IN PLACE and returns that same cache object, where JAX returns
-an updated copy.
+under ``torch.no_grad``.  ``decode_step`` writes the new token's K and V (or
+MLA's latent ``c_kv`` and ``k_rope``) into the cache IN PLACE and returns that
+same cache object, where JAX returns an updated copy.
 
-The MoE, MLA and VLM branches of the JAX class arrive with their own slice.
+MLA decodes with the absorbed projections, scoring against the latent cache
+directly (plain PyTorch products, as JAX computes them outside any Pallas
+kernel).  Its full-sequence attention (``loss``, ``prefill``) has q and k of
+``qk_nope + qk_rope`` and v of ``v_head_dim`` channels: the plain flash
+version takes that on the CPU; the card's flash kernel does not (it raises).
+The VLM branch of the JAX class arrives with its own slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -24,11 +32,24 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from . import params as PM
-from .layers import blockwise_attention, cache_slot, decode_attention, rms_norm, rope, swiglu
+from .layers import (blockwise_attention, cache_slot, decode_attention, moe_block, rms_norm, rope,
+                     swiglu)
 
 
 def _attn_layout(cfg: ModelConfig) -> dict:
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        return {
+            "ln": PM.ParamInfo((D,), "ones"),
+            "wq": PM.ParamInfo((D, H * qk)),
+            "w_dkv": PM.ParamInfo((D, m.kv_lora_rank + m.qk_rope_dim)),
+            "kv_ln": PM.ParamInfo((m.kv_lora_rank,), "ones"),
+            "w_uk": PM.ParamInfo((m.kv_lora_rank, H * m.qk_nope_dim)),
+            "w_uv": PM.ParamInfo((m.kv_lora_rank, H * m.v_head_dim)),
+            "wo": PM.ParamInfo((H * m.v_head_dim, D)),
+        }
     lay = {
         "ln": PM.ParamInfo((D,), "ones"),
         "wq": PM.ParamInfo((D, H * hd)),
@@ -46,53 +67,85 @@ def _attn_layout(cfg: ModelConfig) -> dict:
     return lay
 
 
-def _mlp_layout(cfg: ModelConfig) -> dict:
+def _mlp_layout(cfg: ModelConfig, d_ff: int) -> dict:
     D = cfg.d_model
     return {
         "ln": PM.ParamInfo((D,), "ones"),
-        "w_gate": PM.ParamInfo((D, cfg.d_ff)),
-        "w_up": PM.ParamInfo((D, cfg.d_ff)),
-        "w_down": PM.ParamInfo((cfg.d_ff, D)),
+        "w_gate": PM.ParamInfo((D, d_ff)),
+        "w_up": PM.ParamInfo((D, d_ff)),
+        "w_down": PM.ParamInfo((d_ff, D)),
     }
 
 
+def _moe_layout(cfg: ModelConfig) -> dict:
+    D, E, F = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
+    lay = {
+        "ln": PM.ParamInfo((D,), "ones"),
+        "router": PM.ParamInfo((D, E), scale=0.02),
+        "w_gate": PM.ParamInfo((E, D, F)),
+        "w_up": PM.ParamInfo((E, D, F)),
+        "w_down": PM.ParamInfo((E, F, D)),
+    }
+    if cfg.moe.n_shared:
+        S = cfg.moe.n_shared * F
+        lay["shared_gate"] = PM.ParamInfo((D, S))
+        lay["shared_up"] = PM.ParamInfo((D, S))
+        lay["shared_down"] = PM.ParamInfo((S, D))
+    return lay
+
+
 class DecoderLM(nn.Module):
-    """Dense GQA decoder (qwen-style: optional QKV bias, qk-norm, tied unembed)."""
+    """Dense GQA / MoE / MLA decoder (qwen-style options: QKV bias, qk-norm, tied unembed)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
-            raise NotImplementedError(f"{cfg.arch}: only the dense decoder is ported")
+        if cfg.family not in ("dense", "moe") or cfg.vlm is not None:
+            raise NotImplementedError(f"{cfg.arch}: the {cfg.family!r} decoder is not ported")
         self.cfg = cfg
         self.device = resolve(device)
         self.dtype = PM.as_dtype(cfg.dtype)
 
     # -------------------------------------------------------------- layout
-    def layer_layout(self) -> dict:
-        return {"attn": _attn_layout(self.cfg), "mlp": _mlp_layout(self.cfg)}
+    def layer_layout(self, *, moe: bool) -> dict:
+        cfg = self.cfg
+        if moe:
+            return {"attn": _attn_layout(cfg), "mlp": _moe_layout(cfg)}
+        d_ff = cfg.moe.first_dense_ff if (cfg.moe and cfg.moe.first_dense) else cfg.d_ff
+        return {"attn": _attn_layout(cfg), "mlp": _mlp_layout(cfg, d_ff)}
 
     def layout(self) -> dict:
         cfg = self.cfg
         lay: dict[str, Any] = {
             "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), scale=0.02),
             "final_ln": PM.ParamInfo((cfg.d_model,), "ones"),
-            "layers": PM.stack(cfg.n_layers, self.layer_layout()),
         }
         if not cfg.tie_embeddings:
             lay["lm_head"] = PM.ParamInfo((cfg.d_model, cfg.vocab), scale=0.02)
+        is_moe = cfg.moe is not None
+        if is_moe and cfg.moe.first_dense:
+            lay["layer0"] = self.layer_layout(moe=False)
+            lay["layers"] = PM.stack(cfg.n_layers - 1, self.layer_layout(moe=True))
+        else:
+            lay["layers"] = PM.stack(cfg.n_layers, self.layer_layout(moe=is_moe))
         return lay
 
     def init_params(self, generator: torch.Generator) -> dict:
         return PM.init_params(self.layout(), generator, device=self.device, dtype=self.dtype)
 
     def cache_layout(self, batch: int, seq: int) -> dict:
+        """GQA K and V caches (a ring of ``min(seq, window)`` slots with a
+        window), or MLA's latent ``c_kv`` and ``k_rope`` of ``seq`` slots."""
         cfg = self.cfg
-        window = cfg.sliding_window
-        S_eff = min(seq, window) if window else seq
-        per = {
-            "k": PM.ParamInfo((batch, cfg.n_kv_heads, S_eff, cfg.resolved_head_dim), "zeros"),
-            "v": PM.ParamInfo((batch, cfg.n_kv_heads, S_eff, cfg.resolved_head_dim), "zeros"),
-        }
+        if cfg.mla is not None:
+            per = {"c_kv": PM.ParamInfo((batch, seq, cfg.mla.kv_lora_rank), "zeros"),
+                   "k_rope": PM.ParamInfo((batch, seq, cfg.mla.qk_rope_dim), "zeros")}
+        else:
+            window = cfg.sliding_window
+            S_eff = min(seq, window) if window else seq
+            kv = (batch, cfg.n_kv_heads, S_eff, cfg.resolved_head_dim)
+            per = {"k": PM.ParamInfo(kv, "zeros"), "v": PM.ParamInfo(kv, "zeros")}
+        if cfg.moe is not None and cfg.moe.first_dense:
+            return {"layer0": per, "layers": PM.stack(cfg.n_layers - 1, per)}
         return {"layers": PM.stack(cfg.n_layers, per)}
 
     def init_cache(self, batch: int, seq: int) -> dict:
@@ -114,12 +167,34 @@ class DecoderLM(nn.Module):
         n = len(split["attn"]["ln"])
         return [PM.tree_map(lambda parts: parts[i], split) for i in range(n)]
 
+    def _mla_latent(self, p, h):
+        """MLA's down-projection of the normed input h: (normed latent, k_rope
+        before RoPE).  ``w_dkv``'s two column blocks are two products, so each
+        result is contiguous: the card's rmsnorm takes only contiguous rows, and
+        a slice of one product would hand ``kv_ln`` strided ones."""
+        r = self.cfg.mla.kv_lora_rank
+        c_kv = rms_norm(h @ p["w_dkv"][:, :r], p["kv_ln"], self.cfg.norm_eps)
+        return c_kv, h @ p["w_dkv"][:, r:]
+
     def _attention(self, p, x, positions, *, window: int):
-        """Full-sequence causal attention block (dense branch of the JAX ``_attention``)."""
+        """Full-sequence causal attention block (the JAX ``_attention``)."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         h = rms_norm(x, p["ln"], cfg.norm_eps)
+        if cfg.mla is not None:
+            m = cfg.mla
+            q = (h @ p["wq"]).view(B, S, H, m.qk_nope_dim + m.qk_rope_dim).transpose(1, 2)
+            q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+            c_kv, k_rope = self._mla_latent(p, h)
+            k_rope = rope(k_rope[:, None], positions, cfg.rope_theta)           # (B, 1, S, r)
+            q_rope = rope(q_rope, positions, cfg.rope_theta)
+            k_nope = (c_kv @ p["w_uk"]).view(B, S, H, m.qk_nope_dim).transpose(1, 2)
+            v = (c_kv @ p["w_uv"]).view(B, S, H, m.v_head_dim).transpose(1, 2)
+            k = torch.cat([k_nope, k_rope.expand(B, H, S, m.qk_rope_dim)], -1)
+            q = torch.cat([q_nope, q_rope], -1)
+            out = blockwise_attention(q, k, v, causal=True, window=window)
+            return x + out.transpose(1, 2).reshape(B, S, H * m.v_head_dim) @ p["wo"]
         q = h @ p["wq"]
         k = h @ p["wk"]
         v = h @ p["wv"]
@@ -139,31 +214,51 @@ class DecoderLM(nn.Module):
         out = out.transpose(1, 2).reshape(B, S, H * hd)
         return x + out @ p["wo"]
 
-    def _layer(self, p, x, positions):
+    def _mlp(self, p, x, *, moe: bool):
+        """The MLP block: ``(x + the dense SwiGLU or the routed experts, aux)``;
+        ``aux`` is the experts' load-balancing loss, 0.0 for a dense MLP."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        if not moe:
+            return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+        shared = ((p["shared_gate"], p["shared_up"], p["shared_down"])
+                  if "shared_gate" in p else None)
+        y, aux = moe_block(h.reshape(-1, h.shape[-1]), p["router"], p["w_gate"], p["w_up"],
+                           p["w_down"], top_k=cfg.moe.top_k,
+                           capacity_factor=cfg.moe.capacity_factor, shared=shared)
+        return x + y.view(x.shape), aux
+
+    def _layer(self, p, x, positions, *, moe: bool):
         x = self._attention(p["attn"], x, positions, window=self.cfg.sliding_window)
-        return self._mlp(p["mlp"], x)
+        return self._mlp(p["mlp"], x, moe=moe)
 
     def backbone(self, params, x, positions):
-        """Embedding-space input -> (final hidden states, aux loss 0.0 of the dense model)."""
-        for p in self._layer_params(params):
-            x = self._layer(p, x, positions)
+        """Embedding-space input -> (final hidden states, the experts' summed aux
+        loss: a 0.0 tensor for a dense model)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        moe = self.cfg.moe is not None
+        if "layer0" in params:
+            x, a = self._layer(params["layer0"], x, positions, moe=False)
+            aux = aux + a
+        for p in self._layer_params(params):
+            x, a = self._layer(p, x, positions, moe=moe)
+            aux = aux + a
         return rms_norm(x, params["final_ln"], self.cfg.norm_eps), aux
 
-    def _mlp(self, p, x):
-        h = rms_norm(x, p["ln"], self.cfg.norm_eps)
-        return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-
-    def _decode_attn(self, p, x, k_cache, v_cache, slot: int, pos, valid):
+    def _decode_attn(self, p, x, cache: dict, slot: int, pos, seen):
         """One-token attention; writes ``slot`` of this layer's cache in place.
 
-        ``pos`` is the token's position as a (1,) int64 tensor and ``valid``
-        the visible slots as an int32 (B,) tensor, both on the model's device
-        and made once a step for every layer.
+        ``pos`` is the token's position as a (1,) int64 tensor, both on the
+        model's device and made once a step for every layer, as is ``seen``:
+        the visible slots, an int32 (B,) count for GQA, a bool (S,) mask over
+        the latent cache for MLA.
         """
+        if self.cfg.mla is not None:
+            return self._decode_attn_mla(p, x, cache["c_kv"], cache["k_rope"], slot, pos, seen)
         cfg = self.cfg
         B = x.shape[0]
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        k_cache, v_cache = cache["k"], cache["v"]
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         q = h @ p["wq"]
         k = h @ p["wk"]
@@ -182,12 +277,43 @@ class DecoderLM(nn.Module):
             k = rope(k, pos, cfg.rope_theta)
         k_cache[:, :, slot] = k[:, :, 0]
         v_cache[:, :, slot] = v[:, :, 0]
-        out = decode_attention(q, k_cache, v_cache, valid, window=0)
+        out = decode_attention(q, k_cache, v_cache, seen, window=0)
         return x + out.view(B, 1, H * hd) @ p["wo"]
+
+    def _decode_attn_mla(self, p, x, c_kv, k_rope, slot: int, pos, seen):
+        """MLA decode with the absorbed projections, in JAX's roundings: q_eff in
+        the model's dtype, both scores summed in fp32 (the bf16 operands cast
+        to fp32, which is exact), scaled by 1/sqrt(qk_nope + qk_rope), the
+        probabilities cast to the cache's dtype before the context product."""
+        cfg = self.cfg
+        m = cfg.mla
+        B = x.shape[0]
+        H = cfg.n_heads
+        r = m.kv_lora_rank
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        q = (h @ p["wq"]).view(B, H, 1, m.qk_nope_dim + m.qk_rope_dim)
+        q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+        q_rope = rope(q_rope, pos, cfg.rope_theta)
+        c_new, kr_new = self._mla_latent(p, h)                            # (B, 1, r), (B, 1, rope)
+        c_kv[:, slot] = c_new[:, 0]
+        k_rope[:, slot] = rope(kr_new, pos, cfg.rope_theta)[:, 0]
+        # absorbed decode: score against the latent directly, heads as the batch
+        w_uk = p["w_uk"].view(r, H, m.qk_nope_dim).permute(1, 2, 0)          # (H, nope, r)
+        q_eff = torch.bmm(q_nope[:, :, 0].transpose(0, 1), w_uk).transpose(0, 1)  # (B, H, r)
+        s = torch.bmm(q_eff.float(), c_kv.float().transpose(1, 2))          # (B, H, S)
+        s = s + torch.bmm(q_rope[:, :, 0].float(), k_rope.float().transpose(1, 2))
+        s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+        s = torch.where(seen, s, -1e30)
+        pr = torch.softmax(s, dim=-1)
+        ctx = torch.bmm(pr.to(c_kv.dtype), c_kv)                            # (B, H, r)
+        w_uv = p["w_uv"].view(r, H, m.v_head_dim).transpose(0, 1)          # (H, r, vd)
+        out = torch.bmm(ctx.transpose(0, 1), w_uv).transpose(0, 1)          # (B, H, vd)
+        return x + out.reshape(B, 1, H * m.v_head_dim) @ p["wo"]
 
     # --------------------------------------------------------------- train
     def loss(self, params, batch):
-        """Mean next-token cross-entropy; returns ``(total, {"nll", "aux"})``.
+        """Mean next-token cross-entropy plus 0.01 x the experts' aux loss;
+        returns ``(total, {"nll", "aux"})``.
 
         batch: ``tokens`` and ``labels``, (B, S) integer tensors on the model's
         device.  Logits are cast to fp32 before the log-sum-exp, as in JAX.
@@ -219,20 +345,30 @@ class DecoderLM(nn.Module):
         batch: ``tokens`` (B, 1) integer tensor, ``cache`` from
         :meth:`init_cache`, ``index`` the int position of the new token.
         Returns ``(logits (B, 1, vocab) fp32, cache)``; the cache is updated
-        in place.
+        in place.  An index past a cache with no window raises ``IndexError``
+        (``layers.cache_slot``): MLA's latent cache has no ring.
         """
         cfg = self.cfg
         tokens, cache, index = batch["tokens"], batch["cache"], int(batch["index"])
-        lp, lc = params["layers"], cache["layers"]
-        slot, n_valid = cache_slot(index, lc["k"].shape[3], cfg.sliding_window)
         x = self.embed(params, tokens)
         # fills on the device, not copies from the host that would wait for it
         pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
-        valid = torch.full((x.shape[0],), n_valid, dtype=torch.int32, device=x.device)
-        for i in range(cfg.n_layers):
+        if cfg.mla is not None:
+            S = cache["layers"]["c_kv"].shape[2]
+            slot, _ = cache_slot(index, S, 0)
+            seen = torch.arange(S, device=x.device) <= index
+        else:
+            slot, n_valid = cache_slot(index, cache["layers"]["k"].shape[3], cfg.sliding_window)
+            seen = torch.full((x.shape[0],), n_valid, dtype=torch.int32, device=x.device)
+        if "layer0" in params:
+            x = self._decode_attn(params["layer0"]["attn"], x, cache["layer0"], slot, pos, seen)
+            x, _ = self._mlp(params["layer0"]["mlp"], x, moe=False)
+        lp, lc, moe = params["layers"], cache["layers"], cfg.moe is not None
+        for i in range(lp["attn"]["ln"].shape[0]):
             attn = {name: t[i] for name, t in lp["attn"].items()}
             mlp = {name: t[i] for name, t in lp["mlp"].items()}
-            x = self._decode_attn(attn, x, lc["k"][i], lc["v"][i], slot, pos, valid)
-            x = self._mlp(mlp, x)
+            x = self._decode_attn(attn, x, {name: t[i] for name, t in lc.items()}, slot, pos,
+                                  seen)
+            x, _ = self._mlp(mlp, x, moe=moe)
         h = rms_norm(x, params["final_ln"], cfg.norm_eps)
         return self.unembed(params, h).float(), cache

@@ -9,14 +9,13 @@ from .xlstm import XLSTM
 
 #: family -> the later slice of the port that brings it
 _LATER_SLICE = {
-    "moe": "the MoE and MLA decoder slice",
     "vlm": "the VLM decoder slice",
     "encdec": "the Whisper encoder-decoder slice",
 }
 
 
 def build_model(cfg: ModelConfig, *, device="cuda") -> DecoderLM | XLSTM | Hymba:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg, device=device)
     if cfg.family == "ssm":
         return XLSTM(cfg, device=device)

@@ -1,7 +1,8 @@
 """Batched serving engine: warm-cache decode over a batch of prompts.
 
 The port of ``repro.serve.engine``, for every model the port serves: the
-dense ``DecoderLM`` (a KV cache), ``Hymba`` (KV caches, a ring buffer in the
+``DecoderLM`` (a KV cache, a ring buffer with a sliding window, or MLA's
+latent cache), ``Hymba`` (KV caches, a ring buffer in the
 sliding-window layers, and the SSM state) and ``XLSTM`` (the recurrent state
 alone).  Each model's ``init_cache`` gives its cache and ``decode_step``
 updates it in place.  The engine runs: (1) cache init, (2) prefill that
