@@ -29,24 +29,34 @@ prints no result line):
    replays on new inputs and valid lengths, and its times at the serving
    shape, at hymba-1.5b's and qwen3-4b's serving shapes and at two long
    caches by graph replay beside the ``simt`` kernel's and SDPA's; rmsnorm
-   and SwiGLU timed at every serving shape too; rmsnorm also at the qwen
-   and hymba-1.5b training shapes and a ragged one (both its routes
-   asserted; its device time from a replayed CUDA graph, its host path step
-   by step); swiglu_mlp at the qwen and hymba-1.5b training shapes and at
-   ragged shapes that reach each of its three routes (``SWIGLU_SHAPES``),
-   the split-K route asserted at every serving shape; flash
-   attention forward and backward at the five sweep shapes of
-   ``tests/test_kernels.py``, their window and ragged rows again at hd 64
-   (the tensor-core route), a GQA shape (G 8, hd 128), causal queries
-   behind a longer cache (q_offset 256) and the training shape, each
+   and SwiGLU timed at every serving shape too; rmsnorm also at the qwen,
+   hymba-1.5b and MoE training rows (deepseek-v2-lite-16b's kv_ln (4096,
+   512) and (4096, 2048), mixtral-8x7b's (8192, 4096)) and a ragged one
+   (both its routes asserted; its device time from a replayed CUDA graph,
+   its host path step by step); swiglu_mlp at the qwen, hymba-1.5b and
+   deepseek-v2-lite-16b training shapes (layer0's (4096, 2048, 10944), the
+   shared experts' (4096, 2048, 2816)) and at ragged shapes that reach each
+   of its three routes (``SWIGLU_SHAPES``), the split-K route asserted at
+   every serving shape; flash attention forward and backward at the five
+   sweep shapes of ``tests/test_kernels.py``, their window and ragged rows
+   again at hd 64 (the tensor-core route), a GQA shape (G 8, hd 128), causal
+   queries behind a longer cache (q_offset 256) and the training shape, then
+   with v narrower than q and k (``MOE_FLASH_SHAPES``: the sweep with v of
+   half width, MLA's (192, 128) ragged, behind a longer cache, with a window
+   and at deepseek-v2-lite-16b's training shape 2 x 16 x 2048, the smoke
+   widths (48, 32) on the CUDA cores) and mixtral-8x7b's training shape (32
+   heads over 8, 8192, window 4096), the tensor-core rows of these held to
+   the plain versions with P and dS rounded as the route rounds them, each
    backward called twice and its two results compared bit for bit, and
-   queries that see no key (zero gradients on the tensor-core route);
-   autograd through ``ops.flash_attention`` against the plain backward, in
-   bf16 at the training shape through the tensor-core forward; the RMSNorm
-   backward (``RMSNORM_BWD_SHAPES``) and the SwiGLU backward through
+   queries that see no key at hd 64 and at (192, 128) (zero gradients on
+   the tensor-core route); autograd through ``ops.flash_attention`` against
+   the plain backward, in bf16 at the qwen and deepseek training shapes
+   through the tensor-core forward; the RMSNorm backward
+   (``RMSNORM_BWD_SHAPES``) and the SwiGLU backward through
    ``ops.swiglu_mlp``, whose forward saves a = x Wg and b = x Wu
-   (``SWIGLU_BWD_SHAPES``), at the qwen, hymba-1.5b and xlstm-1.3b training
-   shapes and ragged ones, fp32 and bf16, each called twice and compared bit
+   (``SWIGLU_BWD_SHAPES``), at the qwen, hymba-1.5b, xlstm-1.3b and MoE
+   training shapes and ragged ones, fp32 and bf16, each called twice and
+   compared bit
    for bit, their routes asserted and their PR 12-17 kernels (``block``,
    ``simt``) checked on the same inputs.  Each bf16
    check prints the route it took, and the flash forward's and backward's
@@ -76,13 +86,21 @@ prints no result line):
    version with its bf16 roundings, each backward called twice and compared
    bit for bit, and timed beside the CUDA-core kernels; flash attention
    forward and backward at hymba-1.5b's training shapes (25 query heads
-   over 5, 2176 positions, window 1024 and 0).
+   over 5, 2176 positions, window 1024 and 0), and at deepseek-v2-lite-16b's
+   and mixtral-8x7b's, those two also by replayed CUDA graphs, beside SDPA's
+   fastest backend that takes their v (named; the others' refusals kept).
 4. full width: qwen1.5-0.5b in fp32, one ``decode_step`` on the card against
    the same weights on the CPU; then, cut to 4 layers, ``loss`` and every
    gradient leaf on a (2, 200) batch against the CPU; then xlstm-1.3b in
    fp32 cut to 8 layers (7 mLSTM + 1 sLSTM), ``loss``, every gradient leaf
    and ``prefill`` on a (1, 256) batch against the CPU; then hymba-1.5b in
-   fp32 cut to 4 layers and a window of 256, the same on a (1, 384) batch.
+   fp32 cut to 4 layers and a window of 256, the same on a (1, 384) batch;
+   deepseek-v2-lite-16b in fp32 cut to 3 layers (layer0 and 2 MoE layers)
+   and mixtral-8x7b cut to 2 layers and a window of 64, the same on a (1,
+   256) batch, the routing of every MoE layer compared with the CPU's first
+   (``on_both_routed``: a difference passes only at a near-tie, which is
+   printed and counted, and the CPU then runs again with the card's experts
+   replayed through ``moe_route``).
    Decoding at full width in fp32 against the CPU with the same weights
    (``--only serve`` runs these and phase 5): qwen3-4b cut to 4 layers, one
    ``decode_step``, then ``loss``, every gradient leaf and ``prefill``;
@@ -94,16 +112,16 @@ prints no result line):
    2e-3 of the card's ``prefill`` of the same 32 tokens; deepseek-v2-lite-16b
    cut to 3 layers (layer0 and 2 MoE layers), 16 steps of 8 requests from a
    zero cache at index 0 and 16 from a random latent cache at index 100;
-   mixtral-8x7b cut to 2 layers and a window of 64, 96 steps of 8 requests
-   from index 100 on a random cache, through the ring.  For the two MoE
+   mixtral-8x7b cut to 2 layers and a window of 64, 64 steps of 8 requests
+   from index 100 on a random cache, once around the ring.  For the two MoE
    models the routing of every MoE layer and step is compared with the
    CPU's first: it may differ only at a near-tie (the k-th and (k+1)-th
    router probabilities within 1e-5 on both devices), which is printed and
    counted, the step's logits then not compared and the CPU handed the
    card's cache; any other difference fails.
-5. serve: deepseek-v2-lite-16b's ``prefill`` and ``loss`` on the card must
-   raise from the flash wrapper (MLA's v is narrower than q and k); a small
-   fp32 serve at the smoke configs of qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b,
+5. serve: deepseek-v2-lite-16b's smoke config in fp32, ``prefill`` on the
+   card through the flash kernel (v narrower than q and k) equal to the
+   CPU's; a small fp32 serve at the smoke configs of qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b,
    deepseek-v2-lite-16b and mixtral-8x7b through
    ``repro_torch.launch.serve.main`` on the card and on the CPU (one seed
    names one model on both), token for token; then five bf16 runs at full
@@ -142,11 +160,21 @@ prints no result line):
    checked per step (and the routes, as qwen's, and every SSD scan forward
    and backward on the tensor cores), and 8 steps on a fixed
    (2, 128) batch.
-9. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
+9. train MoE: the same for deepseek-v2-lite-16b and mixtral-8x7b, each
+   ``launch.train.main`` at its smoke config with a checkpoint, then in bf16
+   at full width and a cut depth (``DEEPSEEK_TRAIN``: 4 layers, batch 2 x
+   2048; ``MIXTRAL_TRAIN``: 2 layers, 1 x 8192), 4 steps with the launch
+   counts checked per step (``DEEPSEEK_PER_STEP``, ``MIXTRAL_PER_STEP``) and
+   the routes as qwen's (every flash forward and backward on the tensor
+   cores: MLA's (192, 128) for deepseek), and 8 steps on a fixed (2, 128)
+   batch.
+10. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
    ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"serve_deepseek":
-   ...}`` (with the MoE checks' near-ties), ``{"train": ...}``,
-   ``{"train_xlstm": ...}``, ``{"train_hymba": ...}`` and ``{"kernels":
-   [...]}`` line, then the last line ``{"ok": true, "device": {...}}``.
+   ...}`` (with the MoE decode checks' near-ties), ``{"train": ...}``,
+   ``{"train_xlstm": ...}``, ``{"train_hymba": ...}``, ``{"train_deepseek":
+   ...}`` and ``{"train_mixtral": ...}`` (with the fp32 loss checks'
+   near-ties) and ``{"kernels": [...]}`` line, then the last line ``{"ok":
+   true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -179,6 +207,13 @@ TRAIN = dict(batch=8, seq=512, steps=6)
 TRAIN_ROWS = TRAIN["batch"] * TRAIN["seq"]
 #: (N, D, F) of hymba-1.5b's SwiGLU at its training shape (2 x 2176 rows)
 HYMBA_SWIGLU = (4352, 1600, 5504)
+#: (N, D, F) of deepseek-v2-lite-16b's dense MLPs at its training shape (2 x 2048
+#: rows): layer0's (d_ff 10944) and the 2 shared experts' (2 x 1408)
+DEEPSEEK_SWIGLU = ((4096, 2048, 10944), (4096, 2048, 2816))
+#: (rows, D) of the rmsnorm forward and backward at the MoE training shapes:
+#: deepseek-v2-lite-16b's kv_ln on the MLA latent (512) and its d_model norms
+#: (2 x 2048 rows); mixtral-8x7b's d_model norms (1 x 8192 rows)
+MOE_RMSNORM = ((4096, 512), (4096, 2048), (8192, 4096))
 #: (N, D, F): the serving and the qwen training shape, ragged shapes that reach
 #: the split-K route (20 rows) and the 128-row route (333 rows) with D and F no
 #: multiple of the tiles, a bf16 shape that TMA refuses (D = 100, not a multiple
@@ -186,7 +221,7 @@ HYMBA_SWIGLU = (4352, 1600, 5504)
 #: of hymba-1.5b's training shape; the other models' serving shapes join them
 #: in ``check_swiglu`` (``serve_kernel_shapes``)
 SWIGLU_SHAPES = ((SERVE["requests"], 1024, 2816), (TRAIN_ROWS, 1024, 2816), (20, 96, 224),
-                 (333, 200, 712), (37, 100, 260), HYMBA_SWIGLU)
+                 (333, 200, 712), (37, 100, 260), HYMBA_SWIGLU, *DEEPSEEK_SWIGLU)
 TOL = {  # tests/test_kernels.py
     "rmsnorm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
     "swiglu_mlp": {torch.float32: 1e-4, torch.bfloat16: 5e-2},
@@ -275,9 +310,45 @@ SSD_SHAPES = tuple((2, 128, 2, N, chd, chunk) for chunk in (32, 64)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: (B, Hq, Hkv, S, hd, window): hymba-1.5b's attention at its training shape
 HYMBA_FLASH = ((2, 25, 5, 2176, 64, 1024), (2, 25, 5, 2176, 64, 0))
+#: (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window): v narrower than q and k.  The
+#: sweep of FLASH_SHAPES' first five rows with v of half their width (the CUDA
+#: cores in both dtypes); MLA's widths (192, 128) causal, behind a longer cache
+#: (q_offset = Skv - Sq) and ragged, with a window, and at deepseek-v2-lite-16b's
+#: training shape (batch 2 x 2048, 16 heads); its smoke widths (48, 32); then
+#: mixtral-8x7b's training shape (1 x 8192, 32 heads over 8, hd 128, window
+#: 4096).  In bf16 the (192, 128) and (128, 128) rows take the tensor cores.
+MOE_FLASH_SHAPES = tuple((*s[:6], s[5] // 2, *s[6:]) for s in FLASH_SHAPES[:5]) + (
+    (1, 4, 2, 200, 456, 192, 128, True, 0),
+    (1, 4, 2, 300, 300, 192, 128, True, 64),
+    (1, 4, 4, 64, 64, 48, 32, True, 0),
+    (2, 16, 16, 2048, 2048, 192, 128, True, 0),
+    (1, 32, 8, 8192, 8192, 128, 128, True, 4096),
+)
+#: (B, Hq, Hkv, S, hd, hdv, window) of the flash times at the MoE training shapes
+DEEPSEEK_FLASH = (2, 16, 16, 2048, 192, 128, 0)
+MIXTRAL_FLASH = (1, 32, 8, 8192, 128, 128, 4096)
 QWEN3 = "qwen3-4b"
 DEEPSEEK = "deepseek-v2-lite-16b"
 MIXTRAL = "mixtral-8x7b"
+#: the bf16 MoE training runs at full width and a cut depth: deepseek-v2-lite-16b's
+#: 15.7 B parameters and their AdamW state (about 250 GB) do not fit one card, so
+#: layer0 and 3 MoE layers (2.25 B parameters); mixtral-8x7b at 2 layers (3.16 B)
+#: and one sequence of 8192, so that its window of 4096 binds over half the rows
+DEEPSEEK_TRAIN = dict(batch=2, seq=2048, steps=4, layers=4)
+MIXTRAL_TRAIN = dict(batch=1, seq=8192, steps=4, layers=2)
+_NO_SCANS = {"decode_attention": 0, "mlstm_scan": 0, "mlstm_scan_bwd": 0, "ssd_scan": 0,
+             "ssd_scan_bwd": 0}
+#: kernel launches per training step: deepseek-v2-lite-16b at 4 layers, 3 norms
+#: each (kv_ln on the MLA latent among them) and the final norm, one flash
+#: attention each (MLA's (192, 128)), layer0's SwiGLU and the 3 MoE layers'
+#: shared experts (the routed experts are batched products); mixtral-8x7b at 2
+#: layers, 2 norms and one attention each and the final norm, no SwiGLU kernel
+DEEPSEEK_PER_STEP = {"rmsnorm": 3 * 4 + 1, "rmsnorm_bwd": 3 * 4 + 1, "swiglu": 4,
+                     "swiglu_bwd": 4, "flash_attention": 4, "flash_attention_bwd": 4,
+                     **_NO_SCANS}
+MIXTRAL_PER_STEP = {"rmsnorm": 2 * 2 + 1, "rmsnorm_bwd": 2 * 2 + 1, "swiglu": 0,
+                    "swiglu_bwd": 0, "flash_attention": 2, "flash_attention_bwd": 2,
+                    **_NO_SCANS}
 #: router probabilities this close at the k-th and (k+1)-th place may pick another
 #: expert on the card than on the CPU in fp32: the fp32 decode checks allow a
 #: routing difference there (and only there), print it and count it
@@ -539,10 +610,10 @@ def phase_build() -> None:
 
 #: (rows, D) of the rmsnorm checks: the serving, qwen training and hymba-1.5b
 #: training rows (the "vec" route), a small row and a ragged one (D = 100: the
-#: "block" route); the other models' serving rows join them in
-#: ``check_rmsnorm`` (``serve_kernel_shapes``)
+#: "block" route), the MoE training rows; the other models' serving rows join
+#: them in ``check_rmsnorm`` (``serve_kernel_shapes``)
 RMSNORM_SHAPES = ((SERVE["requests"], 1024), (TRAIN_ROWS, 1024), (4352, 1600), (37, 96),
-                  (37, 100))
+                  (37, 100), *MOE_RMSNORM)
 
 
 def graph_ms(fn, arg_sets, calls: int = 24, replays: int = 20, stream=None):
@@ -669,10 +740,15 @@ def rmsnorm_graph_check(ops, ref, x, g) -> float:
     return err
 
 
+#: the key prefixes of the rmsnorm times at MOE_RMSNORM's rows
+MOE_RMSNORM_PREFIXES = ("deepseek_kv_ln_", "deepseek_", "mixtral_")
+
+
 def check_rmsnorm(gen, ops, ref, rate):
     """RMSNORM_SHAPES in fp32 and bf16, each check with the route it took; times
     at the serving shape (the row), the qwen training shape (``train_*``),
-    hymba-1.5b's (``hymba_*``) and the other models' serving rows
+    hymba-1.5b's (``hymba_*``), the MoE training rows (MOE_RMSNORM_PREFIXES)
+    and the other models' serving rows
     (``serve_kernel_shapes``' prefixes): host-paced ``ms`` with the host's ``issue_ms``,
     ``device_ms`` from a replayed CUDA graph, the ``block`` body on the same inputs
     (``block_ms``, device), ``F.rms_norm``'s host-paced and device times.  At
@@ -700,6 +776,8 @@ def check_rmsnorm(gen, ops, ref, rate):
     row = {"name": "rmsnorm"}
     for prefix, (N, D), n_sets in (("", RMSNORM_SHAPES[0], 24), ("train_", RMSNORM_SHAPES[1], 8),
                                    ("hymba_", RMSNORM_SHAPES[2], 8),
+                                   *((p, shape, 8) for p, shape in zip(MOE_RMSNORM_PREFIXES,
+                                                                       MOE_RMSNORM)),
                                    *((k, shape, 24) for shape, k in
                                      serve_kernel_shapes()["rmsnorm"].items()
                                      if shape != RMSNORM_SHAPES[0])):
@@ -736,11 +814,16 @@ def _swiglu_lib(x, wg, wu, wd):
     return (F.silu(x @ wg) * (x @ wu)) @ wd
 
 
+#: the key prefixes of the SwiGLU times at DEEPSEEK_SWIGLU's shapes
+DEEPSEEK_SWIGLU_PREFIXES = ("deepseek_layer0_", "deepseek_shared_")
+
+
 def check_swiglu(gen, ops, ref, rate):
     """SWIGLU_SHAPES in fp32 and bf16, each bf16 check with the route it took,
     the split-K tensor-core route asserted at every serving shape; times at
     the serving shape (the row), the qwen training shape (its ``train_*``
-    keys), hymba-1.5b's (``hymba_*``) and the other models' serving shapes
+    keys), hymba-1.5b's (``hymba_*``), deepseek-v2-lite-16b's
+    (DEEPSEEK_SWIGLU_PREFIXES) and the other models' serving shapes
     (``serve_kernel_shapes``' prefixes), each beside the CUDA-core kernel's on the
     same inputs (``simt_ms``); at serving's rows also the kernel's and three
     ``@``'s device times from replayed CUDA graphs (``device_ms``,
@@ -771,6 +854,8 @@ def check_swiglu(gen, ops, ref, rate):
     for prefix, (N, D, Fd), n_sets, rounds in (("", SWIGLU_SHAPES[0], 24, 5),
                                                ("train_", SWIGLU_SHAPES[1], 2, 3),
                                                ("hymba_", HYMBA_SWIGLU, 2, 3),
+                                               *((p, shape, 2, 3) for p, shape in
+                                                 zip(DEEPSEEK_SWIGLU_PREFIXES, DEEPSEEK_SWIGLU)),
                                                *((k, shape, 8, 10)
                                                  for shape, k in serving.items())):
         dt = torch.bfloat16
@@ -962,17 +1047,22 @@ def check_decode_attention(gen, ops, ref, rate):
     return row
 
 
-def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool) -> tuple[float, str]:
-    """Causal self-attention.  Bytes: q, out (and dO, dq) over Hq heads, k, v (and
-    dk, dv) over Hkv, lse in fp32, once each; operations: 4 hd per visible (causal,
-    in-window) pair forward, 10 hd backward (bf16 rate)."""
+def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool,
+                hdv: int | None = None) -> tuple[float, str]:
+    """Causal self-attention, v of ``hdv`` (default hd) channels.  Bytes: q (and
+    dq) of hd and out (and dO) of hdv over Hq heads, k (and dk) of hd and v
+    (and dv) of hdv over Hkv, lse in fp32, once each; operations per visible
+    (causal, in-window) pair: 2 (hd + hdv) forward (S = Q K^T, P V), 6 hd + 4
+    hdv backward (S, dP, dV, dQ, dK: the least work, with S formed once; the
+    kernels form S and dP on both sides, 8 hd + 6 hdv) (bf16 rate)."""
+    hdv = hd if hdv is None else hdv
     visible = sum(min(i + 1, window) if window else i + 1 for i in range(S))
     pairs = B * Hq * visible
-    q_elems, kv_elems = B * Hq * S * hd, B * Hkv * S * hd
+    q_elems, kv_elems = B * Hq * S * (hd + hdv), B * Hkv * S * (hd + hdv)
     if backward:
-        return bound(4 * (q_elems + kv_elems) * 2 + B * Hq * S * 4, 10 * hd * pairs,
+        return bound(2 * (q_elems + kv_elems) * 2 + B * Hq * S * 4, (6 * hd + 4 * hdv) * pairs,
                      torch.bfloat16, rate)
-    return bound(2 * (q_elems + kv_elems) * 2 + B * Hq * S * 4, 4 * hd * pairs,
+    return bound((q_elems + kv_elems) * 2 + B * Hq * S * 4, 2 * (hd + hdv) * pairs,
                  torch.bfloat16, rate)
 
 
@@ -1007,18 +1097,24 @@ def sdpa_backward_ms(lib, inputs, dout) -> dict:
             "library_default_fwd_bwd_ms": default_both, "library_by_backend": by_backend}
 
 
-def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, dict]:
-    """Flash forward and backward times in bf16 at one causal self-attention shape,
-    beside the plain versions', SDPA's (with a boolean band mask where the
-    window bites; the backward's by backend) and the bound; each also beside
-    the CUDA-core kernels' on the same inputs (``simt_ms``)."""
+def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window, hdv: int | None = None,
+                graphs: bool = False) -> tuple[dict, dict]:
+    """Flash forward and backward times in bf16 at one causal self-attention shape
+    (v of ``hdv`` channels, default hd), beside the plain versions', SDPA's
+    (with a boolean band mask where the window bites; the backward's by
+    backend, each given v of its own width: a backend that refuses it is
+    named with its reason) and the bound; each also beside the CUDA-core
+    kernels' on the same inputs (``simt_ms``); with ``graphs``, the forward's
+    and the backward's device times by replayed CUDA graphs (``device_ms``)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
     dt = torch.bfloat16
+    hdv = hd if hdv is None else hdv
     mask = ref.attention_mask(S, S, causal=True, window=window, q_offset=0, device="cuda")
     sets = [(randn(gen, (B, Hq, S, hd), dt), randn(gen, (B, Hkv, S, hd), dt),
-             randn(gen, (B, Hkv, S, hd), dt), randn(gen, (B, Hq, S, hd), dt)) for _ in range(2)]
+             randn(gen, (B, Hkv, S, hdv), dt), randn(gen, (B, Hq, S, hdv), dt))
+            for _ in range(2)]
     fwd_sets = [st[:3] for st in sets]
     saved = [(q, k, v, *kf.flash_attention_cuda(q, k, v, window=window), do)
              for q, k, v, do in sets]
@@ -1030,7 +1126,7 @@ def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, d
 
     q, k, v, dout = sets[0]
     lib_bwd = sdpa_backward_ms(lib, (q, k, v), dout)
-    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=False)
+    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=False, hdv=hdv)
     fwd = {
         "kernel_route": kf.route(*fwd_sets[0]),
         "ms": time_ms(lambda q, k, v: kf.flash_attention_cuda(q, k, v, window=window),
@@ -1041,7 +1137,10 @@ def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, d
                             fwd_sets, 3),
         "library_ms": time_ms(lib, fwd_sets, 5), "bound_ms": b_ms, "bound_by": b_by,
     }
-    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=True)
+    if graphs:
+        fwd["device_ms"], fwd["device_ms_from"] = graph_ms(
+            lambda q, k, v: kf.flash_attention_cuda(q, k, v, window=window), fwd_sets, 4, 5)
+    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=True, hdv=hdv)
     ms, issue_ms = time_ms(lambda *a: kb.flash_attention_bwd_cuda(*a, window=window), saved, 5,
                            issue=True)
     bwd = {
@@ -1055,36 +1154,47 @@ def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window) -> tuple[dict, d
             [tuple(t.detach().requires_grad_() for t in st[:3]) + (st[3],) for st in sets], 5),
         **lib_bwd, "bound_ms": b_ms, "bound_by": b_by,
     }
+    if graphs:
+        bwd["device_ms"], bwd["device_ms_from"] = graph_ms(
+            lambda *a: kb.flash_attention_bwd_cuda(*a, window=window), saved, 4, 5)
     return fwd, bwd
 
 
 def check_flash(gen, ops, ref, rate):
-    """Flash forward and backward against the plain versions at FLASH_SHAPES and
-    hymba-1.5b's shapes (HYMBA_FLASH), fp32 and bf16; autograd through
+    """Flash forward and backward against the plain versions at FLASH_SHAPES,
+    hymba-1.5b's shapes (HYMBA_FLASH) and MOE_FLASH_SHAPES (v narrower than q
+    and k, MLA's (192, 128) and mixtral-8x7b's among them), fp32 and bf16;
+    the MoE shapes' tensor-core rows against the plain versions with P (and
+    dS) rounded as the route rounds them; autograd through
     ``ops.flash_attention`` against the plain backward; times at the qwen
-    training shape (the rows) and at hymba-1.5b's (their ``hymba`` lists)."""
+    training shape (the rows), at hymba-1.5b's (their ``hymba`` lists) and at
+    deepseek-v2-lite-16b's and mixtral-8x7b's (``deepseek``, ``mixtral``)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
     errs, gerrs, routes, bwd_routes = {}, {}, {}, {}
     hymba = [(B, Hq, Hkv, S, S, hd, True, w) for B, Hq, Hkv, S, hd, w in HYMBA_FLASH]
-    for B, Hq, Hkv, Sq, Skv, hd, causal, window in FLASH_SHAPES + tuple(hymba):
+    shapes = [(*s[:6], s[5], *s[6:], False) for s in (*FLASH_SHAPES, *hymba)]
+    shapes += [(*s, True) for s in MOE_FLASH_SHAPES]
+    for B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, as_route in shapes:
         for dt in (torch.float32, torch.bfloat16):
             mask = dict(causal=causal, window=window, q_offset=Skv - Sq if causal else 0)
             q = randn(gen, (B, Hq, Sq, hd), dt)
             # k, v and dO as the model hands them over: transposed views
             k = randn(gen, (B, Skv, Hkv, hd), dt).transpose(1, 2)
-            v = randn(gen, (B, Skv, Hkv, hd), dt).transpose(1, 2)
-            dout = randn(gen, (B, Sq, Hq, hd), dt).transpose(1, 2)
-            out, lse = kf.flash_attention_cuda(q, k, v, **mask)
-            want, want_lse = ref.flash_attention_ref(q, k, v, **mask)
-            tol = TOL["flash_attention"][dt]
-            key = (B, Hq, Hkv, Sq, Skv, hd, causal, window, str(dt)[6:])
+            v = randn(gen, (B, Skv, Hkv, hdv), dt).transpose(1, 2)
+            dout = randn(gen, (B, Sq, Hq, hdv), dt).transpose(1, 2)
+            key = (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, str(dt)[6:])
             routes[key] = kf.route(q, k.contiguous(), v.contiguous())
-            errs[key] = max(max_err(out, want, tol), max_err(lse, want_lse, tol))
-            tc = dt == torch.bfloat16 and hd in kf.TC_HEAD_DIMS
+            tc = dt == torch.bfloat16 and (hd, hdv) in kf.TC_WIDTHS
             if routes[key] != ("wgmma" if tc else "simt"):
                 raise AssertionError(f"flash_attention {key}: route {routes[key]}")
+            # the MoE shapes' plain versions round P (and dS) as the route does
+            p_bf16 = as_route and tc
+            out, lse = kf.flash_attention_cuda(q, k, v, **mask)
+            want, want_lse = ref.flash_attention_ref(q, k, v, **mask, p_bf16=p_bf16)
+            tol = TOL["flash_attention"][dt]
+            errs[key] = max(max_err(out, want, tol), max_err(lse, want_lse, tol))
             before = dict(kb.route_launches)
             got = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
             bwd_routes[key] = [r for r, n in kb.route_launches.items() if n != before[r]]
@@ -1093,58 +1203,69 @@ def check_flash(gen, ops, ref, rate):
             again = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"flash_attention_bwd {key}: two calls differ")
-            exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask)
+            exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask,
+                                              p_bf16=p_bf16)
             gerrs[key] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp))
             del q, k, v, dout, out, lse, want, want_lse, got, again, exp
+        if Sq * Skv > 2 ** 24:
+            gc.collect()
+            torch.cuda.empty_cache()
     print(f"[kernels] flash_attention errors {errs}")
     print(f"[kernels] flash_attention bf16 routes "
-          f"{ {k[:8]: v for k, v in routes.items() if k[8] == 'bfloat16'} }")
+          f"{ {k[:9]: v for k, v in routes.items() if k[9] == 'bfloat16'} }")
     print(f"[kernels] flash_attention_bwd errors {gerrs}")
     print(f"[kernels] flash_attention_bwd bf16 routes "
-          f"{ {k[:8]: v[0] for k, v in bwd_routes.items() if k[8] == 'bfloat16'} }; "
+          f"{ {k[:9]: v[0] for k, v in bwd_routes.items() if k[9] == 'bfloat16'} }; "
           f"two calls bitwise equal at every shape")
 
     # queries that see no key (lse = -inf: q_offset -8, window 4) get zero
-    # gradients on the tensor-core route, not NaN
+    # gradients on the tensor-core route, not NaN: at hd 64 and at MLA's widths
     mask = dict(causal=True, window=4, q_offset=-8)
-    q, k, v, dout = (randn(gen, shape, torch.bfloat16)
-                     for shape in ((1, 4, 160, 64), (1, 2, 200, 64), (1, 2, 200, 64),
-                                   (1, 4, 160, 64)))
-    want, want_lse = ref.flash_attention_ref(q, k, v, **mask)
-    got = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
-    exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask)
-    err = max(max_err(a, b, GRAD_TOL[torch.bfloat16]) for a, b in zip(got, exp))
-    if (kb.route(q, k, v, want, dout) != "wgmma" or torch.count_nonzero(got[0][:, :, :8])
-            or not all(torch.isfinite(g).all() for g in got)):
-        raise AssertionError("flash_attention_bwd: rows with no visible key are not zero")
-    print(f"[kernels] flash_attention_bwd wgmma, 8 rows with lse = -inf: zero, within {err:.4e}")
-    del q, k, v, dout, want, want_lse, got, exp
+    for hd, hdv in ((64, 64), (192, 128)):
+        q, k, v, dout = (randn(gen, shape, torch.bfloat16)
+                         for shape in ((1, 4, 160, hd), (1, 2, 200, hd), (1, 2, 200, hdv),
+                                       (1, 4, 160, hdv)))
+        want, want_lse = ref.flash_attention_ref(q, k, v, **mask)
+        got = kb.flash_attention_bwd_cuda(q, k, v, want, want_lse, dout, **mask)
+        exp = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **mask)
+        err = max(max_err(a, b, GRAD_TOL[torch.bfloat16]) for a, b in zip(got, exp))
+        if (kb.route(q, k, v, want, dout) != "wgmma" or torch.count_nonzero(got[0][:, :, :8])
+                or not all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"flash_attention_bwd ({hd}, {hdv}): rows with no visible "
+                                 "key are not zero")
+        print(f"[kernels] flash_attention_bwd wgmma ({hd}, {hdv}), 8 rows with lse = -inf: "
+              f"zero, within {err:.4e}")
+        del q, k, v, dout, want, want_lse, got, exp
 
     # autograd through ops.flash_attention equals the plain backward: fp32 at a
-    # small shape; bf16 at the training shape, where the tensor-core forward's
-    # lse feeds the backward kernel
+    # small shape; bf16 at the training shapes, where the tensor-core forward's
+    # lse feeds the backward kernel (MLA's against P rounded as the route does)
     B, H, _, S, _, hd, _, _ = FLASH_SHAPES[-1]
-    for shape, dt in (((2, 4, 100, 32), torch.float32), ((B, H, S, hd), torch.bfloat16)):
-        q, k, v, dout = (randn(gen, shape, dt) for _ in range(4))
+    dB, dH, _, dS, dhd, dhdv, _ = DEEPSEEK_FLASH
+    for shapes_dt, p_bf16 in ((((2, 4, 100, 32),) * 4 + (torch.float32,), False),
+                              (((B, H, S, hd),) * 4 + (torch.bfloat16,), False),
+                              (((dB, dH, dS, dhd),) * 2 + ((dB, dH, dS, dhdv),) * 2
+                               + (torch.bfloat16,), True)):
+        dt = shapes_dt[-1]
+        q, k, v, dout = (randn(gen, shape, dt) for shape in shapes_dt[:4])
         leaves = [t.requires_grad_() for t in (q, k, v)]
         before, before_bwd = dict(kf.route_launches), dict(kb.route_launches)
         auto = torch.autograd.grad(ops.flash_attention(*leaves), leaves, dout)
         took = [r for r, n in kf.route_launches.items() if n != before[r]]
         took_bwd = [r for r, n in kb.route_launches.items() if n != before_bwd[r]]
         with torch.no_grad():
-            want, want_lse = ref.flash_attention_ref(q, k, v)
-            plain = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout)
+            want, want_lse = ref.flash_attention_ref(q, k, v, p_bf16=p_bf16)
+            plain = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, p_bf16=p_bf16)
         aerr = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(auto, plain))
-        print(f"[kernels] flash autograd {shape} {str(dt)[6:]}: forward route {took}, "
-              f"backward route {took_bwd}, "
+        print(f"[kernels] flash autograd q {tuple(q.shape)} v {tuple(v.shape)} {str(dt)[6:]}: "
+              f"forward route {took}, backward route {took_bwd}, "
               f"gradients within {aerr:.4e} of the plain backward")
         if dt == torch.bfloat16 and (took != ["wgmma"] or took_bwd != ["wgmma"]):
             raise AssertionError(f"bf16 autograd took the routes {took} forward, "
                                  f"{took_bwd} backward")
         del q, k, v, dout, leaves, auto, want, want_lse, plain
 
-    B, H, _, S, _, hd, _, _ = FLASH_SHAPES[-1]
-    key = (B, H, H, S, S, hd, True, 0, "bfloat16")
+    key = (B, H, H, S, S, hd, hd, True, 0, "bfloat16")
     fwd, bwd = flash_times(gen, ops, ref, rate, B, H, H, S, hd, 0)
     shape = f"q, k, v ({B}, {H}, {S}, {hd}) causal bf16"
     fwd = {"name": "flash_attention", "shape": shape, "max_abs_err": errs[key], **fwd,
@@ -1152,20 +1273,35 @@ def check_flash(gen, ops, ref, rate):
     bwd = {"name": "flash_attention_bwd", "shape": shape, "max_abs_err": gerrs[key], **bwd,
            "hymba": []}
     for B, Hq, Hkv, S, _, hd, _, window in hymba:
-        key = (B, Hq, Hkv, S, S, hd, True, window, "bfloat16")
+        key = (B, Hq, Hkv, S, S, hd, hd, True, window, "bfloat16")
         shape = f"q ({B}, {Hq}, {S}, {hd}), k, v ({B}, {Hkv}, {S}, {hd}), window {window} bf16"
         f, b = flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window)
         fwd["hymba"].append({"shape": shape, "max_abs_err": errs[key], **f})
         bwd["hymba"].append({"shape": shape, "max_abs_err": gerrs[key], **b})
+        torch.cuda.empty_cache()
+    for name, (B, Hq, Hkv, S, hd, hdv, window) in (("deepseek", DEEPSEEK_FLASH),
+                                                   ("mixtral", MIXTRAL_FLASH)):
+        key = (B, Hq, Hkv, S, S, hd, hdv, True, window, "bfloat16")
+        shape = (f"q, k ({B}, {Hq} / {Hkv}, {S}, {hd}), v ({B}, {Hkv}, {S}, {hdv}), "
+                 f"window {window} bf16")
+        f, b = flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window, hdv, graphs=True)
+        fwd[name] = {"shape": shape, "max_abs_err": errs[key], **f}
+        bwd[name] = {"shape": shape, "max_abs_err": gerrs[key], **b}
+        print(f"[kernels] flash at {name}'s training shape: forward {f['ms']:.4f} ms "
+              f"(device {f['device_ms']:.4f}, bound {f['bound_ms']:.4f}, SDPA "
+              f"{f['library_ms']:.4f}), backward {b['ms']:.4f} ms (device {b['device_ms']:.4f}, "
+              f"bound {b['bound_ms']:.4f}, SDPA {b['library_backend']} {b['library_ms']:.4f})")
+        gc.collect()
         torch.cuda.empty_cache()
     return fwd, bwd
 
 
 #: (rows, D) of the rmsnorm backward checks: the qwen, hymba-1.5b and xlstm-1.3b
 #: training rows and xlstm-1.3b's mLSTM output norm (8 KB rows; the "vec" body),
-#: serving's rows, a small row ("vec") and a ragged one (D = 100: "block")
+#: serving's rows, a small row ("vec") and a ragged one (D = 100: "block"), and
+#: the MoE training rows
 RMSNORM_BWD_SHAPES = ((TRAIN_ROWS, 1024), (4352, 1600), (2048, 2048), (2048, 4096),
-                      (SERVE["requests"], 1024), (37, 96), (37, 100))
+                      (SERVE["requests"], 1024), (37, 96), (37, 100), *MOE_RMSNORM)
 
 
 def rmsnorm_bwd_host_steps(x, g, dy, reps: int = 2000) -> dict:
@@ -1214,9 +1350,10 @@ def rmsnorm_bwd_host_steps(x, g, dy, reps: int = 2000) -> dict:
 def check_rmsnorm_bwd(gen, ops, ref, rate):
     """RMSNORM_BWD_SHAPES in fp32 and bf16 against the plain backward, each with
     the route it took (asserted) and two calls equal bit for bit; the ``block``
-    body on the same inputs.  Times at qwen's rows (the row) and hymba-1.5b's
-    (``hymba_*``), bf16: host-paced ``ms`` with the host's ``issue_ms``, device
-    time from a replayed CUDA graph of eight input sets (``device_ms``), the
+    body on the same inputs.  Times at qwen's rows (the row), hymba-1.5b's
+    (``hymba_*``) and the MoE training rows (MOE_RMSNORM_PREFIXES), bf16:
+    host-paced ``ms`` with the host's ``issue_ms``, device time from a
+    replayed CUDA graph of eight input sets (``device_ms``), the
     ``block`` body's the same way (``block_ms``), ``F.rms_norm``'s backward
     (``library_*``); at qwen's rows the wrapper's host path step by step on
     serving-size rows (``host_steps_us``)."""
@@ -1240,11 +1377,20 @@ def check_rmsnorm_bwd(gen, ops, ref, rate):
             errs[key] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp))
             errs[key + ("block",)] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in
                                          zip(kb.launch("block", x, g, dy, 1e-5), exp))
+    # the "vec" body's shared-memory limit belongs to its kernel instance, which
+    # fp32 rows of 2048 and 1600 share: a key configured with the shorter row
+    # after the longer must leave the longer one's cached launch valid
+    for D in (2048, 1600, 2048):
+        x, g, dy = (randn(gen, shape, torch.float32) for shape in ((5, D), (D,), (5, D)))
+        got, exp = kb.rmsnorm_bwd_cuda(x, g, dy, 1e-5), ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
+        errs[(5, D, "float32", "config order")] = max(
+            max_err(a, b, GRAD_TOL[torch.float32]) for a, b in zip(got, exp))
     torch.cuda.synchronize()
     print(f"[kernels] rmsnorm_bwd errors {errs}")
     print(f"[kernels] rmsnorm_bwd routes {routes}; two calls equal bit for bit at every shape")
     row = {"name": "rmsnorm_bwd"}
-    for prefix, (N, D) in (("", (TRAIN_ROWS, 1024)), ("hymba_", (4352, 1600))):
+    for prefix, (N, D) in (("", (TRAIN_ROWS, 1024)), ("hymba_", (4352, 1600)),
+                           *zip(MOE_RMSNORM_PREFIXES, MOE_RMSNORM)):
         dt = torch.bfloat16
         sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt), randn(gen, (N, D), dt))
                 for _ in range(8)]
@@ -1292,9 +1438,10 @@ def check_rmsnorm_bwd(gen, ops, ref, rate):
 #: (N, D, F) of the SwiGLU backward checks: the qwen, hymba-1.5b and xlstm-1.3b
 #: training shapes, a ragged shape of 128-row tiles, serving-size rows (the
 #: forward on split-K, the backward on the tensor cores) and a bf16 shape that
-#: TMA refuses (D = 100: the recompute path and gate kernel)
+#: TMA refuses (D = 100: the recompute path and gate kernel), and
+#: deepseek-v2-lite-16b's layer0 and shared experts at its training shape
 SWIGLU_BWD_SHAPES = ((TRAIN_ROWS, 1024, 2816), HYMBA_SWIGLU, (2048, 2048, 2688),
-                     (333, 200, 712), (20, 96, 224), (37, 100, 260))
+                     (333, 200, 712), (20, 96, 224), (37, 100, 260), *DEEPSEEK_SWIGLU)
 
 
 def _fwd_bwd(fn, x, wg, wu, wd, dy):
@@ -1361,8 +1508,9 @@ def check_swiglu_bwd(gen, ops, ref, rate):
     the recompute path and gate kernel of PRs 12-17 (``simt``) against its
     plain version.  A gradient outside GRAD_TOL of the plain version passes
     only with that witness, and is printed and returned (``plain_misses``)
-    with both errors.  Times at qwen's shape (the row) and
-    hymba-1.5b's (``hymba_*``), bf16, each from a replayed CUDA graph of two
+    with both errors.  Times at qwen's shape (the row),
+    hymba-1.5b's (``hymba_*``) and deepseek-v2-lite-16b's
+    (DEEPSEEK_SWIGLU_PREFIXES), bf16, each from a replayed CUDA graph of two
     input sets: the backward (``device_ms``; ``ms`` event-timed back to
     back), its kernel alone (``kernel_device_ms``), the PR 12-17 path
     (``simt_ms``), autograd of three ``@`` (``library_ms``), forward and
@@ -1430,7 +1578,8 @@ def check_swiglu_bwd(gen, ops, ref, rate):
     print(f"[kernels] swiglu_mlp_bwd outside GRAD_TOL of the plain version: {misses or 'none'}")
     row = {"name": "swiglu_mlp_bwd",
            "plain_misses": {" ".join(map(str, k)): v for k, v in misses.items()}}
-    for prefix, (N, D, Fd) in (("", SWIGLU_BWD_SHAPES[0]), ("hymba_", HYMBA_SWIGLU)):
+    for prefix, (N, D, Fd) in (("", SWIGLU_BWD_SHAPES[0]), ("hymba_", HYMBA_SWIGLU),
+                               *zip(DEEPSEEK_SWIGLU_PREFIXES, DEEPSEEK_SWIGLU)):
         dt = torch.bfloat16
         sets = [_swiglu_bwd_inputs(gen, N, D, Fd, dt) for _ in range(2)]
         b_ms, b_by = bound((3 * N * D + 6 * D * Fd + 2 * N * Fd) * 2,
@@ -1971,6 +2120,108 @@ def recorded_routes():
         layers.moe_route = route
 
 
+@contextlib.contextmanager
+def replayed_routes(choices: list):
+    """Route every ``layers.moe_route`` call through the next of ``choices``
+    (each an (N, k) expert choice, in call order): the experts another device
+    chose, this device's probabilities for them."""
+    from repro_torch.models import layers
+
+    route = layers.moe_route
+    pending = list(choices)
+
+    def call(*args, **kwargs):
+        return route(*args, **kwargs, choice=pending.pop(0))
+
+    layers.moe_route = call
+    try:
+        yield pending
+    finally:
+        layers.moe_route = route
+
+
+def on_both_routed(on_cpu, on_card, label: str):
+    """``(on_cpu(), on_card(), near-ties)``: both runs with every MoE layer's
+    routing recorded and compared (``routing_differences``).  Where the
+    routing parts ways at a near-tie, the CPU runs again with the card's
+    expert choice replayed through ``moe_route`` (``replayed_routes``), so
+    what follows is compared on the same routing; the near-ties are printed
+    and returned."""
+    with recorded_routes() as seen:
+        want = on_cpu()
+        n_cpu = len(seen)
+        got = on_card()
+    ties = routing_differences(seen[:n_cpu], seen[n_cpu:])
+    if ties:
+        print(f"[full-width] {label}: routing parts ways at near-ties {ties}; the CPU runs "
+              "again with the card's experts")
+        with replayed_routes([r.idx.cpu() for r in seen[n_cpu:]]) as left:
+            want = on_cpu()
+        if left:
+            raise AssertionError(f"{label}: {len(left)} of the card's routes not replayed")
+    return want, got, ties
+
+
+def moe_full_width_vs_cpu(cfg, seed: int, seq: int, label: str) -> list:
+    """``full_width_vs_cpu`` for a model with routed experts: ``loss``, every
+    gradient leaf and ``prefill`` of ``cfg`` (fp32) on a (1, ``seq``) batch on
+    the card against the same weights on the CPU, each within 2e-3 (of its
+    largest entry for the gradients), the routing of every MoE layer compared
+    first (``on_both_routed``).  Returns the near-ties."""
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    gen = torch.Generator().manual_seed(seed)
+    p_cpu, p_gpu = weights_on_both(gpu, seed)
+    toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    on_card = {k: t.cuda() for k, t in batch.items()}
+    (want, g_cpu), (got, g_gpu), ties = on_both_routed(
+        lambda: _loss_and_grads(cpu, p_cpu, batch), lambda: _loss_and_grads(gpu, p_gpu, on_card),
+        f"{label} loss")
+    if not (math.isfinite(got) and abs(got - want) <= 2e-3):
+        raise AssertionError(f"{label} loss: card {got} cpu {want}")
+    worst = max(rel_err(a.cpu(), b, 2e-3)[1] for a, b in zip(g_gpu, g_cpu))
+    with torch.no_grad():
+        l_cpu, l_gpu, pre_ties = on_both_routed(
+            lambda: cpu.prefill(p_cpu, {"tokens": batch["tokens"]}),
+            lambda: gpu.prefill(p_gpu, {"tokens": on_card["tokens"]}).cpu(), f"{label} prefill")
+    if l_gpu.shape != (1, 1, cfg.vocab) or not torch.isfinite(l_gpu).all():
+        raise AssertionError(f"prefill logits of shape {tuple(l_gpu.shape)} or not finite")
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=2e-3, atol=2e-3)
+    _, logit_rel = rel_err(l_gpu, l_cpu, 2e-3)
+    if not torch.equal(l_gpu.argmax(-1), l_cpu.argmax(-1)):
+        raise AssertionError(f"{label} prefill argmax differs between the card and the CPU")
+    ties = [{"run": "loss", **t} for t in ties] + [{"run": "prefill", **t} for t in pre_ties]
+    print(f"[full-width] {label} loss card {got:.6f} cpu {want:.6f}; {len(g_cpu)} gradient "
+          f"leaves, worst max |diff| / max |grad| {worst:.3e}; prefill max |logit diff| / max "
+          f"|logit| {logit_rel:.3e}, argmax equal; {cfg.n_layers - (cfg.moe.first_dense or 0)} "
+          f"MoE layers' routing compared in each, {len(ties)} near-ties; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ties
+
+
+def phase_moe_full_width() -> dict:
+    """deepseek-v2-lite-16b at full width in fp32, cut to 3 layers (layer0 and 2
+    MoE layers), and mixtral-8x7b cut to 2 layers and a window of 64 (so that
+    it bites at 256 positions), each on a (1, 256) batch: ``loss``, every
+    gradient leaf and ``prefill`` against the CPU.  Returns the near-ties."""
+    from repro_torch.configs import ARCHS
+
+    ties = {"deepseek_loss_prefill": moe_full_width_vs_cpu(
+        dataclasses.replace(ARCHS[DEEPSEEK], dtype="float32", n_layers=3), 11, 256,
+        "fp32 3-layer deepseek")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ties["mixtral_loss_prefill"] = moe_full_width_vs_cpu(
+        dataclasses.replace(ARCHS[MIXTRAL], dtype="float32", n_layers=2, sliding_window=64),
+        12, 256, "fp32 2-layer mixtral, window 64")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ties
+
+
 def routing_differences(on_cpu: list, on_card: list) -> list:
     """Compare one decode step's routing on the CPU and on the card, MoE layer by
     layer: each token's set of experts, then which of them kept a slot (the
@@ -2114,38 +2365,41 @@ def phase_deepseek_decode_full_width() -> dict:
 
 def phase_mixtral_decode_full_width() -> dict:
     """mixtral-8x7b at full width in fp32, cut to 2 layers and a window of 64:
-    96 decode steps of 8 requests from index 100 on a random cache, through
-    the ring of 64 slots (decode attention at G 4, hd 128); the routing of
-    every MoE layer and step against the CPU.  Returns the near-ties."""
+    64 decode steps of 8 requests from index 100 on a random cache, once
+    around the ring of 64 slots (decode attention at G 4, hd 128); the
+    routing of every MoE layer and step against the CPU.  Returns the
+    near-ties.  Cut from 96 steps to keep the script's time."""
     from repro_torch.configs import ARCHS
 
     cfg = dataclasses.replace(ARCHS[MIXTRAL], dtype="float32", n_layers=2, sliding_window=64)
-    ties = decode_steps_vs_cpu(cfg, 10, SERVE["requests"], CACHE_LEN, 100, 96,
+    ties = decode_steps_vs_cpu(cfg, 10, SERVE["requests"], CACHE_LEN, 100, 64,
                                "fp32 2-layer mixtral, window 64", random_cache=True)[-1]
     return {"mixtral_ring": ties}
 
 
-def mla_full_sequence_raises() -> None:
-    """deepseek-v2-lite-16b's ``prefill`` and ``loss`` on the card raise from the
-    flash wrapper, which takes no v narrower than q and k (192 and 128 at full
-    width, 48 and 32 at the smoke config run here): no plain version runs in
-    the kernel's place."""
+def mla_prefill_small_vs_cpu() -> None:
+    """deepseek-v2-lite-16b's smoke config (q and k of 48, v of 32) in fp32:
+    ``prefill`` on the card, through the flash kernel (``simt``), equal to
+    the CPU's with the same weights, within 1e-4 (routing compared first)."""
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.models import build_model
 
-    model = build_model(ARCHS[DEEPSEEK].smoke(), device="cuda")
-    params = model.init_params(torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 8), dtype=torch.long, device="cuda")
-    for name, call in (("prefill", lambda: model.prefill(params, {"tokens": toks})),
-                       ("loss", lambda: model.loss(params, {"tokens": toks, "labels": toks}))):
-        try:
-            call()
-        except ValueError as e:
-            if not str(e).startswith("flash_attention"):
-                raise
-            print(f"[serve] {DEEPSEEK} {name} on the card raises from the flash wrapper: {e}")
-            continue
-        raise AssertionError(f"{DEEPSEEK} {name} ran on the card past the flash wrapper")
+    cfg = dataclasses.replace(ARCHS[DEEPSEEK].smoke(), dtype="float32")
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    p_cpu, p_gpu = weights_on_both(gpu, 13)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(13))
+    before = dict(kf.route_launches)
+    with torch.no_grad():
+        want, got, ties = on_both_routed(
+            lambda: cpu.prefill(p_cpu, {"tokens": toks}),
+            lambda: gpu.prefill(p_gpu, {"tokens": toks.cuda()}).cpu(), "small fp32 MLA prefill")
+    took = {r: n - before[r] for r, n in kf.route_launches.items() if n != before[r]}
+    if took != {"simt": cfg.n_layers}:
+        raise AssertionError(f"small fp32 MLA prefill: flash launches by route {took}")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    print(f"[serve] {DEEPSEEK} small fp32 prefill on the card (flash {took}) within "
+          f"{float((got - want).abs().max()):.3e} of the CPU's; {len(ties)} near-ties")
 
 
 def serve_small_vs_cpu(arch: str) -> None:
@@ -2256,10 +2510,10 @@ def mlstm_decode_times(rate: float) -> dict:
 
 
 def phase_serve(kernel_modules, rate: float) -> dict:
-    """deepseek's full-sequence attention refused on the card, the small fp32
-    serves against the CPU, then every run of ``SERVE_RUNS``;
+    """deepseek's small fp32 prefill (MLA through the flash kernel) and the
+    small fp32 serves against the CPU, then every run of ``SERVE_RUNS``;
     xlstm-1.3b's also with the plain mLSTM update's device time."""
-    mla_full_sequence_raises()
+    mla_prefill_small_vs_cpu()
     for arch in (ARCH, HYMBA, XLSTM, DEEPSEEK, MIXTRAL):
         serve_small_vs_cpu(arch)
     runs = {run: serve_run(kernel_modules, run) for run in SERVE_RUNS}
@@ -2331,7 +2585,8 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     """An architecture on the card.  First ``launch.train.main`` at its smoke
     config (seq 64, 2 steps, its checkpoint in a temporary directory under
     ``build/``), so the launcher's path runs on the card.  Then the full model
-    in bf16 at full width and depth, ``shape``'s batch x seq from the
+    in bf16 at full width and depth (``shape["layers"]`` cuts the depth where
+    given), ``shape``'s batch x seq from the
     launcher's corpus (``TokenDatasetSpec``, ``TokenLoader``, AdamW as the
     launcher sets it), parameters drawn on a CUDA generator, ``shape``'s steps
     of ``make_train_step`` with the launch counts set to 0 just before and
@@ -2361,7 +2616,10 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     B, S, steps = shape["batch"], shape["seq"], shape["steps"]
-    model = build_model(ARCHS[arch], device="cuda")
+    cfg = ARCHS[arch]
+    if "layers" in shape:
+        cfg = dataclasses.replace(cfg, n_layers=shape["layers"])
+    model = build_model(cfg, device="cuda")
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
     t0 = time.perf_counter()
     params, opt = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt_cfg)
@@ -2420,6 +2678,7 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     print(f"[{tag}] fixed batch (2, 128), 8 steps: loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
     return model, params, {
         "counts": counts, "routes": routes, "steps": steps, "batch": B, "seq": S,
+        "n_layers": cfg.n_layers, "parameters": sum(t.numel() for t in PM.tree_leaves(params)),
         "tokens_per_step": B * S,
         "losses": losses, "step_ms": step_ms, "median_step_ms": median,
         "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak,
@@ -2447,6 +2706,23 @@ def phase_train_hymba(kernel_modules) -> dict:
     res = train_full_depth(HYMBA, HYMBA_TRAIN, HYMBA_PER_STEP, kernel_modules, "train_hymba",
                            HYMBA_ROUTES)[2]
     return {**res, "tokens_counted": "text tokens only, not the 128 meta tokens a sequence"}
+
+
+def phase_train_deepseek(kernel_modules) -> dict:
+    """deepseek-v2-lite-16b: ``train_full_depth`` at 4 layers (layer0 and 3 MoE
+    layers, 2.25 B parameters), batch 2 x 2048, every flash launch (MLA's
+    (192, 128)) on the tensor cores.  Cut: the depth (the full model's AdamW
+    state does not fit one card); no checkpoint at this size."""
+    return train_full_depth(DEEPSEEK, DEEPSEEK_TRAIN, DEEPSEEK_PER_STEP, kernel_modules,
+                            "train_deepseek", TRAIN_ROUTES)[2]
+
+
+def phase_train_mixtral(kernel_modules) -> dict:
+    """mixtral-8x7b: ``train_full_depth`` at 2 layers (3.16 B parameters), one
+    sequence of 8192 (the window of 4096 binds).  Cut: the depth (93 GB of
+    bf16 weights alone at 32 layers); no checkpoint at this size."""
+    return train_full_depth(MIXTRAL, MIXTRAL_TRAIN, MIXTRAL_PER_STEP, kernel_modules,
+                            "train_mixtral", TRAIN_ROUTES)[2]
 
 
 def xlstm_block_ms(model, params, B, S) -> dict:
@@ -2552,31 +2828,38 @@ def main(argv: list[str]) -> None:
             print(json.dumps(row))
         print(f"[only] {argv[1]} done at {time.perf_counter() - t0:.1f} s")
         return
-    rows = {"rmsnorm": check_rmsnorm(gen, ops, ref, rate),
-            "swiglu_mlp": check_swiglu(gen, ops, ref, rate)}
-    rows["decode_attention"] = check_decode_attention(gen, ops, ref, rate)
-    rows["flash_attention"], rows["flash_attention_bwd"] = check_flash(gen, ops, ref, rate)
-    rows["rmsnorm_bwd"] = check_rmsnorm_bwd(gen, ops, ref, rate)
-    rows["swiglu_mlp_bwd"] = check_swiglu_bwd(gen, ops, ref, rate)
-    rows["mlstm_scan"], rows["mlstm_scan_bwd"] = check_mlstm(gen, ops, ref, rate)
-    rows["ssd_scan"], rows["ssd_scan_bwd"] = check_ssd(gen, ops, ref, rate)
-    torch.cuda.synchronize()
-    print(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
-    phase_full_width()
-    phase_full_width_grad()
-    phase_xlstm_full_width()
-    phase_hymba_full_width()
+    rows = {}
+    for names, check in ((("rmsnorm",), check_rmsnorm), (("swiglu_mlp",), check_swiglu),
+                         (("decode_attention",), check_decode_attention),
+                         (("flash_attention", "flash_attention_bwd"), check_flash),
+                         (("rmsnorm_bwd",), check_rmsnorm_bwd),
+                         (("swiglu_mlp_bwd",), check_swiglu_bwd),
+                         (("mlstm_scan", "mlstm_scan_bwd"), check_mlstm),
+                         (("ssd_scan", "ssd_scan_bwd"), check_ssd)):
+        found = check(gen, ops, ref, rate)
+        rows.update(zip(names, found if len(names) > 1 else (found,)))
+        torch.cuda.synchronize()
+        print(f"[kernels] {check.__name__} done at {time.perf_counter() - t0:.1f} s")
+    for phase in (phase_full_width, phase_full_width_grad, phase_xlstm_full_width,
+                  phase_hymba_full_width):
+        phase()
+        print(f"[full-width] {phase.__name__} done at {time.perf_counter() - t0:.1f} s")
+    moe_ties = phase_moe_full_width()
+    print(f"[full-width] phase_moe_full_width done at {time.perf_counter() - t0:.1f} s")
     near_ties = decode_phases()
     print(f"[full-width] done at {time.perf_counter() - t0:.1f} s")
     runs = phase_serve(KERNEL_MODULES, rate)
     runs["serve_deepseek"]["fp32_check_near_ties"] = near_ties
     print(f"[serve] done at {time.perf_counter() - t0:.1f} s")
     for run, phase in (("train", phase_train), ("train_xlstm", phase_train_xlstm),
-                       ("train_hymba", phase_train_hymba)):
+                       ("train_hymba", phase_train_hymba), ("train_deepseek", phase_train_deepseek),
+                       ("train_mixtral", phase_train_mixtral)):
         gc.collect()
         torch.cuda.empty_cache()
         runs[run] = phase(KERNEL_MODULES)
         print(f"[{run}] done at {time.perf_counter() - t0:.1f} s")
+    runs["train_deepseek"]["fp32_check_near_ties"] = moe_ties["deepseek_loss_prefill"]
+    runs["train_mixtral"]["fp32_check_near_ties"] = moe_ties["mixtral_loss_prefill"]
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     for row in rows.values():

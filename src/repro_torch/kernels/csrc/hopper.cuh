@@ -390,6 +390,20 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTnspB));
 }
 
+// D (64 x 32, fp32) += A (64 x 16, smem) * B (16 x 32, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                              int scale_d) {
@@ -433,6 +447,38 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 192, fp32) += A (64 x 16, registers) * B (16 x 192, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 16, fp32) += A (64 x 16, smem) * B (16 x 16, smem); kTnspA = 1: A
 // is MN-major (the output rows contiguous), kTnspB likewise for B.
 template <int kTnspA, int kTnspB>
@@ -459,7 +505,7 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// ------------------------------------- tiles of the attention kernels (kHd 64 or 128)
+// ------------------------- tiles of the attention kernels (widths 64, 128 or 192)
 
 // The fp32 accumulator of a 64 x kN product as the bf16 A operands of the
 // kN / 16 steps of the next product.
@@ -474,9 +520,9 @@ __device__ __forceinline__ void pack_a(uint32_t (&pa)[kN / 16][4], const float (
   }
 }
 
-// D (64 x kN, kN 64 or 128) = A B over kHd, both from shared memory and
-// K-major: A a 64-row slice of a tile of a_rows rows, B a tile of kN rows,
-// each in boxes of 64 columns.
+// D (64 x kN, kN 32, 64 or 128) = A B over kHd (a multiple of 64), both
+// from shared memory and K-major: A a 64-row slice of a tile of a_rows rows,
+// B a tile of kN rows, each in boxes of 64 columns.
 template <int kHd, int kN>
 __device__ __forceinline__ void product_ss(float (&d)[kN / 2], const uint8_t* a, int a_rows,
                                            const uint8_t* b) {
@@ -486,24 +532,31 @@ __device__ __forceinline__ void product_ss(float (&d)[kN / 2], const uint8_t* a,
     const uint64_t db = desc_sw128(b + (kk / 4) * kN * 128 + (kk % 4) * 32, 16, 1024);
     if constexpr (kN == 128)
       wgmma_ss_n128<0>(d, da, db, kk > 0);
-    else
+    else if constexpr (kN == 64)
       wgmma_ss_n64<0>(d, da, db, kk > 0);
+    else
+      wgmma_ss_n32(d, da, db, kk > 0);
   }
 }
 
-// D (64 x kHd) += A B over kRows: A bf16 registers (pack_a), B a tile of kRows
-// rows read through transpose-B (boxes of 64 columns kRows * 128 bytes apart).
+// D (64 x kHd, kHd 64, 128 or 192) += A B over kRows: A bf16 registers
+// (pack_a), B a tile of kRows rows read through transpose-B (boxes of 64
+// columns kRows * 128 bytes apart).
 template <int kHd, int kRows>
 __device__ __forceinline__ void product_rs(float (&d)[kHd / 2],
                                            const uint32_t (&pa)[kRows / 16][4],
                                            const uint8_t* b) {
+  static_assert(kHd == 64 || kHd == 128 || kHd == 192, "no product of this width");
 #pragma unroll
   for (int kk = 0; kk < kRows / 16; ++kk) {
     const uint64_t db = desc_sw128(b + kk * 2048, kRows * 128, 1024);
-    if constexpr (kHd == 64)
+    if constexpr (kHd == 64) {
       wgmma_rs_n64(d, pa[kk], db, 1);
-    else
+    } else if constexpr (kHd == 128) {
       wgmma_rs_n128(d, pa[kk], db, 1);
+    } else {
+      wgmma_rs_n192(d, pa[kk], db, 1);
+    }
   }
 }
 

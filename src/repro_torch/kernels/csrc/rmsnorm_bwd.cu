@@ -302,8 +302,13 @@ int vec_config(int D, int* warps, int* blocks_per_sm) {
     constexpr int kVec = decltype(vec)::value;
     auto kernel = rmsnorm_bwd_vec_kernel<T, kVec>;
     const int smem = vec_smem<T, kVec>(D);
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // The limit belongs to the kernel instance, which row lengths of the same
+    // kVec share (fp32 1600 and 2048): a shorter row configured later must
+    // not lower it below a longer one's, whose launches read it still.
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess && smem > attr.maxDynamicSharedSizeBytes)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
                                                         32 * kVecWarps<T, kVec>, smem);
@@ -349,9 +354,9 @@ extern "C" int rt_rmsnorm_bwd(const void* x, const void* gamma, const void* dy, 
 
 // The vec body's launch shape at row length D: its warps a block and, from the
 // occupancy calculator, its blocks an SM.  Also raises the kernel's dynamic
-// shared-memory limit on the current device, which its launches need: call
-// it once per device, D and dtype before rt_rmsnorm_bwd_vec.  Returns the
-// first error, else 0.
+// shared-memory limit on the current device to what D needs, if it is lower
+// (never lowers it), which its launches need: call it once per device, D and
+// dtype before rt_rmsnorm_bwd_vec.  Returns the first error, else 0.
 extern "C" int rt_rmsnorm_bwd_vec_config(int D, int dtype, int* warps, int* blocks_per_sm) {
   if (D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == rt::kFloat32) return vec_config<float>(D, warps, blocks_per_sm);

@@ -6,17 +6,21 @@ is the FA2 backward of the port's flash forward: P recomputed from q, k and
 the saved LSE, ``D = rowsum(dO * O)`` in fp32, two launches (a q-side pass
 for dq and D, a kv-side pass for dk and dv that sums the G query heads of
 its kv head) and no atomics, so the gradients have the same bits every run.
-:func:`route` picks the kernels from the dtype, hd and the pointers'
-alignment, nothing else:
+v, out, dout and dv may be narrower than q, k, dq and dk, as in the forward
+(MLA: 128 beside 192).  :func:`route` picks the kernels from the dtype, the
+widths and the pointers' alignment, nothing else:
 
-- ``"wgmma"`` (bf16, hd 64 or 128, 16-byte aligned; the forward's rule,
-  which here also covers ``out`` and ``dout``): Hopper's tensor cores, TMA
-  tiles in mbarrier rings, every product by wgmma with P and dS rounded to
-  bf16 as the A operand of the products that follow (the plain version
-  keeps them in fp32; the bf16 gradient tolerance covers it).  Bound on the
-  H100 by the 14 hd operations of each visible pair at the models' shapes.
-- ``"simt"`` (fp32, other hd): the CUDA-core kernels, four threads a row,
-  fp32 FMAs, which bound them.
+- ``"wgmma"`` (bf16, (hd, hdv) in ``flash_attention.TC_WIDTHS``, 16-byte
+  aligned; the forward's rule, which here also covers ``out`` and
+  ``dout``): Hopper's tensor cores, TMA tiles in mbarrier rings, every
+  product by wgmma with P and dS rounded to bf16 as the A operand of the
+  products that follow (the plain version keeps them in fp32; the bf16
+  gradient tolerance covers it).  Bound on the H100 by the 8 hd + 6 hdv
+  operations of each visible pair at the models' shapes (S and dP formed on
+  both sides).  At (192, 128) the q side walks K/V tiles of 64 keys and the
+  kv side query tiles of 32 rows, to fit shared memory and registers.
+- ``"simt"`` (fp32, other widths): the CUDA-core kernels, four threads a
+  row, fp32 FMAs, which bound them.
 """
 
 from __future__ import annotations
@@ -46,12 +50,13 @@ def launch(route_name: str, q, k, v, out, lse, dout, *, causal: bool, window: in
     """Run ``route_name``'s kernels on checked contiguous CUDA tensors; the caller counts."""
     lib = build.library()
     B, Hq, Sq, hd = q.shape
-    _, Hkv, Skv, _ = k.shape
+    _, Hkv, Skv, hdv = v.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dvec = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, hd, int(causal), int(window), int(q_offset), float(hd ** -0.5))
+            B, Hq, Hkv, Sq, Skv, hd, hdv, int(causal), int(window), int(q_offset),
+            float(hd ** -0.5))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route_name == "wgmma":
@@ -72,9 +77,11 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True, wi
     global launches
     flash_attention.on_one_gpu("flash_attention_bwd", q, k, v, out, lse, dout)
     flash_attention.check_args(q, k, v)
-    if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:3]:
+    want = (*q.shape[:3], v.shape[3])
+    if out.shape != want or dout.shape != want or lse.shape != q.shape[:3]:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
-                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)} for q {tuple(q.shape)} "
+                         f"and v {tuple(v.shape)}")
     if out.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("flash_attention_bwd: out must have q's dtype and lse must be float32")
     q, k, v, out, lse = (t.contiguous() for t in (q, k, v, out, lse))

@@ -200,8 +200,9 @@ def swiglu_mlp(x, w_gate, w_up, w_down):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
     """q: (B, Hq, Sq, hd); k: (B, Hkv, Skv, hd); v: (B, Hkv, Skv, hdv) -> (B, Hq,
-    Sq, hdv).  The card's kernel takes hdv == hd <= 128 only and raises on
-    anything else (MLA's 192 / 128); the plain version takes any hdv."""
+    Sq, hdv).  The card's kernels take hdv <= hd <= 192 (MLA's 192 / 128 on
+    the tensor cores in bf16) and raise on anything else; the plain version
+    takes any hdv."""
     if _needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
     return _flash_fwd(q, k, v, dict(causal=causal, window=window, q_offset=q_offset))[0]

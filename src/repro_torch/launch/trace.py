@@ -4,8 +4,10 @@ kernels and summing them per step.
 The port's own kernels are named by their ``__global__`` functions in
 ``kernels/csrc`` and grouped again by source file (one per kernel wrapper,
 so the SSD scan's four forward launches form the group ``ssd_scan``);
-cuBLAS's products and PyTorch's other ops form one group each.  Used by
-``launch/trace_serve.py`` and ``launch/trace_train.py``.
+cuBLAS's products and PyTorch's other ops form one group each; for a model
+with routed experts, the experts' batched products form ``routed_experts``
+(:func:`split_routed_experts`).  Used by ``launch/trace_serve.py`` and
+``launch/trace_train.py``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,35 @@ def source_group(name: str) -> str:
     group per kernel wrapper), cuBLAS's products, and PyTorch's other ops."""
     group = kernel_group(name)
     return KERNEL_SOURCE.get(group, group)
+
+
+def is_routed_expert_bmm(input_shapes, moe_cfg, d_model: int) -> bool:
+    """Whether an ``aten::bmm`` with these input shapes is one of ``moe_block``'s
+    routed-expert products or their gradients: both operands (E, ., .) and
+    among their inner dims the model width D and the expert width F (buffers
+    (E, C, D), weights (E, D, F) / (E, F, D), hidden (E, C, F), and their
+    transposes in the backward)."""
+    if len(input_shapes) < 2 or any(len(s) != 3 for s in input_shapes[:2]):
+        return False
+    a, b = input_shapes[:2]
+    inner = {*a[1:], *b[1:]}
+    return a[0] == b[0] == moe_cfg.n_experts and {d_model, moe_cfg.d_expert} <= inner
+
+
+def split_routed_experts(prof, cfg, steps: int, res: dict) -> None:
+    """Move the device time of the routed experts' batched products (forward and
+    backward: :func:`is_routed_expert_bmm`) out of their kernels' groups in
+    ``res`` into the group ``routed_experts``.  The trace must record shapes."""
+    for e in prof.events():
+        if e.name != "aten::bmm" or not is_routed_expert_bmm(e.input_shapes, cfg.moe,
+                                                              cfg.d_model):
+            continue
+        for k in e.kernels:
+            ms = k.duration / 1e3 / steps
+            for key, group in (("ms_per_step_by_group", kernel_group(k.name)),
+                               ("ms_per_step_by_source", source_group(k.name))):
+                res[key][group] -= ms
+                res[key]["routed_experts"] = res[key].get("routed_experts", 0.0) + ms
 
 
 def device_summary(prof, steps: int, traced_ms: float, top: int = 12) -> dict:

@@ -12,8 +12,8 @@ not overlap), its idle share of the traced wall time, the kernel launches
 per step, the time by kernel group and the kernels by device time.  For a
 model with routed experts the batched products on the expert weights
 (``aten::bmm`` on an (E, D, F) or (E, F, D) operand, found by the shapes the
-profiler records) form a group of their own, ``routed_experts``.  Needs a
-CUDA card.
+profiler records; ``trace.split_routed_experts``) form a group of their
+own, ``routed_experts``.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,23 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import ARCHS
 from ..models import build_model
 from ..serve import ServingEngine
-from .trace import device_summary, kernel_group, source_group
-
-
-def split_routed_experts(prof, cfg, steps: int, res: dict) -> None:
-    """Move the device time of the routed experts' batched products out of their
-    kernels' groups in ``res`` into the group ``routed_experts``."""
-    E, D, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
-    weights = ([E, D, F], [E, F, D])
-    for e in prof.events():
-        if e.name != "aten::bmm" or len(e.input_shapes) < 2 or e.input_shapes[1] not in weights:
-            continue
-        for k in e.kernels:
-            ms = k.duration / 1e3 / steps
-            for key, group in (("ms_per_step_by_group", kernel_group(k.name)),
-                               ("ms_per_step_by_source", source_group(k.name))):
-                res[key][group] -= ms
-                res[key]["routed_experts"] = res[key].get("routed_experts", 0.0) + ms
+from .trace import device_summary, split_routed_experts
 
 
 def main(argv=None) -> dict:

@@ -1,10 +1,13 @@
 """Where a training step spends its time on the card.
 
-    python -m repro_torch.launch.trace_train [--arch qwen1.5-0.5b|xlstm-1.3b|hymba-1.5b] \\
-        [--batch 8] [--seq 512] [--steps 3] [--trace out.json]
+    python -m repro_torch.launch.trace_train [--arch qwen1.5-0.5b|xlstm-1.3b|hymba-1.5b|
+        deepseek-v2-lite-16b|mixtral-8x7b] [--layers N] [--batch 8] [--seq 512] [--steps 3] \\
+        [--trace out.json]
 
 Builds the architecture (default qwen1.5-0.5b) at full width and depth in
-bf16 from a seeded init drawn on the card (xlstm-1.3b's 2.92 B draws are
+bf16 (``--layers`` cuts the depth: deepseek-v2-lite-16b's 15.7 B parameters
+and their AdamW state do not fit one card; its dense ``layer0`` counts as
+one of them) from a seeded init drawn on the card (xlstm-1.3b's 2.92 B draws are
 slow on the host, and the values do not change what is timed;
 ``launch.train`` draws on the host instead), with a fresh
 AdamW state and runs ``make_train_step`` on one batch of the training
@@ -17,12 +20,15 @@ time by kernel group (the port's kernels by name, cuBLAS, PyTorch's other
 ops), the same by source (the port's kernels by their ``csrc`` file: one
 group per kernel wrapper, ``ssd_scan`` and ``ssd_scan_bwd`` for Hymba's scan)
 and the kernels by device time, and the peak device memory of the run
-(``torch.cuda.max_memory_allocated()``).  Needs a CUDA card.
+(``torch.cuda.max_memory_allocated()``).  For a model with routed experts the
+experts' batched products and their gradients form their own group,
+``routed_experts``, as in ``trace_serve``.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -34,7 +40,7 @@ from ..data import TokenDatasetSpec, TokenLoader
 from ..models import build_model
 from ..train import AdamWConfig, init_train_state, make_train_step
 from .train import ITEMS_PER_CHUNK
-from .trace import device_summary
+from .trace import device_summary, split_routed_experts
 
 
 def main(argv=None) -> dict:
@@ -43,11 +49,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to N layers")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
 
-    model = build_model(ARCHS[args.arch], device="cuda")
+    cfg = ARCHS[args.arch]
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    model = build_model(cfg, device="cuda")
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params, opt = init_train_state(model, gen, opt_cfg)
@@ -69,17 +79,20 @@ def main(argv=None) -> dict:
     run(args.steps)
     host_ms = (time.perf_counter() - t0) / args.steps * 1e3
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=cfg.moe is not None) as prof:
         t0 = time.perf_counter()
         run(args.steps)
         traced_ms = (time.perf_counter() - t0) / args.steps * 1e3
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    res = {"card": torch.cuda.get_device_name(0), "host_ms_per_step": host_ms,
-           "tokens_per_step": args.batch * args.seq,
+    res = {"card": torch.cuda.get_device_name(0), "arch": args.arch, "n_layers": cfg.n_layers,
+           "host_ms_per_step": host_ms, "tokens_per_step": args.batch * args.seq,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            **device_summary(prof, args.steps, traced_ms, top=20)}
+    if cfg.moe is not None:
+        split_routed_experts(prof, cfg, args.steps, res)
     print(json.dumps(res, indent=1))
     return res
 

@@ -1,14 +1,15 @@
 """Training launcher: the synthetic token corpus -> train loop with checkpoints.
 
-    python -m repro_torch.launch.train --arch qwen1.5-0.5b|xlstm-1.3b|hymba-1.5b \\
-        [--full-config] [--device cuda|cpu] [--dtype bfloat16|float32] --steps 50 \\
-        --batch 8 --seq 128 --ckpt-dir DIR
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b|xlstm-1.3b|hymba-1.5b| \\
+        deepseek-v2-lite-16b|mixtral-8x7b [--full-config] [--device cuda|cpu] \\
+        [--dtype bfloat16|float32] --steps 50 --batch 8 --seq 128 --ckpt-dir DIR
 
 The port of ``repro.launch.train``: its flags and loop.  The corpus is
 the JAX launcher's (``TokenDatasetSpec(dataset_id, max(256, batch * 32),
 seq, vocab, seed)`` at 16 items per chunk), read by :class:`TokenLoader`, so
 the batches are byte for byte the JAX loader's.  Each step is the model's
-``loss`` (``DecoderLM``, ``XLSTM`` or ``Hymba``) -> gradient ->
+``loss`` (``DecoderLM``, dense or with routed experts and, for
+deepseek-v2-lite-16b, MLA; ``XLSTM``; ``Hymba``) -> gradient ->
 ``adamw_update``; the initial parameters are drawn on the host from ``--seed`` and moved to the
 model's device, so a seed gives the same weights on every device.  A
 checkpoint every ``--ckpt-every`` steps and a final blocking one; a

@@ -92,7 +92,8 @@ class MoERoute(NamedTuple):
     capacity: int           # C
 
 
-def moe_route(x, router_w, *, top_k: int, capacity_factor: float) -> MoERoute:
+def moe_route(x, router_w, *, top_k: int, capacity_factor: float,
+              choice: Optional[torch.Tensor] = None) -> MoERoute:
     """Top-k routing with capacity, the JAX ``moe_block``'s order of arithmetic.
 
     The router runs in fp32; softmax, then the top k, renormalised by their
@@ -101,7 +102,9 @@ def moe_route(x, router_w, *, top_k: int, capacity_factor: float) -> MoERoute:
     stable sort on the probabilities, descending.  Each (token, k) pair takes
     the next slot of its expert's queue in token-major order; pairs past the
     capacity ``C = ceil(N k / E * capacity_factor)`` are dropped and point at
-    slot ``C - 1``.
+    slot ``C - 1``.  ``choice`` ((N, k) experts) replays a choice made
+    elsewhere, such as on another device at a near-tie: the gates are then
+    this call's probabilities of those experts, renormalised the same way.
     """
     N = x.shape[0]
     E = router_w.shape[-1]
@@ -110,6 +113,9 @@ def moe_route(x, router_w, *, top_k: int, capacity_factor: float) -> MoERoute:
     probs = torch.softmax(logits, dim=-1)
     top, idx = probs.sort(dim=-1, descending=True, stable=True)
     gates, idx = top[:, :top_k], idx[:, :top_k]
+    if choice is not None:
+        idx = choice.to(device=probs.device, dtype=idx.dtype)
+        gates = probs.gather(1, idx)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # position of each (token, k) inside its expert's capacity queue
     flat = torch.zeros((N * top_k, E), dtype=torch.int64, device=x.device)

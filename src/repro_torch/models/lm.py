@@ -16,9 +16,10 @@ same cache object, where JAX returns an updated copy.
 MLA decodes with the absorbed projections, scoring against the latent cache
 directly (plain PyTorch products, as JAX computes them outside any Pallas
 kernel).  Its full-sequence attention (``loss``, ``prefill``) has q and k of
-``qk_nope + qk_rope`` and v of ``v_head_dim`` channels: the plain flash
-version takes that on the CPU; the card's flash kernel does not (it raises).
-The VLM branch of the JAX class arrives with its own slice.
+``qk_nope + qk_rope`` and v of ``v_head_dim`` channels, which the flash
+kernels take on the card (192 and 128 at full width on the tensor cores in
+bf16) and the plain flash version on the CPU.  The VLM branch of the JAX
+class arrives with its own slice.
 """
 
 from __future__ import annotations

@@ -532,11 +532,19 @@ def test_flash_attention_bwd_plain_matches_jax_vjp(dtype, shape):
     ("bfloat16", 64, "v", "simt"),
     ("float32", 64, None, "simt"),
     ("float32", 128, None, "simt"),
+    ("bfloat16", (192, 128), None, "wgmma"),    # MLA's q / k and v widths
+    ("bfloat16", (192, 128), "v", "simt"),
+    ("bfloat16", (192, 192), None, "simt"),
+    ("bfloat16", (128, 64), None, "simt"),
+    ("bfloat16", (48, 32), None, "simt"),       # deepseek-v2-lite-16b's smoke widths
+    ("float32", (192, 128), None, "simt"),
 ])
 def test_flash_route(dtype, hd, bad, want):
-    """The route follows from the dtype, hd and the pointers' alignment."""
+    """The route follows from the dtype, the widths (hd, or q / k's and v's)
+    and the pointers' alignment."""
     tdt = DTYPES[dtype][0]
-    shapes = {"q": (1, 4, 40, hd), "k": (1, 2, 96, hd), "v": (1, 2, 96, hd)}
+    hd, hdv = hd if isinstance(hd, tuple) else (hd, hd)
+    shapes = {"q": (1, 4, 40, hd), "k": (1, 2, 96, hd), "v": (1, 2, 96, hdv)}
     args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
             for name, shape in shapes.items()}
     k_flash.check_args(*args.values())
@@ -555,13 +563,18 @@ def test_flash_route(dtype, hd, bad, want):
     ("bfloat16", 128, "dout", "simt"),
     ("float32", 64, None, "simt"),
     ("float32", 128, None, "simt"),
+    ("bfloat16", (192, 128), None, "wgmma"),    # MLA's q / k and v widths
+    ("bfloat16", (192, 128), "dout", "simt"),
+    ("bfloat16", (48, 32), None, "simt"),
+    ("float32", (192, 128), None, "simt"),
 ])
 def test_flash_bwd_route(dtype, hd, bad, want):
-    """The backward's route follows from the dtype, hd and the alignment of q, k,
-    v, out and dout: the forward's rule, over two more pointers."""
+    """The backward's route follows from the dtype, the widths and the alignment
+    of q, k, v, out and dout: the forward's rule, over two more pointers."""
     tdt = DTYPES[dtype][0]
-    shapes = {"q": (1, 4, 40, hd), "k": (1, 2, 96, hd), "v": (1, 2, 96, hd),
-              "out": (1, 4, 40, hd), "dout": (1, 4, 40, hd)}
+    hd, hdv = hd if isinstance(hd, tuple) else (hd, hd)
+    shapes = {"q": (1, 4, 40, hd), "k": (1, 2, 96, hd), "v": (1, 2, 96, hdv),
+              "out": (1, 4, 40, hdv), "dout": (1, 4, 40, hdv)}
     args = {name: _bf16_unaligned(*shape) if name == bad else torch.empty(shape, dtype=tdt)
             for name, shape in shapes.items()}
     k_flash.check_args(args["q"], args["k"], args["v"])
@@ -630,6 +643,44 @@ def test_flash_attention_q_offset_and_empty_rows():
                                         q_offset=-8)
     assert all(torch.isfinite(g).all() for g in grads)
     assert torch.count_nonzero(grads[0][:, :, :8]) == 0
+
+
+#: (B, Hq, Hkv, S, hd, hdv, window): v narrower than q and k, as MLA's: at
+#: deepseek-v2-lite-16b's smoke widths (48, 32), at (96, 64) with GQA and a
+#: window, and at its full widths (192, 128)
+FLASH_NARROW_V = [(1, 4, 4, 40, 48, 32, 0), (2, 4, 2, 64, 96, 64, 16), (1, 2, 2, 48, 192, 128, 0)]
+
+
+@pytest.mark.parametrize("p_bf16", [False, True], ids=["p_fp32", "p_bf16"])
+@pytest.mark.parametrize("shape", FLASH_NARROW_V, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_plain_narrow_v_matches_jax(shape, p_bf16):
+    """The plain forward and backward with v narrower than q and k, on fp32
+    inputs: out within 2e-5 of JAX's ``blockwise_attention`` (the Pallas body
+    takes no narrower v, so it is no oracle here) and dq, dk, dv within 1e-4
+    of its ``jax.vjp``; with P (and dS) rounded to bf16 as the tensor-core
+    routes round them, within the bf16 bounds 2e-2 and 5e-2.  Autograd
+    through ``ops.flash_attention`` gives the plain backward's gradients."""
+    B, Hq, Hkv, S, hd, hdv, window = shape
+    rng = np.random.default_rng(hd + hdv)
+    (q, jq), (k, jk), (v, jv), (do, jdo) = (
+        _pair(rng, s, "float32") for s in ((B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hdv),
+                                           (B, Hq, S, hdv)))
+    jout, vjp = jax.vjp(lambda a, b, c: jlayers.blockwise_attention(
+        a, b, c, causal=True, window=window, q_block=16, kv_block=32), jq, jk, jv)
+    out, lse = ref.flash_attention_ref(q, k, v, window=window, p_bf16=p_bf16)
+    grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, window=window, p_bf16=p_bf16)
+    assert out.shape == (B, Hq, S, hdv) and lse.shape == (B, Hq, S)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    tol, gtol = (2e-2, 5e-2) if p_bf16 else (2e-5, 1e-4)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=tol, atol=tol)
+    for g, w in zip(grads, vjp(jdo)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=gtol, atol=gtol)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(ops.flash_attention(*leaves, window=window), leaves, do)
+    plain = ref.flash_attention_bwd_ref(q, k, v, *ref.flash_attention_ref(q, k, v, window=window),
+                                        do, window=window)
+    for a, b in zip(auto, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -703,6 +754,8 @@ def test_flash_wrapper_argument_checks():
         k_flash.check_args(f32(2, 3, 5, 64), f32(2, 2, 7, 64), f32(2, 2, 7, 64))
     with pytest.raises(ValueError):
         k_flash.check_args(f32(2, 2, 5, 256), f32(2, 2, 7, 256), f32(2, 2, 7, 256))
+    with pytest.raises(ValueError, match="hd 200 > 192"):
+        k_flash.check_args(f32(2, 2, 5, 200), f32(2, 2, 7, 200), f32(2, 2, 7, 128))
     with pytest.raises(ValueError):
         k_flash.check_args(f32(2, 2, 5, 64), f32(2, 2, 7, 64), f32(2, 2, 6, 64))
     with pytest.raises(TypeError):

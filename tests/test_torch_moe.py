@@ -8,7 +8,7 @@ deepseek-v2-lite-16b (MLA attention, 2 shared experts, a dense ``layer0``),
 run at their smoke sizes in fp32 with the JAX model's parameters carried over
 by ``params_from_jax``: decode logits and caches within 1e-4, greedy tokens
 exactly, the loss within 1e-5 and every gradient leaf within 1e-4 of its
-largest entry.
+largest entry, and three AdamW train steps within 1e-4.
 """
 
 import dataclasses
@@ -27,7 +27,10 @@ from repro.models import layers as jlayers
 from repro.models import params as JPM
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServingEngine as JServingEngine
+from repro.train import AdamWConfig as JAdamWConfig
 from repro.train import config_digest as jconfig_digest
+from repro.train import init_opt_state as jinit_opt_state
+from repro.train import make_train_step as jmake_train_step
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import TokenDatasetSpec, read_items
@@ -35,7 +38,7 @@ from repro_torch.kernels import flash_attention as kflash
 from repro_torch.models import build_model, layers
 from repro_torch.models import params as PM
 from repro_torch.serve import ServeConfig, ServingEngine
-from repro_torch.train import config_digest
+from repro_torch.train import AdamWConfig, config_digest, make_train_step
 
 MOE_ARCHS = ("deepseek-v2-lite-16b", "mixtral-8x7b")
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -144,6 +147,29 @@ def test_moe_route_breaks_ties_as_lax_top_k():
                          capacity_factor=1.25)
     one, four = (r.idx.numpy() == 1).any(1), (r.idx.numpy() == 4).any(1)
     assert (one & ~four).any() and not (four & ~one).any()     # a tie at the k-th gate
+
+
+def test_moe_route_replays_a_choice():
+    """``choice`` replays experts chosen elsewhere: its own choice gives the
+    same route bit for bit; another gives that choice's probabilities,
+    renormalised, and the slots and drops that follow from it."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(12, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(16, 4)).astype(np.float32))
+    own = layers.moe_route(x, w, top_k=2, capacity_factor=1.0)
+    again = layers.moe_route(x, w, top_k=2, capacity_factor=1.0, choice=own.idx)
+    for a, b in zip(own[:5], again[:5]):
+        assert torch.equal(a, b)
+    other = own.idx.flip(-1).clone()
+    other[0] = torch.tensor([3, 1]) if set(own.idx[0].tolist()) != {3, 1} else torch.tensor([0, 2])
+    r = layers.moe_route(x, w, top_k=2, capacity_factor=1.0, choice=other)
+    assert torch.equal(r.idx, other)
+    want = own.probs.gather(1, other)
+    torch.testing.assert_close(r.gates, want / want.sum(-1, keepdim=True), rtol=0, atol=0)
+    flat = torch.nn.functional.one_hot(other.reshape(-1), 4)
+    slot = ((flat.cumsum(0) - flat) * flat).sum(-1).view(12, 2)
+    assert torch.equal(r.keep, slot < r.capacity)
+    assert torch.equal(r.slot, torch.where(slot < r.capacity, slot, r.capacity - 1))
 
 
 def test_moe_block_is_deterministic():
@@ -309,6 +335,32 @@ def test_moe_loss_and_grads_match_jax(pair):
         assert np.abs(g.numpy() - j).max() <= 1e-4 * np.abs(j).max()
 
 
+def test_moe_three_train_steps_match_jax(pair):
+    """Three AdamW steps (the router, the experts, the aux loss and, for
+    deepseek, MLA and layer0 through the backward) from JAX's parameters and
+    optimizer state: loss, grad norm and learning rate each step within 1e-4,
+    then every parameter."""
+    jmodel, jparams, model, _ = pair
+    jstate = jinit_opt_state(jparams, JAdamWConfig(lr=1e-3, warmup_steps=2))
+    params = PM.params_from_jax(_np(jparams), device="cpu", dtype=None)
+    state = PM.params_from_jax(_np(jstate), device="cpu", dtype=None)
+    jstep = jax.jit(jmake_train_step(jmodel, JAdamWConfig(lr=1e-3, warmup_steps=2)))
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2))
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        toks, labels = (rng.integers(0, model.cfg.vocab, (2, 24)).astype(np.int32) for _ in "tl")
+        jparams, jstate, jm = jstep(jparams, jstate, {"tokens": jnp.asarray(toks),
+                                                      "labels": jnp.asarray(labels)})
+        params, state, m = step(params, state, {"tokens": torch.from_numpy(toks).long(),
+                                                "labels": torch.from_numpy(labels).long()})
+        for name in ("loss", "grad_norm", "lr"):
+            assert abs(float(m[name]) - float(jm[name])) <= 1e-4, (i, name)
+    got, want = PM.tree_leaves(params), jax.tree.leaves(jparams)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
 def test_mla_prefill_matches_jax():
     """MLA's full-sequence attention (q and k of qk_nope + qk_rope channels, v
     of v_head_dim) through the plain flash version: last logits within 1e-4."""
@@ -320,12 +372,21 @@ def test_mla_prefill_matches_jax():
 
 
 def test_flash_kernel_refuses_mla_widths():
-    """The card's flash wrapper takes no v narrower than q, nor hd 192: MLA's
-    prefill and training on the card raise there, with no plain fallback."""
+    """The card's flash wrapper takes MLA's widths (q and k of 192, v of 128),
+    and at those widths refuses a v that does not fit k (other keys, other kv
+    heads), a v wider than q and k, and q and k past 192: no plain version
+    runs in the kernel's place."""
     m = ARCHS["deepseek-v2-lite-16b"].mla
-    q = torch.zeros(1, 16, 8, m.qk_nope_dim + m.qk_rope_dim)
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    q = torch.zeros(1, 16, 8, qk)
     v = torch.zeros(1, 16, 8, m.v_head_dim)
-    with pytest.raises(ValueError):
-        kflash.check_args(q, q, v)
-    with pytest.raises(ValueError, match="hd 192"):
-        kflash.check_args(q, q, q)
+    kflash.check_args(q, q, v)
+    assert (qk, m.v_head_dim) in kflash.TC_WIDTHS
+    for bad in (torch.zeros(1, 16, 9, m.v_head_dim), torch.zeros(1, 8, 8, m.v_head_dim)):
+        with pytest.raises(ValueError, match="expected"):
+            kflash.check_args(q, q, bad)
+    with pytest.raises(ValueError, match="v's hd 256 > q and k's 192"):
+        kflash.check_args(q, q, torch.zeros(1, 16, 8, 256))
+    wide = torch.zeros(1, 16, 8, qk + 8)
+    with pytest.raises(ValueError, match="hd 200 > 192"):
+        kflash.check_args(wide, wide, v)

@@ -329,8 +329,12 @@ def test_checkpoints_cross_between_packages(tmp_path, pair):
     _assert_tree_close({"params": params, "opt": opt}, {"params": jp, "opt": jo}, 0)
 
 
-def test_train_launcher_on_cpu_checkpoints_and_resumes(tmp_path, capsys, monkeypatch):
-    argv = ["--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "24",
+@pytest.mark.parametrize("arch", [ARCH, "deepseek-v2-lite-16b", "mixtral-8x7b"])
+def test_train_launcher_on_cpu_checkpoints_and_resumes(tmp_path, capsys, monkeypatch, arch):
+    """The launcher at ``arch``'s smoke config (the dense model, and the two MoE
+    models: routed experts, and MLA for deepseek): checkpoints, the JAX
+    config digest in the manifest, and a resume after an injected fault."""
+    argv = ["--arch", arch, "--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "24",
             "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
     res = port_train.main(argv)
     assert len(res["losses"]) == 3 and all(np.isfinite(res["losses"]))
@@ -338,7 +342,7 @@ def test_train_launcher_on_cpu_checkpoints_and_resumes(tmp_path, capsys, monkeyp
     assert sorted(os.listdir(tmp_path)) == ["step_000002", "step_000003"]
     assert (tmp_path / "step_000003" / "_COMMITTED").is_file()
     manifest = json.loads((tmp_path / "step_000003" / "manifest.json").read_text())
-    assert manifest["config_digest"] == jconfig_digest(JARCHS[ARCH].smoke())
+    assert manifest["config_digest"] == jconfig_digest(JARCHS[arch].smoke())
     assert manifest["sampler"] == {"epoch": 0, "step_in_epoch": 3, "seed": 0}
 
     crashed = {"n": 0}
@@ -355,7 +359,7 @@ def test_train_launcher_on_cpu_checkpoints_and_resumes(tmp_path, capsys, monkeyp
         return step
 
     monkeypatch.setattr(port_train, "make_train_step", flaky_step)
-    res = port_train.main(argv[:3] + ["5"] + argv[4:])
+    res = port_train.main(argv[:5] + ["5"] + argv[6:])
     out = capsys.readouterr().out
     assert res["restarts"] == 1 and "[restore] resumed from step 3" in out
     assert len(res["losses"]) == 2 and res["final_step"] == 5
@@ -389,6 +393,31 @@ def test_trace_groups_only_the_port_kernels_by_name():
                  "(anonymous namespace)::pow_tensor_scalar_kernel_impl<float>>(int)",
                  "void at::native::(anonymous namespace)::CatArrayBatchedCopy<x>(y)"):
         assert kernel_group(name) == "torch_other"
+
+
+def test_trace_finds_the_routed_experts_products_forward_and_backward():
+    """``trace.is_routed_expert_bmm`` takes the three batched products of
+    ``moe_block`` and the six that autograd forms for their gradients, as the
+    profiler records them on the CPU, and no other batched product."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.launch.trace import is_routed_expert_bmm
+    from repro_torch.models import layers
+
+    moe, D = MoEConfig(n_experts=4, top_k=2, d_expert=48), 32
+    g = torch.Generator().manual_seed(0)
+    x, router, wg, wu, wd = (torch.randn(s, generator=g).requires_grad_()
+                             for s in ((10, D), (D, 4), (4, D, 48), (4, D, 48), (4, 48, D)))
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        y, aux = layers.moe_block(x, router, wg, wu, wd, top_k=2)
+        torch.autograd.grad((y.sum() + aux), (x, wg, wu, wd))
+    bmms = [e.input_shapes for e in prof.events() if e.name == "aten::bmm"]
+    assert len(bmms) == 9
+    assert all(is_routed_expert_bmm(s, moe, D) for s in bmms)
+    assert not is_routed_expert_bmm([[16, 8, 32], [16, 32, 8]], moe, D)   # another batch
+    assert not is_routed_expert_bmm([[4, 8, 32], [4, 32, 8]], moe, D)     # no expert width
+    assert not is_routed_expert_bmm([[10, 32], [32, 48]], moe, D)         # a plain product
 
 
 def test_trace_finds_every_kernel_of_csrc():
