@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, the result line last
-    python3 chip_smoke.py --only mlstm    # card, build and one kernel check (or ssd, decode)
+    python3 chip_smoke.py --only mlstm    # card, build and one kernel check (or ssd, decode, flash)
     python3 chip_smoke.py --only serve    # card, build, the decode checks and the serve runs
+    python3 chip_smoke.py --only embedded # card, build, internvl2-2b's and Whisper's phases
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -88,7 +89,14 @@ prints no result line):
    forward and backward at hymba-1.5b's training shapes (25 query heads
    over 5, 2176 positions, window 1024 and 0), and at deepseek-v2-lite-16b's
    and mixtral-8x7b's, those two also by replayed CUDA graphs, beside SDPA's
-   fastest backend that takes their v (named; the others' refusals kept).
+   fastest backend that takes their v (named; the others' refusals kept);
+   flash forward and backward at internvl2-2b's and whisper-large-v3's
+   shapes (``EMBEDDED_FLASH``: Whisper's encoder, 1500 frames, and cross
+   attention, 448 or 32 queries over 1500 keys, non-causal with neither
+   side a whole tile) and a small ragged non-causal row, held to the plain
+   versions with the route's roundings and timed at four of them beside
+   SDPA; decode attention over Whisper's 1500 cross frames; SwiGLU forward
+   and backward at internvl2-2b's (4096, 2048, 8192).
 4. full width: qwen1.5-0.5b in fp32, one ``decode_step`` on the card against
    the same weights on the CPU; then, cut to 4 layers, ``loss`` and every
    gradient leaf on a (2, 200) batch against the CPU; then xlstm-1.3b in
@@ -100,7 +108,11 @@ prints no result line):
    256) batch, the routing of every MoE layer compared with the CPU's first
    (``on_both_routed``: a difference passes only at a near-tie, which is
    printed and counted, and the CPU then runs again with the card's experts
-   replayed through ``moe_route``).
+   replayed through ``moe_route``); internvl2-2b in fp32 cut to 4 layers,
+   loss, every gradient leaf and the image-prefixed prefill on 256 image
+   and 200 text positions; whisper-large-v3 cut to 2 + 2 layers, the same
+   on 1 x (1500 frames, 448 tokens), then ``encode`` of 2 x 1500 frames and
+   8 decode steps over a cross cache filled from it, against the CPU.
    Decoding at full width in fp32 against the CPU with the same weights
    (``--only serve`` runs these and phase 5): qwen3-4b cut to 4 layers, one
    ``decode_step``, then ``loss``, every gradient leaf and ``prefill``;
@@ -122,13 +134,14 @@ prints no result line):
 5. serve: deepseek-v2-lite-16b's smoke config in fp32, ``prefill`` on the
    card through the flash kernel (v narrower than q and k) equal to the
    CPU's; a small fp32 serve at the smoke configs of qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b,
-   deepseek-v2-lite-16b and mixtral-8x7b through
+   deepseek-v2-lite-16b, mixtral-8x7b, internvl2-2b and whisper-large-v3 through
    ``repro_torch.launch.serve.main`` on the card and on the CPU (one seed
-   names one model on both), token for token; then five bf16 runs at full
+   names one model on both), token for token; then seven bf16 runs at full
    config through ``repro_torch.launch.serve.main`` (``SERVE_RUNS``):
-   qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b and deepseek-v2-lite-16b (27 layers,
-   15.7 B parameters) with 8 requests, prompt 128 and 32 new tokens, qwen3-4b
-   with 4, 64 and 16.  Each with the kernels' launch counts set to 0 just
+   qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b, deepseek-v2-lite-16b (27 layers,
+   15.7 B parameters), internvl2-2b (a text decoder) and whisper-large-v3
+   (the engine's 64 zero frames) with 8 requests, prompt 128 and 32 new
+   tokens, qwen3-4b with 4, 64 and 16.  Each with the kernels' launch counts set to 0 just
    before and read just after, each kernel's count equal to its launches per
    decode step times the steps; every swiglu_mlp launch must have taken the
    split-K tensor-core route, every rmsnorm the ``vec`` body, every
@@ -137,7 +150,11 @@ prints no result line):
    no valid_len tensor (the models pass one a step), and the tokens must lie
    in the config's vocabulary; ms per decode step, tokens/s and peak device
    memory printed.  Then xlstm-1.3b's plain mLSTM update alone at its serving
-   shape, by CUDA-graph replay, beside its bound.
+   shape, by CUDA-graph replay, beside its bound; internvl2-2b's
+   image-prefixed prefill (2 x (256 + 128)); Whisper outside the engine:
+   ``encode`` of 8 x 1500 frames, the cross cache filled from it, 32 decode
+   steps over it and their last logits against ``prefill`` of the same
+   tokens (``BF16_LOGIT_TOL``), every launch counted and at a checked shape.
 6. train: qwen1.5-0.5b in bf16, full width and depth, through
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
    checkpoint in a temporary directory under ``build/``), with the launch
@@ -168,13 +185,24 @@ prints no result line):
    the routes as qwen's (every flash forward and backward on the tensor
    cores: MLA's (192, 128) for deepseek), and 8 steps on a fixed (2, 128)
    batch.
-10. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
+10. train VLM and Whisper: ``launch.train`` must refuse internvl2-2b and
+   whisper-large-v3 (their loss needs ``img_emb`` / ``enc_emb``); then each
+   in bf16 at full width and depth through ``make_train_step`` with seeded
+   embeddings in the batch (``train_embedded``): internvl2-2b on 2 x (256 +
+   1792) positions, whisper-large-v3 on 4 x (1500 frames, 448 tokens), 4
+   steps with the launch counts checked per step (``INTERNVL_PER_STEP``,
+   ``WHISPER_PER_STEP``), the routes (every flash on the tensor cores) and
+   every launch at a checked shape, and 8 steps on a fixed batch whose loss
+   must fall by 0.05.
+11. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
    ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"serve_deepseek":
-   ...}`` (with the MoE decode checks' near-ties), ``{"train": ...}``,
+   ...}`` (with the MoE decode checks' near-ties), ``{"serve_internvl2":
+   ...}``, ``{"serve_whisper": ...}``, ``{"train": ...}``,
    ``{"train_xlstm": ...}``, ``{"train_hymba": ...}``, ``{"train_deepseek":
    ...}`` and ``{"train_mixtral": ...}`` (with the fp32 loss checks'
-   near-ties) and ``{"kernels": [...]}`` line, then the last line ``{"ok":
-   true, "device": {...}}``.
+   near-ties), ``{"train_internvl2": ...}``, ``{"train_whisper": ...}`` and
+   ``{"kernels": [...]}`` line, then the last line ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -210,6 +238,10 @@ HYMBA_SWIGLU = (4352, 1600, 5504)
 #: (N, D, F) of deepseek-v2-lite-16b's dense MLPs at its training shape (2 x 2048
 #: rows): layer0's (d_ff 10944) and the 2 shared experts' (2 x 1408)
 DEEPSEEK_SWIGLU = ((4096, 2048, 10944), (4096, 2048, 2816))
+#: (N, D, F) of internvl2-2b's SwiGLU at its training shape (2 x (256 + 1792) rows),
+#: and at its image-prefixed prefill and fixed training batch (2 x (256 + 128))
+INTERNVL_SWIGLU = (4096, 2048, 8192)
+INTERNVL_PREFIX_SWIGLU = (768, 2048, 8192)
 #: (rows, D) of the rmsnorm forward and backward at the MoE training shapes:
 #: deepseek-v2-lite-16b's kv_ln on the MLA latent (512) and its d_model norms
 #: (2 x 2048 rows); mixtral-8x7b's d_model norms (1 x 8192 rows)
@@ -221,7 +253,8 @@ MOE_RMSNORM = ((4096, 512), (4096, 2048), (8192, 4096))
 #: of hymba-1.5b's training shape; the other models' serving shapes join them
 #: in ``check_swiglu`` (``serve_kernel_shapes``)
 SWIGLU_SHAPES = ((SERVE["requests"], 1024, 2816), (TRAIN_ROWS, 1024, 2816), (20, 96, 224),
-                 (333, 200, 712), (37, 100, 260), HYMBA_SWIGLU, *DEEPSEEK_SWIGLU)
+                 (333, 200, 712), (37, 100, 260), HYMBA_SWIGLU, *DEEPSEEK_SWIGLU,
+                 INTERNVL_SWIGLU, INTERNVL_PREFIX_SWIGLU)
 TOL = {  # tests/test_kernels.py
     "rmsnorm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
     "swiglu_mlp": {torch.float32: 1e-4, torch.bfloat16: 5e-2},
@@ -330,6 +363,15 @@ MIXTRAL_FLASH = (1, 32, 8, 8192, 128, 128, 4096)
 QWEN3 = "qwen3-4b"
 DEEPSEEK = "deepseek-v2-lite-16b"
 MIXTRAL = "mixtral-8x7b"
+INTERNVL = "internvl2-2b"
+WHISPER = "whisper-large-v3"
+#: Whisper's 30-second window of 1500 encoder frames and its decoder's 448 positions
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+#: the bf16 training runs of the two families at full width and depth: internvl2-2b
+#: on 2 x (256 image + 1792 text) positions, whisper-large-v3 on 4 x (1500 frames,
+#: 448 tokens); ``seq`` counts the text tokens
+INTERNVL_TRAIN = dict(batch=2, seq=1792, steps=4)
+WHISPER_TRAIN = dict(batch=4, seq=WHISPER_TOKENS, frames=WHISPER_FRAMES, steps=4)
 #: the bf16 MoE training runs at full width and a cut depth: deepseek-v2-lite-16b's
 #: 15.7 B parameters and their AdamW state (about 250 GB) do not fit one card, so
 #: layer0 and 3 MoE layers (2.25 B parameters); mixtral-8x7b at 2 layers (3.16 B)
@@ -349,6 +391,32 @@ DEEPSEEK_PER_STEP = {"rmsnorm": 3 * 4 + 1, "rmsnorm_bwd": 3 * 4 + 1, "swiglu": 4
 MIXTRAL_PER_STEP = {"rmsnorm": 2 * 2 + 1, "rmsnorm_bwd": 2 * 2 + 1, "swiglu": 0,
                     "swiglu_bwd": 0, "flash_attention": 2, "flash_attention_bwd": 2,
                     **_NO_SCANS}
+#: kernel launches per training step: internvl2-2b's 24 layers as qwen's (the image
+#: positions go through the backbone); whisper-large-v3's 32 encoder and 32
+#: decoder layers, one flash attention each in the encoder and two (causal self,
+#: cross) in the decoder, their LayerNorm and GELU plain PyTorch
+INTERNVL_PER_STEP = {**TRAIN_PER_STEP, **_NO_SCANS}
+WHISPER_PER_STEP = {"rmsnorm": 0, "rmsnorm_bwd": 0, "swiglu": 0, "swiglu_bwd": 0,
+                    "flash_attention": 3 * 32, "flash_attention_bwd": 3 * 32, **_NO_SCANS}
+WHISPER_ROUTES = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma"}
+#: (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window) of the flash launches of the two
+#: families' runs: internvl2-2b's training shape and its image-prefixed prefill
+#: (2 x (256 + 128)); whisper-large-v3's encoder, cross and causal decoder
+#: attention at its training shape, and its encoder over 8 requests' 1500 frames
+#: with prefill's cross and decoder attention over 32 tokens
+EMBEDDED_FLASH = (
+    (2, 16, 8, 2048, 2048, 128, 128, True, 0),
+    (2, 16, 8, 384, 384, 128, 128, True, 0),
+    (4, 20, 20, WHISPER_FRAMES, WHISPER_FRAMES, 64, 64, False, 0),
+    (4, 20, 20, WHISPER_TOKENS, WHISPER_FRAMES, 64, 64, False, 0),
+    (4, 20, 20, WHISPER_TOKENS, WHISPER_TOKENS, 64, 64, True, 0),
+    (8, 20, 20, WHISPER_FRAMES, WHISPER_FRAMES, 64, 64, False, 0),
+    (8, 20, 20, 32, WHISPER_FRAMES, 64, 64, False, 0),
+    (8, 20, 20, 32, 32, 64, 64, True, 0),
+)
+#: the timed rows among them: name -> its index in EMBEDDED_FLASH
+EMBEDDED_FLASH_TIMES = {"internvl2": 0, "whisper_encoder": 2, "whisper_cross": 3,
+                        "whisper_decoder": 4}
 #: router probabilities this close at the k-th and (k+1)-th place may pick another
 #: expert on the card than on the CPU in fp32: the fp32 decode checks allow a
 #: routing difference there (and only there), print it and count it
@@ -363,8 +431,11 @@ NEAR_TIE = 1e-5
 #: layers of 3 norms (kv_ln on the MLA latent among them) and one SwiGLU
 #: (layer0's dense MLP, then the 26 MoE layers' shared experts; the routed
 #: experts are batched products), the final norm, and no decode-attention kernel
-#: (MLA's absorbed products).  qwen3-4b serves fewer and shorter requests, to
-#: bound the run's time.  mixtral-8x7b has no bf16 run: 93 GB do not fit one card.
+#: (MLA's absorbed products); internvl2-2b as qwen's (it decodes text alone);
+#: whisper-large-v3: 32 decoder layers of self and cross decode attention (over
+#: the engine's 64 zero frames), LayerNorm and GELU plain PyTorch.  qwen3-4b
+#: serves fewer and shorter requests, to bound the run's time.  mixtral-8x7b has
+#: no bf16 run: 93 GB do not fit one card.
 SERVE_RUNS = {
     "serve": (ARCH, SERVE["requests"], SERVE["prompt_len"], SERVE["new_tokens"],
               {"rmsnorm": 2 * 24 + 1, "swiglu": 24, "decode_attention": 24}),
@@ -374,6 +445,9 @@ SERVE_RUNS = {
     "serve_qwen3": (QWEN3, 4, 64, 16,
                     {"rmsnorm": 4 * 36 + 1, "swiglu": 36, "decode_attention": 36}),
     "serve_deepseek": (DEEPSEEK, 8, 128, 32, {"rmsnorm": 3 * 27 + 1, "swiglu": 27}),
+    "serve_internvl2": (INTERNVL, 8, 128, 32,
+                        {"rmsnorm": 2 * 24 + 1, "swiglu": 24, "decode_attention": 24}),
+    "serve_whisper": (WHISPER, 8, 128, 32, {"decode_attention": 2 * 32}),
 }
 #: SDPA's backends timed for the flash backward's yardstick (torch.nn.attention.SDPBackend)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
@@ -479,7 +553,8 @@ def serve_kernel_shapes() -> dict:
     swiglu_mlp (B, D, F) of every gate weight of a dense MLP or of shared
     experts (not the routed experts' ``w_gate`` beside a ``router``: those are
     batched products), decode_attention (B, Hq, Hkv, S, visible at the last step, hd)
-    of every K cache.  The kernel checks hold each against its plain version
+    of every K cache (Whisper's 64-frame cross cache, all visible, among them).
+    The kernel checks hold each against its plain version
     and time it under its prefix (the run's, and the leaf's where D is not
     d_model or the gate is a shared expert's); ``serve_run`` fails on a
     launch at a shape outside the checks."""
@@ -512,11 +587,15 @@ def serve_kernel_shapes() -> dict:
             elif name.endswith("_gate") and not (name == "w_gate" and "router" in parent):
                 add("swiglu_mlp", (B, *info.shape[-2:]),
                     f"{run}_{name}_" if name.startswith("shared") else f"{run}_")
-        for name, info, _ in leaves(model.cache_layout(B, prompt_len + new_tokens + 8)):
-            if name == "k":
+        cache_len = prompt_len + new_tokens + 8
+        encdec = cfg.encdec is not None
+        lay = model.cache_layout(B, cache_len, 64) if encdec else model.cache_layout(B, cache_len)
+        for name, info, _ in leaves(lay):
+            if name in ("k", "cross_k"):
                 _, Hkv, S, hd = info.shape[-4:]
-                add("decode_attention", (B, cfg.n_heads, Hkv, S, prompt_len + new_tokens, hd),
-                    f"{run}_")
+                add("decode_attention", (B, cfg.n_heads, Hkv, S,
+                                         S if name == "cross_k" else prompt_len + new_tokens, hd),
+                    f"{run}_{name}_" if encdec else f"{run}_")
     return out
 
 
@@ -541,26 +620,64 @@ def decode_shapes() -> tuple:
     return (*DECODE_SHAPES, *extra)
 
 
+#: a small ragged non-causal row (cross attention: queries fewer than keys, no
+#: side a whole tile) beside the families' shapes
+RAGGED_CROSS_FLASH = (1, 4, 4, 56, 150, 64, 64, False, 0)
+
+
+def flash_shapes() -> list:
+    """(B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, as_route) of the flash
+    checks: FLASH_SHAPES and hymba-1.5b's (v as wide as q and k, held to the
+    plain versions as they are), MOE_FLASH_SHAPES, the small ragged
+    non-causal row and EMBEDDED_FLASH (held to the plain versions with P and
+    dS rounded as the tensor-core route rounds them)."""
+    hymba = [(B, Hq, Hkv, S, S, hd, True, w) for B, Hq, Hkv, S, hd, w in HYMBA_FLASH]
+    shapes = [(*s[:6], s[5], *s[6:], False) for s in (*FLASH_SHAPES, *hymba)]
+    return shapes + [(*s, True) for s in (*MOE_FLASH_SHAPES, RAGGED_CROSS_FLASH,
+                                          *EMBEDDED_FLASH)]
+
+
+def flash_key(B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, q_offset) -> tuple:
+    return (B, Hq, Hkv, Sq, Skv, hd, hdv, bool(causal), window, q_offset)
+
+
 def checked_shapes() -> dict:
     """Kernel -> the set of shapes its checks cover, keyed as
     ``launched_shapes`` records them."""
     return {"rmsnorm": set(rmsnorm_shapes()), "swiglu_mlp": set(swiglu_shapes()),
             "decode_attention": {(B, Hkv * G, Hkv, S, hd)
                                  for B, Hkv, S, hd, groups, _ in decode_shapes()
-                                 for G in groups}}
+                                 for G in groups},
+            "flash_attention": {flash_key(*s[:9], s[4] - s[3] if s[7] else 0)
+                                for s in flash_shapes()}}
+
+
+def check_launched(shapes: dict, run: str) -> None:
+    """Raise unless every shape ``launched_shapes`` recorded is one the checks cover."""
+    covered = checked_shapes()
+    for kernel, seen in shapes.items():
+        if not seen <= covered[kernel]:
+            raise AssertionError(f"{run}: {kernel} launched at {sorted(seen - covered[kernel])}, "
+                                 "which no kernel check covers")
 
 
 @contextlib.contextmanager
 def launched_shapes():
-    """Record the shape of every call of ``ops.rmsnorm``, ``ops.swiglu_mlp``
-    and ``ops.decode_attention`` (the models reach the kernels through them):
-    rmsnorm (rows, D), swiglu_mlp (rows, D, F), decode_attention (B, Hq, Hkv,
-    S, hd)."""
+    """Record the shape of every call of ``ops.rmsnorm``, ``ops.swiglu_mlp``,
+    ``ops.decode_attention`` and ``ops.flash_attention`` (the models reach the
+    kernels through them): rmsnorm (rows, D), swiglu_mlp (rows, D, F),
+    decode_attention (B, Hq, Hkv, S, hd), flash_attention (B, Hq, Hkv, Sq,
+    Skv, hd, hdv, causal, window, q_offset)."""
     from repro_torch.kernels import ops
+
+    def flash(q, k, v, *, causal=True, window=0, q_offset=0):
+        return flash_key(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                         v.shape[3], causal, window, q_offset)
 
     keys = {"rmsnorm": lambda x, g, **_: (x.numel() // x.shape[-1], x.shape[-1]),
             "swiglu_mlp": lambda x, wg, *_: (x.numel() // x.shape[-1], *wg.shape),
-            "decode_attention": lambda q, k, *_, **__: (q.shape[0], q.shape[1], *k.shape[1:])}
+            "decode_attention": lambda q, k, *_, **__: (q.shape[0], q.shape[1], *k.shape[1:]),
+            "flash_attention": flash}
     seen = {name: set() for name in keys}
     saved = {name: getattr(ops, name) for name in keys}
 
@@ -610,10 +727,11 @@ def phase_build() -> None:
 
 #: (rows, D) of the rmsnorm checks: the serving, qwen training and hymba-1.5b
 #: training rows (the "vec" route), a small row and a ragged one (D = 100: the
-#: "block" route), the MoE training rows; the other models' serving rows join
-#: them in ``check_rmsnorm`` (``serve_kernel_shapes``)
+#: "block" route), the MoE training rows, internvl2-2b's image-prefixed rows (2 x
+#: (256 + 128)); the other models' serving rows join them in ``check_rmsnorm``
+#: (``serve_kernel_shapes``)
 RMSNORM_SHAPES = ((SERVE["requests"], 1024), (TRAIN_ROWS, 1024), (4352, 1600), (37, 96),
-                  (37, 100), *MOE_RMSNORM)
+                  (37, 100), *MOE_RMSNORM, INTERNVL_PREFIX_SWIGLU[:2])
 
 
 def graph_ms(fn, arg_sets, calls: int = 24, replays: int = 20, stream=None):
@@ -823,7 +941,8 @@ def check_swiglu(gen, ops, ref, rate):
     the split-K tensor-core route asserted at every serving shape; times at
     the serving shape (the row), the qwen training shape (its ``train_*``
     keys), hymba-1.5b's (``hymba_*``), deepseek-v2-lite-16b's
-    (DEEPSEEK_SWIGLU_PREFIXES) and the other models' serving shapes
+    (DEEPSEEK_SWIGLU_PREFIXES), internvl2-2b's (``internvl2_*``) and the other
+    models' serving shapes
     (``serve_kernel_shapes``' prefixes), each beside the CUDA-core kernel's on the
     same inputs (``simt_ms``); at serving's rows also the kernel's and three
     ``@``'s device times from replayed CUDA graphs (``device_ms``,
@@ -856,6 +975,7 @@ def check_swiglu(gen, ops, ref, rate):
                                                ("hymba_", HYMBA_SWIGLU, 2, 3),
                                                *((p, shape, 2, 3) for p, shape in
                                                  zip(DEEPSEEK_SWIGLU_PREFIXES, DEEPSEEK_SWIGLU)),
+                                               ("internvl2_", INTERNVL_SWIGLU, 2, 3),
                                                *((k, shape, 8, 10)
                                                  for shape, k in serving.items())):
         dt = torch.bfloat16
@@ -893,8 +1013,9 @@ def _sdpa(q, k, v, valid):
 #: the earlier small and hd-128 shapes, one long request (split-K), eight at
 #: 4096, qwen3-4b's layout (G 4, hd 128), hymba-1.5b's (G 5 over its 1024
 #: window and without), G 16 (two blocks a kv head), an hd that is no
-#: multiple of 8 (the "simt" route); the other models' serving shapes join
-#: them in ``check_decode_attention`` (``decode_shapes``).  "cross": a window
+#: multiple of 8 (the "simt" route), Whisper's cross cache over 1500 frames
+#: (serve_whisper's decode after ``encode``); the other models' serving shapes
+#: join them in ``check_decode_attention`` (``decode_shapes``).  "cross": a window
 #: of 1.5 spans of the split plan, whose start falls inside a span
 DECODE_SHAPES = (
     (SERVE["requests"], 16, CACHE_LEN, 64, (1, 2), (0, 64)),
@@ -906,6 +1027,7 @@ DECODE_SHAPES = (
     (2, 5, 2176, 64, (5,), (0, 1024)),
     (2, 2, 3000, 128, (16,), (0, "cross")),
     (2, 2, 100, 36, (1, 4), (0, 64)),
+    (SERVE["requests"], 20, WHISPER_FRAMES, 64, (1,), (0,)),
 )
 
 
@@ -960,7 +1082,8 @@ def check_decode_attention(gen, ops, ref, rate):
     plain version of its split plan), and the ``simt`` kernel on the
     same inputs.  Two CUDA-graph replays on new inputs.  Times at the serving
     shape (the row), at the other models' serving shapes
-    (``serve_kernel_shapes``' prefixes), at (8, 16, 4096, 64) (``s4096_*``) and (1, 16, 32768, 64)
+    (``serve_kernel_shapes``' prefixes), at Whisper's cross cache of 1500 frames
+    (``whisper_cross1500_*``), at (8, 16, 4096, 64) (``s4096_*``) and (1, 16, 32768, 64)
     (``s32768_*``), bf16, every position visible at the long shapes: ``ms`` from
     events around back-to-back calls, ``issue_ms`` the host's time to issue
     them, ``device_ms`` from a replayed CUDA graph, ``simt_ms`` the ``simt``
@@ -1015,6 +1138,8 @@ def check_decode_attention(gen, ops, ref, rate):
             ("", (SERVE["requests"], 16, 16, CACHE_LEN, VALID, 64), 24, 20),
             *((k, shape, 24, 20) for shape, k in serve_kernel_shapes()["decode_attention"].items()
               if shape != (SERVE["requests"], 16, 16, CACHE_LEN, VALID, 64)),
+            ("whisper_cross1500_", (SERVE["requests"], 20, 20, WHISPER_FRAMES, WHISPER_FRAMES,
+                                    64), 8, 20),
             ("s4096_", (8, 16, 16, 4096, 4096, 64), 2, 20),
             ("s32768_", (1, 16, 16, 32768, 32768, 64), 2, 20)):
         valid = torch.full((B,), vis, dtype=torch.int32, device="cuda")
@@ -1047,18 +1172,23 @@ def check_decode_attention(gen, ops, ref, rate):
     return row
 
 
-def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool,
-                hdv: int | None = None) -> tuple[float, str]:
-    """Causal self-attention, v of ``hdv`` (default hd) channels.  Bytes: q (and
+def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool, hdv: int | None = None,
+                Skv: int | None = None, causal: bool = True) -> tuple[float, str]:
+    """Causal self-attention, or with ``causal=False`` S queries over every one of
+    ``Skv`` keys (default S), v of ``hdv`` (default hd) channels.  Bytes: q (and
     dq) of hd and out (and dO) of hdv over Hq heads, k (and dk) of hd and v
     (and dv) of hdv over Hkv, lse in fp32, once each; operations per visible
     (causal, in-window) pair: 2 (hd + hdv) forward (S = Q K^T, P V), 6 hd + 4
     hdv backward (S, dP, dV, dQ, dK: the least work, with S formed once; the
     kernels form S and dP on both sides, 8 hd + 6 hdv) (bf16 rate)."""
     hdv = hd if hdv is None else hdv
-    visible = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    Skv = S if Skv is None else Skv
+    if causal:
+        visible = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    else:
+        visible = S * Skv
     pairs = B * Hq * visible
-    q_elems, kv_elems = B * Hq * S * (hd + hdv), B * Hkv * S * (hd + hdv)
+    q_elems, kv_elems = B * Hq * S * (hd + hdv), B * Hkv * Skv * (hd + hdv)
     if backward:
         return bound(2 * (q_elems + kv_elems) * 2 + B * Hq * S * 4, (6 * hd + 4 * hdv) * pairs,
                      torch.bfloat16, rate)
@@ -1098,84 +1228,90 @@ def sdpa_backward_ms(lib, inputs, dout) -> dict:
 
 
 def flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, window, hdv: int | None = None,
-                graphs: bool = False) -> tuple[dict, dict]:
-    """Flash forward and backward times in bf16 at one causal self-attention shape
-    (v of ``hdv`` channels, default hd), beside the plain versions', SDPA's
-    (with a boolean band mask where the window bites; the backward's by
-    backend, each given v of its own width: a backend that refuses it is
-    named with its reason) and the bound; each also beside the CUDA-core
-    kernels' on the same inputs (``simt_ms``); with ``graphs``, the forward's
-    and the backward's device times by replayed CUDA graphs (``device_ms``)."""
+                graphs: bool = False, *, Skv: int | None = None,
+                causal: bool = True) -> tuple[dict, dict]:
+    """Flash forward and backward times in bf16 at one causal self-attention shape,
+    or with ``causal=False`` S queries over ``Skv`` keys (default S), v of
+    ``hdv`` channels (default hd), beside the plain versions', SDPA's (with a
+    boolean band mask where the window bites; the backward's by backend,
+    each given v of its own width: a backend that refuses it is named with
+    its reason) and the bound; each also beside the CUDA-core kernels' on
+    the same inputs (``simt_ms``); with ``graphs``, the forward's and the
+    backward's device times by replayed CUDA graphs (``device_ms``), and
+    SDPA's forward and its fastest backend's backward the same way
+    (``library_device_ms``)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
     dt = torch.bfloat16
     hdv = hd if hdv is None else hdv
-    mask = ref.attention_mask(S, S, causal=True, window=window, q_offset=0, device="cuda")
-    sets = [(randn(gen, (B, Hq, S, hd), dt), randn(gen, (B, Hkv, S, hd), dt),
-             randn(gen, (B, Hkv, S, hdv), dt), randn(gen, (B, Hq, S, hdv), dt))
+    Skv = S if Skv is None else Skv
+    m = dict(causal=causal, window=window)
+    mask = ref.attention_mask(S, Skv, **m, q_offset=0, device="cuda")
+    sets = [(randn(gen, (B, Hq, S, hd), dt), randn(gen, (B, Hkv, Skv, hd), dt),
+             randn(gen, (B, Hkv, Skv, hdv), dt), randn(gen, (B, Hq, S, hdv), dt))
             for _ in range(2)]
     fwd_sets = [st[:3] for st in sets]
-    saved = [(q, k, v, *kf.flash_attention_cuda(q, k, v, window=window), do)
-             for q, k, v, do in sets]
+    saved = [(q, k, v, *kf.flash_attention_cuda(q, k, v, **m), do) for q, k, v, do in sets]
 
     def lib(q, k, v):
         if window:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=Hq != Hkv)
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=Hq != Hkv)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=Hq != Hkv)
 
     q, k, v, dout = sets[0]
     lib_bwd = sdpa_backward_ms(lib, (q, k, v), dout)
-    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=False, hdv=hdv)
+    sizes = dict(hdv=hdv, Skv=Skv, causal=causal)
+    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=False, **sizes)
     fwd = {
         "kernel_route": kf.route(*fwd_sets[0]),
-        "ms": time_ms(lambda q, k, v: kf.flash_attention_cuda(q, k, v, window=window),
-                      fwd_sets, 5),
-        "simt_ms": time_ms(lambda q, k, v: kf.launch("simt", q, k, v, causal=True,
-                                                     window=window, q_offset=0), fwd_sets, 5),
-        "plain_ms": time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, window=window),
-                            fwd_sets, 3),
+        "ms": time_ms(lambda q, k, v: kf.flash_attention_cuda(q, k, v, **m), fwd_sets, 5),
+        "simt_ms": time_ms(lambda q, k, v: kf.launch("simt", q, k, v, **m, q_offset=0),
+                           fwd_sets, 5),
+        "plain_ms": time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, **m), fwd_sets, 3),
         "library_ms": time_ms(lib, fwd_sets, 5), "bound_ms": b_ms, "bound_by": b_by,
     }
     if graphs:
         fwd["device_ms"], fwd["device_ms_from"] = graph_ms(
-            lambda q, k, v: kf.flash_attention_cuda(q, k, v, window=window), fwd_sets, 4, 5)
-    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=True, hdv=hdv)
-    ms, issue_ms = time_ms(lambda *a: kb.flash_attention_bwd_cuda(*a, window=window), saved, 5,
-                           issue=True)
+            lambda q, k, v: kf.flash_attention_cuda(q, k, v, **m), fwd_sets, 4, 5)
+        fwd["library_device_ms"] = graph_ms(lib, fwd_sets, 4, 5)[0]
+    b_ms, b_by = flash_bound(B, Hq, Hkv, S, hd, window, rate, backward=True, **sizes)
+    ms, issue_ms = time_ms(lambda *a: kb.flash_attention_bwd_cuda(*a, **m), saved, 5, issue=True)
     bwd = {
         "kernel_route": kb.route(*saved[0][:4], saved[0][5]),
         "ms": ms, "issue_ms": issue_ms,
-        "simt_ms": time_ms(lambda *a: kb.launch("simt", *a, causal=True, window=window,
-                                                q_offset=0), saved, 5),
-        "plain_ms": time_ms(lambda *a: ref.flash_attention_bwd_ref(*a, window=window), saved, 3),
+        "simt_ms": time_ms(lambda *a: kb.launch("simt", *a, **m, q_offset=0), saved, 5),
+        "plain_ms": time_ms(lambda *a: ref.flash_attention_bwd_ref(*a, **m), saved, 3),
         "fwd_bwd_ms": time_ms(lambda q, k, v, do: torch.autograd.grad(
-            ops.flash_attention(q, k, v, window=window), (q, k, v), do),
+            ops.flash_attention(q, k, v, **m), (q, k, v), do),
             [tuple(t.detach().requires_grad_() for t in st[:3]) + (st[3],) for st in sets], 5),
         **lib_bwd, "bound_ms": b_ms, "bound_by": b_by,
     }
     if graphs:
         bwd["device_ms"], bwd["device_ms_from"] = graph_ms(
-            lambda *a: kb.flash_attention_bwd_cuda(*a, window=window), saved, 4, 5)
+            lambda *a: kb.flash_attention_bwd_cuda(*a, **m), saved, 4, 5)
+        # the library's backward alone by replay: timed back to back, its
+        # calls are paced by the host's time to issue them
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        def best(*args, backend=getattr(SDPBackend, lib_bwd["library_backend"])):
+            with sdpa_kernel(backend):
+                return lib(*args)
+        bwd["library_device_ms"] = autograd_graph_ms(best, fwd_sets, [st[3] for st in sets], 4, 5)
     return fwd, bwd
 
 
-def check_flash(gen, ops, ref, rate):
-    """Flash forward and backward against the plain versions at FLASH_SHAPES,
-    hymba-1.5b's shapes (HYMBA_FLASH) and MOE_FLASH_SHAPES (v narrower than q
-    and k, MLA's (192, 128) and mixtral-8x7b's among them), fp32 and bf16;
-    the MoE shapes' tensor-core rows against the plain versions with P (and
-    dS) rounded as the route rounds them; autograd through
-    ``ops.flash_attention`` against the plain backward; times at the qwen
-    training shape (the rows), at hymba-1.5b's (their ``hymba`` lists) and at
-    deepseek-v2-lite-16b's and mixtral-8x7b's (``deepseek``, ``mixtral``)."""
+def check_flash_at(gen, ref, shapes) -> tuple[dict, dict]:
+    """The flash forward and backward kernels against the plain versions at
+    ``shapes`` (``flash_shapes``' form), fp32 and bf16, k, v and dO as the
+    model hands them over (transposed views): the route of each asserted (the
+    tensor cores in bf16 at their widths), the backward called twice and
+    compared bit for bit.  Returns the forward's and the backward's largest
+    errors by shape and dtype."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
     errs, gerrs, routes, bwd_routes = {}, {}, {}, {}
-    hymba = [(B, Hq, Hkv, S, S, hd, True, w) for B, Hq, Hkv, S, hd, w in HYMBA_FLASH]
-    shapes = [(*s[:6], s[5], *s[6:], False) for s in (*FLASH_SHAPES, *hymba)]
-    shapes += [(*s, True) for s in MOE_FLASH_SHAPES]
     for B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, as_route in shapes:
         for dt in (torch.float32, torch.bfloat16):
             mask = dict(causal=causal, window=window, q_offset=Skv - Sq if causal else 0)
@@ -1189,7 +1325,7 @@ def check_flash(gen, ops, ref, rate):
             tc = dt == torch.bfloat16 and (hd, hdv) in kf.TC_WIDTHS
             if routes[key] != ("wgmma" if tc else "simt"):
                 raise AssertionError(f"flash_attention {key}: route {routes[key]}")
-            # the MoE shapes' plain versions round P (and dS) as the route does
+            # as_route shapes' plain versions round P (and dS) as the route does
             p_bf16 = as_route and tc
             out, lse = kf.flash_attention_cuda(q, k, v, **mask)
             want, want_lse = ref.flash_attention_ref(q, k, v, **mask, p_bf16=p_bf16)
@@ -1207,7 +1343,7 @@ def check_flash(gen, ops, ref, rate):
                                               p_bf16=p_bf16)
             gerrs[key] = max(max_err(a, b, GRAD_TOL[dt]) for a, b in zip(got, exp))
             del q, k, v, dout, out, lse, want, want_lse, got, again, exp
-        if Sq * Skv > 2 ** 24:
+        if B * Hq * Sq * Skv > 2 ** 26:
             gc.collect()
             torch.cuda.empty_cache()
     print(f"[kernels] flash_attention errors {errs}")
@@ -1217,6 +1353,27 @@ def check_flash(gen, ops, ref, rate):
     print(f"[kernels] flash_attention_bwd bf16 routes "
           f"{ {k[:9]: v[0] for k, v in bwd_routes.items() if k[9] == 'bfloat16'} }; "
           f"two calls bitwise equal at every shape")
+    return errs, gerrs
+
+
+def check_flash(gen, ops, ref, rate):
+    """Flash forward and backward against the plain versions at ``flash_shapes``:
+    FLASH_SHAPES, hymba-1.5b's shapes (HYMBA_FLASH), MOE_FLASH_SHAPES (v
+    narrower than q and k, MLA's (192, 128) and mixtral-8x7b's among them), a
+    small ragged non-causal row and EMBEDDED_FLASH (internvl2-2b's and
+    whisper-large-v3's: non-causal with neither side a whole tile), fp32 and
+    bf16; the tensor-core rows of the last three against the plain versions
+    with P (and dS) rounded as the route rounds them; autograd through
+    ``ops.flash_attention`` against the plain backward; times at the qwen
+    training shape (the rows), at hymba-1.5b's (their ``hymba`` lists), at
+    deepseek-v2-lite-16b's and mixtral-8x7b's (``deepseek``, ``mixtral``) and
+    at EMBEDDED_FLASH_TIMES' (``internvl2``, ``whisper_encoder``,
+    ``whisper_cross``, ``whisper_decoder``)."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import flash_attention_bwd as kb
+
+    hymba = [(B, Hq, Hkv, S, S, hd, True, w) for B, Hq, Hkv, S, hd, w in HYMBA_FLASH]
+    errs, gerrs = check_flash_at(gen, ref, flash_shapes())
 
     # queries that see no key (lse = -inf: q_offset -8, window 4) get zero
     # gradients on the tensor-core route, not NaN: at hd 64 and at MLA's widths
@@ -1293,15 +1450,32 @@ def check_flash(gen, ops, ref, rate):
               f"bound {b['bound_ms']:.4f}, SDPA {b['library_backend']} {b['library_ms']:.4f})")
         gc.collect()
         torch.cuda.empty_cache()
+    for name, i in EMBEDDED_FLASH_TIMES.items():
+        B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window = EMBEDDED_FLASH[i]
+        key = (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, "bfloat16")
+        shape = (f"q ({B}, {Hq} / {Hkv}, {Sq}, {hd}), k, v ({B}, {Hkv}, {Skv}, {hdv}), "
+                 f"{'causal' if causal else 'non-causal'} bf16")
+        f, b = flash_times(gen, ops, ref, rate, B, Hq, Hkv, Sq, hd, window, hdv, graphs=True,
+                           Skv=Skv, causal=causal)
+        fwd[name] = {"shape": shape, "max_abs_err": errs[key], **f}
+        bwd[name] = {"shape": shape, "max_abs_err": gerrs[key], **b}
+        print(f"[kernels] flash at {name}'s shape: forward device {f['device_ms']:.4f} ms (bound "
+              f"{f['bound_ms']:.4f}, SDPA {f['library_ms']:.4f}, device "
+              f"{f['library_device_ms']:.4f}), backward device {b['device_ms']:.4f} (bound "
+              f"{b['bound_ms']:.4f}, SDPA {b['library_backend']} {b['library_ms']:.4f}, device "
+              f"{b['library_device_ms']:.4f})")
+        gc.collect()
+        torch.cuda.empty_cache()
     return fwd, bwd
 
 
 #: (rows, D) of the rmsnorm backward checks: the qwen, hymba-1.5b and xlstm-1.3b
 #: training rows and xlstm-1.3b's mLSTM output norm (8 KB rows; the "vec" body),
-#: serving's rows, a small row ("vec") and a ragged one (D = 100: "block"), and
-#: the MoE training rows
+#: serving's rows, a small row ("vec") and a ragged one (D = 100: "block"), the
+#: MoE training rows and internvl2-2b's image-prefixed rows
 RMSNORM_BWD_SHAPES = ((TRAIN_ROWS, 1024), (4352, 1600), (2048, 2048), (2048, 4096),
-                      (SERVE["requests"], 1024), (37, 96), (37, 100), *MOE_RMSNORM)
+                      (SERVE["requests"], 1024), (37, 96), (37, 100), *MOE_RMSNORM,
+                      INTERNVL_PREFIX_SWIGLU[:2])
 
 
 def rmsnorm_bwd_host_steps(x, g, dy, reps: int = 2000) -> dict:
@@ -1441,7 +1615,8 @@ def check_rmsnorm_bwd(gen, ops, ref, rate):
 #: TMA refuses (D = 100: the recompute path and gate kernel), and
 #: deepseek-v2-lite-16b's layer0 and shared experts at its training shape
 SWIGLU_BWD_SHAPES = ((TRAIN_ROWS, 1024, 2816), HYMBA_SWIGLU, (2048, 2048, 2688),
-                     (333, 200, 712), (20, 96, 224), (37, 100, 260), *DEEPSEEK_SWIGLU)
+                     (333, 200, 712), (20, 96, 224), (37, 100, 260), *DEEPSEEK_SWIGLU,
+                     INTERNVL_SWIGLU, INTERNVL_PREFIX_SWIGLU)
 
 
 def _fwd_bwd(fn, x, wg, wu, wd, dy):
@@ -1509,8 +1684,9 @@ def check_swiglu_bwd(gen, ops, ref, rate):
     plain version.  A gradient outside GRAD_TOL of the plain version passes
     only with that witness, and is printed and returned (``plain_misses``)
     with both errors.  Times at qwen's shape (the row),
-    hymba-1.5b's (``hymba_*``) and deepseek-v2-lite-16b's
-    (DEEPSEEK_SWIGLU_PREFIXES), bf16, each from a replayed CUDA graph of two
+    hymba-1.5b's (``hymba_*``), deepseek-v2-lite-16b's
+    (DEEPSEEK_SWIGLU_PREFIXES) and internvl2-2b's (``internvl2_*``), bf16, each
+    from a replayed CUDA graph of two
     input sets: the backward (``device_ms``; ``ms`` event-timed back to
     back), its kernel alone (``kernel_device_ms``), the PR 12-17 path
     (``simt_ms``), autograd of three ``@`` (``library_ms``), forward and
@@ -1579,7 +1755,8 @@ def check_swiglu_bwd(gen, ops, ref, rate):
     row = {"name": "swiglu_mlp_bwd",
            "plain_misses": {" ".join(map(str, k)): v for k, v in misses.items()}}
     for prefix, (N, D, Fd) in (("", SWIGLU_BWD_SHAPES[0]), ("hymba_", HYMBA_SWIGLU),
-                               *zip(DEEPSEEK_SWIGLU_PREFIXES, DEEPSEEK_SWIGLU)):
+                               *zip(DEEPSEEK_SWIGLU_PREFIXES, DEEPSEEK_SWIGLU),
+                               ("internvl2_", INTERNVL_SWIGLU)):
         dt = torch.bfloat16
         sets = [_swiglu_bwd_inputs(gen, N, D, Fd, dt) for _ in range(2)]
         b_ms, b_by = bound((3 * N * D + 6 * D * Fd + 2 * N * Fd) * 2,
@@ -2034,11 +2211,28 @@ def phase_full_width_grad() -> None:
           f"gradient leaves, worst max |diff| / max |grad| {worst:.3e}")
 
 
-def full_width_vs_cpu(cfg, seed: int, seq: int, label: str) -> None:
+def embeddings(cfg, B: int, frames: int, gen, device="cpu", dtype=torch.float32) -> dict:
+    """The batch entry a VLM's or an encoder-decoder's ``loss`` and ``prefill``
+    take beside the tokens, drawn from ``gen``: ``img_emb`` (B,
+    n_image_tokens, d_model) or ``enc_emb`` (B, ``frames``, d_model); none
+    for the other families."""
+    if cfg.vlm is not None:
+        shape = (B, cfg.vlm.n_image_tokens, cfg.d_model)
+    elif cfg.encdec is not None:
+        shape = (B, frames, cfg.d_model)
+    else:
+        return {}
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return {"img_emb" if cfg.vlm is not None else "enc_emb": x.to(device=device, dtype=dtype)}
+
+
+def full_width_vs_cpu(cfg, seed: int, seq: int, label: str, *, frames: int = 0) -> None:
     """``loss``, every gradient leaf and ``prefill`` of ``cfg`` (fp32) on a (1,
     ``seq``) batch on the card against the same weights on the CPU: the loss
     within 2e-3, each leaf within 2e-3 of its largest entry, the logits within
-    2e-3 (absolute and relative), the same argmax."""
+    2e-3 (absolute and relative), the same argmax.  A VLM's batch holds its
+    image embeddings, an encoder-decoder's ``frames`` frame embeddings
+    (``embeddings``)."""
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
 
@@ -2046,14 +2240,15 @@ def full_width_vs_cpu(cfg, seed: int, seq: int, label: str) -> None:
     gen = torch.Generator().manual_seed(seed)
     p_cpu, p_gpu = weights_on_both(gpu, seed)
     toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **embeddings(cfg, 1, frames, gen)}
+    on_card = {k: t.cuda() for k, t in batch.items()}
     want, g_cpu = _loss_and_grads(cpu, p_cpu, batch)
-    got, g_gpu = _loss_and_grads(gpu, p_gpu, {k: t.cuda() for k, t in batch.items()})
+    got, g_gpu = _loss_and_grads(gpu, p_gpu, on_card)
     if not (math.isfinite(got) and abs(got - want) <= 2e-3):
         raise AssertionError(f"{label} loss: card {got} cpu {want}")
     worst = max(rel_err(a.cpu(), b, 2e-3)[1] for a, b in zip(g_gpu, g_cpu))
-    l_cpu = cpu.prefill(p_cpu, {"tokens": batch["tokens"]})
-    l_gpu = gpu.prefill(p_gpu, {"tokens": batch["tokens"].cuda()}).cpu()
+    l_cpu = cpu.prefill(p_cpu, {k: t for k, t in batch.items() if k != "labels"})
+    l_gpu = gpu.prefill(p_gpu, {k: t for k, t in on_card.items() if k != "labels"}).cpu()
     if l_gpu.shape != (1, 1, cfg.vocab) or not torch.isfinite(l_gpu).all():
         raise AssertionError(f"prefill logits of shape {tuple(l_gpu.shape)} or not finite")
     torch.testing.assert_close(l_gpu, l_cpu, rtol=2e-3, atol=2e-3)
@@ -2377,6 +2572,86 @@ def phase_mixtral_decode_full_width() -> dict:
     return {"mixtral_ring": ties}
 
 
+def phase_internvl2_full_width() -> None:
+    """internvl2-2b at full width in fp32, cut to 4 layers: ``loss``, every
+    gradient leaf and the image-prefixed ``prefill`` on 256 image and 200
+    text positions against the CPU (its vocabulary of 92553 is no multiple
+    of 8: only ``@`` and the embedding gather touch ``lm_head`` and ``embed``)."""
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[INTERNVL], dtype="float32", n_layers=4)
+    full_width_vs_cpu(cfg, 15, 200, "fp32 4-layer internvl2-2b")
+
+
+def whisper_cut() -> "object":
+    """whisper-large-v3 in fp32 at full width, cut to 2 encoder and 2 decoder layers."""
+    from repro_torch.configs import ARCHS
+
+    full = ARCHS[WHISPER]
+    return dataclasses.replace(full, dtype="float32", n_layers=2, encdec=dataclasses.replace(
+        full.encdec, n_encoder_layers=2))
+
+
+def fill_cross_cache(model, params, cache, enc_out) -> None:
+    """Write every decoder layer's cross K and V of ``enc_out`` into ``cache``
+    through the model's own ``_qkv``, as ``prefill``'s cross attention forms
+    them (a harness step: the package has no such API, JAX neither)."""
+    from repro_torch.models import params as PM
+
+    with torch.no_grad():
+        for i, p in enumerate(PM.unstack(params["dec_layers"])):
+            _, k, v = model._qkv(p["cross_attn"], enc_out, enc_out)
+            cache["layers"]["cross_k"][i].copy_(k)
+            cache["layers"]["cross_v"][i].copy_(v)
+
+
+def phase_whisper_full_width() -> None:
+    """whisper-large-v3 at full width in fp32, cut to 2 + 2 layers, on its 30 s
+    window: ``loss``, every gradient leaf and ``prefill`` on 1 x (1500
+    frames, 448 tokens) against the CPU; then ``encode`` of 2 requests' 1500
+    frames within 2e-3 of the CPU's (of its largest entry), each device's
+    cross cache filled from its own encoder output, and 8 ``decode_step``s
+    on both: the logits within 2e-3 at every step, the same argmax, every
+    cache leaf within 2e-3 of its largest entry."""
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+
+    t0 = time.perf_counter()
+    cfg = whisper_cut()
+    full_width_vs_cpu(cfg, 16, WHISPER_TOKENS, "fp32 2+2-layer whisper", frames=WHISPER_FRAMES)
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    gen = torch.Generator().manual_seed(17)
+    p_cpu, p_gpu = weights_on_both(gpu, 17)
+    B, steps = 2, 8
+    enc = embeddings(cfg, B, WHISPER_FRAMES, gen)["enc_emb"]
+    with torch.no_grad():
+        e_cpu, e_gpu = cpu.encode(p_cpu, enc), gpu.encode(p_gpu, enc.cuda())
+    _, enc_rel = rel_err(e_gpu.cpu(), e_cpu, 2e-3)
+    c_cpu, c_gpu = cpu.init_cache(B, 16, WHISPER_FRAMES), gpu.init_cache(B, 16, WHISPER_FRAMES)
+    fill_cross_cache(cpu, p_cpu, c_cpu, e_cpu)
+    fill_cross_cache(gpu, p_gpu, c_gpu, e_gpu)
+    toks = torch.randint(0, cfg.vocab, (B, steps), generator=gen)
+    worst = 0.0
+    for t in range(steps):
+        want, _ = cpu.decode_step(p_cpu, {"tokens": toks[:, t:t + 1], "cache": c_cpu, "index": t})
+        got, _ = gpu.decode_step(p_gpu, {"tokens": toks[:, t:t + 1].cuda(), "cache": c_gpu,
+                                         "index": t})
+        got = got.cpu()
+        if got.shape != (B, 1, cfg.vocab) or not torch.isfinite(got).all():
+            raise AssertionError(f"whisper decode step {t}: logits {tuple(got.shape)} or not "
+                                 "finite")
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError(f"whisper decode step {t}: greedy tokens differ from the CPU's")
+        worst = max(worst, float((got - want).abs().max()))
+    leaf_rel = max(rel_err(a.cpu(), b, 2e-3)[1]
+                   for a, b in zip(PM.tree_leaves(c_gpu), PM.tree_leaves(c_cpu)))
+    print(f"[full-width] fp32 2+2-layer whisper: encode of {B} x {WHISPER_FRAMES} frames within "
+          f"{enc_rel:.3e} of its largest entry; {steps} decode steps over the filled cross cache, "
+          f"max |logit diff| {worst:.3e}, argmax equal; cache leaves {leaf_rel:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def mla_prefill_small_vs_cpu() -> None:
     """deepseek-v2-lite-16b's smoke config (q and k of 48, v of 32) in fp32:
     ``prefill`` on the card, through the flash kernel (``simt``), equal to
@@ -2451,11 +2726,7 @@ def serve_run(kernel_modules, run: str) -> dict:
     seconds = time.perf_counter() - t0
     counts, routes = read_counts(kernel_modules)
     peak = torch.cuda.max_memory_allocated()
-    covered = checked_shapes()
-    for kernel, seen in shapes.items():
-        if not seen <= covered[kernel]:
-            raise AssertionError(f"{run}: {kernel} launched at {sorted(seen - covered[kernel])}, "
-                                 "which no kernel check covers")
+    check_launched(shapes, run)
     for module, n in counts.items():
         if n != per_step.get(module, 0) * res["steps"]:
             raise AssertionError(f"{module}: {n} launches in the {run} run, expected "
@@ -2477,6 +2748,137 @@ def serve_run(kernel_modules, run: str) -> dict:
             "shapes": {k: sorted(v) for k, v in shapes.items()}, "steps": res["steps"],
             "tokens_per_s": res["tokens_per_s"], "ms_per_step": res["ms_per_step"],
             "peak_memory_bytes": peak, "seconds": seconds}
+
+
+#: decode after ``encode`` against ``prefill`` in bf16: the last logits within this
+#: share of the largest prefill logit (the bf16 gradient tolerance, GRAD_TOL, for
+#: a chain of 32 layers of kernels that round in other places: decode attention
+#: keeps P in fp32, the flash tensor-core route rounds it to bf16)
+BF16_LOGIT_TOL = 5e-2
+
+
+def card_model(arch: str):
+    """(model, parameters) of ``arch`` at full config in bf16, the weights of
+    seed 0 drawn on the card."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+
+    model = build_model(ARCHS[arch], device="cuda")
+    return model, model.init_params(torch.Generator(device="cuda").manual_seed(0))
+
+
+def counted(kernel_modules, fn):
+    """``(fn(), launches by module, launches by route, seconds)``: the counts set
+    to 0 just before and read just after, the card synchronized around ``fn``."""
+    reset_counts(kernel_modules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (out, *read_counts(kernel_modules), seconds)
+
+
+def expect_counts(counts: dict, want: dict, what: str) -> None:
+    for module, n in counts.items():
+        if n != want.get(module, 0):
+            raise AssertionError(f"{what}: {module} launched {n} times, expected "
+                                 f"{want.get(module, 0)}")
+
+
+def internvl2_prefill(kernel_modules) -> dict:
+    """internvl2-2b in bf16 at full width and depth: ``prefill`` of 2 requests of
+    128 tokens behind 256 image positions (2 x 384) through the flash kernel,
+    with one prefill's launches counted (flash on the tensor cores), every
+    shape checked; its logits finite, and other image embeddings moving
+    them."""
+    model, params = card_model(INTERNVL)
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 128), generator=gen, device="cuda")
+    img = embeddings(cfg, 2, 0, gen, "cuda", model.dtype)["img_emb"]
+    with launched_shapes() as shapes:
+        logits, counts, routes, seconds = counted(
+            kernel_modules, lambda: model.prefill(params, {"tokens": toks, "img_emb": img}))
+        other = model.prefill(params, {"tokens": toks, "img_emb": img + 1})
+    check_launched(shapes, "internvl2 prefill")
+    expect_counts(counts, {"flash_attention": 24, "rmsnorm": 49, "swiglu": 24},
+                  "internvl2 prefill")
+    check_routes(routes, counts, {"flash_attention": "wgmma"}, "internvl2 prefill")
+    if logits.shape != (2, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"internvl2 prefill logits {tuple(logits.shape)} or not finite")
+    moved = float((other - logits).abs().max())
+    if not moved > 0:
+        raise AssertionError("internvl2 prefill: other image embeddings left the logits as "
+                             "they were")
+    print(f"[serve_internvl2] image-prefixed prefill 2 x (256 + 128) bf16: launches {counts}; "
+          f"{seconds * 1e3:.1f} ms; other images move the logits by up to {moved:.3f}")
+    return {"prefill_shape": "2 x (256 image + 128 text) positions", "prefill_counts": counts,
+            "prefill_ms": seconds * 1e3, "prefill_image_moves_logits_by": moved}
+
+
+def whisper_encoded_decode(kernel_modules) -> dict:
+    """whisper-large-v3 in bf16 at full width and depth, outside the engine:
+    ``encode`` of 8 requests' 1500 frames (32 flash launches on the tensor
+    cores), the cross cache filled from it (``fill_cross_cache``), 32
+    ``decode_step``s over it (64 decode-attention launches a step, all on
+    ``split``, the wrapper making no valid_len tensor), then ``prefill`` of the
+    same 32 tokens over the same frames (96 flash launches): the last decode
+    logits within BF16_LOGIT_TOL of the largest prefill logit.  Every shape
+    checked; the times of each part."""
+    from repro_torch.kernels import decode_attention as kd
+
+    model, params = card_model(WHISPER)
+    cfg = model.cfg
+    B, steps = SERVE["requests"], SERVE["new_tokens"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    enc_emb = embeddings(cfg, B, WHISPER_FRAMES, gen, "cuda", model.dtype)["enc_emb"]
+    toks = torch.randint(0, cfg.vocab, (B, steps), generator=gen, device="cuda")
+    cache = model.init_cache(B, CACHE_LEN, WHISPER_FRAMES)
+    made = []
+    vector = kd.valid_len_vector
+    kd.valid_len_vector = lambda *a: made.append(a[1:]) or vector(*a)
+
+    def decode():
+        for t in range(steps):
+            logits, _ = model.decode_step(params, {"tokens": toks[:, t:t + 1], "cache": cache,
+                                                   "index": t})
+        return logits
+
+    try:
+        with launched_shapes() as shapes, torch.no_grad():
+            enc, enc_counts, enc_routes, enc_s = counted(
+                kernel_modules, lambda: model.encode(params, enc_emb))
+            fill_cross_cache(model, params, cache, enc)
+            last, dec_counts, dec_routes, dec_s = counted(kernel_modules, decode)
+            pre, pre_counts, pre_routes, pre_s = counted(
+                kernel_modules, lambda: model.prefill(params, {"tokens": toks,
+                                                               "enc_emb": enc_emb}))
+    finally:
+        kd.valid_len_vector = vector
+    check_launched(shapes, "whisper encode and decode")
+    expect_counts(enc_counts, {"flash_attention": 32}, "whisper encode")
+    expect_counts(dec_counts, {"decode_attention": 2 * 32 * steps}, "whisper decode")
+    expect_counts(pre_counts, {"flash_attention": 3 * 32}, "whisper prefill")
+    check_routes(enc_routes, enc_counts, {"flash_attention": "wgmma"}, "whisper encode")
+    check_routes(dec_routes, dec_counts, {"decode_attention": "split"}, "whisper decode")
+    check_routes(pre_routes, pre_counts, {"flash_attention": "wgmma"}, "whisper prefill")
+    if made:
+        raise AssertionError(f"decode_attention made {len(made)} valid_len tensors in Whisper's "
+                             "decode; the model passes two a step")
+    if not (torch.isfinite(enc).all() and torch.isfinite(last).all()):
+        raise AssertionError("whisper: encoder output or decode logits not finite")
+    err, rel = rel_err(last, pre, BF16_LOGIT_TOL)
+    agree = int((last.argmax(-1) == pre.argmax(-1)).sum())
+    print(f"[serve_whisper] encode {B} x {WHISPER_FRAMES} frames {enc_s * 1e3:.1f} ms; "
+          f"{steps} decode steps over the filled cross cache {dec_s / steps * 1e3:.3f} ms a step; "
+          f"prefill {pre_s * 1e3:.1f} ms; last logits within {err:.4f} ({rel:.4f} of the largest) "
+          f"of prefill's, argmax equal in {agree} of {B}")
+    return {"encode_shape": f"{B} x {WHISPER_FRAMES} frames", "encode_ms": enc_s * 1e3,
+            "encode_counts": enc_counts, "filled_decode_ms_per_step": dec_s / steps * 1e3,
+            "filled_decode_counts": dec_counts, "prefill_ms": pre_s * 1e3,
+            "decode_vs_prefill_max_abs_err": err, "decode_vs_prefill_rel_err": rel,
+            "decode_vs_prefill_argmax_equal": agree}
 
 
 def mlstm_decode_times(rate: float) -> dict:
@@ -2509,14 +2911,29 @@ def mlstm_decode_times(rate: float) -> dict:
             "mlstm_decode_device_ms_per_step": ms * blocks}
 
 
-def phase_serve(kernel_modules, rate: float) -> dict:
+#: the smoke configs served in fp32 on the card and on the CPU, token for token
+SMALL_SERVES = (ARCH, HYMBA, XLSTM, DEEPSEEK, MIXTRAL, INTERNVL, WHISPER)
+
+
+def phase_serve(kernel_modules, rate: float, runs=tuple(SERVE_RUNS), small=SMALL_SERVES) -> dict:
     """deepseek's small fp32 prefill (MLA through the flash kernel) and the
-    small fp32 serves against the CPU, then every run of ``SERVE_RUNS``;
-    xlstm-1.3b's also with the plain mLSTM update's device time."""
-    mla_prefill_small_vs_cpu()
-    for arch in (ARCH, HYMBA, XLSTM, DEEPSEEK, MIXTRAL):
+    ``small`` fp32 serves against the CPU, then the ``runs`` of ``SERVE_RUNS``;
+    xlstm-1.3b's also with the plain mLSTM update's device time,
+    internvl2-2b's with its image-prefixed prefill, whisper-large-v3's with
+    decoding after ``encode``."""
+    if DEEPSEEK in small:
+        mla_prefill_small_vs_cpu()
+    for arch in small:
         serve_small_vs_cpu(arch)
-    runs = {run: serve_run(kernel_modules, run) for run in SERVE_RUNS}
+    runs = {run: serve_run(kernel_modules, run) for run in runs}
+    for run, extra in (("serve_internvl2", internvl2_prefill),
+                       ("serve_whisper", whisper_encoded_decode)):
+        if run in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            runs[run].update(extra(kernel_modules))
+    if "serve_xlstm" not in runs:
+        return runs
     runs["serve_xlstm"].update(mlstm_decode_times(rate))
     print(f"[serve_xlstm] plain mLSTM update: {runs['serve_xlstm']['mlstm_decode_device_ms']} "
           f"ms a call by graph replay, bound {runs['serve_xlstm']['mlstm_decode_bound_ms']}")
@@ -2725,6 +3142,125 @@ def phase_train_mixtral(kernel_modules) -> dict:
                             "train_mixtral", TRAIN_ROUTES)[2]
 
 
+def train_embedded(arch: str, shape: dict, per_step: dict, kernel_modules, tag: str,
+                   want_routes: dict) -> dict:
+    """A family whose ``loss`` takes embeddings beside the tokens (internvl2-2b's
+    image, whisper-large-v3's frames) in bf16 at full width and depth.  First
+    ``launch.train.main`` must refuse it, naming the missing entry.  Then
+    ``shape``'s batch x seq text tokens from the launcher's corpus
+    (``TokenDatasetSpec``, ``TokenLoader``), the embeddings drawn each step
+    from a seeded CUDA generator (``embeddings``: 256 image positions, or
+    ``shape["frames"]`` frames), parameters drawn on a CUDA generator,
+    ``shape``'s steps of ``make_train_step`` with the launch counts set to 0
+    just before and checked against ``per_step`` just after, the routes of
+    ``want_routes``' modules, and every shape launched one the kernel checks
+    cover (``launched_shapes``); the peak memory of those steps; then 8 steps
+    on a fixed batch (internvl2-2b: 2 x (256 + 128); Whisper: the run's first
+    batch), whose loss must fall by 0.05.  Tokens are the batch's text
+    tokens."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenDatasetSpec, TokenLoader
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = ARCHS[arch]
+    needed = train.NEEDS_EMBEDDINGS[cfg.family]
+    try:
+        train.main(["--arch", arch, "--full-config", "--device", "cuda", "--steps", "1"])
+    except SystemExit as e:
+        if needed not in str(e):
+            raise AssertionError(f"the launcher refused {arch} without naming {needed}: {e}")
+    else:
+        raise AssertionError(f"the launcher trained {arch} without {needed}")
+    print(f"[{tag}] launch.train refuses {arch}: its loss needs {needed}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S, steps, frames = shape["batch"], shape["seq"], shape["steps"], shape.get("frames", 0)
+    model = build_model(cfg, device="cuda")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
+    t0 = time.perf_counter()
+    params, opt = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, B * 32), seq_len=S,
+                            vocab=cfg.vocab, seed=0)
+    it = iter(TokenLoader(spec, batch=B, items_per_chunk=train.ITEMS_PER_CHUNK))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    step = make_train_step(model, opt_cfg)
+    losses, step_ms, batches = [], [], []
+    with launched_shapes() as shapes:
+        reset_counts(kernel_modules)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            toks, labels = next(it)
+            batch = {"tokens": torch.from_numpy(toks).long().cuda(),
+                     "labels": torch.from_numpy(labels).long().cuda(),
+                     **embeddings(cfg, B, frames, gen, "cuda", model.dtype)}
+            batches.append(batch)
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))      # waits for the step to finish
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, routes = read_counts(kernel_modules)
+        peak = torch.cuda.max_memory_allocated()
+        if cfg.vlm is not None:
+            rng = np.random.default_rng(0)
+            fixed_batch = {name: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128))).cuda()
+                           for name in ("tokens", "labels")}
+            fixed_batch.update(embeddings(cfg, 2, 0, gen, "cuda", model.dtype))
+        else:
+            fixed_batch = batches[0]
+        fixed_step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2))
+        fixed = []
+        for _ in range(8):
+            params, opt, metrics = fixed_step(params, opt, fixed_batch)
+            fixed.append(float(metrics["loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch} train losses {losses}")
+    for name, n in per_step.items():
+        if counts[name] != n * steps:
+            raise AssertionError(f"{name}: {counts[name]} launches in the {arch} train run, "
+                                 f"expected {n} x {steps} steps")
+    check_routes(routes, counts, want_routes, tag)
+    check_launched(shapes, tag)
+    if not fixed[-1] < fixed[0] - 0.05:
+        raise AssertionError(f"{arch} fixed-batch losses did not fall by 0.05: {fixed}")
+    median = statistics.median(step_ms[1:])
+    tokens_per_s = B * S / (median / 1e3)
+    n_params = sum(t.numel() for t in PM.tree_leaves(params))
+    print(f"[{tag}] {n_params / 1e9:.3f} B parameters; launches {counts}, by route {routes}; "
+          f"flash shapes {sorted(shapes['flash_attention'])}; losses {losses}; step ms "
+          f"{step_ms}; median {median:.3f} ms over steps 2-{steps}, {tokens_per_s:.1f} text "
+          f"tokens/s, peak {peak / 2**30:.3f} GiB; init {init_s:.2f} s; fixed batch, 8 steps: "
+          f"loss {fixed[0]:.4f} -> {fixed[-1]:.4f}")
+    return {"counts": counts, "routes": routes, "steps": steps, "batch": B, "seq": S,
+            "frames": frames, "n_layers": cfg.n_layers, "parameters": n_params,
+            "tokens_per_step": B * S, "tokens_counted": "text tokens only",
+            "shapes": {k: sorted(v) for k, v in shapes.items()},
+            "losses": losses, "step_ms": step_ms, "median_step_ms": median,
+            "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak, "init_seconds": init_s,
+            "fixed_batch_losses": fixed}
+
+
+def phase_train_internvl2(kernel_modules) -> dict:
+    """internvl2-2b: ``train_embedded`` at 2 x (256 image + 1792 text) positions
+    (24 layers, 1.89 B parameters), the routes as qwen's.  No checkpoint."""
+    return train_embedded(INTERNVL, INTERNVL_TRAIN, INTERNVL_PER_STEP, kernel_modules,
+                          "train_internvl2", TRAIN_ROUTES)
+
+
+def phase_train_whisper(kernel_modules) -> dict:
+    """whisper-large-v3: ``train_embedded`` at 4 x (1500 frames, 448 tokens) (32
+    + 32 layers, 1.58 B parameters), every flash forward and backward (the
+    encoder's, the decoder's causal one, cross attention) on the tensor
+    cores.  No checkpoint."""
+    return train_embedded(WHISPER, WHISPER_TRAIN, WHISPER_PER_STEP, kernel_modules,
+                          "train_whisper", WHISPER_ROUTES)
+
+
 def xlstm_block_ms(model, params, B, S) -> dict:
     """Host milliseconds (ending in a synchronize) of one mLSTM and one sLSTM
     block's forward and backward at the training shape, median of 3 after a
@@ -2806,10 +3342,29 @@ def only_serve(gen, ops, ref, rate) -> list:
     return [{run: res} for run, res in runs.items()]
 
 
+def only_embedded(gen, ops, ref, rate) -> list:
+    """The flash checks at the two families' shapes, their fp32 checks against
+    the CPU, their serve runs and their training runs."""
+    from repro_torch.kernels import KERNEL_MODULES
+
+    check_flash_at(gen, ref, [(*s, True) for s in (RAGGED_CROSS_FLASH, *EMBEDDED_FLASH)])
+    phase_internvl2_full_width()
+    phase_whisper_full_width()
+    runs = phase_serve(KERNEL_MODULES, rate, ("serve_internvl2", "serve_whisper"),
+                       (INTERNVL, WHISPER))
+    for run, phase in (("train_internvl2", phase_train_internvl2),
+                       ("train_whisper", phase_train_whisper)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[run] = phase(KERNEL_MODULES)
+    return [{run: res} for run, res in runs.items()]
+
+
 #: checks that ``--only NAME`` runs alone after the card and the build phases,
 #: printing their rows and no result line
 ONLY = {"mlstm": check_mlstm, "ssd": check_ssd,
-        "decode": lambda *a: (check_decode_attention(*a),), "serve": only_serve}
+        "decode": lambda *a: (check_decode_attention(*a),), "flash": check_flash,
+        "serve": only_serve, "embedded": only_embedded}
 
 
 def main(argv: list[str]) -> None:
@@ -2841,7 +3396,7 @@ def main(argv: list[str]) -> None:
         torch.cuda.synchronize()
         print(f"[kernels] {check.__name__} done at {time.perf_counter() - t0:.1f} s")
     for phase in (phase_full_width, phase_full_width_grad, phase_xlstm_full_width,
-                  phase_hymba_full_width):
+                  phase_hymba_full_width, phase_internvl2_full_width, phase_whisper_full_width):
         phase()
         print(f"[full-width] {phase.__name__} done at {time.perf_counter() - t0:.1f} s")
     moe_ties = phase_moe_full_width()
@@ -2853,7 +3408,9 @@ def main(argv: list[str]) -> None:
     print(f"[serve] done at {time.perf_counter() - t0:.1f} s")
     for run, phase in (("train", phase_train), ("train_xlstm", phase_train_xlstm),
                        ("train_hymba", phase_train_hymba), ("train_deepseek", phase_train_deepseek),
-                       ("train_mixtral", phase_train_mixtral)):
+                       ("train_mixtral", phase_train_mixtral),
+                       ("train_internvl2", phase_train_internvl2),
+                       ("train_whisper", phase_train_whisper)):
         gc.collect()
         torch.cuda.empty_cache()
         runs[run] = phase(KERNEL_MODULES)

@@ -5,7 +5,10 @@
 
 The port of ``repro.launch.serve``, for every arch of ``configs.ARCHS``: the
 dense decoders, the MoE ``mixtral-8x7b`` and ``deepseek-v2-lite-16b`` (MLA),
-``hymba-1.5b`` and ``xlstm-1.3b``.  The model runs from a
+``hymba-1.5b``, ``xlstm-1.3b``, ``internvl2-2b`` (as a text decoder: decoding
+has no image path, in JAX neither) and ``whisper-large-v3`` (against the
+engine's zero cross cache of 64 frames, as JAX's launcher serves it).  The
+model runs from a
 seeded random init drawn on the host (one ``--seed`` gives one model on the
 card and on the CPU); prompts are items of the corpus the JAX launcher
 stripes into the Hoard cache (:mod:`repro_torch.data.tokens`), so both

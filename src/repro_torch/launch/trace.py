@@ -6,8 +6,12 @@ The port's own kernels are named by their ``__global__`` functions in
 so the SSD scan's four forward launches form the group ``ssd_scan``);
 cuBLAS's products and PyTorch's other ops form one group each; for a model
 with routed experts, the experts' batched products form ``routed_experts``
-(:func:`split_routed_experts`).  Used by ``launch/trace_serve.py`` and
-``launch/trace_train.py``.
+(:func:`split_routed_experts`).  PyTorch's other ops are broken down again by
+the outermost CPU event that launched them (:func:`root_name`): a forward op
+by its own name (``aten::gelu``), a backward op by its autograd node
+(``GeluBackward0``: the backward of the forward op of that name), and the
+optimizer by its profiler range, ``adamw_update``.  Used by
+``launch/trace_serve.py`` and ``launch/trace_train.py``.
 """
 
 from __future__ import annotations
@@ -79,13 +83,36 @@ def split_routed_experts(prof, cfg, steps: int, res: dict) -> None:
                 res[key]["routed_experts"] = res[key].get("routed_experts", 0.0) + ms
 
 
+def root_name(event) -> str:
+    """The outermost CPU event above ``event``: an op, a profiler range, or an
+    autograd node (named without the engine's prefix)."""
+    while event.cpu_parent is not None:
+        event = event.cpu_parent
+    return event.name.removeprefix("autograd::engine::evaluate_function: ")
+
+
+def torch_other_by_root(events, steps: int, top: int = 16) -> dict:
+    """Device ms a step of PyTorch's other kernels (``kernel_group`` "torch_other")
+    by :func:`root_name` of the CPU event that launched them, the largest
+    ``top``."""
+    out: dict[str, float] = defaultdict(float)
+    for e in events:
+        for k in getattr(e, "kernels", ()):
+            if kernel_group(k.name) == "torch_other":
+                out[root_name(e)] += k.duration / 1e3 / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
+
+
 def device_summary(prof, steps: int, traced_ms: float, top: int = 12) -> dict:
     """Per-step device busy time, idle share, launches, time by kernel group and
     top kernels of a trace of ``steps`` steps that took ``traced_ms`` each;
-    raise if no device time."""
+    raise if no device time.  A profiler range (``adamw_update``) also
+    appears on the device's timeline, spanning its kernels: it is no kernel
+    and is not counted."""
     by_name: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.time_range.elapsed_us()
     if not by_name:
@@ -104,6 +131,7 @@ def device_summary(prof, steps: int, traced_ms: float, top: int = 12) -> dict:
         "kernel_launches_per_step": sum(v[0] for v in by_name.values()) / steps,
         "ms_per_step_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "ms_per_step_by_source": dict(sorted(sources.items(), key=lambda kv: -kv[1])),
+        "torch_other_ms_per_step_by_root": torch_other_by_root(prof.events(), steps),
         "top_kernels": [
             {"name": n[:80], "per_step": c / steps, "ms_per_step": us / 1e3 / steps}
             for n, (c, us) in ranked

@@ -2,7 +2,8 @@
 
     python -m repro_torch.launch.trace_serve [--arch hymba-1.5b] [--steps 16] [--trace out.json]
 
-Builds ``--arch`` (qwen1.5-0.5b by default; any arch the port serves) at
+Builds ``--arch`` (qwen1.5-0.5b by default; any arch the port serves: a
+VLM decodes text, Whisper over the engine's 64 zero cross frames) at
 full width in bf16 from a seeded init, warms its cache at the serving shape
 (8 requests, prompt 128) and runs ``--steps`` decode steps twice: once
 untraced, timed on the host clock around work that ends in a synchronize,

@@ -14,7 +14,13 @@ deepseek-v2-lite-16b, MLA; ``XLSTM``; ``Hymba``) -> gradient ->
 model's device, so a seed gives the same weights on every device.  A
 checkpoint every ``--ckpt-every`` steps and a final blocking one; a
 ``StragglerMonitor``, a ``PreemptionGuard`` and ``run_with_restarts`` around
-the loop, which re-raises once its restart budget is spent.  The Hoard
+the loop, which re-raises once its restart budget is spent.
+
+The corpus holds tokens only, so ``internvl2-2b`` and ``whisper-large-v3``,
+whose ``loss`` also needs ``img_emb`` or ``enc_emb``, are refused before the
+model is built (:data:`NEEDS_EMBEDDINGS`); JAX's launcher fails on them too,
+later, with a ``KeyError`` inside ``loss``.  Train those families through
+``make_train_step`` with the embeddings in the batch.  The Hoard
 cluster that the JAX launcher stripes the corpus over (``build_cluster``,
 ``materialize_token_dataset``) is host-side simulator code that arrives with
 the stripe-store slice, and with it the JAX launcher's ``--data-root``.
@@ -50,6 +56,8 @@ from ..train import (
 
 #: items per stripe chunk of the training corpus, as the JAX launcher stripes it
 ITEMS_PER_CHUNK = 16
+#: family -> the batch entry its ``loss`` needs beside the corpus's tokens
+NEEDS_EMBEDDINGS = {"vlm": "img_emb", "encdec": "enc_emb"}
 
 
 def main(argv=None) -> dict:
@@ -71,6 +79,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = ARCHS[args.arch] if args.full_config else ARCHS[args.arch].smoke()
+    if cfg.family in NEEDS_EMBEDDINGS:
+        raise SystemExit(f"{cfg.arch}: its loss needs {NEEDS_EMBEDDINGS[cfg.family]!r} beside "
+                         "the tokens, which the token corpus does not hold; train it through "
+                         "make_train_step with the embeddings in the batch")
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     model = build_model(cfg, device=args.device)

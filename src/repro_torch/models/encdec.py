@@ -1,0 +1,229 @@
+"""Whisper-style encoder-decoder: the port of ``repro.models.encdec.EncDecLM``.
+
+Inputs arrive as precomputed frame embeddings (B, S_enc, d_model): the mel /
+conv frontend is a stub, as in JAX.  The encoder is non-causal
+self-attention and a GELU MLP with LayerNorm and sinusoidal positions; the
+decoder is causal self-attention, cross attention to the encoder's output
+and a GELU MLP, with learned positions and a tied unembedding.  q and v
+projections have biases, k has none.
+
+Parameters are a nested dict with the JAX package's layout leaf for leaf, so
+a JAX tree runs here unchanged (``params.params_from_jax``); the layers run
+in a Python loop over the stacked leaves, as ``DecoderLM``'s do.  Every
+full-sequence attention (the encoder's, the decoder's causal one and cross
+attention, whose queries and keys differ in length) goes through
+``layers.blockwise_attention``, so the flash kernels on the card; decode
+attention over the self and the cross caches through the decode-attention
+kernel.  LayerNorm and the tanh GELU are plain PyTorch (``layers``), as XLA
+fuses them in JAX.
+
+The decode cache holds per layer the self K and V (``seq`` slots) and the
+cross K and V (``enc_len`` frames).  ``decode_step`` writes the new token's K
+and V in place at ``layers.cache_slot(index, ...)`` (``IndexError`` past the
+cache, where JAX clamps) and attends over every cross slot, as JAX does.
+Nothing fills the cross cache from :meth:`encode`: JAX's serving engine
+decodes against zeros, and so does the port's.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..device import resolve
+from . import params as PM
+from .layers import (blockwise_attention, cache_slot, decode_attention, gelu_mlp, layer_norm,
+                     sinusoidal_positions)
+
+#: learned decoder positions: extended from Whisper's 448 to cover a 32k decode
+MAX_DEC_POS = 32768
+
+
+def _attn_layout(cfg: ModelConfig) -> dict:
+    D, H, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    return {
+        "ln_g": PM.ParamInfo((D,), "ones"),
+        "ln_b": PM.ParamInfo((D,), "zeros"),
+        "wq": PM.ParamInfo((D, H * hd)),
+        "bq": PM.ParamInfo((H * hd,), "zeros"),
+        "wk": PM.ParamInfo((D, H * hd)),
+        "wv": PM.ParamInfo((D, H * hd)),
+        "bv": PM.ParamInfo((H * hd,), "zeros"),
+        "wo": PM.ParamInfo((H * hd, D)),
+        "bo": PM.ParamInfo((D,), "zeros"),
+    }
+
+
+def _mlp_layout(cfg: ModelConfig) -> dict:
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {
+        "ln_g": PM.ParamInfo((D,), "ones"),
+        "ln_b": PM.ParamInfo((D,), "zeros"),
+        "w_in": PM.ParamInfo((D, Fd)),
+        "b_in": PM.ParamInfo((Fd,), "zeros"),
+        "w_out": PM.ParamInfo((Fd, D)),
+        "b_out": PM.ParamInfo((D,), "zeros"),
+    }
+
+
+class EncDecLM(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+        super().__init__()
+        if cfg.family != "encdec" or cfg.encdec is None:
+            raise ValueError(f"{cfg.arch}: family {cfg.family!r} is no encoder-decoder")
+        self.cfg = cfg
+        self.device = resolve(device)
+        self.dtype = PM.as_dtype(cfg.dtype)
+
+    # -------------------------------------------------------------- layout
+    def layout(self) -> dict:
+        cfg = self.cfg
+        enc_layer = {"attn": _attn_layout(cfg), "mlp": _mlp_layout(cfg)}
+        dec_layer = {"self_attn": _attn_layout(cfg), "cross_attn": _attn_layout(cfg),
+                     "mlp": _mlp_layout(cfg)}
+        lay: dict[str, Any] = {
+            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), scale=0.02),
+            "dec_pos": PM.ParamInfo((MAX_DEC_POS, cfg.d_model), scale=0.01),
+            "enc_layers": PM.stack(cfg.encdec.n_encoder_layers, enc_layer),
+            "dec_layers": PM.stack(cfg.n_layers, dec_layer),
+        }
+        for side in ("enc", "dec"):
+            lay[f"{side}_ln_g"] = PM.ParamInfo((cfg.d_model,), "ones")
+            lay[f"{side}_ln_b"] = PM.ParamInfo((cfg.d_model,), "zeros")
+        return lay
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        return PM.init_params(self.layout(), generator, device=self.device, dtype=self.dtype)
+
+    def cache_layout(self, batch: int, seq: int, enc_len: int) -> dict:
+        H, hd = self.cfg.n_heads, self.cfg.resolved_head_dim
+        per = {"k": PM.ParamInfo((batch, H, seq, hd), "zeros"),
+               "v": PM.ParamInfo((batch, H, seq, hd), "zeros"),
+               "cross_k": PM.ParamInfo((batch, H, enc_len, hd), "zeros"),
+               "cross_v": PM.ParamInfo((batch, H, enc_len, hd), "zeros")}
+        return {"layers": PM.stack(self.cfg.n_layers, per)}
+
+    def init_cache(self, batch: int, seq: int, enc_len: int) -> dict:
+        return PM.zeros_cache(self.cache_layout(batch, seq, enc_len), device=self.device,
+                              dtype=self.dtype)
+
+    # ------------------------------------------------------------- pieces
+    def _qkv(self, p, xq, xkv):
+        """q of ``xq`` and k, v of ``xkv`` as (B, H, S, hd); k has no bias."""
+        B, Sq, _ = xq.shape
+        Skv = xkv.shape[1]
+        H, hd = self.cfg.n_heads, self.cfg.resolved_head_dim
+        q = (xq @ p["wq"] + p["bq"]).view(B, Sq, H, hd).transpose(1, 2)
+        k = (xkv @ p["wk"]).view(B, Skv, H, hd).transpose(1, 2)
+        v = (xkv @ p["wv"] + p["bv"]).view(B, Skv, H, hd).transpose(1, 2)
+        return q, k, v
+
+    def _attn(self, p, x, kv, *, causal: bool):
+        """Pre-norm attention block: self attention when ``kv`` is None, else
+        cross attention to ``kv`` (the encoder's output, not normed again)."""
+        B, S, _ = x.shape
+        h = layer_norm(x, p["ln_g"], p["ln_b"], self.cfg.norm_eps)
+        q, k, v = self._qkv(p, h, h if kv is None else kv)
+        out = blockwise_attention(q, k, v, causal=causal)
+        return x + out.transpose(1, 2).reshape(B, S, -1) @ p["wo"] + p["bo"]
+
+    def _mlp(self, p, x):
+        h = layer_norm(x, p["ln_g"], p["ln_b"], self.cfg.norm_eps)
+        return x + gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+
+    def _unembed(self, params, h):
+        return h @ params["embed"].T    # tied unembedding
+
+    # -------------------------------------------------------------- encode
+    def encode(self, params, enc_emb):
+        """Frame embeddings (B, S_enc, d_model) -> the encoder's normed output."""
+        cfg = self.cfg
+        x = enc_emb.to(self.dtype)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+        for p in PM.unstack(params["enc_layers"]):
+            x = self._attn(p["attn"], x, None, causal=False)
+            x = self._mlp(p["mlp"], x)
+        return layer_norm(x, params["enc_ln_g"], params["enc_ln_b"], cfg.norm_eps)
+
+    # -------------------------------------------------------------- decode
+    def _decoder(self, params, tokens, enc_out, pos0: int = 0):
+        """The decoder's final normed hidden states (B, S, d_model)."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        x = params["embed"][tokens].to(self.dtype)
+        x = x + params["dec_pos"][pos0:pos0 + S].to(x.dtype)
+        for p in PM.unstack(params["dec_layers"]):
+            x = self._attn(p["self_attn"], x, None, causal=True)
+            x = self._attn(p["cross_attn"], x, enc_out, causal=False)
+            x = self._mlp(p["mlp"], x)
+        return layer_norm(x, params["dec_ln_g"], params["dec_ln_b"], cfg.norm_eps)
+
+    def decode_stack(self, params, tokens, enc_out, pos0: int = 0):
+        """Decoder logits (B, S, vocab) in the model's dtype, positions from ``pos0``."""
+        return self._unembed(params, self._decoder(params, tokens, enc_out, pos0))
+
+    # ---------------------------------------------------------------- api
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy over the decoder's tokens; returns
+        ``(nll, {"nll", "aux"})`` with ``aux`` a 0.0 tensor (no experts).
+
+        batch: ``enc_emb`` (B, S_enc, d_model), ``tokens`` and ``labels`` (B, S)
+        integer tensors on the model's device.
+        """
+        enc_out = self.encode(params, batch["enc_emb"])
+        logits = self.decode_stack(params, batch["tokens"], enc_out).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+        nll = (lse - gold).mean()
+        return nll, {"nll": nll, "aux": torch.zeros((), device=nll.device)}
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """Encoder and decoder over ``enc_emb`` and ``tokens``: the last
+        position's fp32 logits (B, 1, vocab)."""
+        enc_out = self.encode(params, batch["enc_emb"])
+        h = self._decoder(params, batch["tokens"], enc_out)
+        return self._unembed(params, h[:, -1:]).float()
+
+    @torch.no_grad()
+    def decode_step(self, params, batch):
+        """One decoder token: self attention against the cache, cross attention
+        over every ``cross_k`` / ``cross_v`` slot.
+
+        batch: ``tokens`` (B, 1), ``cache`` from :meth:`init_cache`, ``index``
+        the int position of the new token.  Returns ``(logits (B, 1, vocab)
+        fp32, cache)``, the cache updated in place.  The visible lengths of
+        both caches are two int32 (B,) tensors made once a step, which every
+        layer's decode attention shares.
+        """
+        cfg = self.cfg
+        tokens, cache, index = batch["tokens"], batch["cache"], int(batch["index"])
+        B = tokens.shape[0]
+        H, hd = cfg.n_heads, cfg.resolved_head_dim
+        lc = cache["layers"]
+        slot, n_valid = cache_slot(index, lc["k"].shape[3], 0)
+        x = params["embed"][tokens].to(self.dtype)
+        x = x + params["dec_pos"][index:index + 1].to(x.dtype)
+        seen = torch.full((B,), n_valid, dtype=torch.int32, device=x.device)
+        frames = torch.full((B,), lc["cross_k"].shape[3], dtype=torch.int32, device=x.device)
+        lp = params["dec_layers"]
+        for i in range(lp["mlp"]["w_in"].shape[0]):
+            sp, cp = ({n: t[i] for n, t in lp[side].items()}
+                      for side in ("self_attn", "cross_attn"))
+            hn = layer_norm(x, sp["ln_g"], sp["ln_b"], cfg.norm_eps)
+            q, k, v = self._qkv(sp, hn, hn)
+            k_cache, v_cache = lc["k"][i], lc["v"][i]
+            k_cache[:, :, slot] = k[:, :, 0]
+            v_cache[:, :, slot] = v[:, :, 0]
+            out = decode_attention(q, k_cache, v_cache, seen)
+            x = x + out.view(B, 1, H * hd) @ sp["wo"] + sp["bo"]
+            hn = layer_norm(x, cp["ln_g"], cp["ln_b"], cfg.norm_eps)
+            q = (hn @ cp["wq"] + cp["bq"]).view(B, H, 1, hd)
+            out = decode_attention(q, lc["cross_k"][i], lc["cross_v"][i], frames)
+            x = x + out.view(B, 1, H * hd) @ cp["wo"] + cp["bo"]
+            x = self._mlp({n: t[i] for n, t in lp["mlp"].items()}, x)
+        x = layer_norm(x, params["dec_ln_g"], params["dec_ln_b"], cfg.norm_eps)
+        return self._unembed(params, x).float(), cache

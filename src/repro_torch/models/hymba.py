@@ -139,9 +139,7 @@ class Hymba(nn.Module):
         for i in range(self.n_global):
             run: list[dict] = []
             if i < len(self.swa_runs):
-                split = PM.tree_map(lambda t: t.unbind(0), params[f"swa_{i}"])
-                run = [PM.tree_map(lambda parts: parts[j], split)
-                       for j in range(self.swa_runs[i])]
+                run = PM.unstack(params[f"swa_{i}"])
             out.append((params[f"global_{i}"], run))
         return out
 

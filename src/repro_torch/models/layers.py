@@ -1,5 +1,6 @@
-"""Shared model primitives: norm, RoPE, blockwise and decode attention, the
-decode cache's slot rule, MLP, routed experts, causal depthwise convolution.
+"""Shared model primitives: norms, RoPE, sinusoidal positions, blockwise and
+decode attention, the decode cache's slot rule, MLPs, routed experts, causal
+depthwise convolution.
 
 ``rms_norm``, ``blockwise_attention``, ``decode_attention`` and ``swiglu`` go
 through :mod:`repro_torch.kernels.ops`: the hand-written kernels on the
@@ -12,13 +13,19 @@ places (bf16 only; identical in fp32 up to the order of sums):
 * ``decode_attention`` and ``blockwise_attention`` scale the scores in fp32
   after the dot; the JAX layers scale q in the input dtype before it, and
   ``blockwise_attention`` also casts p to v's dtype before ``p @ v``.
+
+``layer_norm`` and ``gelu_mlp`` (Whisper's) have no Pallas body in the JAX
+package (XLA fuses them) and are plain PyTorch here, in the JAX layers'
+order of rounding.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +34,33 @@ from ..kernels import ops
 
 def rms_norm(x, gamma, eps: float = 1e-5):
     return ops.rmsnorm(x, gamma, eps=eps)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """The JAX ``layer_norm``'s order: fp32 mean and variance, the normalised
+    value cast to x's dtype, then ``* gamma + beta`` in that dtype
+    (``F.layer_norm`` with a weight would round once less in bf16)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(seq: int, d: int) -> np.ndarray:
+    pos = np.arange(seq)[:, None]
+    div = np.exp(np.arange(0, d, 2) / d * -math.log(10000.0))
+    table = np.zeros((seq, d), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    table.flags.writeable = False
+    return table
+
+
+def sinusoidal_positions(seq: int, d: int, device="cpu") -> torch.Tensor:
+    """Whisper's encoder positions: the JAX layer's float64 numpy table, cast
+    to fp32, as a (seq, d) tensor on ``device``."""
+    return torch.tensor(_sinusoid_table(seq, d), device=device)
 
 
 def rope(x, positions, theta: float = 10000.0):
@@ -79,6 +113,11 @@ def cache_slot(index: int, S_cache: int, window: int) -> tuple[int, int]:
 
 def swiglu(x, w_gate, w_up, w_down):
     return ops.swiglu_mlp(x, w_gate, w_up, w_down)
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """Whisper's MLP: the tanh GELU, as ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
 
 
 class MoERoute(NamedTuple):

@@ -1,5 +1,6 @@
 """Decoder LM: the port of ``repro.models.lm.DecoderLM``, dense GQA, MoE
-(Mixtral-style top-k with a sliding window) and MLA + MoE (DeepSeek-V2).
+(Mixtral-style top-k with a sliding window), MLA + MoE (DeepSeek-V2) and the
+VLM backbone (InternVL2: image-patch embeddings before the text).
 
 Parameters are passed in as a nested dict with the JAX package's layout, as
 the JAX methods take them, so a JAX parameter tree runs here unchanged
@@ -18,8 +19,13 @@ directly (plain PyTorch products, as JAX computes them outside any Pallas
 kernel).  Its full-sequence attention (``loss``, ``prefill``) has q and k of
 ``qk_nope + qk_rope`` and v of ``v_head_dim`` channels, which the flash
 kernels take on the card (192 and 128 at full width on the tensor cores in
-bf16) and the plain flash version on the CPU.  The VLM branch of the JAX
-class arrives with its own slice.
+bf16) and the plain flash version on the CPU.
+
+The VLM branch is JAX's: ``loss`` and ``prefill`` take ``img_emb`` (B,
+n_image_tokens, d_model), cast it to the model's dtype and put it before the
+text embeddings; positions run over the whole sequence, and ``loss`` drops
+the image positions' hidden states before the unembedding.  ``decode_step``
+has no image path, as in JAX: a VLM serves as a text decoder.
 """
 
 from __future__ import annotations
@@ -96,12 +102,13 @@ def _moe_layout(cfg: ModelConfig) -> dict:
 
 
 class DecoderLM(nn.Module):
-    """Dense GQA / MoE / MLA decoder (qwen-style options: QKV bias, qk-norm, tied unembed)."""
+    """Dense GQA / MoE / MLA / VLM decoder (qwen-style options: QKV bias,
+    qk-norm, tied unembed)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         super().__init__()
-        if cfg.family not in ("dense", "moe") or cfg.vlm is not None:
-            raise NotImplementedError(f"{cfg.arch}: the {cfg.family!r} decoder is not ported")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.arch}: family {cfg.family!r} is no decoder LM")
         self.cfg = cfg
         self.device = resolve(device)
         self.dtype = PM.as_dtype(cfg.dtype)
@@ -160,13 +167,6 @@ class DecoderLM(nn.Module):
         if self.cfg.tie_embeddings:
             return h @ params["embed"].T
         return h @ params["lm_head"]
-
-    @staticmethod
-    def _layer_params(params) -> list[dict]:
-        """Per-layer views of the stacked ``params["layers"]``, split once per leaf."""
-        split = PM.tree_map(lambda t: t.unbind(0), params["layers"])
-        n = len(split["attn"]["ln"])
-        return [PM.tree_map(lambda parts: parts[i], split) for i in range(n)]
 
     def _mla_latent(self, p, h):
         """MLA's down-projection of the normed input h: (normed latent, k_rope
@@ -241,7 +241,7 @@ class DecoderLM(nn.Module):
         if "layer0" in params:
             x, a = self._layer(params["layer0"], x, positions, moe=False)
             aux = aux + a
-        for p in self._layer_params(params):
+        for p in PM.unstack(params["layers"]):
             x, a = self._layer(p, x, positions, moe=moe)
             aux = aux + a
         return rms_norm(x, params["final_ln"], self.cfg.norm_eps), aux
@@ -311,18 +311,31 @@ class DecoderLM(nn.Module):
         out = torch.bmm(ctx.transpose(0, 1), w_uv).transpose(0, 1)          # (B, H, vd)
         return x + out.reshape(B, 1, H * m.v_head_dim) @ p["wo"]
 
+    def _inputs(self, params, batch):
+        """``(x, n_img)``: the text embeddings, behind ``img_emb``'s n_img
+        positions in the model's dtype for a VLM (n_img 0 otherwise)."""
+        x = self.embed(params, batch["tokens"])
+        if self.cfg.vlm is None:
+            return x, 0
+        img = batch["img_emb"].to(x.dtype)
+        return torch.cat([img, x], dim=1), img.shape[1]
+
     # --------------------------------------------------------------- train
     def loss(self, params, batch):
         """Mean next-token cross-entropy plus 0.01 x the experts' aux loss;
         returns ``(total, {"nll", "aux"})``.
 
         batch: ``tokens`` and ``labels``, (B, S) integer tensors on the model's
-        device.  Logits are cast to fp32 before the log-sum-exp, as in JAX.
+        device, and for a VLM ``img_emb`` (B, n_image_tokens, d_model), whose
+        positions the loss does not count.  Logits are cast to fp32 before the
+        log-sum-exp, as in JAX.
         """
-        tokens, labels = batch["tokens"], batch["labels"]
-        x = self.embed(params, tokens)
+        labels = batch["labels"]
+        x, n_img = self._inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         h, aux = self.backbone(params, x, positions)
+        if n_img:
+            h = h[:, n_img:]
         logits = self.unembed(params, h).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -332,8 +345,9 @@ class DecoderLM(nn.Module):
     # ------------------------------------------------------------ serving
     @torch.no_grad()
     def prefill(self, params, batch):
-        """Full-sequence forward returning the last position's fp32 logits (B, 1, vocab)."""
-        x = self.embed(params, batch["tokens"])
+        """Full-sequence forward returning the last position's fp32 logits (B, 1,
+        vocab); a VLM's batch also holds ``img_emb``, as for :meth:`loss`."""
+        x, _ = self._inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         h, _ = self.backbone(params, x, positions)
         return self.unembed(params, h[:, -1:]).float()

@@ -62,6 +62,14 @@ def stack(n: int, layout):
     return tree_map(lambda i: replace(i, shape=(n, *i.shape)), layout)
 
 
+def unstack(stacked) -> list:
+    """Per-layer views of a tree stacked by :func:`stack`, each leaf split once
+    with ``unbind`` (whose backward stacks the layers' gradients again)."""
+    split = tree_map(lambda t: t.unbind(0), stacked)
+    n = len(tree_leaves(split)[0])
+    return [tree_map(lambda parts: parts[i], split) for i in range(n)]
+
+
 @functools.lru_cache(maxsize=1)
 def _draw_pool() -> ThreadPoolExecutor:
     return ThreadPoolExecutor(max_workers=os.cpu_count() or 1)

@@ -2,13 +2,15 @@
 
 The port of ``repro.serve.engine``, for every model the port serves: the
 ``DecoderLM`` (a KV cache, a ring buffer with a sliding window, or MLA's
-latent cache), ``Hymba`` (KV caches, a ring buffer in the
-sliding-window layers, and the SSM state) and ``XLSTM`` (the recurrent state
-alone).  Each model's ``init_cache`` gives its cache and ``decode_step``
-updates it in place.  The engine runs: (1) cache init, (2) prefill that
-fills the cache token by token through ``decode_step``, (3) a
-decode loop producing one token per step for the whole batch, greedy or by
-temperature sampling from a ``torch.Generator`` seeded by ``ServeConfig.seed``.
+latent cache; a VLM decodes text alone), ``EncDecLM`` (self K and V, and
+a cross cache of ``enc_len or 64`` zero frames, as in JAX: nothing runs the
+encoder), ``Hymba`` (KV caches, a ring buffer in the sliding-window layers,
+and the SSM state) and ``XLSTM`` (the recurrent state alone).  Each model's
+``init_cache`` gives its cache and ``decode_step`` updates it in place.
+The engine runs: (1) cache init, (2) prefill that fills the cache token by
+token through ``decode_step``, (3) a decode loop producing one token per
+step for the whole batch, greedy or by temperature sampling from a
+``torch.Generator`` seeded by ``ServeConfig.seed``.
 The sampled tokens stay on the device until the loop ends, so the host never
 waits for the device inside the loop.
 """
@@ -30,12 +32,15 @@ class ServeConfig:
 
 
 class ServingEngine:
-    def __init__(self, model, params, *, cache_len: int, batch: int):
+    def __init__(self, model, params, *, cache_len: int, batch: int, enc_len: int = 0):
         self.model = model
         self.params = params
         self.batch = batch
         self.cache_len = cache_len
-        self.cache = model.init_cache(batch, cache_len)
+        if model.cfg.family == "encdec":
+            self.cache = model.init_cache(batch, cache_len, enc_len or 64)
+        else:
+            self.cache = model.init_cache(batch, cache_len)
 
     def _step(self, tokens: torch.Tensor, index: int) -> torch.Tensor:
         batch = {"tokens": tokens, "cache": self.cache, "index": index}

@@ -79,8 +79,14 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
     """One AdamW step, in place; returns ``(params, state, {"grad_norm", "lr"})``.
 
     ``grads`` and ``params`` are trees of one structure; leaves are visited in
-    sorted-key order, as ``jax.tree.leaves`` visits them.
+    sorted-key order, as ``jax.tree.leaves`` visits them.  The update runs in
+    a profiler range of its own name, which ``launch/trace.py`` groups by.
     """
+    with torch.profiler.record_function("adamw_update"):
+        return _adamw_update(grads, state, params, cfg)
+
+
+def _adamw_update(grads, state, params, cfg: AdamWConfig):
     lr = _schedule(cfg, state["count"])
     state["count"].add_(1)
     count = state["count"].float()

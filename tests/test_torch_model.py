@@ -290,13 +290,6 @@ def test_cuda_without_cuda_raises(monkeypatch):
     assert port_device.resolve("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("family,slice_name", [("vlm", "VLM"), ("encdec", "Whisper")])
-def test_other_families_name_their_slice(family, slice_name):
-    cfg = dataclasses.replace(ARCHS[ARCH].smoke(), family=family)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        build_model(cfg, device="cpu")
-
-
 def test_serve_launcher_on_cpu(capsys):
     res = port_serve.main(["--device", "cpu", "--requests", "2", "--prompt-len", "4",
                            "--new-tokens", "3"])
@@ -375,7 +368,8 @@ def test_serving_hands_the_kernels_contiguous_tensors(arch, monkeypatch):
     contiguous tensors and raise on others; on the CPU their plain versions take
     any.  So what ``prefill`` and ``decode_step`` hand them is checked here, at
     every arch's smoke config (qwen3-4b's q_norm and k_norm, deepseek-v2-lite-16b's
-    kv_ln on the MLA latent and its shared experts among them)."""
+    kv_ln on the MLA latent and its shared experts, internvl2-2b's image prefix,
+    whisper-large-v3's self and cross caches among them)."""
     from repro_torch.kernels import ops
 
     seen = []
@@ -388,15 +382,25 @@ def test_serving_hands_the_kernels_contiguous_tensors(arch, monkeypatch):
         monkeypatch.setattr(ops, name, spy)
     model = build_model(ARCHS[arch].smoke(), device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
-    toks = torch.randint(0, model.cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(1))
-    model.prefill(params, {"tokens": toks})
-    cache = model.init_cache(2, 8)
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+    batch = {"tokens": toks}
+    if cfg.vlm is not None:
+        batch["img_emb"] = torch.randn((2, cfg.vlm.n_image_tokens, cfg.d_model), generator=gen)
+    if cfg.encdec is not None:
+        batch["enc_emb"] = torch.randn((2, 24, cfg.d_model), generator=gen)
+    model.prefill(params, batch)
+    cache = model.init_cache(2, 8, 24) if cfg.encdec is not None else model.init_cache(2, 8)
     for t in range(3):
         model.decode_step(params, {"tokens": toks[:, t:t + 1], "cache": cache, "index": t})
-    moe = model.cfg.moe
+    moe = cfg.moe
     # mixtral's routed experts are batched products; the SwiGLU kernel serves
-    # dense MLPs, deepseek's shared experts and its dense layer0
-    swiglu_called = moe is None or bool(moe.n_shared or moe.first_dense)
+    # dense MLPs, deepseek's shared experts and its dense layer0; Whisper's
+    # LayerNorm and GELU MLP are no kernels
+    whisper = cfg.encdec is not None
+    swiglu_called = not whisper and (moe is None or bool(moe.n_shared or moe.first_dense))
     names = {n for n, _ in seen}
-    assert "rmsnorm" in names and ("swiglu_mlp" in names) == swiglu_called
+    assert ("rmsnorm" in names) != whisper and ("swiglu_mlp" in names) == swiglu_called
+    assert ("decode_attention" in names) == (cfg.family != "ssm" and cfg.mla is None)
     assert [n for n, ok in seen if not ok] == []

@@ -530,3 +530,72 @@ def test_trace_groups_the_backward_kernels_by_source():
     assert source_group("void (anonymous namespace)::rmsnorm_bwd_vec_kernel<__nv_bfloat16, 8>("
                         "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
                         "__nv_bfloat16*, float*, int, int, float)") == "rmsnorm_bwd"
+
+
+def test_trace_breaks_pytorch_kernels_down_by_root():
+    """PyTorch's own kernels are summed by the outermost CPU event that launched
+    them: a forward op by its name, a backward op by its autograd node, the
+    optimizer by its range; the port's kernels and cuBLAS's stay out."""
+    from types import SimpleNamespace as NS
+
+    from repro_torch.launch.trace import root_name, torch_other_by_root
+
+    def kernel(name, us):
+        return NS(name=name, duration=us)
+
+    adamw = NS(name="adamw_update", cpu_parent=None, kernels=[])
+    node = NS(name="autograd::engine::evaluate_function: GeluBackward0", cpu_parent=None,
+              kernels=[])
+    events = [
+        NS(name="aten::mul_", cpu_parent=adamw,
+           kernels=[kernel("void at::native::vectorized_elementwise_kernel<4>(x)", 300.0)]),
+        NS(name="aten::gelu_backward", cpu_parent=node,
+           kernels=[kernel("void at::native::gelu_backward_kernel(x)", 100.0)]),
+        NS(name="aten::gelu", cpu_parent=None,
+           kernels=[kernel("void at::native::gelu_kernel(x)", 50.0)]),
+        NS(name="aten::mm", cpu_parent=None, kernels=[kernel("nvjet_tst_256x128_h_bz_NNT", 900.0)]),
+        NS(name="FlashAttention", cpu_parent=None, kernels=[kernel(
+            "void (anonymous namespace)::flash_tc_kernel<64, 64>(CUtensorMap_st)", 700.0)]),
+        adamw, node,
+    ]
+    assert root_name(events[0]) == "adamw_update" and root_name(events[1]) == "GeluBackward0"
+    assert torch_other_by_root(events, steps=2) == {"adamw_update": 0.15, "GeluBackward0": 0.05,
+                                                    "aten::gelu": 0.025}
+
+
+def test_adamw_update_runs_in_its_profiler_range(pair):
+    """Every op of the update runs inside the ``adamw_update`` range, which the
+    trace's breakdown reads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.trace import root_name
+
+    _, _, model, params = pair
+    params = PM.tree_map(lambda t: t.clone(), params)
+    state = init_opt_state(params, AdamWConfig())
+    grads = PM.tree_map(torch.ones_like, params)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        adamw_update(grads, state, params, AdamWConfig())
+    ops = [e for e in prof.events() if e.name.startswith("aten::")]
+    assert ops and {root_name(e) for e in ops} == {"adamw_update"}
+
+
+def test_trace_busy_time_leaves_out_profiler_ranges():
+    """A profiler range shows on the device's timeline as an annotation that
+    spans its kernels; the busy time and the launches count the kernels alone."""
+    from types import SimpleNamespace as NS
+
+    from repro_torch.launch.trace import device_summary
+
+    def event(name, us, annotation=False):
+        return NS(name=name, device_type=torch.autograd.DeviceType.CUDA,
+                  is_user_annotation=annotation, time_range=NS(elapsed_us=lambda: us),
+                  cpu_parent=None, kernels=[])
+
+    events = [event("adamw_update", 900.0, annotation=True),
+              event("void at::native::vectorized_elementwise_kernel<4>(x)", 500.0),
+              event("nvjet_tst_256x128_h_bz_NNT", 300.0)]
+    res = device_summary(NS(events=lambda: events), steps=1, traced_ms=1.0)
+    assert res["device_busy_ms_per_step"] == pytest.approx(0.8)
+    assert res["kernel_launches_per_step"] == 2
+    assert res["ms_per_step_by_group"] == pytest.approx({"torch_other": 0.5, "cublas": 0.3})
