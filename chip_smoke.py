@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only mlstm    # card, build and one kernel check (or ssd, decode, flash)
     python3 chip_smoke.py --only serve    # card, build, the decode checks and the serve runs
     python3 chip_smoke.py --only embedded # card, build, internvl2-2b's and Whisper's phases
+    python3 chip_smoke.py --only hoard    # card, build and the Hoard data-plane phase
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -157,11 +158,26 @@ prints no result line):
    tokens (``BF16_LOGIT_TOL``), every launch counted and at a checked shape.
 6. train: qwen1.5-0.5b in bf16, full width and depth, through
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
-   checkpoint in a temporary directory under ``build/``), with the launch
-   counts set to 0 just before and checked per step just after, every
-   swiglu_mlp and flash_attention launch (forward and backward) on the
-   tensor-core route and every rmsnorm (forward and backward) on ``vec``;
-   then 8 steps on one fixed batch, whose loss must fall by 0.05.
+   checkpoint and ``--data-root`` in temporary directories under
+   ``build/``), with the launch counts set to 0 just before and checked per
+   step just after, every swiglu_mlp and flash_attention launch (forward
+   and backward) on the tensor-core route and every rmsnorm (forward and
+   backward) on ``vec``; the corpus the launcher striped checked on disk
+   (``check_train_corpus``: every chunk file of ``node0..node3`` with its
+   manifest CRC and the seeded bytes, every batch the run read equal to
+   the seeded rows at its ids), the loader's ms a step and its share of the
+   step printed; then 8 steps on one fixed batch, whose loss must fall by
+   0.05.  Then the Hoard data plane (``phase_hoard``, alone by ``--only
+   hoard``): (a) 8 x 512 records of qwen's tokens read through HoardFS
+   (``FileDataset.read_item_bytes``), the simulated clock drained, decoded
+   on the card and equal to the ``TokenLoader``'s rows, then two bf16 steps
+   at full width with ``TRAIN_PER_STEP`` launches a step; (b) a 317 MB bf16
+   and fp32 state (the smoke train state and qwen's full-width embedding)
+   saved and restored through ``HoardCheckpointManager``, bit for bit on
+   the card, its MB/s printed; (c) a flipped byte in one replica of a
+   corpus at replication 2 read back right and healed.  The launchers'
+   corpora in phases 6 to 10 are striped under ``build/`` and read through
+   the stripe store.
 7. train xLSTM: ``launch.train.main`` for xlstm-1.3b at its smoke config on
    the card, with a checkpoint; then xlstm-1.3b in bf16 at full width and
    depth (48 layers), batch 4 x seq 512 from the launcher's corpus, 4 steps
@@ -197,7 +213,7 @@ prints no result line):
 11. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
    ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"serve_deepseek":
    ...}`` (with the MoE decode checks' near-ties), ``{"serve_internvl2":
-   ...}``, ``{"serve_whisper": ...}``, ``{"train": ...}``,
+   ...}``, ``{"serve_whisper": ...}``, ``{"train": ...}``, ``{"hoard": ...}``,
    ``{"train_xlstm": ...}``, ``{"train_hymba": ...}``, ``{"train_deepseek":
    ...}`` and ``{"train_mixtral": ...}`` (with the fp32 loss checks'
    near-ties), ``{"train_internvl2": ...}``, ``{"train_whisper": ...}`` and
@@ -218,6 +234,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -2949,12 +2966,15 @@ def phase_train(kernel_modules) -> dict:
     (ROOT / "build").mkdir(exist_ok=True)
     reset_counts(kernel_modules)
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as data_root:
         res = train.main(["--full-config", "--device", "cuda", "--dtype", "bfloat16",
                           "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
-                          "--steps", str(TRAIN["steps"]), "--ckpt-dir", ckpt_dir])
+                          "--steps", str(TRAIN["steps"]), "--ckpt-dir", ckpt_dir,
+                          "--data-root", data_root])
+        counts, routes = read_counts(kernel_modules)
         ckpt_bytes = sum(p.stat().st_size for p in Path(ckpt_dir).rglob("*") if p.is_file())
-    counts, routes = read_counts(kernel_modules)
+        corpus = check_train_corpus(res, data_root, ARCHS[ARCH].vocab)
     peak = torch.cuda.max_memory_allocated()
     if res["restarts"]:
         raise AssertionError(f"the train run restarted {res['restarts']} times")
@@ -2968,11 +2988,14 @@ def phase_train(kernel_modules) -> dict:
     check_routes(routes, counts, TRAIN_ROUTES, "train")
     step_ms = statistics.median(res["step_ms"][1:])
     tokens_per_s = TRAIN_ROWS / (step_ms / 1e3)
+    load_ms = statistics.median(res["load_ms"][1:])
     print(f"[train] launches {counts}, by route {routes}; losses {losses}; median step "
           f"{step_ms:.3f} ms over "
           f"steps 2-{TRAIN['steps']}, {tokens_per_s:.1f} tokens/s, peak "
           f"{peak / 2**30:.3f} GiB; final checkpoint {ckpt_bytes / 2**30:.3f} GiB in "
-          f"{res['ckpt_seconds']:.2f} s")
+          f"{res['ckpt_seconds']:.2f} s; corpus {corpus['corpus_bytes']} B on disk in "
+          f"{corpus['chunk_files']} chunk files, striped in {res['materialize_seconds']:.3f} s; "
+          f"loader {load_ms:.3f} ms a step (median), {load_ms / step_ms:.4f} of the median step")
 
     # tests/test_train.py::test_loss_decreases_on_fixed_batch at full width
     cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
@@ -2994,7 +3017,55 @@ def phase_train(kernel_modules) -> dict:
             "seq": TRAIN["seq"], "losses": losses, "step_ms": res["step_ms"],
             "median_step_ms": step_ms, "tokens_per_s": tokens_per_s,
             "peak_memory_bytes": peak, "ckpt_bytes": ckpt_bytes,
-            "ckpt_seconds": res["ckpt_seconds"], "fixed_batch_losses": fixed}
+            "ckpt_seconds": res["ckpt_seconds"], "fixed_batch_losses": fixed,
+            "load_ms": res["load_ms"], "median_load_ms": load_ms,
+            "load_share_of_step": load_ms / step_ms,
+            "materialize_seconds": res["materialize_seconds"], **corpus}
+
+
+def check_train_corpus(res: dict, data_root: str, vocab: int) -> dict:
+    """The corpus a ``launch.train`` run striped under ``data_root``: every
+    chunk file of its manifest on ``node0..node3``, each with the manifest's
+    CRC and the seeded chunk's bytes, and every batch the run read equal to
+    the seeded corpus's rows at its item ids (by CRC-32 of the token bytes)."""
+    from repro_torch.data import TokenDatasetSpec, chunk_payload, read_items
+    from repro_torch.launch import train
+
+    root = Path(data_root)
+    manifest = json.loads((root / "train-corpus.manifest.json").read_text())
+    spec = TokenDatasetSpec("train-corpus", n_sequences=manifest["n_items"],
+                            seq_len=TRAIN["seq"], vocab=vocab, seed=0)
+    ipc = manifest["items_per_chunk"]
+    if ipc != train.ITEMS_PER_CHUNK or manifest["node_ids"] != [0, 1, 2, 3]:
+        raise AssertionError(f"corpus striped at {ipc} items a chunk over {manifest['node_ids']}")
+    files = sorted(root.glob("node*/train-corpus/chunk_*"))
+    want = {root / f"node{nid}" / "train-corpus" / f"chunk_{c:06d}"
+            for c, nodes in enumerate(manifest["chunk_nodes"]) for nid in nodes}
+    if set(files) != want or len(manifest["chunk_nodes"]) * ipc != spec.n_sequences:
+        raise AssertionError(f"chunk files {len(files)} on disk, the manifest names {len(want)}")
+    for f in files:
+        c = int(f.name.split("_")[1])
+        blob = f.read_bytes()
+        if zlib.crc32(blob) != manifest["chunk_crc"][c] or \
+                blob != chunk_payload(spec, c, ipc).tobytes():
+            raise AssertionError(f"{f.relative_to(root)}: CRC or bytes differ from the manifest")
+    if not len(res["batch_ids"]) == len(res["batch_crc32"]) == TRAIN["steps"]:
+        raise AssertionError(f"{len(res['batch_ids'])} batches recorded, {TRAIN['steps']} steps")
+    for step, (ids, crc) in enumerate(zip(res["batch_ids"], res["batch_crc32"])):
+        if zlib.crc32(read_items(spec, ids, items_per_chunk=ipc).tobytes()) != crc:
+            raise AssertionError(f"train step {step} read other rows than items {ids}")
+    return {"corpus_bytes": sum(f.stat().st_size for f in files), "chunk_files": len(files)}
+
+
+def corpus_batches(spec, batch: int, data_root: str):
+    """``launch.train``'s batches over ``spec``: the corpus striped under
+    ``data_root`` as the launcher stripes it, read back as node 0 through the
+    stripe store by its ``TokenLoader``."""
+    from repro_torch.data import TokenLoader
+    from repro_torch.launch import train
+
+    topo, store, _ = train.stripe_corpus(spec, data_root, items_per_chunk=train.ITEMS_PER_CHUNK)
+    return iter(TokenLoader(store, spec, topo.nodes[0], batch=batch))
 
 
 def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag: str,
@@ -3003,26 +3074,27 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     config (seq 64, 2 steps, its checkpoint in a temporary directory under
     ``build/``), so the launcher's path runs on the card.  Then the full model
     in bf16 at full width and depth (``shape["layers"]`` cuts the depth where
-    given), ``shape``'s batch x seq from the
-    launcher's corpus (``TokenDatasetSpec``, ``TokenLoader``, AdamW as the
-    launcher sets it), parameters drawn on a CUDA generator, ``shape``'s steps
-    of ``make_train_step`` with the launch counts set to 0 just before and
+    given), ``shape``'s batch x seq from the launcher's corpus striped under
+    ``build/`` and read through the stripe store (``corpus_batches``), AdamW
+    as the launcher sets it, parameters drawn on a CUDA generator,
+    ``shape``'s steps of ``make_train_step`` with the launch counts set to 0 just before and
     checked against ``per_step`` just after, and the routes of ``want_routes``'
     modules checked to have taken every launch; the peak memory of those steps
     and of one more loss and gradient alone; then 8 steps on a fixed (2, 128)
     batch, whose loss must fall by 0.05.  Tokens are the batch's text tokens.
     Returns ``(model, params, result)``."""
     from repro_torch.configs import ARCHS
-    from repro_torch.data import TokenDatasetSpec, TokenLoader
+    from repro_torch.data import TokenDatasetSpec
     from repro_torch.launch import train
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as smoke_root:
         res = train.main(["--arch", arch, "--device", "cuda", "--steps", "2", "--batch", "2",
-                          "--seq", "64", "--ckpt-dir", ckpt_dir])
+                          "--seq", "64", "--ckpt-dir", ckpt_dir, "--data-root", smoke_root])
         if not (Path(ckpt_dir) / "step_000002" / "_COMMITTED").is_file():
             raise AssertionError(f"the {arch} launcher wrote no final checkpoint")
     if res["restarts"] or not all(math.isfinite(x) for x in res["losses"]):
@@ -3044,7 +3116,8 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     init_s = time.perf_counter() - t0
     spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, B * 32), seq_len=S,
                             vocab=model.cfg.vocab, seed=0)
-    it = iter(TokenLoader(spec, batch=B, items_per_chunk=train.ITEMS_PER_CHUNK))
+    data_root = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    it = corpus_batches(spec, B, data_root.name)
     step = make_train_step(model, opt_cfg)
     reset_counts(kernel_modules)
     losses, step_ms = [], []
@@ -3058,6 +3131,7 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts, routes = read_counts(kernel_modules)
     peak = torch.cuda.max_memory_allocated()
+    data_root.cleanup()
     # one more loss and its gradients on the last batch, no update: the peak of
     # the parameters, the optimizer state and what the model saves for its
     # backward (the scans' state among it), apart from the update's temporaries
@@ -3147,10 +3221,10 @@ def train_embedded(arch: str, shape: dict, per_step: dict, kernel_modules, tag: 
     """A family whose ``loss`` takes embeddings beside the tokens (internvl2-2b's
     image, whisper-large-v3's frames) in bf16 at full width and depth.  First
     ``launch.train.main`` must refuse it, naming the missing entry.  Then
-    ``shape``'s batch x seq text tokens from the launcher's corpus
-    (``TokenDatasetSpec``, ``TokenLoader``), the embeddings drawn each step
-    from a seeded CUDA generator (``embeddings``: 256 image positions, or
-    ``shape["frames"]`` frames), parameters drawn on a CUDA generator,
+    ``shape``'s batch x seq text tokens from the launcher's corpus, striped
+    and read through the stripe store (``corpus_batches``), the embeddings
+    drawn each step from a seeded CUDA generator (``embeddings``: 256 image
+    positions, or ``shape["frames"]`` frames), parameters drawn on a CUDA generator,
     ``shape``'s steps of ``make_train_step`` with the launch counts set to 0
     just before and checked against ``per_step`` just after, the routes of
     ``want_routes``' modules, and every shape launched one the kernel checks
@@ -3159,7 +3233,7 @@ def train_embedded(arch: str, shape: dict, per_step: dict, kernel_modules, tag: 
     batch), whose loss must fall by 0.05.  Tokens are the batch's text
     tokens."""
     from repro_torch.configs import ARCHS
-    from repro_torch.data import TokenDatasetSpec, TokenLoader
+    from repro_torch.data import TokenDatasetSpec
     from repro_torch.launch import train
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
@@ -3188,7 +3262,9 @@ def train_embedded(arch: str, shape: dict, per_step: dict, kernel_modules, tag: 
     init_s = time.perf_counter() - t0
     spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, B * 32), seq_len=S,
                             vocab=cfg.vocab, seed=0)
-    it = iter(TokenLoader(spec, batch=B, items_per_chunk=train.ITEMS_PER_CHUNK))
+    (ROOT / "build").mkdir(exist_ok=True)
+    data_root = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    it = corpus_batches(spec, B, data_root.name)
     gen = torch.Generator(device="cuda").manual_seed(3)
     step = make_train_step(model, opt_cfg)
     losses, step_ms, batches = [], [], []
@@ -3206,6 +3282,7 @@ def train_embedded(arch: str, shape: dict, per_step: dict, kernel_modules, tag: 
             step_ms.append((time.perf_counter() - t0) * 1e3)
         counts, routes = read_counts(kernel_modules)
         peak = torch.cuda.max_memory_allocated()
+        data_root.cleanup()
         if cfg.vlm is not None:
             rng = np.random.default_rng(0)
             fixed_batch = {name: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128))).cuda()
@@ -3259,6 +3336,204 @@ def phase_train_whisper(kernel_modules) -> dict:
     cores.  No checkpoint."""
     return train_embedded(WHISPER, WHISPER_TRAIN, WHISPER_PER_STEP, kernel_modules,
                           "train_whisper", WHISPER_ROUTES)
+
+
+#: phase_hoard's compute-plane store: one batch of qwen1.5-0.5b's training rows
+HOARD_TOKENS = dict(batch=TRAIN["batch"], seq=TRAIN["seq"], items_per_chunk=2,
+                    items_per_file=4, steps=2)
+#: phase_hoard's checkpoint dataset: 2 slot files of 80 items of 4 MiB, one item
+#: a chunk, so a byte range reads each chunk file once
+HOARD_CKPT = dict(item_bytes=4 << 20, items_per_chunk=1, items_per_file=80, slots=2)
+#: qwen1.5-0.5b's full-width embedding, bf16, in phase_hoard's checkpoint
+QWEN_EMBED = (151936, 1024)
+
+
+def hoard_compute_plane(kernel_modules, root: Path) -> dict:
+    """(a) 8 x 512 int32 records of qwen1.5-0.5b's tokens striped into a
+    materialised store (2 items a chunk over 4 nodes, 4 items a shard file),
+    read as node 0 by ``FileDataset.read_item_bytes`` through HoardFS in the
+    ``TokenLoader``'s order, the clock drained, decoded on the card by
+    ``token_batch_from_bytes``: the batch must equal the loader's rows.  Then
+    two bf16 steps of ``make_train_step`` at full width and depth, the launch
+    counts set to 0 just before and equal to ``TRAIN_PER_STEP`` a step just
+    after, every launch on ``TRAIN_ROUTES``' route."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import build_cluster
+    from repro_torch.data import TokenDatasetSpec, TokenLoader, materialize_token_dataset
+    from repro_torch.fs import FileDataset, HoardFS, MetadataService
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train import token_batch_from_bytes
+
+    B, S, steps = HOARD_TOKENS["batch"], HOARD_TOKENS["seq"], HOARD_TOKENS["steps"]
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    spec = TokenDatasetSpec("hoard-tokens", n_sequences=B, seq_len=S, vocab=cfg.vocab, seed=0)
+    clock, topo, store, cache, _ = build_cluster()
+    store.root = str(root)
+    materialize_token_dataset(store, cache, spec, topo.nodes[:4],
+                              items_per_chunk=HOARD_TOKENS["items_per_chunk"])
+    fs = HoardFS(clock, topo, cache, MetadataService(store), topo.nodes[0])
+    fs.meta.set_items_per_file(spec.dataset_id, HOARD_TOKENS["items_per_file"])
+    loader = TokenLoader(store, spec, topo.nodes[0], batch=B)
+    toks, labels = next(iter(loader))
+    ds = FileDataset(fs, f"/hoard/{spec.dataset_id}")
+    t0 = time.perf_counter()
+    results = ds.read_item_bytes(loader.last_ids)
+    clock.run()
+    payloads = [r.data for r in results]
+    read_ms = (time.perf_counter() - t0) * 1e3
+    ds.close()
+    batch = token_batch_from_bytes(payloads, S, cfg.vocab, device="cuda")
+    for name, want in (("tokens", toks), ("labels", labels)):
+        if batch[name].device.type != "cuda" or \
+                not torch.equal(batch[name].cpu(), torch.from_numpy(want).long()):
+            raise AssertionError(f"HoardFS batch {name} differ from the TokenLoader's rows")
+
+    model = build_model(cfg, device="cuda")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
+    params, opt = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt_cfg)
+    step = make_train_step(model, opt_cfg)
+    losses = []
+    reset_counts(kernel_modules)
+    for _ in range(steps):
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    counts, routes = read_counts(kernel_modules)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"HoardFS-fed losses {losses}")
+    for name, n in TRAIN_PER_STEP.items():
+        if counts[name] != n * steps:
+            raise AssertionError(f"{name}: {counts[name]} launches in the HoardFS-fed steps, "
+                                 f"expected {n} x {steps}")
+    check_routes(routes, counts, TRAIN_ROUTES, "hoard")
+    print(f"[hoard] (a) {B} x {S} records read through HoardFS in {read_ms:.3f} ms (simulated "
+          f"clock {clock.now:.6f} s), equal to the TokenLoader's rows; {steps} bf16 steps at "
+          f"full width: losses {losses}, launches {counts}")
+    return {"counts": counts, "routes": routes, "losses": losses, "hoardfs_read_ms": read_ms,
+            "sim_clock_s": clock.now}
+
+
+def hoard_checkpoint(root: Path) -> dict:
+    """(b) ``HoardCheckpointManager`` save and restore on the card: the smoke
+    qwen1.5-0.5b's bf16 train state (params, fp32 master and moments) and the
+    full-width (151936, 1024) bf16 embedding, through a dataset of
+    ``HOARD_CKPT``'s geometry.  Every restored leaf must equal the saved one
+    bit for bit, in its dtype, on ``cuda``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import DatasetSpec, build_cluster
+    from repro_torch.fs import HoardFS, MetadataService
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.train import AdamWConfig, HoardCheckpointManager, SamplerState
+    from repro_torch.train import init_train_state
+
+    geo = HOARD_CKPT
+    clock, topo, store, cache, _ = build_cluster()
+    store.root = str(root)
+    t0 = time.perf_counter()
+    cache.register(DatasetSpec("ckpt", "nfs://store/ckpt", geo["items_per_file"] * geo["slots"],
+                               geo["item_bytes"]))
+    cache.admit("ckpt", topo.nodes[:4], materialize=True, items_per_chunk=geo["items_per_chunk"])
+    cache.mark_filled("ckpt")
+    admit_s = time.perf_counter() - t0
+    meta = MetadataService(store)
+    meta.set_items_per_file("ckpt", geo["items_per_file"])
+    mgr = HoardCheckpointManager(HoardFS(clock, topo, cache, meta, topo.nodes[0]), "ckpt")
+
+    smoke = build_model(dataclasses.replace(ARCHS[ARCH].smoke(), dtype="bfloat16"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params, opt = init_train_state(smoke, gen, AdamWConfig())
+    params = {"smoke": params, "qwen_embed": torch.randn(QWEN_EMBED, generator=gen,
+                                                         device="cuda", dtype=torch.bfloat16)}
+    tree = {"params": params, "opt": opt}
+    leaves = PM.tree_leaves(tree)
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = mgr.save(3, params, opt, sampler=SamplerState(0, 3, 0))
+    save_s = time.perf_counter() - t0
+    if path is None or mgr.latest_step() != 3:
+        raise AssertionError(f"HoardFS checkpoint not committed: {path}")
+    template = PM.tree_map(torch.empty_like, tree)
+    t0 = time.perf_counter()
+    step, p, o, sampler = mgr.restore(template=template, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = PM.tree_leaves({"params": p, "opt": o})
+    if step != 3 or sampler != SamplerState(0, 3, 0) or len(got) != len(leaves):
+        raise AssertionError(f"restored step {step}, sampler {sampler}, {len(got)} leaves")
+    for g, w in zip(got, leaves):
+        if g.device.type != "cuda" or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"a restored {tuple(w.shape)} {w.dtype} leaf differs")
+    res = {"ckpt_state_bytes": state_bytes, "ckpt_leaves": len(leaves),
+           "ckpt_geometry": geo, "ckpt_admit_seconds": admit_s,
+           "ckpt_save_seconds": save_s, "ckpt_restore_seconds": restore_s,
+           "ckpt_save_mb_per_s": state_bytes / save_s / 1e6,
+           "ckpt_restore_mb_per_s": state_bytes / restore_s / 1e6}
+    print(f"[hoard] (b) HoardFS checkpoint of {state_bytes / 1e6:.1f} MB ({len(leaves)} leaves, "
+          f"bf16 and fp32) in slots of {geo['items_per_file']} x {geo['item_bytes']} B, "
+          f"{geo['items_per_chunk']} item a chunk: save {save_s:.3f} s "
+          f"({res['ckpt_save_mb_per_s']:.1f} MB/s), restore to cuda {restore_s:.3f} s "
+          f"({res['ckpt_restore_mb_per_s']:.1f} MB/s), bit for bit; not the 6.5 GB full "
+          f"state: HoardFS reads and writes it item by item in Python, each item's whole "
+          f"chunk file read and CRC-checked, and holds host copies of it several times over")
+    return res
+
+
+def hoard_repair(root: Path, vocab: int) -> dict:
+    """(c) Replica repair on this machine's disk: a corpus at replication 2,
+    one byte of node 0's replica of chunk 0 flipped; reading chunk 0's items
+    as node 0 returns the seeded corpus's bytes, counts one repair, and
+    rewrites the replica with its original bytes."""
+    from repro_torch.core import build_cluster
+    from repro_torch.data import TokenDatasetSpec, materialize_token_dataset, read_item
+
+    ipc = 16
+    clock, topo, store, cache, _ = build_cluster(replication=2)
+    store.root = str(root)
+    spec = TokenDatasetSpec("repair-corpus", n_sequences=64, seq_len=TRAIN["seq"], vocab=vocab,
+                            seed=0)
+    materialize_token_dataset(store, cache, spec, topo.nodes[:4], items_per_chunk=ipc)
+    if store.manifests[spec.dataset_id].chunk_nodes[0] != [0, 1]:
+        raise AssertionError("chunk 0 not on nodes 0 and 1")
+    path = root / "node0" / spec.dataset_id / "chunk_000000"
+    original = path.read_bytes()
+    flipped = bytearray(original)
+    flipped[100] ^= 0xFF
+    path.write_bytes(bytes(flipped))
+    for i in range(ipc):
+        if store.read_item(spec.dataset_id, i, topo.nodes[0]) != \
+                read_item(spec, i, items_per_chunk=ipc):
+            raise AssertionError(f"item {i} read as node 0 differs from the corpus")
+    if store.corruption_repairs != 1 or path.read_bytes() != original:
+        raise AssertionError(f"{store.corruption_repairs} repairs; replica healed: "
+                             f"{path.read_bytes() == original}")
+    print("[hoard] (c) a flipped byte in node 0's replica of chunk 0: reads as node 0 equal "
+          "the corpus, 1 repair, the replica rewritten with its original bytes")
+    return {"corruption_repairs": store.corruption_repairs}
+
+
+def phase_hoard(kernel_modules) -> dict:
+    """The Hoard data plane on the card: (a) the compute-plane path at full
+    width (``hoard_compute_plane``), (b) checkpoints through HoardFS
+    (``hoard_checkpoint``), (c) replica repair (``hoard_repair``), their files
+    in a temporary directory under ``build/``."""
+    from repro_torch.configs import ARCHS
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        res = hoard_compute_plane(kernel_modules, Path(root) / "tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        res.update(hoard_checkpoint(Path(root) / "ckpt"))
+        res.update(hoard_repair(Path(root) / "repair", ARCHS[ARCH].vocab))
+    return res
+
+
+def only_hoard(gen, ops, ref, rate) -> list:
+    from repro_torch.kernels import KERNEL_MODULES
+
+    return [{"hoard": phase_hoard(KERNEL_MODULES)}]
 
 
 def xlstm_block_ms(model, params, B, S) -> dict:
@@ -3364,7 +3639,7 @@ def only_embedded(gen, ops, ref, rate) -> list:
 #: printing their rows and no result line
 ONLY = {"mlstm": check_mlstm, "ssd": check_ssd,
         "decode": lambda *a: (check_decode_attention(*a),), "flash": check_flash,
-        "serve": only_serve, "embedded": only_embedded}
+        "serve": only_serve, "embedded": only_embedded, "hoard": only_hoard}
 
 
 def main(argv: list[str]) -> None:
@@ -3406,7 +3681,8 @@ def main(argv: list[str]) -> None:
     runs = phase_serve(KERNEL_MODULES, rate)
     runs["serve_deepseek"]["fp32_check_near_ties"] = near_ties
     print(f"[serve] done at {time.perf_counter() - t0:.1f} s")
-    for run, phase in (("train", phase_train), ("train_xlstm", phase_train_xlstm),
+    for run, phase in (("train", phase_train), ("hoard", phase_hoard),
+                       ("train_xlstm", phase_train_xlstm),
                        ("train_hymba", phase_train_hymba), ("train_deepseek", phase_train_deepseek),
                        ("train_mixtral", phase_train_mixtral),
                        ("train_internvl2", phase_train_internvl2),

@@ -1,0 +1,160 @@
+"""Calibrated workload/service constants, derived from the paper's own tables.
+
+The paper reports end-to-end measurements (Tables 3 & 4, Figures 3-5) for an
+AlexNet/ImageNet workload on a 4-node x 4-GPU cluster.  We reverse those
+measurements into per-path service rates; the discrete-event simulator then
+*re-derives* every table from mechanisms (per-step IO flows, LRU caches,
+topology contention).  These rates are the 2018 paper cluster's, simulator
+input for the clock of the stripe store and HoardFS; none is a rate of the
+GPU that trains.  Derivations:
+
+Let ``E_R`` be a steady REM epoch.  Table 4 (60 epochs, 14.90 h) gives
+``E_R = 894 s`` -> steady REM payload rate ``144 GB / 894 s = 161 MB/s``
+(matches the 1.23 Gb/s wire rate + NFS overhead).  At the paper's fixed
+MDR = 0.5 (Section 4.2) the epoch-permutation LRU model of ``tiers.py`` gives
+a steady buffer-cache hit rate of ``h = P((1-u)(1-v) > 1/2) = (1 - ln 2)/2
+= 0.1534`` (u, v uniform; see the stack-distance derivation there).  Solving
+Table 3's speedup system with first epochs distinguished (h = 0 when cold):
+
+    REM(n)   = E1_R + (n-1) E_R,      E1_R = 1053.2 s (cold cache)
+    Hoard(n) = E1_H + (n-1) E_H
+    NVMe(n)  = C + n * E_N
+
+    n=2 : 2 epochs  REM/Hoard = 0.93   n=90: 90 epochs REM/Hoard = 2.10
+    =>  E_H = 412.7 s,  E1_H = 1681.6 s      (check: n=30 -> 1.98, n=60 -> 2.07)
+    n=2 : REM/NVMe = 2.28,  n=90: 2.32
+    =>  E_N = 385.4 s,  C = 83.5 s
+
+Service rates that realise those epoch times mechanistically:
+
+* ``GPU_BW`` = 144 GB / 385.4 s = 373.7 MB/s  (compute ceiling; NVMe case is
+  GPU-bound).  In fps: 3321 fps/job = 830 fps/GPU, consistent with 2018-era
+  TF-CNN AlexNet input pipelines at BS 1536.
+* ``REM_MISS_BW`` = 136.7 MB/s per NFS stream such that with h = 0.1534 RAM
+  hits the steady rate is 161 MB/s.
+* GPFS-client service is split into a fixed per-byte RPC/metadata cost paid
+  by *every* read — pagepool hits are served inside the client daemon — plus
+  a data-move cost paid by stripe misses only:
+  ``t(h) = 1/STRIPE_RPC_BW + (1-h)/STRIPE_MOVE_BW`` per byte, with
+  ``STRIPE_RPC_BW = 454.5 MB/s`` and ``STRIPE_MOVE_BW = 1272 MB/s`` so that
+  h = 0.1534 yields the steady 349.0 MB/s (E_H).  Two paper facts fall out
+  structurally: Hoard is nearly flat in MDR (Figure 4 — the client CPU, not
+  the data path, binds) and at MDR > 1.1 the all-hit rate (454 MB/s) clears
+  the GPU ceiling, so all three solutions converge to GPU-bound as observed.
+* ``FILL_BW`` = 85.6 MB/s AFM miss path (remote fetch + stripe write-back +
+  metadata), realising E1_H.
+* ``NVME_PRESTAGE_S`` = 83.5 s: the paper's Table-3 projection idealises the
+  local copy (a physical 4-node concurrent copy from the 1.05 GB/s NFS NIC
+  takes ~550 s; ``benchmarks/table3_projection.py`` reports both).
+
+Everything else (NIC, TOR, NVMe, NFS-NIC bandwidths) is physical hardware
+data from Table 2 / Section 4.5 and lives in ``topology.TopologyConfig``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import ClassVar, Optional, Protocol, runtime_checkable
+
+MB = 1e6
+GB = 1e9
+
+
+@dataclass(frozen=True)
+class WorkloadCalibration:
+    # ---- dataset (ImageNet as used by the paper) -------------------------
+    dataset_bytes: float = 144 * GB
+    dataset_items: int = 1_281_167            # ILSVRC-2012 train set
+    # ---- job shape --------------------------------------------------------
+    batch_items: int = 1536                    # per job step (4 GPUs)
+    gpus_per_job: int = 4
+    # ---- calibrated service rates (bytes/s of payload) --------------------
+    gpu_bw: float = 373.7 * MB                 # compute ceiling (AlexNet fwd+bwd)
+    rem_miss_bw: float = 136.7 * MB            # NFS per-stream service
+    stripe_rpc_bw: float = 454.5 * MB          # GPFS client per-byte RPC cost (all reads)
+    stripe_move_bw: float = 1272.0 * MB        # GPFS client data-move cost (misses)
+    fill_bw: float = 85.6 * MB                 # AFM fill (miss) path service
+    ram_bw: float = 8 * GB                     # buffer-cache / pagepool hit service
+    nvme_prestage_s: float = 83.5              # paper-idealised staging time
+    # ---- write path (FanStore-style chunk compression) -----------
+    # FanStore (Zhang et al. 2018) reports ~2.3:1 lossless compression on DL
+    # training corpora; 0.43 wire-bytes per payload byte reproduces that.
+    # CPU service rates are per-core zlib-class figures: compression binds
+    # (~600 MB/s), decompression does not (~1.8 GB/s), which is why FanStore
+    # compresses on the write path but never throttles reads.
+    compress_ratio: float = 0.43               # wire/remote bytes per cached byte
+    compress_bw: float = 600 * MB              # per-writer CPU compress service
+    decompress_bw: float = 1800 * MB           # CPU decompress service (reads)
+    # ---- memory model ------------------------------------------------------
+    default_mdr: float = 0.5                   # paper fixes MDR=0.5 (Section 4.2)
+
+    @property
+    def item_bytes(self) -> float:
+        return self.dataset_bytes / self.dataset_items
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return (self.dataset_items + self.batch_items - 1) // self.batch_items
+
+    @property
+    def gpu_fps(self) -> float:
+        return self.gpu_bw / self.item_bytes
+
+    def compute_time_per_step(self) -> float:
+        """GPU seconds per step — thin delegate to :class:`ConstantCompute`.
+
+        Kept (without deprecation churn) for the many internal callers; the
+        compute plane's :class:`ComputeModel` protocol is the extensible
+        interface.
+        """
+        return ConstantCompute(self).step_time_s(self.batch_items)
+
+
+PAPER = WorkloadCalibration()
+
+
+# ---------------------------------------------------------------------------
+# The compute plane: the GPU-time model as a swappable object.
+#
+# ``TrainingJob`` prices each step through a ``ComputeModel``; the default,
+# ``ConstantCompute``, is the paper's AlexNet calibration, bit-identical to
+# ``cal.compute_time_per_step()``.  The JAX package's ``RooflineCompute``
+# (per-model time from its TPU-calibrated roofline table) has no H100
+# counterpart in the port yet.
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class ComputeModel(Protocol):
+    """Anything that prices accelerator time for one training step."""
+
+    name: str
+
+    def step_time_s(self, batch_items: int) -> float:
+        """GPU-busy seconds to consume one batch of ``batch_items`` items."""
+        ...
+
+
+@dataclass(frozen=True)
+class ConstantCompute:
+    """The paper's calibrated constant: AlexNet fwd+bwd at ``gpu_bw``.
+
+    ``step_time_s(cal.batch_items)`` computes exactly the float expression
+    of the old ``WorkloadCalibration.compute_time_per_step()`` — every
+    pre-compute-plane scenario is bit-identical under this default.
+    """
+
+    cal: WorkloadCalibration = field(default_factory=lambda: PAPER)
+    name: ClassVar[str] = "constant"
+
+    def step_time_s(self, batch_items: int) -> float:
+        return batch_items / self.cal.gpu_fps
+
+
+def validate_compute(compute: Optional[ComputeModel], where: str) -> None:
+    """Construction-time check for typed ``compute=`` fields."""
+    if compute is not None and not callable(getattr(compute, "step_time_s", None)):
+        raise TypeError(
+            f"{where} must implement ComputeModel.step_time_s(batch_items) "
+            f"(e.g. ConstantCompute), "
+            f"got {type(compute).__name__}"
+        )

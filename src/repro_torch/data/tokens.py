@@ -1,16 +1,20 @@
-"""Synthetic token corpus, as the JAX package's Hoard-striped datasets hold it,
-and the resumable training loader over it.
+"""Token data pipeline: Hoard-cached real-bytes datasets -> int32 batches.
 
-``chunk_payload`` is the payload ``repro.data.tokens.materialize_token_dataset``
-stripes into the cache, copied exactly: chunk ``c`` holds ``items_per_chunk``
-rows of ``seq_len`` int32 tokens drawn from ``default_rng((seed, c))``.  So
-:func:`read_item` returns, byte for byte, what the stripe store's
-``read_item`` returns for a corpus materialised with the same spec and
-``items_per_chunk``.  :class:`TokenLoader` is ``repro.data.tokens.TokenLoader``
-reading through :func:`read_item`: the same seeded epoch order, the same
-labels, so its batches are byte for byte the JAX loader's.  The stripe
-store, the cache and HoardFS themselves are host-side code that a later
-slice of the port brings over.
+Bridges :mod:`repro_torch.core` (the paper's cache) to training: a synthetic
+token corpus is materialised as real chunk files striped across node
+directories (:func:`materialize_token_dataset`), and :class:`TokenLoader`
+reads items back through the stripe store (``StripeStore.read_item``:
+CRC-verified, closest replica, a corrupt replica healed in place) into
+``(tokens, labels)`` int32 batches.  The training loop sees a plain
+iterator; per-epoch order is a seeded permutation with resumable state
+(epoch, step), which the checkpoint managers persist for a deterministic
+restart.  Both are ``repro.data.tokens``'s, so the same spec and store give
+the same chunk files and the same batches in either package.
+
+``chunk_payload`` / :func:`read_item` / :func:`read_items` compute the
+corpus from the seed alone: chunk ``c`` holds ``items_per_chunk`` rows of
+``seq_len`` int32 tokens drawn from ``default_rng((seed, c))``.  They are
+the oracle that the store's reads are held against.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from ..core import CacheManager, DatasetSpec, Node, StripeStore
 from ..train.checkpoint import SamplerState
 
 
@@ -58,20 +63,59 @@ def read_items(spec: TokenDatasetSpec, items, *, items_per_chunk: int) -> np.nda
     ])
 
 
+def materialize_token_dataset(
+    store: StripeStore,
+    cache: CacheManager,
+    spec: TokenDatasetSpec,
+    nodes: list[Node],
+    *,
+    items_per_chunk: int = 64,
+) -> DatasetSpec:
+    """Generate + stripe the corpus as real chunk files under ``store.root``.
+
+    Registers the dataset, admits it over ``nodes`` with
+    :func:`chunk_payload` as each chunk's bytes, and marks it filled; the
+    cache's replication factor decides the copies.
+    """
+    dspec = DatasetSpec(
+        spec.dataset_id, f"synthetic://{spec.dataset_id}", spec.n_sequences, spec.item_bytes
+    )
+    if spec.dataset_id not in cache.entries:
+        cache.register(dspec)
+    cache.admit(
+        spec.dataset_id, nodes, materialize=True,
+        payload=lambda c: chunk_payload(spec, c, items_per_chunk).tobytes(),
+        items_per_chunk=items_per_chunk,
+    )
+    cache.mark_filled(spec.dataset_id)
+    return dspec
+
+
 class TokenLoader:
-    """Iterates ``(tokens, labels)`` int32 batches; resumable from a :class:`SamplerState`.
+    """Iterates ``(tokens, labels)`` int32 batches from striped chunks; resumable.
 
     Each epoch visits the items in the order ``default_rng((seed, epoch))``
-    permutes them, ``batch`` at a time (a ragged tail is dropped); labels
-    are the next tokens, the first token wrapping around to the end.
+    permutes them, ``batch`` at a time (a ragged tail is dropped), every item
+    read as ``reader`` through ``store.read_item``; labels are the next
+    tokens, the first token wrapping around to the end.  ``last_ids`` holds
+    the item ids of the batch last yielded.
     """
 
-    def __init__(self, spec: TokenDatasetSpec, *, batch: int, items_per_chunk: int,
-                 state: Optional[SamplerState] = None):
+    def __init__(
+        self,
+        store: StripeStore,
+        spec: TokenDatasetSpec,
+        reader: Node,
+        *,
+        batch: int,
+        state: Optional[SamplerState] = None,
+    ):
+        self.store = store
         self.spec = spec
+        self.reader = reader
         self.batch = batch
-        self.items_per_chunk = items_per_chunk
         self.state = state or SamplerState(seed=spec.seed)
+        self.last_ids: Optional[np.ndarray] = None
 
     def _order(self, epoch: int) -> np.ndarray:
         rng = np.random.default_rng((self.spec.seed, epoch))
@@ -84,9 +128,14 @@ class TokenLoader:
             while self.state.step_in_epoch < steps:
                 s = self.state.step_in_epoch
                 ids = order[s * self.batch : (s + 1) * self.batch]
-                toks = read_items(self.spec, ids, items_per_chunk=self.items_per_chunk)
+                self.last_ids = ids
+                toks = np.stack([self._read_item(i) for i in ids])
                 self.state.step_in_epoch += 1
                 labels = np.concatenate([toks[:, 1:], toks[:, :1]], axis=1)
                 yield toks, labels
             self.state.epoch += 1
             self.state.step_in_epoch = 0
+
+    def _read_item(self, item: int) -> np.ndarray:
+        raw = self.store.read_item(self.spec.dataset_id, int(item), self.reader)
+        return np.frombuffer(raw, np.int32).reshape(self.spec.seq_len).copy()

@@ -8,12 +8,14 @@ dense decoders, the MoE ``mixtral-8x7b`` and ``deepseek-v2-lite-16b`` (MLA),
 ``hymba-1.5b``, ``xlstm-1.3b``, ``internvl2-2b`` (as a text decoder: decoding
 has no image path, in JAX neither) and ``whisper-large-v3`` (against the
 engine's zero cross cache of 64 frames, as JAX's launcher serves it).  The
-model runs from a
-seeded random init drawn on the host (one ``--seed`` gives one model on the
-card and on the CPU); prompts are items of the corpus the JAX launcher
-stripes into the Hoard cache (:mod:`repro_torch.data.tokens`), so both
-launchers read the same prompts.
-``main`` returns the generated tokens and timings as a dict.
+model runs from a seeded random init drawn on the host (one ``--seed`` gives
+one model on the card and on the CPU).  The prompts live in the Hoard cache:
+as the JAX launcher does, ``main`` builds the cluster, stripes a prompt
+corpus of ``max(64, requests)`` items at 8 items per chunk into a fresh
+``hoard_serve_*`` temporary directory, and reads request ``i``'s prompt as
+node 0 through ``StripeStore.read_item`` (CRC-verified, closest replica), so
+both launchers serve the same prompts.  ``main`` returns the generated
+tokens, the prompts and the timings as a dict.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from ..configs import ARCHS
-from ..data import TokenDatasetSpec, read_items
+from ..data import TokenDatasetSpec
 from ..models import build_model
 from ..serve import ServeConfig, ServingEngine
+from .train import stripe_corpus
 
 #: items per stripe chunk of the prompt corpus, as the JAX launcher stripes it
 PROMPT_ITEMS_PER_CHUNK = 8
@@ -61,7 +65,12 @@ def main(argv=None) -> dict:
 
     dspec = TokenDatasetSpec("prompts", n_sequences=max(64, args.requests),
                              seq_len=args.prompt_len, vocab=cfg.vocab, seed=args.seed)
-    prompts = read_items(dspec, range(args.requests), items_per_chunk=PROMPT_ITEMS_PER_CHUNK)
+    topo, store, _ = stripe_corpus(dspec, None, items_per_chunk=PROMPT_ITEMS_PER_CHUNK,
+                                   prefix="hoard_serve_")
+    prompts = np.stack([
+        np.frombuffer(store.read_item("prompts", i, topo.nodes[0]), np.int32)
+        for i in range(args.requests)
+    ])
 
     cache_len = args.prompt_len + args.new_tokens + 8
     srv = ServingEngine(model, params, cache_len=cache_len, batch=args.requests)
@@ -78,7 +87,7 @@ def main(argv=None) -> dict:
           f"{dt / steps * 1e3:.3f} ms/step)")
     for i in range(min(2, args.requests)):
         print(f"req{i}: {out[i][:12].tolist()}")
-    return {"tokens": out, "seconds": dt, "tokens_per_s": tps,
+    return {"tokens": out, "prompts": prompts, "seconds": dt, "tokens_per_s": tps,
             "steps": steps, "ms_per_step": dt / steps * 1e3}
 
 

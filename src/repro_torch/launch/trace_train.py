@@ -11,8 +11,10 @@ one of them) from a seeded init drawn on the card (xlstm-1.3b's 2.92 B draws are
 slow on the host, and the values do not change what is timed;
 ``launch.train`` draws on the host instead), with a fresh
 AdamW state and runs ``make_train_step`` on one batch of the training
-corpus: two warm-up steps, ``--steps`` steps timed on the host clock around
-work that ends in a synchronize, and ``--steps`` more under
+corpus, striped into a fresh temporary directory and read back through the
+stripe store as ``launch.train`` reads it: two warm-up steps, ``--steps``
+steps timed on the host clock around work that ends in a synchronize, and
+``--steps`` more under
 ``torch.profiler``.  From the trace it prints the device's busy time per
 step (the sum of kernel durations; one stream, so kernels do not overlap),
 its idle share of the traced wall time, the kernel launches per step, the
@@ -44,7 +46,7 @@ from ..configs import ARCHS
 from ..data import TokenDatasetSpec, TokenLoader
 from ..models import build_model
 from ..train import AdamWConfig, init_train_state, make_train_step
-from .train import ITEMS_PER_CHUNK, NEEDS_EMBEDDINGS
+from .train import ITEMS_PER_CHUNK, NEEDS_EMBEDDINGS, stripe_corpus
 from .trace import device_summary, split_routed_experts
 
 #: encoder frames a sequence: Whisper's 30-second window
@@ -73,7 +75,8 @@ def main(argv=None) -> dict:
     text = args.seq - n_img
     spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, args.batch * 32),
                             seq_len=text, vocab=model.cfg.vocab, seed=args.seed)
-    toks, labels = next(iter(TokenLoader(spec, batch=args.batch, items_per_chunk=ITEMS_PER_CHUNK)))
+    topo, store, _ = stripe_corpus(spec, None, items_per_chunk=ITEMS_PER_CHUNK)
+    toks, labels = next(iter(TokenLoader(store, spec, topo.nodes[0], batch=args.batch)))
     batch = {"tokens": torch.from_numpy(toks).long().cuda(),
              "labels": torch.from_numpy(labels).long().cuda()}
     if cfg.family in NEEDS_EMBEDDINGS:

@@ -50,6 +50,9 @@ def _dotted_names(tree: ast.AST) -> set[str]:
 def test_port_sources_found():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT}
     assert "repro_torch/models/lm.py" in names and "repro_torch/kernels/ops.py" in names
+    for module in ("core/stripestore.py", "core/simclock.py", "fs/vfs.py", "fs/dataset.py",
+                   "train/hoardckpt.py"):
+        assert f"repro_torch/{module}" in names
     assert SMOKE.is_file()
 
 

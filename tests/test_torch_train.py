@@ -35,7 +35,9 @@ from repro.train import init_opt_state as jinit_opt_state
 from repro.train import make_train_step as jmake_train_step
 from repro.train import token_batch_from_bytes as jtoken_batch_from_bytes
 from repro_torch.configs import ARCHS
-from repro_torch.data import TokenDatasetSpec, TokenLoader
+from repro_torch.core import build_cluster as port_build_cluster
+from repro_torch.data import TokenDatasetSpec, TokenLoader, read_items
+from repro_torch.data import materialize_token_dataset as port_materialize_token_dataset
 from repro_torch.launch import train as port_train
 from repro_torch.models import build_model
 from repro_torch.models import params as PM
@@ -248,22 +250,30 @@ def test_token_batch_from_bytes_matches_jax():
 
 
 def test_token_loader_matches_jax_and_resumes(tmp_path):
-    """Batches equal the JAX loader's over a materialised store, across an
-    epoch boundary, and a SamplerState resumes the stream where it stopped."""
+    """The port's store-backed loader gives the JAX loader's batches across an
+    epoch boundary, over the port's own striped store and over JAX's, and a
+    SamplerState resumes the stream where it stopped."""
     clock, topo, store, cache, engine = build_cluster()
-    store.root = str(tmp_path)
+    store.root = str(tmp_path / "jax")
     jspec = JTokenDatasetSpec("train-corpus", n_sequences=40, seq_len=12, vocab=512, seed=3)
     materialize_token_dataset(store, cache, jspec, topo.nodes[:4], items_per_chunk=16)
+    _, ptopo, pstore, pcache, _ = port_build_cluster()
+    pstore.root = str(tmp_path / "port")
     spec = TokenDatasetSpec("train-corpus", n_sequences=40, seq_len=12, vocab=512, seed=3)
+    port_materialize_token_dataset(pstore, pcache, spec, ptopo.nodes[:4], items_per_chunk=16)
     jit = iter(JTokenLoader(store, jspec, topo.nodes[0], batch=8))
-    loader = TokenLoader(spec, batch=8, items_per_chunk=16)
+    on_jax_store = iter(TokenLoader(store, spec, topo.nodes[0], batch=8))
+    loader = TokenLoader(pstore, spec, ptopo.nodes[0], batch=8)
     it = iter(loader)
     for _ in range(7):                  # 5 batches an epoch: crosses into epoch 2
-        (jt, jl), (t, l) = next(jit), next(it)
+        (jt, jl), (t, l), (t2, l2) = next(jit), next(it), next(on_jax_store)
         np.testing.assert_array_equal(t, jt)
         np.testing.assert_array_equal(l, jl)
+        np.testing.assert_array_equal(t2, jt)
+        np.testing.assert_array_equal(l2, jl)
+        np.testing.assert_array_equal(t, read_items(spec, loader.last_ids, items_per_chunk=16))
     assert (loader.state.epoch, loader.state.step_in_epoch) == (1, 2)
-    resumed = iter(TokenLoader(spec, batch=8, items_per_chunk=16,
+    resumed = iter(TokenLoader(pstore, spec, ptopo.nodes[0], batch=8,
                                state=SamplerState(**dataclasses.asdict(loader.state))))
     for _ in range(4):
         np.testing.assert_array_equal(next(resumed)[0], next(it)[0])
