@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only serve    # card, build, the decode checks and the serve runs
     python3 chip_smoke.py --only embedded # card, build, internvl2-2b's and Whisper's phases
     python3 chip_smoke.py --only hoard    # card, build and the Hoard data-plane phase
+    python3 chip_smoke.py --only multi    # card, build and the 4-rank phase (phase 11)
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -210,14 +211,39 @@ prints no result line):
    ``WHISPER_PER_STEP``), the routes (every flash on the tensor cores) and
    every launch at a checked shape, and 8 steps on a fixed batch whose loss
    must fall by 0.05.
-11. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
+11. multi (``phase_multi``, alone by ``--only multi``): 4 ranks spawned on
+   the one card over ``gloo`` (``mesh.run_ranks``, rendezvous through a file
+   under ``build/``, a timeout on the world and on every collective), mesh
+   pod 2 x data 2 x model 1, qwen1.5-0.5b in bf16 at full width and depth,
+   parameters of seed 0 drawn on the card in every rank, the train phase's
+   8 x 512 batch read through the stripe store, 2 rows a rank.  The parent
+   first takes the whole batch's gradient in one process.  (a) 3 steps of
+   ``make_train_step(model, opt_cfg, mesh)`` with the plain sync, each
+   rank's launches exactly ``TRAIN_PER_STEP`` a step on ``TRAIN_ROUTES``;
+   after step 1 every rank's synced gradient within ``GRAD_TOL`` of the
+   parent's, the ZeRO-1 update equal bit for bit to ``adamw_update`` on
+   the same gradient (parameters, every state shard, the grad norm; one
+   rank at a time), and every rank's parameters equal to rank 0's.  (b)
+   The compressed sync of step 1's gradients within 0.02 of each leaf's
+   largest entry of the plain sync (JAX's bound), its residual nonzero and
+   equal to gf - deq exactly; one whole compressed step at the end.  (c)
+   The ZeRO state of (a) saved whole, restored at pod 1 x data 4 on the
+   same ranks (every shard equal to its slice of the gathered leaves) and
+   onto the one device in the parent (every leaf's CRC equal).  (d) Flash
+   decoding over the model axis of a data 1 x model 4 view, q (8, 16, 1,
+   64) over a 32768-slot cache, 8192 slots a rank, valid lengths 1, 130,
+   8193 and 32768, within ``TOL`` of the decode-attention kernel on the
+   whole cache in bf16 and fp32.  Prints each step's ms, the sync, update
+   and gather ms a step, the peak GiB a rank, and the card's name and
+   power limit.
+12. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
    ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"serve_deepseek":
    ...}`` (with the MoE decode checks' near-ties), ``{"serve_internvl2":
    ...}``, ``{"serve_whisper": ...}``, ``{"train": ...}``, ``{"hoard": ...}``,
    ``{"train_xlstm": ...}``, ``{"train_hymba": ...}``, ``{"train_deepseek":
    ...}`` and ``{"train_mixtral": ...}`` (with the fp32 loss checks'
-   near-ties), ``{"train_internvl2": ...}``, ``{"train_whisper": ...}`` and
-   ``{"kernels": [...]}`` line, then the last line ``{"ok": true, "device":
+   near-ties), ``{"train_internvl2": ...}``, ``{"train_whisper": ...}``,
+   ``{"multi": ...}`` and ``{"kernels": [...]}`` line, then the last line ``{"ok": true, "device":
    {...}}``.
 """
 
@@ -719,10 +745,7 @@ def launched_shapes():
 def phase_card() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this run needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3536,6 +3559,364 @@ def only_hoard(gen, ops, ref, rate) -> list:
     return [{"hoard": phase_hoard(KERNEL_MODULES)}]
 
 
+# ------------------------------------------------------------------- multi
+#: phase_multi: 4 gloo ranks sharing the card, mesh pod 2 x data 2 x model 1,
+#: qwen1.5-0.5b in bf16 at full width and depth on the train phase's batch
+MULTI = dict(pods=2, data=2, batch=TRAIN["batch"], seq=TRAIN["seq"], steps=3,
+             collective_timeout=300.0, world_timeout=420.0)
+#: flash decoding over a data 1 x model 4 view of the same ranks: qwen1.5-0.5b's
+#: decode shape over one 32768-slot cache, 8192 slots a rank
+MULTI_DECODE = dict(B=8, S=32768, valids=(1, 130, 8193, 32768))
+#: JAX's bound on the compressed sync, of each leaf's largest entry
+#: (tests/test_elastic.py:109-110)
+COMPRESS_TOL = 0.02
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _clock() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _leaf_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _crc(t: torch.Tensor) -> int:
+    return zlib.crc32(_leaf_bytes(t).cpu().numpy())
+
+
+def _decode_inputs(dtype) -> tuple:
+    """q (B, 16, 1, 64) and the K and V caches (B, 16, S, 64) of qwen1.5-0.5b's
+    decode shape (``MULTI_DECODE``), drawn in fp32 on a seeded CUDA generator
+    and cast: the same on every process of the card."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[ARCH]
+    B, S = MULTI_DECODE["B"], MULTI_DECODE["S"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for shape in (
+        (B, cfg.n_heads, 1, cfg.resolved_head_dim),
+        (B, cfg.n_kv_heads, S, cfg.resolved_head_dim),
+        (B, cfg.n_kv_heads, S, cfg.resolved_head_dim)))
+    return q, k, v
+
+
+def _multi_step_counts(kernel_modules, rec: dict, what: str) -> None:
+    counts, routes = read_counts(kernel_modules)
+    expect_counts(counts, TRAIN_PER_STEP, what)
+    check_routes(routes, counts, TRAIN_ROUTES, what)
+    rec["counts"].append(counts)
+
+
+def multi_rank(rank: int, world: int, init: str, work: str, tokens, labels) -> dict:
+    """One of ``phase_multi``'s ranks: (a) 3 steps with the plain sync, the
+    first in its parts and checked, (b) the compressed sync of step 1's
+    gradients and one compressed step, (c) the ZeRO state saved and restored
+    at data 4 over the same ranks, (d) flash decoding over model 4."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import KERNEL_MODULES, build
+    from repro_torch.launch.mesh import NamedSharding, make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.serve import make_flash_decode
+    from repro_torch.train import (AdamWConfig, CheckpointManager, DataParallelStep,
+                                   adamw_update, compress_int8, decompress_int8, init_opt_state,
+                                   zero_shardings)
+    from repro_torch.train.sync import _mean
+
+    build.library()                  # the parent's build, found by its digest
+    timeout = MULTI["collective_timeout"]
+    mesh = make_test_mesh(data=MULTI["data"], model=1, pods=MULTI["pods"], backend="gloo",
+                          init_method=init, rank=rank, timeout=timeout)
+    say = (lambda msg: print(f"[multi r0] {msg}", flush=True)) if rank == 0 else (lambda _: None)
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    model = build_model(cfg, model_axis=1, mesh=mesh, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = {"tokens": torch.from_numpy(tokens).long().cuda(),
+             "labels": torch.from_numpy(labels).long().cuda()}
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
+    step = DataParallelStep(model, opt_cfg, mesh)
+    step_c = DataParallelStep(model, opt_cfg, mesh, compress=True)
+    opt = step.init_opt_state(params)
+    rec = {"rank": rank, "coords": mesh.coords, "losses": [], "step_ms": [], "sync_ms": [],
+           "update_ms": [], "gather_ms": [], "counts": []}
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) step 1 in its parts
+    before = PM.tree_map(lambda t: t.clone(), params)
+    reset_counts(KERNEL_MODULES)
+    t0 = _clock()
+    loss, _, grads = step.grads(params, batch)
+    t1 = _clock()
+    synced = step.sync(grads)
+    t2 = _clock()
+    params, opt, metrics = step.update(synced, opt, params)
+    t3 = _clock()
+    _multi_step_counts(KERNEL_MODULES, rec, f"multi rank {rank} step 1")
+    rec["losses"].append(float(step.mean_over_ranks(loss)))
+    rec["step_ms"].append((t3 - t0) * 1e3)
+    rec["sync_ms"].append((t2 - t1) * 1e3)
+    rec["update_ms"].append(step.times["update_ms"])
+    rec["gather_ms"].append(step.times["gather_ms"])
+    say(f"step 1 {rec['step_ms'][0]:.1f} ms, sync {rec['sync_ms'][0]:.1f} ms")
+
+    # the synced gradient against the parent's gradient of the whole batch
+    ref_grads = torch.load(Path(work) / "ref_grads.pt", map_location="cpu", mmap=True)
+    worst = 0.0
+    for g, r in zip(PM.tree_leaves(synced), PM.tree_leaves(ref_grads)):
+        r = r.cuda()
+        err = float((g.float() - r.float()).abs().max() / r.float().abs().max())
+        worst = max(worst, err)
+    del ref_grads
+    if not worst <= GRAD_TOL[torch.bfloat16]:
+        raise AssertionError(f"rank {rank}: synced gradient {worst} of the largest entry from "
+                             "the single-process gradient")
+    rec["grad_err_vs_single_process"] = worst
+
+    # (b) the compressed sync of the same gradients: JAX's bound, and the
+    # residual gf - deq exactly
+    synced_c = step_c.sync(grads)
+    ratio, residual, exact = 0.0, 0.0, True
+    for g, gc_, s, e in zip(PM.tree_leaves(grads), PM.tree_leaves(synced_c),
+                            PM.tree_leaves(synced), PM.tree_leaves(step_c.errors)):
+        ratio = max(ratio, float((gc_ - s.float()).abs().max() / s.float().abs().max()))
+        gf = _mean(g, mesh, "data")
+        q, scale, new_e = compress_int8(gf, torch.zeros_like(e))
+        exact &= bool(torch.equal(new_e, e)) and bool(
+            torch.equal(e, gf.float() - decompress_int8(q, scale)))
+        residual += float(e.abs().sum())
+    if not (ratio <= COMPRESS_TOL and residual > 0 and exact):
+        raise AssertionError(f"rank {rank}: compressed sync {ratio} of the largest entry, "
+                             f"residual {residual}, equal to gf - deq: {exact}")
+    rec.update(compressed_vs_plain=ratio, residual=residual)
+    del grads, synced_c
+
+    # the ZeRO-1 update against adamw_update on the same gradient, one rank at a time
+    for turn in range(mesh.size):
+        if turn == rank:
+            full = init_opt_state(before, opt_cfg)
+            before, full, ref_m = adamw_update(synced, full, before, opt_cfg)
+            same_p = all(torch.equal(a, b) for a, b in zip(PM.tree_leaves(params),
+                                                           PM.tree_leaves(before)))
+            same_s = all(torch.equal(shard, sh.shard(f)) for key in ("master", "mu", "nu")
+                         for shard, f, sh in zip(PM.tree_leaves(opt[key]),
+                                                 PM.tree_leaves(full[key]),
+                                                 PM.tree_leaves(step.shardings[key])))
+            same_n = bool(torch.equal(ref_m["grad_norm"], metrics["grad_norm"]))
+            if not (same_p and same_s and same_n):
+                raise AssertionError(f"rank {rank}: ZeRO-1 update differs from adamw_update "
+                                     f"(params {same_p}, state shards {same_s}, norm {same_n})")
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    del before, synced
+    # every rank's parameters equal rank 0's, bit for bit
+    for p in PM.tree_leaves(params):
+        mine = _leaf_bytes(p)
+        theirs = mine.clone()
+        torch.distributed.broadcast(theirs, src=0)
+        if not torch.equal(mine, theirs):
+            raise AssertionError(f"rank {rank}: parameters differ from rank 0's after the gather")
+    rec["sharded_leaves"] = sum(s.shape != p.shape for s, p in
+                                zip(PM.tree_leaves(opt["mu"]), PM.tree_leaves(params)))
+    rec["peak_gib_checks"] = torch.cuda.max_memory_allocated() / 2**30
+    say("step 1 checked: gradient, compressed sync, ZeRO update, equal parameters")
+
+    # (a) steps 2 and 3 whole
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2, MULTI["steps"] + 1):
+        reset_counts(KERNEL_MODULES)
+        t0 = _clock()
+        params, opt, metrics = step(params, opt, batch)
+        rec["losses"].append(float(metrics["loss"]))
+        rec["step_ms"].append((_clock() - t0) * 1e3)
+        for key in ("sync_ms", "update_ms", "gather_ms"):
+            rec[key].append(step.times[key])
+        _multi_step_counts(KERNEL_MODULES, rec, f"multi rank {rank} step {i}")
+    rec["peak_gib_steps"] = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"rank {rank}: losses {rec['losses']}")
+    say(f"steps {rec['step_ms']} ms, losses {rec['losses']}")
+
+    # (c) the ZeRO state saved, restored at data 4 over the same ranks
+    whole = PM.tree_map(lambda _: None, params)
+    ckpt = CheckpointManager(str(Path(work) / "ckpt"), keep=1)
+    t0 = time.perf_counter()
+    ckpt.save(MULTI["steps"], params, opt, shardings={"params": whole, "opt": step.shardings},
+              mesh_shape=dict(mesh.shape))
+    rec["save_s"] = time.perf_counter() - t0
+    wide = make_test_mesh(data=4, model=1, pods=1, backend="gloo", timeout=timeout)
+    wide_sh = {"params": whole, "opt": zero_shardings(model.layout(), wide, opt_cfg)}
+    t0 = time.perf_counter()
+    _, p_b, o_b, _ = ckpt.restore(template={"params": params, "opt": opt}, shardings=wide_sh)
+    rec["restore_s"] = time.perf_counter() - t0
+    crcs = []
+    saved_sh = {"params": whole, "opt": step.shardings}
+    for mine, sh, got, wsh in zip(PM.tree_leaves({"params": params, "opt": opt}),
+                                  PM.tree_leaves(saved_sh), PM.tree_leaves({"params": p_b,
+                                                                             "opt": o_b}),
+                                  PM.tree_leaves(wide_sh)):
+        full = mine if sh is None else sh.gather(mine)
+        if not torch.equal(got, full if wsh is None else wsh.shard(full)):
+            raise AssertionError(f"rank {rank}: a leaf restored at data 4 differs from its "
+                                 "slice of the saved state")
+        if rank == 0:
+            crcs.append(_crc(full))
+    rec["crcs"] = crcs
+    del p_b, o_b
+    say(f"saved in {rec['save_s']:.2f} s, restored at data 4 in {rec['restore_s']:.2f} s")
+
+    # (b) one whole step with the compressed sync
+    reset_counts(KERNEL_MODULES)
+    t0 = _clock()
+    params, opt, metrics = step_c(params, opt, batch)
+    rec["compressed_step"] = {"loss": float(metrics["loss"]), "ms": (_clock() - t0) * 1e3,
+                              **step_c.times}
+    _multi_step_counts(KERNEL_MODULES, rec, f"multi rank {rank} compressed step")
+    if not math.isfinite(rec["compressed_step"]["loss"]):
+        raise AssertionError(f"rank {rank}: compressed step loss {rec['compressed_step']}")
+    del params, opt, step, step_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) flash decoding over the model axis of a data 1 x model 4 view
+    tall = make_test_mesh(data=1, model=4, backend="gloo", timeout=timeout)
+    fn = make_flash_decode(tall)
+    cut = NamedSharding(tall, PM.P(None, None, "model", None))
+    rec["decode"] = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = _decode_inputs(dt)
+        ks, vs = cut.shard(k), cut.shard(v)
+        del k, v
+        outs, ms = [], []
+        for valid in MULTI_DECODE["valids"]:
+            t0 = _clock()
+            out = fn(q, ks, vs, valid)
+            ms.append((_clock() - t0) * 1e3)
+            outs.append(out.float().cpu().numpy())
+        rec["decode"][str(dt)] = {"outs": outs, "ms": ms, "slots": ks.shape[2]}
+        del q, ks, vs
+    say(f"flash decoding ms {[rec['decode'][d]['ms'] for d in rec['decode']]}")
+    return rec
+
+
+def phase_multi(kernel_modules) -> dict:
+    """4 ranks on the card over ``gloo`` (``multi_rank``), mesh pod 2 x data 2
+    x model 1: qwen1.5-0.5b in bf16 at full width and depth, the train phase's
+    batch (8 x 512, read through the stripe store), 2 rows a rank.  The
+    parent computes the whole batch's gradient in one process for the ranks
+    to hold theirs against, restores their checkpoint onto the one device
+    (every leaf's CRC equal to the gathered leaf's), and holds their flash
+    decoding against the decode-attention kernel on the whole cache."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenDatasetSpec
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.train import CheckpointManager
+    from repro_torch.train.step import _grads
+
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    B, S = MULTI["batch"], MULTI["seq"]
+    spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, B * 32), seq_len=S,
+                            vocab=cfg.vocab, seed=0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as data_root:
+        tokens, labels = next(corpus_batches(spec, B, data_root))
+        model = build_model(cfg, device="cuda")
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        batch = {"tokens": torch.from_numpy(tokens).long().cuda(),
+                 "labels": torch.from_numpy(labels).long().cuda()}
+        _, _, grads = _grads(model, params, batch)
+        torch.save(PM.tree_map(lambda g: g.cpu(), grads), Path(work) / "ref_grads.pt")
+        layout = model.layout()
+        del model, params, batch, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = run_ranks(multi_rank, 4, work, tokens, labels,
+                          init_method=f"file://{work}/rendezvous",
+                          timeout=MULTI["world_timeout"])
+        world_s = time.perf_counter() - t0
+
+        # (c) the same checkpoint whole onto the one device
+        empty = lambda _: torch.empty(0, device="cuda")
+        template = {"params": PM.tree_map(empty, layout),
+                    "opt": {"count": torch.empty(0, device="cuda"),
+                            **{k: PM.tree_map(empty, layout) for k in ("master", "mu", "nu")}}}
+        t0 = time.perf_counter()
+        at, p, o, _ = CheckpointManager(str(Path(work) / "ckpt")).restore(template=template)
+        one_device_s = time.perf_counter() - t0
+        crcs = [_crc(t) for t in PM.tree_leaves({"params": p, "opt": o})]
+        if at != MULTI["steps"] or crcs != ranks[0]["crcs"]:
+            raise AssertionError(f"restored onto one device at step {at}: "
+                                 f"{sum(a != b for a, b in zip(crcs, ranks[0]['crcs']))} leaves "
+                                 "differ from the gathered state")
+        del p, o
+
+    # (d) each rank's flash decoding against the decode-attention kernel
+    decode = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = _decode_inputs(dt)
+        errs, kernel_errs = [], []
+        for i, valid in enumerate(MULTI_DECODE["valids"]):
+            want = ops.decode_attention(q, k, v, valid)
+            kernel_errs.append(max_err(want, ref.decode_attention_ref(q, k, v, valid),
+                                       TOL["decode_attention"][dt]))
+            for r in ranks:
+                got = torch.from_numpy(r["decode"][str(dt)]["outs"][i]).cuda()
+                errs.append(max_err(got, want.float(), TOL["decode_attention"][dt]))
+        decode[str(dt)] = {"max_abs_err_vs_kernel": max(errs),
+                           "kernel_max_abs_err_vs_plain": max(kernel_errs),
+                           "ms": [r["decode"][str(dt)]["ms"] for r in ranks],
+                           "slots_a_rank": ranks[0]["decode"][str(dt)]["slots"]}
+        del q, k, v
+
+    counts = {m: sum(c[m] for r in ranks for c in r["counts"]) for m in ranks[0]["counts"][0]}
+    res = {"card": card_line(), "ranks": 4, "mesh": {"pod": 2, "data": 2, "model": 1},
+           "backend": "gloo", "batch": B, "seq": S, "rows_a_rank": B // 4,
+           "counts": counts, "counted_steps_a_rank": len(ranks[0]["counts"]),
+           "step_ms": [r["step_ms"] for r in ranks], "sync_ms": [r["sync_ms"] for r in ranks],
+           "update_ms": [r["update_ms"] for r in ranks],
+           "gather_ms": [r["gather_ms"] for r in ranks], "losses": ranks[0]["losses"],
+           "compressed_step": [r["compressed_step"] for r in ranks],
+           "peak_gib_a_rank_steps": [r["peak_gib_steps"] for r in ranks],
+           "peak_gib_a_rank_with_checks": [r["peak_gib_checks"] for r in ranks],
+           "grad_err_vs_single_process": [r["grad_err_vs_single_process"] for r in ranks],
+           "compressed_vs_plain": [r["compressed_vs_plain"] for r in ranks],
+           "residual": [r["residual"] for r in ranks],
+           "sharded_leaves": ranks[0]["sharded_leaves"],
+           "save_s": ranks[0]["save_s"], "restore_data4_s": [r["restore_s"] for r in ranks],
+           "restore_one_device_s": one_device_s, "checkpoint_leaves": len(crcs),
+           "world_s": world_s, "phase_s": time.perf_counter() - phase_t0, "decode": decode}
+    print(f"[multi] {res['card']}; step ms {res['step_ms']}; sync ms {res['sync_ms']}; "
+          f"gather ms {res['gather_ms']}; peak GiB a rank {res['peak_gib_a_rank_steps']}; "
+          f"world {world_s:.1f} s")
+    return res
+
+
+def only_multi(gen, ops, ref, rate) -> list:
+    from repro_torch.kernels import KERNEL_MODULES
+
+    return [{"multi": phase_multi(KERNEL_MODULES)}]
+
+
 def xlstm_block_ms(model, params, B, S) -> dict:
     """Host milliseconds (ending in a synchronize) of one mLSTM and one sLSTM
     block's forward and backward at the training shape, median of 3 after a
@@ -3639,7 +4020,8 @@ def only_embedded(gen, ops, ref, rate) -> list:
 #: printing their rows and no result line
 ONLY = {"mlstm": check_mlstm, "ssd": check_ssd,
         "decode": lambda *a: (check_decode_attention(*a),), "flash": check_flash,
-        "serve": only_serve, "embedded": only_embedded, "hoard": only_hoard}
+        "serve": only_serve, "embedded": only_embedded, "hoard": only_hoard,
+        "multi": only_multi}
 
 
 def main(argv: list[str]) -> None:
@@ -3686,7 +4068,7 @@ def main(argv: list[str]) -> None:
                        ("train_hymba", phase_train_hymba), ("train_deepseek", phase_train_deepseek),
                        ("train_mixtral", phase_train_mixtral),
                        ("train_internvl2", phase_train_internvl2),
-                       ("train_whisper", phase_train_whisper)):
+                       ("train_whisper", phase_train_whisper), ("multi", phase_multi)):
         gc.collect()
         torch.cuda.empty_cache()
         runs[run] = phase(KERNEL_MODULES)

@@ -35,6 +35,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from . import params as PM
+from .params import TP, P, dp_axes
 from .layers import (blockwise_attention, cache_slot, decode_attention, gelu_mlp, layer_norm,
                      sinusoidal_positions)
 
@@ -45,36 +46,38 @@ MAX_DEC_POS = 32768
 def _attn_layout(cfg: ModelConfig) -> dict:
     D, H, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
     return {
-        "ln_g": PM.ParamInfo((D,), "ones"),
-        "ln_b": PM.ParamInfo((D,), "zeros"),
-        "wq": PM.ParamInfo((D, H * hd)),
-        "bq": PM.ParamInfo((H * hd,), "zeros"),
-        "wk": PM.ParamInfo((D, H * hd)),
-        "wv": PM.ParamInfo((D, H * hd)),
-        "bv": PM.ParamInfo((H * hd,), "zeros"),
-        "wo": PM.ParamInfo((H * hd, D)),
-        "bo": PM.ParamInfo((D,), "zeros"),
+        "ln_g": PM.ParamInfo((D,), P(None), "ones"),
+        "ln_b": PM.ParamInfo((D,), P(None), "zeros"),
+        "wq": PM.ParamInfo((D, H * hd), P(None, TP)),
+        "bq": PM.ParamInfo((H * hd,), P(TP), "zeros"),
+        "wk": PM.ParamInfo((D, H * hd), P(None, TP)),
+        "wv": PM.ParamInfo((D, H * hd), P(None, TP)),
+        "bv": PM.ParamInfo((H * hd,), P(TP), "zeros"),
+        "wo": PM.ParamInfo((H * hd, D), P(TP, None)),
+        "bo": PM.ParamInfo((D,), P(None), "zeros"),
     }
 
 
 def _mlp_layout(cfg: ModelConfig) -> dict:
     D, Fd = cfg.d_model, cfg.d_ff
     return {
-        "ln_g": PM.ParamInfo((D,), "ones"),
-        "ln_b": PM.ParamInfo((D,), "zeros"),
-        "w_in": PM.ParamInfo((D, Fd)),
-        "b_in": PM.ParamInfo((Fd,), "zeros"),
-        "w_out": PM.ParamInfo((Fd, D)),
-        "b_out": PM.ParamInfo((D,), "zeros"),
+        "ln_g": PM.ParamInfo((D,), P(None), "ones"),
+        "ln_b": PM.ParamInfo((D,), P(None), "zeros"),
+        "w_in": PM.ParamInfo((D, Fd), P(None, TP)),
+        "b_in": PM.ParamInfo((Fd,), P(TP), "zeros"),
+        "w_out": PM.ParamInfo((Fd, D), P(TP, None)),
+        "b_out": PM.ParamInfo((D,), P(None), "zeros"),
     }
 
 
 class EncDecLM(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
         if cfg.family != "encdec" or cfg.encdec is None:
             raise ValueError(f"{cfg.arch}: family {cfg.family!r} is no encoder-decoder")
         self.cfg = cfg
+        self.model_axis = model_axis
+        self.mesh = mesh
         self.device = resolve(device)
         self.dtype = PM.as_dtype(cfg.dtype)
 
@@ -84,15 +87,19 @@ class EncDecLM(nn.Module):
         enc_layer = {"attn": _attn_layout(cfg), "mlp": _mlp_layout(cfg)}
         dec_layer = {"self_attn": _attn_layout(cfg), "cross_attn": _attn_layout(cfg),
                      "mlp": _mlp_layout(cfg)}
+        emb_spec = (
+            P(TP, None) if cfg.vocab % self.model_axis == 0
+            else (P(None, TP) if cfg.d_model % self.model_axis == 0 else P(None, None))
+        )
         lay: dict[str, Any] = {
-            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), scale=0.02),
-            "dec_pos": PM.ParamInfo((MAX_DEC_POS, cfg.d_model), scale=0.01),
+            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), emb_spec, scale=0.02),
+            "dec_pos": PM.ParamInfo((MAX_DEC_POS, cfg.d_model), P(None, None), scale=0.01),
             "enc_layers": PM.stack(cfg.encdec.n_encoder_layers, enc_layer),
             "dec_layers": PM.stack(cfg.n_layers, dec_layer),
         }
         for side in ("enc", "dec"):
-            lay[f"{side}_ln_g"] = PM.ParamInfo((cfg.d_model,), "ones")
-            lay[f"{side}_ln_b"] = PM.ParamInfo((cfg.d_model,), "zeros")
+            lay[f"{side}_ln_g"] = PM.ParamInfo((cfg.d_model,), P(None), "ones")
+            lay[f"{side}_ln_b"] = PM.ParamInfo((cfg.d_model,), P(None), "zeros")
         return lay
 
     def init_params(self, generator: torch.Generator) -> dict:
@@ -100,10 +107,11 @@ class EncDecLM(nn.Module):
 
     def cache_layout(self, batch: int, seq: int, enc_len: int) -> dict:
         H, hd = self.cfg.n_heads, self.cfg.resolved_head_dim
-        per = {"k": PM.ParamInfo((batch, H, seq, hd), "zeros"),
-               "v": PM.ParamInfo((batch, H, seq, hd), "zeros"),
-               "cross_k": PM.ParamInfo((batch, H, enc_len, hd), "zeros"),
-               "cross_v": PM.ParamInfo((batch, H, enc_len, hd), "zeros")}
+        spec = P(dp_axes(self.mesh), None, TP, None)
+        per = {"k": PM.ParamInfo((batch, H, seq, hd), spec, "zeros"),
+               "v": PM.ParamInfo((batch, H, seq, hd), spec, "zeros"),
+               "cross_k": PM.ParamInfo((batch, H, enc_len, hd), spec, "zeros"),
+               "cross_v": PM.ParamInfo((batch, H, enc_len, hd), spec, "zeros")}
         return {"layers": PM.stack(self.cfg.n_layers, per)}
 
     def init_cache(self, batch: int, seq: int, enc_len: int) -> dict:

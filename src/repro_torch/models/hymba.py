@@ -42,6 +42,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops
 from . import params as PM
+from .params import TP, P, dp_axes
 from .layers import (blockwise_attention, cache_slot, causal_conv, decode_attention, rms_norm,
                      rope, swiglu)
 
@@ -68,7 +69,7 @@ def ssd_scan(lf, b_in, x_in, c_out, *, chunk: int):
 class Hymba(nn.Module):
     """Global attention blocks alternating with runs of sliding-window blocks."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
         if cfg.family != "hybrid" or cfg.hybrid is None or cfg.ssm is None:
             raise ValueError(f"{cfg.arch}: Hymba needs family 'hybrid', a hybrid and an ssm config")
@@ -76,6 +77,8 @@ class Hymba(nn.Module):
         if g[0] != 0 or g[-1] != cfg.n_layers - 1:
             raise ValueError(f"{cfg.arch}: global layers {g} must include the first and the last")
         self.cfg = cfg
+        self.model_axis = model_axis
+        self.mesh = mesh
         self.device = resolve(device)
         self.dtype = PM.as_dtype(cfg.dtype)
         self.ed = cfg.ssm.expand * cfg.d_model   # SSM inner width
@@ -91,37 +94,42 @@ class Hymba(nn.Module):
         D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         ed, N, nsh = self.ed, self.N, self.n_ssm_heads
         return {
-            "ln": PM.ParamInfo((D,), "ones"),
+            "ln": PM.ParamInfo((D,), P(None), "ones"),
             # attention path
-            "wq": PM.ParamInfo((D, H * hd)),
-            "wk": PM.ParamInfo((D, Hkv * hd)),
-            "wv": PM.ParamInfo((D, Hkv * hd)),
-            "attn_ln": PM.ParamInfo((H * hd,), "ones"),
+            "wq": PM.ParamInfo((D, H * hd), P(None, TP)),
+            "wk": PM.ParamInfo((D, Hkv * hd), P(None, TP)),
+            "wv": PM.ParamInfo((D, Hkv * hd), P(None, TP)),
+            "attn_ln": PM.ParamInfo((H * hd,), P(TP), "ones"),
             # ssm path (per-head B, C and dt)
-            "w_in": PM.ParamInfo((D, 2 * ed)),
-            "conv": PM.ParamInfo((cfg.ssm.conv_width, ed), scale=0.3),
-            "w_bc": PM.ParamInfo((ed, nsh * 2 * N), scale=0.02),
-            "w_dt": PM.ParamInfo((ed, nsh), scale=0.02),
-            "b_dt": PM.ParamInfo((nsh,), "zeros"),
-            "a_log": PM.ParamInfo((nsh,), "zeros"),
-            "d_skip": PM.ParamInfo((ed,), "ones"),
-            "ssm_proj": PM.ParamInfo((ed, H * hd)),
-            "ssm_ln": PM.ParamInfo((H * hd,), "ones"),
+            "w_in": PM.ParamInfo((D, 2 * ed), P(None, TP)),
+            "conv": PM.ParamInfo((cfg.ssm.conv_width, ed), P(None, TP), scale=0.3),
+            "w_bc": PM.ParamInfo((ed, nsh * 2 * N), P(TP, None), scale=0.02),
+            "w_dt": PM.ParamInfo((ed, nsh), P(TP, None), scale=0.02),
+            "b_dt": PM.ParamInfo((nsh,), P(None), "zeros"),
+            "a_log": PM.ParamInfo((nsh,), P(None), "zeros"),
+            "d_skip": PM.ParamInfo((ed,), P(TP), "ones"),
+            "ssm_proj": PM.ParamInfo((ed, H * hd), P(TP, None)),
+            "ssm_ln": PM.ParamInfo((H * hd,), P(TP), "ones"),
             # fusion + mlp
-            "wo": PM.ParamInfo((H * hd, D)),
-            "mlp_ln": PM.ParamInfo((D,), "ones"),
-            "w_gate": PM.ParamInfo((D, cfg.d_ff)),
-            "w_up": PM.ParamInfo((D, cfg.d_ff)),
-            "w_down": PM.ParamInfo((cfg.d_ff, D)),
+            "wo": PM.ParamInfo((H * hd, D), P(TP, None)),
+            "mlp_ln": PM.ParamInfo((D,), P(None), "ones"),
+            "w_gate": PM.ParamInfo((D, cfg.d_ff), P(None, TP)),
+            "w_up": PM.ParamInfo((D, cfg.d_ff), P(None, TP)),
+            "w_down": PM.ParamInfo((cfg.d_ff, D), P(TP, None)),
         }
 
     def layout(self) -> dict:
         cfg = self.cfg
+        div_v = cfg.vocab % self.model_axis == 0
+        div_d = cfg.d_model % self.model_axis == 0
+        emb_spec = P(TP, None) if div_v else (P(None, TP) if div_d else P(None, None))
+        head_spec = P(None, TP) if div_v else (P(TP, None) if div_d else P(None, None))
         lay: dict[str, Any] = {
-            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), scale=0.02),
-            "meta": PM.ParamInfo((cfg.hybrid.meta_tokens, cfg.d_model), scale=0.02),
-            "final_ln": PM.ParamInfo((cfg.d_model,), "ones"),
-            "lm_head": PM.ParamInfo((cfg.d_model, cfg.vocab), scale=0.02),
+            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), emb_spec, scale=0.02),
+            "meta": PM.ParamInfo((cfg.hybrid.meta_tokens, cfg.d_model), P(None, None),
+                                 scale=0.02),
+            "final_ln": PM.ParamInfo((cfg.d_model,), P(None), "ones"),
+            "lm_head": PM.ParamInfo((cfg.d_model, cfg.vocab), head_spec, scale=0.02),
         }
         for i in range(self.n_global):
             lay[f"global_{i}"] = self.block_layout()
@@ -227,14 +235,16 @@ class Hymba(nn.Module):
         cfg = self.cfg
         Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         nsh = self.n_ssm_heads
+        dp = dp_axes(self.mesh)
 
         def kv(S):
             return {
-                "k": PM.ParamInfo((batch, Hkv, S, hd), "zeros"),
-                "v": PM.ParamInfo((batch, Hkv, S, hd), "zeros"),
-                "conv": PM.ParamInfo((batch, cfg.ssm.conv_width - 1, self.ed), "zeros"),
-                "ssm": PM.ParamInfo((batch, nsh, self.ed // nsh, self.N), "zeros",
-                                    dtype="float32"),
+                "k": PM.ParamInfo((batch, Hkv, S, hd), P(dp, None, TP, None), "zeros"),
+                "v": PM.ParamInfo((batch, Hkv, S, hd), P(dp, None, TP, None), "zeros"),
+                "conv": PM.ParamInfo((batch, cfg.ssm.conv_width - 1, self.ed),
+                                     P(dp, None, TP), "zeros"),
+                "ssm": PM.ParamInfo((batch, nsh, self.ed // nsh, self.N),
+                                    P(dp, None, TP, None), "zeros", dtype="float32"),
             }
 
         lay: dict[str, Any] = {f"global_{i}": kv(seq) for i in range(self.n_global)}

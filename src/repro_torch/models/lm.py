@@ -39,8 +39,28 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from . import params as PM
+from .params import TP, P, dp_axes
 from .layers import (blockwise_attention, cache_slot, decode_attention, moe_block, rms_norm, rope,
                      swiglu)
+
+
+
+
+def _vocab_specs(vocab: int, d_model: int, model_axis: int) -> tuple[tuple, tuple]:
+    """Shard embeddings on vocab when divisible, else on d_model, else replicate."""
+    if vocab % model_axis == 0:
+        return P(TP, None), P(None, TP)
+    if d_model % model_axis == 0:
+        return P(None, TP), P(TP, None)
+    return P(None, None), P(None, None)
+
+
+def _expert_specs(cfg: ModelConfig, model_axis: int) -> tuple[tuple, tuple]:
+    """Expert parallelism when E divides the model axis; else tensor-shard
+    inside each expert (mixtral: 8 experts on a 16-way axis)."""
+    if cfg.moe.n_experts % model_axis == 0:
+        return P(TP, None, None), P(TP, None, None)
+    return P(None, None, TP), P(None, TP, None)
 
 
 def _attn_layout(cfg: ModelConfig) -> dict:
@@ -49,55 +69,56 @@ def _attn_layout(cfg: ModelConfig) -> dict:
         m = cfg.mla
         qk = m.qk_nope_dim + m.qk_rope_dim
         return {
-            "ln": PM.ParamInfo((D,), "ones"),
-            "wq": PM.ParamInfo((D, H * qk)),
-            "w_dkv": PM.ParamInfo((D, m.kv_lora_rank + m.qk_rope_dim)),
-            "kv_ln": PM.ParamInfo((m.kv_lora_rank,), "ones"),
-            "w_uk": PM.ParamInfo((m.kv_lora_rank, H * m.qk_nope_dim)),
-            "w_uv": PM.ParamInfo((m.kv_lora_rank, H * m.v_head_dim)),
-            "wo": PM.ParamInfo((H * m.v_head_dim, D)),
+            "ln": PM.ParamInfo((D,), P(None), "ones"),
+            "wq": PM.ParamInfo((D, H * qk), P(None, TP)),
+            "w_dkv": PM.ParamInfo((D, m.kv_lora_rank + m.qk_rope_dim), P(None, None)),
+            "kv_ln": PM.ParamInfo((m.kv_lora_rank,), P(None), "ones"),
+            "w_uk": PM.ParamInfo((m.kv_lora_rank, H * m.qk_nope_dim), P(None, TP)),
+            "w_uv": PM.ParamInfo((m.kv_lora_rank, H * m.v_head_dim), P(None, TP)),
+            "wo": PM.ParamInfo((H * m.v_head_dim, D), P(TP, None)),
         }
     lay = {
-        "ln": PM.ParamInfo((D,), "ones"),
-        "wq": PM.ParamInfo((D, H * hd)),
-        "wk": PM.ParamInfo((D, Hkv * hd)),
-        "wv": PM.ParamInfo((D, Hkv * hd)),
-        "wo": PM.ParamInfo((H * hd, D)),
+        "ln": PM.ParamInfo((D,), P(None), "ones"),
+        "wq": PM.ParamInfo((D, H * hd), P(None, TP)),
+        "wk": PM.ParamInfo((D, Hkv * hd), P(None, TP)),
+        "wv": PM.ParamInfo((D, Hkv * hd), P(None, TP)),
+        "wo": PM.ParamInfo((H * hd, D), P(TP, None)),
     }
     if cfg.qkv_bias:
-        lay["bq"] = PM.ParamInfo((H * hd,), "zeros")
-        lay["bk"] = PM.ParamInfo((Hkv * hd,), "zeros")
-        lay["bv"] = PM.ParamInfo((Hkv * hd,), "zeros")
+        lay["bq"] = PM.ParamInfo((H * hd,), P(TP), "zeros")
+        lay["bk"] = PM.ParamInfo((Hkv * hd,), P(TP), "zeros")
+        lay["bv"] = PM.ParamInfo((Hkv * hd,), P(TP), "zeros")
     if cfg.qk_norm:
-        lay["q_norm"] = PM.ParamInfo((hd,), "ones")
-        lay["k_norm"] = PM.ParamInfo((hd,), "ones")
+        lay["q_norm"] = PM.ParamInfo((hd,), P(None), "ones")
+        lay["k_norm"] = PM.ParamInfo((hd,), P(None), "ones")
     return lay
 
 
 def _mlp_layout(cfg: ModelConfig, d_ff: int) -> dict:
     D = cfg.d_model
     return {
-        "ln": PM.ParamInfo((D,), "ones"),
-        "w_gate": PM.ParamInfo((D, d_ff)),
-        "w_up": PM.ParamInfo((D, d_ff)),
-        "w_down": PM.ParamInfo((d_ff, D)),
+        "ln": PM.ParamInfo((D,), P(None), "ones"),
+        "w_gate": PM.ParamInfo((D, d_ff), P(None, TP)),
+        "w_up": PM.ParamInfo((D, d_ff), P(None, TP)),
+        "w_down": PM.ParamInfo((d_ff, D), P(TP, None)),
     }
 
 
-def _moe_layout(cfg: ModelConfig) -> dict:
+def _moe_layout(cfg: ModelConfig, model_axis: int) -> dict:
     D, E, F = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
+    up_spec, down_spec = _expert_specs(cfg, model_axis)
     lay = {
-        "ln": PM.ParamInfo((D,), "ones"),
-        "router": PM.ParamInfo((D, E), scale=0.02),
-        "w_gate": PM.ParamInfo((E, D, F)),
-        "w_up": PM.ParamInfo((E, D, F)),
-        "w_down": PM.ParamInfo((E, F, D)),
+        "ln": PM.ParamInfo((D,), P(None), "ones"),
+        "router": PM.ParamInfo((D, E), P(None, None), scale=0.02),
+        "w_gate": PM.ParamInfo((E, D, F), up_spec),
+        "w_up": PM.ParamInfo((E, D, F), up_spec),
+        "w_down": PM.ParamInfo((E, F, D), down_spec),
     }
     if cfg.moe.n_shared:
         S = cfg.moe.n_shared * F
-        lay["shared_gate"] = PM.ParamInfo((D, S))
-        lay["shared_up"] = PM.ParamInfo((D, S))
-        lay["shared_down"] = PM.ParamInfo((S, D))
+        lay["shared_gate"] = PM.ParamInfo((D, S), P(None, TP))
+        lay["shared_up"] = PM.ParamInfo((D, S), P(None, TP))
+        lay["shared_down"] = PM.ParamInfo((S, D), P(TP, None))
     return lay
 
 
@@ -105,11 +126,13 @@ class DecoderLM(nn.Module):
     """Dense GQA / MoE / MLA / VLM decoder (qwen-style options: QKV bias,
     qk-norm, tied unembed)."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
         if cfg.family not in ("dense", "moe", "vlm"):
             raise ValueError(f"{cfg.arch}: family {cfg.family!r} is no decoder LM")
         self.cfg = cfg
+        self.model_axis = model_axis
+        self.mesh = mesh
         self.device = resolve(device)
         self.dtype = PM.as_dtype(cfg.dtype)
 
@@ -117,18 +140,19 @@ class DecoderLM(nn.Module):
     def layer_layout(self, *, moe: bool) -> dict:
         cfg = self.cfg
         if moe:
-            return {"attn": _attn_layout(cfg), "mlp": _moe_layout(cfg)}
+            return {"attn": _attn_layout(cfg), "mlp": _moe_layout(cfg, self.model_axis)}
         d_ff = cfg.moe.first_dense_ff if (cfg.moe and cfg.moe.first_dense) else cfg.d_ff
         return {"attn": _attn_layout(cfg), "mlp": _mlp_layout(cfg, d_ff)}
 
     def layout(self) -> dict:
         cfg = self.cfg
+        emb_spec, head_spec = _vocab_specs(cfg.vocab, cfg.d_model, self.model_axis)
         lay: dict[str, Any] = {
-            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), scale=0.02),
-            "final_ln": PM.ParamInfo((cfg.d_model,), "ones"),
+            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), emb_spec, scale=0.02),
+            "final_ln": PM.ParamInfo((cfg.d_model,), P(None), "ones"),
         }
         if not cfg.tie_embeddings:
-            lay["lm_head"] = PM.ParamInfo((cfg.d_model, cfg.vocab), scale=0.02)
+            lay["lm_head"] = PM.ParamInfo((cfg.d_model, cfg.vocab), head_spec, scale=0.02)
         is_moe = cfg.moe is not None
         if is_moe and cfg.moe.first_dense:
             lay["layer0"] = self.layer_layout(moe=False)
@@ -144,14 +168,17 @@ class DecoderLM(nn.Module):
         """GQA K and V caches (a ring of ``min(seq, window)`` slots with a
         window), or MLA's latent ``c_kv`` and ``k_rope`` of ``seq`` slots."""
         cfg = self.cfg
+        dp = dp_axes(self.mesh)
         if cfg.mla is not None:
-            per = {"c_kv": PM.ParamInfo((batch, seq, cfg.mla.kv_lora_rank), "zeros"),
-                   "k_rope": PM.ParamInfo((batch, seq, cfg.mla.qk_rope_dim), "zeros")}
+            spec = P(dp, TP, None)
+            per = {"c_kv": PM.ParamInfo((batch, seq, cfg.mla.kv_lora_rank), spec, "zeros"),
+                   "k_rope": PM.ParamInfo((batch, seq, cfg.mla.qk_rope_dim), spec, "zeros")}
         else:
             window = cfg.sliding_window
             S_eff = min(seq, window) if window else seq
             kv = (batch, cfg.n_kv_heads, S_eff, cfg.resolved_head_dim)
-            per = {"k": PM.ParamInfo(kv, "zeros"), "v": PM.ParamInfo(kv, "zeros")}
+            spec = P(dp, None, TP, None)
+            per = {"k": PM.ParamInfo(kv, spec, "zeros"), "v": PM.ParamInfo(kv, spec, "zeros")}
         if cfg.moe is not None and cfg.moe.first_dense:
             return {"layer0": per, "layers": PM.stack(cfg.n_layers - 1, per)}
         return {"layers": PM.stack(cfg.n_layers, per)}

@@ -1,8 +1,15 @@
-"""Parameter layout: one declarative tree yields init, caches and JAX import.
+"""Parameter layout: one declarative tree yields init, caches, specs and JAX import.
 
 A model describes its parameters as a nested dict of :class:`ParamInfo`
-(shape, initializer and, where it differs from the model's, a dtype), the
-JAX package's layout without its sharding specs.
+(shape, sharding spec, initializer and, where it differs from the model's, a
+dtype), the JAX package's layout.  A spec is the port's stand-in for JAX's
+``PartitionSpec``: a tuple with one entry a dimension, each ``None``
+(replicated), a mesh axis name or a tuple of axis names (:func:`P` makes
+one, :func:`specs` reads a layout's).  The specs are metadata: the ZeRO
+layout of the optimizer state (``train.optimizer.opt_state_specs``) and a
+rank's rows of a batch (``registry._batch_spec``) are derived from them; no
+model's arithmetic reads them.
+
 Weights are ``(in, out)`` and applied as ``x @ W``; stacked layers carry a
 leading layer axis (:func:`stack`).  With the same layout on both sides, a JAX
 parameter tree carries over leaf by leaf with no transpose
@@ -28,9 +35,34 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DRAW_SLICE = 1 << 22
 
 
+DP = ("pod", "data")          # batch axes (pod present only multi-pod)
+TP = "model"
+
+
+def dp_axes(mesh) -> tuple | None:
+    """The batch axes of a cache spec: (pod, data) with no mesh, else those
+    of the two the mesh has (None if it has neither), as JAX's ``_dp``."""
+    if mesh is None:
+        return DP
+    return tuple(a for a in DP if a in mesh.axis_names) or None
+
+
+def _entry(e):
+    """A spec entry as JAX keeps it: one axis in a tuple is that axis, none is None."""
+    if isinstance(e, (tuple, list)):
+        return None if not e else (e[0] if len(e) == 1 else tuple(e))
+    return e
+
+
+def P(*entries) -> tuple:
+    """A sharding spec, ``PartitionSpec(*entries)`` of JAX as a plain tuple."""
+    return tuple(_entry(e) for e in entries)
+
+
 @dataclass(frozen=True)
 class ParamInfo:
     shape: tuple[int, ...]
+    spec: tuple = ()
     init: str = "normal"           # normal | zeros | ones | small
     scale: Optional[float] = None  # stddev override; default 1/sqrt(fan_in)
     dtype: Optional[str] = None    # overrides the model dtype (fp32 state in a bf16 cache)
@@ -57,9 +89,15 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def specs(layout):
+    """The tree of sharding specs of a layout, leaf for leaf."""
+    return tree_map(lambda i: i.spec, layout)
+
+
 def stack(n: int, layout):
-    """Prepend a stacked-layers axis to every leaf of ``layout``."""
-    return tree_map(lambda i: replace(i, shape=(n, *i.shape)), layout)
+    """Prepend a stacked-layers axis to every leaf of ``layout`` (replicated
+    on that axis: ``None`` heads its spec)."""
+    return tree_map(lambda i: replace(i, shape=(n, *i.shape), spec=(None, *i.spec)), layout)
 
 
 def unstack(stacked) -> list:

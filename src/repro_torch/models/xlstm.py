@@ -34,6 +34,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops
 from . import params as PM
+from .params import TP, P, dp_axes
 from .layers import causal_conv, rms_norm, swiglu
 
 _NEG = -1e30
@@ -70,7 +71,7 @@ def mlstm_decode(q, k, v, i_raw, log_f, state):
 class XLSTM(nn.Module):
     """48-block stack: one sLSTM block per ``slstm_every``, the rest mLSTM."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
         if cfg.family != "ssm" or cfg.ssm is None:
             raise ValueError(f"{cfg.arch}: XLSTM needs family 'ssm' and an ssm config")
@@ -78,6 +79,8 @@ class XLSTM(nn.Module):
             raise ValueError(f"{cfg.arch}: {cfg.n_layers} layers are not whole groups of "
                              f"{cfg.ssm.slstm_every}")
         self.cfg = cfg
+        self.model_axis = model_axis
+        self.mesh = mesh
         self.device = resolve(device)
         self.dtype = PM.as_dtype(cfg.dtype)
         D = cfg.d_model
@@ -93,48 +96,53 @@ class XLSTM(nn.Module):
     def mlstm_layout(self) -> dict:
         D, ed, H = self.cfg.d_model, self.ed, self.H
         return {
-            "ln": PM.ParamInfo((D,), "ones"),
-            "w_up": PM.ParamInfo((D, 2 * ed)),
-            "conv": PM.ParamInfo((self.cfg.ssm.conv_width, ed), scale=0.3),
-            "wq": PM.ParamInfo((ed, H * self.dqk)),
-            "wk": PM.ParamInfo((ed, H * self.dqk)),
-            "wv": PM.ParamInfo((ed, H * self.dv)),
-            "w_i": PM.ParamInfo((ed, H), scale=0.02),
-            "b_i": PM.ParamInfo((H,), "zeros"),
-            "w_f": PM.ParamInfo((ed, H), scale=0.02),
+            "ln": PM.ParamInfo((D,), P(None), "ones"),
+            "w_up": PM.ParamInfo((D, 2 * ed), P(None, TP)),
+            "conv": PM.ParamInfo((self.cfg.ssm.conv_width, ed), P(None, TP), scale=0.3),
+            "wq": PM.ParamInfo((ed, H * self.dqk), P(TP, None)),
+            "wk": PM.ParamInfo((ed, H * self.dqk), P(TP, None)),
+            "wv": PM.ParamInfo((ed, H * self.dv), P(TP, None)),
+            "w_i": PM.ParamInfo((ed, H), P(TP, None), scale=0.02),
+            "b_i": PM.ParamInfo((H,), P(None), "zeros"),
+            "w_f": PM.ParamInfo((ed, H), P(TP, None), scale=0.02),
             # "ones" ignores the scale, as the JAX _init_leaf does: b_f starts at 1.0
-            "b_f": PM.ParamInfo((H,), init="ones", scale=3.0),
-            "out_ln": PM.ParamInfo((ed,), "ones"),
-            "w_down": PM.ParamInfo((ed, D)),
+            "b_f": PM.ParamInfo((H,), P(None), init="ones", scale=3.0),
+            "out_ln": PM.ParamInfo((ed,), P(TP), "ones"),
+            "w_down": PM.ParamInfo((ed, D), P(TP, None)),
         }
 
     def slstm_layout(self) -> dict:
         D, sh, dh = self.cfg.d_model, self.sh, self.sdh
         return {
-            "ln": PM.ParamInfo((D,), "ones"),
-            "w_gates": PM.ParamInfo((D, sh, dh, 4)),
-            "r_gates": PM.ParamInfo((sh, dh, dh, 4), scale=0.02),
-            "b_gates": PM.ParamInfo((sh, dh, 4), "zeros"),
-            "out_ln": PM.ParamInfo((D,), "ones"),
-            "w_out": PM.ParamInfo((D, D)),
-            "ffn_ln": PM.ParamInfo((D,), "ones"),
-            "ffn_gate": PM.ParamInfo((D, self.s_ff)),
-            "ffn_up": PM.ParamInfo((D, self.s_ff)),
-            "ffn_down": PM.ParamInfo((self.s_ff, D)),
+            "ln": PM.ParamInfo((D,), P(None), "ones"),
+            # sh=4 heads cannot shard a 16-way axis; shard the dh dims
+            "w_gates": PM.ParamInfo((D, sh, dh, 4), P(None, None, TP, None)),
+            "r_gates": PM.ParamInfo((sh, dh, dh, 4), P(None, TP, None, None), scale=0.02),
+            "b_gates": PM.ParamInfo((sh, dh, 4), P(None, TP, None), "zeros"),
+            "out_ln": PM.ParamInfo((D,), P(None), "ones"),
+            "w_out": PM.ParamInfo((D, D), P(None, TP)),
+            "ffn_ln": PM.ParamInfo((D,), P(None), "ones"),
+            "ffn_gate": PM.ParamInfo((D, self.s_ff), P(None, TP)),
+            "ffn_up": PM.ParamInfo((D, self.s_ff), P(None, TP)),
+            "ffn_down": PM.ParamInfo((self.s_ff, D), P(TP, None)),
         }
 
     def layout(self) -> dict:
         cfg = self.cfg
         every = cfg.ssm.slstm_every
         groups = cfg.n_layers // every
+        div_v = cfg.vocab % self.model_axis == 0
+        div_d = cfg.d_model % self.model_axis == 0
+        emb_spec = P(TP, None) if div_v else (P(None, TP) if div_d else P(None, None))
+        head_spec = P(None, TP) if div_v else (P(TP, None) if div_d else P(None, None))
         return {
-            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), scale=0.02),
+            "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), emb_spec, scale=0.02),
             "groups": PM.stack(
                 groups,
                 {"mlstm": PM.stack(every - 1, self.mlstm_layout()), "slstm": self.slstm_layout()},
             ),
-            "final_ln": PM.ParamInfo((cfg.d_model,), "ones"),
-            "lm_head": PM.ParamInfo((cfg.d_model, cfg.vocab), scale=0.02),
+            "final_ln": PM.ParamInfo((cfg.d_model,), P(None), "ones"),
+            "lm_head": PM.ParamInfo((cfg.d_model, cfg.vocab), head_spec, scale=0.02),
         }
 
     def init_params(self, generator: torch.Generator) -> dict:
@@ -247,14 +255,17 @@ class XLSTM(nn.Module):
         cfg = self.cfg
         every = cfg.ssm.slstm_every
         H, W = self.H, cfg.ssm.conv_width
+        dp = dp_axes(self.mesh)
         f32 = dict(init="zeros", dtype="float32")
+        # H (4 heads) does not divide a 16-way model axis; the large per-head
+        # state dims shard on 'model' instead
         m_state = {
-            "C": PM.ParamInfo((batch, H, self.dqk, self.dv), **f32),
-            "n": PM.ParamInfo((batch, H, self.dqk), **f32),
-            "m": PM.ParamInfo((batch, H), **f32),
-            "conv": PM.ParamInfo((batch, W - 1, self.ed), "zeros"),
+            "C": PM.ParamInfo((batch, H, self.dqk, self.dv), P(dp, None, TP, None), **f32),
+            "n": PM.ParamInfo((batch, H, self.dqk), P(dp, None, TP), **f32),
+            "m": PM.ParamInfo((batch, H), P(dp, None), **f32),
+            "conv": PM.ParamInfo((batch, W - 1, self.ed), P(dp, None, TP), "zeros"),
         }
-        s_state = {name: PM.ParamInfo((batch, self.sh, self.sdh), **f32)
+        s_state = {name: PM.ParamInfo((batch, self.sh, self.sdh), P(dp, None, TP), **f32)
                    for name in ("c", "n", "m", "h")}
         return {"groups": PM.stack(cfg.n_layers // every,
                                    {"mlstm": PM.stack(every - 1, m_state), "slstm": s_state})}

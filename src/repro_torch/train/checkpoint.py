@@ -17,6 +17,15 @@ copied to the host before ``save`` returns, and the files are written on a
 background thread unless ``blocking``.  ``latest_step`` only ever returns
 committed checkpoints, so torn writes are invisible; ``prune`` keeps the
 newest ``keep``.
+
+Sharded state (the ZeRO-1 shards of ``optimizer.init_zero_state``):
+``save(..., shardings=)`` gathers each sharded leaf whole over its mesh
+before writing, so the files are JAX's full leaves; every rank calls it,
+rank 0 writes, and the call returns on every rank once the step is
+committed.  ``restore(..., shardings=)`` re-slices each leaf for this rank
+of any mesh (JAX's elastic restore, ``device_put`` onto new shardings): a
+state saved at one ``data`` size restores at another, or whole onto one
+device without ``shardings``.
 """
 
 from __future__ import annotations
@@ -78,10 +87,24 @@ class CheckpointManager:
         config_digest: str = "",
         mesh_shape: Optional[dict] = None,
         blocking: bool = False,
+        shardings=None,
     ) -> str:
+        """Write ``{"params", "opt"}`` at ``step``.  ``shardings``: a tree of
+        that structure whose leaves are ``mesh.NamedSharding`` (or None for a
+        whole leaf); the leaves are then this rank's shards, gathered here,
+        the call is collective and blocking, and only rank 0 writes."""
         self.wait()                                # one in-flight write max
         tree = {"params": params, "opt": opt_state}
-        host = [_to_numpy(t) for t in PM.tree_leaves(tree)]
+        leaves = PM.tree_leaves(tree)
+        mesh = None
+        if shardings is not None:
+            flat_sh = PM.tree_leaves(shardings)
+            leaves = [t if sh is None else sh.gather(t) for t, sh in zip(leaves, flat_sh)]
+            mesh = next(sh.mesh for sh in flat_sh if sh is not None)
+            if mesh.rank != 0:
+                mesh.barrier()                     # rank 0 has committed the step
+                return self._step_dir(step)
+        host = [_to_numpy(t) for t in leaves]
         manifest = {
             "step": int(step),
             "n_leaves": len(host),
@@ -113,12 +136,14 @@ class CheckpointManager:
             except Exception as err:  # surfaced on the next wait()
                 self._error = err
 
-        if self.async_write and not blocking:
+        if self.async_write and not blocking and mesh is None:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
         else:
             write()
             self.wait()
+            if mesh is not None:
+                mesh.barrier()
         return path
 
     def wait(self) -> None:
@@ -139,12 +164,15 @@ class CheckpointManager:
                 steps.append(int(name.split("_")[1]))
         return max(steps) if steps else None
 
-    def restore(self, step: Optional[int] = None, *, template=None):
+    def restore(self, step: Optional[int] = None, *, template=None, shardings=None):
         """Load a checkpoint into the structure of ``template``.
 
         ``template``: ``{"params": ..., "opt": ...}`` tree; each restored leaf
         lands on its template leaf's device, in the dtype the manifest
-        records.  Returns ``(step, params, opt_state, SamplerState)``.
+        records.  ``shardings``: a tree of that structure of
+        ``mesh.NamedSharding`` (None for a whole leaf); each leaf is then
+        this rank's shard, read from the file's slice alone.  Returns
+        ``(step, params, opt_state, SamplerState)``.
         """
         if template is None:
             raise ValueError("restore requires a structure template")
@@ -158,10 +186,14 @@ class CheckpointManager:
         if len(slots) != manifest["n_leaves"]:
             raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, the template "
                              f"{len(slots)}")
-        leaves = iter([
-            _from_numpy(np.load(os.path.join(path, f"leaf_{i:05d}.npy")), dtype, slot.device)
-            for i, (dtype, slot) in enumerate(zip(manifest["leaf_dtypes"], slots))
-        ])
+        flat_sh = PM.tree_leaves(shardings) if shardings is not None else [None] * len(slots)
+
+        def load(i: int, dtype: str, slot, sh):
+            a = np.load(os.path.join(path, f"leaf_{i:05d}.npy"), mmap_mode="r")
+            return _from_numpy(a if sh is None else a[sh.index(a.shape)], dtype, slot.device)
+
+        leaves = iter([load(i, dtype, slot, sh) for i, (dtype, slot, sh)
+                       in enumerate(zip(manifest["leaf_dtypes"], slots, flat_sh))])
         tree = PM.tree_map(lambda _: next(leaves), template)
         sampler = SamplerState(**manifest["sampler"])
         return step, tree["params"], tree["opt"], sampler

@@ -1,7 +1,7 @@
-"""AdamW with an fp32 master copy, and int8 gradient compression.
+"""AdamW with an fp32 master copy, ZeRO-1 state sharding and int8 gradient
+compression.
 
-The port of ``repro.train.optimizer`` without its ZeRO sharding specs,
-which wait for the multi-device slice.  The arithmetic is the JAX update's,
+The port of ``repro.train.optimizer``.  The arithmetic is the JAX update's,
 in the same order: global-norm clip in fp32, bias-corrected moments,
 decoupled weight decay, the new master cast to the parameter's dtype.  The
 schedule, the clip scale and the bias corrections stay 0-d tensors on the
@@ -15,6 +15,18 @@ fp32 temporaries (about a dozen the size of what is updated at once) would
 otherwise set the step's peak memory, 13.6 GiB above the state at
 xlstm-1.3b's 704 M-element stacked leaves.  Each element's arithmetic is the
 same either way.
+
+ZeRO-1: :func:`opt_state_specs` adds the ``data`` axis to the first
+unsharded, divisible dimension of each leaf's spec (JAX's rule,
+:func:`zero_spec_for`).  Where JAX leaves the split to pjit, the port does it
+by hand: :func:`init_zero_state` keeps only this rank's shard of ``master``,
+``mu`` and ``nu``, each a contiguous tensor of its own;
+:func:`zero_update_shards` updates the shards from the full synced
+gradient with :func:`adamw_update`'s own per-element arithmetic (the clip
+scale from the whole gradient, so the same on every rank), and
+:func:`gather_params` gathers the new parameter shards over ``data``, so
+that every rank holds the same parameters, bit for bit those
+:func:`adamw_update` gives on the whole leaves.
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..launch.mesh import NamedSharding
 from ..models import params as PM
 
 
@@ -86,33 +99,131 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
         return _adamw_update(grads, state, params, cfg)
 
 
-def _adamw_update(grads, state, params, cfg: AdamWConfig):
+def _step_scalars(grads, state, cfg: AdamWConfig) -> dict:
+    """Advance ``count``; the step's lr, global-norm clip scale (fp32, over
+    every leaf of ``grads``) and bias corrections, as 0-d device tensors."""
     lr = _schedule(cfg, state["count"])
     state["count"].add_(1)
     count = state["count"].float()
-
-    flat_g = PM.tree_leaves(grads)
-    gsq = sum(g.float().square().sum() for g in flat_g)
+    gsq = sum(g.float().square().sum() for g in PM.tree_leaves(grads))
     gnorm = torch.sqrt(gsq)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    b1c = 1 - cfg.b1 ** count
-    b2c = 1 - cfg.b2 ** count
+    return {"lr": lr, "gnorm": gnorm,
+            "scale": torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0),
+            "b1c": 1 - cfg.b1 ** count, "b2c": 1 - cfg.b2 ** count}
 
+
+def _update_leaf(p, g, mu, nu, master, k: dict, cfg: AdamWConfig) -> None:
+    """One leaf's (or one shard's) AdamW update in place, slice by slice."""
+    for p, g, mu, nu, master in _slices(p, g, mu, nu, master):
+        g = g.float() * k["scale"]
+        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
+        base = master if master is not None else p.float()
+        step = mu / k["b1c"] / (torch.sqrt(nu / k["b2c"]) + cfg.eps) + cfg.weight_decay * base
+        new = base - k["lr"] * step
+        if master is not None:
+            master.copy_(new)
+        p.copy_(new)
+
+
+def _masters(state, n: int) -> list:
+    return PM.tree_leaves(state["master"]) if "master" in state else [None] * n
+
+
+def _adamw_update(grads, state, params, cfg: AdamWConfig):
+    k = _step_scalars(grads, state, cfg)
     flat_p = PM.tree_leaves(params)
-    flat_ms = PM.tree_leaves(state["master"]) if "master" in state else [None] * len(flat_p)
-    for leaf in zip(flat_p, flat_g, PM.tree_leaves(state["mu"]), PM.tree_leaves(state["nu"]),
-                    flat_ms):
-        for p, g, mu, nu, master in _slices(*leaf):
-            g = g.float() * scale
-            mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-            nu.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
-            base = master if master is not None else p.float()
-            step = mu / b1c / (torch.sqrt(nu / b2c) + cfg.eps) + cfg.weight_decay * base
-            new = base - lr * step
-            if master is not None:
-                master.copy_(new)
-            p.copy_(new)
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+    for leaf in zip(flat_p, PM.tree_leaves(grads), PM.tree_leaves(state["mu"]),
+                    PM.tree_leaves(state["nu"]), _masters(state, len(flat_p))):
+        _update_leaf(*leaf, k, cfg)
+    return params, state, {"grad_norm": k["gnorm"], "lr": k["lr"]}
+
+
+# ------------------------------------------------------------- ZeRO specs
+def zero_spec_for(param_spec: tuple, shape: tuple[int, ...], data_size: int,
+                  axis: str = "data") -> tuple:
+    """Add the ``data`` axis to the first unsharded, divisible dimension."""
+    entries = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    for i, (e, s) in enumerate(zip(entries, shape)):
+        if e is None and data_size > 0 and s % data_size == 0 and s >= data_size:
+            entries[i] = axis
+            return PM.P(*entries)
+    return PM.P(*entries)
+
+
+def opt_state_specs(layout, mesh, cfg: AdamWConfig, axis: str = "data") -> dict:
+    """Sharding-spec tree matching ``init_opt_state``'s structure.  ``mesh``
+    needs only ``shape`` and ``axis_names`` (a stand-in serves)."""
+    data_size = mesh.shape[axis] if (mesh is not None and axis in mesh.axis_names) else 1
+    sharded = PM.tree_map(lambda i: zero_spec_for(i.spec, i.shape, data_size, axis), layout)
+    state = {"mu": sharded, "nu": sharded, "count": PM.P()}
+    if cfg.master_fp32:
+        state["master"] = sharded
+    return state
+
+
+def zero_shardings(layout, mesh, cfg: AdamWConfig) -> dict:
+    """:func:`opt_state_specs` over ``mesh`` as :class:`NamedSharding` s."""
+    return PM.tree_map(lambda spec: NamedSharding(mesh, spec),
+                       opt_state_specs(layout, mesh, cfg))
+
+
+def init_zero_state(params, shardings: dict, cfg: AdamWConfig) -> dict:
+    """This rank's shard of :func:`init_opt_state` (``shardings`` from
+    :func:`zero_shardings`): zero moments and the fp32 master of its part of
+    each leaf, and the int32 ``count``."""
+    per_leaf = shardings["mu"]
+    shards = PM.tree_map(lambda pair: pair[1].shard(pair[0].detach()),
+                         _zip(params, per_leaf))
+    device = PM.tree_leaves(params)[0].device
+    state = {
+        "mu": PM.tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device),
+                          shards),
+        "nu": PM.tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device),
+                          shards),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    if cfg.master_fp32:
+        state["master"] = PM.tree_map(lambda t: t.to(torch.float32), shards)
+    return state
+
+
+def _zip(*trees):
+    """A tree of tuples from trees of one structure (leaves in sorted-key order)."""
+    it = iter(zip(*(PM.tree_leaves(t) for t in trees)))
+    return PM.tree_map(lambda _: next(it), trees[0])
+
+
+@torch.no_grad()
+def zero_update_shards(grads, state, params, shardings: dict, cfg: AdamWConfig):
+    """The first half of the ZeRO-1 AdamW step: update this rank's state
+    shards (:func:`init_zero_state`) in place from ``grads``, the full synced
+    gradients, the same on every rank.  Returns the new parameter shards (a
+    list in leaf order) and ``{"grad_norm", "lr"}`` as :func:`adamw_update`
+    does; :func:`gather_params` is the second half."""
+    with torch.profiler.record_function("zero_update"):
+        k = _step_scalars(grads, state, cfg)
+        flat_p = PM.tree_leaves(params)
+        shards = []
+        for p, g, mu, nu, master, sh in zip(flat_p, PM.tree_leaves(grads),
+                                            PM.tree_leaves(state["mu"]),
+                                            PM.tree_leaves(state["nu"]),
+                                            _masters(state, len(flat_p)),
+                                            PM.tree_leaves(shardings["mu"])):
+            p_shard = sh.shard(p)
+            _update_leaf(p_shard, sh.shard(g), mu, nu, master, k, cfg)
+            shards.append(p_shard)
+    return shards, {"grad_norm": k["gnorm"], "lr": k["lr"]}
+
+
+@torch.no_grad()
+def gather_params(params, shards: list, shardings: dict):
+    """Gather every rank's new parameter ``shards`` (in leaf order) over the
+    mesh's ``data`` axis into ``params``, in place; return it."""
+    for p, p_shard, sh in zip(PM.tree_leaves(params), shards,
+                              PM.tree_leaves(shardings["mu"])):
+        p.copy_(sh.gather(p_shard))
+    return params
 
 
 def compress_int8(g, error):

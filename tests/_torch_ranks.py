@@ -1,0 +1,188 @@
+"""Rank bodies of the port's multi-rank CPU tests.
+
+Each runs in a process of a spawned ``gloo`` world (``mesh.run_ranks``), on
+the CPU, and returns numpy arrays and numbers for the test to check.  This
+module imports neither JAX nor the JAX package, so a spawned rank does not
+load them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import NamedSharding, make_test_mesh
+from repro_torch.models import build_model
+from repro_torch.models import params as PM
+from repro_torch.train import (AdamWConfig, CheckpointManager, DataParallelStep, adamw_update,
+                               init_error_state, init_opt_state, two_level_grad_sync,
+                               zero_shardings)
+
+TIMEOUT = 60.0
+
+
+def _np(tree):
+    return PM.tree_map(lambda t: t.detach().cpu().numpy() if torch.is_tensor(t) else t, tree)
+
+
+def _torch(tree):
+    return PM.tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def sync_grads(coords: dict, shapes: dict, seed: int) -> dict:
+    """One rank's gradients: multiples of 2^-8 in [-2, 2], drawn from
+    ``seed`` and the rank's (pod, data, model) coordinates, so that means
+    over two ranks are exact in fp32."""
+    rng = np.random.default_rng([seed, coords.get("pod", 0), coords["data"], coords["model"]])
+    return {k: (rng.integers(-512, 513, size=s) / 256.0).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def sync_world(rank: int, world: int, init: str, shapes: dict) -> dict:
+    """pod 2 x data 2 x model 2: the compressed sync twice (the second with
+    the first's errors), the plain one, identical inputs, a bf16 leaf, and
+    a mesh without ``pod`` over the same ranks."""
+    torch.set_num_threads(1)
+    mesh = make_test_mesh(data=2, model=2, pods=2, backend="gloo", init_method=init, rank=rank,
+                          timeout=TIMEOUT, device="cpu")
+    grads = _torch(sync_grads(mesh.coords, shapes, 0))
+    errors = init_error_state(grads)
+    out = {"coords": mesh.coords}
+    s1, e1 = two_level_grad_sync(grads, errors, mesh, compress=True)
+    s2, e2 = two_level_grad_sync(grads, e1, mesh, compress=True)
+    plain, same = two_level_grad_sync(grads, errors, mesh, compress=False)
+    out.update(synced1=_np(s1), errors1=_np(e1), synced2=_np(s2), errors2=_np(e2),
+               plain=_np(plain), plain_errors_same=same is errors,
+               inputs_kept=all(torch.equal(a, b) for a, b in
+                               zip(PM.tree_leaves(grads), PM.tree_leaves(_torch(
+                                   sync_grads(mesh.coords, shapes, 0))))))
+    # JAX's own check: replicated identical inputs
+    rng = np.random.default_rng(1)
+    same_in = {"w": torch.from_numpy(rng.normal(size=(64, 32)).astype(np.float32)),
+               "b": torch.from_numpy(rng.normal(size=(32,)).astype(np.float32))}
+    synced, new_err = two_level_grad_sync(same_in, init_error_state(same_in), mesh)
+    out["identical_rel_err"] = max(float((synced[k] - same_in[k]).abs().max()
+                                         / same_in[k].abs().max()) for k in same_in)
+    out["identical_residual"] = float(sum(v.abs().sum() for v in PM.tree_leaves(new_err)))
+    # a bf16 leaf: the plain mean over (data, pod) summed in fp32, rounded once
+    bf = {"g": grads["w"].to(torch.bfloat16) * 1.0078125}
+    bf_synced, _ = two_level_grad_sync(bf, init_error_state(bf), mesh, compress=False)
+    out["bf16_in"] = bf["g"].float().numpy()
+    out["bf16_synced"] = bf_synced["g"].float().numpy()
+    out["bf16_dtype"] = str(bf_synced["g"].dtype)
+    # the same world viewed as data 4 x model 2: no pod axis
+    flat = make_test_mesh(data=4, model=2, backend="gloo", timeout=TIMEOUT, device="cpu")
+    flat_synced, flat_err = two_level_grad_sync(grads, e1, flat, compress=True)
+    out.update(flat_coords=flat.coords, flat_synced=_np(flat_synced),
+               flat_errors_same=flat_err is e1)
+    return out
+
+
+def flash_world(rank: int, world: int, init: str, inputs: dict, valids: tuple) -> dict:
+    """data 2 x model 4: flash decoding of the whole cache, cut on its sequence
+    over ``model``; the output at each valid length and this rank's shard."""
+    from repro_torch.serve import make_flash_decode
+
+    torch.set_num_threads(1)
+    mesh = make_test_mesh(data=2, model=4, backend="gloo", init_method=init, rank=rank,
+                          timeout=TIMEOUT, device="cpu")
+    q, k, v = (torch.from_numpy(inputs[n]) for n in ("q", "k", "v"))
+    cut = NamedSharding(mesh, PM.P(None, None, "model", None))
+    k_shard, v_shard = cut.shard(k), cut.shard(v)
+    fn = make_flash_decode(mesh)
+    outs = [fn(q, k_shard, v_shard, valid).numpy() for valid in valids]
+    outs.append(fn(q, k_shard, v_shard, torch.tensor(valids[1])).numpy())
+    return {"coords": mesh.coords, "outs": outs, "k_shard": k_shard.numpy(),
+            "contiguous": k_shard.is_contiguous(),
+            "gathered": bool(torch.equal(cut.gather(k_shard), k))}
+
+
+def zero_world(rank: int, world: int, init: str, cfg, jparams: dict, batch: dict,
+               ckpt_dir: str, moe_cfg) -> dict:
+    """pod 2 x data 2 x model 1 on the qwen smoke config in fp32: the step in
+    parts against ``adamw_update``, the step whole, a second step, a ZeRO
+    checkpoint restored at data 4 on the same ranks."""
+    torch.set_num_threads(1)
+    mesh = make_test_mesh(data=2, model=1, pods=2, backend="gloo", init_method=init,
+                          rank=rank, timeout=TIMEOUT, device="cpu")
+    model = build_model(cfg, model_axis=1, mesh=mesh, device="cpu")
+    opt_cfg = AdamWConfig()
+    params = PM.params_from_jax(jparams, device="cpu", dtype=cfg.dtype)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    step = DataParallelStep(model, opt_cfg, mesh)
+    out = {"coords": mesh.coords, "rows": step.rows(batch)["tokens"].numpy()}
+
+    # step 1 in parts: the ZeRO-1 update against adamw_update on the same gradient
+    loss, _, grads = step.grads(params, batch)
+    synced = step.sync(grads)
+    ref_params = PM.tree_map(lambda t: t.clone(), params)
+    ref_params, ref_state, ref_m = adamw_update(synced, init_opt_state(ref_params, opt_cfg),
+                                                ref_params, opt_cfg)
+    zparams = PM.tree_map(lambda t: t.clone(), params)
+    zstate = step.init_opt_state(zparams)
+    zparams, zstate, zm = step.update(synced, zstate, zparams)
+    sh = step.shardings
+    out["update_equal"] = all(torch.equal(a, b) for a, b in
+                              zip(PM.tree_leaves(zparams), PM.tree_leaves(ref_params)))
+    out["state_equal"] = all(
+        torch.equal(shard, s.shard(full)) for key in ("mu", "nu", "master")
+        for shard, full, s in zip(PM.tree_leaves(zstate[key]), PM.tree_leaves(ref_state[key]),
+                                  PM.tree_leaves(sh[key])))
+    out["shards_contiguous"] = all(t.is_contiguous() for key in ("mu", "nu", "master")
+                                   for t in PM.tree_leaves(zstate[key]))
+    out["sharded_leaves"] = sum(t.shape != f.shape for t, f in
+                                zip(PM.tree_leaves(zstate["mu"]), PM.tree_leaves(ref_state["mu"])))
+    out["grad_norm_equal"] = bool(torch.equal(zm["grad_norm"], ref_m["grad_norm"]))
+    out["local_loss"] = float(loss)
+    out["synced"] = _np(synced)
+
+    # the step whole, from the same start
+    params, opt, m1 = step(params, step.init_opt_state(params), batch)
+    out["loss"] = float(m1["loss"])
+    out["call_equal"] = all(torch.equal(a, b) for a, b in
+                            zip(PM.tree_leaves(params), PM.tree_leaves(zparams)))
+    params, opt, m2 = step(params, opt, batch)
+    out["loss2"] = float(m2["loss"])
+    out["params"] = _np(params)
+    out["times"] = dict(step.times)
+    # a whole step with the compressed sync, on copies
+    step_c = DataParallelStep(model, opt_cfg, mesh, compress=True)
+    copies = PM.tree_map(lambda t: t.clone(), {"params": params, "opt": opt})
+    p_c, _, m_c = step_c(copies["params"], copies["opt"], batch)
+    out["compressed"] = {"loss": float(m_c["loss"]), "params": _np(p_c),
+                         "residual": float(sum(e.abs().sum()
+                                               for e in PM.tree_leaves(step_c.errors)))}
+
+    # elastic restore: save the ZeRO state, restore it at data 4 over the same ranks
+    ckpt = CheckpointManager(ckpt_dir, keep=1)
+    shardings = {"params": PM.tree_map(lambda _: None, params), "opt": sh}
+    ckpt.save(2, params, opt, shardings=shardings, mesh_shape=dict(mesh.shape))
+    wide = make_test_mesh(data=4, model=1, pods=1, backend="gloo", timeout=TIMEOUT,
+                          device="cpu")
+    wide_sh = zero_shardings(model.layout(), wide, opt_cfg)
+    _, p_b, o_b, _ = ckpt.restore(template={"params": params, "opt": opt},
+                                  shardings={"params": shardings["params"], "opt": wide_sh})
+    _, p_full, o_full, _ = ckpt.restore(template={"params": params, "opt": opt})
+    out["restored_params_equal"] = all(torch.equal(a, b) for a, b in
+                                       zip(PM.tree_leaves(p_b), PM.tree_leaves(params)))
+    out["restored_shards_equal"] = all(
+        torch.equal(got, s.shard(full)) for key in ("mu", "nu", "master")
+        for got, full, s in zip(PM.tree_leaves(o_b[key]), PM.tree_leaves(o_full[key]),
+                                PM.tree_leaves(wide_sh[key])))
+    out["restored_own_shards_equal"] = all(
+        torch.equal(mine, s.shard(full)) for key in ("mu", "nu", "master")
+        for mine, full, s in zip(PM.tree_leaves(opt[key]), PM.tree_leaves(o_full[key]),
+                                 PM.tree_leaves(sh[key])))
+    out["restored_count"] = int(o_b["count"])
+    out["wide_coords"] = wide.coords
+
+    # refusals: tensor parallelism, MoE over data-parallel ranks
+    tp = make_test_mesh(data=2, model=2, backend="gloo", timeout=TIMEOUT, device="cpu")
+    refused = []
+    for m, mdl in ((tp, model), (mesh, build_model(moe_cfg, model_axis=1, device="cpu"))):
+        try:
+            DataParallelStep(mdl, opt_cfg, m)
+        except NotImplementedError as err:
+            refused.append(str(err))
+    out["refused"] = refused
+    return out

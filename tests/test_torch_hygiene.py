@@ -51,7 +51,8 @@ def test_port_sources_found():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT}
     assert "repro_torch/models/lm.py" in names and "repro_torch/kernels/ops.py" in names
     for module in ("core/stripestore.py", "core/simclock.py", "fs/vfs.py", "fs/dataset.py",
-                   "train/hoardckpt.py"):
+                   "train/hoardckpt.py", "launch/mesh.py", "train/sync.py",
+                   "serve/flash_decoding.py"):
         assert f"repro_torch/{module}" in names
     assert SMOKE.is_file()
 
