@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only embedded # card, build, internvl2-2b's and Whisper's phases
     python3 chip_smoke.py --only hoard    # card, build and the Hoard data-plane phase
     python3 chip_smoke.py --only multi    # card, build and the 4-rank phase (phase 11)
+    python3 chip_smoke.py --only dryrun   # card, build, the H100 table and compute-plane checks
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -236,14 +237,30 @@ prints no result line):
    whole cache in bf16 and fp32.  Prints each step's ms, the sync, update
    and gather ms a step, the peak GiB a rank, and the card's name and
    power limit.
-12. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
+12. compute plane (PR 28's dry-run and roofline): ``check_h100_values``
+   after the kernel checks (the H100 table the meta route reads, against the
+   card's properties and ``rt_rmsnorm_bwd_vec_config``); then, after the
+   timed steps of the train, Hymba, deepseek, mixtral, internvl2 and Whisper
+   phases, one counted step of ``train.step_costs`` on the card and the same
+   step counted on the meta device with no weights (``dryrun_check``): (a)
+   FLOPs, traffic and every kernel's entries equal, (b) the meta live-bytes
+   peak within ``DRYRUN_TOL`` of ``max_memory_allocated`` over the counted
+   step, (c) the median step no faster than ``analytic_cell`` on mesh 1x1
+   (H100 constants); the xLSTM phase has none (its sLSTM loop takes minutes
+   to count on meta).  The train phase also runs ``run_scenario`` on the cut
+   workload of ``SCENARIO`` with ``hoard`` and ``posix``, its compute
+   ``RooflineCompute`` at qwen's measured step (``scenario_check``).
+   ``--only dryrun`` runs these alone, each cell on a random batch after 3
+   timed steps of its own.
+13. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
    ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"serve_deepseek":
    ...}`` (with the MoE decode checks' near-ties), ``{"serve_internvl2":
    ...}``, ``{"serve_whisper": ...}``, ``{"train": ...}``, ``{"hoard": ...}``,
    ``{"train_xlstm": ...}``, ``{"train_hymba": ...}``, ``{"train_deepseek":
    ...}`` and ``{"train_mixtral": ...}`` (with the fp32 loss checks'
    near-ties), ``{"train_internvl2": ...}``, ``{"train_whisper": ...}``,
-   ``{"multi": ...}`` and ``{"kernels": [...]}`` line, then the last line ``{"ok": true, "device":
+   ``{"multi": ...}``, ``{"h100_table": ...}`` and ``{"kernels": [...]}`` line, then the
+   last line ``{"ok": true, "device":
    {...}}``.
 """
 
@@ -3020,12 +3037,20 @@ def phase_train(kernel_modules) -> dict:
           f"{corpus['chunk_files']} chunk files, striped in {res['materialize_seconds']:.3f} s; "
           f"loader {load_ms:.3f} ms a step (median), {load_ms / step_ms:.4f} of the median step")
 
-    # tests/test_train.py::test_loss_decreases_on_fixed_batch at full width
+    # the compute plane: one counted step at the run's batch on fresh weights,
+    # held to its meta count and roofline; Hoard's scenario at qwen's step
     cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
     model = build_model(cfg, device="cuda")
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
     params, opt = init_train_state(model, torch.Generator().manual_seed(0), opt_cfg)
     rng = np.random.default_rng(0)
+    full = {name: torch.as_tensor(rng.integers(0, cfg.vocab, (TRAIN["batch"], TRAIN["seq"])))
+            .cuda() for name in ("tokens", "labels")}
+    dry = dryrun_check(model, params, opt, full, opt_cfg, "train", res["step_ms"], TRAIN["seq"])
+    del full
+    scenario = scenario_check(step_ms / 1e3)
+
+    # tests/test_train.py::test_loss_decreases_on_fixed_batch at full width
     batch = {name: torch.as_tensor(rng.integers(0, cfg.vocab, (4, 64))).cuda()
              for name in ("tokens", "labels")}
     step = make_train_step(model, opt_cfg)
@@ -3043,7 +3068,8 @@ def phase_train(kernel_modules) -> dict:
             "ckpt_seconds": res["ckpt_seconds"], "fixed_batch_losses": fixed,
             "load_ms": res["load_ms"], "median_load_ms": load_ms,
             "load_share_of_step": load_ms / step_ms,
-            "materialize_seconds": res["materialize_seconds"], **corpus}
+            "materialize_seconds": res["materialize_seconds"], **corpus,
+            "dryrun": dry, "scenario": scenario}
 
 
 def check_train_corpus(res: dict, data_root: str, vocab: int) -> dict:
@@ -3092,7 +3118,7 @@ def corpus_batches(spec, batch: int, data_root: str):
 
 
 def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag: str,
-                     want_routes: dict):
+                     want_routes: dict, dryrun: bool = True):
     """An architecture on the card.  First ``launch.train.main`` at its smoke
     config (seq 64, 2 steps, its checkpoint in a temporary directory under
     ``build/``), so the launcher's path runs on the card.  Then the full model
@@ -3105,6 +3131,7 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     modules checked to have taken every launch; the peak memory of those steps
     and of one more loss and gradient alone; then 8 steps on a fixed (2, 128)
     batch, whose loss must fall by 0.05.  Tokens are the batch's text tokens.
+    With ``dryrun``, one counted step after the timed ones (``dryrun_check``).
     Returns ``(model, params, result)``."""
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenDatasetSpec
@@ -3155,6 +3182,8 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
     counts, routes = read_counts(kernel_modules)
     peak = torch.cuda.max_memory_allocated()
     data_root.cleanup()
+    dry = (dryrun_check(model, params, opt, batch, opt_cfg, tag, step_ms, S) if dryrun
+           else None)
     # one more loss and its gradients on the last batch, no update: the peak of
     # the parameters, the optimizer state and what the model saves for its
     # backward (the scans' state among it), apart from the update's temporaries
@@ -3197,15 +3226,16 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
         "losses": losses, "step_ms": step_ms, "median_step_ms": median,
         "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak,
         "grad_peak_memory_bytes": grad_peak, "init_seconds": init_s,
-        "fixed_batch_losses": fixed, "launcher_smoke_losses": res["losses"]}
+        "fixed_batch_losses": fixed, "launcher_smoke_losses": res["losses"], "dryrun": dry}
 
 
 def phase_train_xlstm(kernel_modules) -> dict:
     """xlstm-1.3b: ``train_full_depth`` at batch 4 x 512, then one mLSTM and one
     sLSTM block timed.  Cut: the launcher's final checkpoint, 41 GB at this
-    size, is not written at full depth."""
+    size, is not written at full depth; no counted step (``dryrun_check``):
+    its 246033-launch sLSTM loop takes minutes to count on the meta device."""
     model, params, res = train_full_depth(XLSTM, XLSTM_TRAIN, XLSTM_PER_STEP, kernel_modules,
-                                          "train_xlstm", XLSTM_ROUTES)
+                                          "train_xlstm", XLSTM_ROUTES, dryrun=False)
     blocks = xlstm_block_ms(model, params, res["batch"], res["seq"])
     print(f"[train_xlstm] one block forward + backward at ({res['batch']}, {res['seq']}): "
           f"{blocks}")
@@ -3306,6 +3336,7 @@ def train_embedded(arch: str, shape: dict, per_step: dict, kernel_modules, tag: 
         counts, routes = read_counts(kernel_modules)
         peak = torch.cuda.max_memory_allocated()
         data_root.cleanup()
+        dry = dryrun_check(model, params, opt, batch, opt_cfg, tag, step_ms, dryrun_seq(cfg, S))
         if cfg.vlm is not None:
             rng = np.random.default_rng(0)
             fixed_batch = {name: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128))).cuda()
@@ -3342,7 +3373,7 @@ def train_embedded(arch: str, shape: dict, per_step: dict, kernel_modules, tag: 
             "shapes": {k: sorted(v) for k, v in shapes.items()},
             "losses": losses, "step_ms": step_ms, "median_step_ms": median,
             "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak, "init_seconds": init_s,
-            "fixed_batch_losses": fixed}
+            "fixed_batch_losses": fixed, "dryrun": dry}
 
 
 def phase_train_internvl2(kernel_modules) -> dict:
@@ -3942,6 +3973,216 @@ def xlstm_block_ms(model, params, B, S) -> dict:
     return out
 
 
+# ----------------------------------------------------------- compute plane
+#: (b): the meta live-bytes peak of a step within this share of the card's
+DRYRUN_TOL = 0.10
+#: D of the RMSNorm backward's rows on the train paths (kv_ln 512, qwen 1024,
+#: Hymba 1600, 2048, mixtral 4096), whose ``"vec"`` launch shape the meta route
+#: takes from the H100 table
+VEC_CONFIG_D = (512, 1024, 1600, 2048, 2560, 4096)
+#: the scenario of ``tests/test_compute_plane.py``'s ``CAL``: 1024 items of 1 KiB,
+#: 128 a step; the compute priced by qwen's measured step at 8 sequences a step
+SCENARIO = dict(dataset_items=1024, item_bytes=1024, batch_items=128, epochs=2, n_jobs=2,
+                items_per_step=TRAIN["batch"])
+
+
+def check_h100_values() -> dict:
+    """The card's values that the meta route reads from the package's H100
+    table: ``build.H100_SXM`` against ``torch.cuda.get_device_properties``,
+    and ``rmsnorm_bwd.vec_config_h100`` against the card's own
+    ``rt_rmsnorm_bwd_vec_config`` at every train path's row length."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm_bwd as kb
+
+    props = torch.cuda.get_device_properties(0)
+    card = {"sm_count": props.multi_processor_count,
+            "shared_memory_per_sm": getattr(props, "shared_memory_per_multiprocessor", None),
+            "shared_memory_per_block_optin": getattr(props, "shared_memory_per_block_optin",
+                                                     None)}
+    wrong = {k: (v, build.H100_SXM[k]) for k, v in card.items()
+             if v is not None and v != build.H100_SXM[k]}
+    vec = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for D in VEC_CONFIG_D:
+            if D * dt.itemsize > kb.VEC_MAX_ROW_BYTES:
+                continue
+            warps, per_sm = ctypes.c_int(), ctypes.c_int()
+            build.check(build.library().rt_rmsnorm_bwd_vec_config(
+                D, kb.DTYPES[dt], ctypes.byref(warps), ctypes.byref(per_sm)),
+                "rt_rmsnorm_bwd_vec_config")
+            got, want = (warps.value, per_sm.value), kb.vec_config_h100(D, dt)
+            vec[f"{D}_{str(dt)[6:]}"] = got
+            if got[0] != want[0] or min(got[1], kb.VEC_MAX_BLOCKS_PER_SM) != \
+                    min(want[1], kb.VEC_MAX_BLOCKS_PER_SM):
+                wrong[f"vec_config {D} {dt}"] = (got, want)
+    if wrong:
+        raise AssertionError(f"the H100 table of the meta route differs from the card: {wrong}")
+    unread = [k for k, v in card.items() if v is None]
+    print(f"[dryrun] H100 table = the card's: {card} (not read by this torch: {unread}); "
+          f"RMSNorm backward vec (warps, blocks an SM) {vec}")
+    return {"card": card, "unread": unread, "vec_config": vec}
+
+
+def dryrun_check(model, params, opt, batch: dict, opt_cfg, tag: str, step_ms: list,
+                 seq_len: int) -> dict:
+    """One counted train step on the card (``train.step_costs``, after the
+    phase's timed steps, the peak reset just before it) and the same model,
+    batch shapes and dtypes counted on the meta device with no weights.
+    (a) FLOPs, traffic and every kernel's entries equal exactly; (b) the
+    meta live-bytes peak within ``DRYRUN_TOL`` of ``max_memory_allocated``
+    over the counted step; (c) the median timed step (steps 2 on) no faster
+    than ``analytic_cell`` on mesh 1x1 at (batch, ``seq_len``) at the H100
+    constants.  Raises on any of the three."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.roofline.table import analytic_cell
+    from repro_torch.train import step_costs
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card = step_costs(model, batch, opt_cfg=opt_cfg, params=params, opt_state=opt)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    meta = step_costs(build_model(model.cfg, device="meta"),
+                      {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                       for k, v in batch.items()}, opt_cfg=opt_cfg)
+    meta_s = time.perf_counter() - t0
+    differ = [k for k in ("flops", "traffic_bytes", "kernels") if card[k] != meta[k]]
+    if differ:
+        raise AssertionError(f"[{tag}] (a) the card's count differs from meta's in {differ}: "
+                             f"card {[card[k] for k in differ]}, "
+                             f"meta {[meta[k] for k in differ]}")
+    peak_err = (meta["peak_bytes"] - measured) / measured
+    if abs(peak_err) > DRYRUN_TOL:
+        raise AssertionError(f"[{tag}] (b) meta peak {meta['peak_bytes']} B against the card's "
+                             f"{measured} B: {peak_err:+.4f}, beyond {DRYRUN_TOL}")
+    B = batch["tokens"].shape[0]
+    cell = analytic_cell(model.cfg, ShapeConfig(tag, seq_len, B, "train"), "1x1",
+                         n_params=PM.param_count(model.layout()))
+    median_s = statistics.median(step_ms[1:]) / 1e3
+    ratio = median_s / cell.step_time_s
+    if ratio < 1.0:
+        raise AssertionError(f"[{tag}] (c) the measured step {median_s} s is faster than its "
+                             f"roofline {cell.step_time_s} s: a count is wrong")
+    calls = {k: v["calls"] for k, v in card["kernels"].items()}
+    print(f"[dryrun] {tag}: (a) card = meta: {card['flops']:.6e} FLOPs ({card['matmul_flops']} "
+          f"matmul), {card['traffic_bytes']:.6e} B, kernel calls {calls}; (b) meta peak "
+          f"{meta['peak_bytes'] / 2**30:.3f} GiB, card {measured / 2**30:.3f} GiB "
+          f"({peak_err:+.4f}; at the start meta {meta['start_bytes'] / 2**30:.3f}, card "
+          f"{start / 2**30:.3f}; the card's own tracked peak {card['peak_bytes'] / 2**30:.3f}); "
+          f"(c) median step {median_s * 1e3:.3f} ms = {ratio:.3f} x its roofline "
+          f"{cell.step_time_s * 1e3:.3f} ms ({cell.bottleneck}: compute "
+          f"{cell.compute_s * 1e3:.3f}, memory {cell.memory_s * 1e3:.3f} ms); counted in "
+          f"{card_s:.2f} s on the card, {meta_s:.2f} s on meta")
+    return {"flops": card["flops"], "traffic_bytes": card["traffic_bytes"],
+            "matmul_flops": card["matmul_flops"], "kernel_calls": calls,
+            "meta_peak_bytes": meta["peak_bytes"], "card_peak_bytes": measured,
+            "peak_rel_err": peak_err, "meta_start_bytes": meta["start_bytes"],
+            "card_start_bytes": start, "card_tracked_peak_bytes": card["peak_bytes"],
+            "median_step_s": median_s, "roofline": cell.to_dict(),
+            "step_over_roofline": ratio, "card_count_s": card_s, "meta_count_s": meta_s}
+
+
+def scenario_check(step_s: float) -> dict:
+    """Hoard's question with a step measured on this card: ``run_scenario`` on
+    the cut workload with the ``hoard`` and ``posix`` backends, the compute
+    priced by ``RooflineCompute(step_s=qwen's median step, items_per_step=8)``;
+    each job's epoch times and its compute and I/O stall shares."""
+    from repro_torch.core import PAPER, RooflineCompute, ScenarioConfig, run_scenario
+
+    s = SCENARIO
+    cal = dataclasses.replace(PAPER, dataset_bytes=float(s["dataset_items"] * s["item_bytes"]),
+                              dataset_items=s["dataset_items"], batch_items=s["batch_items"])
+    compute = RooflineCompute(arch=ARCH, shape=f"{TRAIN['batch']}x{TRAIN['seq']}",
+                              mesh="1x1", step_s=step_s, items_per_step=s["items_per_step"])
+    out = {}
+    for backend in ("hoard", "posix"):
+        res = run_scenario(ScenarioConfig(backend=backend, epochs=s["epochs"],
+                                          n_jobs=s["n_jobs"], cal=cal, fill="prepopulated",
+                                          mdr=0.5, compute=compute))
+        jobs = []
+        for job in res.jobs:
+            total = sum(job.stall_breakdown.values())
+            if not (job.epoch_times and total > 0):
+                raise AssertionError(f"scenario {backend}: a job ran no epoch")
+            compute_share = job.stall_breakdown.get("compute", 0.0) / total
+            jobs.append({"epoch_times": job.epoch_times, "compute_share": compute_share,
+                         "io_stall_share": 1.0 - compute_share,
+                         "stall_breakdown": job.stall_breakdown})
+            print(f"[scenario] {backend} {job.job_id}: epochs "
+                  f"{job.epoch_times} s, compute {compute_share:.4f}, I/O stall "
+                  f"{1.0 - compute_share:.4f} of the accounted time")
+        out[backend] = jobs
+    return {"step_s": step_s, **SCENARIO, "backends": out}
+
+
+#: --only dryrun's cells: (tag, arch, batch, text tokens, layers, frames), the phases' sizes
+DRYRUN_CELLS = (("train", ARCH, TRAIN["batch"], TRAIN["seq"], None, 0),
+                ("train_hymba", HYMBA, HYMBA_TRAIN["batch"], HYMBA_TRAIN["seq"], None, 0),
+                ("train_deepseek", DEEPSEEK, DEEPSEEK_TRAIN["batch"], DEEPSEEK_TRAIN["seq"],
+                 DEEPSEEK_TRAIN["layers"], 0),
+                ("train_mixtral", MIXTRAL, MIXTRAL_TRAIN["batch"], MIXTRAL_TRAIN["seq"],
+                 MIXTRAL_TRAIN["layers"], 0),
+                ("train_internvl2", INTERNVL, INTERNVL_TRAIN["batch"], INTERNVL_TRAIN["seq"],
+                 None, 0),
+                ("train_whisper", WHISPER, WHISPER_TRAIN["batch"], WHISPER_TRAIN["seq"], None,
+                 WHISPER_TRAIN["frames"]))
+
+
+def dryrun_seq(cfg, text: int) -> int:
+    """The positions a train cell's roofline prices: the text tokens and a
+    VLM's image prefix; Whisper's decoder tokens (its 1500 frames are not
+    priced, so the roofline stays a floor)."""
+    return text + (cfg.vlm.n_image_tokens if cfg.vlm is not None else 0)
+
+
+def only_dryrun(gen, ops, ref, rate) -> list:
+    """The H100 table, then each train cell at its phase's size: parameters
+    drawn on the card, 3 steps of ``make_train_step`` on a random batch timed,
+    ``dryrun_check``; then ``scenario_check`` with qwen's step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    rows = [{"h100_table": check_h100_values()}]
+    qwen_s = None
+    for tag, arch, B, S, layers, frames in DRYRUN_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = ARCHS[arch] if layers is None else dataclasses.replace(ARCHS[arch],
+                                                                     n_layers=layers)
+        model = build_model(cfg, device="cuda")
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10)
+        params, opt = init_train_state(model, torch.Generator(device="cuda").manual_seed(0),
+                                       opt_cfg)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=g, device="cuda")
+                 for k in ("tokens", "labels")}
+        batch.update(embeddings(cfg, B, frames, g, "cuda", model.dtype))
+        step = make_train_step(model, opt_cfg)
+        step_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            float(metrics["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append({tag: dryrun_check(model, params, opt, batch, opt_cfg, tag, step_ms,
+                                       dryrun_seq(cfg, S))})
+        if tag == "train":
+            qwen_s = statistics.median(step_ms[1:]) / 1e3
+        del model, params, opt, batch, metrics, step
+    rows.append({"scenario": scenario_check(qwen_s)})
+    return rows
+
+
 #: kernel -> (what it replaces, source)
 REPLACES = {
     "rmsnorm": ("src/repro/kernels/rmsnorm.py:19", "csrc/rmsnorm.cu"),
@@ -4021,7 +4262,7 @@ def only_embedded(gen, ops, ref, rate) -> list:
 ONLY = {"mlstm": check_mlstm, "ssd": check_ssd,
         "decode": lambda *a: (check_decode_attention(*a),), "flash": check_flash,
         "serve": only_serve, "embedded": only_embedded, "hoard": only_hoard,
-        "multi": only_multi}
+        "multi": only_multi, "dryrun": only_dryrun}
 
 
 def main(argv: list[str]) -> None:
@@ -4052,6 +4293,7 @@ def main(argv: list[str]) -> None:
         rows.update(zip(names, found if len(names) > 1 else (found,)))
         torch.cuda.synchronize()
         print(f"[kernels] {check.__name__} done at {time.perf_counter() - t0:.1f} s")
+    h100 = check_h100_values()
     for phase in (phase_full_width, phase_full_width_grad, phase_xlstm_full_width,
                   phase_hymba_full_width, phase_internvl2_full_width, phase_whisper_full_width):
         phase()
@@ -4090,6 +4332,7 @@ def main(argv: list[str]) -> None:
             "bound_ms", "bound_by", "library_ms")
     for run, res in runs.items():
         print(json.dumps({run: res}))
+    print(json.dumps({"h100_table": h100}))
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: v for k, v in r.items() if k not in keys}}
                                   for r in rows.values()]}))

@@ -8,7 +8,9 @@ ported: ``moe`` (:class:`MoEConfig`, mixtral-8x7b and deepseek-v2-lite-16b),
 ``mla`` (:class:`MLAConfig`, deepseek-v2-lite-16b), ``ssm``
 (:class:`SSMConfig`, xLSTM and Hymba's SSM heads), ``encdec``
 (:class:`EncDecConfig`, whisper-large-v3), ``vlm`` (:class:`VLMConfig`,
-internvl2-2b) and ``hybrid`` (:class:`HybridConfig`, Hymba).
+internvl2-2b) and ``hybrid`` (:class:`HybridConfig`, Hymba).  The four
+shape cells of the dry-run and the roofline table (:class:`ShapeConfig`,
+``ALL_SHAPES``) and ``shape_applicable`` are JAX's, field for field.
 """
 
 from __future__ import annotations
@@ -159,3 +161,40 @@ class ModelConfig:
         if self.sliding_window:
             cfg = replace(cfg, sliding_window=64)
         return cfg
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned (input-shape x step-kind) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic attention: SSM, hybrid, or a sliding window."""
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            cfg.family in ("ssm", "hybrid")
+            or (cfg.sliding_window > 0 and cfg.family in ("moe", "dense"))
+        )
+        if not sub_quadratic:
+            return (
+                False,
+                "pure full-attention arch: 512k-token decode reserved for SSM/hybrid/windowed",
+            )
+    return True, ""

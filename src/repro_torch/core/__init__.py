@@ -12,10 +12,12 @@ files, CRCs, manifests, replica choices and simulated clock times:
 * ``HoardLoader`` + backends               — transparent iterators
 * ``FillTracker`` / ``WritePlane``         — fill and write planes under HoardFS
 * ``Telemetry`` / ``Tracer``               — flow spans, timelines, stall classes
-* ``build_cluster``                        — the paper's cluster in one call
-
-Not ported yet: the elastic rebalancer, the multi-tenant workload engine
-with ``run_scenario``, and ``RooflineCompute``.
+* ``Rebalancer`` / ``MembershipEpoch``     — elastic membership + online re-striping
+* ``ClusterScheduler`` / ``WorkloadJob``   — the multi-tenant workload engine
+* ``run_scenario`` / ``build_cluster``     — one-call experiment harness
+* ``ConstantCompute`` / ``RooflineCompute`` — the compute plane: the paper's
+  AlexNet constant, or a step priced by the port's H100 roofline table (or
+  measured on the card)
 """
 
 from .cache import (
@@ -28,8 +30,14 @@ from .cache import (
     DatasetStat,
     EvictionPolicy,
 )
-from .calibration import PAPER, ComputeModel, ConstantCompute, WorkloadCalibration
-from .cluster import build_cluster
+from .calibration import (
+    PAPER,
+    ComputeModel,
+    ConstantCompute,
+    RooflineCompute,
+    WorkloadCalibration,
+)
+from .cluster import ScenarioConfig, ScenarioResult, build_cluster, run_scenario
 from .loader import (
     HoardBackend,
     HoardLoader,
@@ -43,6 +51,13 @@ from .metrics import ClusterMetrics, JobMetrics
 from .placement import JobSpec, Placement, PlacementEngine
 from .prefetch import FillTracker, PrefetchScheduler
 from .readsched import ReadScheduler
+from .rebalance import (
+    ChunkMove,
+    MembershipEpoch,
+    RebalanceError,
+    RebalancePlan,
+    Rebalancer,
+)
 from .simclock import AllOf, Event, Resource, SimClock
 from .stripestore import (
     MANIFEST_SCHEMA_VERSION,
@@ -61,6 +76,13 @@ from .telemetry import (
 )
 from .tiers import LRUCache, LRUStackModel, PagePool, buffer_cache_items
 from .topology import Node, Topology, TopologyConfig
+from .workload import (
+    ClusterScheduler,
+    JobRecord,
+    WorkloadJob,
+    WorkloadResult,
+    stable_seed,
+)
 from .writeplane import (
     WRITE_BACK,
     WRITE_POLICIES,
@@ -71,15 +93,16 @@ from .writeplane import (
 
 __all__ = [
     "AllOf", "CacheEntry", "CacheEvent", "CacheFullError", "CacheManager",
-    "CacheState", "ChunkCodec", "ChunkCorruption", "ClusterMetrics",
-    "ComputeModel", "ConstantCompute", "DatasetSpec", "DatasetStat", "Event",
-    "EvictionPolicy", "FillTracker", "FlowTag", "HoardBackend", "HoardLoader",
-    "JobMetrics", "JobResult", "JobSpec", "LRUCache", "LRUStackModel",
-    "LocalCopyBackend", "MANIFEST_SCHEMA_VERSION", "Node", "PAPER", "PagePool",
-    "Placement", "PlacementEngine", "PrefetchScheduler", "ReadScheduler",
-    "RemoteBackend", "Resource", "ResourceSampler", "STALL_CLASSES", "SimClock",
-    "StripeDataPlane", "StripeError", "StripeManifest", "StripeStore", "Telemetry",
-    "Topology", "TopologyConfig", "Tracer", "TrainingJob", "WRITE_BACK",
-    "WRITE_POLICIES", "WRITE_THROUGH", "WorkloadCalibration", "WritePlane",
-    "buffer_cache_items", "build_cluster", "rollup_stalls",
+    "CacheState", "ChunkCodec", "ChunkCorruption", "ChunkMove", "ClusterMetrics",
+    "ClusterScheduler", "ComputeModel", "ConstantCompute", "DatasetSpec", "DatasetStat",
+    "Event", "EvictionPolicy", "FillTracker", "FlowTag", "HoardBackend", "HoardLoader",
+    "JobMetrics", "JobRecord", "JobResult", "JobSpec", "LRUCache", "LRUStackModel",
+    "LocalCopyBackend", "MANIFEST_SCHEMA_VERSION", "MembershipEpoch", "Node", "PAPER",
+    "PagePool", "Placement", "PlacementEngine", "PrefetchScheduler", "ReadScheduler",
+    "RebalanceError", "RebalancePlan", "Rebalancer", "RemoteBackend", "Resource",
+    "ResourceSampler", "RooflineCompute", "STALL_CLASSES", "ScenarioConfig", "ScenarioResult",
+    "SimClock", "StripeDataPlane", "StripeError", "StripeManifest", "StripeStore", "Telemetry",
+    "Topology", "TopologyConfig", "Tracer", "TrainingJob", "WRITE_BACK", "WRITE_POLICIES",
+    "WRITE_THROUGH", "WorkloadCalibration", "WorkloadJob", "WorkloadResult", "WritePlane",
+    "buffer_cache_items", "build_cluster", "rollup_stalls", "run_scenario", "stable_seed",
 ]

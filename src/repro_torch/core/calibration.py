@@ -53,8 +53,10 @@ data from Table 2 / Section 4.5 and lives in ``topology.TopologyConfig``.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
-from typing import ClassVar, Optional, Protocol, runtime_checkable
+from pathlib import Path
+from typing import ClassVar, Optional, Protocol, Union, runtime_checkable
 
 MB = 1e6
 GB = 1e9
@@ -116,11 +118,14 @@ PAPER = WorkloadCalibration()
 # ---------------------------------------------------------------------------
 # The compute plane: the GPU-time model as a swappable object.
 #
-# ``TrainingJob`` prices each step through a ``ComputeModel``; the default,
-# ``ConstantCompute``, is the paper's AlexNet calibration, bit-identical to
-# ``cal.compute_time_per_step()``.  The JAX package's ``RooflineCompute``
-# (per-model time from its TPU-calibrated roofline table) has no H100
-# counterpart in the port yet.
+# ``TrainingJob`` prices each step through a ``ComputeModel``:
+#
+# * ``ConstantCompute``  — the paper's AlexNet calibration, bit-identical to
+#   ``cal.compute_time_per_step()``;
+# * ``RooflineCompute``  — per-(arch x shape x mesh) step time from the port's
+#   H100 roofline table (``repro_torch/roofline/h100_table.json``,
+#   ``max(compute, memory, collective)`` at the H100 SXM's rates — see
+#   ``repro_torch.roofline.table``), or a step time measured on a card.
 # ---------------------------------------------------------------------------
 
 @runtime_checkable
@@ -150,11 +155,87 @@ class ConstantCompute:
         return batch_items / self.cal.gpu_fps
 
 
+def _default_table_path() -> Path:
+    # src/repro_torch/core/calibration.py -> src/repro_torch/roofline/h100_table.json
+    return Path(__file__).resolve().parents[1] / "roofline" / "h100_table.json"
+
+
+@dataclass(frozen=True)
+class RooflineCompute:
+    """Per-model GPU time from one roofline table cell.
+
+    The cell's ``step_time_s`` prices a full global batch of
+    ``items_per_step`` items (the shape's ``global_batch``); other batch
+    sizes scale linearly — the roofline terms are all per-token.  A step
+    time measured on a card serves as well:
+    ``RooflineCompute(arch, shape, mesh, step_s=..., items_per_step=...)``.
+
+    Construct via :meth:`from_roofline`, which reads the port's committed
+    H100 table (regenerated in-process when it is absent).
+    """
+
+    arch: str
+    shape: str
+    mesh: str
+    step_s: float
+    items_per_step: int
+    bottleneck: str = ""
+    name: ClassVar[str] = "roofline"
+
+    def step_time_s(self, batch_items: int) -> float:
+        return self.step_s * (batch_items / self.items_per_step)
+
+    @classmethod
+    def from_roofline(
+        cls,
+        arch: str,
+        shape: str = "train_4k",
+        mesh: str = "64x4",
+        *,
+        table: Union[None, str, Path, dict] = None,
+    ) -> "RooflineCompute":
+        """Load one (arch x shape x mesh) cell from the roofline table.
+
+        ``table`` is the committed ``repro_torch/roofline/h100_table.json`` by
+        default; pass a path or an already-loaded table dict to override.  A
+        missing default table is regenerated in-process.
+        """
+        if isinstance(table, dict):
+            data = table
+        else:
+            path = Path(table) if table is not None else _default_table_path()
+            if path.exists():
+                data = json.loads(path.read_text())
+            elif table is None:
+                from ..roofline.table import generate_table  # lazy: builds the layouts
+
+                data = generate_table()
+            else:
+                raise FileNotFoundError(f"calibration table not found: {path}")
+        key = f"{arch}|{shape}|{mesh}"
+        cells = data.get("cells", {})
+        if key not in cells:
+            sample = ", ".join(sorted(cells)[:6])
+            raise KeyError(
+                f"no calibration cell {key!r} (have {len(cells)}: {sample}, ...); "
+                f"regenerate with `python -m repro_torch.roofline.table --write`"
+            )
+        cell = cells[key]
+        return cls(
+            arch=arch,
+            shape=shape,
+            mesh=mesh,
+            step_s=float(cell["step_time_s"]),
+            items_per_step=int(cell["items_per_step"]),
+            bottleneck=str(cell.get("bottleneck", "")),
+        )
+
+
 def validate_compute(compute: Optional[ComputeModel], where: str) -> None:
     """Construction-time check for typed ``compute=`` fields."""
     if compute is not None and not callable(getattr(compute, "step_time_s", None)):
         raise TypeError(
             f"{where} must implement ComputeModel.step_time_s(batch_items) "
-            f"(e.g. ConstantCompute), "
+            f"(e.g. ConstantCompute / RooflineCompute.from_roofline(...)), "
             f"got {type(compute).__name__}"
         )

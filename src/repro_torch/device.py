@@ -2,7 +2,9 @@
 
 The default device is ``"cuda"``.  When CUDA is not available and the caller
 did not ask for the CPU, :func:`resolve` raises instead of carrying on quietly
-on the CPU.
+on the CPU.  ``"meta"`` (tensors with shapes and dtypes but no storage) is
+taken only when the caller names it: the dry-run (``launch/dryrun.py``) runs
+the card's path there without a card.
 """
 
 from __future__ import annotations
@@ -20,6 +22,6 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda', 'cpu' or 'meta'")
     return dev

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
 ``ops`` dispatches on the tensor's device: CUDA launches the kernel built by
-``build`` from ``csrc/``, the CPU takes the plain version in ``ref``.  Each
-kernel module keeps a ``launches`` count of its kernel launches.
+``build`` from ``csrc/``, the CPU takes the plain version in ``ref``, meta
+runs the card's path short of the launch (the dry-run's).  Each kernel
+module keeps a ``launches`` count of its kernel launches; ``cost`` prices a
+call for the step counter.
 """
 
 from . import (

@@ -12,6 +12,13 @@ backward, the SwiGLU backward, decode attention, the SSD scan's and the
 mLSTM scan's tensor-core wrappers go through it, and so can any other.
 
 No ``nvcc`` means no kernels: :func:`library` raises.
+
+The meta route: a wrapper given tensors on the meta device runs every line
+it runs on the card (its checks, its route, its allocations) and skips only
+the launch, which :func:`launch` does there without building anything.
+Where a route reads the card (the SM count, shared memory), it takes the
+H100 SXM's values from :data:`H100_SXM`, which ``chip_smoke.py`` holds
+against the card's own.  Nothing on the meta device is counted.
 """
 
 from __future__ import annotations
@@ -34,6 +41,17 @@ SOURCES = ("rmsnorm.cu", "swiglu.cu", "decode_attention.cu", "flash_attention.cu
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: what the routes read of the card, as an NVIDIA H100 SXM5 80GB reports it
+#: (NVIDIA H100 Tensor Core GPU datasheet and the Hopper tuning guide: 132
+#: SMs, 228 KB of shared memory an SM, 227 KB a block by opt-in, 1 KB of it
+#: reserved a block); the meta route reads these in place of the card
+H100_SXM = {
+    "sm_count": 132,
+    "shared_memory_per_sm": 233472,
+    "shared_memory_per_block_optin": 232448,
+    "reserved_shared_memory_per_block": 1024,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -147,8 +165,19 @@ def library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """The SM count of a CUDA device, read once."""
+    """The SM count of a CUDA device, read once; :data:`H100_SXM`'s on the meta device."""
+    if device.type == "meta":
+        return H100_SXM["sm_count"]
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def on_card(name: str, *tensors) -> None:
+    """Raise unless every tensor lies on the first one's device, and that is a
+    CUDA device or the meta device (the card's path short of its launches)."""
+    dev = tensors[0].device
+    if not all((t.is_cuda or t.is_meta) and t.device == dev for t in tensors):
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}, "
+                         "expected one GPU (or the meta device)")
 
 
 def check(err: int, name: str) -> None:
@@ -157,9 +186,10 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def launch(fn, name: str, device: torch.device, *args) -> None:
-    """Call the C entry point ``fn(*args, stream)`` on PyTorch's current stream
-    of ``device`` and raise if it reports an error.
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name(*args, stream)`` on PyTorch's current stream
+    of ``device`` and raise if it reports an error; on the meta device, do
+    nothing (nothing is built either).
 
     The stream's raw handle comes from ``torch._C._cuda_getCurrentRawStream``,
     the call PyTorch's own compiler launches its kernels with: no device
@@ -167,6 +197,9 @@ def launch(fn, name: str, device: torch.device, *args) -> None:
     serving shape is as long as the kernel.  Only where ``device`` is not the
     current device does the launch enter it, so that the kernel runs there.
     """
+    if device.type == "meta":
+        return
+    fn = getattr(library(), name)
     idx = device.index
     if idx == torch.cuda.current_device():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))

@@ -135,9 +135,7 @@ _sm_count = build.sm_count
 def _check_key(q, k_cache, v_cache) -> tuple[bool, SplitPlan]:
     """Raise unless one GPU and :func:`check_args` take the arguments;
     (:func:`_split_shape`, the split plan on this card)."""
-    if not all(t.is_cuda and t.device == q.device for t in (q, k_cache, v_cache)):
-        raise ValueError(f"decode_attention: tensors on "
-                         f"{[str(t.device) for t in (q, k_cache, v_cache)]}, expected one GPU")
+    build.on_card("decode_attention", q, k_cache, v_cache)
     check_args(q, k_cache, v_cache)
     B, Hq, _, hd = q.shape
     _, Hkv, S, _ = k_cache.shape
@@ -152,17 +150,16 @@ def launch(route_name: str, q, k_cache, v_cache, valid_len: torch.Tensor, window
     B, Hq, _, hd = q.shape
     _, Hkv, S, _ = k_cache.shape
     out = torch.empty_like(q)
-    lib = build.library()
     scale = float(hd ** -0.5)
     if route_name == "simt":
-        build.launch(lib.rt_decode_attention, "rt_decode_attention", q.device, q.data_ptr(),
+        build.launch("rt_decode_attention", q.device, q.data_ptr(),
                      k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
                      out.data_ptr(), B, Hkv, Hq // Hkv, S, hd, int(window), scale,
                      DTYPES[q.dtype])
         return out
     part = (torch.empty(B * Hq * plan.n_split * (hd + 2), dtype=torch.float32, device=q.device)
             if plan.n_split > 1 else None)
-    build.launch(lib.rt_decode_attention_split, "rt_decode_attention_split", q.device,
+    build.launch("rt_decode_attention_split", q.device,
                  q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
                  out.data_ptr(), None if part is None else part.data_ptr(), B, Hkv, Hq // Hkv,
                  S, hd, int(window), plan.n_split, plan.span, scale, DTYPES[q.dtype])
@@ -170,7 +167,8 @@ def launch(route_name: str, q, k_cache, v_cache, valid_len: torch.Tensor, window
 
 
 def decode_attention_cuda(q, k_cache, v_cache, valid_len, *, window: int = 0) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; ``valid_len``: scalar or (B,)."""
+    """Launch the kernel on CUDA tensors; ``valid_len``: scalar or (B,).  On meta
+    tensors everything but the launch runs and nothing is counted."""
     global launches
     split_ok, plan = build.checked_once(
         _checked, (q.shape, k_cache.shape, v_cache.shape, q.dtype, k_cache.dtype,
@@ -187,6 +185,7 @@ def decode_attention_cuda(q, k_cache, v_cache, valid_len, *, window: int = 0) ->
         return torch.empty_like(q)
     name = "split" if split_ok and _aligned(q, k_cache, v_cache) else "simt"
     out = launch(name, q, k_cache, v_cache, vl, window, plan)
-    launches += 1
-    route_launches[name] += 1
+    if q.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return out

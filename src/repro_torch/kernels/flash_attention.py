@@ -64,13 +64,6 @@ def check_args(q, k, v) -> None:
         raise ValueError(f"flash_attention: v's hd {v.shape[3]} > q and k's {hd}")
 
 
-def on_one_gpu(name: str, *tensors) -> None:
-    """Raise unless every tensor lies on the first one's CUDA device."""
-    if not all(t.is_cuda and t.device == tensors[0].device for t in tensors):
-        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}, "
-                         "expected one GPU")
-
-
 def route(q, k, v) -> str:
     """The kernel that takes these (checked, contiguous) arguments, one of :data:`ROUTES`."""
     if (q.dtype != torch.bfloat16 or (q.shape[-1], v.shape[-1]) not in TC_WIDTHS
@@ -81,7 +74,6 @@ def route(q, k, v) -> str:
 
 def launch(route_name: str, q, k, v, *, causal: bool, window: int, q_offset: int):
     """Run ``route_name``'s kernel on checked contiguous CUDA tensors; the caller counts."""
-    lib = build.library()
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, hdv = v.shape
     out = q.new_empty((B, Hq, Sq, hdv))
@@ -89,20 +81,18 @@ def launch(route_name: str, q, k, v, *, causal: bool, window: int, q_offset: int
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B, Hq, Hkv, Sq, Skv, hd, hdv, int(causal), int(window), int(q_offset),
             float(hd ** -0.5))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route_name == "wgmma":
-            build.check(lib.rt_flash_attention_tc(*args, stream), "rt_flash_attention_tc")
-        else:
-            build.check(lib.rt_flash_attention(*args, DTYPES[q.dtype], stream),
-                        "rt_flash_attention")
+    if route_name == "wgmma":
+        build.launch("rt_flash_attention_tc", q.device, *args)
+    else:
+        build.launch("rt_flash_attention", q.device, *args, DTYPES[q.dtype])
     return out, lse
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
-    """Launch the kernel on CUDA tensors; returns ``(out, lse)``."""
+    """Launch the kernel on CUDA tensors; returns ``(out, lse)``.  On meta
+    tensors everything but the launch runs and nothing is counted."""
     global launches
-    on_one_gpu("flash_attention", q, k, v)
+    build.on_card("flash_attention", q, k, v)
     check_args(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.numel() == 0:
@@ -110,6 +100,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0, q_off
             q.shape[:3], dtype=torch.float32, device=q.device)
     name = route(q, k, v)
     out = launch(name, q, k, v, causal=causal, window=window, q_offset=q_offset)
-    launches += 1
-    route_launches[name] += 1
+    if q.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return out

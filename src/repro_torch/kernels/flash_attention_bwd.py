@@ -48,7 +48,6 @@ def route(q, k, v, out, dout) -> str:
 def launch(route_name: str, q, k, v, out, lse, dout, *, causal: bool, window: int,
            q_offset: int):
     """Run ``route_name``'s kernels on checked contiguous CUDA tensors; the caller counts."""
-    lib = build.library()
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, hdv = v.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -57,13 +56,10 @@ def launch(route_name: str, q, k, v, out, lse, dout, *, causal: bool, window: in
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
             B, Hq, Hkv, Sq, Skv, hd, hdv, int(causal), int(window), int(q_offset),
             float(hd ** -0.5))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route_name == "wgmma":
-            build.check(lib.rt_flash_attention_bwd_tc(*args, stream), "rt_flash_attention_bwd_tc")
-        else:
-            build.check(lib.rt_flash_attention_bwd(*args, flash_attention.DTYPES[q.dtype], stream),
-                        "rt_flash_attention_bwd")
+    if route_name == "wgmma":
+        build.launch("rt_flash_attention_bwd_tc", q.device, *args)
+    else:
+        build.launch("rt_flash_attention_bwd", q.device, *args, flash_attention.DTYPES[q.dtype])
     return dq, dk, dv
 
 
@@ -75,7 +71,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True, wi
     model's (B, S, H * hd) gradient); it is copied to a contiguous tensor.
     """
     global launches
-    flash_attention.on_one_gpu("flash_attention_bwd", q, k, v, out, lse, dout)
+    build.on_card("flash_attention_bwd", q, k, v, out, lse, dout)
     flash_attention.check_args(q, k, v)
     want = (*q.shape[:3], v.shape[3])
     if out.shape != want or dout.shape != want or lse.shape != q.shape[:3]:
@@ -91,6 +87,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True, wi
     name = route(q, k, v, out, dout)
     grads = launch(name, q, k, v, out, lse, dout, causal=causal, window=window,
                    q_offset=q_offset)
-    launches += 1
-    route_launches[name] += 1
+    if q.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return grads

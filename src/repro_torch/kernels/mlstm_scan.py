@@ -39,7 +39,6 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .flash_attention import on_one_gpu
 from .ref import mlstm_chunk_len
 
 #: wrapper calls that launched the kernels since the count was last set to 0
@@ -138,7 +137,6 @@ def strides(*tensors) -> ctypes.Array:
 def launch(route_name: str, q, k, v, i_raw, log_f, L: int):
     """Run ``route_name``'s kernels on checked CUDA tensors; the caller counts.
     Returns ``(h, saved)``."""
-    lib = build.library()
     B, H, S, dqk = q.shape
     dv = v.shape[-1]
     nc = S // L
@@ -153,7 +151,7 @@ def launch(route_name: str, q, k, v, i_raw, log_f, L: int):
             n=torch.empty((B, H, nc, dqk), **f32), den=torch.empty((B, H, S), **f32),
             qn=torch.empty((B, H, S), **f32),
         )
-        build.launch(lib.rt_mlstm_scan_tc, "rt_mlstm_scan_tc", dev,
+        build.launch("rt_mlstm_scan_tc", dev,
                      *(t.data_ptr() for t in (q, k, v, i_raw, log_f, *saved)),
                      strides(q, k, v, i_raw, log_f), B, H, S, dqk, dv, scale)
         return out, saved
@@ -169,7 +167,7 @@ def launch(route_name: str, q, k, v, i_raw, log_f, L: int):
     )
     num = torch.empty((B, H, S, dv), **f32)
     hf = 0 if saved.hf is out else saved.hf.data_ptr()
-    build.launch(lib.rt_mlstm_scan, "rt_mlstm_scan", dev,
+    build.launch("rt_mlstm_scan", dev,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), i_raw.data_ptr(), log_f.data_ptr(),
                  out.data_ptr(), hf, *(t.data_ptr() for t in saved[1:6]), num.data_ptr(),
                  saved.den.data_ptr(), B * H, S, L, dqk, dv, scale, DTYPES[q.dtype])
@@ -182,10 +180,11 @@ def mlstm_scan_cuda(q, k, v, i_raw, log_f, *, chunk: int):
     dtype and the :class:`MLSTMTcSaved` or :class:`MLSTMSaved` tensors the
     backward reads."""
     global launches
-    on_one_gpu("mlstm_scan", q, k, v, i_raw, log_f)
+    build.on_card("mlstm_scan", q, k, v, i_raw, log_f)
     L = check_args(q, k, v, i_raw, log_f, chunk)
     name = route(L, q, k, v)
     out = launch(name, q, k, v, i_raw, log_f, L)
-    launches += 1
-    route_launches[name] += 1
+    if q.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return out

@@ -28,7 +28,6 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .flash_attention import on_one_gpu
 from .mlstm_scan import (DTYPES, ROUTES, MLSTMSaved, MLSTMTcSaved, _tma_rows, check_args,
                          route, strides)
 
@@ -73,7 +72,6 @@ def launch(route_name: str, q, k, v, i_raw, log_f, saved, dh, L: int):
     """Run ``route_name``'s kernels on checked CUDA tensors (dh in q's dtype,
     in a layout the route reads); the caller counts.  Returns ``(dq, dk, dv,
     di, df)``."""
-    lib = build.library()
     B, H, S, dqk = q.shape
     dv = v.shape[-1]
     nc = S // L
@@ -98,7 +96,7 @@ def launch(route_name: str, q, k, v, i_raw, log_f, saved, dh, L: int):
             torch.empty((BH, S, nti), **f32),                       # d inter partials
             torch.empty((BH, S, nti), **f32),                       # dw partials
         )
-        build.launch(lib.rt_mlstm_scan_bwd_tc, "rt_mlstm_scan_bwd_tc", dev,
+        build.launch("rt_mlstm_scan_bwd_tc", dev,
                      *(t.data_ptr() for t in (q, k, v, dh, *saved, *grads, *scratch)),
                      strides(q, k, v, dh), B, H, S, dqk, dv, scale)
         return grads
@@ -122,7 +120,7 @@ def launch(route_name: str, q, k, v, i_raw, log_f, saved, dh, L: int):
         torch.empty(row, **f32),                            # dlog_inter
         torch.empty(row, **f32),                            # dlogw
     )
-    build.launch(lib.rt_mlstm_scan_bwd, "rt_mlstm_scan_bwd", dev,
+    build.launch("rt_mlstm_scan_bwd", dev,
                  *(t.data_ptr() for t in (q, k, v, i_raw, dh, *saved)),
                  *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
                  B * H, S, L, dqk, dv, scale, DTYPES[q.dtype])
@@ -138,7 +136,7 @@ def mlstm_scan_bwd_cuda(q, k, v, i_raw, log_f, saved, dh, *, chunk: int):
     lies where TMA can, anything else is copied to a contiguous tensor of q's
     dtype."""
     global launches
-    on_one_gpu("mlstm_scan_bwd", q, k, v, i_raw, log_f, dh, *saved)
+    build.on_card("mlstm_scan_bwd", q, k, v, i_raw, log_f, dh, *saved)
     L = check_args(q, k, v, i_raw, log_f, chunk)
     B, H, S, dqk = q.shape
     dv = v.shape[-1]
@@ -156,6 +154,7 @@ def mlstm_scan_bwd_cuda(q, k, v, i_raw, log_f, saved, dh, *, chunk: int):
         raise ValueError("mlstm_scan_bwd: the tensor-core route's saved state for inputs "
                          "it does not take")
     grads = launch(name, q, k, v, i_raw, log_f, saved, dh, L)
-    launches += 1
-    route_launches[name] += 1
+    if q.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return grads

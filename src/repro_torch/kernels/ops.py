@@ -1,8 +1,13 @@
 """Kernel dispatch on the tensor's device, forward and backward.
 
 A CUDA tensor launches the hand-written kernel (or the launch raises); a CPU
-tensor takes the kernel's plain PyTorch version in ``ref``.  Nothing else
-decides, and no failure falls back to the other path.  ``rmsnorm``,
+tensor takes the kernel's plain PyTorch version in ``ref``; a meta tensor
+takes the card's path, every line of the wrapper but the launch (its checks,
+route and allocations: the dry-run's memory is the card's), and never the
+plain version.  Nothing else decides, and no failure falls back to the
+other path.  Each public function and each backward is one kernel call to
+the step counter (:func:`repro_torch.roofline.count.kernel`), priced by
+:mod:`.cost` from the shapes alone, whatever the device.  ``rmsnorm``,
 ``swiglu_mlp``, ``flash_attention``, ``mlstm_scan`` and ``ssd_scan`` are
 ``torch.autograd.Function``s whose backward dispatches the same way, so on
 the CPU autograd runs the same backward formulas that the card's backward
@@ -17,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from ..roofline import count as _count
+from . import cost as _cost
 from . import decode_attention as _decode_attention
 from . import flash_attention as _flash_attention
 from . import flash_attention_bwd as _flash_attention_bwd
@@ -32,11 +39,43 @@ from . import swiglu_bwd as _swiglu_bwd
 
 
 def _on_cuda(x: torch.Tensor, op: str) -> bool:
-    if x.device.type == "cuda":
+    """Whether ``x`` takes the card's path: True on a CUDA tensor (the kernel
+    launches) and on a meta tensor (everything but the launch), False on a
+    CPU tensor (the plain version); any other device raises."""
+    if x.device.type in ("cuda", "meta"):
         return True
     if x.device.type == "cpu":
         return False
     raise ValueError(f"{op}: no kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------- costs
+def _rows(x) -> int:
+    return x.numel() // max(1, x.shape[-1])
+
+
+def _rmsnorm_cost(x, fn=_cost.rmsnorm_cost):
+    return lambda: fn(_rows(x), x.shape[-1], dtype_bytes=x.element_size())
+
+
+def _swiglu_cost(x, w_gate, fn=_cost.swiglu_cost):
+    return lambda: fn(_rows(x), x.shape[-1], w_gate.shape[-1], dtype_bytes=x.element_size())
+
+
+def _flash_cost(q, k, v, causal, window, fn=_cost.flash_attention_cost):
+    B, Hq, Sq, hd = q.shape
+    return lambda: fn(B, Hq, Sq, k.shape[2], hd, causal=causal, window=window,
+                      head_dim_v=v.shape[-1], dtype_bytes=q.element_size())
+
+
+def _mlstm_cost(q, v, chunk, fn=_cost.mlstm_scan_cost):
+    B, H, S, dqk = q.shape
+    return lambda: fn(B, H, S, dqk, v.shape[-1], chunk=chunk, dtype_bytes=v.element_size())
+
+
+def _ssd_cost(b, x, chunk, fn=_cost.ssd_scan_cost):
+    B, S, H, chd = x.shape
+    return lambda: fn(B, H, S, chd, b.shape[-1], chunk=chunk, dtype_bytes=x.element_size())
 
 
 def _needs_grad(*tensors) -> bool:
@@ -80,6 +119,12 @@ def _ssd_fwd(lf, b, x, c, chunk):
     return y, h_last, (states,)
 
 
+def _rmsnorm_bwd_call(x, gamma, dy, eps):
+    if _on_cuda(x, "rmsnorm_bwd"):
+        return _rmsnorm_bwd.rmsnorm_bwd_cuda(x, gamma, dy, eps)
+    return ref.rmsnorm_bwd_ref(x, gamma, dy, eps)
+
+
 class RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, eps):
@@ -91,11 +136,8 @@ class RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
-        if _on_cuda(x, "rmsnorm_bwd"):
-            dx, dgamma = _rmsnorm_bwd.rmsnorm_bwd_cuda(x, gamma, dy, ctx.eps)
-        else:
-            dx, dgamma = ref.rmsnorm_bwd_ref(x, gamma, dy, ctx.eps)
-        return dx, dgamma, None
+        return (*_count.kernel("rmsnorm_bwd", _rmsnorm_cost(x, _cost.rmsnorm_bwd_cost),
+                               _rmsnorm_bwd_call, x, gamma, dy, ctx.eps), None)
 
 
 class SwiGLU(torch.autograd.Function):
@@ -116,9 +158,14 @@ class SwiGLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w_gate, w_up, w_down, a, b = ctx.saved_tensors
-        if _on_cuda(x, "swiglu_mlp_bwd"):
-            return _swiglu_bwd.swiglu_bwd_cuda(x, w_gate, w_up, w_down, dy, a, b)
-        return ref.swiglu_bwd_saved_ref(x, w_gate, w_up, w_down, a, b, dy)
+        return _count.kernel("swiglu_bwd", _swiglu_cost(x, w_gate, _cost.swiglu_bwd_cost),
+                             _swiglu_bwd_call, x, w_gate, w_up, w_down, dy, a, b)
+
+
+def _swiglu_bwd_call(x, w_gate, w_up, w_down, dy, a, b):
+    if _on_cuda(x, "swiglu_mlp_bwd"):
+        return _swiglu_bwd.swiglu_bwd_cuda(x, w_gate, w_up, w_down, dy, a, b)
+    return ref.swiglu_bwd_saved_ref(x, w_gate, w_up, w_down, a, b, dy)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -134,12 +181,18 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if _on_cuda(q, "flash_attention_bwd"):
-            grads = _flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
-                                                                  **ctx.mask)
-        else:
-            grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **ctx.mask)
+        m = ctx.mask
+        grads = _count.kernel("flash_attention_bwd",
+                              _flash_cost(q, k, v, m["causal"], m["window"],
+                                          _cost.flash_attention_bwd_cost),
+                              _flash_bwd_call, q, k, v, out, lse, dout, m)
         return (*grads, None, None, None)
+
+
+def _flash_bwd_call(q, k, v, out, lse, dout, mask):
+    if _on_cuda(q, "flash_attention_bwd"):
+        return _flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **mask)
+    return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **mask)
 
 
 class MLSTMScan(torch.autograd.Function):
@@ -158,12 +211,18 @@ class MLSTMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         inputs, saved = ctx.saved_tensors[:5], ctx.saved_tensors[5:]
-        if _on_cuda(dh, "mlstm_scan_bwd"):
-            grads = _mlstm_scan_bwd.mlstm_scan_bwd_cuda(
-                *inputs, ctx.saved_type(*saved), dh, chunk=ctx.chunk)
-        else:
-            grads = ref.mlstm_scan_bwd_ref(*inputs, *saved, dh, chunk=ctx.chunk)
+        grads = _count.kernel("mlstm_scan_bwd",
+                              _mlstm_cost(inputs[0], inputs[2], ctx.chunk,
+                                          _cost.mlstm_scan_bwd_cost),
+                              _mlstm_bwd_call, inputs, saved, ctx, dh)
         return (*grads, None)
+
+
+def _mlstm_bwd_call(inputs, saved, ctx, dh):
+    if _on_cuda(dh, "mlstm_scan_bwd"):
+        return _mlstm_scan_bwd.mlstm_scan_bwd_cuda(*inputs, ctx.saved_type(*saved), dh,
+                                                   chunk=ctx.chunk)
+    return ref.mlstm_scan_bwd_ref(*inputs, *saved, dh, chunk=ctx.chunk)
 
 
 class SSDScan(torch.autograd.Function):
@@ -178,24 +237,48 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dh_last):
         inputs, saved = ctx.saved_tensors[:4], ctx.saved_tensors[4:]
-        if _on_cuda(dy, "ssd_scan_bwd"):
-            grads = _ssd_scan_bwd.ssd_scan_bwd_cuda(*inputs, _ssd_scan.SSDSaved(*saved), dy,
-                                                    chunk=ctx.chunk)
-        else:
-            grads = ref.ssd_scan_bwd_ref(*inputs, *saved, dy, chunk=ctx.chunk)
+        grads = _count.kernel("ssd_scan_bwd",
+                              _ssd_cost(inputs[1], inputs[2], ctx.chunk, _cost.ssd_scan_bwd_cost),
+                              _ssd_bwd_call, inputs, saved, dy, ctx.chunk)
         return (*grads, None)
 
 
-def rmsnorm(x, gamma, *, eps: float = 1e-5):
+def _ssd_bwd_call(inputs, saved, dy, chunk):
+    if _on_cuda(dy, "ssd_scan_bwd"):
+        return _ssd_scan_bwd.ssd_scan_bwd_cuda(*inputs, _ssd_scan.SSDSaved(*saved), dy,
+                                               chunk=chunk)
+    return ref.ssd_scan_bwd_ref(*inputs, *saved, dy, chunk=chunk)
+
+
+def _rmsnorm_call(x, gamma, eps):
     if _needs_grad(x, gamma):
         return RMSNorm.apply(x, gamma, eps)
     return _rmsnorm_fwd(x, gamma, eps)
 
 
-def swiglu_mlp(x, w_gate, w_up, w_down):
+def rmsnorm(x, gamma, *, eps: float = 1e-5):
+    if _count.ACTIVE is not None:
+        return _count.kernel("rmsnorm", _rmsnorm_cost(x), _rmsnorm_call, x, gamma, eps)
+    return _rmsnorm_call(x, gamma, eps)
+
+
+def _swiglu_call(x, w_gate, w_up, w_down):
     if _needs_grad(x, w_gate, w_up, w_down):
         return SwiGLU.apply(x, w_gate, w_up, w_down)
     return _swiglu_fwd(x, w_gate, w_up, w_down)
+
+
+def swiglu_mlp(x, w_gate, w_up, w_down):
+    if _count.ACTIVE is not None:
+        return _count.kernel("swiglu", _swiglu_cost(x, w_gate), _swiglu_call, x, w_gate, w_up,
+                             w_down)
+    return _swiglu_call(x, w_gate, w_up, w_down)
+
+
+def _flash(q, k, v, causal, window, q_offset):
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _flash_fwd(q, k, v, dict(causal=causal, window=window, q_offset=q_offset))[0]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
@@ -203,16 +286,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     Sq, hdv).  The card's kernels take hdv <= hd <= 192 (MLA's 192 / 128 on
     the tensor cores in bf16) and raise on anything else; the plain version
     takes any hdv."""
-    if _needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window, q_offset)
-    return _flash_fwd(q, k, v, dict(causal=causal, window=window, q_offset=q_offset))[0]
+    if _count.ACTIVE is not None:
+        return _count.kernel("flash_attention", _flash_cost(q, k, v, causal, window), _flash,
+                             q, k, v, causal, window, q_offset)
+    return _flash(q, k, v, causal, window, q_offset)
 
 
-def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):
+def _decode(q, k_cache, v_cache, valid_len, window):
     if _on_cuda(q, "decode_attention"):
         return _decode_attention.decode_attention_cuda(q, k_cache, v_cache, valid_len,
                                                        window=window)
     return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):
+    """One query row a head against a KV cache; priced over the whole cache
+    (or the window) by the step counter, which does not read ``valid_len``."""
+    if _count.ACTIVE is not None:
+        B, Hq, _, hd = q.shape
+        _, Hkv, S, _ = k_cache.shape
+        return _count.kernel(
+            "decode_attention",
+            lambda: _cost.decode_attention_cost(B, Hq, Hkv, S, hd, window=window,
+                                                dtype_bytes=q.element_size()),
+            _decode, q, k_cache, v_cache, valid_len, window)
+    return _decode(q, k_cache, v_cache, valid_len, window)
 
 
 def mlstm_scan(q, k, v, i_raw, log_f, *, chunk: int = 128):
@@ -222,6 +320,13 @@ def mlstm_scan(q, k, v, i_raw, log_f, *, chunk: int = 128):
     the card, inputs that the tensor-core route reads as they lie (the
     model's transposed projections) are not copied, and h is then a view of
     a (B, S, H, dv) tensor; anything else is made contiguous first."""
+    if _count.ACTIVE is not None:
+        return _count.kernel("mlstm_scan", _mlstm_cost(q, v, chunk), _mlstm, q, k, v, i_raw,
+                             log_f, chunk)
+    return _mlstm(q, k, v, i_raw, log_f, chunk)
+
+
+def _mlstm(q, k, v, i_raw, log_f, chunk):
     if _on_cuda(q, "mlstm_scan"):
         q, k, v, i_raw, log_f = _mlstm_scan.readable(q, k, v, i_raw, log_f, chunk)
     else:
@@ -237,6 +342,12 @@ def ssd_scan(lf, b, x, c, *, chunk: int = 128):
     fp32 final state (B, H, chd, N), which carries no gradient.  ``S`` must be
     a multiple of ``min(chunk, S)``: the kernel's wrapper or the plain version
     checks; ``models.hymba.ssd_scan`` pads to whole chunks."""
+    if _count.ACTIVE is not None:
+        return _count.kernel("ssd_scan", _ssd_cost(b, x, chunk), _ssd, lf, b, x, c, chunk)
+    return _ssd(lf, b, x, c, chunk)
+
+
+def _ssd(lf, b, x, c, chunk):
     lf, b, x, c = (t.contiguous() for t in (lf, b, x, c))
     if _needs_grad(lf, b, x, c):
         return SSDScan.apply(lf, b, x, c, chunk)

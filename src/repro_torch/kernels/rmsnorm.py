@@ -63,9 +63,9 @@ def _vec_row(x: torch.Tensor) -> bool:
 
 
 def _check_key(x: torch.Tensor, gamma: torch.Tensor) -> bool:
-    """Raise unless one GPU and :func:`check_args` take the arguments; :func:`_vec_row`."""
-    if not (x.is_cuda and gamma.is_cuda and x.device == gamma.device):
-        raise ValueError(f"rmsnorm: tensors on {x.device} and {gamma.device}, expected one GPU")
+    """Raise unless one GPU (or the meta device) and :func:`check_args` take the
+    arguments; :func:`_vec_row`."""
+    build.on_card("rmsnorm", x, gamma)
     check_args(x, gamma)
     return _vec_row(x)
 
@@ -80,16 +80,15 @@ def launch(route_name: str, x: torch.Tensor, gamma: torch.Tensor, eps: float) ->
     one row; the caller counts."""
     out = torch.empty_like(x)
     D = x.shape[-1]
-    lib = build.library()
-    fn, c_name = ((lib.rt_rmsnorm_vec, "rt_rmsnorm_vec") if route_name == "vec"
-                  else (lib.rt_rmsnorm, "rt_rmsnorm"))
-    build.launch(fn, c_name, x.device, x.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-                 x.numel() // D, D, eps, DTYPES[x.dtype])
+    build.launch("rt_rmsnorm_vec" if route_name == "vec" else "rt_rmsnorm", x.device,
+                 x.data_ptr(), gamma.data_ptr(), out.data_ptr(), x.numel() // D, D, eps,
+                 DTYPES[x.dtype])
     return out
 
 
 def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; x: (..., D), gamma: (D,)."""
+    """Launch the kernel on CUDA tensors; x: (..., D), gamma: (D,).  On meta
+    tensors everything but the launch runs and nothing is counted."""
     global launches
     vec = build.checked_once(_checked, (x.shape, gamma.shape, x.dtype, gamma.dtype, x.device,
                                         gamma.device), _check_key, x, gamma)
@@ -99,6 +98,7 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> tor
         return torch.empty_like(x)
     name = "vec" if vec and not (x.data_ptr() | gamma.data_ptr()) % 16 else "block"
     out = launch(name, x, gamma, eps)
-    launches += 1
-    route_launches[name] += 1
+    if x.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return out

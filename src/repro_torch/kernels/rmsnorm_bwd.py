@@ -69,11 +69,35 @@ def _vec_row(x: torch.Tensor) -> bool:
     return D % 8 == 0 and 0 < D * x.element_size() <= VEC_MAX_ROW_BYTES
 
 
+#: rows of x and of dy in flight a warp of the ``"vec"`` body (``kVecStages``)
+VEC_STAGES = 3
+
+
+def vec_config_h100(D: int, dtype: torch.dtype) -> tuple[int, int]:
+    """``(warps a block, blocks an SM)`` of the ``"vec"`` body at row length D,
+    as ``rt_rmsnorm_bwd_vec_config`` finds them on an H100 SXM: the kernel
+    instance's warps (``kVecWarps``), and as many blocks as its shared memory
+    (``vec_smem``, its barriers and the block's reserved kilobyte) lets fit in
+    :data:`build.H100_SXM`'s (registers and threads allow more).  The meta
+    route's; ``chip_smoke.py`` holds it against the card's."""
+    size = torch.empty((), dtype=dtype, device="meta").element_size()
+    per_lane = -(-(D // (16 // size)) // 32)
+    vec = next(v for v in (1, 2, 4, 8, 16) if per_lane <= v)
+    warps = 4 if vec * 32 * 16 > 4096 else 8
+    smem = warps * VEC_STAGES * 2 * D * size
+    block = smem + warps * VEC_STAGES * 8 + build.H100_SXM["reserved_shared_memory_per_block"]
+    return warps, build.H100_SXM["shared_memory_per_sm"] // block
+
+
 def _vec_blocks(x: torch.Tensor, rows: int, sms: int) -> int:
     """Blocks of the ``"vec"`` body for ``rows`` rows of x's D and dtype: one
     row a warp at most, no more than the card holds at once (the kernel's own
     occupancy, capped at :data:`VEC_MAX_BLOCKS_PER_SM` an SM).  Raises the
-    kernel's shared-memory limit on x's device."""
+    kernel's shared-memory limit on x's device; on the meta device, the
+    H100's (:func:`vec_config_h100`)."""
+    if x.device.type == "meta":
+        warps, per_sm = vec_config_h100(x.shape[-1], x.dtype)
+        return min(-(-rows // warps), min(per_sm, VEC_MAX_BLOCKS_PER_SM) * sms)
     warps, per_sm = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(x.device):
         build.check(build.library().rt_rmsnorm_bwd_vec_config(
@@ -86,9 +110,7 @@ def _check_key(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor) -> dict:
     """Raise unless one GPU, :func:`check_args` and the kernels take the
     arguments; the launch shape of each route D allows: ``{"block":
     (rows a block, blocks)}``, and ``"vec"``'s blocks where :func:`_vec_row`."""
-    if not (all(t.is_cuda for t in (x, gamma, dy)) and x.device == gamma.device == dy.device):
-        raise ValueError(f"rmsnorm_bwd: tensors on {x.device}, {gamma.device} and {dy.device}, "
-                         "expected one GPU")
+    build.on_card("rmsnorm_bwd", x, gamma, dy)
     check_args(x, gamma)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} for x "
@@ -123,16 +145,15 @@ def launch(route_name: str, x, gamma, dy, eps: float, shapes: dict | None = None
     D = x.shape[-1]
     rows = x.numel() // D
     shape = (shapes or _shapes(x, gamma, dy))[route_name]
-    lib = build.library()
     if route_name == "vec":
-        n_blocks, fn, c_name, extra = shape, lib.rt_rmsnorm_bwd_vec, "rt_rmsnorm_bwd_vec", ()
+        n_blocks, c_name, extra = shape, "rt_rmsnorm_bwd_vec", ()
     else:
         (per_block, n_blocks), extra = shape, (shape[0],)
-        fn, c_name = lib.rt_rmsnorm_bwd, "rt_rmsnorm_bwd"
+        c_name = "rt_rmsnorm_bwd"
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
     partial = torch.empty((n_blocks, D), dtype=torch.float32, device=x.device)
-    build.launch(fn, c_name, x.device, x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+    build.launch(c_name, x.device, x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), partial.data_ptr(), dgamma.data_ptr(), rows, D, *extra, n_blocks,
                  eps, DTYPES[x.dtype])
     return dx, dgamma
@@ -149,6 +170,7 @@ def rmsnorm_bwd_cuda(x, gamma, dy, eps: float = 1e-5):
     dy = dy.contiguous()
     name = route(x, gamma, dy)
     out = launch(name, x, gamma, dy, eps, shapes)
-    launches += 1
-    route_launches[name] += 1
+    if x.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return out

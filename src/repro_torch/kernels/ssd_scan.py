@@ -32,7 +32,6 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .flash_attention import on_one_gpu
 from .ref import ssd_chunk_len
 
 #: wrapper calls that launched the kernels since the count was last set to 0
@@ -93,7 +92,6 @@ def route(L: int, b, x, c, *more) -> str:
 
 def launch(route_name: str, lf, b, x, c, L: int):
     """Run ``route_name``'s kernels on checked contiguous CUDA tensors; the caller counts."""
-    lib = build.library()
     B, S, H, chd = x.shape
     N = b.shape[-1]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -104,9 +102,9 @@ def launch(route_name: str, lf, b, x, c, L: int):
     ptrs = (lf.data_ptr(), b.data_ptr(), x.data_ptr(), c.data_ptr(), y.data_ptr(),
             h_last.data_ptr(), saved.states.data_ptr(), saved.cum.data_ptr())
     if route_name == "wgmma":
-        build.launch(lib.rt_ssd_scan_tc, "rt_ssd_scan_tc", x.device, *ptrs, B, S, H, N, chd, L)
+        build.launch("rt_ssd_scan_tc", x.device, *ptrs, B, S, H, N, chd, L)
     else:
-        build.launch(lib.rt_ssd_scan, "rt_ssd_scan", x.device, *ptrs, B, S, H, N, chd, L,
+        build.launch("rt_ssd_scan", x.device, *ptrs, B, S, H, N, chd, L,
                      DTYPES[x.dtype])
     return y, h_last, saved
 
@@ -116,10 +114,11 @@ def ssd_scan_cuda(lf, b, x, c, *, chunk: int):
     saved)``: y (B, S, H, chd) in x's dtype, the fp32 final state (B, H, chd,
     N) and the :class:`SSDSaved` tensors the backward reads."""
     global launches
-    on_one_gpu("ssd_scan", lf, b, x, c)
+    build.on_card("ssd_scan", lf, b, x, c)
     L = check_args(lf, b, x, c, chunk)
     name = route(L, b, x, c)
     out = launch(name, lf, b, x, c, L)
-    launches += 1
-    route_launches[name] += 1
+    if x.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return out

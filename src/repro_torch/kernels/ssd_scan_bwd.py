@@ -29,7 +29,6 @@ import torch
 
 from . import build
 from . import ssd_scan as _fwd
-from .flash_attention import on_one_gpu
 from .ssd_scan import DTYPES, ROUTES, SSDSaved, check_args
 
 #: wrapper calls that launched the kernels since the count was last set to 0
@@ -42,7 +41,6 @@ route_launches = dict.fromkeys(ROUTES, 0)
 def launch(route_name: str, lf, b, x, c, saved: SSDSaved, dy, L: int):
     """Run ``route_name``'s kernels on checked contiguous CUDA tensors (dy in
     x's dtype); the caller counts.  Returns ``(dlf, db, dx, dc)``."""
-    lib = build.library()
     B, S, H, chd = x.shape
     N = b.shape[-1]
     grads = (torch.empty_like(lf), torch.empty_like(b), torch.empty_like(x), torch.empty_like(c))
@@ -50,10 +48,10 @@ def launch(route_name: str, lf, b, x, c, saved: SSDSaved, dy, L: int):
     ptrs = (*(t.data_ptr() for t in (b, x, c, dy, saved.states, saved.cum)),
             *(t.data_ptr() for t in grads), dhend.data_ptr())
     if route_name == "wgmma":
-        build.launch(lib.rt_ssd_scan_bwd_tc, "rt_ssd_scan_bwd_tc", x.device, *ptrs,
+        build.launch("rt_ssd_scan_bwd_tc", x.device, *ptrs,
                      B, S, H, N, chd, L)
     else:
-        build.launch(lib.rt_ssd_scan_bwd, "rt_ssd_scan_bwd", x.device, *ptrs,
+        build.launch("rt_ssd_scan_bwd", x.device, *ptrs,
                      B, S, H, N, chd, L, DTYPES[x.dtype])
     return grads
 
@@ -63,7 +61,7 @@ def ssd_scan_bwd_cuda(lf, b, x, c, saved: SSDSaved, dy, *, chunk: int):
     inputs' dtypes.  ``dy`` may be a strided view or of another float type; it
     is copied to a contiguous tensor of x's dtype."""
     global launches
-    on_one_gpu("ssd_scan_bwd", lf, b, x, c, dy, *saved)
+    build.on_card("ssd_scan_bwd", lf, b, x, c, dy, *saved)
     L = check_args(lf, b, x, c, chunk)
     B, S, H, chd = x.shape
     N = b.shape[-1]
@@ -77,6 +75,7 @@ def ssd_scan_bwd_cuda(lf, b, x, c, saved: SSDSaved, dy, *, chunk: int):
     dy = dy.to(x.dtype).contiguous()
     name = _fwd.route(L, b, x, c, dy)
     grads = launch(name, lf, b, x, c, saved, dy, L)
-    launches += 1
-    route_launches[name] += 1
+    if x.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return grads

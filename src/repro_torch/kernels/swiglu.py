@@ -97,7 +97,6 @@ def launch(route_name: str, x, w_gate, w_up, w_down, save_ab: bool = False):
     """Run ``route_name``'s kernels on checked CUDA tensors; the caller counts.
     Returns the output, or with ``save_ab`` ``(out, a, b)``: a and b (N, F) from
     the tensor-core routes, None from ``"simt"``."""
-    lib = build.library()
     D, F = w_gate.shape
     N = x.numel() // D
     out = torch.empty_like(x)
@@ -105,39 +104,35 @@ def launch(route_name: str, x, w_gate, w_up, w_down, save_ab: bool = False):
     a = b = None
     ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
             out.data_ptr())
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route_name == "simt":
-            entry = "rt_swiglu"
-            err = lib.rt_swiglu(*ptrs, N, D, F, DTYPES[x.dtype], stream)
-        else:
-            entry = "rt_swiglu_tc"
-            sg, sd = (split_k(N, D, F, _sm_count(x.device)) if route_name == "wgmma_split_k"
-                      else (1, 1))
-            # fp32 partial sums of split-K, used by the two products in turn
-            part = torch.empty(max(2 * sg * N * F, sd * N * D) if sg * sd > 1 else 0,
-                               dtype=torch.float32, device=x.device)
-            if save_ab:
-                a, b = (torch.empty((N, F), dtype=x.dtype, device=x.device) for _ in range(2))
-            err = lib.rt_swiglu_tc(*ptrs, part.data_ptr(), a.data_ptr() if save_ab else 0,
-                                   b.data_ptr() if save_ab else 0, N, D, F, sg, sd, stream)
-    build.check(err, entry)
+    if route_name == "simt":
+        build.launch("rt_swiglu", x.device, *ptrs, N, D, F, DTYPES[x.dtype])
+    else:
+        sg, sd = (split_k(N, D, F, _sm_count(x.device)) if route_name == "wgmma_split_k"
+                  else (1, 1))
+        # fp32 partial sums of split-K, used by the two products in turn
+        part = torch.empty(max(2 * sg * N * F, sd * N * D) if sg * sd > 1 else 0,
+                           dtype=torch.float32, device=x.device)
+        if save_ab:
+            a, b = (torch.empty((N, F), dtype=x.dtype, device=x.device) for _ in range(2))
+        build.launch("rt_swiglu_tc", x.device, *ptrs, part.data_ptr(),
+                     a.data_ptr() if save_ab else 0, b.data_ptr() if save_ab else 0,
+                     N, D, F, sg, sd)
     return (out, a, b) if save_ab else out
 
 
 def swiglu_cuda(x, w_gate, w_up, w_down, *, save_ab: bool = False):
     """Launch the kernels on CUDA tensors; x: (..., D), Wg/Wu: (D, F), Wd: (F, D).
-    Returns the output, or with ``save_ab`` ``(out, a, b)`` as :func:`launch`."""
+    Returns the output, or with ``save_ab`` ``(out, a, b)`` as :func:`launch`.
+    On meta tensors everything but the launch runs and nothing is counted."""
     global launches
-    tensors = (x, w_gate, w_up, w_down)
-    if not all(t.is_cuda and t.device == x.device for t in tensors):
-        raise ValueError(f"swiglu: tensors on {[str(t.device) for t in tensors]}, expected one GPU")
+    build.on_card("swiglu", x, w_gate, w_up, w_down)
     check_args(x, w_gate, w_up, w_down)
     if x.numel() == 0:
         return (torch.empty_like(x), None, None) if save_ab else torch.empty_like(x)
     name = route(x, w_gate, w_up, w_down)
     out = launch(name, x, w_gate, w_up, w_down, save_ab)
-    launches += 1
-    route_launches[name] += 1
+    if x.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return out
 

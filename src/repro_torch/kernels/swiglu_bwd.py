@@ -60,7 +60,7 @@ def gate_bwd_cuda(a, b, dh):
     """The gate kernel alone on same-shaped contiguous CUDA tensors: ``(h, da, db)``."""
     h, da, db = torch.empty_like(a), torch.empty_like(a), torch.empty_like(a)
     if a.numel():
-        build.launch(build.library().rt_swiglu_gate_bwd, "rt_swiglu_gate_bwd", a.device,
+        build.launch("rt_swiglu_gate_bwd", a.device,
                      a.data_ptr(), b.data_ptr(), dh.data_ptr(), h.data_ptr(), da.data_ptr(),
                      db.data_ptr(), a.numel(), BLOCKS_PER_SM * _sm_count(a.device),
                      DTYPES[a.dtype])
@@ -72,7 +72,7 @@ def gate_bwd_tc(dy2, w_down, a, b):
     bf16 CUDA tensors with at least one row: ``(h, da, db)``."""
     N, F = a.shape
     h, da, db = torch.empty_like(a), torch.empty_like(a), torch.empty_like(a)
-    build.launch(build.library().rt_swiglu_bwd_tc, "rt_swiglu_bwd_tc", a.device,
+    build.launch("rt_swiglu_bwd_tc", a.device,
                  dy2.data_ptr(), w_down.data_ptr(), a.data_ptr(), b.data_ptr(), h.data_ptr(),
                  da.data_ptr(), db.data_ptr(), N, dy2.shape[1], F, _sm_count(a.device))
     return h, da, db
@@ -90,12 +90,11 @@ def launch(route_name: str, x, w_gate, w_up, w_down, dy, a=None, b=None):
 
 def swiglu_bwd_cuda(x, w_gate, w_up, w_down, dy, a=None, b=None):
     """The backward on CUDA tensors; a, b: the forward's saved (N, F) ``x @ Wg``
-    and ``x @ Wu``, or None.  Returns ``(dx, dWg, dWu, dWd)``."""
+    and ``x @ Wu``, or None.  Returns ``(dx, dWg, dWu, dWd)``.  On meta tensors
+    everything but the launch runs (the products too) and nothing is counted."""
     global launches
-    tensors = (x, w_gate, w_up, w_down, dy) + tuple(t for t in (a, b) if t is not None)
-    if not all(t.is_cuda and t.device == x.device for t in tensors):
-        raise ValueError(f"swiglu_bwd: tensors on {[str(t.device) for t in tensors]}, "
-                         "expected one GPU")
+    build.on_card("swiglu_bwd", x, w_gate, w_up, w_down, dy,
+                  *(t for t in (a, b) if t is not None))
     check_args(x, w_gate, w_up, w_down)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"swiglu_bwd: dy {tuple(dy.shape)} {dy.dtype} for x "
@@ -115,6 +114,7 @@ def swiglu_bwd_cuda(x, w_gate, w_up, w_down, dy, a=None, b=None):
     dy = dy.contiguous()
     name = route(x, w_gate, w_up, w_down, dy, a, b)
     grads = launch(name, x, w_gate, w_up, w_down, dy, a, b)
-    launches += 1
-    route_launches[name] += 1
+    if x.is_cuda:
+        launches += 1
+        route_launches[name] += 1
     return grads

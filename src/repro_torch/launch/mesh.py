@@ -21,9 +21,13 @@ A collective that the backend refuses raises.
 :class:`NamedSharding` is the port's ``jax.sharding.NamedSharding``: a spec
 (``params.P``) over a mesh, which cuts a full leaf into this rank's shard,
 a contiguous tensor of its own, and gathers the shards back.
+:class:`AbstractMesh` is JAX's ``AbstractMesh``: the axes and a rank's
+coordinates without a process group, over which a :class:`NamedSharding`
+gives shard shapes (the dry-run's per-rank bytes).
 
 ``make_production_mesh`` and ``make_test_mesh`` are functions, never module
-constants, as in JAX: importing this module touches no process group.
+constants, as in JAX: importing this module touches no process group;
+``make_abstract_production_mesh`` gives the production shapes alone.
 :func:`run_ranks` starts a world of spawned processes and returns what each
 rank's function returned.
 """
@@ -48,7 +52,61 @@ from ..device import resolve
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-class Mesh:
+class _MeshAxes:
+    """Named axes and row-major coordinates, the part of a mesh that needs no
+    process group: ``shape`` (axis -> size), ``axis_names``, ``size``."""
+
+    def _set_axes(self, shape: Sequence[int], axis_names: Sequence[str]) -> None:
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"mesh shape {tuple(shape)} and axes {tuple(axis_names)} differ")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        self.size = math.prod(self.shape.values())
+
+    def coords_of(self, rank: int) -> dict[str, int]:
+        """The row-major coordinates of ``rank``, axis by axis."""
+        out = {}
+        for axis in reversed(self.axis_names):
+            rank, out[axis] = divmod(rank, self.shape[axis])
+        return {a: out[a] for a in self.axis_names}
+
+    def _rank_of(self, coords: dict[str, int]) -> int:
+        r = 0
+        for axis in self.axis_names:
+            r = r * self.shape[axis] + coords[axis]
+        return r
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def _axes(self, axes) -> tuple:
+        """``axes`` (a name or names) in mesh order; raise on one the mesh lacks."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        missing = [a for a in names if a not in self.shape]
+        if missing:
+            raise ValueError(f"axes {missing} are not in the mesh's {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in names)
+
+
+class AbstractMesh(_MeshAxes):
+    """A mesh of shapes alone, JAX's ``jax.sharding.AbstractMesh``: named axes
+    and the coordinates of ``rank`` (0 unless given), no process group and no
+    device.  A :class:`NamedSharding` over it gives a leaf's shard shape
+    (:meth:`NamedSharding.shard_shape`); ``opt_state_specs`` and
+    ``registry.input_specs`` read its ``shape`` and ``axis_names``."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *, rank: int = 0):
+        self._set_axes(shape, axis_names)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.coords = self.coords_of(rank)
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+class Mesh(_MeshAxes):
     """Ranks of the default process group named by mesh coordinates.
 
     If no process group exists, the mesh starts one with ``backend`` from
@@ -65,11 +123,7 @@ class Mesh:
                  timeout: float = 120.0, device="cuda"):
         if not backend:
             raise ValueError("a mesh needs an explicit backend ('gloo' or 'nccl')")
-        if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
-            raise ValueError(f"mesh shape {tuple(shape)} and axes {tuple(axis_names)} differ")
-        self.axis_names = tuple(axis_names)
-        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
-        self.size = math.prod(self.shape.values())
+        self._set_axes(shape, axis_names)
         self.backend = backend
         self.device = resolve(device)
         self._timeout = datetime.timedelta(seconds=timeout)
@@ -89,19 +143,6 @@ class Mesh:
             for axes in itertools.combinations(self.axis_names, n):
                 self._make_groups(axes)
 
-    def coords_of(self, rank: int) -> dict[str, int]:
-        """The row-major coordinates of ``rank``, axis by axis."""
-        out = {}
-        for axis in reversed(self.axis_names):
-            rank, out[axis] = divmod(rank, self.shape[axis])
-        return {a: out[a] for a in self.axis_names}
-
-    def _rank_of(self, coords: dict[str, int]) -> int:
-        r = 0
-        for axis in self.axis_names:
-            r = r * self.shape[axis] + coords[axis]
-        return r
-
     def _make_groups(self, axes: tuple) -> None:
         """One group for each slice along ``axes`` (every rank makes every
         group, in one order); keep the one this rank is in."""
@@ -119,17 +160,6 @@ class Mesh:
             group = dist.new_group(ranks, timeout=self._timeout)
             if self.rank in ranks:
                 self._groups[axes] = (group, ranks)
-
-    def axis_size(self, axes) -> int:
-        return math.prod(self.shape[a] for a in self._axes(axes))
-
-    def _axes(self, axes) -> tuple:
-        """``axes`` (a name or names) in mesh order; raise on one the mesh lacks."""
-        names = (axes,) if isinstance(axes, str) else tuple(axes)
-        missing = [a for a in names if a not in self.shape]
-        if missing:
-            raise ValueError(f"axes {missing} are not in the mesh's {self.axis_names}")
-        return tuple(a for a in self.axis_names if a in names)
 
     def group_ranks(self, axes) -> list[int]:
         """The global ranks of this rank's slice along ``axes``, in row-major order."""
@@ -163,11 +193,22 @@ class Mesh:
         dist.barrier()
 
 
+def production_mesh_shape(multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """``(shape, axis_names)``: 16 x 16 (data, model), or 2 x 16 x 16 (pod,
+    data, model) with ``multi_pod``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, backend: str, **kw) -> Mesh:
-    """16 x 16 (data, model), or 2 x 16 x 16 (pod, data, model) with ``multi_pod``."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(shape, axes, backend=backend, **kw)
+    """The production mesh (:func:`production_mesh_shape`) over a process group."""
+    return Mesh(*production_mesh_shape(multi_pod), backend=backend, **kw)
+
+
+def make_abstract_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> AbstractMesh:
+    """The production mesh's shapes alone, with no process group (the dry-run's)."""
+    return AbstractMesh(*production_mesh_shape(multi_pod), rank=rank)
 
 
 def make_test_mesh(data: int = 2, model: int = 2, pods: int = 0, *, backend: str,
@@ -214,6 +255,10 @@ class NamedSharding:
             n = size // parts
             out.append(slice(part * n, (part + 1) * n))
         return tuple(out)
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """The shape of this rank's shard of a leaf of ``shape``."""
+        return tuple(sl.stop - sl.start for sl in self.index(shape))
 
     def axes(self) -> tuple:
         """The mesh axes that cut a leaf, in mesh order."""

@@ -10,6 +10,10 @@ layout of the optimizer state (``train.optimizer.opt_state_specs``) and a
 rank's rows of a batch (``registry._batch_spec``) are derived from them; no
 model's arithmetic reads them.
 
+:func:`abstract` gives a layout's tensors on the meta device (no storage,
+no draw) for the dry-run; :func:`param_count` and :func:`param_bytes` are
+JAX's.
+
 Weights are ``(in, out)`` and applied as ``x @ W``; stacked layers carry a
 leading layer axis (:func:`stack`).  With the same layout on both sides, a JAX
 parameter tree carries over leaf by leaf with no transpose
@@ -92,6 +96,37 @@ def tree_leaves(tree) -> list:
 def specs(layout):
     """The tree of sharding specs of a layout, leaf for leaf."""
     return tree_map(lambda i: i.spec, layout)
+
+
+def abstract(layout, dtype="bfloat16"):
+    """Tensors on ``torch.device("meta")`` with the layout's shapes and dtypes
+    (``info.dtype or dtype``), JAX's ``jax.ShapeDtypeStruct`` tree: no storage
+    and no draw, so a dry-run builds any model at full size."""
+    meta = torch.device("meta")
+    return tree_map(lambda i: torch.empty(i.shape, dtype=as_dtype(i.dtype or dtype),
+                                          device=meta), layout)
+
+
+def param_count(layout) -> int:
+    """The number of elements of every leaf of a layout."""
+    total = 0
+    for info in tree_leaves(layout):
+        c = 1
+        for s in info.shape:
+            c *= s
+        total += c
+    return total
+
+
+def param_bytes(layout, dtype="bfloat16") -> int:
+    """The bytes of every leaf of a layout, each in ``info.dtype or dtype``."""
+    total = 0
+    for info in tree_leaves(layout):
+        c = 1
+        for s in info.shape:
+            c *= s
+        total += c * as_dtype(info.dtype or dtype).itemsize
+    return total
 
 
 def stack(n: int, layout):

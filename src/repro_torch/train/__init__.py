@@ -10,7 +10,7 @@ from .optimizer import (AdamWConfig, adamw_update, compress_int8, decompress_int
                         gather_params, init_opt_state, init_zero_state, opt_state_specs,
                         zero_shardings, zero_spec_for, zero_update_shards)
 from .step import (DataParallelStep, init_train_state, make_eval_step, make_train_step,
-                   token_batch_from_bytes)
+                   step_costs, step_flops, token_batch_from_bytes)
 from .sync import init_error_state, two_level_grad_sync
 
 __all__ = [
@@ -18,6 +18,7 @@ __all__ = [
     "PreemptionGuard", "RestartPolicy", "SamplerState", "StragglerMonitor", "adamw_update",
     "compress_int8", "config_digest", "decompress_int8", "gather_params", "init_error_state",
     "init_opt_state", "init_train_state", "init_zero_state", "make_eval_step",
-    "make_train_step", "opt_state_specs", "run_with_restarts", "token_batch_from_bytes",
+    "make_train_step", "opt_state_specs", "run_with_restarts", "step_costs", "step_flops",
+    "token_batch_from_bytes",
     "two_level_grad_sync", "zero_shardings", "zero_spec_for", "zero_update_shards",
 ]

@@ -87,6 +87,18 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
     return state
 
 
+def abstract_opt_state(layout, cfg: AdamWConfig) -> dict:
+    """:func:`init_opt_state`'s structure on the meta device, from a layout
+    (JAX's ``abstract_opt_state``): fp32 ``mu``, ``nu`` (and ``master``) and an
+    int32 ``count``, no storage."""
+    f32 = lambda i: torch.empty(i.shape, dtype=torch.float32, device="meta")  # noqa: E731
+    state = {"mu": PM.tree_map(f32, layout), "nu": PM.tree_map(f32, layout),
+             "count": torch.empty((), dtype=torch.int32, device="meta")}
+    if cfg.master_fp32:
+        state["master"] = PM.tree_map(f32, layout)
+    return state
+
+
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: AdamWConfig):
     """One AdamW step, in place; returns ``(params, state, {"grad_norm", "lr"})``.

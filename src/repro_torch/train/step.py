@@ -19,8 +19,13 @@ raises.  Neither is the MoE aux loss across ranks (JAX's is a product of
 global batch means, which rank means do not give): an MoE model over more
 than one data-parallel rank raises.
 
-``compiled_step_flops`` and ``compiled_step_costs`` read XLA's compiled
-program and have no counterpart here.
+:func:`step_costs` and :func:`step_flops` are the counterparts of JAX's
+``compiled_step_costs`` and ``compiled_step_flops``: where JAX walks the
+compiled HLO, they count one real train step as PyTorch dispatches it
+(:mod:`repro_torch.roofline.count`), through the loss, autograd and
+``adamw_update``, on the batch's device: on ``meta`` with no weights (the
+dry-run's), on the CPU or the card with weights drawn from seed 0, or with
+the caller's.
 """
 
 from __future__ import annotations
@@ -35,8 +40,9 @@ from ..device import resolve
 from ..launch.mesh import NamedSharding
 from ..models import params as PM
 from ..models.registry import _batch_spec, _dp_axes
-from .optimizer import (AdamWConfig, adamw_update, gather_params, init_opt_state,
-                        init_zero_state, zero_shardings, zero_update_shards)
+from ..roofline import count as _count
+from .optimizer import (AdamWConfig, abstract_opt_state, adamw_update, gather_params,
+                        init_opt_state, init_zero_state, zero_shardings, zero_update_shards)
 from .sync import init_error_state, two_level_grad_sync
 
 
@@ -153,6 +159,40 @@ class DataParallelStep:
         params, opt_state, opt_metrics = self.update(synced, opt_state, params)
         metrics = {k: self.mean_over_ranks(v) for k, v in metrics.items()}
         return params, opt_state, {**metrics, **opt_metrics, "loss": self.mean_over_ranks(loss)}
+
+
+def step_costs(model, batch, *, opt_cfg: Optional[AdamWConfig] = None, params=None,
+               opt_state=None) -> dict:
+    """The counts of one train step of ``make_train_step(model, opt_cfg)`` on
+    ``batch`` (:meth:`repro_torch.roofline.count.StepCounter.result`):
+    ``flops``, ``traffic_bytes``, their parts, each kernel's calls and costs,
+    and the live-bytes peak over the parameters, the optimizer state and the
+    batch it starts with.  Without ``params``, a batch on the meta device
+    takes ``params.abstract`` and an abstract AdamW state (nothing drawn),
+    any other the model's weights from seed 0 and a fresh state.  The step
+    updates ``params`` and ``opt_state`` in place, as a train step does."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    device = PM.tree_leaves(batch)[0].device
+    if params is None:
+        if device.type == "meta":
+            layout = model.layout()
+            params = PM.abstract(layout, model.cfg.dtype)
+            opt_state = abstract_opt_state(layout, opt_cfg)
+        else:
+            params, opt_state = init_train_state(model, torch.Generator().manual_seed(0),
+                                                 opt_cfg)
+    elif opt_state is None:
+        opt_state = init_opt_state(params, opt_cfg)
+    step = make_train_step(model, opt_cfg)
+    return _count.count(step, params, opt_state, batch)[1]
+
+
+def step_flops(model, batch, *, opt_cfg: Optional[AdamWConfig] = None, params=None,
+               opt_state=None) -> float:
+    """The FLOPs of one train step (:func:`step_costs`'s ``flops``): PyTorch's
+    matmul formulas plus the hand-written kernels' costs."""
+    return step_costs(model, batch, opt_cfg=opt_cfg, params=params,
+                      opt_state=opt_state)["flops"]
 
 
 def make_eval_step(model):

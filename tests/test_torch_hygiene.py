@@ -52,7 +52,9 @@ def test_port_sources_found():
     assert "repro_torch/models/lm.py" in names and "repro_torch/kernels/ops.py" in names
     for module in ("core/stripestore.py", "core/simclock.py", "fs/vfs.py", "fs/dataset.py",
                    "train/hoardckpt.py", "launch/mesh.py", "train/sync.py",
-                   "serve/flash_decoding.py"):
+                   "serve/flash_decoding.py", "launch/dryrun.py", "roofline/count.py",
+                   "roofline/table.py", "kernels/cost.py", "core/workload.py",
+                   "core/rebalance.py"):
         assert f"repro_torch/{module}" in names
     assert SMOKE.is_file()
 
@@ -77,3 +79,31 @@ def test_no_fallback_around_kernel_launches():
     for path in (ROOT / "src" / "repro_torch" / "kernels").glob("*.py"):
         tree = ast.parse(path.read_text(), filename=str(path))
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path.name
+
+
+def test_meta_device_only_by_name():
+    """``resolve`` takes ``"meta"`` when the caller names it and never by
+    default; ``"cuda"`` without a card and any other device still raise; the
+    kernels' dispatch refuses a device that is neither cuda, cpu nor meta."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.device import DEFAULT_DEVICE, resolve
+    from repro_torch.kernels import ops
+
+    assert resolve("meta") == torch.device("meta")
+    assert resolve(torch.device("meta")).type == "meta"
+    assert DEFAULT_DEVICE == "cuda"
+    assert resolve("cpu").type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            resolve(None)
+        with pytest.raises(RuntimeError, match="is_available"):
+            resolve("cuda")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve("mps")
+    assert ops._on_cuda(torch.empty(1, device="meta"), "op") is True
+    assert ops._on_cuda(torch.empty(1), "op") is False
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops._on_cuda(SimpleNamespace(device=torch.device("xpu")), "op")
