@@ -8,6 +8,8 @@
     python3 chip_smoke.py --only hoard    # card, build and the Hoard data-plane phase
     python3 chip_smoke.py --only multi    # card, build and the 4-rank phase (phase 11)
     python3 chip_smoke.py --only dryrun   # card, build, the H100 table and compute-plane checks
+    python3 chip_smoke.py --only phi      # card, build, the phi configs' checks, serves, training
+    python3 chip_smoke.py --only remat    # card, build and the remat check on qwen's train cell
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -18,14 +20,15 @@ prints no result line):
    and bf16: the serving kernels at every shape at which a serve run of
    phase 5 launches them, read from the models' layouts
    (``serve_kernel_shapes``: rmsnorm rows of 512 (deepseek-v2-lite-16b's
-   kv_ln), 1024, 1600, 2048, 2560 and 4096 and qwen3-4b's q_norm and k_norm
-   head rows (128, 128) and (32, 128); SwiGLU (8, 1024, 2816), (8, 1600,
-   5504), (8, 2048, 2688), (4, 2560, 9728) and deepseek-v2-lite-16b's layer0
-   (8, 2048, 10944) and shared experts (8, 2048, 2816); decode attention G
-   1 over 168 slots, G 5 over 168 and G 4 at hd 128 over 88) and a small
-   shape; decode attention also at one long request (32768 slots), 8
-   requests of 4096, qwen3-4b's (G 4, hd 128), hymba-1.5b's (G 5, window
-   1024 and none), G 16 and an hd that takes its ``simt`` route
+   kv_ln), 1024, 1600, 2048, 2560, 3072, 4096 and 5120 and qwen3-4b's q_norm
+   and k_norm head rows (128, 128) and (32, 128); SwiGLU (8, 1024, 2816), (8,
+   1600, 5504), (8, 2048, 2688), (4, 2560, 9728), the phi configs' (8, 3072,
+   8192) and (8, 5120, 17920) and deepseek-v2-lite-16b's layer0 (8, 2048,
+   10944) and shared experts (8, 2048, 2816); decode attention G 1 over 168
+   slots, G 5 over 168, G 4 at hd 128 over 88 and the phi configs' G 3 and G
+   4 at hd 128 over 168) and a small shape; decode attention also at one
+   long request (32768 slots), 8 requests of 4096, qwen3-4b's (G 4, hd
+   128), hymba-1.5b's (G 5, window 1024 and none), G 16 and an hd that takes its ``simt`` route
    (``DECODE_SHAPES``), with valid lengths 0, 1, S, S + 40 and random and
    windows across its split plan's span edges, each call made twice and
    compared bit for bit, held against the plain version of its split plan
@@ -39,12 +42,13 @@ prints no result line):
    (both its routes asserted; its device time from a replayed CUDA graph,
    its host path step by step); swiglu_mlp at the qwen, hymba-1.5b and
    deepseek-v2-lite-16b training shapes (layer0's (4096, 2048, 10944), the
-   shared experts' (4096, 2048, 2816)) and at ragged shapes that reach each
-   of its three routes (``SWIGLU_SHAPES``), the split-K route asserted at
-   every serving shape; flash attention forward and backward at the five
-   sweep shapes of ``tests/test_kernels.py``, their window and ragged rows
-   again at hd 64 (the tensor-core route), a GQA shape (G 8, hd 128), causal
-   queries behind a longer cache (q_offset 256) and the training shape, then
+   shared experts' (4096, 2048, 2816)), phi4-mini-3.8b's (2048, 3072, 8192)
+   and at ragged shapes that reach each of its three routes
+   (``SWIGLU_SHAPES``), the split-K route asserted at every serving shape;
+   flash attention forward and backward at the five sweep shapes of
+   ``tests/test_kernels.py``, their window and ragged rows again at hd 64 (the
+   tensor-core route), a GQA shape (G 8, hd 128), causal queries behind a
+   longer cache (q_offset 256) and the training shape, then
    with v narrower than q and k (``MOE_FLASH_SHAPES``: the sweep with v of
    half width, MLA's (192, 128) ragged, behind a longer cache, with a window
    and at deepseek-v2-lite-16b's training shape 2 x 16 x 2048, the smoke
@@ -99,7 +103,11 @@ prints no result line):
    side a whole tile) and a small ragged non-causal row, held to the plain
    versions with the route's roundings and timed at four of them beside
    SDPA; decode attention over Whisper's 1500 cross frames; SwiGLU forward
-   and backward at internvl2-2b's (4096, 2048, 8192).
+   and backward at internvl2-2b's (4096, 2048, 8192).  phi4-mini-3.8b's
+   training shapes: rmsnorm forward and backward (2048, 3072), SwiGLU
+   forward and backward (2048, 3072, 8192), flash forward and backward (2,
+   24 / 8, 1024, 128) causal, held to the plain versions and timed
+   (``phi4_*`` keys, the flash rows' ``phi4``).
 4. full width: qwen1.5-0.5b in fp32, one ``decode_step`` on the card against
    the same weights on the CPU; then, cut to 4 layers, ``loss`` and every
    gradient leaf on a (2, 200) batch against the CPU; then xlstm-1.3b in
@@ -118,8 +126,9 @@ prints no result line):
    8 decode steps over a cross cache filled from it, against the CPU.
    Decoding at full width in fp32 against the CPU with the same weights
    (``--only serve`` runs these and phase 5): qwen3-4b cut to 4 layers, one
-   ``decode_step``, then ``loss``, every gradient leaf and ``prefill``;
-   hymba-1.5b cut to 4 layers (global 0 and 3) and a window of 64, 96
+   ``decode_step``, then ``loss``, every gradient leaf and ``prefill``; the
+   same for phi4-mini-3.8b and phi3-medium-14b cut to 4 layers (hd 128,
+   groups of 3 and 4); hymba-1.5b cut to 4 layers (global 0 and 3) and a window of 64, 96
    ``decode_step``s from index 128 (the meta offset) on a random cache, so
    the ring of 64 slots wraps, the logits at every step and every cache leaf
    at the end within 2e-3; xlstm-1.3b cut to 8 layers, 32 steps from the
@@ -139,12 +148,14 @@ prints no result line):
    CPU's; a small fp32 serve at the smoke configs of qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b,
    deepseek-v2-lite-16b, mixtral-8x7b, internvl2-2b and whisper-large-v3 through
    ``repro_torch.launch.serve.main`` on the card and on the CPU (one seed
-   names one model on both), token for token; then seven bf16 runs at full
+   names one model on both), token for token; then nine bf16 runs at full
    config through ``repro_torch.launch.serve.main`` (``SERVE_RUNS``):
    qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b, deepseek-v2-lite-16b (27 layers,
-   15.7 B parameters), internvl2-2b (a text decoder) and whisper-large-v3
-   (the engine's 64 zero frames) with 8 requests, prompt 128 and 32 new
-   tokens, qwen3-4b with 4, 64 and 16.  Each with the kernels' launch counts set to 0 just
+   15.7 B parameters), internvl2-2b (a text decoder), whisper-large-v3
+   (the engine's 64 zero frames), phi4-mini-3.8b (32 layers) and
+   phi3-medium-14b (40 layers, 28 GB in bf16) with 8 requests, prompt 128
+   and 32 new tokens, qwen3-4b with 4, 64 and 16; each model freed before
+   the next.  Each with the kernels' launch counts set to 0 just
    before and read just after, each kernel's count equal to its launches per
    decode step times the steps; every swiglu_mlp launch must have taken the
    split-K tensor-core route, every rmsnorm the ``vec`` body, every
@@ -158,7 +169,13 @@ prints no result line):
    ``encode`` of 8 x 1500 frames, the cross cache filled from it, 32 decode
    steps over it and their last logits against ``prefill`` of the same
    tokens (``BF16_LOGIT_TOL``), every launch counted and at a checked shape.
-6. train: qwen1.5-0.5b in bf16, full width and depth, through
+6. train: every training step below runs its config's rematerialisation,
+   JAX's ``"dots"`` (``REMAT``): a block's forward kernels run twice a step
+   (the forward and the recompute in the backward pass), its backward
+   kernels once, the final norm once; the launches a step are derived from
+   each model's blocks (``train_launches``: qwen1.5-0.5b's rmsnorm 2 x 2 x
+   24 + 1, its backward 49, SwiGLU and flash 48 forward and 24 backward).
+   qwen1.5-0.5b in bf16, full width and depth, through
    ``repro_torch.launch.train.main`` (batch 8, seq 512, 6 steps, a final
    checkpoint and ``--data-root`` in temporary directories under
    ``build/``), with the launch counts set to 0 just before and checked per
@@ -168,12 +185,17 @@ prints no result line):
    (``check_train_corpus``: every chunk file of ``node0..node3`` with its
    manifest CRC and the seeded bytes, every batch the run read equal to
    the seeded rows at its ids), the loader's ms a step and its share of the
-   step printed; then 8 steps on one fixed batch, whose loss must fall by
-   0.05.  Then the Hoard data plane (``phase_hoard``, alone by ``--only
-   hoard``): (a) 8 x 512 records of qwen's tokens read through HoardFS
-   (``FileDataset.read_item_bytes``), the simulated clock drained, decoded
-   on the card and equal to the ``TokenLoader``'s rows, then two bf16 steps
-   at full width with ``TRAIN_PER_STEP`` launches a step; (b) a 317 MB bf16
+   step printed; then the remat check (``remat_check``, alone by ``--only
+   remat``): the loss and every gradient of one step at the run's 8 x 512
+   from the same weights under ``"none"``, ``"dots"`` and ``"full"``, equal
+   bit for bit, each policy's launches counted, its ms, its peak above the
+   start and the step counter's peak on meta printed; then 8 steps on one
+   fixed batch, whose loss must fall by 0.05.  Then the Hoard data plane
+   (``phase_hoard``, alone by ``--only hoard``): (a) 8 x 512 records of qwen's
+   tokens read through HoardFS (``FileDataset.read_item_bytes``), the
+   simulated clock drained, decoded on the card and equal to the
+   ``TokenLoader``'s rows, then two bf16 steps at full width with
+   ``TRAIN_PER_STEP`` launches a step; (b) a 317 MB bf16
    and fp32 state (the smoke train state and qwen's full-width embedding)
    saved and restored through ``HoardCheckpointManager``, bit for bit on
    the card, its MB/s printed; (c) a flipped byte in one replica of a
@@ -182,7 +204,7 @@ prints no result line):
    the stripe store.
 7. train xLSTM: ``launch.train.main`` for xlstm-1.3b at its smoke config on
    the card, with a checkpoint; then xlstm-1.3b in bf16 at full width and
-   depth (48 layers), batch 4 x seq 512 from the launcher's corpus, 4 steps
+   depth (48 layers), batch 4 x seq 512 from the launcher's corpus, 2 steps
    of ``make_train_step`` with the launch counts set to 0 just before and
    checked per step just after (the routes as qwen's: the SwiGLU forward and
    backward on the tensor cores, every rmsnorm on ``vec``; and every mLSTM
@@ -211,7 +233,12 @@ prints no result line):
    steps with the launch counts checked per step (``INTERNVL_PER_STEP``,
    ``WHISPER_PER_STEP``), the routes (every flash on the tensor cores) and
    every launch at a checked shape, and 8 steps on a fixed batch whose loss
-   must fall by 0.05.
+   must fall by 0.05.  Then phi4-mini-3.8b as the MoE models (phase 9) at
+   full width and depth (32 layers, 4.45 B parameters), batch 2 x 1024
+   (``PHI4_TRAIN``: the step counter on meta puts its peak at 72.3 GiB), no
+   checkpoint; phi3-medium-14b is not trained (its fp32 AdamW state alone is
+   about 168 GB).  ``--only phi`` runs the phi configs' fp32 checks, serve
+   runs and this training run.
 11. multi (``phase_multi``, alone by ``--only multi``): 4 ranks spawned on
    the one card over ``gloo`` (``mesh.run_ranks``, rendezvous through a file
    under ``build/``, a timeout on the world and on every collective), mesh
@@ -240,8 +267,8 @@ prints no result line):
 12. compute plane (PR 28's dry-run and roofline): ``check_h100_values``
    after the kernel checks (the H100 table the meta route reads, against the
    card's properties and ``rt_rmsnorm_bwd_vec_config``); then, after the
-   timed steps of the train, Hymba, deepseek, mixtral, internvl2 and Whisper
-   phases, one counted step of ``train.step_costs`` on the card and the same
+   timed steps of the train, Hymba, deepseek, mixtral, internvl2, Whisper and
+   phi4-mini-3.8b phases, one counted step of ``train.step_costs`` on the card and the same
    step counted on the meta device with no weights (``dryrun_check``): (a)
    FLOPs, traffic and every kernel's entries equal, (b) the meta live-bytes
    peak within ``DRYRUN_TOL`` of ``max_memory_allocated`` over the counted
@@ -255,12 +282,14 @@ prints no result line):
 13. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
    ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"serve_deepseek":
    ...}`` (with the MoE decode checks' near-ties), ``{"serve_internvl2":
-   ...}``, ``{"serve_whisper": ...}``, ``{"train": ...}``, ``{"hoard": ...}``,
+   ...}``, ``{"serve_whisper": ...}``, ``{"serve_phi4": ...}``,
+   ``{"serve_phi3": ...}``, ``{"train": ...}`` (the remat check under
+   ``remat``), ``{"hoard": ...}``,
    ``{"train_xlstm": ...}``, ``{"train_hymba": ...}``, ``{"train_deepseek":
    ...}`` and ``{"train_mixtral": ...}`` (with the fp32 loss checks'
    near-ties), ``{"train_internvl2": ...}``, ``{"train_whisper": ...}``,
-   ``{"multi": ...}``, ``{"h100_table": ...}`` and ``{"kernels": [...]}`` line, then the
-   last line ``{"ok": true, "device":
+   ``{"train_phi4": ...}``, ``{"multi": ...}``, ``{"h100_table": ...}`` and
+   ``{"kernels": [...]}`` line, then the last line ``{"ok": true, "device":
    {...}}``.
 """
 
@@ -302,6 +331,21 @@ DEEPSEEK_SWIGLU = ((4096, 2048, 10944), (4096, 2048, 2816))
 #: and at its image-prefixed prefill and fixed training batch (2 x (256 + 128))
 INTERNVL_SWIGLU = (4096, 2048, 8192)
 INTERNVL_PREFIX_SWIGLU = (768, 2048, 8192)
+PHI4 = "phi4-mini-3.8b"
+PHI3 = "phi3-medium-14b"
+#: phi4-mini-3.8b trained in bf16 at full width and depth (32 layers, 4.45 B
+#: parameters) on 2 x 1024 tokens: its weights, bf16 gradients and fp32 AdamW
+#: state take 66.3 GiB, and the step counter on meta puts the step's peak at
+#: 72.3 GiB at every batch from 1 x 512 to 2 x 1024 (the update's temporaries
+#: outgrow the activations), so neither the depth nor the batch is cut
+PHI4_TRAIN = dict(batch=2, seq=1024, steps=4)
+#: its kernels' shapes: rmsnorm (rows, D), SwiGLU (rows, D, F), flash (B, Hq, Hkv,
+#: Sq, Skv, hd, hdv, causal, window)
+PHI4_ROWS = PHI4_TRAIN["batch"] * PHI4_TRAIN["seq"]
+PHI4_RMSNORM = (PHI4_ROWS, 3072)
+PHI4_SWIGLU = (PHI4_ROWS, 3072, 8192)
+PHI4_FLASH = (PHI4_TRAIN["batch"], 24, 8, PHI4_TRAIN["seq"], PHI4_TRAIN["seq"], 128, 128,
+              True, 0)
 #: (rows, D) of the rmsnorm forward and backward at the MoE training shapes:
 #: deepseek-v2-lite-16b's kv_ln on the MLA latent (512) and its d_model norms
 #: (2 x 2048 rows); mixtral-8x7b's d_model norms (1 x 8192 rows)
@@ -310,11 +354,12 @@ MOE_RMSNORM = ((4096, 512), (4096, 2048), (8192, 4096))
 #: the split-K route (20 rows) and the 128-row route (333 rows) with D and F no
 #: multiple of the tiles, a bf16 shape that TMA refuses (D = 100, not a multiple
 #: of 8: the CUDA-core route), and hymba-1.5b's training shape
-#: of hymba-1.5b's training shape; the other models' serving shapes join them
-#: in ``check_swiglu`` (``serve_kernel_shapes``)
+#: of hymba-1.5b's training shape, the MoE, internvl2-2b and phi4-mini-3.8b training
+#: shapes; the other models' serving shapes join them in ``check_swiglu``
+#: (``serve_kernel_shapes``)
 SWIGLU_SHAPES = ((SERVE["requests"], 1024, 2816), (TRAIN_ROWS, 1024, 2816), (20, 96, 224),
                  (333, 200, 712), (37, 100, 260), HYMBA_SWIGLU, *DEEPSEEK_SWIGLU,
-                 INTERNVL_SWIGLU, INTERNVL_PREFIX_SWIGLU)
+                 INTERNVL_SWIGLU, INTERNVL_PREFIX_SWIGLU, PHI4_SWIGLU)
 TOL = {  # tests/test_kernels.py
     "rmsnorm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
     "swiglu_mlp": {torch.float32: 1e-4, torch.bfloat16: 5e-2},
@@ -340,10 +385,35 @@ FLASH_SHAPES = (
     (1, 4, 2, 200, 456, 64, True, 0),
     (TRAIN["batch"], 16, 16, TRAIN["seq"], TRAIN["seq"], 64, True, 0),
 )
-#: kernel launches per training step of qwen1.5-0.5b (24 layers)
-TRAIN_PER_STEP = {"rmsnorm": 2 * 24 + 1, "rmsnorm_bwd": 2 * 24 + 1, "swiglu": 24,
-                  "swiglu_bwd": 24, "flash_attention": 24, "flash_attention_bwd": 24,
-                  "decode_attention": 0}
+#: the rematerialisation of every config's blocks in training (``ModelConfig.remat``,
+#: JAX's default), at which the launch counts a step are derived
+REMAT = "dots"
+#: the hand-written forward kernels of a training step, each with a backward kernel
+#: of its own (``NAME_bwd``)
+TRAIN_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "mlstm_scan", "ssd_scan")
+
+
+def train_launches(blocks: dict, outside: dict | None = None, remat: str = REMAT) -> dict:
+    """Kernel launches a training step from its structure: ``blocks`` the forward
+    kernels of the model's blocks, ``outside`` those outside every block (the
+    final norm).  A block's forward kernels run once in the forward and, under
+    a remat policy other than ``"none"``, once more in the backward pass's
+    recompute; every backward kernel runs once for each kernel of the forward;
+    no decode attention."""
+    outside = outside or {}
+    runs = 1 if remat == "none" else 2
+    out = {"decode_attention": 0}
+    for name in TRAIN_KERNELS:
+        n, once = blocks.get(name, 0), outside.get(name, 0)
+        out[name] = runs * n + once
+        out[f"{name}_bwd"] = n + once
+    return out
+
+
+#: qwen1.5-0.5b's 24 layers: 2 norms, one attention and one SwiGLU each; the final norm
+QWEN_BLOCKS = ({"rmsnorm": 2 * 24, "swiglu": 24, "flash_attention": 24}, {"rmsnorm": 1})
+#: kernel launches per training step of qwen1.5-0.5b
+TRAIN_PER_STEP = train_launches(*QWEN_BLOCKS)
 #: the route every launch of these modules must take in the bf16 runs: the
 #: tensor cores at training rows (qwen and Hymba; xLSTM has only SwiGLU), with
 #: split-K at serving's 8 rows, the SwiGLU backward too; every rmsnorm forward
@@ -352,12 +422,14 @@ TRAIN_ROUTES = {"swiglu": "wgmma", "flash_attention": "wgmma", "flash_attention_
                 "rmsnorm": "vec", "swiglu_bwd": "wgmma", "rmsnorm_bwd": "vec"}
 SERVE_ROUTES = {"swiglu": "wgmma_split_k", "rmsnorm": "vec", "decode_attention": "split"}
 XLSTM = "xlstm-1.3b"
-XLSTM_TRAIN = dict(batch=4, seq=512, steps=4)
+#: 2 timed steps (4 before the blocks were rematerialised): under "dots" the
+#: selective checkpoint's dispatch mode sees each of the sLSTM loop's ops, in the
+#: forward and again in the recompute, and a step takes 3-4x as long
+XLSTM_TRAIN = dict(batch=4, seq=512, steps=2)
 #: kernel launches per training step of xlstm-1.3b (42 mLSTM blocks: 2 norms and
 #: one scan each; 6 sLSTM blocks: 3 norms and one SwiGLU each; the final norm)
-XLSTM_PER_STEP = {"rmsnorm": 2 * 42 + 3 * 6 + 1, "rmsnorm_bwd": 2 * 42 + 3 * 6 + 1,
-                  "swiglu": 6, "swiglu_bwd": 6, "mlstm_scan": 42, "mlstm_scan_bwd": 42,
-                  "flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0}
+XLSTM_PER_STEP = train_launches({"rmsnorm": 2 * 42 + 3 * 6, "swiglu": 6, "mlstm_scan": 42},
+                                {"rmsnorm": 1})
 XLSTM_ROUTES = {"swiglu": "wgmma", "rmsnorm": "vec", "swiglu_bwd": "wgmma", "rmsnorm_bwd": "vec",
                 "mlstm_scan": "wgmma", "mlstm_scan_bwd": "wgmma"}
 #: (B, H, S, dqk, dv, chunk): the sweep of tests/test_kernels.py:130-141, then the
@@ -378,10 +450,8 @@ HYMBA = "hymba-1.5b"
 HYMBA_TRAIN = dict(batch=2, seq=2048, steps=4)
 #: kernel launches per training step of hymba-1.5b (32 blocks: 4 norms, one
 #: attention, one scan and one SwiGLU each; the final norm)
-HYMBA_PER_STEP = {"rmsnorm": 4 * 32 + 1, "rmsnorm_bwd": 4 * 32 + 1, "swiglu": 32,
-                  "swiglu_bwd": 32, "flash_attention": 32, "flash_attention_bwd": 32,
-                  "ssd_scan": 32, "ssd_scan_bwd": 32, "mlstm_scan": 0, "mlstm_scan_bwd": 0,
-                  "decode_attention": 0}
+HYMBA_PER_STEP = train_launches({"rmsnorm": 4 * 32, "swiglu": 32, "flash_attention": 32,
+                                 "ssd_scan": 32}, {"rmsnorm": 1})
 #: Hymba's routes: qwen's, and the tensor cores for every SSD scan forward and
 #: backward
 HYMBA_ROUTES = {**TRAIN_ROUTES, "ssd_scan": "wgmma", "ssd_scan_bwd": "wgmma"}
@@ -438,26 +508,27 @@ WHISPER_TRAIN = dict(batch=4, seq=WHISPER_TOKENS, frames=WHISPER_FRAMES, steps=4
 #: and one sequence of 8192, so that its window of 4096 binds over half the rows
 DEEPSEEK_TRAIN = dict(batch=2, seq=2048, steps=4, layers=4)
 MIXTRAL_TRAIN = dict(batch=1, seq=8192, steps=4, layers=2)
-_NO_SCANS = {"decode_attention": 0, "mlstm_scan": 0, "mlstm_scan_bwd": 0, "ssd_scan": 0,
-             "ssd_scan_bwd": 0}
-#: kernel launches per training step: deepseek-v2-lite-16b at 4 layers, 3 norms
-#: each (kv_ln on the MLA latent among them) and the final norm, one flash
-#: attention each (MLA's (192, 128)), layer0's SwiGLU and the 3 MoE layers'
-#: shared experts (the routed experts are batched products); mixtral-8x7b at 2
-#: layers, 2 norms and one attention each and the final norm, no SwiGLU kernel
-DEEPSEEK_PER_STEP = {"rmsnorm": 3 * 4 + 1, "rmsnorm_bwd": 3 * 4 + 1, "swiglu": 4,
-                     "swiglu_bwd": 4, "flash_attention": 4, "flash_attention_bwd": 4,
-                     **_NO_SCANS}
-MIXTRAL_PER_STEP = {"rmsnorm": 2 * 2 + 1, "rmsnorm_bwd": 2 * 2 + 1, "swiglu": 0,
-                    "swiglu_bwd": 0, "flash_attention": 2, "flash_attention_bwd": 2,
-                    **_NO_SCANS}
+#: kernel launches per training step: deepseek-v2-lite-16b at 4 layers (layer0
+#: rematerialised on its own, as in JAX), 3 norms each (kv_ln on the MLA latent
+#: among them) and the final norm, one flash attention each (MLA's (192, 128)),
+#: layer0's SwiGLU and the 3 MoE layers' shared experts (the routed experts are
+#: batched products); mixtral-8x7b at 2 layers, 2 norms and one attention each
+#: and the final norm, no SwiGLU kernel
+DEEPSEEK_PER_STEP = train_launches({"rmsnorm": 3 * 4, "swiglu": 4, "flash_attention": 4},
+                                   {"rmsnorm": 1})
+MIXTRAL_PER_STEP = train_launches({"rmsnorm": 2 * 2, "flash_attention": 2}, {"rmsnorm": 1})
 #: kernel launches per training step: internvl2-2b's 24 layers as qwen's (the image
 #: positions go through the backbone); whisper-large-v3's 32 encoder and 32
-#: decoder layers, one flash attention each in the encoder and two (causal self,
-#: cross) in the decoder, their LayerNorm and GELU plain PyTorch
-INTERNVL_PER_STEP = {**TRAIN_PER_STEP, **_NO_SCANS}
-WHISPER_PER_STEP = {"rmsnorm": 0, "rmsnorm_bwd": 0, "swiglu": 0, "swiglu_bwd": 0,
-                    "flash_attention": 3 * 32, "flash_attention_bwd": 3 * 32, **_NO_SCANS}
+#: decoder layers, each rematerialised, one flash attention each in the encoder
+#: and two (causal self, cross) in the decoder, their LayerNorm and GELU plain
+#: PyTorch
+INTERNVL_PER_STEP = TRAIN_PER_STEP
+WHISPER_PER_STEP = train_launches({"flash_attention": 3 * 32})
+#: phi4-mini-3.8b's 32 layers as qwen's
+PHI4_PER_STEP = train_launches({"rmsnorm": 2 * 32, "swiglu": 32, "flash_attention": 32},
+                               {"rmsnorm": 1})
+#: the policies of the remat check on qwen's train cell (``remat_check``)
+REMAT_POLICIES = ("none", "dots", "full")
 WHISPER_ROUTES = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma"}
 #: (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window) of the flash launches of the two
 #: families' runs: internvl2-2b's training shape and its image-prefixed prefill
@@ -493,7 +564,9 @@ NEAR_TIE = 1e-5
 #: experts are batched products), the final norm, and no decode-attention kernel
 #: (MLA's absorbed products); internvl2-2b as qwen's (it decodes text alone);
 #: whisper-large-v3: 32 decoder layers of self and cross decode attention (over
-#: the engine's 64 zero frames), LayerNorm and GELU plain PyTorch.  qwen3-4b
+#: the engine's 64 zero frames), LayerNorm and GELU plain PyTorch; phi4-mini-3.8b
+#: (32 layers, 24 query heads over 8, hd 128) and phi3-medium-14b (40 layers, 40
+#: over 10, hd 128; 28 GB in bf16, freed before the next run) as qwen's.  qwen3-4b
 #: serves fewer and shorter requests, to bound the run's time.  mixtral-8x7b has
 #: no bf16 run: 93 GB do not fit one card.
 SERVE_RUNS = {
@@ -508,6 +581,10 @@ SERVE_RUNS = {
     "serve_internvl2": (INTERNVL, 8, 128, 32,
                         {"rmsnorm": 2 * 24 + 1, "swiglu": 24, "decode_attention": 24}),
     "serve_whisper": (WHISPER, 8, 128, 32, {"decode_attention": 2 * 32}),
+    "serve_phi4": (PHI4, 8, 128, 32,
+                   {"rmsnorm": 2 * 32 + 1, "swiglu": 32, "decode_attention": 32}),
+    "serve_phi3": (PHI3, 8, 128, 32,
+                   {"rmsnorm": 2 * 40 + 1, "swiglu": 40, "decode_attention": 40}),
 }
 #: SDPA's backends timed for the flash backward's yardstick (torch.nn.attention.SDPBackend)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
@@ -530,7 +607,9 @@ def memory_rate(name: str) -> float:
 
 # ------------------------------------------------------------------ helpers
 def randn(gen, shape, dtype, scale=1.0, device="cuda"):
-    return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
+    """Normal draws from ``gen`` on its own device, scaled, cast and moved."""
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(device=device,
+                                                                             dtype=dtype)
 
 
 def time_ms(fn, arg_sets, rounds: int, warmup: int = 2, issue: bool = False):
@@ -689,12 +768,12 @@ def flash_shapes() -> list:
     """(B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, as_route) of the flash
     checks: FLASH_SHAPES and hymba-1.5b's (v as wide as q and k, held to the
     plain versions as they are), MOE_FLASH_SHAPES, the small ragged
-    non-causal row and EMBEDDED_FLASH (held to the plain versions with P and
-    dS rounded as the tensor-core route rounds them)."""
+    non-causal row, EMBEDDED_FLASH and PHI4_FLASH (held to the plain versions
+    with P and dS rounded as the tensor-core route rounds them)."""
     hymba = [(B, Hq, Hkv, S, S, hd, True, w) for B, Hq, Hkv, S, hd, w in HYMBA_FLASH]
     shapes = [(*s[:6], s[5], *s[6:], False) for s in (*FLASH_SHAPES, *hymba)]
     return shapes + [(*s, True) for s in (*MOE_FLASH_SHAPES, RAGGED_CROSS_FLASH,
-                                          *EMBEDDED_FLASH)]
+                                          *EMBEDDED_FLASH, PHI4_FLASH)]
 
 
 def flash_key(B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, q_offset) -> tuple:
@@ -785,10 +864,11 @@ def phase_build() -> None:
 #: (rows, D) of the rmsnorm checks: the serving, qwen training and hymba-1.5b
 #: training rows (the "vec" route), a small row and a ragged one (D = 100: the
 #: "block" route), the MoE training rows, internvl2-2b's image-prefixed rows (2 x
-#: (256 + 128)); the other models' serving rows join them in ``check_rmsnorm``
-#: (``serve_kernel_shapes``)
+#: (256 + 128)), phi4-mini-3.8b's training rows; the other models' serving rows
+#: join them in ``check_rmsnorm`` (``serve_kernel_shapes``; an fp32 row over
+#: ``VEC_MAX_ROW_BYTES``, phi3-medium-14b's 5120, takes the "block" route)
 RMSNORM_SHAPES = ((SERVE["requests"], 1024), (TRAIN_ROWS, 1024), (4352, 1600), (37, 96),
-                  (37, 100), *MOE_RMSNORM, INTERNVL_PREFIX_SWIGLU[:2])
+                  (37, 100), *MOE_RMSNORM, INTERNVL_PREFIX_SWIGLU[:2], PHI4_RMSNORM)
 
 
 def graph_ms(fn, arg_sets, calls: int = 24, replays: int = 20, stream=None):
@@ -922,8 +1002,8 @@ MOE_RMSNORM_PREFIXES = ("deepseek_kv_ln_", "deepseek_", "mixtral_")
 def check_rmsnorm(gen, ops, ref, rate):
     """RMSNORM_SHAPES in fp32 and bf16, each check with the route it took; times
     at the serving shape (the row), the qwen training shape (``train_*``),
-    hymba-1.5b's (``hymba_*``), the MoE training rows (MOE_RMSNORM_PREFIXES)
-    and the other models' serving rows
+    hymba-1.5b's (``hymba_*``), the MoE training rows (MOE_RMSNORM_PREFIXES),
+    phi4-mini-3.8b's (``phi4_*``) and the other models' serving rows
     (``serve_kernel_shapes``' prefixes): host-paced ``ms`` with the host's ``issue_ms``,
     ``device_ms`` from a replayed CUDA graph, the ``block`` body on the same inputs
     (``block_ms``, device), ``F.rms_norm``'s host-paced and device times.  At
@@ -937,8 +1017,11 @@ def check_rmsnorm(gen, ops, ref, rate):
         for dt in (torch.float32, torch.bfloat16):
             x, g = randn(gen, (rows, D), dt), randn(gen, (D,), dt)
             routes[(rows, D, dt)] = kr.route(x, g)
-            if routes[(rows, D, dt)] != ("vec" if D % 8 == 0 else "block"):
-                raise AssertionError(f"rmsnorm {(rows, D, dt)}: route {routes[(rows, D, dt)]}")
+            want = ("vec" if D % 8 == 0 and D * x.element_size() <= kr.VEC_MAX_ROW_BYTES
+                    else "block")
+            if routes[(rows, D, dt)] != want:
+                raise AssertionError(f"rmsnorm {(rows, D, dt)}: route {routes[(rows, D, dt)]}, "
+                                     f"expected {want}")
             got = ops.rmsnorm(x, g, eps=1e-5)
             errs[(rows, D, dt)] = max_err(got, ref.rmsnorm_ref(x, g, 1e-5),
                                           TOL["rmsnorm"][dt])
@@ -953,6 +1036,7 @@ def check_rmsnorm(gen, ops, ref, rate):
                                    ("hymba_", RMSNORM_SHAPES[2], 8),
                                    *((p, shape, 8) for p, shape in zip(MOE_RMSNORM_PREFIXES,
                                                                        MOE_RMSNORM)),
+                                   ("phi4_", PHI4_RMSNORM, 8),
                                    *((k, shape, 24) for shape, k in
                                      serve_kernel_shapes()["rmsnorm"].items()
                                      if shape != RMSNORM_SHAPES[0])):
@@ -998,8 +1082,8 @@ def check_swiglu(gen, ops, ref, rate):
     the split-K tensor-core route asserted at every serving shape; times at
     the serving shape (the row), the qwen training shape (its ``train_*``
     keys), hymba-1.5b's (``hymba_*``), deepseek-v2-lite-16b's
-    (DEEPSEEK_SWIGLU_PREFIXES), internvl2-2b's (``internvl2_*``) and the other
-    models' serving shapes
+    (DEEPSEEK_SWIGLU_PREFIXES), internvl2-2b's (``internvl2_*``),
+    phi4-mini-3.8b's (``phi4_*``) and the other models' serving shapes
     (``serve_kernel_shapes``' prefixes), each beside the CUDA-core kernel's on the
     same inputs (``simt_ms``); at serving's rows also the kernel's and three
     ``@``'s device times from replayed CUDA graphs (``device_ms``,
@@ -1027,17 +1111,21 @@ def check_swiglu(gen, ops, ref, rate):
             raise AssertionError(f"swiglu_mlp {shape} bf16: route "
                                  f"{routes[(*shape, torch.bfloat16)]}")
     row = {"name": "swiglu_mlp"}
+    # the timed inputs are drawn on the card: 8 sets of phi3-medium-14b's serving
+    # weights are 2.2 G draws, which the host's generator takes tens of seconds for
+    tgen = torch.Generator(device="cuda").manual_seed(1)
     for prefix, (N, D, Fd), n_sets, rounds in (("", SWIGLU_SHAPES[0], 24, 5),
                                                ("train_", SWIGLU_SHAPES[1], 2, 3),
                                                ("hymba_", HYMBA_SWIGLU, 2, 3),
                                                *((p, shape, 2, 3) for p, shape in
                                                  zip(DEEPSEEK_SWIGLU_PREFIXES, DEEPSEEK_SWIGLU)),
                                                ("internvl2_", INTERNVL_SWIGLU, 2, 3),
+                                               ("phi4_", PHI4_SWIGLU, 2, 3),
                                                *((k, shape, 8, 10)
                                                  for shape, k in serving.items())):
         dt = torch.bfloat16
-        sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
-                 randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5))
+        sets = [(randn(tgen, (N, D), dt), randn(tgen, (D, Fd), dt, D ** -0.5),
+                 randn(tgen, (D, Fd), dt, D ** -0.5), randn(tgen, (Fd, D), dt, Fd ** -0.5))
                 for _ in range(n_sets)]
         b_ms, b_by = bound((2 * N * D + 3 * D * Fd) * 2, 6 * N * D * Fd + 4 * N * Fd, dt, rate)
         row.update({
@@ -1425,7 +1513,7 @@ def check_flash(gen, ops, ref, rate):
     training shape (the rows), at hymba-1.5b's (their ``hymba`` lists), at
     deepseek-v2-lite-16b's and mixtral-8x7b's (``deepseek``, ``mixtral``) and
     at EMBEDDED_FLASH_TIMES' (``internvl2``, ``whisper_encoder``,
-    ``whisper_cross``, ``whisper_decoder``)."""
+    ``whisper_cross``, ``whisper_decoder``) and PHI4_FLASH (``phi4``)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import flash_attention_bwd as kb
 
@@ -1507,8 +1595,9 @@ def check_flash(gen, ops, ref, rate):
               f"bound {b['bound_ms']:.4f}, SDPA {b['library_backend']} {b['library_ms']:.4f})")
         gc.collect()
         torch.cuda.empty_cache()
-    for name, i in EMBEDDED_FLASH_TIMES.items():
-        B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window = EMBEDDED_FLASH[i]
+    for name, (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window) in (
+            *((name, EMBEDDED_FLASH[i]) for name, i in EMBEDDED_FLASH_TIMES.items()),
+            ("phi4", PHI4_FLASH)):
         key = (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, "bfloat16")
         shape = (f"q ({B}, {Hq} / {Hkv}, {Sq}, {hd}), k, v ({B}, {Hkv}, {Skv}, {hdv}), "
                  f"{'causal' if causal else 'non-causal'} bf16")
@@ -1529,10 +1618,11 @@ def check_flash(gen, ops, ref, rate):
 #: (rows, D) of the rmsnorm backward checks: the qwen, hymba-1.5b and xlstm-1.3b
 #: training rows and xlstm-1.3b's mLSTM output norm (8 KB rows; the "vec" body),
 #: serving's rows, a small row ("vec") and a ragged one (D = 100: "block"), the
-#: MoE training rows and internvl2-2b's image-prefixed rows
+#: MoE training rows, internvl2-2b's image-prefixed rows and phi4-mini-3.8b's
+#: training rows
 RMSNORM_BWD_SHAPES = ((TRAIN_ROWS, 1024), (4352, 1600), (2048, 2048), (2048, 4096),
                       (SERVE["requests"], 1024), (37, 96), (37, 100), *MOE_RMSNORM,
-                      INTERNVL_PREFIX_SWIGLU[:2])
+                      INTERNVL_PREFIX_SWIGLU[:2], PHI4_RMSNORM)
 
 
 def rmsnorm_bwd_host_steps(x, g, dy, reps: int = 2000) -> dict:
@@ -1582,7 +1672,8 @@ def check_rmsnorm_bwd(gen, ops, ref, rate):
     """RMSNORM_BWD_SHAPES in fp32 and bf16 against the plain backward, each with
     the route it took (asserted) and two calls equal bit for bit; the ``block``
     body on the same inputs.  Times at qwen's rows (the row), hymba-1.5b's
-    (``hymba_*``) and the MoE training rows (MOE_RMSNORM_PREFIXES), bf16:
+    (``hymba_*``), the MoE training rows (MOE_RMSNORM_PREFIXES) and
+    phi4-mini-3.8b's (``phi4_*``), bf16:
     host-paced ``ms`` with the host's ``issue_ms``, device time from a
     replayed CUDA graph of eight input sets (``device_ms``), the
     ``block`` body's the same way (``block_ms``), ``F.rms_norm``'s backward
@@ -1621,7 +1712,7 @@ def check_rmsnorm_bwd(gen, ops, ref, rate):
     print(f"[kernels] rmsnorm_bwd routes {routes}; two calls equal bit for bit at every shape")
     row = {"name": "rmsnorm_bwd"}
     for prefix, (N, D) in (("", (TRAIN_ROWS, 1024)), ("hymba_", (4352, 1600)),
-                           *zip(MOE_RMSNORM_PREFIXES, MOE_RMSNORM)):
+                           *zip(MOE_RMSNORM_PREFIXES, MOE_RMSNORM), ("phi4_", PHI4_RMSNORM)):
         dt = torch.bfloat16
         sets = [(randn(gen, (N, D), dt), randn(gen, (D,), dt), randn(gen, (N, D), dt))
                 for _ in range(8)]
@@ -1670,10 +1761,11 @@ def check_rmsnorm_bwd(gen, ops, ref, rate):
 #: training shapes, a ragged shape of 128-row tiles, serving-size rows (the
 #: forward on split-K, the backward on the tensor cores) and a bf16 shape that
 #: TMA refuses (D = 100: the recompute path and gate kernel), and
-#: deepseek-v2-lite-16b's layer0 and shared experts at its training shape
+#: deepseek-v2-lite-16b's layer0 and shared experts, internvl2-2b's and
+#: phi4-mini-3.8b's at their training shapes
 SWIGLU_BWD_SHAPES = ((TRAIN_ROWS, 1024, 2816), HYMBA_SWIGLU, (2048, 2048, 2688),
                      (333, 200, 712), (20, 96, 224), (37, 100, 260), *DEEPSEEK_SWIGLU,
-                     INTERNVL_SWIGLU, INTERNVL_PREFIX_SWIGLU)
+                     INTERNVL_SWIGLU, INTERNVL_PREFIX_SWIGLU, PHI4_SWIGLU)
 
 
 def _fwd_bwd(fn, x, wg, wu, wd, dy):
@@ -1742,7 +1834,8 @@ def check_swiglu_bwd(gen, ops, ref, rate):
     only with that witness, and is printed and returned (``plain_misses``)
     with both errors.  Times at qwen's shape (the row),
     hymba-1.5b's (``hymba_*``), deepseek-v2-lite-16b's
-    (DEEPSEEK_SWIGLU_PREFIXES) and internvl2-2b's (``internvl2_*``), bf16, each
+    (DEEPSEEK_SWIGLU_PREFIXES), internvl2-2b's (``internvl2_*``) and
+    phi4-mini-3.8b's (``phi4_*``), bf16, each
     from a replayed CUDA graph of two
     input sets: the backward (``device_ms``; ``ms`` event-timed back to
     back), its kernel alone (``kernel_device_ms``), the PR 12-17 path
@@ -1811,11 +1904,12 @@ def check_swiglu_bwd(gen, ops, ref, rate):
     print(f"[kernels] swiglu_mlp_bwd outside GRAD_TOL of the plain version: {misses or 'none'}")
     row = {"name": "swiglu_mlp_bwd",
            "plain_misses": {" ".join(map(str, k)): v for k, v in misses.items()}}
+    tgen = torch.Generator(device="cuda").manual_seed(1)     # the timed inputs, on the card
     for prefix, (N, D, Fd) in (("", SWIGLU_BWD_SHAPES[0]), ("hymba_", HYMBA_SWIGLU),
                                *zip(DEEPSEEK_SWIGLU_PREFIXES, DEEPSEEK_SWIGLU),
-                               ("internvl2_", INTERNVL_SWIGLU)):
+                               ("internvl2_", INTERNVL_SWIGLU), ("phi4_", PHI4_SWIGLU)):
         dt = torch.bfloat16
-        sets = [_swiglu_bwd_inputs(gen, N, D, Fd, dt) for _ in range(2)]
+        sets = [_swiglu_bwd_inputs(tgen, N, D, Fd, dt) for _ in range(2)]
         b_ms, b_by = bound((3 * N * D + 6 * D * Fd + 2 * N * Fd) * 2,
                            12 * N * D * Fd + 10 * N * Fd, dt, rate)
         k_ms, k_by = bound((N * D + D * Fd + 5 * N * Fd) * 2, 2 * N * D * Fd + 10 * N * Fd, dt,
@@ -2229,13 +2323,18 @@ def weights_on_both(gpu, seed: int):
     return PM.tree_map(lambda t: t.cpu(), p_gpu), p_gpu
 
 
-def _loss_and_grads(model, params, batch):
+def _grad_tensors(model, params, batch) -> list:
+    """``[loss, *every gradient leaf]`` of ``model.loss`` at ``params``, as tensors."""
     from repro_torch.models import params as PM
 
     leaves = PM.tree_map(lambda t: t.detach().requires_grad_(), params)
     loss, _ = model.loss(leaves, batch)
-    grads = torch.autograd.grad(loss, PM.tree_leaves(leaves))
-    return float(loss.detach()), grads
+    return [loss.detach(), *torch.autograd.grad(loss, PM.tree_leaves(leaves))]
+
+
+def _loss_and_grads(model, params, batch):
+    loss, *grads = _grad_tensors(model, params, batch)
+    return float(loss), grads
 
 
 def phase_full_width_grad() -> None:
@@ -2350,6 +2449,21 @@ def phase_qwen3_full_width() -> None:
     cfg = dataclasses.replace(ARCHS[QWEN3], dtype="float32", n_layers=4)
     decode_step_vs_cpu(cfg, "fp32 4-layer")
     full_width_vs_cpu(cfg, 4, 200, "fp32 4-layer qwen3-4b")
+
+
+def phase_phi_full_width() -> None:
+    """phi4-mini-3.8b and phi3-medium-14b at full width in fp32, cut to 4 layers,
+    as qwen3-4b's: one ``decode_step`` against the CPU (hd 128, groups of 3
+    and 4), then ``loss``, every gradient leaf and ``prefill`` on a (1, 200)
+    batch; each model freed before the next."""
+    from repro_torch.configs import ARCHS
+
+    for arch, seed in ((PHI4, 5), (PHI3, 6)):
+        cfg = dataclasses.replace(ARCHS[arch], dtype="float32", n_layers=4)
+        decode_step_vs_cpu(cfg, "fp32 4-layer")
+        full_width_vs_cpu(cfg, seed, 200, f"fp32 4-layer {arch}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -3047,6 +3161,7 @@ def phase_train(kernel_modules) -> dict:
     full = {name: torch.as_tensor(rng.integers(0, cfg.vocab, (TRAIN["batch"], TRAIN["seq"])))
             .cuda() for name in ("tokens", "labels")}
     dry = dryrun_check(model, params, opt, full, opt_cfg, "train", res["step_ms"], TRAIN["seq"])
+    remat = remat_check(kernel_modules, params, full)
     del full
     scenario = scenario_check(step_ms / 1e3)
 
@@ -3069,7 +3184,72 @@ def phase_train(kernel_modules) -> dict:
             "load_ms": res["load_ms"], "median_load_ms": load_ms,
             "load_share_of_step": load_ms / step_ms,
             "materialize_seconds": res["materialize_seconds"], **corpus,
-            "dryrun": dry, "scenario": scenario}
+            "dryrun": dry, "scenario": scenario, "remat": remat}
+
+
+def remat_check(kernel_modules, params, batch) -> dict:
+    """qwen1.5-0.5b's train cell (24 layers, bf16, ``batch``) under each of
+    ``REMAT_POLICIES`` and then ``"none"`` again, from the same ``params``:
+    after an untimed warm-up, one loss and every gradient, the launches
+    counted (``train_launches`` at the policy, the backward's included), the
+    host ms of the loss and its gradients (ending in a synchronize),
+    ``max_memory_allocated`` above what was allocated before, and the step
+    counter's peak of the same work on meta.  The loss and every gradient must
+    be equal bit for bit across the policies: no kernel uses atomics.  A
+    tensor that the two ``"none"`` runs already give in other bits (a library
+    op not reproducible from call to call) is held to GRAD_TOL instead, and
+    printed."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.roofline import count as C
+
+    runs, out = {}, {}
+    for policy in (*REMAT_POLICIES, "none_again"):
+        cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16",
+                                  remat=policy.removesuffix("_again"))
+        model = build_model(cfg, device="cuda")
+        _grad_tensors(model, params, batch)          # a warm-up, untimed
+        gc.collect()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs[policy], counts, _, seconds = counted(
+            kernel_modules, lambda: _grad_tensors(model, params, batch))
+        peak = torch.cuda.max_memory_allocated() - start
+        expect_counts(counts, train_launches(*QWEN_BLOCKS, remat=cfg.remat), f"remat {policy}")
+        meta = build_model(cfg, device="meta")
+        _, mc = C.count(lambda p, b: _grad_tensors(meta, p, b),
+                        PM.abstract(meta.layout(), cfg.dtype),
+                        {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                         for k, v in batch.items()})
+        out[policy] = {"ms": seconds * 1e3, "peak_above_start_bytes": peak,
+                       "meta_peak_above_start_bytes": mc["peak_above_start_bytes"],
+                       "meta_matmul_flops": mc["matmul_flops"],
+                       "calls": {k: v for k, v in counts.items() if v}}
+        print(f"[remat] qwen train cell {tuple(batch['tokens'].shape)}, remat {policy}: loss "
+              f"and gradients {seconds * 1e3:.3f} ms, peak {peak / 2**30:.3f} GiB above the "
+              f"start (meta {mc['peak_above_start_bytes'] / 2**30:.3f}), launches "
+              f"{out[policy]['calls']}")
+    names = ["loss", *(f"grad {i}" for i in range(len(runs["none"]) - 1))]
+    unreproducible = {}
+    for policy in ("dots", "full"):
+        for name, got, want, again in zip(names, runs[policy], runs["none"], runs["none_again"]):
+            if torch.equal(got, want):
+                continue
+            if torch.equal(again, want):
+                raise AssertionError(f"remat {policy}: {name} differs from none's, which two "
+                                     "none runs give bit for bit")
+            err = rel_err(got.float(), want.float(), GRAD_TOL[torch.bfloat16])
+            unreproducible[f"{policy} {name}"] = err
+    print(f"[remat] loss {float(runs['none'][0]):.6f} and {len(names) - 1} gradient leaves "
+          f"equal bit for bit across {REMAT_POLICIES}"
+          + (f" but for tensors that two none runs give in other bits, held to GRAD_TOL: "
+             f"{unreproducible}" if unreproducible else ""))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**out, "not_reproducible_call_to_call": unreproducible}
 
 
 def check_train_corpus(res: dict, data_root: str, vocab: int) -> dict:
@@ -3267,6 +3447,23 @@ def phase_train_mixtral(kernel_modules) -> dict:
     bf16 weights alone at 32 layers); no checkpoint at this size."""
     return train_full_depth(MIXTRAL, MIXTRAL_TRAIN, MIXTRAL_PER_STEP, kernel_modules,
                             "train_mixtral", TRAIN_ROUTES)[2]
+
+
+def phase_train_phi4(kernel_modules) -> dict:
+    """phi4-mini-3.8b: ``train_full_depth`` at full width and depth (32 layers,
+    4.45 B parameters) on 2 x 1024 (``PHI4_TRAIN``), every layer rematerialised
+    under the config's ``"dots"``, the routes as qwen's.  Cut: the launcher's
+    final checkpoint (62 GB of state) is not written at full width.  The
+    caching allocator makes its new segments expandable for this phase: at a
+    72.4 GiB peak on a 79.2 GiB card, fixed segments split by the steps left
+    6.8 GiB reserved but no free block for the update's 2.3 GiB fp32 copy of
+    the embedding's gradient (an out-of-memory error in the whole run)."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return train_full_depth(PHI4, PHI4_TRAIN, PHI4_PER_STEP, kernel_modules, "train_phi4",
+                                TRAIN_ROUTES)[2]
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
 
 
 def train_embedded(arch: str, shape: dict, per_step: dict, kernel_modules, tag: str,
@@ -3977,9 +4174,9 @@ def xlstm_block_ms(model, params, B, S) -> dict:
 #: (b): the meta live-bytes peak of a step within this share of the card's
 DRYRUN_TOL = 0.10
 #: D of the RMSNorm backward's rows on the train paths (kv_ln 512, qwen 1024,
-#: Hymba 1600, 2048, mixtral 4096), whose ``"vec"`` launch shape the meta route
-#: takes from the H100 table
-VEC_CONFIG_D = (512, 1024, 1600, 2048, 2560, 4096)
+#: Hymba 1600, 2048, phi4-mini-3.8b 3072, mixtral 4096), whose ``"vec"`` launch
+#: shape the meta route takes from the H100 table
+VEC_CONFIG_D = (512, 1024, 1600, 2048, 2560, 3072, 4096)
 #: the scenario of ``tests/test_compute_plane.py``'s ``CAL``: 1024 items of 1 KiB,
 #: 128 a step; the compute priced by qwen's measured step at 8 sequences a step
 SCENARIO = dict(dataset_items=1024, item_bytes=1024, batch_items=128, epochs=2, n_jobs=2,
@@ -4219,6 +4416,7 @@ def decode_phases() -> dict:
     """The fp32 decode checks of the served models against the CPU; returns the
     MoE checks' near-ties by check."""
     phase_qwen3_full_width()
+    phase_phi_full_width()
     phase_hymba_decode_full_width()
     phase_xlstm_decode_full_width()
     near_ties = phase_deepseek_decode_full_width()
@@ -4257,12 +4455,41 @@ def only_embedded(gen, ops, ref, rate) -> list:
     return [{run: res} for run, res in runs.items()]
 
 
+def only_phi(gen, ops, ref, rate) -> list:
+    """The phi configs: their fp32 checks against the CPU, their serve runs and
+    phi4-mini-3.8b's training run."""
+    from repro_torch.kernels import KERNEL_MODULES
+
+    phase_phi_full_width()
+    runs = phase_serve(KERNEL_MODULES, rate, ("serve_phi4", "serve_phi3"), ())
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train_phi4"] = phase_train_phi4(KERNEL_MODULES)
+    return [{run: res} for run, res in runs.items()]
+
+
+def only_remat(gen, ops, ref, rate) -> list:
+    """``remat_check`` on qwen1.5-0.5b's train cell: weights of seed 0 and a
+    random 8 x 512 batch drawn on the card."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import KERNEL_MODULES
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    params = build_model(cfg, device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN["batch"], TRAIN["seq"]), generator=g,
+                              device="cuda") for k in ("tokens", "labels")}
+    return [{"remat": remat_check(KERNEL_MODULES, params, batch)}]
+
+
 #: checks that ``--only NAME`` runs alone after the card and the build phases,
 #: printing their rows and no result line
 ONLY = {"mlstm": check_mlstm, "ssd": check_ssd,
         "decode": lambda *a: (check_decode_attention(*a),), "flash": check_flash,
         "serve": only_serve, "embedded": only_embedded, "hoard": only_hoard,
-        "multi": only_multi, "dryrun": only_dryrun}
+        "multi": only_multi, "dryrun": only_dryrun, "phi": only_phi, "remat": only_remat}
 
 
 def main(argv: list[str]) -> None:
@@ -4310,7 +4537,8 @@ def main(argv: list[str]) -> None:
                        ("train_hymba", phase_train_hymba), ("train_deepseek", phase_train_deepseek),
                        ("train_mixtral", phase_train_mixtral),
                        ("train_internvl2", phase_train_internvl2),
-                       ("train_whisper", phase_train_whisper), ("multi", phase_multi)):
+                       ("train_whisper", phase_train_whisper),
+                       ("train_phi4", phase_train_phi4), ("multi", phase_multi)):
         gc.collect()
         torch.cuda.empty_cache()
         runs[run] = phase(KERNEL_MODULES)

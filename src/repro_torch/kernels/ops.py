@@ -210,7 +210,8 @@ class MLSTMScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dh):
-        inputs, saved = ctx.saved_tensors[:5], ctx.saved_tensors[5:]
+        tensors = ctx.saved_tensors      # once: a checkpoint unpacks each tensor once
+        inputs, saved = tensors[:5], tensors[5:]
         grads = _count.kernel("mlstm_scan_bwd",
                               _mlstm_cost(inputs[0], inputs[2], ctx.chunk,
                                           _cost.mlstm_scan_bwd_cost),
@@ -236,7 +237,8 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dh_last):
-        inputs, saved = ctx.saved_tensors[:4], ctx.saved_tensors[4:]
+        tensors = ctx.saved_tensors      # once: a checkpoint unpacks each tensor once
+        inputs, saved = tensors[:4], tensors[4:]
         grads = _count.kernel("ssd_scan_bwd",
                               _ssd_cost(inputs[1], inputs[2], ctx.chunk, _cost.ssd_scan_bwd_cost),
                               _ssd_bwd_call, inputs, saved, dy, ctx.chunk)

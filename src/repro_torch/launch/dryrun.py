@@ -26,11 +26,13 @@ storage, nothing drawn), and judges the cell two ways:
 The train cells also carry the analytic cell of the production mesh
 (``roofline.table.analytic_cell``, H100 constants) beside the count, and
 the two's FLOPs over the whole batch (``counted_over_analytic_flops``).  A
-cell fits when its bytes are at most ``HBM_PER_CHIP`` (80 GB).  The port
-has no rematerialisation: ``remat`` is ``"none"`` and the config's policy
-is kept beside it (``config_remat``); a cell that does not fit is reported,
-not escalated.  The cells that ``shape_applicable`` refuses are skipped
-with its reason.  Each cell that runs is written as JSON under ``--out``.
+cell fits when its bytes are at most ``HBM_PER_CHIP`` (80 GB).  The step
+runs at the config's rematerialisation (``remat``: JAX's ``"dots"`` unless
+``--override remat=none`` or ``=full``), whose recompute the count includes
+and whose saved activations the peak holds; a cell that does not fit is
+reported, not escalated.  The cells that ``shape_applicable`` refuses are
+skipped with its reason.  Each cell that runs is written as JSON under
+``--out``.
 
 It needs no card: meta is its device by design, as JAX's dry-run runs on
 512 fake host devices.
@@ -39,6 +41,8 @@ Usage:
     python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k
     python -m repro_torch.launch.dryrun --all --multi-pod
     python -m repro_torch.launch.dryrun --all --mesh both
+    python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b --shape train_4k \
+        --override remat=none
 """
 
 from __future__ import annotations
@@ -196,7 +200,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, overrides: 
         "status": "ok", "arch": arch, "shape": shape_name, "mesh": mesh_name, "chips": chips,
         "device": "meta", "count_s": round(time.perf_counter() - t0, 1),
         "hardware": "NVIDIA H100 SXM5 80GB (roofline constants)",
-        "n_params": n_params, "remat": "none", "config_remat": cfg.remat,
+        "n_params": n_params, "remat": cfg.remat,
         "model_flops": report.model_flops,
         "counted_flops_per_chip": counts["flops"],
         "counted_bytes_per_chip": counts["traffic_bytes"],

@@ -9,7 +9,9 @@ projections have biases, k has none.
 
 Parameters are a nested dict with the JAX package's layout leaf for leaf, so
 a JAX tree runs here unchanged (``params.params_from_jax``); the layers run
-in a Python loop over the stacked leaves, as ``DecoderLM``'s do.  Every
+in a Python loop over the stacked leaves, as ``DecoderLM``'s do, each
+encoder and each decoder layer rematerialised under ``cfg.remat``
+(``remat.remat``), as JAX wraps both scan bodies in ``jax.checkpoint``.  Every
 full-sequence attention (the encoder's, the decoder's causal one and cross
 attention, whose queries and keys differ in length) goes through
 ``layers.blockwise_attention``, so the flash kernels on the card; decode
@@ -36,6 +38,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve
 from . import params as PM
 from .params import TP, P, dp_axes
+from .remat import remat
 from .layers import (blockwise_attention, cache_slot, decode_attention, gelu_mlp, layer_norm,
                      sinusoidal_positions)
 
@@ -142,6 +145,17 @@ class EncDecLM(nn.Module):
         h = layer_norm(x, p["ln_g"], p["ln_b"], self.cfg.norm_eps)
         return x + gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
 
+    def _encoder_layer(self, p, x):
+        x = self._attn(p["attn"], x, None, causal=False)
+        return self._mlp(p["mlp"], x)
+
+    def _decoder_layer(self, p, x, enc_out):
+        """One decoder layer; ``enc_out`` enters from outside a rematerialised
+        layer as an input, so its gradient flows back to the encoder."""
+        x = self._attn(p["self_attn"], x, None, causal=True)
+        x = self._attn(p["cross_attn"], x, enc_out, causal=False)
+        return self._mlp(p["mlp"], x)
+
     def _unembed(self, params, h):
         return h @ params["embed"].T    # tied unembedding
 
@@ -151,9 +165,9 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         x = enc_emb.to(self.dtype)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+        body = remat(self._encoder_layer, cfg.remat)
         for p in PM.unstack(params["enc_layers"]):
-            x = self._attn(p["attn"], x, None, causal=False)
-            x = self._mlp(p["mlp"], x)
+            x = body(p, x)
         return layer_norm(x, params["enc_ln_g"], params["enc_ln_b"], cfg.norm_eps)
 
     # -------------------------------------------------------------- decode
@@ -163,10 +177,9 @@ class EncDecLM(nn.Module):
         S = tokens.shape[1]
         x = params["embed"][tokens].to(self.dtype)
         x = x + params["dec_pos"][pos0:pos0 + S].to(x.dtype)
+        body = remat(self._decoder_layer, cfg.remat)
         for p in PM.unstack(params["dec_layers"]):
-            x = self._attn(p["self_attn"], x, None, causal=True)
-            x = self._attn(p["cross_attn"], x, enc_out, causal=False)
-            x = self._mlp(p["mlp"], x)
+            x = body(p, x, enc_out)
         return layer_norm(x, params["dec_ln_g"], params["dec_ln_b"], cfg.norm_eps)
 
     def decode_stack(self, params, tokens, enc_out, pos0: int = 0):

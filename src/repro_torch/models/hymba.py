@@ -15,8 +15,9 @@ scan through ``kernels.ops.ssd_scan``, the hand-written SSD chunked-scan
 kernels on the card (forward and backward), their plain versions on the CPU.
 The two outputs are RMS-normed and averaged before the output projection.
 The meta tokens are prepended to every sequence and count as positions for
-RoPE and the window, as in the JAX model.  ``jax.checkpoint`` around each
-block (``cfg.remat``) changes memory, not values, and is not ported.
+RoPE and the window, as in the JAX model.  Each global and each
+sliding-window block is rematerialised under ``cfg.remat``, as JAX wraps
+each in ``jax.checkpoint`` (``remat.remat``).
 
 Decoding keeps, per block, a KV cache (a full one of ``seq`` slots in the
 global layers, a ring buffer of ``min(window, seq)`` slots in the
@@ -43,6 +44,7 @@ from ..device import resolve
 from ..kernels import ops
 from . import params as PM
 from .params import TP, P, dp_axes
+from .remat import remat
 from .layers import (blockwise_attention, cache_slot, causal_conv, decode_attention, rms_norm,
                      rope, swiglu)
 
@@ -192,10 +194,12 @@ class Hymba(nn.Module):
     def backbone(self, params, x):
         positions = torch.arange(x.shape[1], device=x.device)
         win = self.cfg.hybrid.sliding_window
+        g_block = remat(lambda p, h: self._block(p, h, positions, window=0), self.cfg.remat)
+        s_block = remat(lambda p, h: self._block(p, h, positions, window=win), self.cfg.remat)
         for g, run in self._segments(params):
-            x = self._block(g, x, positions, window=0)
+            x = g_block(g, x)
             for p in run:
-                x = self._block(p, x, positions, window=win)
+                x = s_block(p, x)
         return rms_norm(x, params["final_ln"], self.cfg.norm_eps)
 
     def _embed_with_meta(self, params, tokens):

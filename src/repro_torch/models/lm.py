@@ -9,10 +9,12 @@ over the stacked layer axis; each stacked leaf is split once with
 ``unbind``, whose backward stacks the layers' gradients into one leaf of the
 stacked shape again.  DeepSeek's dense first layer is ``layer0``, outside the
 stack, as in JAX.  ``loss`` and ``backbone`` are differentiable with
-autograd through the kernels' backward; ``prefill`` and ``decode_step`` run
-under ``torch.no_grad``.  ``decode_step`` writes the new token's K and V (or
-MLA's latent ``c_kv`` and ``k_rope``) into the cache IN PLACE and returns that
-same cache object, where JAX returns an updated copy.
+autograd through the kernels' backward, every layer (and ``layer0`` on its
+own) rematerialised under ``cfg.remat`` as JAX's ``_remat`` does
+(``remat.py``); ``prefill`` and ``decode_step`` run under ``torch.no_grad``.
+``decode_step`` writes the new token's K and V (or MLA's latent ``c_kv`` and
+``k_rope``) into the cache IN PLACE and returns that same cache object, where
+JAX returns an updated copy.
 
 MLA decodes with the absorbed projections, scoring against the latent cache
 directly (plain PyTorch products, as JAX computes them outside any Pallas
@@ -31,6 +33,7 @@ has no image path, as in JAX: a VLM serves as a text decoder.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any
 
 import torch
@@ -40,6 +43,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve
 from . import params as PM
 from .params import TP, P, dp_axes
+from .remat import remat
 from .layers import (blockwise_attention, cache_slot, decode_attention, moe_block, rms_norm, rope,
                      swiglu)
 
@@ -262,14 +266,17 @@ class DecoderLM(nn.Module):
 
     def backbone(self, params, x, positions):
         """Embedding-space input -> (final hidden states, the experts' summed aux
-        loss: a 0.0 tensor for a dense model)."""
+        loss: a 0.0 tensor for a dense model).  Each layer, and ``layer0`` on
+        its own, is rematerialised under ``cfg.remat`` (``remat.remat``)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         moe = self.cfg.moe is not None
         if "layer0" in params:
-            x, a = self._layer(params["layer0"], x, positions, moe=False)
+            x, a = remat(partial(self._layer, moe=False), self.cfg.remat)(params["layer0"], x,
+                                                                         positions)
             aux = aux + a
+        body = remat(partial(self._layer, moe=moe), self.cfg.remat)
         for p in PM.unstack(params["layers"]):
-            x, a = self._layer(p, x, positions, moe=moe)
+            x, a = body(p, x, positions)
             aux = aux + a
         return rms_norm(x, params["final_ln"], self.cfg.norm_eps), aux
 

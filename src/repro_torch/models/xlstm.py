@@ -12,8 +12,10 @@ chunked kernels on the card (forward and backward), their plain versions on
 the CPU.  The sLSTM recurrence is a true time loop that the JAX package runs
 with ``lax.scan`` and no Pallas kernel; here it is a Python loop over the
 sequence of the fp32 step.  Its post-FFN is the ``swiglu`` function, so it
-runs the SwiGLU kernel.  ``jax.checkpoint`` around each block (``cfg.remat``)
-changes memory, not values, and is not ported.
+runs the SwiGLU kernel.  Each mLSTM and each sLSTM block is
+rematerialised under ``cfg.remat``, as JAX wraps each in ``jax.checkpoint``
+(``remat.remat``); under ``"dots"`` the sLSTM time loop runs again in the
+backward pass (its recurrent products are per head, batched).
 
 Decoding carries the recurrent state in the cache, O(1) in the sequence:
 per mLSTM block C, n and m (fp32) and the conv tail (the model dtype), per
@@ -35,6 +37,7 @@ from ..device import resolve
 from ..kernels import ops
 from . import params as PM
 from .params import TP, P, dp_axes
+from .remat import remat
 from .layers import causal_conv, rms_norm, swiglu
 
 _NEG = -1e30
@@ -219,10 +222,12 @@ class XLSTM(nn.Module):
 
     # ------------------------------------------------------------ forward
     def backbone(self, params, x):
+        m_block = remat(self._mlstm_block, self.cfg.remat)
+        s_block = remat(self._slstm_block, self.cfg.remat)
         for mlstm, slstm in self._group_params(params):
             for p in mlstm:
-                x = self._mlstm_block(p, x)
-            x = self._slstm_block(slstm, x)
+                x = m_block(p, x)
+            x = s_block(slstm, x)
         return rms_norm(x, params["final_ln"], self.cfg.norm_eps)
 
     def loss(self, params, batch):

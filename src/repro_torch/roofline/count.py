@@ -23,6 +23,14 @@ autograd backward and the optimizer alike) and keeps:
   on the storage), inside kernel entries too, on top of the storages alive
   when the count starts (``start_bytes``, from :meth:`StepCounter.track`).
 
+Under a rematerialised block (``models/remat.py``) the recompute's aten ops
+and kernel calls count again; the products that the selective policy
+serves from its cache do not (they reach no mode below it), and what it
+keeps counts toward the live bytes.  Every backward of ``kernels/ops.py``
+reads its saved tensors, which starts its block's recompute, before it
+enters its own kernel entry, so the recomputed kernels count as calls of
+their own.
+
 The hand-written kernels' costs and the aten counts add up to ``flops``
 and ``traffic_bytes``; kernel costs are summed with ``math.fsum``, so their
 order does not matter.
@@ -139,16 +147,18 @@ class StepCounter(TorchDispatchMode):
     def kernel(self, name: str, cost, fn: Callable, *args):
         """``fn(*args)`` as one call of kernel ``name`` priced ``cost`` (a
         ``KernelCost``); aten ops inside count toward live bytes alone.  A
-        kernel entry inside another is part of it."""
-        outer = self._depth == 0
+        kernel entry inside another is part of it.  The call counts when it
+        is entered: a rematerialised block's recompute may stop with an
+        exception inside the entry after the kernel ran (the checkpoint's
+        early stop at the block's last saved tensor, which a forward
+        ``autograd.Function`` saves after its launch)."""
+        if self._depth == 0:
+            self._kernels.setdefault(name, []).append(cost)
         self._depth += 1
         try:
-            out = fn(*args)
+            return fn(*args)
         finally:
             self._depth -= 1
-        if outer:
-            self._kernels.setdefault(name, []).append(cost)
-        return out
 
     @property
     def kernels(self) -> dict:

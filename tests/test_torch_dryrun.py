@@ -15,7 +15,9 @@
 * **Dry-run cells**: ``run_cell`` at full width for qwen1.5-0.5b ``train_4k``
   and ``decode_32k`` on both production meshes, smoke configs of the other
   families; a rank's state bytes equal a sum over JAX's ``PM.specs`` /
-  ``opt_state_specs`` and the leaf shapes; the skip reasons are JAX's.
+  ``opt_state_specs`` and the leaf shapes; the skip reasons are JAX's.  The
+  step runs at the config's ``remat`` ("dots": each layer's forward kernels
+  twice); ``--override remat=none`` counts the step without the recompute.
 """
 
 import math
@@ -237,7 +239,8 @@ def test_run_cell_full_width_qwen_state_bytes_match_jax_specs(shape, multi_pod):
     prod = r["production"]
     for key, n in want.items():
         assert prod[key] == n, key
-    assert r["status"] == "ok" and r["remat"] == "none" and r["chips"] == mesh.size
+    assert r["status"] == "ok" and r["remat"] == ARCHS["qwen1.5-0.5b"].remat == "dots"
+    assert r["chips"] == mesh.size
     assert r["n_params"] == JPM.param_count(jbuild_model(JARCHS["qwen1.5-0.5b"]).layout())
     dp = r["data_parallel"]
     assert dp["rows_per_rank"] == 1
@@ -245,10 +248,36 @@ def test_run_cell_full_width_qwen_state_bytes_match_jax_specs(shape, multi_pod):
                                  + dp["input_bytes"] + dp["step_peak_above_state_bytes"])
     assert dp["step_peak_above_state_bytes"] > 0 and r["counted_flops_per_chip"] > 0
     if shape == "train_4k":
+        # under "dots" each layer's forward kernels run twice (the forward and
+        # the recompute), the backward kernels and the final norm once
         counts = dp["counted"]["kernels"]
-        assert counts["flash_attention"]["calls"] == 24 == counts["flash_attention_bwd"]["calls"]
-        assert counts["rmsnorm"]["calls"] == 49 and counts["swiglu_bwd"]["calls"] == 24
+        assert counts["flash_attention"]["calls"] == 2 * 24
+        assert counts["flash_attention_bwd"]["calls"] == 24 == counts["swiglu_bwd"]["calls"]
+        assert counts["rmsnorm"]["calls"] == 2 * 2 * 24 + 1
+        assert counts["rmsnorm_bwd"]["calls"] == 2 * 24 + 1
         assert 0.5 <= r["counted_over_analytic_flops"] <= 1.5
+
+
+def test_run_cell_override_remat_none_counts_no_recompute():
+    """``--override remat=none`` runs the step with no checkpoint: each kernel
+    once, a higher peak, fewer FLOPs, whose share of the config's analytic
+    cell (priced at JAX's ``"dots"``: one re-forward) is about 3/4 for a
+    dense model; the cell's own analytic follows the override (no
+    re-forward), so its ratio is about 1."""
+    dots = dryrun.run_cell("qwen1.5-0.5b", "train_4k", save=False)
+    none = dryrun.run_cell("qwen1.5-0.5b", "train_4k", overrides={"remat": "none"},
+                           save=False)
+    assert none["remat"] == "none" and dots["remat"] == "dots"
+    counts = none["data_parallel"]["counted"]["kernels"]
+    assert counts["flash_attention"]["calls"] == 24 == counts["flash_attention_bwd"]["calls"]
+    assert counts["rmsnorm"]["calls"] == 49 == counts["rmsnorm_bwd"]["calls"]
+    assert (none["data_parallel"]["step_peak_above_state_bytes"]
+            > dots["data_parallel"]["step_peak_above_state_bytes"])
+    assert none["counted_flops_per_chip"] < dots["counted_flops_per_chip"]
+    busy = dots["counted_over_analytic_flops"] / dots["counted_flops_per_chip"]
+    assert abs(none["counted_flops_per_chip"] * busy - 0.75) < 0.01
+    assert 0.75 + 0.01 < dots["counted_over_analytic_flops"] <= 1.0
+    assert abs(none["counted_over_analytic_flops"] - 1.0) < 0.01
 
 
 @pytest.mark.parametrize("arch", sorted(set(ARCHS) - {"qwen1.5-0.5b"}))
