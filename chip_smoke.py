@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only dryrun   # card, build, the H100 table and compute-plane checks
     python3 chip_smoke.py --only phi      # card, build, the phi configs' checks, serves, training
     python3 chip_smoke.py --only remat    # card, build and the remat check on qwen's train cell
+    python3 chip_smoke.py --only tp       # card, build and the tensor-parallel phase (phase 13)
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -109,35 +110,35 @@ prints no result line):
    24 / 8, 1024, 128) causal, held to the plain versions and timed
    (``phi4_*`` keys, the flash rows' ``phi4``).
 4. full width: qwen1.5-0.5b in fp32, one ``decode_step`` on the card against
-   the same weights on the CPU; then, cut to 4 layers, ``loss`` and every
+   the same weights on the CPU; then, cut to 2 layers, ``loss`` and every
    gradient leaf on a (2, 200) batch against the CPU; then xlstm-1.3b in
    fp32 cut to 8 layers (7 mLSTM + 1 sLSTM), ``loss``, every gradient leaf
    and ``prefill`` on a (1, 256) batch against the CPU; then hymba-1.5b in
    fp32 cut to 4 layers and a window of 256, the same on a (1, 384) batch;
-   deepseek-v2-lite-16b in fp32 cut to 3 layers (layer0 and 2 MoE layers)
-   and mixtral-8x7b cut to 2 layers and a window of 64, the same on a (1,
+   deepseek-v2-lite-16b in fp32 cut to 2 layers (layer0 and 1 MoE layer)
+   and mixtral-8x7b cut to 1 layer and a window of 64, the same on a (1,
    256) batch, the routing of every MoE layer compared with the CPU's first
    (``on_both_routed``: a difference passes only at a near-tie, which is
    printed and counted, and the CPU then runs again with the card's experts
-   replayed through ``moe_route``); internvl2-2b in fp32 cut to 4 layers,
+   replayed through ``moe_route``); internvl2-2b in fp32 cut to 2 layers,
    loss, every gradient leaf and the image-prefixed prefill on 256 image
-   and 200 text positions; whisper-large-v3 cut to 2 + 2 layers, the same
+   and 200 text positions; whisper-large-v3 cut to 1 + 1 layers, the same
    on 1 x (1500 frames, 448 tokens), then ``encode`` of 2 x 1500 frames and
    8 decode steps over a cross cache filled from it, against the CPU.
    Decoding at full width in fp32 against the CPU with the same weights
-   (``--only serve`` runs these and phase 5): qwen3-4b cut to 4 layers, one
+   (``--only serve`` runs these and phase 5): qwen3-4b cut to 2 layers, one
    ``decode_step``, then ``loss``, every gradient leaf and ``prefill``; the
-   same for phi4-mini-3.8b and phi3-medium-14b cut to 4 layers (hd 128,
-   groups of 3 and 4); hymba-1.5b cut to 4 layers (global 0 and 3) and a window of 64, 96
+   same for phi4-mini-3.8b and phi3-medium-14b cut to 1 layer
+   (``PHI_CHECK_LAYERS``; hd 128, groups of 3 and 4); hymba-1.5b cut to 4 layers (global 0 and 3) and a window of 64, 64
    ``decode_step``s from index 128 (the meta offset) on a random cache, so
    the ring of 64 slots wraps, the logits at every step and every cache leaf
    at the end within 2e-3; xlstm-1.3b cut to 8 layers, 32 steps from the
    zero state, the logits within 2e-3 at every step and the last within
    2e-3 of the card's ``prefill`` of the same 32 tokens; deepseek-v2-lite-16b
-   cut to 3 layers (layer0 and 2 MoE layers), 16 steps of 8 requests from a
+   cut to 2 layers (layer0 and 1 MoE layer), 16 steps of 8 requests from a
    zero cache at index 0 and 16 from a random latent cache at index 100;
-   mixtral-8x7b cut to 2 layers and a window of 64, 64 steps of 8 requests
-   from index 100 on a random cache, once around the ring.  For the two MoE
+   mixtral-8x7b cut to 1 layer and a window of 64, 16 steps of 8 requests
+   from index 116 on a random cache, across the ring's end.  For the two MoE
    models the routing of every MoE layer and step is compared with the
    CPU's first: it may differ only at a near-tie (the k-th and (k+1)-th
    router probabilities within 1e-5 on both devices), which is printed and
@@ -149,7 +150,8 @@ prints no result line):
    deepseek-v2-lite-16b, mixtral-8x7b, internvl2-2b and whisper-large-v3 through
    ``repro_torch.launch.serve.main`` on the card and on the CPU (one seed
    names one model on both), token for token; then nine bf16 runs at full
-   config through ``repro_torch.launch.serve.main`` (``SERVE_RUNS``):
+   config through ``repro_torch.launch.serve.main`` (``SERVE_RUNS``; the
+   weights drawn on the card, ``--init-on device``):
    qwen1.5-0.5b, hymba-1.5b, xlstm-1.3b, deepseek-v2-lite-16b (27 layers,
    15.7 B parameters), internvl2-2b (a text decoder), whisper-large-v3
    (the engine's 64 zero frames), phi4-mini-3.8b (32 layers) and
@@ -203,8 +205,8 @@ prints no result line):
    corpora in phases 6 to 10 are striped under ``build/`` and read through
    the stripe store.
 7. train xLSTM: ``launch.train.main`` for xlstm-1.3b at its smoke config on
-   the card, with a checkpoint; then xlstm-1.3b in bf16 at full width and
-   depth (48 layers), batch 4 x seq 512 from the launcher's corpus, 2 steps
+   the card, with a checkpoint; then xlstm-1.3b in bf16 at full width, cut
+   to 8 of its 48 layers (``XLSTM_TRAIN``), batch 4 x seq 512 from the launcher's corpus, 2 steps
    of ``make_train_step`` with the launch counts set to 0 just before and
    checked per step just after (the routes as qwen's: the SwiGLU forward and
    backward on the tensor cores, every rmsnorm on ``vec``; and every mLSTM
@@ -242,12 +244,13 @@ prints no result line):
 11. multi (``phase_multi``, alone by ``--only multi``): 4 ranks spawned on
    the one card over ``gloo`` (``mesh.run_ranks``, rendezvous through a file
    under ``build/``, a timeout on the world and on every collective), mesh
-   pod 2 x data 2 x model 1, qwen1.5-0.5b in bf16 at full width and depth,
+   pod 2 x data 2 x model 1, qwen1.5-0.5b in bf16 at full width, cut to 4
+   layers (``MULTI``; 24 until the tensor-parallel phase joined the script),
    parameters of seed 0 drawn on the card in every rank, the train phase's
    8 x 512 batch read through the stripe store, 2 rows a rank.  The parent
    first takes the whole batch's gradient in one process.  (a) 3 steps of
    ``make_train_step(model, opt_cfg, mesh)`` with the plain sync, each
-   rank's launches exactly ``TRAIN_PER_STEP`` a step on ``TRAIN_ROUTES``;
+   rank's launches exactly ``MULTI_PER_STEP`` a step on ``TRAIN_ROUTES``;
    after step 1 every rank's synced gradient within ``GRAD_TOL`` of the
    parent's, the ZeRO-1 update equal bit for bit to ``adamw_update`` on
    the same gradient (parameters, every state shard, the grad norm; one
@@ -279,7 +282,35 @@ prints no result line):
    ``RooflineCompute`` at qwen's measured step (``scenario_check``).
    ``--only dryrun`` runs these alone, each cell on a random batch after 3
    timed steps of its own.
-13. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
+13. tp (``phase_tp``, alone by ``--only tp``): tensor parallelism of the
+   ``model`` axis and data-parallel MoE, 4 ranks spawned on the one card
+   over ``gloo`` as in phase 11, bf16.  The parent first checks the kernels
+   at the shard shapes against the plain versions, forward and backward
+   (``TP_RMSNORM``, ``TP_SWIGLU``: SwiGLU at F / model 1408, 704, 5472,
+   2736; ``TP_FLASH``: 8 and 4 heads a rank at (64, 64) and (192, 128)),
+   with their times, bounds and the library's, and takes each model's
+   single-process step on the whole batch (``tp_reference``).  (a)
+   qwen1.5-0.5b at full width and depth on the train phase's 8 x 512 batch
+   (the stripe store): data 2 x model 2, 3 steps; data 1 x model 4, one
+   step; the ZeRO + TP state of data 2 x model 2 saved whole, restored at
+   data 1 x model 4 on the same ranks (every shard equal to its slice of
+   the gathered leaf) and onto the one device in the parent (every leaf's
+   CRC equal).  (b) deepseek-v2-lite-16b at 4 layers on 2 x 2048 (its own corpus)
+   over data 2 x model 2, one step: its 64 experts 32 a rank, its routing
+   the global batch's, each MoE layer routed through the single-process
+   step's experts (the ranks' own routing compared and reported first); the
+   dropped pairs summed over the data ranks equal the single process's, aux
+   within ``TP_AUX_TOL`` and the aux of rank-local means (the fault of a
+   routing that ignores the data axis) outside it.  In both, after step 1 every rank's synced
+   gradient shards within ``GRAD_TOL`` of their slices of the single-process
+   gradient (of each leaf's largest entry) and the loss within
+   ``TP_LOSS_TOL``; every step's launches exactly ``TRAIN_PER_STEP`` /
+   ``DEEPSEEK_PER_STEP`` on ``TRAIN_ROUTES``, every launch at a checked
+   shape; the replicated leaves equal on every rank, bit for bit.  Prints
+   each step's ms, the TP all-reduce, data sync, update and gather ms a step
+   (each span ending in a synchronize), the peak GiB a rank, and the card's
+   name and power limit.
+14. output: one ``{"serve": ...}``, ``{"serve_hymba": ...}``,
    ``{"serve_xlstm": ...}``, ``{"serve_qwen3": ...}``, ``{"serve_deepseek":
    ...}`` (with the MoE decode checks' near-ties), ``{"serve_internvl2":
    ...}``, ``{"serve_whisper": ...}``, ``{"serve_phi4": ...}``,
@@ -288,9 +319,11 @@ prints no result line):
    ``{"train_xlstm": ...}``, ``{"train_hymba": ...}``, ``{"train_deepseek":
    ...}`` and ``{"train_mixtral": ...}`` (with the fp32 loss checks'
    near-ties), ``{"train_internvl2": ...}``, ``{"train_whisper": ...}``,
-   ``{"train_phi4": ...}``, ``{"multi": ...}``, ``{"h100_table": ...}`` and
-   ``{"kernels": [...]}`` line, then the last line ``{"ok": true, "device":
-   {...}}``.
+   ``{"train_phi4": ...}``, ``{"multi": ...}``, ``{"tp": ...}``,
+   ``{"h100_table": ...}`` and ``{"kernels": [...]}`` line (the rows of
+   rmsnorm, SwiGLU and flash, forward and backward, with the shard shapes'
+   checks and times as ``tp_shapes``), then the last line ``{"ok": true,
+   "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -425,10 +458,16 @@ XLSTM = "xlstm-1.3b"
 #: 2 timed steps (4 before the blocks were rematerialised): under "dots" the
 #: selective checkpoint's dispatch mode sees each of the sLSTM loop's ops, in the
 #: forward and again in the recompute, and a step takes 3-4x as long
-XLSTM_TRAIN = dict(batch=4, seq=512, steps=2)
-#: kernel launches per training step of xlstm-1.3b (42 mLSTM blocks: 2 norms and
-#: one scan each; 6 sLSTM blocks: 3 norms and one SwiGLU each; the final norm)
-XLSTM_PER_STEP = train_launches({"rmsnorm": 2 * 42 + 3 * 6, "swiglu": 6, "mlstm_scan": 42},
+#: at 8 of its 48 layers (one of its 6 groups of 7 mLSTM blocks and one sLSTM
+#: block) since the tensor-parallel phase joined the script: its sLSTM loop
+#: sets the phase's time
+XLSTM_TRAIN = dict(batch=4, seq=512, steps=2, layers=8)
+XLSTM_GROUPS = XLSTM_TRAIN["layers"] // 8
+#: kernel launches per training step of xlstm-1.3b at that depth (each mLSTM
+#: block: 2 norms and one scan; each sLSTM block: 3 norms and one SwiGLU; the
+#: final norm)
+XLSTM_PER_STEP = train_launches({"rmsnorm": 2 * 7 * XLSTM_GROUPS + 3 * XLSTM_GROUPS,
+                                 "swiglu": XLSTM_GROUPS, "mlstm_scan": 7 * XLSTM_GROUPS},
                                 {"rmsnorm": 1})
 XLSTM_ROUTES = {"swiglu": "wgmma", "rmsnorm": "vec", "swiglu_bwd": "wgmma", "rmsnorm_bwd": "vec",
                 "mlstm_scan": "wgmma", "mlstm_scan_bwd": "wgmma"}
@@ -607,7 +646,13 @@ def memory_rate(name: str) -> float:
 
 # ------------------------------------------------------------------ helpers
 def randn(gen, shape, dtype, scale=1.0, device="cuda"):
-    """Normal draws from ``gen`` on its own device, scaled, cast and moved."""
+    """Normal draws of ``gen``'s sequence, scaled, cast and moved.  For the
+    card, a host generator gives the draw a seed (its next draw) and a
+    generator on the card draws it: the kernel checks' inputs then take
+    milliseconds, where the host's draws of them took a minute."""
+    if gen.device.type == "cpu" and torch.device(device).type == "cuda":
+        gen = torch.Generator(device=device).manual_seed(
+            int(torch.randint(0, 2**62, (), generator=gen)))
     return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(device=device,
                                                                              dtype=dtype)
 
@@ -1953,8 +1998,11 @@ def rel_err(got, want, tol) -> tuple[float, float]:
     """(max |got - want|, the same over want's largest entry); the second must
     be within ``tol``."""
     got, want = got.detach().float(), want.detach().float()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
+    # one temporary, made absolute in place: these are full-width gradient
+    # leaves on the host, whose fresh allocations cost more than the sums
+    err = float(torch.sub(got, want).abs_().max())
+    lo, hi = want.aminmax()
+    scale = max(float(hi), -float(lo))
     if not (math.isfinite(err) and err <= tol * scale):
         raise AssertionError(f"max |diff| {err} > {tol} x max |want| {scale}")
     return err, err / max(scale, 1e-30)
@@ -2282,16 +2330,24 @@ def phase_full_width() -> None:
     decode_step_vs_cpu(dataclasses.replace(ARCHS[ARCH], dtype="float32"), "fp32")
 
 
-def decode_step_vs_cpu(cfg, label: str) -> None:
-    """One ``decode_step`` of the dense ``cfg`` at index 100 of a random cache of
-    CACHE_LEN slots, on the card against the same weights and cache on the CPU:
-    the logits and the cache within 2e-3, the same argmax."""
+def models_on_both(cfg, seed: int) -> tuple:
+    """``cfg``'s model on the CPU and on the card, and the weights of one draw
+    from ``seed`` on each (``weights_on_both``)."""
     from repro_torch.models import build_model
-    from repro_torch.models import params as PM
 
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    return (cpu, gpu, *weights_on_both(gpu, seed))
+
+
+def decode_step_vs_cpu(cfg, label: str, models: tuple | None = None) -> None:
+    """One ``decode_step`` of the dense ``cfg`` at index 100 of a random cache of
+    CACHE_LEN slots, on the card against the same weights and cache on the CPU:
+    the logits and the cache within 2e-3, the same argmax.  ``models`` (as
+    ``models_on_both`` gives them) saves a draw; by default seed 0's."""
+    from repro_torch.models import params as PM
+
+    cpu, gpu, p_cpu, p_gpu = models or models_on_both(cfg, 0)
     gen = torch.Generator().manual_seed(0)
-    p_cpu, p_gpu = weights_on_both(gpu, 0)
     B, index = SERVE["requests"], 100
     c_cpu = PM.tree_map(lambda t: torch.randn(t.shape, generator=gen),
                         cpu.cache_layout(B, CACHE_LEN))
@@ -2338,14 +2394,14 @@ def _loss_and_grads(model, params, batch):
 
 
 def phase_full_width_grad() -> None:
-    """qwen1.5-0.5b at full width in fp32, cut to 4 layers: loss and every
+    """qwen1.5-0.5b at full width in fp32, cut to 2 layers: loss and every
     gradient leaf on the card against the CPU.  Batch (2, 200): no tile
     divides 200, so the kernels' ragged tails run."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
 
-    cfg = dataclasses.replace(ARCHS[ARCH], dtype="float32", n_layers=4)
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="float32", n_layers=2)
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     gen = torch.Generator().manual_seed(1)
     p_cpu, p_gpu = weights_on_both(gpu, 1)
@@ -2354,7 +2410,7 @@ def phase_full_width_grad() -> None:
     want, g_cpu = _loss_and_grads(cpu, p_cpu, batch)
     got, g_gpu = _loss_and_grads(gpu, p_gpu, {k: t.cuda() for k, t in batch.items()})
     if not (math.isfinite(got) and abs(got - want) <= 2e-3):
-        raise AssertionError(f"4-layer fp32 loss: card {got} cpu {want}")
+        raise AssertionError(f"{cfg.n_layers}-layer fp32 loss: card {got} cpu {want}")
     worst = 0.0
     for a, b in zip(g_gpu, g_cpu):
         scale = float(b.abs().max())
@@ -2363,7 +2419,8 @@ def phase_full_width_grad() -> None:
             raise AssertionError(f"gradient leaf {tuple(b.shape)}: max diff {diff} > "
                                  f"2e-3 x {scale}")
         worst = max(worst, diff / scale)
-    print(f"[full-width] fp32 4-layer loss card {got:.6f} cpu {want:.6f}; {len(g_cpu)} "
+    print(f"[full-width] fp32 {cfg.n_layers}-layer loss card {got:.6f} cpu {want:.6f}; "
+          f"{len(g_cpu)} "
           f"gradient leaves, worst max |diff| / max |grad| {worst:.3e}")
 
 
@@ -2382,19 +2439,17 @@ def embeddings(cfg, B: int, frames: int, gen, device="cpu", dtype=torch.float32)
     return {"img_emb" if cfg.vlm is not None else "enc_emb": x.to(device=device, dtype=dtype)}
 
 
-def full_width_vs_cpu(cfg, seed: int, seq: int, label: str, *, frames: int = 0) -> None:
+def full_width_vs_cpu(cfg, seed: int, seq: int, label: str, *, frames: int = 0,
+                      models: tuple | None = None) -> None:
     """``loss``, every gradient leaf and ``prefill`` of ``cfg`` (fp32) on a (1,
     ``seq``) batch on the card against the same weights on the CPU: the loss
     within 2e-3, each leaf within 2e-3 of its largest entry, the logits within
     2e-3 (absolute and relative), the same argmax.  A VLM's batch holds its
     image embeddings, an encoder-decoder's ``frames`` frame embeddings
-    (``embeddings``)."""
-    from repro_torch.models import build_model
-    from repro_torch.models import params as PM
-
-    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    (``embeddings``).  ``models`` (as ``models_on_both`` gives them) saves a
+    draw; by default ``seed``'s."""
+    cpu, gpu, p_cpu, p_gpu = models or models_on_both(cfg, seed)
     gen = torch.Generator().manual_seed(seed)
-    p_cpu, p_gpu = weights_on_both(gpu, seed)
     toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **embeddings(cfg, 1, frames, gen)}
     on_card = {k: t.cuda() for k, t in batch.items()}
@@ -2441,27 +2496,36 @@ def phase_hymba_full_width() -> None:
 
 
 def phase_qwen3_full_width() -> None:
-    """qwen3-4b at full width in fp32, cut to 4 layers: one ``decode_step``
-    against the CPU, then ``loss``, every gradient leaf and ``prefill`` on a
+    """qwen3-4b at full width in fp32, cut to 2 layers, one draw of weights:
+    one ``decode_step`` against the CPU, then ``loss``, every gradient leaf and ``prefill`` on a
     (1, 200) batch (hd 128 and q_norm / k_norm on every head)."""
     from repro_torch.configs import ARCHS
 
-    cfg = dataclasses.replace(ARCHS[QWEN3], dtype="float32", n_layers=4)
-    decode_step_vs_cpu(cfg, "fp32 4-layer")
-    full_width_vs_cpu(cfg, 4, 200, "fp32 4-layer qwen3-4b")
+    cfg = dataclasses.replace(ARCHS[QWEN3], dtype="float32", n_layers=2)
+    models = models_on_both(cfg, 4)
+    decode_step_vs_cpu(cfg, "fp32 2-layer", models)
+    full_width_vs_cpu(cfg, 4, 200, "fp32 2-layer qwen3-4b", models=models)
+
+
+#: the phi configs' fp32 checks against the CPU: 1 layer (4 until the tensor-
+#: parallel phase joined the script, then 2; their CPU side sets the time)
+PHI_CHECK_LAYERS = 1
 
 
 def phase_phi_full_width() -> None:
-    """phi4-mini-3.8b and phi3-medium-14b at full width in fp32, cut to 4 layers,
-    as qwen3-4b's: one ``decode_step`` against the CPU (hd 128, groups of 3
-    and 4), then ``loss``, every gradient leaf and ``prefill`` on a (1, 200)
-    batch; each model freed before the next."""
+    """phi4-mini-3.8b and phi3-medium-14b at full width in fp32, cut to
+    PHI_CHECK_LAYERS layers, as qwen3-4b's: one ``decode_step`` against the
+    CPU (hd 128, groups of 3 and 4), then ``loss``, every gradient leaf and
+    ``prefill`` on a (1, 200) batch; each model freed before the next."""
     from repro_torch.configs import ARCHS
 
+    n = PHI_CHECK_LAYERS
     for arch, seed in ((PHI4, 5), (PHI3, 6)):
-        cfg = dataclasses.replace(ARCHS[arch], dtype="float32", n_layers=4)
-        decode_step_vs_cpu(cfg, "fp32 4-layer")
-        full_width_vs_cpu(cfg, seed, 200, f"fp32 4-layer {arch}")
+        cfg = dataclasses.replace(ARCHS[arch], dtype="float32", n_layers=n)
+        models = models_on_both(cfg, seed)
+        decode_step_vs_cpu(cfg, f"fp32 {n}-layer", models)
+        full_width_vs_cpu(cfg, seed, 200, f"fp32 {n}-layer {arch}", models=models)
+        del models
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2569,20 +2633,21 @@ def moe_full_width_vs_cpu(cfg, seed: int, seq: int, label: str) -> list:
 
 
 def phase_moe_full_width() -> dict:
-    """deepseek-v2-lite-16b at full width in fp32, cut to 3 layers (layer0 and 2
-    MoE layers), and mixtral-8x7b cut to 2 layers and a window of 64 (so that
-    it bites at 256 positions), each on a (1, 256) batch: ``loss``, every
-    gradient leaf and ``prefill`` against the CPU.  Returns the near-ties."""
+    """deepseek-v2-lite-16b at full width in fp32, cut to 2 layers (layer0 and 1
+    MoE layer; 3 until the tensor-parallel phase joined the script), and mixtral-8x7b cut to 1 layer (2 until the tensor-parallel
+    phase joined the script) and a window of 64 (so that it bites at 256
+    positions), each on a (1, 256) batch: ``loss``, every gradient leaf and
+    ``prefill`` against the CPU.  Returns the near-ties."""
     from repro_torch.configs import ARCHS
 
     ties = {"deepseek_loss_prefill": moe_full_width_vs_cpu(
-        dataclasses.replace(ARCHS[DEEPSEEK], dtype="float32", n_layers=3), 11, 256,
-        "fp32 3-layer deepseek")}
+        dataclasses.replace(ARCHS[DEEPSEEK], dtype="float32", n_layers=2), 11, 256,
+        "fp32 2-layer deepseek")}
     gc.collect()
     torch.cuda.empty_cache()
     ties["mixtral_loss_prefill"] = moe_full_width_vs_cpu(
-        dataclasses.replace(ARCHS[MIXTRAL], dtype="float32", n_layers=2, sliding_window=64),
-        12, 256, "fp32 2-layer mixtral, window 64")
+        dataclasses.replace(ARCHS[MIXTRAL], dtype="float32", n_layers=1, sliding_window=64),
+        12, 256, "fp32 1-layer mixtral, window 64")
     gc.collect()
     torch.cuda.empty_cache()
     return ties
@@ -2686,15 +2751,16 @@ def decode_steps_vs_cpu(cfg, seed: int, B: int, cache_len: int, start: int, step
 
 def phase_hymba_decode_full_width() -> None:
     """hymba-1.5b at full width in fp32, cut to 4 layers (global layers 0 and 3)
-    and a window of 64: 96 decode steps of 2 requests from index 128 (the meta
-    offset) on a random cache of 224 slots, so the ring of 64 slots wraps."""
+    and a window of 64: 64 decode steps (96 until the tensor-parallel phase
+    joined the script) of 2 requests from index 128 (the meta
+    offset) on a random cache of 192 slots, so the ring of 64 slots wraps."""
     from repro_torch.configs import ARCHS
 
     full = ARCHS[HYMBA]
     cfg = dataclasses.replace(full, dtype="float32", n_layers=4, hybrid=dataclasses.replace(
         full.hybrid, global_layers=(0, 3), sliding_window=64))
     start = full.hybrid.meta_tokens
-    decode_steps_vs_cpu(cfg, 5, 2, start + 96, start, 96, "fp32 4-layer Hymba",
+    decode_steps_vs_cpu(cfg, 5, 2, start + 64, start, 64, "fp32 4-layer Hymba",
                         random_cache=True)
 
 
@@ -2714,53 +2780,55 @@ def phase_xlstm_decode_full_width() -> None:
 
 
 def phase_deepseek_decode_full_width() -> dict:
-    """deepseek-v2-lite-16b at full width in fp32, cut to 3 layers (layer0 and 2
-    MoE layers): 16 decode steps of 8 requests from a zero cache at index 0,
+    """deepseek-v2-lite-16b at full width in fp32, cut to 2 layers (layer0 and 1
+    MoE layer; 3 until the tensor-parallel phase joined the script): 16 decode steps of 8 requests from a zero cache at index 0,
     and 16 from a random latent cache at index 100; the routing of every MoE
     layer and step against the CPU.  Returns the near-ties of each."""
     from repro_torch.configs import ARCHS
 
-    cfg = dataclasses.replace(ARCHS[DEEPSEEK], dtype="float32", n_layers=3)
+    cfg = dataclasses.replace(ARCHS[DEEPSEEK], dtype="float32", n_layers=2)
     zero = decode_steps_vs_cpu(cfg, 8, SERVE["requests"], CACHE_LEN, 0, 16,
-                               "fp32 3-layer deepseek, zero cache", random_cache=False)[-1]
+                               "fp32 2-layer deepseek, zero cache", random_cache=False)[-1]
     rand = decode_steps_vs_cpu(cfg, 9, SERVE["requests"], CACHE_LEN, 100, 16,
-                               "fp32 3-layer deepseek, random latent cache",
+                               "fp32 2-layer deepseek, random latent cache",
                                random_cache=True)[-1]
     return {"deepseek_zero_cache": zero, "deepseek_random_cache": rand}
 
 
 def phase_mixtral_decode_full_width() -> dict:
-    """mixtral-8x7b at full width in fp32, cut to 2 layers and a window of 64:
-    64 decode steps of 8 requests from index 100 on a random cache, once
-    around the ring of 64 slots (decode attention at G 4, hd 128); the
-    routing of every MoE layer and step against the CPU.  Returns the
-    near-ties.  Cut from 96 steps to keep the script's time."""
+    """mixtral-8x7b at full width in fp32, cut to 1 layer and a window of 64:
+    16 decode steps of 8 requests from index 116 on a random cache, across
+    the end of the ring of 64 slots (decode attention at G 4, hd 128); the
+    routing of every step against the CPU.  Returns the near-ties.  Cut from
+    96 steps and 2 layers, then 32 steps from index 100, to keep the script's
+    time."""
     from repro_torch.configs import ARCHS
 
-    cfg = dataclasses.replace(ARCHS[MIXTRAL], dtype="float32", n_layers=2, sliding_window=64)
-    ties = decode_steps_vs_cpu(cfg, 10, SERVE["requests"], CACHE_LEN, 100, 64,
-                               "fp32 2-layer mixtral, window 64", random_cache=True)[-1]
+    cfg = dataclasses.replace(ARCHS[MIXTRAL], dtype="float32", n_layers=1, sliding_window=64)
+    ties = decode_steps_vs_cpu(cfg, 10, SERVE["requests"], CACHE_LEN, 116, 16,
+                               "fp32 1-layer mixtral, window 64", random_cache=True)[-1]
     return {"mixtral_ring": ties}
 
 
 def phase_internvl2_full_width() -> None:
-    """internvl2-2b at full width in fp32, cut to 4 layers: ``loss``, every
+    """internvl2-2b at full width in fp32, cut to 2 layers: ``loss``, every
     gradient leaf and the image-prefixed ``prefill`` on 256 image and 200
     text positions against the CPU (its vocabulary of 92553 is no multiple
     of 8: only ``@`` and the embedding gather touch ``lm_head`` and ``embed``)."""
     from repro_torch.configs import ARCHS
 
-    cfg = dataclasses.replace(ARCHS[INTERNVL], dtype="float32", n_layers=4)
-    full_width_vs_cpu(cfg, 15, 200, "fp32 4-layer internvl2-2b")
+    cfg = dataclasses.replace(ARCHS[INTERNVL], dtype="float32", n_layers=2)
+    full_width_vs_cpu(cfg, 15, 200, "fp32 2-layer internvl2-2b")
 
 
 def whisper_cut() -> "object":
-    """whisper-large-v3 in fp32 at full width, cut to 2 encoder and 2 decoder layers."""
+    """whisper-large-v3 in fp32 at full width, cut to 1 encoder and 1 decoder layer
+    (2 and 2 until the tensor-parallel phase joined the script)."""
     from repro_torch.configs import ARCHS
 
     full = ARCHS[WHISPER]
-    return dataclasses.replace(full, dtype="float32", n_layers=2, encdec=dataclasses.replace(
-        full.encdec, n_encoder_layers=2))
+    return dataclasses.replace(full, dtype="float32", n_layers=1, encdec=dataclasses.replace(
+        full.encdec, n_encoder_layers=1))
 
 
 def fill_cross_cache(model, params, cache, enc_out) -> None:
@@ -2777,7 +2845,7 @@ def fill_cross_cache(model, params, cache, enc_out) -> None:
 
 
 def phase_whisper_full_width() -> None:
-    """whisper-large-v3 at full width in fp32, cut to 2 + 2 layers, on its 30 s
+    """whisper-large-v3 at full width in fp32, cut to 1 + 1 layers, on its 30 s
     window: ``loss``, every gradient leaf and ``prefill`` on 1 x (1500
     frames, 448 tokens) against the CPU; then ``encode`` of 2 requests' 1500
     frames within 2e-3 of the CPU's (of its largest entry), each device's
@@ -2789,7 +2857,7 @@ def phase_whisper_full_width() -> None:
 
     t0 = time.perf_counter()
     cfg = whisper_cut()
-    full_width_vs_cpu(cfg, 16, WHISPER_TOKENS, "fp32 2+2-layer whisper", frames=WHISPER_FRAMES)
+    full_width_vs_cpu(cfg, 16, WHISPER_TOKENS, "fp32 1+1-layer whisper", frames=WHISPER_FRAMES)
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     gen = torch.Generator().manual_seed(17)
     p_cpu, p_gpu = weights_on_both(gpu, 17)
@@ -2817,7 +2885,7 @@ def phase_whisper_full_width() -> None:
         worst = max(worst, float((got - want).abs().max()))
     leaf_rel = max(rel_err(a.cpu(), b, 2e-3)[1]
                    for a, b in zip(PM.tree_leaves(c_gpu), PM.tree_leaves(c_cpu)))
-    print(f"[full-width] fp32 2+2-layer whisper: encode of {B} x {WHISPER_FRAMES} frames within "
+    print(f"[full-width] fp32 1+1-layer whisper: encode of {B} x {WHISPER_FRAMES} frames within "
           f"{enc_rel:.3e} of its largest entry; {steps} decode steps over the filled cross cache, "
           f"max |logit diff| {worst:.3e}, argmax equal; cache leaves {leaf_rel:.3e}; "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2891,7 +2959,8 @@ def serve_run(kernel_modules, run: str) -> dict:
         with launched_shapes() as shapes:
             res = serve.main(["--arch", arch, "--full-config", "--device", "cuda",
                               "--dtype", "bfloat16", "--requests", str(requests),
-                              "--prompt-len", str(prompt_len), "--new-tokens", str(new_tokens)])
+                              "--prompt-len", str(prompt_len), "--new-tokens", str(new_tokens),
+                              "--init-on", "device"])
     finally:
         kd.valid_len_vector = vector
     seconds = time.perf_counter() - t0
@@ -2913,7 +2982,7 @@ def serve_run(kernel_modules, run: str) -> dict:
         raise AssertionError(f"{run}: served tokens outside the vocabulary of {vocab}")
     print(f"[{run}] {arch}: launches {counts}, by route {routes}; {res['tokens_per_s']:.1f} "
           f"tok/s, {res['ms_per_step']:.3f} ms per decode step, peak {peak / 2**30:.3f} GiB; "
-          f"{seconds:.1f} s with the host's weight draws")
+          f"{seconds:.1f} s with the weight draws on the card")
     return {"arch": arch, "requests": requests, "prompt_len": prompt_len,
             "new_tokens": new_tokens, "counts": counts, "routes": routes,
             "shapes": {k: sorted(v) for k, v in shapes.items()}, "steps": res["steps"],
@@ -3410,10 +3479,11 @@ def train_full_depth(arch: str, shape: dict, per_step: dict, kernel_modules, tag
 
 
 def phase_train_xlstm(kernel_modules) -> dict:
-    """xlstm-1.3b: ``train_full_depth`` at batch 4 x 512, then one mLSTM and one
-    sLSTM block timed.  Cut: the launcher's final checkpoint, 41 GB at this
-    size, is not written at full depth; no counted step (``dryrun_check``):
-    its 246033-launch sLSTM loop takes minutes to count on the meta device."""
+    """xlstm-1.3b: ``train_full_depth`` at batch 4 x 512 and 8 of its 48 layers
+    (``XLSTM_TRAIN``), then one mLSTM and one sLSTM block timed.  Cut: the
+    launcher's final checkpoint, 41 GB at full size, is not written at full
+    depth; no counted step (``dryrun_check``): its sLSTM loop, 246033
+    launches at full depth, takes minutes to count on the meta device."""
     model, params, res = train_full_depth(XLSTM, XLSTM_TRAIN, XLSTM_PER_STEP, kernel_modules,
                                           "train_xlstm", XLSTM_ROUTES, dryrun=False)
     blocks = xlstm_block_ms(model, params, res["batch"], res["seq"])
@@ -3789,9 +3859,14 @@ def only_hoard(gen, ops, ref, rate) -> list:
 
 # ------------------------------------------------------------------- multi
 #: phase_multi: 4 gloo ranks sharing the card, mesh pod 2 x data 2 x model 1,
-#: qwen1.5-0.5b in bf16 at full width and depth on the train phase's batch
-MULTI = dict(pods=2, data=2, batch=TRAIN["batch"], seq=TRAIN["seq"], steps=3,
+#: qwen1.5-0.5b in bf16 at full width on the train phase's batch, cut to 4 of
+#: its 24 layers (phase_tp runs it at full depth)
+MULTI = dict(pods=2, data=2, batch=TRAIN["batch"], seq=TRAIN["seq"], steps=3, layers=4,
              collective_timeout=300.0, world_timeout=420.0)
+#: kernel launches per training step of that cut (2 norms, one attention and
+#: one SwiGLU a layer; the final norm)
+MULTI_PER_STEP = train_launches({"rmsnorm": 2 * MULTI["layers"], "swiglu": MULTI["layers"],
+                                 "flash_attention": MULTI["layers"]}, {"rmsnorm": 1})
 #: flash decoding over a data 1 x model 4 view of the same ranks: qwen1.5-0.5b's
 #: decode shape over one 32768-slot cache, 8192 slots a rank
 MULTI_DECODE = dict(B=8, S=32768, valids=(1, 130, 8193, 32768))
@@ -3839,7 +3914,7 @@ def _decode_inputs(dtype) -> tuple:
 
 def _multi_step_counts(kernel_modules, rec: dict, what: str) -> None:
     counts, routes = read_counts(kernel_modules)
-    expect_counts(counts, TRAIN_PER_STEP, what)
+    expect_counts(counts, MULTI_PER_STEP, what)
     check_routes(routes, counts, TRAIN_ROUTES, what)
     rec["counts"].append(counts)
 
@@ -3854,7 +3929,8 @@ def multi_rank(rank: int, world: int, init: str, work: str, tokens, labels) -> d
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import KERNEL_MODULES, build
-    from repro_torch.launch.mesh import NamedSharding, make_test_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import NamedSharding
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
     from repro_torch.serve import make_flash_decode
@@ -3865,10 +3941,11 @@ def multi_rank(rank: int, world: int, init: str, work: str, tokens, labels) -> d
 
     build.library()                  # the parent's build, found by its digest
     timeout = MULTI["collective_timeout"]
+    first = {} if torch.distributed.is_initialized() else dict(init_method=init, rank=rank)
     mesh = make_test_mesh(data=MULTI["data"], model=1, pods=MULTI["pods"], backend="gloo",
-                          init_method=init, rank=rank, timeout=timeout)
+                          timeout=timeout, **first)
     say = (lambda msg: print(f"[multi r0] {msg}", flush=True)) if rank == 0 else (lambda _: None)
-    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16", n_layers=MULTI["layers"])
     model = build_model(cfg, model_axis=1, mesh=mesh, device="cuda")
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     batch = {"tokens": torch.from_numpy(tokens).long().cuda(),
@@ -4040,10 +4117,14 @@ def multi_rank(rank: int, world: int, init: str, work: str, tokens, labels) -> d
     return rec
 
 
-def phase_multi(kernel_modules) -> dict:
-    """4 ranks on the card over ``gloo`` (``multi_rank``), mesh pod 2 x data 2
-    x model 1: qwen1.5-0.5b in bf16 at full width and depth, the train phase's
-    batch (8 x 512, read through the stripe store), 2 rows a rank.  The
+def multi_parts(kernel_modules):
+    """``phase_multi`` in the form ``run_worlds`` drives: yields its rank job,
+    is sent the ranks' results and the world's seconds, returns its result.
+
+    4 ranks on the card over ``gloo`` (``multi_rank``), mesh pod 2 x data 2
+    x model 1: qwen1.5-0.5b in bf16 at full width and ``MULTI``'s depth, the
+    train phase's batch (8 x 512, read through the stripe store), 2 rows a
+    rank.  The
     parent computes the whole batch's gradient in one process for the ranks
     to hold theirs against, restores their checkpoint onto the one device
     (every leaf's CRC equal to the gathered leaf's), and holds their flash
@@ -4051,13 +4132,12 @@ def phase_multi(kernel_modules) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenDatasetSpec
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
     from repro_torch.train import CheckpointManager
     from repro_torch.train.step import _grads
 
-    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    cfg = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16", n_layers=MULTI["layers"])
     B, S = MULTI["batch"], MULTI["seq"]
     spec = TokenDatasetSpec("train-corpus", n_sequences=max(256, B * 32), seq_len=S,
                             vocab=cfg.vocab, seed=0)
@@ -4077,11 +4157,7 @@ def phase_multi(kernel_modules) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
-        ranks = run_ranks(multi_rank, 4, work, tokens, labels,
-                          init_method=f"file://{work}/rendezvous",
-                          timeout=MULTI["world_timeout"])
-        world_s = time.perf_counter() - t0
+        ranks, world_s = yield multi_rank, (work, tokens, labels), MULTI["world_timeout"]
 
         # (c) the same checkpoint whole onto the one device
         empty = lambda _: torch.empty(0, device="cuda")
@@ -4118,7 +4194,8 @@ def phase_multi(kernel_modules) -> dict:
 
     counts = {m: sum(c[m] for r in ranks for c in r["counts"]) for m in ranks[0]["counts"][0]}
     res = {"card": card_line(), "ranks": 4, "mesh": {"pod": 2, "data": 2, "model": 1},
-           "backend": "gloo", "batch": B, "seq": S, "rows_a_rank": B // 4,
+           "backend": "gloo", "n_layers": cfg.n_layers, "batch": B, "seq": S,
+           "rows_a_rank": B // 4,
            "counts": counts, "counted_steps_a_rank": len(ranks[0]["counts"]),
            "step_ms": [r["step_ms"] for r in ranks], "sync_ms": [r["sync_ms"] for r in ranks],
            "update_ms": [r["update_ms"] for r in ranks],
@@ -4139,10 +4216,600 @@ def phase_multi(kernel_modules) -> dict:
     return res
 
 
+def phase_multi(kernel_modules) -> dict:
+    """``multi_parts`` alone in its world."""
+    return run_worlds({"multi": multi_parts(kernel_modules)})["multi"]
+
+
 def only_multi(gen, ops, ref, rate) -> list:
     from repro_torch.kernels import KERNEL_MODULES
 
     return [{"multi": phase_multi(KERNEL_MODULES)}]
+
+
+def worlds_rank(rank: int, world: int, init: str, jobs: dict) -> dict:
+    """One rank of the phases that share a spawned world (``run_worlds``):
+    each phase's rank body in turn, by name, the card's cache emptied
+    between them."""
+    out = {}
+    for name, (fn, args) in jobs.items():
+        out[name] = fn(rank, world, init, *args)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_worlds(parts: dict) -> dict:
+    """Run the 4-rank phases ``parts`` (name -> a generator such as
+    ``multi_parts``) in one spawned world: each phase's parent side up to its
+    rank job, then one ``mesh.run_ranks`` of ``worlds_rank`` over the jobs
+    (a timeout of the phases' timeouts summed), then each phase's parent
+    side with its ranks' results.  One world spares each further phase its
+    ranks' start: the processes, the card's contexts, the kernels' library
+    and the first step's imports.  Returns each phase's result by name."""
+    from repro_torch.launch.mesh import run_ranks
+
+    jobs = {name: next(part) for name, part in parts.items()}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as where:
+        t0 = time.perf_counter()
+        ranks = run_ranks(worlds_rank, 4, {name: (fn, args) for name, (fn, args, _) in
+                                           jobs.items()},
+                          init_method=f"file://{where}/rendezvous",
+                          timeout=sum(timeout for _, _, timeout in jobs.values()))
+        world_s = time.perf_counter() - t0
+    out = {}
+    for name, part in parts.items():
+        try:
+            part.send(([r[name] for r in ranks], world_s))
+        except StopIteration as done:
+            out[name] = done.value
+        else:
+            raise RuntimeError(f"phase {name} took more than one world")
+    return out
+
+
+# --------------------------------------------------------------------- tp
+#: phase_tp: 4 gloo ranks sharing the card, tensor parallelism over the model
+#: axis: qwen1.5-0.5b at full width and depth on the train phase's batch,
+#: (data, model, steps) meshes; deepseek-v2-lite-16b at DEEPSEEK_TRAIN's 4
+#: layers and batch over data 2 x model 2 (experts over the model axis, MoE
+#: over the data axis), one step
+TP = dict(qwen=((2, 2, 3), (1, 4, 1)), deepseek=(2, 2, 1), collective_timeout=300.0,
+          world_timeout=600.0)
+#: a rank's loss (the mean over its data ranks) against the single-process
+#: step's on the same batch, bf16 (the products' partial sums are rounded in
+#: another order), and the MoE aux loss relative to the single-process
+#: step's: about 5x and 4x the largest gaps read on the H100 (loss 1.9e-4 for
+#: qwen1.5-0.5b at data 2 x model 2, 1.4e-4 at data 1 x model 4, 4.8e-6 for
+#: deepseek-v2-lite-16b; aux 4.7e-5 relative)
+TP_LOSS_TOL = 1e-3
+TP_AUX_TOL = 2e-4
+#: the shard shapes of phase_tp's runs: rmsnorm (rows, D); SwiGLU (rows, D,
+#: F / model): qwen's at model 2 and 4, deepseek's layer0 and shared experts
+#: at model 2 and 4; flash (B, Hq, Hkv, S, hd, hdv): qwen's 8 and 4 heads a
+#: rank, MLA's 8 and 4
+TP_RMSNORM = ((2048, 1024), (2048, 2048), (2048, 512))
+TP_SWIGLU = ((2048, 1024, 1408), (4096, 1024, 704), (2048, 2048, 5472), (2048, 2048, 2736),
+             (2048, 2048, 1408), (2048, 2048, 704))
+TP_FLASH = ((4, 8, 8, 512, 64, 64), (8, 4, 4, 512, 64, 64), (1, 8, 8, 2048, 192, 128),
+            (1, 4, 4, 2048, 192, 128))
+
+
+def tp_flash_shapes() -> list:
+    """TP_FLASH in ``flash_shapes``' form (causal, no window; MLA's widths held
+    to the plain versions rounded as the tensor-core route rounds)."""
+    return [(B, Hq, Hkv, S, S, hd, hdv, True, 0, (hd, hdv) != (64, 64))
+            for B, Hq, Hkv, S, hd, hdv in TP_FLASH]
+
+
+def check_tp_kernels(gen, ops, ref, rate) -> dict:
+    """The shard shapes of phase_tp (TP_RMSNORM, TP_SWIGLU, TP_FLASH) in bf16:
+    the forward within ``TOL`` of the plain version, the gradients of the
+    wrapper (its backward kernel) within ``GRAD_TOL`` of the plain backward's
+    largest entry, each route recorded; flash also in fp32 with its routes
+    asserted (``check_flash_at``).  Times by CUDA events beside the plain
+    version's, the library call's (``F.rms_norm``, three ``@``, SDPA) and the
+    bound.  Returns each kernel's rows by shape."""
+    from repro_torch.kernels import rmsnorm as kr
+    from repro_torch.kernels import rmsnorm_bwd as krb
+    from repro_torch.kernels import swiglu as ks
+    from repro_torch.kernels import swiglu_bwd as ksb
+
+    dt = torch.bfloat16
+    out = {k: [] for k in ("rmsnorm", "rmsnorm_bwd", "swiglu_mlp", "swiglu_mlp_bwd",
+                           "flash_attention", "flash_attention_bwd")}
+    for rows, D in TP_RMSNORM:
+        sets = [(randn(gen, (rows, D), dt), randn(gen, (D,), dt), randn(gen, (rows, D), dt))
+                for _ in range(2)]
+        x, g, dy = sets[0]
+        err = max_err(ops.rmsnorm(x, g), ref.rmsnorm_ref(x, g), TOL["rmsnorm"][dt])
+        leaves = [x.clone().requires_grad_(), g.clone().requires_grad_()]
+        got = torch.autograd.grad(ops.rmsnorm(*leaves), leaves, dy)
+        gerr = max(rel_err(a, b, GRAD_TOL[dt])[1]
+                   for a, b in zip(got, ref.rmsnorm_bwd_ref(x, g, dy)))
+        fwd_sets = [s[:2] for s in sets]
+        b_ms, b_by = bound((2 * rows * D + D) * 2, 4 * rows * D, dt, rate)
+        out["rmsnorm"].append({
+            "shape": [rows, D], "route": kr.route(x, g), "max_abs_err": err,
+            "ms": time_ms(ops.rmsnorm, fwd_sets, 20), "plain_ms": time_ms(ref.rmsnorm_ref,
+                                                                          fwd_sets, 10),
+            "library_ms": time_ms(lambda x, g: F.rms_norm(x, (D,), g, 1e-5), fwd_sets, 20),
+            "bound_ms": b_ms, "bound_by": b_by})
+        b_ms, b_by = bound((3 * rows * D + 2 * D) * 2, 8 * rows * D, dt, rate)
+        bwd, both = grad_ms(ops.rmsnorm, (x, g), dy, 10)
+        out["rmsnorm_bwd"].append({
+            "shape": [rows, D], "route": krb.route(x, g, dy), "max_rel_err": gerr, "ms": bwd,
+            "fwd_bwd_ms": both, "plain_ms": time_ms(ref.rmsnorm_bwd_ref, sets, 10),
+            "library_fwd_bwd_ms": grad_ms(lambda x, g: F.rms_norm(x, (D,), g, 1e-5), (x, g),
+                                          dy, 10)[1],
+            "bound_ms": b_ms, "bound_by": b_by})
+        del sets, x, g, dy, leaves, got
+    for N, D, Fd in TP_SWIGLU:
+        sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
+                 randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5))
+                for _ in range(2)]
+        x, wg, wu, wd = sets[0]
+        dy = randn(gen, (N, D), dt)
+        err = max_err(ops.swiglu_mlp(*sets[0]), ref.swiglu_ref(*sets[0]), TOL["swiglu_mlp"][dt])
+        leaves = [t.clone().requires_grad_() for t in sets[0]]
+        before = dict(ksb.route_launches)
+        got = torch.autograd.grad(ops.swiglu_mlp(*leaves), leaves, dy)
+        bwd_route = [r for r, n in ksb.route_launches.items() if n != before[r]]
+        gerr = max(rel_err(a, b, GRAD_TOL[dt])[1]
+                   for a, b in zip(got, ref.swiglu_bwd_ref(x, wg, wu, wd, dy)))
+        b_ms, b_by = bound((2 * N * D + 3 * D * Fd) * 2, 6 * N * D * Fd + 4 * N * Fd, dt, rate)
+        out["swiglu_mlp"].append({
+            "shape": [N, D, Fd], "route": ks.route(*sets[0]), "max_abs_err": err,
+            "ms": time_ms(ops.swiglu_mlp, sets, 5), "plain_ms": time_ms(ref.swiglu_ref, sets, 3),
+            "library_ms": time_ms(_swiglu_lib, sets, 5), "bound_ms": b_ms, "bound_by": b_by})
+        b_ms, b_by = bound((3 * N * D + 6 * D * Fd) * 2, 12 * N * D * Fd + 8 * N * Fd, dt, rate)
+        bwd, both = grad_ms(ops.swiglu_mlp, sets[0], dy, 5)
+        out["swiglu_mlp_bwd"].append({
+            "shape": [N, D, Fd], "route": bwd_route, "max_rel_err": gerr, "ms": bwd,
+            "fwd_bwd_ms": both,
+            "plain_ms": time_ms(lambda *a: ref.swiglu_bwd_ref(*a, dy), sets, 3),
+            "library_fwd_bwd_ms": grad_ms(_swiglu_lib, sets[0], dy, 5)[1],
+            "bound_ms": b_ms, "bound_by": b_by})
+        del sets, x, wg, wu, wd, dy, leaves, got
+    errs, gerrs = check_flash_at(gen, ref, tp_flash_shapes())
+    for B, Hq, Hkv, S, hd, hdv in TP_FLASH:
+        fwd, bwd = flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, 0, hdv=hdv)
+        key = (B, Hq, Hkv, S, S, hd, hdv, True, 0, "bfloat16")
+        out["flash_attention"].append({"shape": [B, Hq, Hkv, S, hd, hdv],
+                                       "max_abs_err": errs[key], **fwd})
+        out["flash_attention_bwd"].append({"shape": [B, Hq, Hkv, S, hd, hdv],
+                                           "max_abs_err": gerrs[key], **bwd})
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp] shard-shape kernel checks {json.dumps(out)}")
+    return out
+
+
+def tp_checked_shapes() -> dict:
+    """``checked_shapes`` and phase_tp's shard shapes."""
+    covered = checked_shapes()
+    covered["rmsnorm"] |= set(TP_RMSNORM)
+    covered["swiglu_mlp"] |= set(TP_SWIGLU)
+    covered["flash_attention"] |= {flash_key(*s[:9], 0) for s in tp_flash_shapes()}
+    return covered
+
+
+@contextlib.contextmanager
+def tp_routes(choices: list | None):
+    """Record every ``layers.moe_route`` call; with ``choices``, route each
+    through the next one (``replayed_routes``' replay)."""
+    from repro_torch.models import layers
+
+    route, seen = layers.moe_route, []
+    pending = None if choices is None else list(choices)
+
+    def call(*args, **kwargs):
+        if pending is not None:
+            kwargs["choice"] = pending.pop(0)
+        seen.append(route(*args, **kwargs))
+        return seen[-1]
+
+    layers.moe_route = call
+    try:
+        yield seen, pending
+    finally:
+        layers.moe_route = route
+
+
+def rank_local_aux(routes) -> float:
+    """The aux loss of ``routes`` (``MoERoute`` s, summed over the layers)
+    from the means of this rank's rows alone: what a port that ignores the
+    data axis would report (the parent averages it over the data ranks)."""
+    total = 0.0
+    for r in routes:
+        counts = torch.zeros_like(r.probs).scatter_(1, r.idx, 1.0)
+        E, k = r.probs.shape[-1], r.idx.shape[1]
+        total += float(E * (r.probs.mean(0) * counts.mean(0) / k).sum())
+    return total
+
+
+def _tp_ref_errors(synced, layout, mesh, path: Path) -> float:
+    """The largest error of this rank's synced gradient shards against their
+    slices of the single-process gradient at ``path``, each over the whole
+    leaf's largest entry (the gathered gradient's check, shard by shard)."""
+    from repro_torch.parallel import NamedSharding
+    from repro_torch.models import params as PM
+
+    ref_grads = torch.load(path, map_location="cpu", mmap=True)
+    worst = 0.0
+    for g, r, info in zip(PM.tree_leaves(synced), PM.tree_leaves(ref_grads),
+                          PM.tree_leaves(layout)):
+        part = r[NamedSharding(mesh, PM.keep_axes(info.spec, ("model",))).index(r.shape)]
+        scale = float(r.float().abs().max())
+        err = float((g.float() - part.cuda().float()).abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def tp_run(kernel_modules, mesh, cfg, batch: dict, steps: int, work: str, tag: str,
+           per_step: dict, choices=None, keep: bool = False) -> dict:
+    """One model on ``mesh`` (``tp_rank``): ``steps`` steps of
+    ``make_train_step(model, opt_cfg, mesh)``, the first in its parts, the
+    launch counts and routes checked a step, every launch at a checked shape;
+    after step 1 the synced gradient and the loss against the parent's
+    single-process step (``ref_<tag>.pt``, ``ref_<tag>.json``); with
+    ``choices`` each MoE layer routed through the parent's experts (the
+    rank's own routing of the same rows compared first); at the end every
+    replicated leaf bit-equal across the ranks.  With ``keep`` the result
+    holds ``(model, step, params, opt)`` as ``state``."""
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    model = build_model(cfg, model_axis=mesh.shape["model"], mesh=mesh, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    layout = model.layout()
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=10), mesh)
+    opt = step.init_opt_state(params)
+    want = json.loads((Path(work) / f"ref_{tag}.json").read_text())
+    rows = step.rows(batch)
+    rec = {"coords": dict(mesh.coords), "losses": [], "step_ms": [], "tp_ms": [], "sync_ms": [],
+           "update_ms": [], "gather_ms": [], "counts": [], "shapes": {}}
+    L = cfg.n_layers - (1 if cfg.moe is not None and cfg.moe.first_dense else 0)
+    if choices is not None:
+        # the rank's own routing of its rows, against the parent's
+        with torch.no_grad(), tp_routes(None) as (seen, _), model.rows_split(step.dp_axes):
+            model.loss(params, rows)
+        # as sets of experts: an order swapped inside the top k routes the same
+        gaps, differ = [], 0
+        for own, theirs in zip(seen[:L], choices[:L]):
+            moved = (own.idx.sort(-1).values.cpu() != theirs.sort(-1).values).any(-1)
+            differ += int(moved.sum())
+            if moved.any():
+                top = own.probs.sort(-1, descending=True).values.cpu()
+                k = own.idx.shape[1]
+                gaps.append(float((top[moved, k - 1] - top[moved, k]).max()))
+        rec["own_routing"] = {"tokens_differing": differ, "tokens": L * own.idx.shape[0],
+                              "largest_kth_gap": max(gaps, default=0)}
+        del seen
+    torch.cuda.reset_peak_memory_stats()
+    mesh.timed = True
+    for i in range(steps):
+        reset_counts(kernel_modules)
+        mesh.spent.clear()
+        with launched_shapes() as shapes, tp_routes(choices if i == 0 else None) as (seen,
+                                                                                   pending):
+            t0 = _clock()
+            if i == 0:
+                loss, metrics, grads = step.grads(params, batch)
+                t1 = _clock()
+                synced = step.sync(grads)
+                t2 = _clock()
+                del grads
+                params, opt, m = step.update(synced, opt, params)
+                m = {**m, **{k: step.mean_over_ranks(v) for k, v in metrics.items()},
+                     "loss": step.mean_over_ranks(loss)}
+                times = {"sync_ms": (t2 - t1) * 1e3, **step.times}
+            else:
+                params, opt, m = step(params, opt, batch)
+                times = step.times
+            rec["step_ms"].append((_clock() - t0) * 1e3)
+        if pending:
+            raise AssertionError(f"{tag} rank {mesh.rank}: {len(pending)} routes not replayed")
+        counts, routes = read_counts(kernel_modules)
+        expect_counts(counts, per_step, f"{tag} rank {mesh.rank} step {i + 1}")
+        check_routes(routes, counts, TRAIN_ROUTES, f"{tag} rank {mesh.rank} step {i + 1}")
+        rec["counts"].append(counts)
+        for kernel, seen_shapes in shapes.items():
+            rec["shapes"].setdefault(kernel, set()).update(seen_shapes)
+        rec["losses"].append(float(m["loss"]))
+        rec["tp_ms"].append(mesh.spent.get(("model",), 0.0) * 1e3)
+        for key in ("sync_ms", "update_ms", "gather_ms"):
+            rec[key].append(times[key])
+        if i == 0:
+            rec["grad_err_vs_single_process"] = _tp_ref_errors(synced, layout, mesh,
+                                                               Path(work) / f"ref_{tag}.pt")
+            del synced
+            if not rec["grad_err_vs_single_process"] <= GRAD_TOL[torch.bfloat16]:
+                raise AssertionError(f"{tag} rank {mesh.rank}: gradient "
+                                     f"{rec['grad_err_vs_single_process']} of the largest "
+                                     "entry from the single-process gradient")
+            if not abs(rec["losses"][0] - want["loss"]) <= TP_LOSS_TOL:
+                raise AssertionError(f"{tag} rank {mesh.rank}: loss {rec['losses'][0]}, the "
+                                     f"single process {want['loss']}")
+            if cfg.moe is not None:
+                rec["aux"] = float(m["aux"])
+                rec["dropped"] = [int((~r.keep).sum()) for r in seen[:L]]
+                rec["aux_rank_local"] = rank_local_aux(seen[:L])
+                if not abs(rec["aux"] - want["aux"]) <= TP_AUX_TOL * abs(want["aux"]):
+                    raise AssertionError(f"{tag} rank {mesh.rank}: aux {rec['aux']}, the "
+                                         f"single process {want['aux']}")
+        del seen
+    mesh.timed = False
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"{tag} rank {mesh.rank}: losses {rec['losses']}")
+    # every replicated leaf equal on every rank, bit for bit
+    shs = PM.tree_leaves(step.param_shardings())
+    crcs = torch.tensor([_crc(t) for t, sh in zip(PM.tree_leaves(params), shs)
+                         if "model" not in sh.axes()], dtype=torch.int64)
+    every = mesh.all_gather(crcs, mesh.axis_names)
+    if not all(torch.equal(c, crcs) for c in every):
+        raise AssertionError(f"{tag} rank {mesh.rank}: replicated leaves differ across ranks")
+    rec["replicated_leaves"] = len(crcs)
+    rec["sharded_leaves"] = len(shs) - len(crcs)
+    if keep:
+        rec["state"] = (model, step, params, opt)
+    del params, opt, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_checkpoint(state: tuple, tall, cfg, work: str) -> dict:
+    """The ZeRO + TP state of a ``tp_run`` saved whole (every rank gathers,
+    rank 0 writes) and restored at the mesh ``tall`` (data 1 x model 4) on
+    the same ranks: every restored shard equal to its slice of the gathered
+    leaf.  Returns the seconds and, on rank 0, every gathered leaf's CRC."""
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.train import AdamWConfig, CheckpointManager, make_train_step
+
+    model, step, params, opt = state
+    sh = {"params": step.param_shardings(), "opt": step.shardings}
+    ckpt = CheckpointManager(str(Path(work) / "ckpt"), keep=1)
+    t0 = time.perf_counter()
+    ckpt.save(int(opt["count"]), params, opt, shardings=sh, mesh_shape=dict(step.mesh.shape))
+    save_s = time.perf_counter() - t0
+    tall_step = make_train_step(build_model(cfg, model_axis=tall.shape["model"], mesh=tall,
+                                            device="cuda"), AdamWConfig(), tall)
+    tall_sh = {"params": tall_step.param_shardings(), "opt": tall_step.shardings}
+    t0 = time.perf_counter()
+    _, p_b, o_b, _ = ckpt.restore(template={"params": params, "opt": opt}, shardings=tall_sh)
+    restore_s = time.perf_counter() - t0
+    crcs = []
+    for mine, s, got, ts in zip(PM.tree_leaves({"params": params, "opt": opt}),
+                                PM.tree_leaves(sh), PM.tree_leaves({"params": p_b, "opt": o_b}),
+                                PM.tree_leaves(tall_sh)):
+        whole = s.gather(mine)
+        if not torch.equal(got, ts.shard(whole)):
+            raise AssertionError(f"rank {step.mesh.rank}: a leaf restored at data 1 x model 4 "
+                                 "differs from its slice of the saved state")
+        if step.mesh.rank == 0:
+            crcs.append(_crc(whole))
+    return {"step": int(opt["count"]), "save_s": save_s, "restore_s": restore_s, "crcs": crcs,
+            "sharded_opt_leaves": sum("model" in s.axes() and "data" in s.axes()
+                                      for s in PM.tree_leaves(sh["opt"]["mu"]))}
+
+
+def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
+    """One of ``phase_tp``'s ranks: qwen1.5-0.5b over each of TP["qwen"]'s
+    meshes, then deepseek-v2-lite-16b at 4 layers over data 2 x model 2,
+    its MoE layers routed through the parent's experts (``tp_run``)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import KERNEL_MODULES, build
+    from repro_torch.launch.mesh import make_test_mesh
+
+    build.library()                  # the parent's build, found by its digest
+    kw = dict(backend="gloo", timeout=TP["collective_timeout"])
+    first = {} if torch.distributed.is_initialized() else dict(init_method=init, rank=rank)
+    say = (lambda msg: print(f"[tp r0] {msg}", flush=True)) if rank == 0 else (lambda _: None)
+    out = {"rank": rank}
+    qwen = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in batches["qwen"].items()}
+    state = None
+    for data, model, steps in TP["qwen"]:
+        mesh = make_test_mesh(data=data, model=model, **kw, **first)
+        first = {}
+        tag = f"qwen_{data}x{model}"
+        out[tag] = tp_run(KERNEL_MODULES, mesh, qwen, batch, steps, work, "qwen", TRAIN_PER_STEP,
+                          keep=state is None)
+        state = state or out[tag].pop("state")
+        say(f"{tag}: steps {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, losses "
+            f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
+    # the first mesh's ZeRO + TP state, restored over the last (data 1 x model 4)
+    out["checkpoint"] = tp_checkpoint(state, mesh, qwen, work)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"checkpoint saved in {out['checkpoint']['save_s']:.2f} s, restored at data 1 x model "
+        f"4 in {out['checkpoint']['restore_s']:.2f} s")
+    data, model, steps = TP["deepseek"]
+    mesh = make_test_mesh(data=data, model=model, **kw)
+    cfg = dataclasses.replace(ARCHS[DEEPSEEK], dtype="bfloat16",
+                              n_layers=DEEPSEEK_TRAIN["layers"])
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in batches["deepseek"].items()}
+    n = batch["tokens"].numel() // data
+    part = slice(mesh.coords["data"] * n, (mesh.coords["data"] + 1) * n)
+    choices = [c[part] for c in torch.load(Path(work) / "routes_deepseek.pt")]
+    tag = f"deepseek_{data}x{model}"
+    out[tag] = tp_run(KERNEL_MODULES, mesh, cfg, batch, steps, work, "deepseek",
+                      DEEPSEEK_PER_STEP, choices)
+    say(f"{tag}: steps {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, losses "
+        f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
+    return out
+
+
+def tp_reference(cfg, batch: dict, work: Path, tag: str) -> None:
+    """The single-process step's loss, aux, gradient and (for an MoE model)
+    every ``moe_route`` call's experts and each MoE layer's dropped pairs, on
+    the whole batch, written under ``work`` for the ranks."""
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.train.step import _grads
+
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    with tp_routes(None) as (seen, _):
+        loss, metrics, grads = _grads(model, params, batch)
+    torch.save(PM.tree_map(lambda g: g.cpu(), grads), work / f"ref_{tag}.pt")
+    L = cfg.n_layers - (1 if cfg.moe is not None and cfg.moe.first_dense else 0)
+    if seen:
+        torch.save([r.idx.cpu() for r in seen], work / f"routes_{tag}.pt")
+    (work / f"ref_{tag}.json").write_text(json.dumps({
+        "loss": float(loss), "aux": float(metrics["aux"]),
+        "dropped": [int((~r.keep).sum()) for r in seen[:L]]}))
+    del model, params, grads, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
+    """``phase_tp`` in the form ``run_worlds`` drives (as ``multi_parts``).
+
+    4 ranks on the card over ``gloo`` (``tp_rank``), tensor parallelism:
+    qwen1.5-0.5b in bf16 at full width and depth on the train phase's batch
+    (8 x 512, read through the stripe store) over data 2 x model 2 (3 steps)
+    and data 1 x model 4 (one step), the first mesh's ZeRO + TP state saved and
+    restored at the second (``tp_checkpoint``) and onto the one device here
+    (every leaf's CRC equal), then deepseek-v2-lite-16b at 4 layers on
+    DEEPSEEK_TRAIN's batch (2 x 2048, its own corpus) over data 2 x model 2,
+    one step: experts over the model axis, MoE over the data axis, every MoE
+    layer routed through the single-process step's experts (the ranks' own
+    routing compared and reported).  The parent first checks the kernels at
+    the shard shapes (``check_tp_kernels``, with ``gen``, ``ops``, ``ref``
+    and ``rate``) and takes each model's single-process step on the whole
+    batch (``tp_reference``); the dropped pairs summed over the data ranks
+    must equal its, and every launch of the ranks lie at a checked shape."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenDatasetSpec
+    from repro_torch.models import build_model
+    from repro_torch.models import params as PM
+    from repro_torch.train import CheckpointManager
+
+    phase_t0 = time.perf_counter()
+    kernel_rows = check_tp_kernels(gen, ops, ref, rate) if gen is not None else None
+    qwen = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
+    deepseek = dataclasses.replace(ARCHS[DEEPSEEK], dtype="bfloat16",
+                                   n_layers=DEEPSEEK_TRAIN["layers"])
+    (ROOT / "build").mkdir(exist_ok=True)
+    batches = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as data_root:
+        for name, cfg, (B, S) in (("qwen", qwen, (TRAIN["batch"], TRAIN["seq"])),
+                                  ("deepseek", deepseek, (DEEPSEEK_TRAIN["batch"],
+                                                          DEEPSEEK_TRAIN["seq"]))):
+            spec = TokenDatasetSpec(f"tp-{name}", n_sequences=max(256, B * 32), seq_len=S,
+                                    vocab=cfg.vocab, seed=0)
+            tokens, labels = next(corpus_batches(spec, B, str(Path(data_root) / name)))
+            batches[name] = {"tokens": tokens, "labels": labels}
+            t0 = time.perf_counter()
+            tp_reference(cfg, {k: torch.from_numpy(v).long().cuda()
+                               for k, v in batches[name].items()}, Path(work), name)
+            print(f"[tp] {name} single-process reference in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        want = json.loads((Path(work) / "ref_deepseek.json").read_text())
+        qwen_loss = json.loads((Path(work) / "ref_qwen.json").read_text())["loss"]
+        ranks, world_s = yield tp_rank, (work, batches), TP["world_timeout"]
+        # the checkpoint of the qwen data 2 x model 2 state whole onto the one device
+        empty = lambda _: torch.empty(0, device="cuda")
+        layout = build_model(qwen, device="meta").layout()
+        template = {"params": PM.tree_map(empty, layout),
+                    "opt": {"count": torch.empty(0, device="cuda"),
+                            **{k: PM.tree_map(empty, layout) for k in ("master", "mu", "nu")}}}
+        t0 = time.perf_counter()
+        at, p, o, _ = CheckpointManager(str(Path(work) / "ckpt")).restore(template=template)
+        one_device_s = time.perf_counter() - t0
+        saved = ranks[0]["checkpoint"]
+        crcs = [_crc(t) for t in PM.tree_leaves({"params": p, "opt": o})]
+        if at != saved["step"] or crcs != saved["crcs"]:
+            raise AssertionError(f"tp: restored onto one device at step {at}: "
+                                 f"{sum(a != b for a, b in zip(crcs, saved['crcs']))} leaves "
+                                 "differ from the gathered state")
+        del p, o
+
+    covered = tp_checked_shapes()
+    runs = [k for k in ranks[0] if k not in ("rank", "checkpoint")]
+    for r in ranks:
+        for run in runs:
+            for kernel, seen in r[run]["shapes"].items():
+                if not seen <= covered[kernel]:
+                    raise AssertionError(f"tp {run}: {kernel} launched at "
+                                         f"{sorted(seen - covered[kernel])}, which no kernel "
+                                         "check covers")
+    ds = [r for r in ranks if r["deepseek_2x2"]["coords"]["model"] == 0]
+    dropped = [sum(r["deepseek_2x2"]["dropped"][i] for r in ds)
+               for i in range(len(want["dropped"]))]
+    if dropped != want["dropped"]:
+        raise AssertionError(f"tp deepseek: dropped pairs {dropped} by layer over the data "
+                             f"ranks, the single process {want['dropped']}")
+    aux_local = statistics.fmean(r["deepseek_2x2"]["aux_rank_local"] for r in ds)
+    if not abs(aux_local - want["aux"]) > TP_AUX_TOL * abs(want["aux"]):
+        raise AssertionError(f"tp deepseek: the aux of rank-local means {aux_local} lies within "
+                             f"TP_AUX_TOL of the single process's {want['aux']}: the aux check "
+                             "cannot see a routing that ignores the data axis")
+    counts = {m: sum(c[m] for r in ranks for run in runs for c in r[run]["counts"])
+              for m in ranks[0][runs[0]]["counts"][0]}
+    res = {"card": card_line(), "ranks": 4, "backend": "gloo", "counts": counts,
+           "counted_steps_a_rank": sum(len(ranks[0][run]["counts"]) for run in runs),
+           "world_s": world_s, "phase_s": time.perf_counter() - phase_t0,
+           "dropped_by_layer": dropped, "aux_single_process": want["aux"],
+           "aux_rank_local_means": aux_local,
+           "aux_gaps_relative": {"global": abs(ranks[0]["deepseek_2x2"]["aux"] - want["aux"])
+                                 / abs(want["aux"]),
+                                 "rank_local": abs(aux_local - want["aux"]) / abs(want["aux"]),
+                                 "limit": TP_AUX_TOL},
+           "loss_single_process": {"qwen": qwen_loss, "deepseek": want["loss"]},
+           "checkpoint": {"step": saved["step"], "leaves": len(saved["crcs"]),
+                          "sharded_opt_leaves": saved["sharded_opt_leaves"],
+                          "save_s": saved["save_s"],
+                          "restore_data1_model4_s": [r["checkpoint"]["restore_s"]
+                                                     for r in ranks],
+                          "restore_one_device_s": one_device_s}}
+    for run in runs:
+        per = [r[run] for r in ranks]
+        res[run] = {
+            "mesh": {a: max(p["coords"][a] for p in per) + 1 for a in per[0]["coords"]},
+            **{k: [p[k] for p in per] for k in ("step_ms", "tp_ms", "sync_ms", "update_ms",
+                                                 "gather_ms", "peak_gib",
+                                                 "grad_err_vs_single_process")},
+            "losses": per[0]["losses"], "counts_a_step": per[0]["counts"][0],
+            "replicated_leaves": per[0]["replicated_leaves"],
+            "sharded_leaves": per[0]["sharded_leaves"]}
+        for k in ("aux", "aux_rank_local", "own_routing"):
+            if k in per[0]:
+                res[run][k] = [p[k] for p in per]
+    if kernel_rows is not None:
+        res["kernel_rows"] = kernel_rows
+    print(f"[tp] {res['card']}; " + "; ".join(
+        f"{run}: step ms {res[run]['step_ms']}, TP all-reduce ms {res[run]['tp_ms']}, sync ms "
+        f"{res[run]['sync_ms']}, update ms {res[run]['update_ms']}, gather ms "
+        f"{res[run]['gather_ms']}, peak GiB a rank {res[run]['peak_gib']}" for run in runs)
+        + f"; world {world_s:.1f} s", flush=True)
+    print(f"[tp] deepseek aux {ranks[0]['deepseek_2x2']['aux']}, the single process "
+          f"{want['aux']}, of rank-local means {aux_local} (relative gaps "
+          f"{res['aux_gaps_relative']})", flush=True)
+    return res
+
+
+def phase_tp(kernel_modules, gen=None, ops=None, ref=None, rate=None) -> dict:
+    """``tp_parts`` alone in its world."""
+    return run_worlds({"tp": tp_parts(kernel_modules, gen, ops, ref, rate)})["tp"]
+
+
+def only_tp(gen, ops, ref, rate) -> list:
+    from repro_torch.kernels import KERNEL_MODULES
+
+    return [{"tp": phase_tp(KERNEL_MODULES, gen, ops, ref, rate)}]
 
 
 def xlstm_block_ms(model, params, B, S) -> dict:
@@ -4489,7 +5156,8 @@ def only_remat(gen, ops, ref, rate) -> list:
 ONLY = {"mlstm": check_mlstm, "ssd": check_ssd,
         "decode": lambda *a: (check_decode_attention(*a),), "flash": check_flash,
         "serve": only_serve, "embedded": only_embedded, "hoard": only_hoard,
-        "multi": only_multi, "dryrun": only_dryrun, "phi": only_phi, "remat": only_remat}
+        "multi": only_multi, "dryrun": only_dryrun, "phi": only_phi, "remat": only_remat,
+        "tp": only_tp}
 
 
 def main(argv: list[str]) -> None:
@@ -4538,11 +5206,19 @@ def main(argv: list[str]) -> None:
                        ("train_mixtral", phase_train_mixtral),
                        ("train_internvl2", phase_train_internvl2),
                        ("train_whisper", phase_train_whisper),
-                       ("train_phi4", phase_train_phi4), ("multi", phase_multi)):
+                       ("train_phi4", phase_train_phi4)):
         gc.collect()
         torch.cuda.empty_cache()
         runs[run] = phase(KERNEL_MODULES)
         print(f"[{run}] done at {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 11 and 13 share one world of 4 ranks
+    runs.update(run_worlds({"multi": multi_parts(KERNEL_MODULES),
+                            "tp": tp_parts(KERNEL_MODULES, gen, ops, ref, rate)}))
+    for kernel, shard_rows in runs["tp"].pop("kernel_rows").items():
+        rows[kernel]["tp_shapes"] = shard_rows
+    print(f"[multi, tp] done at {time.perf_counter() - t0:.1f} s")
     runs["train_deepseek"]["fp32_check_near_ties"] = moe_ties["deepseek_loss_prefill"]
     runs["train_mixtral"]["fp32_check_near_ties"] = moe_ties["mixtral_loss_prefill"]
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")

@@ -9,9 +9,16 @@ storage, nothing drawn), and judges the cell two ways:
   ``data x model``, or 2 x 16 x 16 with ``pod``; ``launch.mesh.AbstractMesh``):
   a rank's weights and gradients as shards of ``params.specs``, its AdamW
   state as shards of ``opt_state_specs``, its inputs as shards of
-  ``registry.input_specs``.  The port does not execute this layout
-  (``DataParallelStep`` runs no ``model`` axis), so only the state is
-  known: ``state_bytes`` and ``fits_80gb`` count no activations.
+  ``registry.input_specs`` (``state_bytes``).  The port executes this
+  layout for the train cells of ``DecoderLM`` (dense, MoE, MLA, VLM): one
+  rank's tensor-parallel step (``train.step.tp_step_costs``, the
+  ``AbstractMesh``'s collectives giving the shapes a real mesh's would) is
+  counted on meta, and its live-bytes peak (its parameter shards, its ZeRO
+  state, the batch, the activations, gradients and the update's
+  temporaries) is ``total_bytes``, against which ``fits_80gb`` is judged;
+  its FLOPs, traffic and collective bytes ride beside it (``step``).  The
+  other families and the serving cells (no ``model`` axis is executed
+  there) keep the state alone: ``fits_80gb`` on ``state_bytes``.
 * **data_parallel** — what the port executes today: every chip a data
   rank, ZeRO-1 over all of them (``opt_state_specs`` on a ``chips x 1``
   mesh).  One step at a rank's rows (``global_batch / chips``, rounded up:
@@ -65,8 +72,9 @@ from ..roofline import count as C
 from ..roofline.analysis import RooflineReport, model_flops
 from ..roofline.table import analytic_cell
 from ..train.optimizer import AdamWConfig, abstract_opt_state, opt_state_specs
-from ..train.step import step_costs
-from .mesh import AbstractMesh, NamedSharding, make_abstract_production_mesh
+from ..train.step import step_costs, tp_step_costs
+from ..parallel import NamedSharding
+from .mesh import AbstractMesh, make_abstract_production_mesh
 
 HBM_PER_CHIP = 80e9          # H100 SXM5 80 GB
 
@@ -135,6 +143,16 @@ def _meta_step(cfg, shape: ShapeConfig, rows: int, model_axis: int) -> tuple:
     return counts, in_bytes
 
 
+@functools.lru_cache(maxsize=None)
+def _tp_meta_step(cfg, shape: ShapeConfig, multi_pod: bool) -> dict:
+    """The counts of rank 0's tensor-parallel train step on the production
+    mesh, on meta, once a process for each cell."""
+    mesh = make_abstract_production_mesh(multi_pod=multi_pod)
+    model = build_model(cfg, mesh=mesh, model_axis=mesh.shape["model"], device="meta")
+    batch, _ = input_specs(cfg, shape, mesh=mesh, model=model)
+    return tp_step_costs(model, batch, mesh)
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, overrides: dict = None,
              save: bool = True, out_dir: Path | str | None = None,
              cfg: ModelConfig | None = None, shape: ShapeConfig | None = None) -> dict:
@@ -169,6 +187,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, overrides: 
             "input_bytes": _shard_bytes(batch_abs, batch_spec, mesh)}
     prod["state_bytes"] = sum(prod.values())
     prod["fits_80gb"] = prod["state_bytes"] <= HBM_PER_CHIP
+    prod["executed"] = is_train and model.tensor_parallel
+    if prod["executed"]:
+        tp = _tp_meta_step(cfg, shape, multi_pod)
+        prod["step_peak_above_state_bytes"] = tp["peak_above_start_bytes"]
+        prod["total_bytes"] = tp["peak_bytes"]
+        prod["fits_80gb"] = prod["total_bytes"] <= HBM_PER_CHIP
+        prod["step"] = {k: tp[k] for k in ("flops", "traffic_bytes", "collective_bytes",
+                                           "collectives", "kernels", "start_bytes")}
 
     # ---- data_parallel: every chip a data rank, ZeRO-1 over all of them
     dp_mesh = AbstractMesh((chips, 1), ("data", "model"))
@@ -267,9 +293,11 @@ def main(argv: list[str] | None = None) -> None:
                 print(f"SKIP {tag} ({r['reason'][:60]})", flush=True)
             else:
                 dp, prod = r["data_parallel"], r["production"]
+                total = prod.get("total_bytes", prod["state_bytes"])
                 print(f"OK   {tag} count={r['count_s']:6.1f}s "
                       f"flops/chip={r['counted_flops_per_chip']:.3e} "
                       f"state/rank={prod['state_bytes'] / 1e9:.2f}GB "
+                      f"{'step' if prod['executed'] else 'state'}/rank={total / 1e9:.2f}GB "
                       f"({'fits' if prod['fits_80gb'] else 'over'}) "
                       f"dp={dp['total_bytes'] / 1e9:.2f}GB "
                       f"({'fits' if dp['fits_80gb'] else 'over'}) "

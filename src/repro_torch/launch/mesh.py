@@ -18,12 +18,17 @@ does not offer for CUDA tensors, moves its payload through host memory
 explicitly and gathers its bytes, so any dtype comes back bit for bit.
 A collective that the backend refuses raises.
 
-:class:`NamedSharding` is the port's ``jax.sharding.NamedSharding``: a spec
-(``params.P``) over a mesh, which cuts a full leaf into this rank's shard,
-a contiguous tensor of its own, and gathers the shards back.
+A shard of a leaf over a mesh is ``repro_torch.parallel.NamedSharding``'s.
 :class:`AbstractMesh` is JAX's ``AbstractMesh``: the axes and a rank's
-coordinates without a process group, over which a :class:`NamedSharding`
-gives shard shapes (the dry-run's per-rank bytes).
+coordinates without a process group, over which a ``NamedSharding`` gives
+shard shapes (the dry-run's per-rank bytes).  Its collectives, on meta
+tensors only, give the shapes a real mesh's would (an all-reduce the same
+tensor, an all-gather one copy a rank), so one rank's step runs on the meta
+device (the dry-run's count of a tensor-parallel step).  Every collective
+of either mesh is one call to the step counter
+(:func:`repro_torch.roofline.count.collective`).  With ``timed``, a
+:class:`Mesh` synchronizes the card around each collective and adds its
+host seconds to ``spent`` by axes.
 
 ``make_production_mesh`` and ``make_test_mesh`` are functions, never module
 constants, as in JAX: importing this module touches no process group;
@@ -41,13 +46,13 @@ import multiprocessing
 import queue
 import time
 import traceback
-from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..device import resolve
+from ..roofline import count as _count
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -79,6 +84,42 @@ class _MeshAxes:
     def axis_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in self._axes(axes))
 
+    def group_ranks(self, axes) -> list[int]:
+        """The global ranks of this rank's slice along ``axes``, in row-major order."""
+        key = self._axes(axes)
+        return sorted(self._rank_of({**self.coords, **dict(zip(key, c))})
+                      for c in itertools.product(*(range(self.shape[a]) for a in key)))
+
+    def index_in(self, axes) -> int:
+        """This rank's place in its slice along ``axes`` (:meth:`group_ranks`)."""
+        return self.group_ranks(axes).index(self.rank)
+
+    # ------------------------------------------------------------ collectives
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` in place over the slice along ``axes``; return it."""
+        key = self._axes(axes)
+        n = self.axis_size(key)
+        if n > 1:
+            _count.collective("all_reduce", t.numel() * t.element_size())
+            self._reduce(t, key, op)
+        return t
+
+    def all_gather(self, t: torch.Tensor, axes) -> list[torch.Tensor]:
+        """Every rank's ``t`` of the slice along ``axes``, in the order of
+        :meth:`group_ranks`, bit for bit, on ``t``'s device."""
+        key = self._axes(axes)
+        n = self.axis_size(key)
+        if n == 1:
+            return [t]
+        _count.collective("all_gather", n * t.numel() * t.element_size())
+        payload = self._payload(t)
+        parts = [torch.empty_like(payload) for _ in range(n)]
+        self._gather(parts, payload, key)
+        return [p.view(t.dtype).reshape(t.shape).to(t.device) for p in parts]
+
+    def _payload(self, t: torch.Tensor) -> torch.Tensor:
+        return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
     def _axes(self, axes) -> tuple:
         """``axes`` (a name or names) in mesh order; raise on one the mesh lacks."""
         names = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -86,6 +127,12 @@ class _MeshAxes:
         if missing:
             raise ValueError(f"axes {missing} are not in the mesh's {self.axis_names}")
         return tuple(a for a in self.axis_names if a in names)
+
+
+def _meta_only(t: torch.Tensor) -> None:
+    if t.device.type != "meta":
+        raise RuntimeError(f"an AbstractMesh has no process group: a collective over a "
+                           f"{t.device.type} tensor would return no other rank's data")
 
 
 class AbstractMesh(_MeshAxes):
@@ -101,9 +148,21 @@ class AbstractMesh(_MeshAxes):
             raise ValueError(f"rank {rank} outside a mesh of {self.size}")
         self.rank = rank
         self.coords = self.coords_of(rank)
+        self.device = torch.device("meta")
 
     def __repr__(self) -> str:
         return f"AbstractMesh({self.shape})"
+
+    def _reduce(self, t, key, op) -> None:
+        """An all-reduce leaves the shape as it is."""
+        _meta_only(t)
+
+    def _gather(self, parts, payload, key) -> None:
+        """An all-gather's parts are the shapes already made."""
+        _meta_only(payload)
+
+    def barrier(self) -> None:
+        pass
 
 
 class Mesh(_MeshAxes):
@@ -138,6 +197,8 @@ class Mesh(_MeshAxes):
                              f"over {self.size}")
         self.rank = dist.get_rank()
         self.coords = self.coords_of(self.rank)
+        self.timed = False
+        self.spent: dict[tuple, float] = {}
         self._groups: dict[tuple, tuple] = {}
         for n in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, n):
@@ -161,33 +222,30 @@ class Mesh(_MeshAxes):
             if self.rank in ranks:
                 self._groups[axes] = (group, ranks)
 
-    def group_ranks(self, axes) -> list[int]:
-        """The global ranks of this rank's slice along ``axes``, in row-major order."""
-        key = self._axes(axes)
-        return self._groups[key][1] if key in self._groups else [self.rank]
-
     # ------------------------------------------------------------ collectives
-    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
-        """Reduce ``t`` in place over the slice along ``axes``; return it."""
-        key = self._axes(axes)
-        if key in self._groups:
-            dist.all_reduce(t, op=_OPS[op], group=self._groups[key][0])
-        return t
+    def _timed(self, key, fn) -> None:
+        if not self.timed:
+            fn()
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        fn()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.spent[key] = self.spent.get(key, 0.0) + time.perf_counter() - t0
 
-    def all_gather(self, t: torch.Tensor, axes) -> list[torch.Tensor]:
-        """Every rank's ``t`` of the slice along ``axes``, in the order of
-        :meth:`group_ranks`, bit for bit, on ``t``'s device."""
-        key = self._axes(axes)
-        if key not in self._groups:
-            return [t]
-        group, ranks = self._groups[key]
+    def _reduce(self, t, key, op) -> None:
+        self._timed(key, lambda: dist.all_reduce(t, op=_OPS[op], group=self._groups[key][0]))
+
+    def _payload(self, t: torch.Tensor) -> torch.Tensor:
         src = t.detach().contiguous().reshape(-1)
         if self.backend == "gloo" and src.is_cuda:
             src = src.cpu()                    # gloo gathers host tensors only
-        payload = src.view(torch.uint8)
-        parts = [torch.empty_like(payload) for _ in ranks]
-        dist.all_gather(parts, payload, group=group)
-        return [p.view(t.dtype).reshape(t.shape).to(t.device) for p in parts]
+        return src.view(torch.uint8)
+
+    def _gather(self, parts, payload, key) -> None:
+        self._timed(key, lambda: dist.all_gather(parts, payload, group=self._groups[key][0]))
 
     def barrier(self) -> None:
         dist.barrier()
@@ -217,75 +275,6 @@ def make_test_mesh(data: int = 2, model: int = 2, pods: int = 0, *, backend: str
     if pods:
         return Mesh((pods, data, model), ("pod", "data", "model"), backend=backend, **kw)
     return Mesh((data, model), ("data", "model"), backend=backend, **kw)
-
-
-# ---------------------------------------------------------------- shardings
-def _entry_axes(entry) -> tuple:
-    if entry is None:
-        return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
-
-
-@dataclass(frozen=True)
-class NamedSharding:
-    """A spec over a mesh: dimension ``i`` of a leaf is cut into
-    ``prod(sizes of spec[i]'s axes)`` equal parts, the rank taking part
-    number (its coordinates on those axes, row-major in the entry's order)."""
-
-    mesh: Mesh
-    spec: tuple
-
-    def index(self, shape: Sequence[int]) -> tuple[slice, ...]:
-        """This rank's slice of a leaf of ``shape``."""
-        return self.index_of(self.mesh.coords, shape)
-
-    def index_of(self, coords: dict, shape: Sequence[int]) -> tuple[slice, ...]:
-        if len(self.spec) > len(shape):
-            raise ValueError(f"spec {self.spec} has more entries than shape {tuple(shape)}")
-        out = []
-        for d, size in enumerate(shape):
-            axes = _entry_axes(self.spec[d]) if d < len(self.spec) else ()
-            parts, part = 1, 0
-            for a in axes:
-                parts *= self.mesh.shape[a]
-                part = part * self.mesh.shape[a] + coords[a]
-            if size % parts:
-                raise ValueError(f"dimension {d} of {tuple(shape)} does not split "
-                                 f"{parts} ways ({self.spec[d]})")
-            n = size // parts
-            out.append(slice(part * n, (part + 1) * n))
-        return tuple(out)
-
-    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
-        """The shape of this rank's shard of a leaf of ``shape``."""
-        return tuple(sl.stop - sl.start for sl in self.index(shape))
-
-    def axes(self) -> tuple:
-        """The mesh axes that cut a leaf, in mesh order."""
-        used = {a for e in self.spec for a in _entry_axes(e)}
-        return tuple(a for a in self.mesh.axis_names if a in used)
-
-    def shard(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part of ``full`` as a contiguous tensor of its own."""
-        part = full[self.index(full.shape)]
-        return part.clone(memory_format=torch.contiguous_format)
-
-    def full_shape(self, shard_shape: Sequence[int]) -> tuple[int, ...]:
-        """The shape of the leaf whose shards have ``shard_shape``."""
-        return tuple(n * (self.mesh.axis_size(_entry_axes(self.spec[d]))
-                          if d < len(self.spec) else 1)
-                     for d, n in enumerate(shard_shape))
-
-    def gather(self, shard: torch.Tensor) -> torch.Tensor:
-        """The full leaf from every rank's ``shard``, on every rank."""
-        axes = self.axes()
-        if not axes or self.mesh.axis_size(axes) == 1:
-            return shard
-        shape = self.full_shape(shard.shape)
-        full = shard.new_empty(shape)
-        for rank, part in zip(self.mesh.group_ranks(axes), self.mesh.all_gather(shard, axes)):
-            full[self.index_of(self.mesh.coords_of(rank), shape)] = part
-        return full
 
 
 # ------------------------------------------------------------ spawned worlds
@@ -349,4 +338,8 @@ def run_ranks(fn: Callable, world_size: int, *args, init_method: str,
             if p.is_alive():
                 p.kill()
                 p.join(10)
+        # arguments that no rank took would keep the queue's feeder thread
+        # writing, and this process from exiting, for ever
+        inbox.cancel_join_thread()
+        inbox.close()
     return [out[r] for r in range(world_size)]

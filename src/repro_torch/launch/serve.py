@@ -9,7 +9,8 @@ dense decoders, the MoE ``mixtral-8x7b`` and ``deepseek-v2-lite-16b`` (MLA),
 has no image path, in JAX neither) and ``whisper-large-v3`` (against the
 engine's zero cross cache of 64 frames, as JAX's launcher serves it).  The
 model runs from a seeded random init drawn on the host (one ``--seed`` gives
-one model on the card and on the CPU).  The prompts live in the Hoard cache:
+one model on the card and on the CPU), or with ``--init-on device`` on a
+generator of ``--device``.  The prompts live in the Hoard cache:
 as the JAX launcher does, ``main`` builds the cluster, stripes a prompt
 corpus of ``max(64, requests)`` items at 8 items per chunk into a fresh
 ``hoard_serve_*`` temporary directory, and reads request ``i``'s prompt as
@@ -55,13 +56,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
                     help="working dtype (default: the config's)")
+    ap.add_argument("--init-on", default="host", choices=["host", "device"],
+                    help="where the seeded weights are drawn: on the host (default; one "
+                         "seed gives one model on every device) or on --device (seconds "
+                         "instead of tens at full config, another draw than the host's)")
     args = ap.parse_args(argv)
 
     cfg = ARCHS[args.arch] if args.full_config else ARCHS[args.arch].smoke()
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     model = build_model(cfg, device=args.device)
-    params = model.init_params(torch.Generator().manual_seed(args.seed))
+    draw_on = model.device if args.init_on == "device" else "cpu"
+    params = model.init_params(torch.Generator(device=draw_on).manual_seed(args.seed))
 
     dspec = TokenDatasetSpec("prompts", n_sequences=max(64, args.requests),
                              seq_len=args.prompt_len, vocab=cfg.vocab, seed=args.seed)

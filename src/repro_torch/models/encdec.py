@@ -74,6 +74,9 @@ def _mlp_layout(cfg: ModelConfig) -> dict:
 
 
 class EncDecLM(nn.Module):
+    #: no tensor-parallel execution of a ``model`` axis (``train.step`` raises)
+    tensor_parallel = False
+
     def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
         if cfg.family != "encdec" or cfg.encdec is None:

@@ -71,6 +71,9 @@ def ssd_scan(lf, b_in, x_in, c_out, *, chunk: int):
 class Hymba(nn.Module):
     """Global attention blocks alternating with runs of sliding-window blocks."""
 
+    #: no tensor-parallel execution of a ``model`` axis (``train.step`` raises)
+    tensor_parallel = False
+
     def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
         if cfg.family != "hybrid" or cfg.hybrid is None or cfg.ssm is None:

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import all_reduce_sum, copy_to_region, reduce_from_region, tp_mesh
 
 
 def rms_norm(x, gamma, eps: float = 1e-5):
@@ -129,10 +130,13 @@ class MoERoute(NamedTuple):
     slot: torch.Tensor      # (N, k) int64 place in the expert's queue; C - 1 where dropped
     keep: torch.Tensor      # (N, k) bool: the pair fits the expert's capacity C
     capacity: int           # C
+    #: (N, k) int64 with data axes: the global slot at which this rank's
+    #: pairs of the pair's expert start (None without)
+    offset: Optional[torch.Tensor] = None
 
 
 def moe_route(x, router_w, *, top_k: int, capacity_factor: float,
-              choice: Optional[torch.Tensor] = None) -> MoERoute:
+              choice: Optional[torch.Tensor] = None, mesh=None, data_axes=()) -> MoERoute:
     """Top-k routing with capacity, the JAX ``moe_block``'s order of arithmetic.
 
     The router runs in fp32; softmax, then the top k, renormalised by their
@@ -144,10 +148,18 @@ def moe_route(x, router_w, *, top_k: int, capacity_factor: float,
     slot ``C - 1``.  ``choice`` ((N, k) experts) replays a choice made
     elsewhere, such as on another device at a near-tie: the gates are then
     this call's probabilities of those experts, renormalised the same way.
+
+    With ``data_axes`` (axes of ``mesh``), x holds this rank's rows of a
+    global batch cut into equal parts over those axes, in the order of their
+    coordinates, and the routing is the global batch's, as JAX computes it
+    on the whole batch: N is the global count in ``C``, and a pair's slot is
+    its place in the global token-major queue, behind the pairs of the lower
+    ranks (an exclusive prefix of the ranks' per-expert counts, gathered).
     """
     N = x.shape[0]
     E = router_w.shape[-1]
-    C = max(1, int(math.ceil(N * top_k / E * capacity_factor)))
+    n_global = N * mesh.axis_size(data_axes) if data_axes else N
+    C = max(1, int(math.ceil(n_global * top_k / E * capacity_factor)))
     logits = x.float() @ router_w.float()                                 # (N, E)
     probs = torch.softmax(logits, dim=-1)
     top, idx = probs.sort(dim=-1, descending=True, stable=True)
@@ -159,14 +171,22 @@ def moe_route(x, router_w, *, top_k: int, capacity_factor: float,
     # position of each (token, k) inside its expert's capacity queue
     flat = torch.zeros((N * top_k, E), dtype=torch.int64, device=x.device)
     flat.scatter_(1, idx.reshape(-1, 1), 1)
-    slot = ((flat.cumsum(0) - flat) * flat).sum(-1).view(N, top_k)
+    pos = flat.cumsum(0) - flat
+    offset = None
+    if data_axes:
+        lower = mesh.all_gather(flat.sum(0), data_axes)[:mesh.index_in(data_axes)]
+        start = torch.stack(lower).sum(0) if lower else torch.zeros_like(flat[0])
+        pos = pos + start
+        offset = start[idx]
+    slot = (pos * flat).sum(-1).view(N, top_k)
     keep = slot < C
     slot = torch.where(keep, slot, C - 1)
-    return MoERoute(probs, gates, idx, slot, keep, C)
+    return MoERoute(probs, gates, idx, slot, keep, C, offset)
 
 
 def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int,
-              capacity_factor: float = 1.25, shared: Optional[tuple] = None):
+              capacity_factor: float = 1.25, shared: Optional[tuple] = None, mesh=None,
+              data_axes=()):
     """Top-k routed experts with capacity, gather/scatter dispatch: ``(y, aux)``.
 
     x: (N, D); expert weights (E, D, F) / (E, F, D); ``shared`` = (w_gate,
@@ -178,23 +198,57 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     run: each kept slot receives exactly one nonzero source, and a dropped
     pair adds a zeroed source into its expert's slot ``C - 1``, so the order
     of the adds does not matter.
+
+    Over a ``mesh`` of one rank's coordinates whose ``model`` axis is above 1
+    (``parallel.tp_size``), the expert weights are this rank's shards over
+    it: its own E/tp experts (``_expert_specs``' expert parallelism; the
+    other experts' pairs add zeroed sources into a local slot, as a dropped
+    pair does) or a slice of every expert's F.  The
+    routing is the same on every rank of the group; x and the gates enter the
+    experts through ``copy_to_region``, and the routed and shared partial
+    outputs leave in one ``reduce_from_region``.  With ``data_axes`` the
+    routing is the global batch's (:func:`moe_route`) and so is ``aux``: the
+    product of the global means of the probabilities (summed over the ranks
+    by ``all_reduce_sum``) and of the pair counts.  A rank computes only its
+    own rows' pairs, in buffers of ``min(C, N)`` rows an expert (its pairs of
+    one expert sit in consecutive global slots from ``offset``).
     """
     N, D = x.shape
-    E = w_gate.shape[0]
-    r = moe_route(x, router_w, top_k=top_k, capacity_factor=capacity_factor)
-    C = r.capacity
-    rows = (r.idx * C + r.slot).reshape(-1)                              # (N k,) into (E C)
-    keep = r.keep.reshape(-1)
-    src = (x[:, None] * r.keep[..., None].to(x.dtype)).reshape(N * top_k, D)   # each token k times
-    buf = x.new_zeros((E * C, D)).index_add(0, rows, src).view(E, C, D)
+    E = router_w.shape[-1]
+    r = moe_route(x, router_w, top_k=top_k, capacity_factor=capacity_factor, mesh=mesh,
+                  data_axes=data_axes)
+    C, slot = r.capacity, r.slot
+    if data_axes:
+        # this rank's kept pairs of an expert hold the global slots from
+        # r.offset on, fewer than its rows and than C: its buffers hold them
+        C = min(C, N)
+        slot = torch.where(r.keep, r.slot - r.offset, C - 1)
+    tp = tp_mesh(mesh)
+    xe, gates, idx, keep = copy_to_region(x, tp), copy_to_region(r.gates, tp), r.idx, r.keep
+    E_local = w_gate.shape[0]
+    if E_local < E:                                   # this rank's experts alone
+        e0 = mesh.index_in("model") * E_local
+        keep = keep & (idx >= e0) & (idx < e0 + E_local)
+        idx = (idx - e0).clamp(0, E_local - 1)
+    rows = (idx * C + slot).reshape(-1)                                  # (N k,) into (E C)
+    keep_f = keep.reshape(-1)
+    src = (xe[:, None] * keep[..., None].to(x.dtype)).reshape(N * top_k, D)   # each token k times
+    buf = xe.new_zeros((E_local * C, D)).index_add(0, rows, src).view(E_local, C, D)
     h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
-    y_e = torch.bmm(h, w_down).view(E * C, D)
-    gathered = y_e[rows] * (r.gates.reshape(-1) * keep).to(x.dtype)[:, None]
+    y_e = torch.bmm(h, w_down).view(E_local * C, D)
+    gathered = y_e[rows] * (gates.reshape(-1) * keep_f).to(x.dtype)[:, None]
     y = gathered.view(N, top_k, D).sum(1)
     if shared is not None:
-        y = y + swiglu(x, *shared)
+        y = y + swiglu(xe, *shared)
+    y = reduce_from_region(y, tp)
     counts = torch.zeros_like(r.probs).scatter_(1, r.idx, 1.0)           # (N, E)
-    aux = E * (r.probs.mean(0) * (counts.mean(0) / top_k)).sum()
+    if data_axes:
+        n = N * mesh.axis_size(data_axes)
+        me = all_reduce_sum(r.probs.sum(0), mesh, data_axes) / n
+        ce = mesh.all_reduce(counts.sum(0), data_axes) / n / top_k
+        aux = E * (me * ce).sum()
+    else:
+        aux = E * (r.probs.mean(0) * (counts.mean(0) / top_k)).sum()
     return y, aux
 
 

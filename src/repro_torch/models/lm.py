@@ -28,10 +28,46 @@ n_image_tokens, d_model), cast it to the model's dtype and put it before the
 text embeddings; positions run over the whole sequence, and ``loss`` drops
 the image positions' hidden states before the unembedding.  ``decode_step``
 has no image path, as in JAX: a VLM serves as a text decoder.
+
+**Tensor parallelism.**  Built over a mesh of one rank's coordinates
+(``launch.mesh.Mesh`` or ``AbstractMesh``) whose ``model`` axis is above 1,
+the model executes the layout's ``model`` entries, as ``jax.jit`` does with
+those specs: its parameters are this rank's shards (``params.shard_params``;
+:meth:`init_params` draws the full tree and cuts it) and ``loss`` runs
+Megatron's regions (``repro_torch.parallel``; without a ``model`` axis each is
+the identity, so the same code runs every axis size):
+
+* attention: ``wq/wk/wv`` (and biases) column-parallel behind
+  ``copy_to_region``, this rank's heads through the flash kernels, ``wo``
+  row-parallel into ``reduce_from_region``.  Where the spec cuts inside a
+  head (``H*hd`` or ``Hkv*hd`` not whole heads a rank), that projection is
+  gathered over the axis and the heads this rank's queries need are taken
+  (a gather whose backward sums the ranks' partial gradients); with the
+  queries cut inside a head every rank computes every head and keeps its
+  slice of the output for ``wo``.  MLA's ``w_dkv`` and ``kv_ln`` are
+  replicated; their outputs enter the column-parallel ``w_uk`` / ``w_uv``
+  through ``copy_to_region``;
+* the dense MLP: the SwiGLU kernel on this rank's ``F/tp`` columns, its
+  partial output reduced once; the MoE block as ``layers.moe_block`` says;
+* ``_vocab_specs``: a vocab-parallel embedding (rows outside the shard
+  masked, then summed), local-vocab logits and a vocab-parallel
+  cross-entropy (the max over the axis, then the sum of exponentials and
+  the gold logit summed over it, in fp32) where the vocab divides; the
+  embedding's columns gathered and a row-parallel ``lm_head`` whose logits
+  are summed where only ``d_model`` does; replicated otherwise.
+
+Replicated leaves (norm gammas, ``router``, ``w_dkv``, ``kv_ln``) get the
+same gradient on every rank of the axis.  Serving under the ``model`` axis
+is not ported: ``prefill`` and ``decode_step`` raise there.
+
+With :meth:`rows_split` (``train.step.DataParallelStep``) the rows are one
+rank's part of a batch cut over the data axes, and the experts route the
+global batch (``layers.moe_route``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import partial
 from typing import Any
@@ -41,6 +77,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve
+from ..parallel import (copy_to_region, gather_from_region, reduce_from_region,
+                        scatter_to_region, tp_mesh, tp_size)
 from . import params as PM
 from .params import TP, P, dp_axes
 from .remat import remat
@@ -130,6 +168,10 @@ class DecoderLM(nn.Module):
     """Dense GQA / MoE / MLA / VLM decoder (qwen-style options: QKV bias,
     qk-norm, tied unembed)."""
 
+    #: a ``model`` axis above 1 runs tensor-parallel (``train.step`` and the
+    #: dry-run read this)
+    tensor_parallel = True
+
     def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
         if cfg.family not in ("dense", "moe", "vlm"):
@@ -139,6 +181,30 @@ class DecoderLM(nn.Module):
         self.mesh = mesh
         self.device = resolve(device)
         self.dtype = PM.as_dtype(cfg.dtype)
+        self.tp = tp_size(mesh)
+        #: the mesh the regions run over: None without a ``model`` axis above 1,
+        #: where every region is the identity
+        self.tp_mesh = tp_mesh(mesh)
+        self.tp_rank = mesh.coords[TP] if self.tp > 1 else 0
+        self._row_axes: tuple = ()
+        emb_spec = _vocab_specs(cfg.vocab, cfg.d_model, self.tp)[0]
+        self._vocab_cut = (None if self.tp == 1 else "vocab" if emb_spec == P(TP, None) else
+                           "d_model" if emb_spec == P(None, TP) else None)
+
+    @contextlib.contextmanager
+    def rows_split(self, axes):
+        """Within: the rows are one rank's equal part of a batch cut over the
+        mesh's ``axes`` (the experts route the global batch)."""
+        prev, self._row_axes = self._row_axes, tuple(axes)
+        try:
+            yield
+        finally:
+            self._row_axes = prev
+
+    def _check_tp(self) -> None:
+        if self.tp > 1 and self.model_axis != self.tp:
+            raise ValueError(f"{self.cfg.arch}: built for a model axis of {self.model_axis}, "
+                             f"run over one of {self.tp}")
 
     # -------------------------------------------------------------- layout
     def layer_layout(self, *, moe: bool) -> dict:
@@ -166,7 +232,11 @@ class DecoderLM(nn.Module):
         return lay
 
     def init_params(self, generator: torch.Generator) -> dict:
-        return PM.init_params(self.layout(), generator, device=self.device, dtype=self.dtype)
+        """The full tree by the JAX package's rules; over a ``model`` axis, this
+        rank's shards of it (every rank draws the same tree)."""
+        layout = self.layout()
+        full = PM.init_params(layout, generator, device=self.device, dtype=self.dtype)
+        return PM.shard_params(full, layout, self.mesh) if self.tp > 1 else full
 
     def cache_layout(self, batch: int, seq: int) -> dict:
         """GQA K and V caches (a ring of ``min(seq, window)`` slots with a
@@ -192,12 +262,21 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------- pieces
     def embed(self, params, tokens):
+        if self._vocab_cut == "vocab":
+            rows = params["embed"].shape[0]
+            local = tokens - self.tp_rank * rows
+            mine = (local >= 0) & (local < rows)
+            e = params["embed"][local.clamp(0, rows - 1)].to(self.dtype)
+            return reduce_from_region(torch.where(mine[..., None], e, 0), self.tp_mesh)
+        if self._vocab_cut == "d_model":
+            return gather_from_region(params["embed"][tokens].to(self.dtype), self.tp_mesh, -1)
         return params["embed"][tokens].to(self.dtype)
 
+    def _head_weight(self, params):
+        return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+
     def unembed(self, params, h):
-        if self.cfg.tie_embeddings:
-            return h @ params["embed"].T
-        return h @ params["lm_head"]
+        return h @ self._head_weight(params)
 
     def _mla_latent(self, p, h):
         """MLA's down-projection of the normed input h: (normed latent, k_rope
@@ -208,43 +287,98 @@ class DecoderLM(nn.Module):
         c_kv = rms_norm(h @ p["w_dkv"][:, :r], p["kv_ln"], self.cfg.norm_eps)
         return c_kv, h @ p["w_dkv"][:, r:]
 
+    # ------------------------------------------- heads over the model axis
+    def _head_span(self, n_heads: int) -> tuple[int, int, bool]:
+        """``(lo, hi, local)``: the query heads this rank computes, and whether
+        they are its own columns (whole heads a rank) or every head."""
+        if n_heads % self.tp == 0:
+            per = n_heads // self.tp
+            return self.tp_rank * per, (self.tp_rank + 1) * per, True
+        return 0, n_heads, False
+
+    def _heads(self, t, n_heads: int, width: int, local: bool, pick):
+        """(B, S, h, width): this rank's columns ``t`` of an (n_heads x width)
+        projection as its heads, or with ``local`` False the projection
+        gathered over the axis and the heads ``pick`` (a slice or an index
+        list) taken."""
+        B, S, _ = t.shape
+        if local:
+            return t.view(B, S, -1, width)
+        full = gather_from_region(t, self.tp_mesh, -1, partial=True).view(B, S, n_heads, width)
+        if isinstance(pick, slice):
+            return full[:, :, pick].contiguous()
+        return full.index_select(2, torch.tensor(pick, device=t.device))
+
+    def _kv_pick(self, lo: int, hi: int, q_local: bool) -> tuple[bool, Any]:
+        """``(local, pick)`` of the kv heads that queries ``lo:hi`` read: this
+        rank's own columns where both head counts divide the axis, else the
+        heads of a gathered projection (a slice where the groups stay
+        uniform, one kv head a query otherwise)."""
+        H, Hkv = self.cfg.n_heads, self.cfg.n_kv_heads
+        if q_local and Hkv % self.tp == 0:
+            return True, None
+        G = H // Hkv
+        k0, k1 = lo // G, (hi - 1) // G + 1
+        want = [(lo + i) // G - k0 for i in range(hi - lo)]
+        nq, nk = hi - lo, k1 - k0
+        if nq % nk == 0 and want == [i // (nq // nk) for i in range(nq)]:
+            return False, slice(k0, k1)
+        return False, [(lo + i) // G for i in range(nq)]
+
+    def _attn_out(self, p, x, out, local: bool):
+        """x plus ``wo`` of the attention output (B, S, heads x v width):
+        row-parallel, summed over the axis; with every head computed, this
+        rank's slice of the output first."""
+        if not local:
+            cols = p["wo"].shape[0]
+            out = out[..., self.tp_rank * cols:(self.tp_rank + 1) * cols]
+        return x + reduce_from_region(out @ p["wo"], self.tp_mesh)
+
     def _attention(self, p, x, positions, *, window: int):
-        """Full-sequence causal attention block (the JAX ``_attention``)."""
-        cfg = self.cfg
+        """Full-sequence causal attention block (the JAX ``_attention``); over
+        a ``model`` axis, this rank's heads (the module's docstring)."""
+        cfg, mesh = self.cfg, self.tp_mesh
         B, S, _ = x.shape
-        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        H, hd = cfg.n_heads, cfg.resolved_head_dim
         h = rms_norm(x, p["ln"], cfg.norm_eps)
+        ht = copy_to_region(h, mesh)
+        lo, hi, local = self._head_span(H)
+        span = slice(lo, hi)
         if cfg.mla is not None:
             m = cfg.mla
-            q = (h @ p["wq"]).view(B, S, H, m.qk_nope_dim + m.qk_rope_dim).transpose(1, 2)
+            q = self._heads(ht @ p["wq"], H, m.qk_nope_dim + m.qk_rope_dim, local, span)
+            q = q.transpose(1, 2)
             q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
             c_kv, k_rope = self._mla_latent(p, h)
+            c_kv, k_rope = copy_to_region(c_kv, mesh), copy_to_region(k_rope, mesh)
             k_rope = rope(k_rope[:, None], positions, cfg.rope_theta)           # (B, 1, S, r)
             q_rope = rope(q_rope, positions, cfg.rope_theta)
-            k_nope = (c_kv @ p["w_uk"]).view(B, S, H, m.qk_nope_dim).transpose(1, 2)
-            v = (c_kv @ p["w_uv"]).view(B, S, H, m.v_head_dim).transpose(1, 2)
-            k = torch.cat([k_nope, k_rope.expand(B, H, S, m.qk_rope_dim)], -1)
+            k_nope = self._heads(c_kv @ p["w_uk"], H, m.qk_nope_dim, local, span).transpose(1, 2)
+            v = self._heads(c_kv @ p["w_uv"], H, m.v_head_dim, local, span).transpose(1, 2)
+            n = hi - lo
+            k = torch.cat([k_nope, k_rope.expand(B, n, S, m.qk_rope_dim)], -1)
             q = torch.cat([q_nope, q_rope], -1)
             out = blockwise_attention(q, k, v, causal=True, window=window)
-            return x + out.transpose(1, 2).reshape(B, S, H * m.v_head_dim) @ p["wo"]
-        q = h @ p["wq"]
-        k = h @ p["wk"]
-        v = h @ p["wv"]
+            return self._attn_out(p, x, out.transpose(1, 2).reshape(B, S, n * m.v_head_dim),
+                                  local)
+        q, k, v = ht @ p["wq"], ht @ p["wk"], ht @ p["wv"]
         if cfg.qkv_bias:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        q, k, v = q.view(B, S, H, hd), k.view(B, S, Hkv, hd), v.view(B, S, Hkv, hd)
+        kv_local, pick = self._kv_pick(lo, hi, local)
+        q = self._heads(q, H, hd, local, span)
+        k = self._heads(k, cfg.n_kv_heads, hd, kv_local, pick)
+        v = self._heads(v, cfg.n_kv_heads, hd, kv_local, pick)
         if cfg.qk_norm:
             # per head row, so before the transpose: the kernel takes the rows
             # as they lie, with no copy
-            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+            q = rms_norm(q, copy_to_region(p["q_norm"], mesh), cfg.norm_eps)
+            k = rms_norm(k, copy_to_region(p["k_norm"], mesh), cfg.norm_eps)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if cfg.rope_theta:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         out = blockwise_attention(q, k, v, causal=True, window=window)
-        out = out.transpose(1, 2).reshape(B, S, H * hd)
-        return x + out @ p["wo"]
+        return self._attn_out(p, x, out.transpose(1, 2).reshape(B, S, (hi - lo) * hd), local)
 
     def _mlp(self, p, x, *, moe: bool):
         """The MLP block: ``(x + the dense SwiGLU or the routed experts, aux)``;
@@ -252,12 +386,14 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         if not moe:
-            return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+            y = swiglu(copy_to_region(h, self.tp_mesh), p["w_gate"], p["w_up"], p["w_down"])
+            return x + reduce_from_region(y, self.tp_mesh), 0.0
         shared = ((p["shared_gate"], p["shared_up"], p["shared_down"])
                   if "shared_gate" in p else None)
         y, aux = moe_block(h.reshape(-1, h.shape[-1]), p["router"], p["w_gate"], p["w_up"],
                            p["w_down"], top_k=cfg.moe.top_k,
-                           capacity_factor=cfg.moe.capacity_factor, shared=shared)
+                           capacity_factor=cfg.moe.capacity_factor, shared=shared,
+                           mesh=self.mesh, data_axes=self._row_axes)
         return x + y.view(x.shape), aux
 
     def _layer(self, p, x, positions, *, moe: bool):
@@ -364,23 +500,53 @@ class DecoderLM(nn.Module):
         positions the loss does not count.  Logits are cast to fp32 before the
         log-sum-exp, as in JAX.
         """
+        self._check_tp()
         labels = batch["labels"]
         x, n_img = self._inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         h, aux = self.backbone(params, x, positions)
         if n_img:
             h = h[:, n_img:]
-        logits = self.unembed(params, h).float()
+        if self._vocab_cut == "vocab":
+            nll = self._vocab_parallel_nll(params, h, labels.long())
+            return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+        if self._vocab_cut == "d_model":
+            h_part = scatter_to_region(h, self.tp_mesh, -1)
+            logits = reduce_from_region(h_part @ self._head_weight(params), self.tp_mesh).float()
+        else:
+            logits = self.unembed(params, h).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         nll = (lse - gold).mean()
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
+    def _vocab_parallel_nll(self, params, h, labels):
+        """The mean cross-entropy of this rank's vocab columns' fp32 logits:
+        the max over the axis, the sum of exponentials and the gold logit
+        (on the one rank whose columns hold it) summed over it."""
+        mesh = self.tp_mesh
+        logits = (copy_to_region(h, mesh) @ self._head_weight(params)).float()   # (B, S, V/tp)
+        cols = logits.shape[-1]
+        top = mesh.all_reduce(logits.detach().amax(-1), TP, op="max")
+        lse = top + torch.log(reduce_from_region(torch.exp(logits - top[..., None]).sum(-1),
+                                                 mesh))
+        local = labels - self.tp_rank * cols
+        mine = (local >= 0) & (local < cols)
+        gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+        gold = reduce_from_region(torch.where(mine, gold, 0.0), mesh)
+        return (lse - gold).mean()
+
     # ------------------------------------------------------------ serving
+    def _no_tp_serving(self) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(f"{self.cfg.arch}: serving over a model axis of {self.tp} "
+                                      "is not ported; serve with model 1")
+
     @torch.no_grad()
     def prefill(self, params, batch):
         """Full-sequence forward returning the last position's fp32 logits (B, 1,
         vocab); a VLM's batch also holds ``img_emb``, as for :meth:`loss`."""
+        self._no_tp_serving()
         x, _ = self._inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         h, _ = self.backbone(params, x, positions)
@@ -397,6 +563,7 @@ class DecoderLM(nn.Module):
         in place.  An index past a cache with no window raises ``IndexError``
         (``layers.cache_slot``): MLA's latent cache has no ring.
         """
+        self._no_tp_serving()
         cfg = self.cfg
         tokens, cache, index = batch["tokens"], batch["cache"], int(batch["index"])
         x = self.embed(params, tokens)

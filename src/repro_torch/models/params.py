@@ -5,10 +5,11 @@ A model describes its parameters as a nested dict of :class:`ParamInfo`
 dtype), the JAX package's layout.  A spec is the port's stand-in for JAX's
 ``PartitionSpec``: a tuple with one entry a dimension, each ``None``
 (replicated), a mesh axis name or a tuple of axis names (:func:`P` makes
-one, :func:`specs` reads a layout's).  The specs are metadata: the ZeRO
-layout of the optimizer state (``train.optimizer.opt_state_specs``) and a
-rank's rows of a batch (``registry._batch_spec``) are derived from them; no
-model's arithmetic reads them.
+one, :func:`specs` reads a layout's).  The ZeRO layout of the optimizer
+state (``train.optimizer.opt_state_specs``) and a rank's rows of a batch
+(``registry._batch_spec``) are derived from them, and :func:`shard_params`
+cuts a rank's parameters by their ``model`` entries, which a decoder built
+over a mesh with a ``model`` axis executes (``lm.py``).
 
 :func:`abstract` gives a layout's tensors on the meta device (no storage,
 no draw) for the dry-run; :func:`param_count` and :func:`param_bytes` are
@@ -32,6 +33,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import NamedSharding
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: elements drawn from one seed on the host: a larger leaf is drawn in slices
@@ -202,6 +205,37 @@ def zeros_cache(layout, *, device, dtype) -> dict:
     """A zero-filled cache for a cache layout, each leaf in ``info.dtype or dtype``."""
     return tree_map(lambda i: torch.zeros(i.shape, dtype=as_dtype(i.dtype or dtype),
                                           device=device), layout)
+
+
+def keep_axes(spec: tuple, axes) -> tuple:
+    """``spec`` with every mesh axis outside ``axes`` taken out of its entries."""
+    def keep(e):
+        names = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        return tuple(a for a in names if a in axes)
+
+    return P(*[keep(e) for e in spec])
+
+
+def _paths(tree, prefix: str = "") -> list[str]:
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def shard_params(params, layout, mesh):
+    """This rank's shard of every full leaf of ``params``, cut by the ``model``
+    entries of its spec in ``layout`` (``NamedSharding.shard``: a contiguous
+    tensor of its own).  A leaf whose dimension does not split over the mesh
+    raises, naming the leaf."""
+    out = []
+    for path, t, info in zip(_paths(params), tree_leaves(params), tree_leaves(layout)):
+        sharding = NamedSharding(mesh, keep_axes(info.spec, (TP,)))
+        try:
+            out.append(sharding.shard(t))
+        except ValueError as err:
+            raise ValueError(f"{path}: {err}") from None
+    it = iter(out)
+    return tree_map(lambda _: next(it), params)
 
 
 def _tensor_from_numpy(a, *, device, dtype=None) -> torch.Tensor:

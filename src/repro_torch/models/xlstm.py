@@ -74,6 +74,9 @@ def mlstm_decode(q, k, v, i_raw, log_f, state):
 class XLSTM(nn.Module):
     """48-block stack: one sLSTM block per ``slstm_every``, the rest mLSTM."""
 
+    #: no tensor-parallel execution of a ``model`` axis (``train.step`` raises)
+    tensor_parallel = False
+
     def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
         if cfg.family != "ssm" or cfg.ssm is None:

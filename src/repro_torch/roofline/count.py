@@ -36,11 +36,15 @@ and ``traffic_bytes``; kernel costs are summed with ``math.fsum``, so their
 order does not matter.
 
 JAX's ``collective_bytes`` and ``_while_multipliers``
-(``repro/roofline/analysis.py``) parse XLA's text and have no counterpart
-here: a step of the port has no collective inside it (the data-parallel
-sync is the launcher's, between steps), and PyTorch runs loops as they
-are.  The collective term comes from the analytic cell
-(:func:`repro_torch.roofline.table.analytic_cell`).
+(``repro/roofline/analysis.py``) parse XLA's text; here each collective of
+a mesh (``launch/mesh.py``: the tensor-parallel regions, the gradient sync,
+the ZeRO gather) is one call of :func:`collective` with the bytes this
+rank puts in (``collectives``, ``collective_bytes``), and the process
+group's own ops (``c10d``) are not counted as aten ops, so a rank's step
+counts the same on meta under an ``AbstractMesh`` as on a real rank.
+PyTorch runs loops as they are.  The analytic cell
+(:func:`repro_torch.roofline.table.analytic_cell`) keeps its own
+collective term.
 
 A host read (``.item()``, ``float(t)``) cannot run on meta; no step of the
 port's models or of ``adamw_update`` has one.
@@ -83,6 +87,7 @@ class StepCounter(TorchDispatchMode):
         self.aten_bytes = 0
         self.ops = 0
         self._kernels: dict[str, list] = {}
+        self.collectives: dict[str, dict] = {}
         self._depth = 0
         self._live: dict[int, int] = {}
         self.live_bytes = 0
@@ -116,7 +121,7 @@ class StepCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
-        if self._depth == 0:
+        if self._depth == 0 and func.namespace != "c10d":
             self.ops += 1
             packet = func._overloadpacket
             formula = flop_registry.get(packet)
@@ -160,6 +165,11 @@ class StepCounter(TorchDispatchMode):
         finally:
             self._depth -= 1
 
+    def collective(self, kind: str, nbytes: int) -> None:
+        c = self.collectives.setdefault(kind, {"calls": 0, "bytes": 0})
+        c["calls"] += 1
+        c["bytes"] += nbytes
+
     @property
     def kernels(self) -> dict:
         """Kernel name -> ``{"calls", "flops", "bytes", "transcendentals"}``."""
@@ -184,6 +194,8 @@ class StepCounter(TorchDispatchMode):
             "kernel_flops": kernel_flops,
             "kernel_bytes": kernel_bytes,
             "kernels": k,
+            "collectives": {n: dict(c) for n, c in sorted(self.collectives.items())},
+            "collective_bytes": sum(c["bytes"] for c in self.collectives.values()),
             "aten_ops": self.ops,
             "start_bytes": self.start_bytes,
             "peak_bytes": self.peak_bytes,
@@ -199,6 +211,13 @@ def kernel(name: str, cost: Callable, fn: Callable, *args):
     if counter is None:
         return fn(*args)
     return counter.kernel(name, cost(), fn, *args)
+
+
+def collective(kind: str, nbytes: int) -> None:
+    """Count one collective of ``nbytes`` this rank sends when a
+    :class:`StepCounter` is active."""
+    if ACTIVE is not None:
+        ACTIVE.collective(kind, nbytes)
 
 
 def count(fn: Callable, *args) -> tuple:

@@ -90,7 +90,7 @@ class CheckpointManager:
         shardings=None,
     ) -> str:
         """Write ``{"params", "opt"}`` at ``step``.  ``shardings``: a tree of
-        that structure whose leaves are ``mesh.NamedSharding`` (or None for a
+        that structure whose leaves are ``parallel.NamedSharding`` (or None for a
         whole leaf); the leaves are then this rank's shards, gathered here,
         the call is collective and blocking, and only rank 0 writes."""
         self.wait()                                # one in-flight write max
@@ -170,7 +170,7 @@ class CheckpointManager:
         ``template``: ``{"params": ..., "opt": ...}`` tree; each restored leaf
         lands on its template leaf's device, in the dtype the manifest
         records.  ``shardings``: a tree of that structure of
-        ``mesh.NamedSharding`` (None for a whole leaf); each leaf is then
+        ``parallel.NamedSharding`` (None for a whole leaf); each leaf is then
         this rank's shard, read from the file's slice alone.  Returns
         ``(step, params, opt_state, SamplerState)``.
         """

@@ -27,6 +27,12 @@ scale from the whole gradient, so the same on every rank), and
 :func:`gather_params` gathers the new parameter shards over ``data``, so
 that every rank holds the same parameters, bit for bit those
 :func:`adamw_update` gives on the whole leaves.
+
+Over a ``model`` axis a rank holds only its shard of each leaf the layout
+cuts on ``model`` (``params.shard_params``), so the ZeRO-1 cut applies to
+the data axes of that shard alone (:func:`param_part`: the same elements
+the full spec gives), and the global-norm clip sums a model-sharded leaf's
+squares over the ``model`` axis and counts a replicated leaf once.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..launch.mesh import NamedSharding
 from ..models import params as PM
+from ..parallel import NamedSharding
 
 
 @dataclass(frozen=True)
@@ -111,14 +117,31 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
         return _adamw_update(grads, state, params, cfg)
 
 
-def _step_scalars(grads, state, cfg: AdamWConfig) -> dict:
+def _grad_sq(grads, shardings=None) -> torch.Tensor:
+    """The sum of squares of every leaf of ``grads`` in fp32.  With
+    ``shardings`` (a leaf's ``NamedSharding``, leaf for leaf) over a mesh
+    whose ``model`` axis is above 1, the leaves cut on ``model`` are this
+    rank's shards: their squares are summed over that axis, a replicated
+    leaf's counted once."""
+    leaves = PM.tree_leaves(grads)
+    if shardings is None or shardings[0].mesh.shape.get("model", 1) == 1:
+        return sum(g.float().square().sum() for g in leaves)
+    mesh = shardings[0].mesh
+    cut = [("model" in sh.axes()) for sh in shardings]
+    part = sum(g.float().square().sum() for g, c in zip(leaves, cut) if c)
+    part = mesh.all_reduce(torch.as_tensor(part, dtype=torch.float32,
+                                           device=leaves[0].device).reshape(1), "model")[0]
+    return part + sum(g.float().square().sum() for g, c in zip(leaves, cut) if not c)
+
+
+def _step_scalars(grads, state, cfg: AdamWConfig, shardings=None) -> dict:
     """Advance ``count``; the step's lr, global-norm clip scale (fp32, over
-    every leaf of ``grads``) and bias corrections, as 0-d device tensors."""
+    every leaf of ``grads``: :func:`_grad_sq`) and bias corrections, as 0-d
+    device tensors."""
     lr = _schedule(cfg, state["count"])
     state["count"].add_(1)
     count = state["count"].float()
-    gsq = sum(g.float().square().sum() for g in PM.tree_leaves(grads))
-    gnorm = torch.sqrt(gsq)
+    gnorm = torch.sqrt(_grad_sq(grads, shardings))
     return {"lr": lr, "gnorm": gnorm,
             "scale": torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0),
             "b1c": 1 - cfg.b1 ** count, "b2c": 1 - cfg.b2 ** count}
@@ -180,12 +203,21 @@ def zero_shardings(layout, mesh, cfg: AdamWConfig) -> dict:
                        opt_state_specs(layout, mesh, cfg))
 
 
+def param_part(sh: NamedSharding) -> NamedSharding:
+    """The cut of a rank's parameter (its ``model`` shard, or the whole leaf)
+    into its optimizer shard: ``sh``'s spec without the ``model`` axis, which
+    the parameter is already cut on."""
+    return NamedSharding(sh.mesh, PM.keep_axes(sh.spec, tuple(a for a in sh.mesh.axis_names
+                                                            if a != "model")))
+
+
 def init_zero_state(params, shardings: dict, cfg: AdamWConfig) -> dict:
     """This rank's shard of :func:`init_opt_state` (``shardings`` from
     :func:`zero_shardings`): zero moments and the fp32 master of its part of
-    each leaf, and the int32 ``count``."""
+    each leaf, and the int32 ``count``.  ``params`` are this rank's
+    parameters: whole leaves, or over a ``model`` axis its shards."""
     per_leaf = shardings["mu"]
-    shards = PM.tree_map(lambda pair: pair[1].shard(pair[0].detach()),
+    shards = PM.tree_map(lambda pair: param_part(pair[1]).shard(pair[0].detach()),
                          _zip(params, per_leaf))
     device = PM.tree_leaves(params)[0].device
     state = {
@@ -214,16 +246,17 @@ def zero_update_shards(grads, state, params, shardings: dict, cfg: AdamWConfig):
     list in leaf order) and ``{"grad_norm", "lr"}`` as :func:`adamw_update`
     does; :func:`gather_params` is the second half."""
     with torch.profiler.record_function("zero_update"):
-        k = _step_scalars(grads, state, cfg)
+        per_leaf = PM.tree_leaves(shardings["mu"])
+        k = _step_scalars(grads, state, cfg, per_leaf)
         flat_p = PM.tree_leaves(params)
         shards = []
         for p, g, mu, nu, master, sh in zip(flat_p, PM.tree_leaves(grads),
                                             PM.tree_leaves(state["mu"]),
                                             PM.tree_leaves(state["nu"]),
-                                            _masters(state, len(flat_p)),
-                                            PM.tree_leaves(shardings["mu"])):
-            p_shard = sh.shard(p)
-            _update_leaf(p_shard, sh.shard(g), mu, nu, master, k, cfg)
+                                            _masters(state, len(flat_p)), per_leaf):
+            part = param_part(sh)
+            p_shard = part.shard(p)
+            _update_leaf(p_shard, part.shard(g), mu, nu, master, k, cfg)
             shards.append(p_shard)
     return shards, {"grad_norm": k["gnorm"], "lr": k["lr"]}
 
@@ -231,10 +264,11 @@ def zero_update_shards(grads, state, params, shardings: dict, cfg: AdamWConfig):
 @torch.no_grad()
 def gather_params(params, shards: list, shardings: dict):
     """Gather every rank's new parameter ``shards`` (in leaf order) over the
-    mesh's ``data`` axis into ``params``, in place; return it."""
+    mesh's ``data`` axis into ``params`` (this rank's parameters), in place;
+    return it."""
     for p, p_shard, sh in zip(PM.tree_leaves(params), shards,
                               PM.tree_leaves(shardings["mu"])):
-        p.copy_(sh.gather(p_shard))
+        p.copy_(param_part(sh).gather(p_shard))
     return params
 
 

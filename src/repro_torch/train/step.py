@@ -9,15 +9,18 @@ The metrics are 0-d tensors on the model's device (``loss``, ``nll``,
 
 ``make_train_step(model, opt_cfg, mesh)`` is the counterpart of JAX's
 ``jax.jit(make_train_step(...), in_shardings=(params, ZeRO opt state,
-batch))`` over a mesh of (``pod``, ``data``) ranks (:class:`DataParallelStep`):
-each rank takes its rows of the global batch by the batch spec
-(``registry._batch_spec``), computes its loss and gradients, syncs them
-(``sync.two_level_grad_sync``) and applies the ZeRO-1 update
-(``optimizer.zero_update_shards``, ``gather_params``).  The ``model`` axis
-(tensor parallelism) is not ported: a mesh whose ``model`` axis is above 1
-raises.  Neither is the MoE aux loss across ranks (JAX's is a product of
-global batch means, which rank means do not give): an MoE model over more
-than one data-parallel rank raises.
+batch))`` over a (``pod``, ``data``, ``model``) mesh
+(:class:`DataParallelStep`): each rank takes its rows of the global batch
+by the batch spec (``registry._batch_spec``; the ranks of one ``model``
+group share their rows), computes its loss and gradients, syncs them over
+(``pod``, ``data``) (``sync.two_level_grad_sync``) and applies the ZeRO-1
+update (``optimizer.zero_update_shards``, ``gather_params``).  A ``model``
+axis above 1 runs a ``DecoderLM`` built over the same mesh tensor-parallel
+(``models/lm.py``): its parameters are the rank's shards
+(``params.shard_params``).  Hymba, xLSTM and the encoder-decoder have no
+tensor-parallel execution and raise.  An MoE model over more than one data
+rank routes the global batch, as JAX does on it (``layers.moe_route``: the
+global capacity and queue, the aux loss of global means).
 
 :func:`step_costs` and :func:`step_flops` are the counterparts of JAX's
 ``compiled_step_costs`` and ``compiled_step_flops``: where JAX walks the
@@ -37,9 +40,9 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..launch.mesh import NamedSharding
 from ..models import params as PM
 from ..models.registry import _batch_spec, _dp_axes
+from ..parallel import NamedSharding
 from ..roofline import count as _count
 from .optimizer import (AdamWConfig, abstract_opt_state, adamw_update, gather_params,
                         init_opt_state, init_zero_state, zero_shardings, zero_update_shards)
@@ -74,29 +77,34 @@ def _grads(model, params, batch):
 class DataParallelStep:
     """``train_step(params, opt_state, batch)`` on one rank of ``mesh``.
 
-    ``params`` are whole on every rank, ``opt_state`` this rank's ZeRO-1
-    shards (:meth:`init_opt_state`), ``batch`` the global batch, of which the
-    rank takes its rows (:meth:`rows`).  The metrics are the global batch's:
-    ``loss``, ``nll`` and ``aux`` are the means of the ranks' (equal row
-    counts), ``grad_norm`` that of the synced gradient.  ``compress`` turns
-    on the int8 pod hop of the sync, whose error state the step keeps
-    (``errors``).  ``times`` holds the last step's host milliseconds of the
-    sync, of the shards' update and of the parameters' gather, each ending
-    in a synchronize on the card.
+    ``params`` are this rank's (whole leaves, or with a ``model`` axis above
+    1 its shards: ``params.shard_params``), ``opt_state`` its ZeRO-1 shards
+    (:meth:`init_opt_state`), ``batch`` the global batch, of which the rank
+    takes its rows (:meth:`rows`).  The metrics are the global batch's:
+    ``loss``, ``nll`` and ``aux`` are the means of the data ranks' (equal row
+    counts; an MoE model's aux is the global batch's on every rank),
+    ``grad_norm`` that of the synced gradient.  ``compress`` turns on the
+    int8 pod hop of the sync, whose error state the step keeps (``errors``).
+    ``times`` holds the last step's host milliseconds of the sync, of the
+    shards' update and of the parameters' gather, each ending in a
+    synchronize on the card.
     """
 
     def __init__(self, model, opt_cfg: AdamWConfig, mesh, *, compress: bool = False):
-        if mesh.shape.get("model", 1) > 1:
+        tp = mesh.shape.get("model", 1)
+        if tp > 1 and not model.tensor_parallel:
             raise NotImplementedError(
-                f"a 'model' axis of {mesh.shape['model']}: tensor-parallel execution is not "
-                "ported; train over (pod, data) with model 1")
+                f"{model.cfg.arch}: the {model.cfg.family} family ({type(model).__name__}) has no "
+                f"tensor-parallel execution; a 'model' axis of {tp} is ported for DecoderLM "
+                "only, train it over (pod, data) with model 1")
+        if tp > 1 and (model.mesh is not mesh or model.model_axis != tp):
+            raise ValueError(f"{model.cfg.arch}: over a model axis of {tp} the model must be "
+                             f"built with model_axis={tp} and this mesh")
         self.dp_axes = _dp_axes(mesh)
         self.dp_size = mesh.axis_size(self.dp_axes) if self.dp_axes else 1
-        if model.cfg.moe is not None and self.dp_size > 1:
-            raise NotImplementedError(
-                f"{model.cfg.arch}: MoE over {self.dp_size} data-parallel ranks. The Switch aux "
-                "loss is a product of batch means, so the mean of the ranks' aux losses is not "
-                "the global batch's; data-parallel MoE is not ported")
+        if model.cfg.moe is not None and self.dp_size > 1 and model.mesh is not mesh:
+            raise ValueError(f"{model.cfg.arch}: MoE over {self.dp_size} data ranks routes the "
+                             "global batch; build the model with this mesh")
         self.model, self.opt_cfg, self.mesh = model, opt_cfg, mesh
         self.compress = compress
         self.shardings = zero_shardings(model.layout(), mesh, opt_cfg)
@@ -106,6 +114,12 @@ class DataParallelStep:
     def init_opt_state(self, params) -> dict:
         return init_zero_state(params, self.shardings, self.opt_cfg)
 
+    def param_shardings(self) -> dict:
+        """A rank's parameters as ``NamedSharding`` s: the specs' ``model``
+        entries (a checkpoint's ``shardings`` for ``params``)."""
+        return PM.tree_map(lambda sh: NamedSharding(self.mesh, PM.keep_axes(sh.spec, ("model",))),
+                           self.shardings["mu"])
+
     def rows(self, batch: dict) -> dict:
         """This rank's rows of every leaf of the global ``batch`` (dim 0 cut
         by ``_batch_spec``; whole where the batch does not divide)."""
@@ -114,8 +128,16 @@ class DataParallelStep:
         return {k: v[sharding.index(v.shape)[:1]] for k, v in batch.items()}
 
     def grads(self, params, batch: dict):
-        """``(loss, metrics, gradients)`` of this rank's rows."""
-        return _grads(self.model, params, self.rows(batch))
+        """``(loss, metrics, gradients)`` of this rank's rows; where the rows
+        are a part of the batch over more than one data rank, the model knows
+        it (``DecoderLM.rows_split``)."""
+        rows = self.rows(batch)
+        split = (self.dp_size > 1 and hasattr(self.model, "rows_split")
+                 and PM.tree_leaves(rows)[0].shape[0] < PM.tree_leaves(batch)[0].shape[0])
+        if not split:
+            return _grads(self.model, params, rows)
+        with self.model.rows_split(self.dp_axes):
+            return _grads(self.model, params, rows)
 
     def sync(self, grads):
         """The synced gradients; with ``compress``, the error state advances."""
@@ -185,6 +207,20 @@ def step_costs(model, batch, *, opt_cfg: Optional[AdamWConfig] = None, params=No
         opt_state = init_opt_state(params, opt_cfg)
     step = make_train_step(model, opt_cfg)
     return _count.count(step, params, opt_state, batch)[1]
+
+
+def tp_step_costs(model, batch, mesh, *, opt_cfg: Optional[AdamWConfig] = None) -> dict:
+    """:func:`step_costs` of one rank's step of ``make_train_step(model,
+    opt_cfg, mesh)`` (a :class:`DataParallelStep`, tensor-parallel where the
+    mesh's ``model`` axis is above 1) on the global ``batch`` of meta tensors,
+    under a ``launch.mesh.AbstractMesh``: this rank's parameter shards (of
+    ``params.abstract``: nothing drawn), its ZeRO-1 state and the collectives
+    it makes (``collectives``)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    step = DataParallelStep(model, opt_cfg, mesh)
+    layout = model.layout()
+    params = PM.shard_params(PM.abstract(layout, model.cfg.dtype), layout, mesh)
+    return _count.count(step, params, step.init_opt_state(params), batch)[1]
 
 
 def step_flops(model, batch, *, opt_cfg: Optional[AdamWConfig] = None, params=None,

@@ -26,14 +26,13 @@ from __future__ import annotations
 import torch
 
 from ..models import params as PM
+from ..parallel import total_fp32
 from .optimizer import compress_int8, decompress_int8
 
 
 def _mean(g: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The mean of ``g`` over the slice along ``axes``, summed in fp32, in ``g``'s dtype."""
-    total = g.detach().to(torch.float32, memory_format=torch.contiguous_format, copy=True)
-    mesh.all_reduce(total, axes)
-    return total.div_(mesh.axis_size(axes)).to(g.dtype)
+    return total_fp32(g, mesh, axes).div_(mesh.axis_size(axes)).to(g.dtype)
 
 
 def two_level_grad_sync(grads, errors, mesh, *, compress: bool = True):

@@ -8,10 +8,13 @@ load them.
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import NamedSharding, make_test_mesh
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.parallel import NamedSharding
 from repro_torch.models import build_model
 from repro_torch.models import params as PM
 from repro_torch.train import (AdamWConfig, CheckpointManager, DataParallelStep, adamw_update,
@@ -22,7 +25,9 @@ TIMEOUT = 60.0
 
 
 def _np(tree):
-    return PM.tree_map(lambda t: t.detach().cpu().numpy() if torch.is_tensor(t) else t, tree)
+    """numpy copies of a tree's tensors (never views: a step updates them in place)."""
+    return PM.tree_map(lambda t: t.detach().cpu().numpy().copy() if torch.is_tensor(t) else t,
+                       tree)
 
 
 def _torch(tree):
@@ -176,12 +181,186 @@ def zero_world(rank: int, world: int, init: str, cfg, jparams: dict, batch: dict
     out["restored_count"] = int(o_b["count"])
     out["wide_coords"] = wide.coords
 
-    # refusals: tensor parallelism, MoE over data-parallel ranks
+    # refusals: a model axis the model was not built over, MoE over data
+    # ranks without the mesh (its routing is the global batch's)
     tp = make_test_mesh(data=2, model=2, backend="gloo", timeout=TIMEOUT, device="cpu")
     refused = []
     for m, mdl in ((tp, model), (mesh, build_model(moe_cfg, model_axis=1, device="cpu"))):
         try:
             DataParallelStep(mdl, opt_cfg, m)
+        except ValueError as err:
+            refused.append(str(err))
+    out["refused"] = refused
+    return out
+
+
+# ------------------------------------------------------- tensor parallelism
+def _gathered(tree, step) -> dict:
+    """Every leaf of a rank's tree (its ``model`` shards) gathered whole."""
+    shs = iter(PM.tree_leaves(step.param_shardings()))
+    return PM.tree_map(lambda t: next(shs).gather(t), tree)
+
+
+def _replicated(tree, step) -> dict:
+    """``{path: numpy}`` of the leaves the layout does not cut on ``model``."""
+    out = {}
+    for path, t, sh in zip(PM._paths(tree), PM.tree_leaves(tree),
+                           PM.tree_leaves(step.param_shardings())):
+        if "model" not in sh.axes():
+            out[path] = t.detach().cpu().numpy().copy()
+    return out
+
+
+def _moe_layers(cfg) -> int:
+    if cfg.moe is None:
+        return 0
+    return cfg.n_layers - (1 if cfg.moe.first_dense else 0)
+
+
+def _local_capacity_keep(route, top_k: int, capacity_factor: float):
+    """The keep mask of ``route``'s experts with the capacity and queue of
+    this rank's rows alone (what a rank-local routing would give)."""
+    import math
+
+    N, E = route.probs.shape
+    flat = torch.zeros((N * top_k, E), dtype=torch.int64)
+    flat.scatter_(1, route.idx.reshape(-1, 1), 1)
+    slot = ((flat.cumsum(0) - flat) * flat).sum(-1).view(N, top_k)
+    return slot < max(1, int(math.ceil(N * top_k / E * capacity_factor)))
+
+
+def tp_case(mesh, cfg, jparams: dict, batch: dict, *, steps: int = 1) -> dict:
+    """One case on ``mesh``: the model built over it, the JAX tree cut into
+    this rank's shards, ``steps`` steps of ``make_train_step(model, opt, mesh)``,
+    the first in its parts.  Returns the first step's loss, metrics, the
+    synced gradient gathered whole, the parameters after it gathered whole,
+    the replicated leaves as this rank holds them (gradient and parameters,
+    and the parameters after the last step), and for an MoE model each
+    layer's routing of the forward."""
+    from repro_torch.models import layers
+    from repro_torch.train import make_train_step
+
+    model = build_model(cfg, model_axis=mesh.shape["model"], mesh=mesh, device="cpu")
+    full = PM.params_from_jax(jparams, device="cpu", dtype=cfg.dtype)
+    params = PM.shard_params(full, model.layout(), mesh)
+    rows = {k: torch.from_numpy(v) for k, v in batch.items()}
+    step = make_train_step(model, AdamWConfig(), mesh)
+    opt = step.init_opt_state(params)
+    seen, route = [], layers.moe_route
+
+    def record(*args, **kwargs):
+        seen.append(route(*args, **kwargs))
+        return seen[-1]
+
+    layers.moe_route = record
+    try:
+        loss, metrics, grads = step.grads(params, rows)
+    finally:
+        layers.moe_route = route
+    synced = step.sync(grads)
+    params, opt, m = step.update(synced, opt, params)
+    out = {"coords": dict(mesh.coords), "loss": float(step.mean_over_ranks(loss)),
+           **{k: float(step.mean_over_ranks(v)) for k, v in metrics.items()},
+           "grad_norm": float(m["grad_norm"]),
+           "grads": _np(_gathered(synced, step)), "grads_replicated": _replicated(synced, step),
+           "shapes": {p: tuple(t.shape) for p, t in zip(PM._paths(params),
+                                                         PM.tree_leaves(params))}}
+    out["params"] = _np(_gathered(params, step))
+    out["params_replicated"] = _replicated(params, step)
+    for _ in range(steps - 1):
+        params, opt, m = step(params, opt, rows)
+        out.setdefault("later_losses", []).append(float(m["loss"]))
+        out["later_replicated"] = _replicated(params, step)
+    L = _moe_layers(cfg)
+    if L:
+        fwd = seen[:L]
+        moe = cfg.moe
+        out["dropped"] = [int((~r.keep).sum()) for r in fwd]
+        out["capacity"] = [r.capacity for r in fwd]
+        out["local_routing_differs"] = [
+            bool((_local_capacity_keep(r, moe.top_k, moe.capacity_factor) != r.keep).any())
+            for r in fwd]
+    out["_state"] = (model, step, params, opt)
+    return out
+
+
+def tp_world(rank: int, world: int, init: str, cases: list, ckpt_dir: str,
+             family_cfgs: list) -> dict:
+    """Each case ``(name, (data, model), cfg, jparams, batch, steps)`` on a
+    mesh of that shape over the same 4 ranks (``tp_case``); the ZeRO + TP
+    state of the first case saved and restored at data 1 x model 4; one
+    rank's step counted against the meta count the dry-run makes; the
+    families without tensor parallelism refused."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.roofline import count as C
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import tp_step_costs
+
+    torch.set_num_threads(1)
+    meshes, out = {}, {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_test_mesh(data=shape[0], model=shape[1], backend="gloo",
+                                           init_method=init, rank=rank, timeout=TIMEOUT,
+                                           device="cpu")
+        return meshes[shape]
+
+    first = None
+    for name, shape, cfg, jparams, batch, steps in cases:
+        res = tp_case(mesh_of(shape), cfg, jparams, batch, steps=steps)
+        state = res.pop("_state")
+        first = first or (shape, cfg, state)
+        out[name] = res
+
+    if ckpt_dir:
+        shape, cfg, (model, step, params, opt) = first
+        sh = {"params": step.param_shardings(), "opt": step.shardings}
+        ckpt = CheckpointManager(ckpt_dir, keep=1)
+        ckpt.save(int(opt["count"]), params, opt, shardings=sh,
+                  mesh_shape=dict(step.mesh.shape))
+        tall = mesh_of((1, 4))
+        tall_model = build_model(cfg, model_axis=4, mesh=tall, device="cpu")
+        tall_step = make_train_step(tall_model, AdamWConfig(), tall)
+        tall_sh = {"params": tall_step.param_shardings(), "opt": tall_step.shardings}
+        _, p_b, o_b, _ = ckpt.restore(template={"params": params, "opt": opt}, shardings=tall_sh)
+        equal, crcs = True, []
+        for mine, s, got, ts in zip(PM.tree_leaves({"params": params, "opt": opt}),
+                                    PM.tree_leaves(sh), PM.tree_leaves({"params": p_b,
+                                                                        "opt": o_b}),
+                                    PM.tree_leaves(tall_sh)):
+            whole = mine if s is None else s.gather(mine)
+            equal &= bool(torch.equal(got, whole if ts is None else ts.shard(whole)))
+            crcs.append(zlib.crc32(whole.contiguous().numpy().tobytes()))
+        out["checkpoint"] = {"shards_equal": equal, "crcs": crcs,
+                             "tall_coords": dict(tall.coords),
+                             "sharded_opt_leaves": sum(
+                                 "model" in s.axes() and "data" in s.axes()
+                                 for s in PM.tree_leaves(sh["opt"]["mu"]))}
+
+        # one rank's step counted, and the same step on meta under an AbstractMesh
+        mesh = step.mesh
+        fresh = PM.shard_params(PM.params_from_jax(cases[0][3], device="cpu", dtype=cfg.dtype),
+                                model.layout(), mesh)
+        rows = {k: torch.from_numpy(v) for k, v in cases[0][4].items()}
+        real = C.count(make_train_step(model, AdamWConfig(), mesh), fresh,
+                       step.init_opt_state(fresh), rows)[1]
+        abstract = AbstractMesh(tuple(mesh.shape.values()), mesh.axis_names, rank=rank)
+        meta_model = build_model(cfg, model_axis=mesh.shape["model"], mesh=abstract,
+                                 device="meta")
+        meta_rows = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                     for k, v in rows.items()}
+        meta = tp_step_costs(meta_model, meta_rows, abstract)
+        keys = ("flops", "traffic_bytes", "matmul_flops", "aten_bytes", "kernels",
+                "collectives", "collective_bytes", "start_bytes")
+        out["count"] = {"real": {k: real[k] for k in keys}, "meta": {k: meta[k] for k in keys}}
+
+    refused = []
+    mesh = mesh_of((2, 2))
+    for fcfg in family_cfgs:
+        try:
+            make_train_step(build_model(fcfg, model_axis=2, mesh=mesh, device="cpu"),
+                            AdamWConfig(), mesh)
         except NotImplementedError as err:
             refused.append(str(err))
     out["refused"] = refused

@@ -297,6 +297,15 @@ def test_serve_launcher_on_cpu(capsys):
     assert "tok/s" in capsys.readouterr().out
 
 
+def test_serve_launcher_draws_on_the_device_when_asked():
+    """``--init-on device`` draws the weights on ``--device``'s generator: on
+    the CPU that is the host's draw, so the same tokens."""
+    argv = ["--device", "cpu", "--requests", "2", "--prompt-len", "4", "--new-tokens", "3"]
+    host = port_serve.main(argv)
+    device = port_serve.main(argv + ["--init-on", "device"])
+    assert np.array_equal(np.asarray(host["tokens"]), np.asarray(device["tokens"]))
+
+
 # ------------------------------------------------------- other dense configs
 def _dense_pair(arch):
     jcfg = JARCHS[arch].smoke()

@@ -8,6 +8,9 @@ mean is held within 1e-6.  One world runs every check (``world`` fixture,
 rendezvous through a file under ``tmp_path``, at most 90 s).
 """
 
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,3 +118,21 @@ def test_mesh_needs_a_backend_and_a_matching_world():
         Mesh((2,), ("data",), backend=None)
     with pytest.raises(ValueError, match="init_method"):
         make_test_mesh(data=2, model=1, backend="gloo", device="cpu")
+
+
+def test_ranks_that_die_before_taking_their_arguments_let_the_parent_exit():
+    """A world whose ranks die before they read their arguments (spawned
+    processes cannot find a function of a ``-c`` program) fails ``run_ranks``,
+    and the parent then exits: the 4 MiB of arguments left in the queue do
+    not hold its exit."""
+    code = ("from repro_torch.launch.mesh import run_ranks\n"
+            "def lost(*args):\n"
+            "    pass\n"
+            "try:\n"
+            "    run_ranks(lost, 2, b'x' * (4 << 20), init_method='file:///unused', timeout=60)\n"
+            "except RuntimeError as e:\n"
+            "    print('failed:', str(e).splitlines()[0])\n")
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert "failed: ranks [0, 1] exited" in done.stdout

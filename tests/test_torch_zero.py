@@ -5,7 +5,8 @@ own single-process gradient and update.
 
 One world (``world`` fixture, at most 90 s) runs the step in parts and
 whole, a second step, a ZeRO checkpoint and its restore at data 4 over the
-same ranks, and the refusals; the tests read what it returned.  Weights come
+same ranks, and the refusals (a model not built over the mesh's model axis
+or, for MoE, over its data axes); the tests read what it returned.  Weights come
 from JAX (``params_from_jax``).
 """
 
@@ -155,9 +156,13 @@ def test_elastic_restore_onto_one_device_in_either_package(world):
 
 
 def test_tensor_parallel_and_data_parallel_moe_are_refused(world):
+    """Refused unless the model was built over the mesh: a model axis of 2
+    for a model built at model 1, and MoE over data ranks without the mesh
+    that routes the global batch (both run when built over it:
+    ``test_torch_tensor_parallel``, ``test_torch_moe_parallel``)."""
     outs, _ = world
     for out in outs:
         assert len(out["refused"]) == 2
-        assert "tensor-parallel" in out["refused"][0]
-        assert "aux loss" in out["refused"][1]
+        assert "model_axis=2 and this mesh" in out["refused"][0]
+        assert "global batch" in out["refused"][1]
 
