@@ -832,6 +832,7 @@ def checked_shapes() -> dict:
             "decode_attention": {(B, Hkv * G, Hkv, S, hd)
                                  for B, Hkv, S, hd, groups, _ in decode_shapes()
                                  for G in groups},
+            "decode_attention_partial": set(),
             "flash_attention": {flash_key(*s[:9], s[4] - s[3] if s[7] else 0)
                                 for s in flash_shapes()}}
 
@@ -858,9 +859,12 @@ def launched_shapes():
         return flash_key(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
                          v.shape[3], causal, window, q_offset)
 
+    def decode(q, k, *_, **__):
+        return (q.shape[0], q.shape[1], *k.shape[1:])
+
     keys = {"rmsnorm": lambda x, g, **_: (x.numel() // x.shape[-1], x.shape[-1]),
             "swiglu_mlp": lambda x, wg, *_: (x.numel() // x.shape[-1], *wg.shape),
-            "decode_attention": lambda q, k, *_, **__: (q.shape[0], q.shape[1], *k.shape[1:]),
+            "decode_attention": decode, "decode_attention_partial": decode,
             "flash_attention": flash}
     seen = {name: set() for name in keys}
     saved = {name: getattr(ops, name) for name in keys}
@@ -1357,9 +1361,92 @@ def check_decode_attention(gen, ops, ref, rate):
             f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by,
         })
         del sets, q, k, v
+    row.update(check_decode_partial(gen, ops, ref, rate))
     print(f"[kernels] decode_attention device ms "
           f"{ {k: v for k, v in row.items() if k.endswith('device_ms')} }")
     return row
+
+
+def _lse_err(got, want, tol) -> float:
+    """The largest gap of a partial mode's lse from the plain version's: the
+    same rows -inf (no visible slot), the others within ``tol``."""
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        raise AssertionError("decode_attention partial: lse -inf in other rows than the plain "
+                             "version's")
+    keep = ~torch.isneginf(want)
+    return max_err(got[keep], want[keep], tol) if keep.any() else 0.0
+
+
+def _flash_lse(q, k, v, valid):
+    """The library call beside the partial mode: aten's flash attention, which
+    returns the output and its log-sum-exp (every slot visible)."""
+    return torch.ops.aten._scaled_dot_product_flash_attention(q, k, v)[:2]
+
+
+def check_decode_partial(gen, ops, ref, rate) -> dict:
+    """The partial mode (``ops.decode_attention_partial``) at phase_tp's serving
+    shard shapes (``TP_PARTIAL``) in fp32 and bf16, on both routes: valid
+    counts 0 (no visible slot: zeros and lse -inf), part of the shard and all
+    of it, in one call; the output and lse held to the plain version
+    (``ref.decode_attention_partial_ref``) within ``TOL``, each call made
+    twice and compared bit for bit.  Times at each shape in bf16 with every
+    slot visible: the kernel (events and graph replay), the plain version,
+    aten's flash attention with its log-sum-exp (``library_ms``) and the
+    bound (q read, K and V read, the fp32 output and lse written)."""
+    from repro_torch.kernels import decode_attention as kd
+
+    out, errs = {}, {}
+    for B, H, Hkv, S, hd in TP_PARTIAL:
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn(gen, (B, H, 1, hd), dt)
+            k, v = randn(gen, (B, Hkv, S, hd), dt), randn(gen, (B, Hkv, S, hd), dt)
+            fill = [0, S // 2 + 1, S] + [S] * (B - 3)
+            valid = torch.tensor(fill[:B], dtype=torch.int32, device="cuda")
+            tol = TOL["decode_attention"][dt]
+            want = ref.decode_attention_partial_ref(q, k, v, valid)
+            before = dict(kd.route_launches)
+            got = ops.decode_attention_partial(q, k, v, valid)
+            again = ops.decode_attention_partial(q, k, v, valid)
+            if kd.route_launches["split"] != before["split"] + 2:
+                raise AssertionError(f"decode_attention partial {(B, H, S, hd)}: calls took "
+                                     f"{kd.route_launches}, not split")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"decode_attention partial {(B, H, S, hd)}: two calls differ")
+            simt = kd.launch("simt", q, k, v, valid, 0, partial=True)
+            e = []
+            for o, lse in (got, simt):
+                if o.dtype != torch.float32 or lse.shape != (B, H):
+                    raise AssertionError(f"decode_attention partial: out {o.dtype}, lse "
+                                         f"{tuple(lse.shape)}")
+                if not torch.equal(o[0], torch.zeros_like(o[0])):
+                    raise AssertionError("decode_attention partial: a row with no visible slot "
+                                         "is not zeros")
+                e += [max_err(o, want[0], tol), _lse_err(lse, want[1], tol)]
+            errs[(B, H, Hkv, S, hd, str(dt))] = max(e)
+            del q, k, v
+    print(f"[kernels] decode_attention partial errors {errs}")
+    dt = torch.bfloat16
+    for B, H, Hkv, S, hd in TP_PARTIAL:
+        prefix = f"tp_partial_{B}x{S}_"
+        valid = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        sets = [(randn(gen, (B, H, 1, hd), dt), randn(gen, (B, Hkv, S, hd), dt),
+                 randn(gen, (B, Hkv, S, hd), dt), valid) for _ in range(24)]
+        b_ms, b_by = bound(B * H * hd * 2 + 2 * B * Hkv * S * hd * 2 + B * H * (hd + 1) * 4
+                           + 4 * B, 4 * B * H * S * hd, dt, rate)
+        device_ms, how = graph_ms(ops.decode_attention_partial, sets)
+        out.update({
+            f"{prefix}shape": f"q ({B}, {H}, 1, {hd}), cache shard ({B}, {Hkv}, {S}, {hd}), "
+                              f"every slot visible, bf16, fp32 out and lse",
+            f"{prefix}max_abs_err": max(v for k, v in errs.items() if k[:5] == (B, H, Hkv, S, hd)),
+            f"{prefix}ms": time_ms(ops.decode_attention_partial, sets, 20),
+            f"{prefix}device_ms": device_ms, f"{prefix}device_ms_from": how,
+            f"{prefix}plain_ms": time_ms(ref.decode_attention_partial_ref, sets, 20),
+            f"{prefix}library_ms": time_ms(_flash_lse, sets, 20),
+            f"{prefix}library": "aten._scaled_dot_product_flash_attention (out and logsumexp)",
+            f"{prefix}library_device_ms": graph_ms(_flash_lse, sets)[0],
+            f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by})
+        del sets
+    return out
 
 
 def flash_bound(B, Hq, Hkv, S, hd, window, rate, *, backward: bool, hdv: int | None = None,
@@ -4294,13 +4381,46 @@ TP_SWIGLU = ((2048, 1024, 1408), (4096, 1024, 704), (2048, 2048, 5472), (2048, 2
              (2048, 2048, 1408), (2048, 2048, 704))
 TP_FLASH = ((4, 8, 8, 512, 64, 64), (8, 4, 4, 512, 64, 64), (1, 8, 8, 2048, 192, 128),
             (1, 4, 4, 2048, 192, 128))
+#: phase_tp's serving over the model axis: qwen1.5-0.5b at full width and depth
+#: over each of TP["qwen"]'s meshes and deepseek-v2-lite-16b at DEEPSEEK_TRAIN's
+#: 4 layers over TP["deepseek"]'s, bf16, weights of seed 0 (the single process's):
+#: 8 requests, one prefill of the 16-token prompt, then the prompt and 16 greedy
+#: tokens of the single process fed through decode_step (teacher-forced), into a
+#: cache of 32 slots (16 a rank at model 2, 8 at model 4; every rank's slots
+#: fill in turn).  A decode step of 4 gloo ranks on one card takes 146-694 ms
+#: (qwen 1 x 4 the most), so the steps are what the script's time allows
+TP_SERVE = dict(requests=8, prompt=16, new=16, cache=32)
+#: launches a TP decode step a rank: qwen 2 norms a layer and the final one, the
+#: SwiGLU on F / model and the partial decode attention (route split) a layer;
+#: deepseek layer0's and the 3 MoE layers' 3 norms (kv_ln among them), layer0's
+#: SwiGLU and the shared experts' (MLA's attention: plain products)
+TP_SERVE_PER_STEP = {"qwen": {"rmsnorm": 2 * 24 + 1, "swiglu": 24, "decode_attention": 24},
+                     "deepseek": {"rmsnorm": 3 * 4 + 1, "swiglu": 4}}
+TP_SERVE_ROUTES = {"decode_attention": "split"}
+#: the largest gap of a TP rank's logits from the single process's on the card
+#: (teacher-forced, bf16), relative to the single process's largest logit:
+#: about 2x the largest read on the H100 (0.0240 qwen 2 x 2, 0.0226 1 x 4,
+#: 0.0167 deepseek over 49 steps of a prompt of 32); a merge that drops or
+#: double-counts a rank's slots moves the logits by a whole part of their size
+TP_LOGIT_TOL = 0.05
+#: the shard shapes of phase_tp's serving: rmsnorm (rows, D) and SwiGLU (rows, D,
+#: F / model) of the decode steps (4 or 8 rows a rank) and the prefills (64 or
+#: 128 rows); flash (B, Hq, Hkv, S, hd, hdv) of the prefills; the decode
+#: kernel's partial mode (B, Hq, Hkv, slots a rank, hd) at qwen's 2 x 2 and 1 x 4
+TP_SERVE_RMSNORM = ((4, 1024), (8, 1024), (64, 1024), (128, 1024), (4, 2048), (4, 512),
+                    (64, 2048), (64, 512))
+TP_SERVE_SWIGLU = ((4, 1024, 1408), (8, 1024, 704), (64, 1024, 1408), (128, 1024, 704),
+                   (4, 2048, 5472), (4, 2048, 1408), (64, 2048, 5472), (64, 2048, 1408))
+TP_SERVE_FLASH = ((4, 8, 8, 16, 64, 64), (8, 4, 4, 16, 64, 64), (4, 8, 8, 16, 192, 128))
+TP_PARTIAL = ((4, 16, 16, 16, 64), (8, 16, 16, 8, 64))
 
 
 def tp_flash_shapes() -> list:
-    """TP_FLASH in ``flash_shapes``' form (causal, no window; MLA's widths held
-    to the plain versions rounded as the tensor-core route rounds)."""
+    """TP_FLASH and TP_SERVE_FLASH in ``flash_shapes``' form (causal, no
+    window; MLA's widths held to the plain versions rounded as the tensor-core
+    route rounds)."""
     return [(B, Hq, Hkv, S, S, hd, hdv, True, 0, (hd, hdv) != (64, 64))
-            for B, Hq, Hkv, S, hd, hdv in TP_FLASH]
+            for B, Hq, Hkv, S, hd, hdv in (*TP_FLASH, *TP_SERVE_FLASH)]
 
 
 def check_tp_kernels(gen, ops, ref, rate) -> dict:
@@ -4372,6 +4492,28 @@ def check_tp_kernels(gen, ops, ref, rate) -> dict:
             "library_fwd_bwd_ms": grad_ms(_swiglu_lib, sets[0], dy, 5)[1],
             "bound_ms": b_ms, "bound_by": b_by})
         del sets, x, wg, wu, wd, dy, leaves, got
+    for rows, D in TP_SERVE_RMSNORM:
+        sets = [(randn(gen, (rows, D), dt), randn(gen, (D,), dt)) for _ in range(8)]
+        b_ms, b_by = bound((2 * rows * D + D) * 2, 4 * rows * D, dt, rate)
+        out["rmsnorm"].append({
+            "shape": [rows, D], "serving": True, "route": kr.route(*sets[0]),
+            "max_abs_err": max_err(ops.rmsnorm(*sets[0]), ref.rmsnorm_ref(*sets[0]),
+                                   TOL["rmsnorm"][dt]),
+            "ms": time_ms(ops.rmsnorm, sets, 10), "plain_ms": time_ms(ref.rmsnorm_ref, sets, 5),
+            "library_ms": time_ms(lambda x, g: F.rms_norm(x, (D,), g, 1e-5), sets, 10),
+            "bound_ms": b_ms, "bound_by": b_by})
+    for N, D, Fd in TP_SERVE_SWIGLU:
+        sets = [(randn(gen, (N, D), dt), randn(gen, (D, Fd), dt, D ** -0.5),
+                 randn(gen, (D, Fd), dt, D ** -0.5), randn(gen, (Fd, D), dt, Fd ** -0.5))
+                for _ in range(4)]
+        b_ms, b_by = bound((2 * N * D + 3 * D * Fd) * 2, 6 * N * D * Fd + 4 * N * Fd, dt, rate)
+        out["swiglu_mlp"].append({
+            "shape": [N, D, Fd], "serving": True, "route": ks.route(*sets[0]),
+            "max_abs_err": max_err(ops.swiglu_mlp(*sets[0]), ref.swiglu_ref(*sets[0]),
+                                   TOL["swiglu_mlp"][dt]),
+            "ms": time_ms(ops.swiglu_mlp, sets, 5), "plain_ms": time_ms(ref.swiglu_ref, sets, 3),
+            "library_ms": time_ms(_swiglu_lib, sets, 5), "bound_ms": b_ms, "bound_by": b_by})
+        del sets
     errs, gerrs = check_flash_at(gen, ref, tp_flash_shapes())
     for B, Hq, Hkv, S, hd, hdv in TP_FLASH:
         fwd, bwd = flash_times(gen, ops, ref, rate, B, Hq, Hkv, S, hd, 0, hdv=hdv)
@@ -4380,6 +4522,10 @@ def check_tp_kernels(gen, ops, ref, rate) -> dict:
                                        "max_abs_err": errs[key], **fwd})
         out["flash_attention_bwd"].append({"shape": [B, Hq, Hkv, S, hd, hdv],
                                            "max_abs_err": gerrs[key], **bwd})
+    for B, Hq, Hkv, S, hd, hdv in TP_SERVE_FLASH:
+        out["flash_attention"].append({
+            "shape": [B, Hq, Hkv, S, hd, hdv], "serving": True,
+            "max_abs_err": errs[(B, Hq, Hkv, S, S, hd, hdv, True, 0, "bfloat16")]})
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[tp] shard-shape kernel checks {json.dumps(out)}")
@@ -4389,9 +4535,10 @@ def check_tp_kernels(gen, ops, ref, rate) -> dict:
 def tp_checked_shapes() -> dict:
     """``checked_shapes`` and phase_tp's shard shapes."""
     covered = checked_shapes()
-    covered["rmsnorm"] |= set(TP_RMSNORM)
-    covered["swiglu_mlp"] |= set(TP_SWIGLU)
+    covered["rmsnorm"] |= set(TP_RMSNORM) | set(TP_SERVE_RMSNORM)
+    covered["swiglu_mlp"] |= set(TP_SWIGLU) | set(TP_SERVE_SWIGLU)
     covered["flash_attention"] |= {flash_key(*s[:9], 0) for s in tp_flash_shapes()}
+    covered["decode_attention_partial"] = set(TP_PARTIAL)
     return covered
 
 
@@ -4598,6 +4745,130 @@ def tp_checkpoint(state: tuple, tall, cfg, work: str) -> dict:
                                       for s in PM.tree_leaves(sh["opt"]["mu"]))}
 
 
+def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict) -> dict:
+    """Serving over the model axis on one rank (``tp_rank``): the model built
+    over ``mesh`` with the single process's weights (seed 0), one ``prefill`` of
+    this rank's rows of the prompts, then the single process's tokens fed
+    through ``decode_step`` (teacher-forced: a flipped token does not
+    cascade) from an empty cache of TP_SERVE["cache"] slots, inside
+    ``rows_split`` over ``data``; an MoE layer routed through the single
+    process's experts (``serve_<tag>.pt``).  Each decode step's launches and
+    routes checked (``per_step``); each step's logits against the single
+    process's: the largest gap relative to its largest logit (within
+    TP_LOGIT_TOL) and the greedy tokens equal, but where the single
+    process's top two lie within that step's gap (counted).  Host times of
+    the prefill and of each decode step (a synchronize around it) and the
+    ``model`` axis's collectives inside them (``Mesh.timed``): one card's
+    ``gloo`` ranks, not a deployment's."""
+    from repro_torch.models import build_model
+
+    ref_run = torch.load(Path(work) / f"serve_{tag}.pt", map_location="cpu", mmap=True)
+    model = build_model(cfg, model_axis=mesh.shape["model"], mesh=mesh, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    tokens = ref_run["tokens"].cuda()
+    B, L = tokens.shape
+    n = B // mesh.shape["data"]
+    rows = slice(mesh.coords["data"] * n, (mesh.coords["data"] + 1) * n)
+    choices = None
+    if ref_run["routes"]:
+        choices = []
+        for c in ref_run["routes"]:
+            part = c.shape[0] // mesh.shape["data"]
+            choices.append(c[mesh.coords["data"] * part:(mesh.coords["data"] + 1) * part])
+    rec = {"coords": dict(mesh.coords), "gaps": [], "near_ties": 0, "tokens_compared": 0,
+           "decode_ms": [], "decode_tp_ms": [], "counts": [], "shapes": {}}
+
+    def compare(logits, want, what):
+        want = want.cuda()
+        top = float(want.abs().max())
+        gap = float((logits - want).abs().max())
+        rec["gaps"].append(gap / top)
+        if not gap / top <= TP_LOGIT_TOL:
+            raise AssertionError(f"{tag} rank {mesh.rank} {what}: logits {gap / top} of the "
+                                 f"largest logit from the single process's")
+        mine, theirs = logits.argmax(-1), want.argmax(-1)
+        rec["tokens_compared"] += mine.numel()
+        for i in (mine != theirs).nonzero().tolist():
+            two = want[tuple(i)].topk(2).values
+            if float(two[0] - two[1]) > gap:
+                raise AssertionError(f"{tag} rank {mesh.rank} {what}: greedy token "
+                                     f"{int(mine[tuple(i)])}, the single process "
+                                     f"{int(theirs[tuple(i)])}, whose top two lie "
+                                     f"{float(two[0] - two[1])} apart (gap {gap})")
+            rec["near_ties"] += 1
+
+    axes = ("data",) if mesh.shape["data"] > 1 else ()
+    mesh.timed = True
+    with model.rows_split(axes), tp_routes(choices) as (_, pending), \
+            launched_shapes() as shapes:
+        mesh.spent.clear()
+        t0 = _clock()
+        logits = model.prefill(params, {"tokens": tokens[rows, :TP_SERVE["prompt"]]})
+        rec["prefill_ms"] = (_clock() - t0) * 1e3
+        rec["prefill_tp_ms"] = mesh.spent.get(("model",), 0.0) * 1e3
+        compare(logits[:, 0], ref_run["prefill"][rows], "prefill")
+        cache = model.init_cache(B, TP_SERVE["cache"])
+        for t in range(L):
+            reset_counts(kernel_modules)
+            mesh.spent.clear()
+            t0 = _clock()
+            logits, cache = model.decode_step(params, {"tokens": tokens[rows, t:t + 1],
+                                                       "cache": cache, "index": t})
+            rec["decode_ms"].append((_clock() - t0) * 1e3)
+            rec["decode_tp_ms"].append(mesh.spent.get(("model",), 0.0) * 1e3)
+            counts, routes = read_counts(kernel_modules)
+            expect_counts(counts, per_step, f"{tag} serve rank {mesh.rank} step {t}")
+            check_routes(routes, counts, TP_SERVE_ROUTES, f"{tag} serve rank {mesh.rank} step {t}")
+            rec["counts"].append(counts)
+            compare(logits[:, 0], ref_run["logits"][t, rows], f"step {t}")
+    mesh.timed = False
+    if pending:
+        raise AssertionError(f"{tag} serve rank {mesh.rank}: {len(pending)} routes not replayed")
+    rec["shapes"] = {k: set(v) for k, v in shapes.items()}
+    top = cache["layers"]
+    rec["cache_slots_a_rank"] = top["c_kv" if cfg.mla is not None else "k"].shape[
+        2 if cfg.mla is not None else 3]
+    del params, cache, model, top
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_serve_reference(cfg, work: Path, tag: str) -> None:
+    """The single process's serving run that the ranks are held to: the weights
+    of seed 0 on the card, TP_SERVE's prompts (seeded), one ``prefill`` and
+    the prompt then greedy tokens through ``decode_step``; every step's fp32
+    logits, the token sequence and (for an MoE model) every ``moe_route``
+    call's experts, written under ``work``.  Returns its decode ms a step."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    B, P, N = TP_SERVE["requests"], TP_SERVE["prompt"], TP_SERVE["new"]
+    rng = np.random.default_rng(7)
+    tokens = torch.zeros((B, P + N), dtype=torch.int64, device="cuda")
+    tokens[:, :P] = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).cuda()
+    steps, times = [], []
+    with tp_routes(None) as (seen, _):
+        prefill = model.prefill(params, {"tokens": tokens[:, :P]})[:, 0].cpu()
+        cache = model.init_cache(B, TP_SERVE["cache"])
+        for t in range(P + N):
+            t0 = _clock()
+            logits, cache = model.decode_step(params, {"tokens": tokens[:, t:t + 1],
+                                                       "cache": cache, "index": t})
+            times.append((_clock() - t0) * 1e3)
+            if P <= t + 1 < P + N:
+                tokens[:, t + 1] = logits[:, 0].argmax(-1)
+            steps.append(logits[:, 0].cpu())
+        routes = [r.idx.cpu() for r in seen]
+    torch.save({"tokens": tokens.cpu(), "prefill": prefill, "logits": torch.stack(steps),
+                "routes": routes}, work / f"serve_{tag}.pt")
+    del model, params, cache, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return statistics.median(times[1:])
+
+
 def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
     """One of ``phase_tp``'s ranks: qwen1.5-0.5b over each of TP["qwen"]'s
     meshes, then deepseek-v2-lite-16b at 4 layers over data 2 x model 2,
@@ -4617,6 +4888,7 @@ def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
     qwen = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
     batch = {k: torch.from_numpy(v).long().cuda() for k, v in batches["qwen"].items()}
     state = None
+    out["serve"] = {}
     for data, model, steps in TP["qwen"]:
         mesh = make_test_mesh(data=data, model=model, **kw, **first)
         first = {}
@@ -4626,6 +4898,7 @@ def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
         state = state or out[tag].pop("state")
         say(f"{tag}: steps {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, losses "
             f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
+        serve_rank(out["serve"], tag, mesh, qwen, work, "qwen", say)
     # the first mesh's ZeRO + TP state, restored over the last (data 1 x model 4)
     out["checkpoint"] = tp_checkpoint(state, mesh, qwen, work)
     del state
@@ -4646,7 +4919,23 @@ def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
                       DEEPSEEK_PER_STEP, choices)
     say(f"{tag}: steps {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, losses "
         f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
+    serve_rank(out["serve"], tag, mesh, cfg, work, "deepseek", say)
     return out
+
+
+def serve_rank(runs: dict, tag: str, mesh, cfg, work: str, ref_tag: str, say) -> None:
+    """``tp_serve_run`` on ``mesh`` into ``runs[tag]``, reported by rank 0."""
+    from repro_torch.kernels import KERNEL_MODULES
+
+    t0 = time.perf_counter()
+    rec = runs[tag] = tp_serve_run(KERNEL_MODULES, mesh, cfg, work, ref_tag,
+                                   TP_SERVE_PER_STEP[ref_tag])
+    rec["run_s"] = time.perf_counter() - t0
+    say(f"serve {tag}: prefill {rec['prefill_ms']:.1f} ms (TP {rec['prefill_tp_ms']:.1f}), "
+        f"decode median {statistics.median(rec['decode_ms'][1:]):.1f} ms a step (TP "
+        f"{statistics.median(rec['decode_tp_ms'][1:]):.1f}), largest logit gap "
+        f"{max(rec['gaps']):.3e}, near-ties {rec['near_ties']} of {rec['tokens_compared']}, "
+        f"{rec['run_s']:.1f} s (one card's gloo ranks)")
 
 
 def tp_reference(cfg, batch: dict, work: Path, tag: str) -> None:
@@ -4702,7 +4991,7 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
     deepseek = dataclasses.replace(ARCHS[DEEPSEEK], dtype="bfloat16",
                                    n_layers=DEEPSEEK_TRAIN["layers"])
     (ROOT / "build").mkdir(exist_ok=True)
-    batches = {}
+    batches, serve_ref_ms = {}, {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work, \
             tempfile.TemporaryDirectory(dir=ROOT / "build") as data_root:
         for name, cfg, (B, S) in (("qwen", qwen, (TRAIN["batch"], TRAIN["seq"])),
@@ -4716,6 +5005,11 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
             tp_reference(cfg, {k: torch.from_numpy(v).long().cuda()
                                for k, v in batches[name].items()}, Path(work), name)
             print(f"[tp] {name} single-process reference in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            t0 = time.perf_counter()
+            serve_ref_ms[name] = tp_serve_reference(cfg, Path(work), name)
+            print(f"[tp] {name} single-process serving reference in "
+                  f"{time.perf_counter() - t0:.1f} s ({serve_ref_ms[name]:.1f} ms a decode step)",
                   flush=True)
         want = json.loads((Path(work) / "ref_deepseek.json").read_text())
         qwen_loss = json.loads((Path(work) / "ref_qwen.json").read_text())["loss"]
@@ -4738,12 +5032,12 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
         del p, o
 
     covered = tp_checked_shapes()
-    runs = [k for k in ranks[0] if k not in ("rank", "checkpoint")]
+    runs = [k for k in ranks[0] if k not in ("rank", "checkpoint", "serve")]
     for r in ranks:
-        for run in runs:
-            for kernel, seen in r[run]["shapes"].items():
+        for run in [r[k] for k in runs] + list(r["serve"].values()):
+            for kernel, seen in run["shapes"].items():
                 if not seen <= covered[kernel]:
-                    raise AssertionError(f"tp {run}: {kernel} launched at "
+                    raise AssertionError(f"tp {run['coords']}: {kernel} launched at "
                                          f"{sorted(seen - covered[kernel])}, which no kernel "
                                          "check covers")
     ds = [r for r in ranks if r["deepseek_2x2"]["coords"]["model"] == 0]
@@ -4788,6 +5082,7 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
         for k in ("aux", "aux_rank_local", "own_routing"):
             if k in per[0]:
                 res[run][k] = [p[k] for p in per]
+    res["serve"] = tp_serve_summary(ranks, serve_ref_ms)
     if kernel_rows is not None:
         res["kernel_rows"] = kernel_rows
     print(f"[tp] {res['card']}; " + "; ".join(
@@ -4799,6 +5094,38 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
           f"{want['aux']}, of rank-local means {aux_local} (relative gaps "
           f"{res['aux_gaps_relative']})", flush=True)
     return res
+
+
+def tp_serve_summary(ranks: list, ref_ms: dict) -> dict:
+    """The serving runs of ``tp_rank`` across the ranks: each run's mesh, logit
+    gaps against the single process (the largest a step over the ranks) and
+    the limit, greedy tokens compared and near-ties, host ms of the prefill and
+    of each decode step (median from the second) with the ``model`` axis's
+    collectives inside them, a rank's launches a decode step; one card shared
+    by 4 ``gloo`` ranks, so the times are not a deployment's."""
+    out = {"note": "host ms on one card shared by 4 gloo ranks: collectives through host "
+                   "memory, not a deployment's", "logit_gap_limit": TP_LOGIT_TOL,
+           "single_process_decode_ms": ref_ms,
+           "launches": {m: sum(c[m] for r in ranks for run in r["serve"].values()
+                               for c in run["counts"])
+                        for m in next(iter(ranks[0]["serve"].values()))["counts"][0]}}
+    for tag in ranks[0]["serve"]:
+        per = [r["serve"][tag] for r in ranks]
+        out[tag] = {
+            "mesh": {a: max(p["coords"][a] for p in per) + 1 for a in per[0]["coords"]},
+            "cache_slots_a_rank": per[0]["cache_slots_a_rank"],
+            "largest_logit_gap": max(max(p["gaps"]) for p in per),
+            "logit_gap_by_step": [max(g) for g in zip(*(p["gaps"] for p in per))],
+            "tokens_compared": sum(p["tokens_compared"] for p in per),
+            "near_ties": sum(p["near_ties"] for p in per),
+            "prefill_ms": [p["prefill_ms"] for p in per],
+            "prefill_tp_ms": [p["prefill_tp_ms"] for p in per],
+            "decode_ms_median": [statistics.median(p["decode_ms"][1:]) for p in per],
+            "decode_tp_ms_median": [statistics.median(p["decode_tp_ms"][1:]) for p in per],
+            "decode_steps": len(per[0]["decode_ms"]), "counts_a_step": per[0]["counts"][0],
+            "run_s": [p["run_s"] for p in per]}
+        print(f"[tp] serve {tag} {json.dumps(out[tag])}", flush=True)
+    return out
 
 
 def phase_tp(kernel_modules, gen=None, ops=None, ref=None, rate=None) -> dict:
@@ -5230,6 +5557,7 @@ def main(argv: list[str]) -> None:
         for run, res in runs.items():
             if run != main_run:
                 row[f"{run}_launches"] = res["counts"][module]
+        row["tp_serve_launches"] = runs["tp"]["serve"]["launches"][module]
         row.update(route="cuda", source=f"src/repro_torch/kernels/{src}", replaces=replaces,
                    launches=runs[main_run]["counts"][module], launches_from=main_run)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -66,8 +66,8 @@ SIGNATURES = {
     "rt_rmsnorm_vec": (_P, _P, _P, _I, _I, _F, _I, _P),
     "rt_swiglu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_swiglu_tc": (*(_P,) * 9, *(_I,) * 5, _P),
-    "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    "rt_decode_attention_split": (*(_P,) * 6, *(_I,) * 8, _F, _I, _P),
+    "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
+    "rt_decode_attention_split": (*(_P,) * 6, *(_I,) * 8, _F, _I, _P, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _P, *(_I,) * 10, _F, _I, _P),
     "rt_flash_attention_tc": (_P, _P, _P, _P, _P, *(_I,) * 10, _F, _P),
     "rt_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 10, _F, _I, _P),

@@ -40,11 +40,19 @@
 // the splits in split order with the (m, l, acc) algebra of
 // src/repro/serve/flash_decoding.py.  No atomics: two calls give the same bits.
 //
+// Partial mode (both routes; lse not null): the output is written in fp32, still
+// normalised by this call's own denominator and not cast, and lse (B, Hq) fp32
+// gets m + log(l), the log-sum-exp of the row's scaled scores; a row with no
+// visible position writes zeros and lse = -inf.  A cache cut on its sequence over
+// ranks (serve/flash_decoding.py merge_partials) merges such pairs:
+// out = sum_i e^(lse_i - lse*) out_i / sum_i e^(lse_i - lse*).
+//
 // Route "simt" (any hd up to 128 and G up to 16; the first port of it): one block
 // per (b, kv head) walks the visible positions in tiles of 64 with (m, l, acc)
 // in shared memory and three barriers a tile.
 #include "common.cuh"
 
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -60,8 +68,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const int* __restrict__ valid_len,
-                            T* __restrict__ out, int Hkv, int G, int S, int hd, int window,
-                            float scale) {
+                            void* __restrict__ out, float* __restrict__ lse, int Hkv, int G,
+                            int S, int hd, int window, float scale) {
   __shared__ float qs[kMaxG * kMaxHd];
   __shared__ float acc[kMaxG * kMaxHd];
   __shared__ float ps[kMaxG][kTile];
@@ -158,7 +166,16 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int i = tid; i < G * hd; i += kThreads) {
     const float l = l_s[i / hd];
-    out[q_off + i] = rt::from_float<T>(acc[i] / (l == 0.f ? 1.f : l));
+    const float o = acc[i] / (l == 0.f ? 1.f : l);
+    if (lse == nullptr) {
+      static_cast<T*>(out)[q_off + i] = rt::from_float<T>(o);
+    } else {
+      static_cast<float*>(out)[q_off + i] = o;
+    }
+  }
+  if (lse != nullptr && tid < G) {
+    lse[static_cast<size_t>(bh) * G + tid] =
+        l_s[tid] == 0.f ? -INFINITY : m_s[tid] + logf(l_s[tid]);
   }
 }
 
@@ -201,15 +218,31 @@ __device__ __forceinline__ uint4 ldg16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// Element d of output row `row` from its merged (acc a, denominator lt, max mx):
+// in T, or with lse in fp32 with the row's log-sum-exp written once (-inf where
+// no position was visible).
+template <typename T>
+__device__ __forceinline__ void write_row(void* out, float* lse, size_t row, int hd, int d,
+                                          float a, float lt, float mx) {
+  const float o = a / (lt == 0.f ? 1.f : lt);
+  if (lse == nullptr) {
+    static_cast<T*>(out)[row * hd + d] = rt::from_float<T>(o);
+    return;
+  }
+  static_cast<float*>(out)[row * hd + d] = o;
+  if (d == 0) lse[row] = lt == 0.f ? -INFINITY : mx + logf(lt);
+}
+
 // T: storage type; L: lanes a cache row (16 bytes each); GB: query rows a block
 // holds, at least the rows it is given
 template <typename T, int L, int GB>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ valid_len,
-                        T* __restrict__ out, float* __restrict__ part_m,
-                        float* __restrict__ part_l, float* __restrict__ part_acc, int Hkv,
-                        int G, int S, int hd, int window, int n_split, int span, float scale) {
+                        void* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ part_m, float* __restrict__ part_l,
+                        float* __restrict__ part_acc, int Hkv, int G, int S, int hd, int window,
+                        int n_split, int span, float scale) {
   using P = Pack<T>;
   constexpr int E = P::kElems;       // elements a lane holds of a row
   constexpr int R = 32 / L;          // rows one warp-wide load covers
@@ -377,7 +410,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     const size_t row = static_cast<size_t>(bh) * G + g0 + g;
     if (part_acc == nullptr) {
-      out[row * hd + d] = rt::from_float<T>(a / (lt == 0.f ? 1.f : lt));
+      write_row<T>(out, lse, row, hd, d, a, lt, mx);
     } else {
       const size_t prow = (static_cast<size_t>(bh) * n_split + blockIdx.y) * G + g0 + g;
       part_acc[prow * hd + d] = a;
@@ -394,8 +427,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                          const float* __restrict__ part_acc, T* __restrict__ out, int G,
-                          int hd, int n_split) {
+                          const float* __restrict__ part_acc, void* __restrict__ out,
+                          float* __restrict__ lse, int G, int hd, int n_split) {
   const size_t bh = blockIdx.x;
   for (int i = threadIdx.x; i < G * hd; i += kThreads) {
     const int g = i / hd;
@@ -410,15 +443,16 @@ __global__ void __launch_bounds__(kThreads)
       lt += cw * part_l[row];
       a += cw * part_acc[row * hd + d];
     }
-    out[(bh * G + g) * hd + d] = rt::from_float<T>(a / (lt == 0.f ? 1.f : lt));
+    write_row<T>(out, lse, bh * G + g, hd, d, a, lt, mx);
   }
 }
 
 struct Args {
   const void *q, *k, *v;
   const int* valid_len;
-  void* out;
+  void* out;    // T, or fp32 with lse
   float* part;  // m, l (B Hkv, n_split, G) then acc (B Hkv, n_split, G, hd); null at n_split 1
+  float* lse;   // (B, Hq) in the partial mode, else null
   int B, Hkv, G, S, hd, window, n_split, span;
   float scale;
   cudaStream_t stream;
@@ -434,11 +468,11 @@ void launch(const Args& a) {
   const dim3 grid(static_cast<unsigned>(a.B * a.Hkv * groups), static_cast<unsigned>(a.n_split));
   decode_split_kernel<T, L, GB><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.valid_len, static_cast<T*>(a.out), pm, pl, pa, a.Hkv, a.G, a.S, a.hd, a.window,
-      a.n_split, a.span, a.scale);
+      a.valid_len, a.out, a.lse, pm, pl, pa, a.Hkv, a.G, a.S, a.hd, a.window, a.n_split,
+      a.span, a.scale);
   if (pm) {
     decode_combine_kernel<T><<<a.B * a.Hkv, kThreads, 0, a.stream>>>(
-        pm, pl, pa, static_cast<T*>(a.out), a.G, a.hd, a.n_split);
+        pm, pl, pa, a.out, a.lse, a.G, a.hd, a.n_split);
   }
 }
 
@@ -471,24 +505,24 @@ bool launch_t(const Args& a) {
 }  // namespace split
 }  // namespace
 
+// lse: null, or the partial mode's (B, Hq) fp32 log-sum-exp (out then fp32).
 // Returns cudaGetLastError() after the launch.
 extern "C" int rt_decode_attention(const void* q, const void* k, const void* v,
                                    const void* valid_len, void* out, int B, int Hkv, int G,
                                    int S, int hd, int window, float scale, int dtype,
-                                   void* stream) {
+                                   void* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* vl = static_cast<const int*>(valid_len);
+  float* ls = static_cast<float*>(lse);
   const int grid = B * Hkv;
   if (dtype == rt::kFloat32) {
     decode_attention_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), vl, static_cast<float*>(out), Hkv, G, S, hd, window,
-        scale);
+        static_cast<const float*>(v), vl, out, ls, Hkv, G, S, hd, window, scale);
   } else if (dtype == rt::kBFloat16) {
     decode_attention_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), vl, static_cast<__nv_bfloat16*>(out), Hkv, G, S,
-        hd, window, scale);
+        static_cast<const __nv_bfloat16*>(v), vl, out, ls, Hkv, G, S, hd, window, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -497,19 +531,20 @@ extern "C" int rt_decode_attention(const void* q, const void* k, const void* v,
 
 // The split route: one launch at n_split 1, else the split kernel and the merge.
 // part: fp32 scratch of B * Hkv * n_split * G * (hd + 2) values, null at n_split 1.
+// lse: null, or the partial mode's (B, Hq) fp32 log-sum-exp (out then fp32).
 // Returns cudaGetLastError() after the launches.
 extern "C" int rt_decode_attention_split(const void* q, const void* k, const void* v,
                                          const void* valid_len, void* out, void* part, int B,
                                          int Hkv, int G, int S, int hd, int window,
                                          int n_split, int span, float scale, int dtype,
-                                         void* stream) {
+                                         void* lse, void* stream) {
   if (hd % 8 != 0 || hd > kMaxHd || G < 1 || G > kMaxG || n_split < 1 || span < 1 ||
       (n_split > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const split::Args a{q, k, v, static_cast<const int*>(valid_len), out,
-                      static_cast<float*>(part), B, Hkv, G, S, hd, window, n_split, span,
-                      scale, static_cast<cudaStream_t>(stream)};
+                      static_cast<float*>(part), static_cast<float*>(lse), B, Hkv, G, S, hd,
+                      window, n_split, span, scale, static_cast<cudaStream_t>(stream)};
   bool ok = false;
   if (dtype == rt::kFloat32) ok = split::launch_t<float>(a);
   else if (dtype == rt::kBFloat16) ok = split::launch_t<__nv_bfloat16>(a);

@@ -20,6 +20,13 @@ pointers' alignment, nothing else:
 
 Both read only the visible positions and keep the Pallas order: scores in
 fp32, scaled after the dot; a row with no visible position gives zeros.
+
+The partial mode (:func:`decode_attention_partial_cuda`, either route) is
+the body of the tensor-parallel decode, where each rank holds a cut of the
+cache's sequence: it returns the output in fp32, normalised by this call's
+own denominator and not cast, and the rows' log-sum-exp ``m + log(l)``
+(B, Hq) fp32, ``-inf`` (and zeros) where no position is visible, for
+``serve.flash_decoding.merge_partials`` to merge across ranks.
 ``valid_len`` is an int32 ``(B,)`` device tensor (a scalar or another form
 is made into one here, one fill launch); it stays on the device, so the
 launch never waits for the host and a CUDA graph of it replays at any fill
@@ -143,32 +150,47 @@ def _check_key(q, k_cache, v_cache) -> tuple[bool, SplitPlan]:
 
 
 def launch(route_name: str, q, k_cache, v_cache, valid_len: torch.Tensor, window: int,
-           plan: SplitPlan | None = None) -> torch.Tensor:
+           plan: SplitPlan | None = None, *, partial: bool = False):
     """Run ``route_name``'s body on checked contiguous CUDA tensors, ``valid_len``
     an int32 (B,) tensor on their device; the caller counts.  ``plan``: the
-    ``"split"`` body's spans (``"simt"`` takes none)."""
+    ``"split"`` body's spans (``"simt"`` takes none).  Returns the output, or
+    with ``partial`` the pair (fp32 output, lse (B, Hq) fp32)."""
     B, Hq, _, hd = q.shape
     _, Hkv, S, _ = k_cache.shape
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if partial else q.dtype)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device) if partial else None
+    lse_ptr = None if lse is None else lse.data_ptr()
     scale = float(hd ** -0.5)
     if route_name == "simt":
         build.launch("rt_decode_attention", q.device, q.data_ptr(),
                      k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
                      out.data_ptr(), B, Hkv, Hq // Hkv, S, hd, int(window), scale,
-                     DTYPES[q.dtype])
-        return out
-    part = (torch.empty(B * Hq * plan.n_split * (hd + 2), dtype=torch.float32, device=q.device)
-            if plan.n_split > 1 else None)
-    build.launch("rt_decode_attention_split", q.device,
-                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
-                 out.data_ptr(), None if part is None else part.data_ptr(), B, Hkv, Hq // Hkv,
-                 S, hd, int(window), plan.n_split, plan.span, scale, DTYPES[q.dtype])
-    return out
+                     DTYPES[q.dtype], lse_ptr)
+    else:
+        part = (torch.empty(B * Hq * plan.n_split * (hd + 2), dtype=torch.float32,
+                            device=q.device) if plan.n_split > 1 else None)
+        build.launch("rt_decode_attention_split", q.device,
+                     q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
+                     out.data_ptr(), None if part is None else part.data_ptr(), B, Hkv,
+                     Hq // Hkv, S, hd, int(window), plan.n_split, plan.span, scale,
+                     DTYPES[q.dtype], lse_ptr)
+    return (out, lse) if partial else out
 
 
 def decode_attention_cuda(q, k_cache, v_cache, valid_len, *, window: int = 0) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; ``valid_len``: scalar or (B,).  On meta
     tensors everything but the launch runs and nothing is counted."""
+    return _call(q, k_cache, v_cache, valid_len, window, False)
+
+
+def decode_attention_partial_cuda(q, k_cache, v_cache, valid_len, *,
+                                  window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial mode on CUDA tensors (the module's docstring): ``(out (B,
+    Hq, 1, hd) fp32, lse (B, Hq) fp32)``; counted as any launch."""
+    return _call(q, k_cache, v_cache, valid_len, window, True)
+
+
+def _call(q, k_cache, v_cache, valid_len, window: int, partial: bool):
     global launches
     split_ok, plan = build.checked_once(
         _checked, (q.shape, k_cache.shape, v_cache.shape, q.dtype, k_cache.dtype,
@@ -182,9 +204,12 @@ def decode_attention_cuda(q, k_cache, v_cache, valid_len, *, window: int = 0) ->
             and vl.device == q.device and vl.is_contiguous()):
         vl = valid_len_vector(valid_len, B, q.device)
     if q.numel() == 0:
+        if partial:
+            return (torch.empty_like(q, dtype=torch.float32),
+                    torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
         return torch.empty_like(q)
     name = "split" if split_ok and _aligned(q, k_cache, v_cache) else "simt"
-    out = launch(name, q, k_cache, v_cache, vl, window, plan)
+    out = launch(name, q, k_cache, v_cache, vl, window, plan, partial=partial)
     if q.is_cuda:
         launches += 1
         route_launches[name] += 1

@@ -315,6 +315,29 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, window: int = 0):
     return _decode(q, k_cache, v_cache, valid_len, window)
 
 
+def _decode_partial(q, k_cache, v_cache, valid_len, window):
+    if _on_cuda(q, "decode_attention"):
+        return _decode_attention.decode_attention_partial_cuda(q, k_cache, v_cache, valid_len,
+                                                               window=window)
+    return ref.decode_attention_partial_ref(q, k_cache, v_cache, valid_len, window=window)
+
+
+def decode_attention_partial(q, k_cache, v_cache, valid_len, *, window: int = 0):
+    """The decode kernel's partial mode over one rank's cut of a cache: ``(out
+    (B, Hq, 1, hd) fp32 normalised by this cut's denominator, lse (B, Hq)
+    fp32)``, ``-inf`` and zeros where nothing is visible.  Priced by the step
+    counter as :func:`decode_attention` (the same kernel)."""
+    if _count.ACTIVE is not None:
+        B, Hq, _, hd = q.shape
+        _, Hkv, S, _ = k_cache.shape
+        return _count.kernel(
+            "decode_attention",
+            lambda: _cost.decode_attention_cost(B, Hq, Hkv, S, hd, window=window,
+                                                dtype_bytes=q.element_size()),
+            _decode_partial, q, k_cache, v_cache, valid_len, window)
+    return _decode_partial(q, k_cache, v_cache, valid_len, window)
+
+
 def mlstm_scan(q, k, v, i_raw, log_f, *, chunk: int = 128):
     """Chunked mLSTM: q, k (B, H, S, dqk); v (B, H, S, dv); i_raw, log_f (B, H,
     S) -> h (B, H, S, dv) in v's dtype.  ``S`` must be a multiple of

@@ -8,6 +8,8 @@ smoke run holds each CUDA kernel against them on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -235,6 +237,37 @@ def decode_attention_ref(q, k_cache, v_cache, valid_len, *, window: int = 0) -> 
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()) / torch.where(l == 0, 1.0, l)
     return out.reshape(B, Hq, 1, -1).to(v_cache.dtype)
+
+
+def decode_attention_partial_ref(q, k_cache, v_cache, valid_len, *,
+                                 window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's partial mode: :func:`decode_attention_ref`'s
+    attention over the visible positions of this cache (one rank's cut of a
+    longer one), in fp32 and not cast, with the rows' log-sum-exp.
+
+    Returns ``(out (B, Hq, 1, hd) fp32, lse (B, Hq) fp32)``: ``out`` is
+    normalised by this cache's own denominator ``l`` and ``lse = m + log(l)``
+    with ``m`` the largest visible scaled score; a row with no visible
+    position gives zeros and ``lse = -inf``.
+    """
+    B, Hq, _, hd = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    G = Hq // Hkv
+    qg = q.float().reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float()) * (hd ** -0.5)
+    vl = valid_len_vector(valid_len, B, q.device)[:, None]          # (B, 1)
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = pos < vl
+    if window > 0:
+        mask &= pos > vl - 1 - window
+    mask = mask[:, None, None, :]                                   # (B, 1, 1, S)
+    s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()) / torch.where(l == 0, 1.0, l)
+    lse = torch.where(l == 0, -math.inf, m + torch.log(l.clamp_min(1e-38)))
+    return out.reshape(B, Hq, 1, -1), lse.reshape(B, Hq)
 
 
 def decode_attention_split_ref(q, k_cache, v_cache, valid_len, *, window: int = 0,

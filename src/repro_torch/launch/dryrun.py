@@ -16,9 +16,14 @@ storage, nothing drawn), and judges the cell two ways:
   counted on meta, and its live-bytes peak (its parameter shards, its ZeRO
   state, the batch, the activations, gradients and the update's
   temporaries) is ``total_bytes``, against which ``fits_80gb`` is judged;
-  its FLOPs, traffic and collective bytes ride beside it (``step``).  The
-  other families and the serving cells (no ``model`` axis is executed
-  there) keep the state alone: ``fits_80gb`` on ``state_bytes``.
+  its FLOPs, traffic and collective bytes ride beside it (``step``).  Its
+  serving cells (``prefill_32k``, ``decode_32k`` and, with a window,
+  ``long_500k``) count rank 0's tensor-parallel ``prefill`` or
+  ``decode_step`` the same way (``train.step.tp_serve_costs``): its
+  parameter shards, its shard of the cache (slots cut over ``model``, rows
+  over the data axes where the batch divides), its inputs and the step's
+  peak above them make ``total_bytes``.  The other families keep the state
+  alone: ``fits_80gb`` on ``state_bytes``.
 * **data_parallel** — what the port executes today: every chip a data
   rank, ZeRO-1 over all of them (``opt_state_specs`` on a ``chips x 1``
   mesh).  One step at a rank's rows (``global_batch / chips``, rounded up:
@@ -72,7 +77,7 @@ from ..roofline import count as C
 from ..roofline.analysis import RooflineReport, model_flops
 from ..roofline.table import analytic_cell
 from ..train.optimizer import AdamWConfig, abstract_opt_state, opt_state_specs
-from ..train.step import step_costs, tp_step_costs
+from ..train.step import step_costs, tp_serve_costs, tp_step_costs
 from ..parallel import NamedSharding
 from .mesh import AbstractMesh, make_abstract_production_mesh
 
@@ -153,6 +158,15 @@ def _tp_meta_step(cfg, shape: ShapeConfig, multi_pod: bool) -> dict:
     return tp_step_costs(model, batch, mesh)
 
 
+@functools.lru_cache(maxsize=None)
+def _tp_meta_serve(cfg, shape: ShapeConfig, multi_pod: bool) -> dict:
+    """The counts of rank 0's tensor-parallel prefill or decode step on the
+    production mesh, on meta, once a process for each cell."""
+    mesh = make_abstract_production_mesh(multi_pod=multi_pod)
+    model = build_model(cfg, mesh=mesh, model_axis=mesh.shape["model"], device="meta")
+    return tp_serve_costs(model, mesh, shape.kind, shape.global_batch, shape.seq_len)
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, overrides: dict = None,
              save: bool = True, out_dir: Path | str | None = None,
              cfg: ModelConfig | None = None, shape: ShapeConfig | None = None) -> dict:
@@ -187,9 +201,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, overrides: 
             "input_bytes": _shard_bytes(batch_abs, batch_spec, mesh)}
     prod["state_bytes"] = sum(prod.values())
     prod["fits_80gb"] = prod["state_bytes"] <= HBM_PER_CHIP
-    prod["executed"] = is_train and model.tensor_parallel
+    prod["executed"] = model.tensor_parallel
     if prod["executed"]:
-        tp = _tp_meta_step(cfg, shape, multi_pod)
+        tp = (_tp_meta_step if is_train else _tp_meta_serve)(cfg, shape, multi_pod)
         prod["step_peak_above_state_bytes"] = tp["peak_above_start_bytes"]
         prod["total_bytes"] = tp["peak_bytes"]
         prod["fits_80gb"] = prod["total_bytes"] <= HBM_PER_CHIP

@@ -290,6 +290,11 @@ def _rank_main(inbox, results, fn, rank: int, world_size: int, init_method: str)
             dist.destroy_process_group()
 
 
+#: seconds ``run_ranks`` waits, once it sees a rank dead without a result,
+#: for the other ranks still running to end before it names the dead ones
+DEATH_GRACE = 5.0
+
+
 def run_ranks(fn: Callable, world_size: int, *args, init_method: str,
               timeout: float = 120.0) -> list:
     """Run ``fn(rank, world_size, init_method, *args)`` in ``world_size``
@@ -298,7 +303,11 @@ def run_ranks(fn: Callable, world_size: int, *args, init_method: str,
     ``fn`` must be importable by name and its results picklable (numbers,
     strings, numpy arrays).  A rank that raises, or a world not done within
     ``timeout`` seconds, stops every process and raises here with the
-    failing rank's traceback.
+    failing rank's traceback.  A rank that exits without a result is seen
+    within a second; the ranks then get :data:`DEATH_GRACE` seconds more to
+    end (or until every one has), and the error names every rank that exited
+    without a result by then, so ranks that die a few seconds apart are all
+    named.
     """
     ctx = multiprocessing.get_context("spawn")
     inbox, results = ctx.Queue(), ctx.Queue()
@@ -323,8 +332,13 @@ def run_ranks(fn: Callable, world_size: int, *args, init_method: str,
             try:
                 rank, ok, payload = results.get(timeout=min(left, 1.0))
             except queue.Empty:
-                dead = [r for r, p in enumerate(procs) if r not in out and p.exitcode]
-                if dead:
+                if any(r not in out and p.exitcode for r, p in enumerate(procs)):
+                    grace = time.monotonic() + DEATH_GRACE
+                    while (time.monotonic() < grace
+                           and any(p.exitcode is None for r, p in enumerate(procs)
+                                   if r not in out)):
+                        time.sleep(0.05)
+                    dead = [r for r, p in enumerate(procs) if r not in out and p.exitcode]
                     raise RuntimeError(f"ranks {dead} exited ({[procs[r].exitcode for r in dead]}) "
                                        "without a result")
                 continue

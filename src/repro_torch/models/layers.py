@@ -112,6 +112,36 @@ def cache_slot(index: int, S_cache: int, window: int) -> tuple[int, int]:
     raise IndexError(f"decode index {index} past the cache length {S_cache}")
 
 
+class ShardSlot(NamedTuple):
+    """:func:`cache_shard_slot`'s answer for a cache cut on its slots over ``tp`` ranks."""
+
+    owner: int              # the rank whose cut holds the token's slot
+    local: int              # that slot in the owner's cut
+    counts: tuple           # each rank's visible slots of its own cut, rank by rank
+
+
+def cache_shard_slot(index: int, S_cache: int, window: int, tp: int) -> ShardSlot:
+    """:func:`cache_slot` for a cache of ``S_cache`` slots cut into ``tp`` equal
+    parts, rank ``i`` holding slots ``[i S/tp, (i + 1) S/tp)`` (JAX's cache
+    specs over the ``model`` axis).
+
+    The visible slots are always a prefix of the whole cache (a ring fills
+    slots 0, 1, ... before it wraps), so rank ``i`` sees
+    ``clamp(n_valid - i S/tp, 0, S/tp)`` of its own; once a ring is warm
+    every slot of every rank is visible, and the writing rank moves with
+    ``index % S_cache``.  ``S_cache`` not a multiple of ``tp`` raises
+    ``ValueError`` (JAX's ``NamedSharding`` cannot cut it either); an index
+    past a cache without a window raises ``IndexError``.
+    """
+    if S_cache % tp:
+        raise ValueError(f"a cache of {S_cache} slots does not cut into {tp} equal parts "
+                         "over the model axis")
+    slot, n_valid = cache_slot(index, S_cache, window)
+    per = S_cache // tp
+    counts = tuple(min(max(n_valid - i * per, 0), per) for i in range(tp))
+    return ShardSlot(slot // per, slot % per, counts)
+
+
 def swiglu(x, w_gate, w_up, w_down):
     return ops.swiglu_mlp(x, w_gate, w_up, w_down)
 

@@ -57,8 +57,41 @@ the identity, so the same code runs every axis size):
   are summed where only ``d_model`` does; replicated otherwise.
 
 Replicated leaves (norm gammas, ``router``, ``w_dkv``, ``kv_ln``) get the
-same gradient on every rank of the axis.  Serving under the ``model`` axis
-is not ported: ``prefill`` and ``decode_step`` raise there.
+same gradient on every rank of the axis.
+
+**Serving over the ``model`` axis.**  The weights stay cut as above and the
+decode cache is cut as JAX's specs cut it (:meth:`cache_layout`): a rank
+holds slots ``[i S/tp, (i + 1) S/tp)`` of every kv head (or of MLA's
+``c_kv`` and ``k_rope``) for its own rows over the data axes
+(:meth:`init_cache`; ``params.shard_cache`` cuts a whole cache so).
+``decode_step`` on such a rank:
+
+* GQA: q, k and v of this rank's columns, gathered to every head in one
+  all-gather of the three concatenated; the rank that holds the token's slot
+  alone writes k and v there (``layers.cache_shard_slot``: a window's ring
+  moves the writing rank as ``index % S`` wraps); the decode-attention
+  kernel's partial mode over this rank's slots for every head
+  (``ops.decode_attention_partial``: fp32 output and log-sum-exp), merged
+  across the ranks (``serve.flash_decoding.merge_partials``), then this
+  rank's slice of the heads into the row-parallel ``wo``;
+* MLA: ``q_eff`` and the roped ``q_rope`` of this rank's heads, gathered to
+  every head; the scores against this rank's slots of the latent cache,
+  their ``(max, sum, context)`` over ``r`` in fp32 merged across ranks as
+  above; this rank's heads through ``w_uv`` and ``wo``, reduced.  With the
+  queries cut inside a head, the projection, ``w_uk`` and ``w_uv`` are
+  gathered and every rank computes every head;
+* the MLP, the experts and the embedding as in training; the experts route
+  the global batch inside :meth:`rows_split`.
+
+``prefill`` runs the tensor-parallel ``backbone``.  Both return the whole
+``(B, 1, vocab)`` fp32 logits on every rank: a vocab cut's local logits
+gathered, a ``d_model`` cut's row-parallel logits summed.  Against the
+single-device decode this rounds differently in two places: the cross-rank
+merge sums the ranks' normalised outputs (where one device sums over the
+whole cache once), and MLA's context is taken from the fp32 probabilities
+and cast once after the merge, where the single device (and JAX) casts the
+normalised probabilities to the cache's dtype before the product.  In fp32
+both are the order of sums alone.
 
 With :meth:`rows_split` (``train.step.DataParallelStep``) the rows are one
 rank's part of a batch cut over the data axes, and the experts route the
@@ -77,13 +110,15 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve
+from ..kernels import ops
 from ..parallel import (copy_to_region, gather_from_region, reduce_from_region,
                         scatter_to_region, tp_mesh, tp_size)
+from ..serve.flash_decoding import merge_partials
 from . import params as PM
 from .params import TP, P, dp_axes
 from .remat import remat
-from .layers import (blockwise_attention, cache_slot, decode_attention, moe_block, rms_norm, rope,
-                     swiglu)
+from .layers import (blockwise_attention, cache_shard_slot, decode_attention, moe_block,
+                     rms_norm, rope, swiglu)
 
 
 
@@ -258,7 +293,12 @@ class DecoderLM(nn.Module):
         return {"layers": PM.stack(cfg.n_layers, per)}
 
     def init_cache(self, batch: int, seq: int) -> dict:
-        return PM.zeros_cache(self.cache_layout(batch, seq), device=self.device, dtype=self.dtype)
+        """A zero cache for ``batch`` requests of ``seq`` slots; over a ``model``
+        axis above 1, this rank's shard of it (``params.cache_shards``)."""
+        layout = self.cache_layout(batch, seq)
+        if self.tp > 1:
+            layout = PM.cache_shards(layout, self.mesh)
+        return PM.zeros_cache(layout, device=self.device, dtype=self.dtype)
 
     # ------------------------------------------------------------- pieces
     def embed(self, params, tokens):
@@ -324,6 +364,18 @@ class DecoderLM(nn.Module):
         if nq % nk == 0 and want == [i // (nq // nk) for i in range(nq)]:
             return False, slice(k0, k1)
         return False, [(lo + i) // G for i in range(nq)]
+
+    def _gather_columns(self, *parts, dim: int = -1):
+        """Each of ``parts`` (one shape but the last dimension) with every rank's
+        part of it concatenated along ``dim`` in rank order, in one all-gather
+        of the parts side by side."""
+        widths = [t.shape[-1] for t in parts]
+        ranks = self.tp_mesh.all_gather(torch.cat(parts, -1), TP)
+        out, start = [], 0
+        for w in widths:
+            out.append(torch.cat([r[..., start:start + w] for r in ranks], dim))
+            start += w
+        return out
 
     def _attn_out(self, p, x, out, local: bool):
         """x plus ``wo`` of the attention output (B, S, heads x v width):
@@ -416,13 +468,14 @@ class DecoderLM(nn.Module):
             aux = aux + a
         return rms_norm(x, params["final_ln"], self.cfg.norm_eps), aux
 
-    def _decode_attn(self, p, x, cache: dict, slot: int, pos, seen):
-        """One-token attention; writes ``slot`` of this layer's cache in place.
+    def _decode_attn(self, p, x, cache: dict, slot, pos, seen):
+        """One-token attention; writes ``slot`` of this layer's cache in place
+        (this rank's local slot, or None where another rank holds the token's).
 
         ``pos`` is the token's position as a (1,) int64 tensor, both on the
         model's device and made once a step for every layer, as is ``seen``:
-        the visible slots, an int32 (B,) count for GQA, a bool (S,) mask over
-        the latent cache for MLA.
+        the visible slots of this rank's cache, an int32 (B,) count for GQA,
+        a bool (S,) mask over the latent cache for MLA.
         """
         if self.cfg.mla is not None:
             return self._decode_attn_mla(p, x, cache["c_kv"], cache["k_rope"], slot, pos, seen)
@@ -436,6 +489,8 @@ class DecoderLM(nn.Module):
         v = h @ p["wv"]
         if cfg.qkv_bias:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        if self.tp > 1:
+            q, k, v = self._gather_columns(q, k, v)                     # every head
         # (B, 1, heads * hd) -> (B, heads, 1, hd): with one position this is a view
         q = q.view(B, H, 1, hd)
         k = k.view(B, Hkv, 1, hd)
@@ -446,40 +501,64 @@ class DecoderLM(nn.Module):
         if cfg.rope_theta:
             q = rope(q, pos, cfg.rope_theta)
             k = rope(k, pos, cfg.rope_theta)
-        k_cache[:, :, slot] = k[:, :, 0]
-        v_cache[:, :, slot] = v[:, :, 0]
-        out = decode_attention(q, k_cache, v_cache, seen, window=0)
-        return x + out.view(B, 1, H * hd) @ p["wo"]
+        if slot is not None:
+            k_cache[:, :, slot] = k[:, :, 0]
+            v_cache[:, :, slot] = v[:, :, 0]
+        if self.tp == 1:
+            out = decode_attention(q, k_cache, v_cache, seen, window=0)
+            return x + out.view(B, 1, H * hd) @ p["wo"]
+        part, lse = ops.decode_attention_partial(q, k_cache, v_cache, seen)
+        out = merge_partials(part, lse, self.tp_mesh, TP, dtype=v_cache.dtype)
+        return self._attn_out(p, x, out.view(B, 1, H * hd), local=False)
 
-    def _decode_attn_mla(self, p, x, c_kv, k_rope, slot: int, pos, seen):
+    def _decode_attn_mla(self, p, x, c_kv, k_rope, slot, pos, seen):
         """MLA decode with the absorbed projections, in JAX's roundings: q_eff in
         the model's dtype, both scores summed in fp32 (the bf16 operands cast
         to fp32, which is exact), scaled by 1/sqrt(qk_nope + qk_rope), the
-        probabilities cast to the cache's dtype before the context product."""
+        probabilities cast to the cache's dtype before the context product.
+        Over a ``model`` axis, every head's scores against this rank's slots
+        and the partial contexts merged across ranks (the module's docstring)."""
         cfg = self.cfg
         m = cfg.mla
         B = x.shape[0]
         H = cfg.n_heads
         r = m.kv_lora_rank
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        q = (h @ p["wq"]).view(B, H, 1, m.qk_nope_dim + m.qk_rope_dim)
+        lo, hi, local = self._head_span(H)
+        q, w_uk, w_uv = h @ p["wq"], p["w_uk"], p["w_uv"]
+        if not local:                     # the queries cut inside a head: every head here
+            q, = self._gather_columns(q)
+            w_uk, w_uv = (torch.cat(self.tp_mesh.all_gather(w, TP), -1) for w in (w_uk, w_uv))
+        n = hi - lo
+        q = q.view(B, n, 1, m.qk_nope_dim + m.qk_rope_dim)
         q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
-        q_rope = rope(q_rope, pos, cfg.rope_theta)
+        q_rope = rope(q_rope, pos, cfg.rope_theta)[:, :, 0]              # (B, n, rope)
         c_new, kr_new = self._mla_latent(p, h)                            # (B, 1, r), (B, 1, rope)
-        c_kv[:, slot] = c_new[:, 0]
-        k_rope[:, slot] = rope(kr_new, pos, cfg.rope_theta)[:, 0]
+        if slot is not None:
+            c_kv[:, slot] = c_new[:, 0]
+            k_rope[:, slot] = rope(kr_new, pos, cfg.rope_theta)[:, 0]
         # absorbed decode: score against the latent directly, heads as the batch
-        w_uk = p["w_uk"].view(r, H, m.qk_nope_dim).permute(1, 2, 0)          # (H, nope, r)
-        q_eff = torch.bmm(q_nope[:, :, 0].transpose(0, 1), w_uk).transpose(0, 1)  # (B, H, r)
+        w_uk = w_uk.view(r, n, m.qk_nope_dim).permute(1, 2, 0)              # (n, nope, r)
+        q_eff = torch.bmm(q_nope[:, :, 0].transpose(0, 1), w_uk).transpose(0, 1)  # (B, n, r)
+        if self.tp > 1 and local:
+            q_eff, q_rope = self._gather_columns(q_eff, q_rope, dim=1)     # every head
         s = torch.bmm(q_eff.float(), c_kv.float().transpose(1, 2))          # (B, H, S)
-        s = s + torch.bmm(q_rope[:, :, 0].float(), k_rope.float().transpose(1, 2))
+        s = s + torch.bmm(q_rope.float(), k_rope.float().transpose(1, 2))
         s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
         s = torch.where(seen, s, -1e30)
-        pr = torch.softmax(s, dim=-1)
-        ctx = torch.bmm(pr.to(c_kv.dtype), c_kv)                            # (B, H, r)
-        w_uv = p["w_uv"].view(r, H, m.v_head_dim).transpose(0, 1)          # (H, r, vd)
-        out = torch.bmm(ctx.transpose(0, 1), w_uv).transpose(0, 1)          # (B, H, vd)
-        return x + out.reshape(B, 1, H * m.v_head_dim) @ p["wo"]
+        if self.tp == 1:
+            pr = torch.softmax(s, dim=-1)
+            ctx = torch.bmm(pr.to(c_kv.dtype), c_kv)                        # (B, H, r)
+        else:
+            top = s.amax(-1, keepdim=True)
+            e = torch.exp(s - top) * seen
+            l = e.sum(-1, keepdim=True)
+            ctx = torch.bmm(e, c_kv.float()) / torch.where(l == 0, 1.0, l)
+            lse = torch.where(l == 0, -math.inf, top + torch.log(l))
+            ctx = merge_partials(ctx, lse, self.tp_mesh, TP, dtype=c_kv.dtype)[:, lo:hi]
+        w_uv = w_uv.view(r, n, m.v_head_dim).transpose(0, 1)               # (n, r, vd)
+        out = torch.bmm(ctx.transpose(0, 1), w_uv).transpose(0, 1)          # (B, n, vd)
+        return self._attn_out(p, x, out.reshape(B, 1, n * m.v_head_dim), local)
 
     def _inputs(self, params, batch):
         """``(x, n_img)``: the text embeddings, behind ``img_emb``'s n_img
@@ -537,20 +616,26 @@ class DecoderLM(nn.Module):
         return (lse - gold).mean()
 
     # ------------------------------------------------------------ serving
-    def _no_tp_serving(self) -> None:
-        if self.tp > 1:
-            raise NotImplementedError(f"{self.cfg.arch}: serving over a model axis of {self.tp} "
-                                      "is not ported; serve with model 1")
+    def _serve_logits(self, params, h):
+        """The whole fp32 logits of ``h`` on every rank: a vocab cut's local
+        columns gathered, a ``d_model`` cut's row-parallel products summed."""
+        if self._vocab_cut == "vocab":
+            local = h @ self._head_weight(params)
+            return torch.cat(self.tp_mesh.all_gather(local, TP), -1).float()
+        if self._vocab_cut == "d_model":
+            h_part = scatter_to_region(h, self.tp_mesh, -1)
+            return reduce_from_region(h_part @ self._head_weight(params), self.tp_mesh).float()
+        return self.unembed(params, h).float()
 
     @torch.no_grad()
     def prefill(self, params, batch):
         """Full-sequence forward returning the last position's fp32 logits (B, 1,
         vocab); a VLM's batch also holds ``img_emb``, as for :meth:`loss`."""
-        self._no_tp_serving()
+        self._check_tp()
         x, _ = self._inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         h, _ = self.backbone(params, x, positions)
-        return self.unembed(params, h[:, -1:]).float()
+        return self._serve_logits(params, h[:, -1:])
 
     # -------------------------------------------------------------- decode
     @torch.no_grad()
@@ -561,30 +646,36 @@ class DecoderLM(nn.Module):
         :meth:`init_cache`, ``index`` the int position of the new token.
         Returns ``(logits (B, 1, vocab) fp32, cache)``; the cache is updated
         in place.  An index past a cache with no window raises ``IndexError``
-        (``layers.cache_slot``): MLA's latent cache has no ring.
+        (``layers.cache_slot``): MLA's latent cache has no ring.  Over a
+        ``model`` axis the rows and the cache are this rank's (the module's
+        docstring) and the logits are whole.
         """
-        self._no_tp_serving()
+        self._check_tp()
         cfg = self.cfg
         tokens, cache, index = batch["tokens"], batch["cache"], int(batch["index"])
         x = self.embed(params, tokens)
         # fills on the device, not copies from the host that would wait for it
         pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
+        top = cache["layers"]
         if cfg.mla is not None:
-            S = cache["layers"]["c_kv"].shape[2]
-            slot, _ = cache_slot(index, S, 0)
-            seen = torch.arange(S, device=x.device) <= index
+            S = top["c_kv"].shape[2]
+            where = cache_shard_slot(index, S * self.tp, 0, self.tp)
+            seen = torch.arange(S, device=x.device) < where.counts[self.tp_rank]
         else:
-            slot, n_valid = cache_slot(index, cache["layers"]["k"].shape[3], cfg.sliding_window)
-            seen = torch.full((x.shape[0],), n_valid, dtype=torch.int32, device=x.device)
+            S = top["k"].shape[3]
+            where = cache_shard_slot(index, S * self.tp, cfg.sliding_window, self.tp)
+            seen = torch.full((x.shape[0],), where.counts[self.tp_rank], dtype=torch.int32,
+                              device=x.device)
+        slot = where.local if where.owner == self.tp_rank else None
         if "layer0" in params:
             x = self._decode_attn(params["layer0"]["attn"], x, cache["layer0"], slot, pos, seen)
             x, _ = self._mlp(params["layer0"]["mlp"], x, moe=False)
-        lp, lc, moe = params["layers"], cache["layers"], cfg.moe is not None
+        lp, moe = params["layers"], cfg.moe is not None
         for i in range(lp["attn"]["ln"].shape[0]):
             attn = {name: t[i] for name, t in lp["attn"].items()}
             mlp = {name: t[i] for name, t in lp["mlp"].items()}
-            x = self._decode_attn(attn, x, {name: t[i] for name, t in lc.items()}, slot, pos,
+            x = self._decode_attn(attn, x, {name: t[i] for name, t in top.items()}, slot, pos,
                                   seen)
             x, _ = self._mlp(mlp, x, moe=moe)
         h = rms_norm(x, params["final_ln"], cfg.norm_eps)
-        return self.unembed(params, h).float(), cache
+        return self._serve_logits(params, h), cache

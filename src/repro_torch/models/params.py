@@ -9,7 +9,8 @@ one, :func:`specs` reads a layout's).  The ZeRO layout of the optimizer
 state (``train.optimizer.opt_state_specs``) and a rank's rows of a batch
 (``registry._batch_spec``) are derived from them, and :func:`shard_params`
 cuts a rank's parameters by their ``model`` entries, which a decoder built
-over a mesh with a ``model`` axis executes (``lm.py``).
+over a mesh with a ``model`` axis executes (``lm.py``); :func:`cache_shards`
+and :func:`shard_cache` cut its decode cache by every axis of its spec.
 
 :func:`abstract` gives a layout's tensors on the meta device (no storage,
 no draw) for the dry-run; :func:`param_count` and :func:`param_bytes` are
@@ -205,6 +206,35 @@ def zeros_cache(layout, *, device, dtype) -> dict:
     """A zero-filled cache for a cache layout, each leaf in ``info.dtype or dtype``."""
     return tree_map(lambda i: torch.zeros(i.shape, dtype=as_dtype(i.dtype or dtype),
                                           device=device), layout)
+
+
+def cache_sharding(info: ParamInfo, mesh) -> NamedSharding:
+    """The cut of a cache leaf over ``mesh``: its spec, with the batch axes
+    (``pod``, ``data``) taken out of an entry whose dimension they do not
+    divide, as ``registry.input_specs`` does (a batch of 1 is whole on every
+    rank)."""
+    spec = []
+    for size, e in zip(info.shape, info.spec):
+        names = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        dp = [a for a in names if a in DP]
+        if dp and size % mesh.axis_size(dp):
+            names = tuple(a for a in names if a not in DP)
+        spec.append(names)
+    return NamedSharding(mesh, P(*spec))
+
+
+def cache_shards(layout, mesh):
+    """``layout`` with each leaf's shape this rank's shard of it (:func:`cache_sharding`)."""
+    return tree_map(lambda i: replace(i, shape=cache_sharding(i, mesh).shard_shape(i.shape)),
+                    layout)
+
+
+def shard_cache(cache, layout, mesh) -> dict:
+    """This rank's shard of every whole leaf of a decode ``cache`` of ``layout``
+    (:func:`cache_sharding`), each a contiguous tensor of its own."""
+    it = iter([cache_sharding(i, mesh).shard(t)
+               for t, i in zip(tree_leaves(cache), tree_leaves(layout))])
+    return tree_map(lambda _: next(it), cache)
 
 
 def keep_axes(spec: tuple, axes) -> tuple:

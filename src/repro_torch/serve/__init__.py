@@ -2,6 +2,6 @@
 the ranks of a mesh (sequence-parallel decode attention)."""
 
 from .engine import ServeConfig, ServingEngine
-from .flash_decoding import make_flash_decode
+from .flash_decoding import make_flash_decode, merge_partials
 
-__all__ = ["ServeConfig", "ServingEngine", "make_flash_decode"]
+__all__ = ["ServeConfig", "ServingEngine", "make_flash_decode", "merge_partials"]

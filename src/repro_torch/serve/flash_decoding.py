@@ -14,9 +14,25 @@ the axis (10 heads over 4 ranks) are no obstacle: the cut is along the
 sequence, and each rank holds ``S / n`` slots.
 
 The per-shard partial is plain PyTorch, as JAX's is plain ``jnp``.
+
+:func:`merge_partials` merges the other form of the same partial, the one
+the decode-attention kernel's partial mode gives (``ops.decode_attention_
+partial``) and the tensor-parallel ``DecoderLM`` decode uses: each rank's
+output normalised by its own denominator, with its log-sum-exp ``lse_i``.
+With ``lse* = max_i lse_i``,
+
+    out = sum_i exp(lse_i - lse*) out_i / sum_i exp(lse_i - lse*)
+
+in fp32, cast once.  A rank that sees no slot has ``lse_i = -inf`` and
+weight 0.  The pairs travel in one all-gather (on one card every
+collective is a ``gloo`` round trip through host memory, so one call
+matters more than its bytes) and every rank merges them in rank order, so
+the result is the same bits on every rank.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -68,3 +84,28 @@ def make_flash_decode(mesh, axis: str = "model"):
         return out.reshape(B, Hq, 1, hd).to(v_shard.dtype)
 
     return fn
+
+
+def merge_partials(out, lse, mesh, axis: str = "model", *, dtype=None):
+    """The ranks' partial attention merged over ``axis`` (the module's docstring).
+
+    ``out`` (..., d) fp32 is this rank's output normalised by its own
+    denominator, ``lse`` its log-sum-exp, of ``out``'s shape without the last
+    dimension (or the same number of elements), ``-inf`` where the rank saw
+    nothing.  Returns the merged output in ``dtype`` (``out``'s by default),
+    zeros where no rank saw anything.
+    """
+    lead = out.shape[:-1]
+    packed = torch.cat([out.float(), lse.float().reshape(*lead, 1)], dim=-1)
+    parts = mesh.all_gather(packed, axis)
+    lse_star = parts[0][..., -1:]
+    for p in parts[1:]:
+        lse_star = torch.maximum(lse_star, p[..., -1:])
+    num = torch.zeros_like(parts[0][..., :-1])
+    den = torch.zeros_like(lse_star)
+    for p in parts:
+        l_i = p[..., -1:]
+        w = torch.where(l_i == -math.inf, 0.0, torch.exp(l_i - lse_star))
+        num = num + w * p[..., :-1]
+        den = den + w
+    return (num / torch.where(den == 0, 1.0, den)).to(dtype or out.dtype)

@@ -44,6 +44,7 @@ from ..models import params as PM
 from ..models.registry import _batch_spec, _dp_axes
 from ..parallel import NamedSharding
 from ..roofline import count as _count
+from ..serve.engine import data_rows
 from .optimizer import (AdamWConfig, abstract_opt_state, adamw_update, gather_params,
                         init_opt_state, init_zero_state, zero_shardings, zero_update_shards)
 from .sync import init_error_state, two_level_grad_sync
@@ -221,6 +222,40 @@ def tp_step_costs(model, batch, mesh, *, opt_cfg: Optional[AdamWConfig] = None) 
     layout = model.layout()
     params = PM.shard_params(PM.abstract(layout, model.cfg.dtype), layout, mesh)
     return _count.count(step, params, step.init_opt_state(params), batch)[1]
+
+
+def tp_serve_costs(model, mesh, kind: str, batch: int, seq: int) -> dict:
+    """The counts (:func:`repro_torch.roofline.count.count`) of one rank's
+    ``prefill`` (``kind`` "prefill": ``seq`` positions, a VLM's image ones
+    among them) or ``decode_step`` (``kind`` "decode": the last slot of a cache
+    of ``seq``) for a global ``batch`` of requests, on meta under a
+    ``launch.mesh.AbstractMesh``: this rank's parameter shards (of
+    ``params.abstract``: nothing drawn), its rows (the batch cut over the data
+    axes where it divides, inside ``model.rows_split``; whole otherwise), its
+    shard of the cache (``model.init_cache``) and the collectives it makes.
+    ``start_bytes`` is the weights' shards, the cache shard and the inputs;
+    ``peak_bytes`` adds the step's peak above them."""
+    cfg = model.cfg
+    layout = model.layout()
+    params = PM.shard_params(PM.abstract(layout, cfg.dtype), layout, mesh)
+    axes, cut = data_rows(mesh, batch)
+    rows = cut.stop - cut.start
+    meta = torch.device("meta")
+    if kind == "decode":
+        step = model.decode_step
+        inputs = {"tokens": torch.empty((rows, 1), dtype=torch.int32, device=meta),
+                  "cache": model.init_cache(batch, seq), "index": seq - 1}
+    elif kind == "prefill":
+        step = model.prefill
+        n_img = cfg.vlm.n_image_tokens if cfg.vlm is not None else 0
+        inputs = {"tokens": torch.empty((rows, seq - n_img), dtype=torch.int32, device=meta)}
+        if n_img:
+            inputs["img_emb"] = torch.empty((rows, n_img, cfg.d_model),
+                                            dtype=PM.as_dtype(cfg.dtype), device=meta)
+    else:
+        raise ValueError(f"serving has no step of kind {kind!r}")
+    with model.rows_split(axes):
+        return _count.count(step, params, inputs)[1]
 
 
 def step_flops(model, batch, *, opt_cfg: Optional[AdamWConfig] = None, params=None,

@@ -8,6 +8,8 @@ load them.
 
 from __future__ import annotations
 
+import os
+import time
 import zlib
 
 import numpy as np
@@ -41,6 +43,14 @@ def sync_grads(coords: dict, shapes: dict, seed: int) -> dict:
     rng = np.random.default_rng([seed, coords.get("pod", 0), coords["data"], coords["model"]])
     return {k: (rng.integers(-512, 513, size=s) / 256.0).astype(np.float32)
             for k, s in shapes.items()}
+
+
+def die_apart(rank: int, world: int, init: str, delay: float) -> None:
+    """Exit without a result: rank 0 at once, every other rank ``delay``
+    seconds later."""
+    if rank:
+        time.sleep(delay)
+    os._exit(3)
 
 
 def sync_world(rank: int, world: int, init: str, shapes: dict) -> dict:
@@ -364,4 +374,90 @@ def tp_world(rank: int, world: int, init: str, cases: list, ckpt_dir: str,
         except NotImplementedError as err:
             refused.append(str(err))
     out["refused"] = refused
+    return out
+
+
+# ------------------------------------------------ serving over the model axis
+def tp_serve_case(mesh, cfg, jparams: dict, case: dict) -> dict:
+    """One serving case on ``mesh``: the JAX tree cut into this rank's shards,
+    ``prefill`` of the first ``prompt`` tokens of this rank's rows, every
+    token of ``tokens`` decoded teacher-forced through ``decode_step`` from
+    an empty cache of ``cache_len`` slots (the logits of each step and this
+    rank's cache shard at the end), and ``ServingEngine.generate`` (greedy)
+    on the global prompts."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve.engine import data_rows
+
+    model = build_model(cfg, model_axis=mesh.shape["model"], mesh=mesh, device="cpu")
+    params = PM.shard_params(PM.params_from_jax(jparams, device="cpu", dtype=cfg.dtype),
+                             model.layout(), mesh)
+    tokens = torch.from_numpy(case["tokens"])
+    B, L = tokens.shape
+    axes, rows = data_rows(mesh, B)
+    split = model.rows_split(axes)
+    batch = {"tokens": tokens[rows, :case["prompt"]]}
+    if case.get("img_emb") is not None:
+        batch["img_emb"] = torch.from_numpy(case["img_emb"])[rows]
+    with split:
+        prefill = model.prefill(params, batch)
+        cache = model.init_cache(B, case["cache_len"])
+        steps = []
+        for t in range(L):
+            logits, cache = model.decode_step(params, {"tokens": tokens[rows, t:t + 1],
+                                                       "cache": cache, "index": t})
+            steps.append(logits[:, 0].numpy().copy())
+    engine = ServingEngine(model, params, cache_len=case["cache_len"], batch=B)
+    generated = engine.generate(case["tokens"][:, :case["prompt"]],
+                                ServeConfig(max_new_tokens=case["new"]))
+    return {"coords": dict(mesh.coords), "rows": (rows.start, rows.stop),
+            "prefill": prefill.numpy(), "steps": np.stack(steps), "cache": _np(cache),
+            "cache_dtype": str(PM.tree_leaves(cache)[0].dtype), "generated": generated}
+
+
+def tp_serve_world(rank: int, world: int, init: str, cases: list, count_case: tuple) -> dict:
+    """Each case ``(name, (data, model), cfg, jparams, case)`` on a mesh of that
+    shape over the same 4 ranks (``tp_serve_case``); then the decode step and
+    the prefill of ``count_case`` ``(name, (data, model), cfg, jparams, B, S)``
+    counted on this rank and on meta under an ``AbstractMesh`` as the dry-run
+    counts them (``train.step.tp_serve_costs``)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.roofline import count as C
+    from repro_torch.serve.engine import data_rows
+    from repro_torch.train.step import tp_serve_costs
+
+    torch.set_num_threads(1)
+    meshes, out = {}, {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_test_mesh(data=shape[0], model=shape[1], backend="gloo",
+                                           init_method=init, rank=rank, timeout=TIMEOUT,
+                                           device="cpu")
+        return meshes[shape]
+
+    for name, shape, cfg, jparams, case in cases:
+        out[name] = tp_serve_case(mesh_of(shape), cfg, jparams, case)
+
+    name, shape, cfg, jparams, B, S = count_case
+    mesh = mesh_of(shape)
+    model = build_model(cfg, model_axis=shape[1], mesh=mesh, device="cpu")
+    params = PM.shard_params(PM.params_from_jax(jparams, device="cpu", dtype=cfg.dtype),
+                             model.layout(), mesh)
+    axes, rows = data_rows(mesh, B)
+    n = rows.stop - rows.start
+    abstract = AbstractMesh(tuple(mesh.shape.values()), mesh.axis_names, rank=rank)
+    meta_model = build_model(cfg, model_axis=shape[1], mesh=abstract, device="meta")
+    keys = ("flops", "traffic_bytes", "matmul_flops", "aten_bytes", "kernels",
+            "collectives", "collective_bytes", "start_bytes")
+    out["count"] = {}
+    with model.rows_split(axes):
+        for kind, step, inputs in (
+                ("decode", model.decode_step,
+                 {"tokens": torch.zeros((n, 1), dtype=torch.int32),
+                  "cache": model.init_cache(B, S), "index": S - 1}),
+                ("prefill", model.prefill, {"tokens": torch.zeros((n, S), dtype=torch.int32)})):
+            real = C.count(step, params, inputs)[1]
+            meta = tp_serve_costs(meta_model, abstract, kind, B, S)
+            out["count"][kind] = {"real": {k: real[k] for k in keys},
+                                  "meta": {k: meta[k] for k in keys}}
     return out

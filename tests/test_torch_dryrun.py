@@ -258,6 +258,40 @@ def test_run_cell_full_width_qwen_state_bytes_match_jax_specs(shape, multi_pod):
         assert 0.5 <= r["counted_over_analytic_flops"] <= 1.5
 
 
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-v2-lite-16b"])
+def test_run_cell_executes_the_tensor_parallel_serving_step(arch, shape):
+    """A serving cell of DecoderLM on the production mesh counts rank 0's
+    tensor-parallel ``decode_step`` or ``prefill`` on meta: its collectives
+    over the ``model`` axis, each layer's kernels, and ``total_bytes`` (the
+    weights' shards, the cache shard, the inputs and the step's peak) at
+    least its state, against which ``fits_80gb`` is judged."""
+    r = dryrun.run_cell(arch, shape, save=False)
+    prod = r["production"]
+    cfg = ARCHS[arch]
+    mesh = make_abstract_production_mesh()
+    assert prod["executed"] and r["status"] == "ok"
+    step = prod["step"]
+    assert step["flops"] > 0 and step["collective_bytes"] > 0
+    assert step["collectives"]["all_reduce"]["calls"] >= cfg.n_layers
+    assert step["collectives"]["all_gather"]["calls"] >= 1
+    assert prod["total_bytes"] == step["start_bytes"] + prod["step_peak_above_state_bytes"]
+    assert prod["total_bytes"] >= prod["state_bytes"]
+    assert prod["fits_80gb"] == (prod["total_bytes"] <= dryrun.HBM_PER_CHIP)
+    kernels = step["kernels"]
+    assert kernels["rmsnorm"]["calls"] >= 2 * cfg.n_layers + 1
+    if shape == "decode_32k":
+        # a rank's cache shard: its slots of the sequence, all its rows' heads
+        assert prod["input_bytes"] < step["start_bytes"] <= prod["state_bytes"]
+        if cfg.mla is None:
+            assert kernels["decode_attention"]["calls"] == cfg.n_layers
+        # every layer gathers its queries and merges its partial softmax
+        assert step["collectives"]["all_gather"]["calls"] >= 2 * cfg.n_layers
+    else:
+        assert kernels["flash_attention"]["calls"] == cfg.n_layers
+    assert mesh.shape["model"] == 16
+
+
 def test_run_cell_override_remat_none_counts_no_recompute():
     """``--override remat=none`` runs the step with no checkpoint: each kernel
     once, a higher peak, fewer FLOPs, whose share of the config's analytic

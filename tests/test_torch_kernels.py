@@ -1643,3 +1643,53 @@ def test_backward_tc_entry_points_take_the_wrappers_arguments():
     assert [a.split()[0] for a in args] == ["int", "int", "int*", "int*"]
     assert build.SIGNATURES["rt_rmsnorm_bwd_vec_config"] == (build._I, build._I, build._IP,
                                                              build._IP)
+
+
+def test_decode_partial_wrapper_host_path(monkeypatch):
+    """The partial mode's host path on both routes: the C entry point takes
+    the lse pointer as its last argument before the stream (null in the whole
+    mode), the output is fp32 and lse (B, Hq) fp32; each call counted once, by
+    route, as a whole-mode call is."""
+    monkeypatch.setattr(k_decode, "_checked", {})
+    monkeypatch.setattr(k_decode, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda name, device, *a: calls.append((name, a)))
+    before = (k_decode.launches, dict(k_decode.route_launches))
+    for hd, fn in ((64, "rt_decode_attention_split"), (36, "rt_decode_attention")):
+        q = torch.empty((4, 16, 1, hd), dtype=torch.bfloat16)
+        k, v = (torch.empty((4, 16, 32, hd), dtype=torch.bfloat16) for _ in range(2))
+        valid = torch.full((4,), 5, dtype=torch.int32)
+        calls.clear()
+        out, lse = k_decode.decode_attention_partial_cuda(q, k, v, valid)
+        (name, a), = calls
+        assert name == fn and len(a) + 1 == len(build.SIGNATURES[fn])
+        assert a[-1] == lse.data_ptr() and a[4] == out.data_ptr()
+        assert out.dtype == lse.dtype == torch.float32
+        assert out.shape == q.shape and lse.shape == (4, 16)
+        calls.clear()
+        k_decode.decode_attention_cuda(q, k, v, valid)
+        assert calls[0][1][-1] is None
+    assert k_decode.launches == before[0] + 4
+    assert k_decode.route_launches == {"split": before[1]["split"] + 2,
+                                       "simt": before[1]["simt"] + 2}
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_decode_partial_dispatch(device):
+    """``ops.decode_attention_partial``: the card's path on meta (shapes and
+    dtypes, nothing launched or counted), the plain version on the CPU; both
+    priced by the step counter as one ``decode_attention`` call."""
+    from repro_torch.roofline import count as C
+
+    q = torch.randn(2, 4, 1, 32, device=device)
+    k, v = (torch.randn(2, 2, 16, 32, device=device) for _ in range(2))
+    before = k_decode.launches
+    (out, lse), counts = C.count(ops.decode_attention_partial, q, k, v, torch.tensor(
+        [3, 0], dtype=torch.int32, device=device))
+    assert out.shape == q.shape and out.dtype == torch.float32 and out.device.type == device
+    assert lse.shape == (2, 4) and lse.dtype == torch.float32
+    assert counts["kernels"]["decode_attention"]["calls"] == 1
+    assert k_decode.launches == before
+    if device == "cpu":
+        assert torch.isneginf(lse[1]).all() and torch.equal(out[1], torch.zeros_like(out[1]))

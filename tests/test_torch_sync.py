@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ranks import sync_grads, sync_world
+from _torch_ranks import die_apart, sync_grads, sync_world
 from repro.train.optimizer import compress_int8 as jcompress_int8
 from repro.train.optimizer import decompress_int8 as jdecompress_int8
 from repro_torch.launch.mesh import Mesh, make_test_mesh, run_ranks
@@ -136,3 +136,10 @@ def test_ranks_that_die_before_taking_their_arguments_let_the_parent_exit():
                           timeout=120)
     assert done.returncode == 0, done.stderr[-2000:]
     assert "failed: ranks [0, 1] exited" in done.stdout
+
+
+def test_ranks_that_die_apart_are_all_named(tmp_path):
+    """Two ranks that exit without a result 1.5 s apart, more than one poll of
+    ``run_ranks``: the error names both (``mesh.DEATH_GRACE``)."""
+    with pytest.raises(RuntimeError, match=r"ranks \[0, 1\] exited \(\[3, 3\]\)"):
+        run_ranks(die_apart, 2, 1.5, init_method=f"file://{tmp_path}/unused", timeout=60)

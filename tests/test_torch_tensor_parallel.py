@@ -180,7 +180,8 @@ def test_dryrun_production_counts_the_tensor_parallel_step(arch, tmp_path):
     """The dry-run's production judgment of a train cell counts one rank's
     tensor-parallel step on meta for DecoderLM (the peak holds the state, so
     it is at least the weights and optimizer shards) and keeps the state
-    alone for the other families; serving cells keep the state alone."""
+    alone for the other families; a serving cell counts DecoderLM's
+    tensor-parallel decode step too."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
 
@@ -198,8 +199,11 @@ def test_dryrun_production_counts_the_tensor_parallel_step(arch, tmp_path):
     assert prod["step"]["collectives"]["all_reduce"]["calls"] > 0
     assert prod["fits_80gb"] == (prod["total_bytes"] <= dryrun.HBM_PER_CHIP)
     serve = dryrun.run_cell(arch, "decode_32k", cfg=cfg, save=False,
-                            shape=ShapeConfig("decode_32k", 64, 4, "decode"))
-    assert not serve["production"]["executed"]
+                            shape=ShapeConfig("decode_32k", 64, 4, "decode"))["production"]
+    assert serve["executed"]
+    assert serve["total_bytes"] >= serve["state_bytes"] > 0
+    assert serve["step"]["kernels"]["decode_attention" if cfg.mla is None else "rmsnorm"]["calls"]
+    assert serve["fits_80gb"] == (serve["total_bytes"] <= dryrun.HBM_PER_CHIP)
 
 
 @pytest.mark.parametrize("mesh_shape", [None, (2, 1)])
