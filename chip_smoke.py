@@ -834,7 +834,8 @@ def checked_shapes() -> dict:
                                  for G in groups},
             "decode_attention_partial": set(),
             "flash_attention": {flash_key(*s[:9], s[4] - s[3] if s[7] else 0)
-                                for s in flash_shapes()}}
+                                for s in flash_shapes()},
+            "ssd_scan": set(SSD_SHAPES)}
 
 
 def check_launched(shapes: dict, run: str) -> None:
@@ -849,10 +850,11 @@ def check_launched(shapes: dict, run: str) -> None:
 @contextlib.contextmanager
 def launched_shapes():
     """Record the shape of every call of ``ops.rmsnorm``, ``ops.swiglu_mlp``,
-    ``ops.decode_attention`` and ``ops.flash_attention`` (the models reach the
-    kernels through them): rmsnorm (rows, D), swiglu_mlp (rows, D, F),
-    decode_attention (B, Hq, Hkv, S, hd), flash_attention (B, Hq, Hkv, Sq,
-    Skv, hd, hdv, causal, window, q_offset)."""
+    ``ops.decode_attention``, ``ops.flash_attention`` and ``ops.ssd_scan``
+    (the models reach the kernels through them): rmsnorm (rows, D),
+    swiglu_mlp (rows, D, F), decode_attention (B, Hq, Hkv, S, hd),
+    flash_attention (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, q_offset),
+    ssd_scan (B, S, H, N, chd, chunk) as the model's padded scan calls it."""
     from repro_torch.kernels import ops
 
     def flash(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -865,7 +867,8 @@ def launched_shapes():
     keys = {"rmsnorm": lambda x, g, **_: (x.numel() // x.shape[-1], x.shape[-1]),
             "swiglu_mlp": lambda x, wg, *_: (x.numel() // x.shape[-1], *wg.shape),
             "decode_attention": decode, "decode_attention_partial": decode,
-            "flash_attention": flash}
+            "flash_attention": flash,
+            "ssd_scan": lambda lf, b, x, c, *, chunk: (*lf.shape, b.shape[3], x.shape[3], chunk)}
     seen = {name: set() for name in keys}
     saved = {name: getattr(ops, name) for name in keys}
 
@@ -1427,7 +1430,7 @@ def check_decode_partial(gen, ops, ref, rate) -> dict:
     print(f"[kernels] decode_attention partial errors {errs}")
     dt = torch.bfloat16
     for B, H, Hkv, S, hd in TP_PARTIAL:
-        prefix = f"tp_partial_{B}x{S}_"
+        prefix = f"tp_partial_{B}x{H}x{Hkv}x{S}_"
         valid = torch.full((B,), S, dtype=torch.int32, device="cuda")
         sets = [(randn(gen, (B, H, 1, hd), dt), randn(gen, (B, Hkv, S, hd), dt),
                  randn(gen, (B, Hkv, S, hd), dt), valid) for _ in range(24)]
@@ -2921,14 +2924,8 @@ def whisper_cut() -> "object":
 def fill_cross_cache(model, params, cache, enc_out) -> None:
     """Write every decoder layer's cross K and V of ``enc_out`` into ``cache``
     through the model's own ``_qkv``, as ``prefill``'s cross attention forms
-    them (a harness step: the package has no such API, JAX neither)."""
-    from repro_torch.models import params as PM
-
-    with torch.no_grad():
-        for i, p in enumerate(PM.unstack(params["dec_layers"])):
-            _, k, v = model._qkv(p["cross_attn"], enc_out, enc_out)
-            cache["layers"]["cross_k"][i].copy_(k)
-            cache["layers"]["cross_v"][i].copy_(v)
+    them (``EncDecLM.fill_cross``; JAX has no such API)."""
+    model.fill_cross(params, cache, enc_out)
 
 
 def phase_whisper_full_width() -> None:
@@ -4376,9 +4373,9 @@ TP_AUX_TOL = 2e-4
 #: F / model): qwen's at model 2 and 4, deepseek's layer0 and shared experts
 #: at model 2 and 4; flash (B, Hq, Hkv, S, hd, hdv): qwen's 8 and 4 heads a
 #: rank, MLA's 8 and 4
-TP_RMSNORM = ((2048, 1024), (2048, 2048), (2048, 512))
+TP_RMSNORM = ((2048, 1024), (2048, 2048), (2048, 512), (2176, 1600))
 TP_SWIGLU = ((2048, 1024, 1408), (4096, 1024, 704), (2048, 2048, 5472), (2048, 2048, 2736),
-             (2048, 2048, 1408), (2048, 2048, 704))
+             (2048, 2048, 1408), (2048, 2048, 704), (2176, 1600, 2752))
 TP_FLASH = ((4, 8, 8, 512, 64, 64), (8, 4, 4, 512, 64, 64), (1, 8, 8, 2048, 192, 128),
             (1, 4, 4, 2048, 192, 128))
 #: phase_tp's serving over the model axis: qwen1.5-0.5b at full width and depth
@@ -4395,7 +4392,9 @@ TP_SERVE = dict(requests=8, prompt=16, new=16, cache=32)
 #: deepseek layer0's and the 3 MoE layers' 3 norms (kv_ln among them), layer0's
 #: SwiGLU and the shared experts' (MLA's attention: plain products)
 TP_SERVE_PER_STEP = {"qwen": {"rmsnorm": 2 * 24 + 1, "swiglu": 24, "decode_attention": 24},
-                     "deepseek": {"rmsnorm": 3 * 4 + 1, "swiglu": 4}}
+                     "deepseek": {"rmsnorm": 3 * 4 + 1, "swiglu": 4},
+                     "hymba": {"rmsnorm": 4 * 4 + 1, "swiglu": 4, "decode_attention": 4},
+                     "whisper": {"decode_attention": 2 * 2}}
 TP_SERVE_ROUTES = {"decode_attention": "split"}
 #: the largest gap of a TP rank's logits from the single process's on the card
 #: (teacher-forced, bf16), relative to the single process's largest logit:
@@ -4405,32 +4404,73 @@ TP_SERVE_ROUTES = {"decode_attention": "split"}
 TP_LOGIT_TOL = 0.05
 #: the shard shapes of phase_tp's serving: rmsnorm (rows, D) and SwiGLU (rows, D,
 #: F / model) of the decode steps (4 or 8 rows a rank) and the prefills (64 or
-#: 128 rows); flash (B, Hq, Hkv, S, hd, hdv) of the prefills; the decode
-#: kernel's partial mode (B, Hq, Hkv, slots a rank, hd) at qwen's 2 x 2 and 1 x 4
+#: 128 rows; Hymba's 4 x (16 + 128)); flash (B, Hq, Hkv, S, hd, hdv) of the
+#: prefills; the decode kernel's partial mode (B, Hq, Hkv, slots a rank, hd) at
+#: qwen's 2 x 2 and 1 x 4, and every head of Hymba's and Whisper's (the slots
+#: cut, every rank takes every head; Whisper's cross cache 750 frames a rank)
 TP_SERVE_RMSNORM = ((4, 1024), (8, 1024), (64, 1024), (128, 1024), (4, 2048), (4, 512),
-                    (64, 2048), (64, 512))
+                    (64, 2048), (64, 512), (4, 1600), (576, 1600))
 TP_SERVE_SWIGLU = ((4, 1024, 1408), (8, 1024, 704), (64, 1024, 1408), (128, 1024, 704),
-                   (4, 2048, 5472), (4, 2048, 1408), (64, 2048, 5472), (64, 2048, 1408))
+                   (4, 2048, 5472), (4, 2048, 1408), (64, 2048, 5472), (64, 2048, 1408),
+                   (4, 1600, 2752), (576, 1600, 2752))
 TP_SERVE_FLASH = ((4, 8, 8, 16, 64, 64), (8, 4, 4, 16, 64, 64), (4, 8, 8, 16, 192, 128))
-TP_PARTIAL = ((4, 16, 16, 16, 64), (8, 16, 16, 8, 64))
+TP_PARTIAL = ((4, 16, 16, 16, 64), (8, 16, 16, 8, 64), (4, 25, 5, 16, 64), (4, 20, 20, 16, 64),
+              (4, 20, 20, 750, 64))
+#: phase_tp's Hymba and Whisper parts, over data 2 x model 2, one step each, then
+#: served as qwen is (TP_SERVE): hymba-1.5b at full width cut to 4 layers (global
+#: 0 and 3, a sliding-window run of 2, window 1024) on 2 x (2048 + 128 meta)
+#: positions; whisper-large-v3 at full width cut to 2 + 2 layers on 4 x (1500
+#: frames, 448 tokens), its serving's cross cache filled from ``encode`` of each
+#: request's 1500 frames (750 a rank)
+TP_FAMILIES = {"hymba": dict(arch=HYMBA, layers=4, batch=2, seq=2048),
+               "whisper": dict(arch=WHISPER, layers=2, batch=4, seq=WHISPER_TOKENS)}
+#: their launches a train step (each block's forward kernels twice under remat):
+#: Hymba 4 norms, one attention, one scan and one SwiGLU a block and the final
+#: norm; Whisper one flash attention a layer in the encoder, two in the decoder
+TP_FAMILY_PER_STEP = {
+    "hymba": train_launches({"rmsnorm": 4 * 4, "swiglu": 4, "flash_attention": 4,
+                             "ssd_scan": 4}, {"rmsnorm": 1}),
+    "whisper": train_launches({"flash_attention": 3 * 2})}
+TP_FAMILY_ROUTES = {"hymba": HYMBA_ROUTES, "whisper": WHISPER_ROUTES}
+#: (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window) of their ranks' flash launches:
+#: every Hymba head on a rank's row of 2048 + 128 positions, global and windowed;
+#: Whisper's 10 heads a rank on its 2 rows: encoder, cross and causal decoder
+#: (timed); then the serving prefills' (4 rows a rank: Hymba's 16 + 128
+#: positions, Whisper's encoder, cross and decoder over 16 tokens)
+TP_FAMILY_FLASH = ((1, 25, 5, 2176, 2176, 64, 64, True, 1024),
+                   (1, 25, 5, 2176, 2176, 64, 64, True, 0),
+                   (2, 10, 10, WHISPER_FRAMES, WHISPER_FRAMES, 64, 64, False, 0),
+                   (2, 10, 10, WHISPER_TOKENS, WHISPER_FRAMES, 64, 64, False, 0),
+                   (2, 10, 10, WHISPER_TOKENS, WHISPER_TOKENS, 64, 64, True, 0))
+TP_FAMILY_SERVE_FLASH = ((4, 25, 5, 144, 144, 64, 64, True, 1024),
+                         (4, 25, 5, 144, 144, 64, 64, True, 0),
+                         (4, 10, 10, WHISPER_FRAMES, WHISPER_FRAMES, 64, 64, False, 0),
+                         (4, 10, 10, 16, WHISPER_FRAMES, 64, 64, False, 0),
+                         (4, 10, 10, 16, 16, 64, 64, True, 0))
+#: (B, S, H, N, chd, chunk) of their SSD scans: a rank's 4 of Hymba's 8 heads on
+#: its row (timed), and the serving prefill's 4 rows of 144 positions, padded
+TP_SSD = ((1, 2176, 4, 16, 400, 128), (4, 256, 4, 16, 400, 128))
 
 
 def tp_flash_shapes() -> list:
-    """TP_FLASH and TP_SERVE_FLASH in ``flash_shapes``' form (causal, no
-    window; MLA's widths held to the plain versions rounded as the tensor-core
-    route rounds)."""
+    """TP_FLASH and TP_SERVE_FLASH (causal, no window; MLA's widths held to the
+    plain versions rounded as the tensor-core route rounds), TP_FAMILY_FLASH
+    and TP_FAMILY_SERVE_FLASH (Whisper's held so too, as EMBEDDED_FLASH) in
+    ``flash_shapes``' form."""
     return [(B, Hq, Hkv, S, S, hd, hdv, True, 0, (hd, hdv) != (64, 64))
-            for B, Hq, Hkv, S, hd, hdv in (*TP_FLASH, *TP_SERVE_FLASH)]
+            for B, Hq, Hkv, S, hd, hdv in (*TP_FLASH, *TP_SERVE_FLASH)] + [
+        (*s, s[1] != 25) for s in (*TP_FAMILY_FLASH, *TP_FAMILY_SERVE_FLASH)]
 
 
 def check_tp_kernels(gen, ops, ref, rate) -> dict:
-    """The shard shapes of phase_tp (TP_RMSNORM, TP_SWIGLU, TP_FLASH) in bf16:
-    the forward within ``TOL`` of the plain version, the gradients of the
-    wrapper (its backward kernel) within ``GRAD_TOL`` of the plain backward's
-    largest entry, each route recorded; flash also in fp32 with its routes
-    asserted (``check_flash_at``).  Times by CUDA events beside the plain
-    version's, the library call's (``F.rms_norm``, three ``@``, SDPA) and the
-    bound.  Returns each kernel's rows by shape."""
+    """The shard shapes of phase_tp (TP_RMSNORM, TP_SWIGLU, TP_FLASH,
+    TP_FAMILY_FLASH, TP_SSD) in bf16: the forward within ``TOL`` of the plain
+    version, the gradients of the wrapper (its backward kernel) within
+    ``GRAD_TOL`` of the plain backward's largest entry, each route recorded;
+    flash also in fp32 with its routes asserted (``check_flash_at``), SSD as
+    ``check_tp_ssd`` says.  Times by CUDA events beside the plain version's,
+    the library call's (``F.rms_norm``, three ``@``, SDPA; none computes the
+    SSD scan) and the bound.  Returns each kernel's rows by shape."""
     from repro_torch.kernels import rmsnorm as kr
     from repro_torch.kernels import rmsnorm_bwd as krb
     from repro_torch.kernels import swiglu as ks
@@ -4526,10 +4566,81 @@ def check_tp_kernels(gen, ops, ref, rate) -> dict:
         out["flash_attention"].append({
             "shape": [B, Hq, Hkv, S, hd, hdv], "serving": True,
             "max_abs_err": errs[(B, Hq, Hkv, S, S, hd, hdv, True, 0, "bfloat16")]})
+    for B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window in TP_FAMILY_FLASH:
+        fwd, bwd = flash_times(gen, ops, ref, rate, B, Hq, Hkv, Sq, hd, window, hdv=hdv, Skv=Skv,
+                               causal=causal)
+        key = (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, "bfloat16")
+        shape = {"shape": [B, Hq, Hkv, Sq, Skv, hd, hdv], "causal": causal, "window": window}
+        out["flash_attention"].append({**shape, "max_abs_err": errs[key], **fwd})
+        out["flash_attention_bwd"].append({**shape, "max_abs_err": gerrs[key], **bwd})
+    for B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window in TP_FAMILY_SERVE_FLASH:
+        out["flash_attention"].append({
+            "shape": [B, Hq, Hkv, Sq, Skv, hd, hdv], "causal": causal, "window": window,
+            "serving": True,
+            "max_abs_err": errs[(B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, "bfloat16")]})
+    out["ssd_scan"], out["ssd_scan_bwd"] = check_tp_ssd(gen, ops, ref, rate)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[tp] shard-shape kernel checks {json.dumps(out)}")
     return out
+
+
+def check_tp_ssd(gen, ops, ref, rate) -> tuple[list, list]:
+    """ssd_scan and its backward at TP_SSD in bf16: the tensor-core route
+    asserted, against the plain versions with the route's bf16 products
+    (y, h_last and the chunk-start states; the four gradients) within
+    SSD_TOL of the largest entry, the backward called twice and equal bit
+    for bit; at the first shape the times of both beside the CUDA-core
+    kernels', the plain versions' and the bound (no PyTorch call computes
+    the scan)."""
+    from repro_torch.kernels import ssd_scan as kf
+    from repro_torch.kernels import ssd_scan_bwd as kb
+
+    dt = torch.bfloat16
+    fwd_rows, bwd_rows = [], []
+    for i, (B, S, H, N, chd, chunk) in enumerate(TP_SSD):
+        sets = [ssd_inputs(gen, B, S, H, N, chd, dt) for _ in range(2)]
+        x, dy = sets[0]
+        route = kf.route(chunk, *x[1:], dy)
+        if route != "wgmma":
+            raise AssertionError(f"ssd_scan {(B, S, H, N, chd, chunk)}: route {route}")
+        y, h_last, saved = kf.ssd_scan_cuda(*x, chunk=chunk)
+        want, want_h, states = ref.ssd_scan_ref(*x, chunk=chunk, bf16_products=True)
+        err = max(rel_err(y, want, SSD_TOL[dt]), rel_err(h_last, want_h, SSD_TOL[dt]),
+                  rel_err(saved.states, states, SSD_TOL[dt]), key=lambda e: e[1])
+        got = kb.ssd_scan_bwd_cuda(*x, saved, dy, chunk=chunk)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, kb.ssd_scan_bwd_cuda(*x, saved, dy, chunk=chunk))):
+            raise AssertionError(f"ssd_scan_bwd {(B, S, H, N, chd, chunk)}: two calls differ")
+        gerr = max((rel_err(a, b, SSD_TOL[dt]) for a, b in
+                    zip(got, ref.ssd_scan_bwd_ref(*x, states, dy, chunk=chunk,
+                                                  bf16_products=True))), key=lambda e: e[1])
+        fwd = {"shape": [B, S, H, N, chd, chunk], "kernel_route": route,
+               "max_abs_err": err[0], "max_rel_err": err[1]}
+        bwd = {"shape": [B, S, H, N, chd, chunk], "kernel_route": route,
+               "max_abs_err": gerr[0], "max_rel_err": gerr[1]}
+        del y, h_last, saved, want, want_h, states, got
+        if i == 0:
+            fwd_sets = [x for x, _ in sets]
+            saved = [(*x, kf.ssd_scan_cuda(*x, chunk=chunk)[2], dy) for x, dy in sets]
+            plain = [(*x, ref.ssd_scan_ref(*x, chunk=chunk)[2], dy) for x, dy in sets]
+            b_ms, b_by = ssd_bound(B, S, H, N, chd, chunk, rate, backward=False)
+            fwd.update(ms=time_ms(lambda *x: kf.ssd_scan_cuda(*x, chunk=chunk), fwd_sets, 5),
+                       simt_ms=time_ms(lambda *x: kf.launch("simt", *x, chunk), fwd_sets, 5),
+                       plain_ms=time_ms(lambda *x: ref.ssd_scan_ref(*x, chunk=chunk), fwd_sets, 3),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            b_ms, b_by = ssd_bound(B, S, H, N, chd, chunk, rate, backward=True)
+            bwd.update(ms=time_ms(lambda *a: kb.ssd_scan_bwd_cuda(*a, chunk=chunk), saved, 5),
+                       simt_ms=time_ms(lambda *a: kb.launch("simt", *a[:4], a[4], a[5], chunk),
+                                       saved, 5),
+                       plain_ms=time_ms(lambda *a: ref.ssd_scan_bwd_ref(*a, chunk=chunk), plain,
+                                        3),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            del fwd_sets, saved, plain
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
+        del sets, x, dy
+    return fwd_rows, bwd_rows
 
 
 def tp_checked_shapes() -> dict:
@@ -4537,8 +4648,10 @@ def tp_checked_shapes() -> dict:
     covered = checked_shapes()
     covered["rmsnorm"] |= set(TP_RMSNORM) | set(TP_SERVE_RMSNORM)
     covered["swiglu_mlp"] |= set(TP_SWIGLU) | set(TP_SERVE_SWIGLU)
-    covered["flash_attention"] |= {flash_key(*s[:9], 0) for s in tp_flash_shapes()}
+    covered["flash_attention"] |= {flash_key(*s[:9], s[4] - s[3] if s[7] else 0)
+                                   for s in tp_flash_shapes()}
     covered["decode_attention_partial"] = set(TP_PARTIAL)
+    covered["ssd_scan"] |= set(TP_SSD)
     return covered
 
 
@@ -4595,7 +4708,7 @@ def _tp_ref_errors(synced, layout, mesh, path: Path) -> float:
 
 
 def tp_run(kernel_modules, mesh, cfg, batch: dict, steps: int, work: str, tag: str,
-           per_step: dict, choices=None, keep: bool = False) -> dict:
+           per_step: dict, choices=None, keep: bool = False, routes: dict = TRAIN_ROUTES) -> dict:
     """One model on ``mesh`` (``tp_rank``): ``steps`` steps of
     ``make_train_step(model, opt_cfg, mesh)``, the first in its parts, the
     launch counts and routes checked a step, every launch at a checked shape;
@@ -4604,7 +4717,8 @@ def tp_run(kernel_modules, mesh, cfg, batch: dict, steps: int, work: str, tag: s
     ``choices`` each MoE layer routed through the parent's experts (the
     rank's own routing of the same rows compared first); at the end every
     replicated leaf bit-equal across the ranks.  With ``keep`` the result
-    holds ``(model, step, params, opt)`` as ``state``."""
+    holds ``(model, step, params, opt)`` as ``state``; ``routes``: each
+    kernel's route a step must take."""
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
     from repro_torch.train import AdamWConfig, make_train_step
@@ -4659,9 +4773,9 @@ def tp_run(kernel_modules, mesh, cfg, batch: dict, steps: int, work: str, tag: s
             rec["step_ms"].append((_clock() - t0) * 1e3)
         if pending:
             raise AssertionError(f"{tag} rank {mesh.rank}: {len(pending)} routes not replayed")
-        counts, routes = read_counts(kernel_modules)
+        counts, took = read_counts(kernel_modules)
         expect_counts(counts, per_step, f"{tag} rank {mesh.rank} step {i + 1}")
-        check_routes(routes, counts, TRAIN_ROUTES, f"{tag} rank {mesh.rank} step {i + 1}")
+        check_routes(took, counts, routes, f"{tag} rank {mesh.rank} step {i + 1}")
         rec["counts"].append(counts)
         for kernel, seen_shapes in shapes.items():
             rec["shapes"].setdefault(kernel, set()).update(seen_shapes)
@@ -4759,7 +4873,9 @@ def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict)
     process's top two lie within that step's gap (counted).  Host times of
     the prefill and of each decode step (a synchronize around it) and the
     ``model`` axis's collectives inside them (``Mesh.timed``): one card's
-    ``gloo`` ranks, not a deployment's."""
+    ``gloo`` ranks, not a deployment's.  An encoder-decoder's prefill takes
+    its rows' frames (``tp_frames``) and its cross cache is filled from
+    ``encode`` of them (``EncDecLM.fill_cross``) before the steps."""
     from repro_torch.models import build_model
 
     ref_run = torch.load(Path(work) / f"serve_{tag}.pt", map_location="cpu", mmap=True)
@@ -4803,11 +4919,14 @@ def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict)
             launched_shapes() as shapes:
         mesh.spent.clear()
         t0 = _clock()
-        logits = model.prefill(params, {"tokens": tokens[rows, :TP_SERVE["prompt"]]})
+        inputs = {"tokens": tokens[rows, :TP_SERVE["prompt"]]}
+        if cfg.encdec is not None:
+            inputs["enc_emb"] = tp_frames(cfg, B)[rows]
+        logits = model.prefill(params, inputs)
         rec["prefill_ms"] = (_clock() - t0) * 1e3
         rec["prefill_tp_ms"] = mesh.spent.get(("model",), 0.0) * 1e3
         compare(logits[:, 0], ref_run["prefill"][rows], "prefill")
-        cache = model.init_cache(B, TP_SERVE["cache"])
+        cache = serve_cache(model, params, inputs, B)
         for t in range(L):
             reset_counts(kernel_modules)
             mesh.spent.clear()
@@ -4825,21 +4944,67 @@ def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict)
     if pending:
         raise AssertionError(f"{tag} serve rank {mesh.rank}: {len(pending)} routes not replayed")
     rec["shapes"] = {k: set(v) for k, v in shapes.items()}
-    top = cache["layers"]
-    rec["cache_slots_a_rank"] = top["c_kv" if cfg.mla is not None else "k"].shape[
-        2 if cfg.mla is not None else 3]
+    top = cache.get("layers", cache.get("global_0"))
+    rec["cache_slots_a_rank"] = top["c_kv" if cfg.mla is not None else "k"].shape[-2]
     del params, cache, model, top
     gc.collect()
     torch.cuda.empty_cache()
     return rec
 
 
+def tp_frames(cfg, B: int) -> torch.Tensor:
+    """(B, 1500, d_model) encoder frames on the card in the model's dtype, drawn
+    from a generator of seed 5 on the card: the same on every rank and in the
+    single process."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    return embeddings(cfg, B, WHISPER_FRAMES, g, "cuda", getattr(torch, cfg.dtype))["enc_emb"]
+
+
+def tp_family_cfg(name: str):
+    """TP_FAMILIES' config of ``name`` in bf16 at its cut depth (Hymba's global
+    layers the first and the last, Whisper's encoder as deep as its decoder)."""
+    from repro_torch.configs import ARCHS
+
+    spec = TP_FAMILIES[name]
+    cfg = dataclasses.replace(ARCHS[spec["arch"]], dtype="bfloat16", n_layers=spec["layers"])
+    if cfg.hybrid is not None:
+        cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+            cfg.hybrid, global_layers=(0, spec["layers"] - 1)))
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, n_encoder_layers=spec["layers"]))
+    return cfg
+
+
+def card_batch(arrays: dict, cfg) -> dict:
+    """A phase_tp batch on the card: the corpus's tokens and labels, and an
+    encoder-decoder's frames (``tp_frames``)."""
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in arrays.items()}
+    if cfg.encdec is not None:
+        batch["enc_emb"] = tp_frames(cfg, batch["tokens"].shape[0])
+    return batch
+
+
+def serve_cache(model, params, inputs: dict, B: int) -> dict:
+    """An empty decode cache of TP_SERVE["cache"] slots for ``B`` requests (this
+    rank's shard over a ``model`` axis); an encoder-decoder's cross cache of
+    the frames of ``inputs["enc_emb"]`` filled from ``encode`` of them."""
+    if model.cfg.encdec is None:
+        return model.init_cache(B, TP_SERVE["cache"])
+    enc = inputs["enc_emb"]
+    cache = model.init_cache(B, TP_SERVE["cache"], enc.shape[1])
+    model.fill_cross(params, cache, model.encode(params, enc))
+    return cache
+
+
 def tp_serve_reference(cfg, work: Path, tag: str) -> None:
     """The single process's serving run that the ranks are held to: the weights
-    of seed 0 on the card, TP_SERVE's prompts (seeded), one ``prefill`` and
-    the prompt then greedy tokens through ``decode_step``; every step's fp32
-    logits, the token sequence and (for an MoE model) every ``moe_route``
-    call's experts, written under ``work``.  Returns its decode ms a step."""
+    of seed 0 on the card, TP_SERVE's prompts (seeded; an encoder-decoder's
+    frames ``tp_frames``, its cross cache filled from them), one ``prefill``
+    and the prompt then greedy tokens through ``decode_step``; every step's
+    fp32 logits, the token sequence and (for an MoE model) every
+    ``moe_route`` call's experts, written under ``work``.  Returns its decode
+    ms a step."""
     from repro_torch.models import build_model
 
     model = build_model(cfg, device="cuda")
@@ -4849,9 +5014,12 @@ def tp_serve_reference(cfg, work: Path, tag: str) -> None:
     tokens = torch.zeros((B, P + N), dtype=torch.int64, device="cuda")
     tokens[:, :P] = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).cuda()
     steps, times = [], []
-    with tp_routes(None) as (seen, _):
-        prefill = model.prefill(params, {"tokens": tokens[:, :P]})[:, 0].cpu()
-        cache = model.init_cache(B, TP_SERVE["cache"])
+    inputs = {"tokens": tokens[:, :P]}
+    if cfg.encdec is not None:
+        inputs["enc_emb"] = tp_frames(cfg, B)
+    with tp_routes(None) as (seen, _), torch.no_grad():
+        prefill = model.prefill(params, inputs)[:, 0].cpu()
+        cache = serve_cache(model, params, inputs, B)
         for t in range(P + N):
             t0 = _clock()
             logits, cache = model.decode_step(params, {"tokens": tokens[:, t:t + 1],
@@ -4872,7 +5040,9 @@ def tp_serve_reference(cfg, work: Path, tag: str) -> None:
 def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
     """One of ``phase_tp``'s ranks: qwen1.5-0.5b over each of TP["qwen"]'s
     meshes, then deepseek-v2-lite-16b at 4 layers over data 2 x model 2,
-    its MoE layers routed through the parent's experts (``tp_run``)."""
+    its MoE layers routed through the parent's experts (``tp_run``), then
+    TP_FAMILIES' Hymba and Whisper over the same mesh; each trained and
+    served.  ``seconds``: each part's, on this rank."""
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4884,12 +5054,13 @@ def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
     kw = dict(backend="gloo", timeout=TP["collective_timeout"])
     first = {} if torch.distributed.is_initialized() else dict(init_method=init, rank=rank)
     say = (lambda msg: print(f"[tp r0] {msg}", flush=True)) if rank == 0 else (lambda _: None)
-    out = {"rank": rank}
+    out = {"rank": rank, "seconds": {}}
     qwen = dataclasses.replace(ARCHS[ARCH], dtype="bfloat16")
-    batch = {k: torch.from_numpy(v).long().cuda() for k, v in batches["qwen"].items()}
+    batch = card_batch(batches["qwen"], qwen)
     state = None
     out["serve"] = {}
     for data, model, steps in TP["qwen"]:
+        t0 = time.perf_counter()
         mesh = make_test_mesh(data=data, model=model, **kw, **first)
         first = {}
         tag = f"qwen_{data}x{model}"
@@ -4899,18 +5070,22 @@ def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
         say(f"{tag}: steps {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, losses "
             f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
         serve_rank(out["serve"], tag, mesh, qwen, work, "qwen", say)
+        out["seconds"][tag] = time.perf_counter() - t0
     # the first mesh's ZeRO + TP state, restored over the last (data 1 x model 4)
+    t0 = time.perf_counter()
     out["checkpoint"] = tp_checkpoint(state, mesh, qwen, work)
     del state
     gc.collect()
     torch.cuda.empty_cache()
     say(f"checkpoint saved in {out['checkpoint']['save_s']:.2f} s, restored at data 1 x model "
         f"4 in {out['checkpoint']['restore_s']:.2f} s")
+    out["seconds"]["checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     data, model, steps = TP["deepseek"]
     mesh = make_test_mesh(data=data, model=model, **kw)
     cfg = dataclasses.replace(ARCHS[DEEPSEEK], dtype="bfloat16",
                               n_layers=DEEPSEEK_TRAIN["layers"])
-    batch = {k: torch.from_numpy(v).long().cuda() for k, v in batches["deepseek"].items()}
+    batch = card_batch(batches["deepseek"], cfg)
     n = batch["tokens"].numel() // data
     part = slice(mesh.coords["data"] * n, (mesh.coords["data"] + 1) * n)
     choices = [c[part] for c in torch.load(Path(work) / "routes_deepseek.pt")]
@@ -4920,6 +5095,17 @@ def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
     say(f"{tag}: steps {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, losses "
         f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
     serve_rank(out["serve"], tag, mesh, cfg, work, "deepseek", say)
+    out["seconds"][tag] = time.perf_counter() - t0
+    for name in TP_FAMILIES:                        # over the same data 2 x model 2
+        t0 = time.perf_counter()
+        cfg = tp_family_cfg(name)
+        tag = f"{name}_{data}x{model}"
+        out[tag] = tp_run(KERNEL_MODULES, mesh, cfg, card_batch(batches[name], cfg), 1, work,
+                          name, TP_FAMILY_PER_STEP[name], routes=TP_FAMILY_ROUTES[name])
+        say(f"{tag}: step {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, loss "
+            f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
+        serve_rank(out["serve"], tag, mesh, cfg, work, name, say)
+        out["seconds"][tag] = time.perf_counter() - t0
     return out
 
 
@@ -4992,18 +5178,19 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
                                    n_layers=DEEPSEEK_TRAIN["layers"])
     (ROOT / "build").mkdir(exist_ok=True)
     batches, serve_ref_ms = {}, {}
+    parts = [("qwen", qwen, (TRAIN["batch"], TRAIN["seq"])),
+             ("deepseek", deepseek, (DEEPSEEK_TRAIN["batch"], DEEPSEEK_TRAIN["seq"]))] + [
+        (name, tp_family_cfg(name), (spec["batch"], spec["seq"]))
+        for name, spec in TP_FAMILIES.items()]
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work, \
             tempfile.TemporaryDirectory(dir=ROOT / "build") as data_root:
-        for name, cfg, (B, S) in (("qwen", qwen, (TRAIN["batch"], TRAIN["seq"])),
-                                  ("deepseek", deepseek, (DEEPSEEK_TRAIN["batch"],
-                                                          DEEPSEEK_TRAIN["seq"]))):
+        for name, cfg, (B, S) in parts:
             spec = TokenDatasetSpec(f"tp-{name}", n_sequences=max(256, B * 32), seq_len=S,
                                     vocab=cfg.vocab, seed=0)
             tokens, labels = next(corpus_batches(spec, B, str(Path(data_root) / name)))
             batches[name] = {"tokens": tokens, "labels": labels}
             t0 = time.perf_counter()
-            tp_reference(cfg, {k: torch.from_numpy(v).long().cuda()
-                               for k, v in batches[name].items()}, Path(work), name)
+            tp_reference(cfg, card_batch(batches[name], cfg), Path(work), name)
             print(f"[tp] {name} single-process reference in {time.perf_counter() - t0:.1f} s",
                   flush=True)
             t0 = time.perf_counter()
@@ -5012,7 +5199,8 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
                   f"{time.perf_counter() - t0:.1f} s ({serve_ref_ms[name]:.1f} ms a decode step)",
                   flush=True)
         want = json.loads((Path(work) / "ref_deepseek.json").read_text())
-        qwen_loss = json.loads((Path(work) / "ref_qwen.json").read_text())["loss"]
+        losses = {name: json.loads((Path(work) / f"ref_{name}.json").read_text())["loss"]
+                  for name, _, _ in parts}
         ranks, world_s = yield tp_rank, (work, batches), TP["world_timeout"]
         # the checkpoint of the qwen data 2 x model 2 state whole onto the one device
         empty = lambda _: torch.empty(0, device="cuda")
@@ -5032,7 +5220,7 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
         del p, o
 
     covered = tp_checked_shapes()
-    runs = [k for k in ranks[0] if k not in ("rank", "checkpoint", "serve")]
+    runs = [k for k in ranks[0] if k not in ("rank", "checkpoint", "serve", "seconds")]
     for r in ranks:
         for run in [r[k] for k in runs] + list(r["serve"].values()):
             for kernel, seen in run["shapes"].items():
@@ -5062,7 +5250,8 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
                                  / abs(want["aux"]),
                                  "rank_local": abs(aux_local - want["aux"]) / abs(want["aux"]),
                                  "limit": TP_AUX_TOL},
-           "loss_single_process": {"qwen": qwen_loss, "deepseek": want["loss"]},
+           "loss_single_process": losses,
+           "world_seconds_by_part": ranks[0]["seconds"],
            "checkpoint": {"step": saved["step"], "leaves": len(saved["crcs"]),
                           "sharded_opt_leaves": saved["sharded_opt_leaves"],
                           "save_s": saved["save_s"],
@@ -5089,7 +5278,7 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
         f"{run}: step ms {res[run]['step_ms']}, TP all-reduce ms {res[run]['tp_ms']}, sync ms "
         f"{res[run]['sync_ms']}, update ms {res[run]['update_ms']}, gather ms "
         f"{res[run]['gather_ms']}, peak GiB a rank {res[run]['peak_gib']}" for run in runs)
-        + f"; world {world_s:.1f} s", flush=True)
+        + f"; world {world_s:.1f} s, by part {ranks[0]['seconds']}", flush=True)
     print(f"[tp] deepseek aux {ranks[0]['deepseek_2x2']['aux']}, the single process "
           f"{want['aux']}, of rank-local means {aux_local} (relative gaps "
           f"{res['aux_gaps_relative']})", flush=True)

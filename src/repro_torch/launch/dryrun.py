@@ -10,7 +10,8 @@ storage, nothing drawn), and judges the cell two ways:
   a rank's weights and gradients as shards of ``params.specs``, its AdamW
   state as shards of ``opt_state_specs``, its inputs as shards of
   ``registry.input_specs`` (``state_bytes``).  The port executes this
-  layout for the train cells of ``DecoderLM`` (dense, MoE, MLA, VLM): one
+  layout for the train cells of ``DecoderLM`` (dense, MoE, MLA, VLM),
+  ``Hymba`` and ``EncDecLM``: one
   rank's tensor-parallel step (``train.step.tp_step_costs``, the
   ``AbstractMesh``'s collectives giving the shapes a real mesh's would) is
   counted on meta, and its live-bytes peak (its parameter shards, its ZeRO
@@ -22,8 +23,8 @@ storage, nothing drawn), and judges the cell two ways:
   ``decode_step`` the same way (``train.step.tp_serve_costs``): its
   parameter shards, its shard of the cache (slots cut over ``model``, rows
   over the data axes where the batch divides), its inputs and the step's
-  peak above them make ``total_bytes``.  The other families keep the state
-  alone: ``fits_80gb`` on ``state_bytes``.
+  peak above them make ``total_bytes``.  xLSTM keeps the state alone:
+  ``fits_80gb`` on ``state_bytes``.
 * **data_parallel** — what the port executes today: every chip a data
   rank, ZeRO-1 over all of them (``opt_state_specs`` on a ``chips x 1``
   mesh).  One step at a rank's rows (``global_batch / chips``, rounded up:

@@ -29,6 +29,45 @@ through the rmsnorm kernel and the MLP through the SwiGLU kernel; the SSM
 step is plain PyTorch, with the JAX model's roundings.  As in JAX, the
 token's ``index`` is used as given, for RoPE and for the slot: an offset for
 the meta tokens is the caller's (the serving engine applies none).
+
+**The ``model`` axis.**  Built over a mesh of one rank's coordinates whose
+``model`` axis is above 1, the model executes the layout's specs as
+``DecoderLM`` does (``layers.ModelAxis``): its parameters are this rank's
+shards and the regions of ``repro_torch.parallel`` run between them.
+
+* Attention: ``wq/wk/wv`` column-parallel; where ``H*hd`` or ``Hkv*hd`` cut
+  inside a head (hymba-1.5b's 25 / 5 heads at model 2 and 4), every rank
+  computes every head from the gathered projections, else its own heads.
+* ``attn_ln`` and ``ssm_ln`` (``P(TP)`` over ``H*hd``) take their RMS over
+  the whole row: each norm runs on the whole row with the gathered gamma
+  (both gammas in one all-gather) and this rank keeps its columns, which feed
+  the row-parallel ``wo`` and one reduce.  The attention row is whole where
+  every head was computed, else its heads' outputs are gathered; the SSM row
+  is ``ssm_proj``'s partial products summed both ways (``all_reduce_sum``).
+* The SSM in-projection: ``w_in``'s columns are cut over ``2 ed``, so the
+  ``chunk(2)`` into x and z would leave x on the low ranks and z on the high
+  ones; the ranks' projections are exchanged (``regroup_columns``: one
+  all-gather, its backward another) so that each holds its contiguous
+  ``ed/tp`` channels of both.  ``conv``, ``d_skip`` and z act on those
+  channels; ``w_bc``, ``w_dt`` and ``ssm_proj`` are row-parallel, B, C and
+  dt reduced whole.  The SSD kernels scan this rank's ``nsh/tp`` heads (its
+  channels are whole heads), or, where ``nsh`` does not divide the axis,
+  every head from the gathered channels, of which the rank keeps its own.
+* The SwiGLU MLP on ``F/tp`` columns; the embedding and ``lm_head`` by
+  ``layers.vocab_specs`` (vocab 32001 is odd: ``embed`` cut on d and
+  gathered, ``lm_head`` row-parallel); the meta tokens replicated.
+
+Decoding over the axis: q, k, v and the in-projection gathered in one
+all-gather; k and v cut on their slots (a sliding-window ring through
+``layers.cache_shard_slot``), the decode kernel's partial mode over this
+rank's slots merged across ranks (``serve.flash_decoding.merge_partials``);
+the conv tail on the rank's contiguous channels.  The fp32 SSM state is cut
+as JAX cuts it, on ``chd`` (``P(dp, None, TP, None)``): a rank holds
+channels ``[r chd/tp, (r + 1) chd/tp)`` of every head, which are not the
+channels its conv produces.  A step moves the conv's output to the state's
+cut (the ranks' channels gathered, this rank's slice of every head taken),
+updates the state and reads y there, and moves y back (gathered again, this
+rank's contiguous channels taken).
 """
 
 from __future__ import annotations
@@ -42,11 +81,14 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops
+from ..parallel import (all_reduce_sum, copy_to_region, gather_from_region, reduce_from_region,
+                        regroup_columns)
+from ..serve.flash_decoding import merge_partials
 from . import params as PM
 from .params import TP, P, dp_axes
 from .remat import remat
-from .layers import (blockwise_attention, cache_slot, causal_conv, decode_attention, rms_norm,
-                     rope, swiglu)
+from .layers import (ModelAxis, blockwise_attention, cache_shard_slot, causal_conv,
+                     decode_attention, rms_norm, rope, swiglu, vocab_specs)
 
 
 def ssd_scan(lf, b_in, x_in, c_out, *, chunk: int):
@@ -68,11 +110,12 @@ def ssd_scan(lf, b_in, x_in, c_out, *, chunk: int):
     return y[:, :S], h_last
 
 
-class Hymba(nn.Module):
+class Hymba(ModelAxis, nn.Module):
     """Global attention blocks alternating with runs of sliding-window blocks."""
 
-    #: no tensor-parallel execution of a ``model`` axis (``train.step`` raises)
-    tensor_parallel = False
+    #: a ``model`` axis above 1 runs tensor-parallel (``train.step`` and the
+    #: dry-run read this)
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
@@ -92,6 +135,7 @@ class Hymba(nn.Module):
         # segment plan: global, swa run, global, swa run, ..., global
         self.swa_runs = [g[i + 1] - g[i] - 1 for i in range(len(g) - 1)]
         self.n_global = len(g)
+        self._init_model_axis(mesh)
 
     # -------------------------------------------------------------- layout
     def block_layout(self) -> dict:
@@ -125,10 +169,7 @@ class Hymba(nn.Module):
 
     def layout(self) -> dict:
         cfg = self.cfg
-        div_v = cfg.vocab % self.model_axis == 0
-        div_d = cfg.d_model % self.model_axis == 0
-        emb_spec = P(TP, None) if div_v else (P(None, TP) if div_d else P(None, None))
-        head_spec = P(None, TP) if div_v else (P(TP, None) if div_d else P(None, None))
+        emb_spec, head_spec = vocab_specs(cfg.vocab, cfg.d_model, self.model_axis)
         lay: dict[str, Any] = {
             "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), emb_spec, scale=0.02),
             "meta": PM.ParamInfo((cfg.hybrid.meta_tokens, cfg.d_model), P(None, None),
@@ -142,9 +183,6 @@ class Hymba(nn.Module):
             lay[f"swa_{i}"] = PM.stack(run, self.block_layout())
         return lay
 
-    def init_params(self, generator: torch.Generator) -> dict:
-        return PM.init_params(self.layout(), generator, device=self.device, dtype=self.dtype)
-
     def _segments(self, params) -> list[tuple[dict, list[dict]]]:
         """Each global block's parameters with the run of sliding-window blocks
         after it (empty after the last), each stacked leaf split once."""
@@ -157,41 +195,90 @@ class Hymba(nn.Module):
         return out
 
     # --------------------------------------------------------------- paths
-    def _ssm_path(self, p, h):
-        """Selective scan over the full sequence.  h: (B, S, D) normed input;
-        returns (B, S, H * hd)."""
-        cfg = self.cfg
-        B, S, _ = h.shape
+    def _ssm_in(self, p, ht):
+        """(x_in, z): this rank's contiguous ``ed/tp`` channels of each from
+        the in-projection of ``ht`` (the module's docstring)."""
+        up = ht @ p["w_in"]
+        if self.tp == 1:
+            return up.chunk(2, dim=-1)
+        c = self.ed // self.tp
+        picks = [[slice(r * c, (r + 1) * c), slice(self.ed + r * c, self.ed + (r + 1) * c)]
+                 for r in range(self.tp)]
+        return regroup_columns(up, self.tp_mesh, picks).chunk(2, dim=-1)
+
+    def _ssm_path(self, p, ht):
+        """Selective scan over the full sequence.  ht: (B, S, D) normed input
+        (in the region); returns (B, S, H * hd), over a ``model`` axis this
+        rank's partial product with ``ssm_proj``."""
+        cfg, mesh = self.cfg, self.tp_mesh
+        B, S, _ = ht.shape
         N, nsh = self.N, self.n_ssm_heads
-        x_in, z = (h @ p["w_in"]).chunk(2, dim=-1)
+        x_in, z = self._ssm_in(p, ht)
         xc = F.silu(causal_conv(x_in, p["conv"]))
-        bc = (xc @ p["w_bc"]).view(B, S, nsh, 2, N)       # (2, N) interleaved per head
-        dt = F.softplus(xc @ p["w_dt"] + p["b_dt"])        # (B, S, nsh) in the model dtype
+        bc = reduce_from_region(xc @ p["w_bc"], mesh).view(B, S, nsh, 2, N)  # (2, N) a head
+        dt = F.softplus(reduce_from_region(xc @ p["w_dt"], mesh) + p["b_dt"])  # model dtype
         lf = dt * -torch.exp(p["a_log"].float())           # fp32 log-decay
-        xh = xc.view(B, S, nsh, self.ed // nsh)
+        xs, local = xc, True
+        if self.tp > 1:
+            # from here on the ranks use their own heads: the gradients of the
+            # whole B, C and dt are summed over the axis
+            lo, hi, local = self._head_span(nsh)
+            bc = copy_to_region(bc, mesh)[:, :, lo:hi]
+            dt, lf = copy_to_region(dt, mesh)[..., lo:hi], copy_to_region(lf, mesh)[..., lo:hi]
+            if not local:
+                xs = gather_from_region(xc, mesh, -1, partial=True)
+        xh = xs.view(B, S, -1, self.ed // nsh)
         y, _ = ssd_scan(lf, dt[..., None] * bc[..., 0, :], xh, bc[..., 1, :],
                         chunk=cfg.ssm.chunk)
-        y = y.reshape(B, S, self.ed).to(h.dtype) + xc * p["d_skip"]
+        y = y.reshape(B, S, -1).to(ht.dtype)
+        if not local:
+            y = self._own_columns(y, xc.shape[-1])
+        y = y + xc * p["d_skip"]
         return (y * F.silu(z)) @ p["ssm_proj"]
 
+    def _fusion_gammas(self, p):
+        """``attn_ln`` and ``ssm_ln`` whole: over a ``model`` axis, gathered in
+        one all-gather (the backward keeps this rank's part)."""
+        if self.tp == 1:
+            return p["attn_ln"], p["ssm_ln"]
+        n = p["attn_ln"].shape[0]
+        both = gather_from_region(torch.cat([p["attn_ln"], p["ssm_ln"]]), self.tp_mesh, -1)
+        both = both.view(self.tp, 2, n)
+        return both[:, 0].reshape(-1), both[:, 1].reshape(-1)
+
+    def _fuse(self, p, x, attn, ssm):
+        """x plus ``wo`` of the two paths' whole rows (B, S, H * hd), each
+        RMS-normed and averaged; over a ``model`` axis, this rank's columns
+        into the row-parallel ``wo``."""
+        eps = self.cfg.norm_eps
+        g_attn, g_ssm = self._fusion_gammas(p)
+        fused = 0.5 * (rms_norm(attn, g_attn, eps) + rms_norm(ssm, g_ssm, eps))
+        return self._attn_out(p, x, fused, local=self.tp == 1)
+
+    def _mlp(self, p, x):
+        hm = rms_norm(x, p["mlp_ln"], self.cfg.norm_eps)
+        y = swiglu(copy_to_region(hm, self.tp_mesh), p["w_gate"], p["w_up"], p["w_down"])
+        return x + reduce_from_region(y, self.tp_mesh)
+
     def _block(self, p, x, positions, *, window: int):
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.tp_mesh
         B, S, _ = x.shape
-        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        H, hd = cfg.n_heads, cfg.resolved_head_dim
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        q = (h @ p["wq"]).view(B, S, H, hd).transpose(1, 2)
-        k = (h @ p["wk"]).view(B, S, Hkv, hd).transpose(1, 2)
-        v = (h @ p["wv"]).view(B, S, Hkv, hd).transpose(1, 2)
+        ht = copy_to_region(h, mesh)
+        lo, hi, local = self._head_span(H)
+        kv_local, pick = self._kv_pick(lo, hi, local)
+        q = self._heads(ht @ p["wq"], H, hd, local, slice(lo, hi)).transpose(1, 2)
+        k = self._heads(ht @ p["wk"], cfg.n_kv_heads, hd, kv_local, pick).transpose(1, 2)
+        v = self._heads(ht @ p["wv"], cfg.n_kv_heads, hd, kv_local, pick).transpose(1, 2)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         attn = blockwise_attention(q, k, v, causal=True, window=window)
-        attn = attn.transpose(1, 2).reshape(B, S, H * hd)
-        ssm = self._ssm_path(p, h)
-        fused = 0.5 * (rms_norm(attn, p["attn_ln"], cfg.norm_eps)
-                       + rms_norm(ssm, p["ssm_ln"], cfg.norm_eps))
-        x = x + fused @ p["wo"]
-        hm = rms_norm(x, p["mlp_ln"], cfg.norm_eps)
-        return x + swiglu(hm, p["w_gate"], p["w_up"], p["w_down"])
+        attn = attn.transpose(1, 2).reshape(B, S, (hi - lo) * hd)
+        if self.tp > 1 and local:
+            attn = gather_from_region(attn, mesh, -1, partial=True)      # the whole row
+        ssm = all_reduce_sum(self._ssm_path(p, ht), mesh, TP)
+        return self._mlp(p, self._fuse(p, x, attn, ssm))
 
     # ------------------------------------------------------------ forward
     def backbone(self, params, x):
@@ -206,7 +293,7 @@ class Hymba(nn.Module):
         return rms_norm(x, params["final_ln"], self.cfg.norm_eps)
 
     def _embed_with_meta(self, params, tokens):
-        x = params["embed"][tokens].to(self.dtype)
+        x = self.embed(params, tokens)
         meta = params["meta"].to(x.dtype)[None].expand(x.shape[0], -1, -1)
         return torch.cat([meta, x], dim=1)
 
@@ -218,20 +305,19 @@ class Hymba(nn.Module):
         device.  The meta positions are dropped after the final norm; logits
         are cast to fp32 before the log-sum-exp, as in JAX.
         """
+        self._check_tp()
         x = self._embed_with_meta(params, batch["tokens"])
         h = self.backbone(params, x)[:, self.cfg.hybrid.meta_tokens:]
-        logits = (h @ params["lm_head"]).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
-        nll = (lse - gold).mean()
+        nll = self._nll(params, h, batch["labels"].long())
         return nll, {"nll": nll, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
     @torch.no_grad()
     def prefill(self, params, batch):
         """Full-sequence forward returning the last position's fp32 logits (B, 1, vocab)."""
+        self._check_tp()
         x = self._embed_with_meta(params, batch["tokens"])
         h = self.backbone(params, x)
-        return (h[:, -1:] @ params["lm_head"]).float()
+        return self._serve_logits(params, h[:, -1:])
 
     # -------------------------------------------------------------- decode
     def cache_layout(self, batch: int, seq: int) -> dict:
@@ -260,49 +346,81 @@ class Hymba(nn.Module):
         return lay
 
     def init_cache(self, batch: int, seq: int) -> dict:
-        return PM.zeros_cache(self.cache_layout(batch, seq), device=self.device, dtype=self.dtype)
+        """A zero cache; over a ``model`` axis above 1, this rank's shard of it."""
+        return self._zero_cache(self.cache_layout(batch, seq))
 
-    def _ssm_step(self, p, h, c):
+    def _to_state_cut(self, xc):
+        """(B, 1, ed/tp) conv channels -> (B, nsh, chd/tp, 1): the state's
+        channels of every head, from every rank's conv channels."""
+        B, nsh = xc.shape[0], self.n_ssm_heads
+        chd = self.ed // nsh
+        w = chd // self.tp
+        full = torch.cat(self.tp_mesh.all_gather(xc, TP), -1).view(B, nsh, chd)
+        return full[:, :, self.tp_rank * w:(self.tp_rank + 1) * w, None]
+
+    def _to_conv_cut(self, y):
+        """(B, nsh, chd/tp, 1) y on the state's channels -> (B, 1, ed/tp) on this
+        rank's contiguous conv channels."""
+        B = y.shape[0]
+        full = torch.cat(self.tp_mesh.all_gather(y, TP), 2).reshape(B, self.ed)
+        return self._own_columns(full, self.ed // self.tp).view(B, 1, -1)
+
+    def _ssm_step(self, p, h, c, x_in, z):
         """One step of the selective scan (``_ssm_path`` with ``state``,
-        ``hymba.py:263``).  h: (B, 1, D) normed input; ``c``'s ``conv`` and
-        ``ssm`` are updated in place.  Returns (B, 1, H * hd)."""
+        ``hymba.py:263``).  h: (B, 1, D) normed input, ``x_in`` and ``z`` its
+        in-projection's channels; ``c``'s ``conv`` and ``ssm`` are updated in
+        place.  Returns (B, 1, H * hd), over a ``model`` axis this rank's
+        partial product with ``ssm_proj``."""
         B = h.shape[0]
         N, nsh = self.N, self.n_ssm_heads
-        x_in, z = (h @ p["w_in"]).chunk(2, dim=-1)
-        conv_in = torch.cat([c["conv"], x_in], dim=1)                  # (B, W, ed)
+        mesh = self.tp_mesh
+        conv_in = torch.cat([c["conv"], x_in], dim=1)                  # (B, W, channels)
         c["conv"].copy_(conv_in[:, 1:])
         W = p["conv"].shape[0]
         xc = F.silu(sum(conv_in[:, i:i + 1] * p["conv"][i] for i in range(W)))
-        bc = (xc @ p["w_bc"]).view(B, nsh, 2, N)
-        dt = F.softplus(xc @ p["w_dt"] + p["b_dt"]).view(B, nsh)      # model dtype
+        bc = reduce_from_region(xc @ p["w_bc"], mesh).view(B, nsh, 2, N)
+        dt = F.softplus(reduce_from_region(xc @ p["w_dt"], mesh) + p["b_dt"]).view(B, nsh)
         a_t = torch.exp(dt * -torch.exp(p["a_log"].float()))           # fp32 decay
         bx_in = dt[..., None] * bc[:, :, 0]                             # (B, nsh, N)
-        outer = xc.view(B, nsh, self.ed // nsh, 1) * bx_in[:, :, None]  # model dtype
+        xs = xc.view(B, nsh, self.ed // nsh, 1) if self.tp == 1 else self._to_state_cut(xc)
+        outer = xs * bx_in[:, :, None]                                  # model dtype
         state = c["ssm"].mul_(a_t[..., None, None]).add_(outer.float())
-        y = (state @ bc[:, :, 1].float()[..., None]).view(B, 1, self.ed)
+        y = state @ bc[:, :, 1].float()[..., None]
+        y = y.view(B, 1, self.ed) if self.tp == 1 else self._to_conv_cut(y)
         y = y.to(h.dtype) + xc * p["d_skip"]
         return (y * F.silu(z)) @ p["ssm_proj"]
 
-    def _decode_block(self, p, x, c, slot: int, pos, valid):
-        """One token through a block; writes ``slot`` of its KV cache and its
-        SSM state in place.  ``pos``: the token's position, a (1,) int64
-        tensor; ``valid``: the visible slots, an int32 (B,) tensor; both on the
-        model's device and made once a step for every block."""
-        cfg = self.cfg
+    def _decode_block(self, p, x, c, slot, pos, valid):
+        """One token through a block; writes ``slot`` of its KV cache (this
+        rank's local slot, or None where another rank holds the token's) and
+        its SSM state in place.  ``pos``: the token's position, a (1,) int64
+        tensor; ``valid``: this rank's visible slots, an int32 (B,) tensor;
+        both on the model's device and made once a step for every block."""
+        cfg, mesh = self.cfg, self.tp_mesh
         B = x.shape[0]
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        q = rope((h @ p["wq"]).view(B, H, 1, hd), pos, cfg.rope_theta)
-        k = rope((h @ p["wk"]).view(B, Hkv, 1, hd), pos, cfg.rope_theta)
-        c["k"][:, :, slot] = k[:, :, 0]
-        c["v"][:, :, slot] = (h @ p["wv"]).view(B, Hkv, hd)
-        attn = decode_attention(q, c["k"], c["v"], valid, window=0).view(B, 1, H * hd)
-        ssm = self._ssm_step(p, h, c)
-        fused = 0.5 * (rms_norm(attn, p["attn_ln"], cfg.norm_eps)
-                       + rms_norm(ssm, p["ssm_ln"], cfg.norm_eps))
-        x = x + fused @ p["wo"]
-        hm = rms_norm(x, p["mlp_ln"], cfg.norm_eps)
-        return x + swiglu(hm, p["w_gate"], p["w_up"], p["w_down"])
+        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+        if self.tp == 1:
+            x_in, z = (h @ p["w_in"]).chunk(2, dim=-1)
+        else:
+            q, k, v, up = self._gather_columns(q, k, v, h @ p["w_in"])     # every column
+            c_ = self.ed // self.tp
+            x_in = self._own_columns(up[..., :self.ed], c_)
+            z = self._own_columns(up[..., self.ed:], c_)
+        q = rope(q.view(B, H, 1, hd), pos, cfg.rope_theta)
+        k = rope(k.view(B, Hkv, 1, hd), pos, cfg.rope_theta)
+        if slot is not None:
+            c["k"][:, :, slot] = k[:, :, 0]
+            c["v"][:, :, slot] = v.view(B, Hkv, hd)
+        if self.tp == 1:
+            attn = decode_attention(q, c["k"], c["v"], valid, window=0)
+        else:
+            part, lse = ops.decode_attention_partial(q, c["k"], c["v"], valid)
+            attn = merge_partials(part, lse, mesh, TP, dtype=c["v"].dtype)
+        ssm = all_reduce_sum(self._ssm_step(p, h, c, x_in, z), mesh, TP)
+        x = self._fuse(p, x, attn.view(B, 1, H * hd), ssm)
+        return self._mlp(p, x)
 
     @torch.no_grad()
     def decode_step(self, params, batch):
@@ -312,12 +430,15 @@ class Hymba(nn.Module):
         :meth:`init_cache`, ``index`` the int position of the new token, used
         as given (no meta-token offset).  Returns ``(logits (B, 1, vocab) fp32,
         cache)``; the cache is updated in place.  An ``index`` past the global
-        layers' cache raises ``IndexError``.
+        layers' cache raises ``IndexError``.  Over a ``model`` axis the rows
+        and the cache are this rank's (the module's docstring) and the logits
+        are whole.
         """
+        self._check_tp()
         cfg = self.cfg
         tokens, cache, index = batch["tokens"], batch["cache"], int(batch["index"])
         win = cfg.hybrid.sliding_window
-        x = params["embed"][tokens].to(self.dtype)
+        x = self.embed(params, tokens)
         B = x.shape[0]
         # one position and one valid-length tensor a step for each cache length,
         # filled on the device and handed to every block
@@ -325,10 +446,11 @@ class Hymba(nn.Module):
         valid: dict[int, torch.Tensor] = {}
 
         def plan(S: int, window: int):
-            slot, n_valid = cache_slot(index, S, window)
+            where = cache_shard_slot(index, S * self.tp, window, self.tp)
             if S not in valid:
-                valid[S] = torch.full((B,), n_valid, dtype=torch.int32, device=x.device)
-            return slot, valid[S]
+                valid[S] = torch.full((B,), where.counts[self.tp_rank], dtype=torch.int32,
+                                      device=x.device)
+            return (where.local if where.owner == self.tp_rank else None), valid[S]
 
         for i, (g, run) in enumerate(self._segments(params)):
             c = cache[f"global_{i}"]
@@ -340,4 +462,4 @@ class Hymba(nn.Module):
                 for j, p in enumerate(run):
                     x = self._decode_block(p, x, {n: t[j] for n, t in cs.items()}, slot, pos, vl)
         h = rms_norm(x, params["final_ln"], cfg.norm_eps)
-        return (h @ params["lm_head"]).float(), cache
+        return self._serve_logits(params, h), cache

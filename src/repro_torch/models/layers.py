@@ -1,6 +1,7 @@
 """Shared model primitives: norms, RoPE, sinusoidal positions, blockwise and
 decode attention, the decode cache's slot rule, MLPs, routed experts, causal
-depthwise convolution.
+depthwise convolution, and :class:`ModelAxis`, the pieces of the ``model``
+axis that ``DecoderLM``, ``Hymba`` and ``EncDecLM`` share.
 
 ``rms_norm``, ``blockwise_attention``, ``decode_attention`` and ``swiglu`` go
 through :mod:`repro_torch.kernels.ops`: the hand-written kernels on the
@@ -21,16 +22,20 @@ order of rounding.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..parallel import all_reduce_sum, copy_to_region, reduce_from_region, tp_mesh
+from ..parallel import (TP, all_reduce_sum, copy_to_region, gather_from_region,
+                        reduce_from_region, scatter_to_region, tp_mesh, tp_size)
+from . import params as PM
+from .params import P
 
 
 def rms_norm(x, gamma, eps: float = 1e-5):
@@ -146,9 +151,13 @@ def swiglu(x, w_gate, w_up, w_down):
     return ops.swiglu_mlp(x, w_gate, w_up, w_down)
 
 
-def gelu_mlp(x, w_in, b_in, w_out, b_out):
-    """Whisper's MLP: the tanh GELU, as ``jax.nn.gelu(approximate=True)``."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+def gelu_mlp(x, w_in, b_in, w_out, b_out, mesh=None):
+    """Whisper's MLP: the tanh GELU, as ``jax.nn.gelu(approximate=True)``.
+    Over the ``model`` axis of ``mesh`` (``parallel.tp_mesh``): ``w_in`` and
+    ``b_in`` this rank's columns, ``w_out`` its rows, the partial output
+    reduced before ``b_out`` is added once."""
+    y = F.gelu(copy_to_region(x, mesh) @ w_in + b_in, approximate="tanh") @ w_out
+    return reduce_from_region(y, mesh) + b_out
 
 
 class MoERoute(NamedTuple):
@@ -288,3 +297,201 @@ def causal_conv(x, w):
     W, S = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, W - 1, 0))
     return sum(pad[:, i:i + S] * w[i] for i in range(W))
+
+
+# ------------------------------------------------------------ the model axis
+def vocab_specs(vocab: int, d_model: int, model_axis: int) -> tuple[tuple, tuple]:
+    """(embedding spec, unembedding spec): cut on vocab where it divides the
+    axis, else on d_model where that does, else replicated (JAX's rule)."""
+    if vocab % model_axis == 0:
+        return P(TP, None), P(None, TP)
+    if d_model % model_axis == 0:
+        return P(None, TP), P(TP, None)
+    return P(None, None), P(None, None)
+
+
+class ModelAxis:
+    """The ``model`` axis as the port's model classes execute it: a mixin of
+    ``DecoderLM``, ``Hymba`` and ``EncDecLM``, which set ``cfg``, ``mesh``,
+    ``device`` and ``dtype`` and call :meth:`_init_model_axis`.
+
+    Built over a mesh of one rank's coordinates whose ``model`` axis is above
+    1 (``parallel.tp_size``), the parameters are this rank's shards
+    (:meth:`init_params`), and the pieces below run Megatron's regions; with
+    no such axis every region is the identity.  Heads: a projection cut into
+    whole heads a rank gives this rank's heads; one cut inside a head is
+    gathered over the axis and the heads a rank's queries need are taken (a
+    gather whose backward sums the ranks' partial gradients); with the queries
+    cut inside a head every rank computes every head and keeps its slice of
+    the output for the row-parallel ``wo``.  Vocab (:func:`vocab_specs`): a
+    vocab-parallel embedding (rows outside the shard masked, then summed),
+    local-vocab logits and a vocab-parallel cross-entropy (the max over the
+    axis, then the sum of exponentials and the gold logit summed over it, in
+    fp32) where the vocab divides; the embedding's columns gathered and a
+    row-parallel unembedding whose logits are summed where only ``d_model``
+    does; replicated otherwise.
+    """
+
+    def _init_model_axis(self, mesh) -> None:
+        cfg = self.cfg
+        self.tp = tp_size(mesh)
+        #: the mesh the regions run over: None without a ``model`` axis above 1,
+        #: where every region is the identity
+        self.tp_mesh = tp_mesh(mesh)
+        self.tp_rank = mesh.coords[TP] if self.tp > 1 else 0
+        self._row_axes: tuple = ()
+        emb_spec = vocab_specs(cfg.vocab, cfg.d_model, self.tp)[0]
+        self._vocab_cut = (None if self.tp == 1 else "vocab" if emb_spec == P(TP, None) else
+                           "d_model" if emb_spec == P(None, TP) else None)
+
+    @contextlib.contextmanager
+    def rows_split(self, axes):
+        """Within: the rows are one rank's equal part of a batch cut over the
+        mesh's ``axes`` (the experts route the global batch)."""
+        prev, self._row_axes = self._row_axes, tuple(axes)
+        try:
+            yield
+        finally:
+            self._row_axes = prev
+
+    def _check_tp(self) -> None:
+        if self.tp > 1 and self.model_axis != self.tp:
+            raise ValueError(f"{self.cfg.arch}: built for a model axis of {self.model_axis}, "
+                             f"run over one of {self.tp}")
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """The full tree by the JAX package's rules; over a ``model`` axis, this
+        rank's shards of it (every rank draws the same tree)."""
+        layout = self.layout()
+        full = PM.init_params(layout, generator, device=self.device, dtype=self.dtype)
+        return PM.shard_params(full, layout, self.mesh) if self.tp > 1 else full
+
+    def _zero_cache(self, layout) -> dict:
+        """A zero cache of ``layout``; over a ``model`` axis, this rank's shard
+        of it (``params.cache_shards``)."""
+        if self.tp > 1:
+            layout = PM.cache_shards(layout, self.mesh)
+        return PM.zeros_cache(layout, device=self.device, dtype=self.dtype)
+
+    # ------------------------------------------------------------- heads
+    def _head_span(self, n_heads: int) -> tuple[int, int, bool]:
+        """``(lo, hi, local)``: the query heads this rank computes, and whether
+        they are its own columns (whole heads a rank) or every head."""
+        if n_heads % self.tp == 0:
+            per = n_heads // self.tp
+            return self.tp_rank * per, (self.tp_rank + 1) * per, True
+        return 0, n_heads, False
+
+    def _heads(self, t, n_heads: int, width: int, local: bool, pick):
+        """(B, S, h, width): this rank's columns ``t`` of an (n_heads x width)
+        projection as its heads, or with ``local`` False the projection
+        gathered over the axis and the heads ``pick`` (a slice or an index
+        list) taken."""
+        B, S, _ = t.shape
+        if local:
+            return t.view(B, S, -1, width)
+        full = gather_from_region(t, self.tp_mesh, -1, partial=True).view(B, S, n_heads, width)
+        if isinstance(pick, slice):
+            return full[:, :, pick].contiguous()
+        return full.index_select(2, torch.tensor(pick, device=t.device))
+
+    def _kv_pick(self, lo: int, hi: int, q_local: bool) -> tuple[bool, Any]:
+        """``(local, pick)`` of the kv heads that queries ``lo:hi`` read: this
+        rank's own columns where both head counts divide the axis, else the
+        heads of a gathered projection (a slice where the groups stay
+        uniform, one kv head a query otherwise)."""
+        H, Hkv = self.cfg.n_heads, self.cfg.n_kv_heads
+        if q_local and Hkv % self.tp == 0:
+            return True, None
+        G = H // Hkv
+        k0, k1 = lo // G, (hi - 1) // G + 1
+        want = [(lo + i) // G - k0 for i in range(hi - lo)]
+        nq, nk = hi - lo, k1 - k0
+        if nq % nk == 0 and want == [i // (nq // nk) for i in range(nq)]:
+            return False, slice(k0, k1)
+        return False, [(lo + i) // G for i in range(nq)]
+
+    def _gather_columns(self, *parts, dim: int = -1):
+        """Each of ``parts`` (one shape but the last dimension) with every rank's
+        part of it concatenated along ``dim`` in rank order, in one all-gather
+        of the parts side by side."""
+        widths = [t.shape[-1] for t in parts]
+        ranks = self.tp_mesh.all_gather(torch.cat(parts, -1), TP)
+        out, start = [], 0
+        for w in widths:
+            out.append(torch.cat([r[..., start:start + w] for r in ranks], dim))
+            start += w
+        return out
+
+    def _own_columns(self, t, cols: int):
+        """This rank's ``cols`` columns of a whole row ``t`` (its part of a
+        ``P(TP)`` cut)."""
+        return t[..., self.tp_rank * cols:(self.tp_rank + 1) * cols]
+
+    def _attn_out(self, p, x, out, local: bool):
+        """x plus ``wo`` of the attention output (B, S, heads x v width):
+        row-parallel, summed over the axis; with every head computed, this
+        rank's slice of the output first."""
+        if not local:
+            out = self._own_columns(out, p["wo"].shape[0])
+        return x + reduce_from_region(out @ p["wo"], self.tp_mesh)
+
+    # ------------------------------------------------------------- vocab
+    def _head_weight(self, params):
+        return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+
+    def embed(self, params, tokens):
+        if self._vocab_cut == "vocab":
+            rows = params["embed"].shape[0]
+            local = tokens - self.tp_rank * rows
+            mine = (local >= 0) & (local < rows)
+            e = params["embed"][local.clamp(0, rows - 1)].to(self.dtype)
+            return reduce_from_region(torch.where(mine[..., None], e, 0), self.tp_mesh)
+        if self._vocab_cut == "d_model":
+            return gather_from_region(params["embed"][tokens].to(self.dtype), self.tp_mesh, -1)
+        return params["embed"][tokens].to(self.dtype)
+
+    def unembed(self, params, h):
+        return h @ self._head_weight(params)
+
+    def _nll(self, params, h, labels):
+        """The mean next-token cross-entropy of the final hidden states ``h``
+        against ``labels`` (int64), the logits cast to fp32 before the
+        log-sum-exp, as in JAX: vocab-parallel, ``d_model``-cut or whole."""
+        if self._vocab_cut == "vocab":
+            return self._vocab_parallel_nll(params, h, labels)
+        if self._vocab_cut == "d_model":
+            h_part = scatter_to_region(h, self.tp_mesh, -1)
+            logits = reduce_from_region(h_part @ self._head_weight(params), self.tp_mesh).float()
+        else:
+            logits = self.unembed(params, h).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return (lse - gold).mean()
+
+    def _vocab_parallel_nll(self, params, h, labels):
+        """The mean cross-entropy of this rank's vocab columns' fp32 logits:
+        the max over the axis, the sum of exponentials and the gold logit
+        (on the one rank whose columns hold it) summed over it."""
+        mesh = self.tp_mesh
+        logits = (copy_to_region(h, mesh) @ self._head_weight(params)).float()   # (B, S, V/tp)
+        cols = logits.shape[-1]
+        top = mesh.all_reduce(logits.detach().amax(-1), TP, op="max")
+        lse = top + torch.log(reduce_from_region(torch.exp(logits - top[..., None]).sum(-1),
+                                                 mesh))
+        local = labels - self.tp_rank * cols
+        mine = (local >= 0) & (local < cols)
+        gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+        gold = reduce_from_region(torch.where(mine, gold, 0.0), mesh)
+        return (lse - gold).mean()
+
+    def _serve_logits(self, params, h):
+        """The whole fp32 logits of ``h`` on every rank: a vocab cut's local
+        columns gathered, a ``d_model`` cut's row-parallel products summed."""
+        if self._vocab_cut == "vocab":
+            local = h @ self._head_weight(params)
+            return torch.cat(self.tp_mesh.all_gather(local, TP), -1).float()
+        if self._vocab_cut == "d_model":
+            h_part = scatter_to_region(h, self.tp_mesh, -1)
+            return reduce_from_region(h_part @ self._head_weight(params), self.tp_mesh).float()
+        return self.unembed(params, h).float()

@@ -35,7 +35,8 @@ the model executes the layout's ``model`` entries, as ``jax.jit`` does with
 those specs: its parameters are this rank's shards (``params.shard_params``;
 :meth:`init_params` draws the full tree and cuts it) and ``loss`` runs
 Megatron's regions (``repro_torch.parallel``; without a ``model`` axis each is
-the identity, so the same code runs every axis size):
+the identity, so the same code runs every axis size), through the pieces the
+model classes share (``layers.ModelAxis``):
 
 * attention: ``wq/wk/wv`` (and biases) column-parallel behind
   ``copy_to_region``, this rank's heads through the flash kernels, ``wo``
@@ -49,7 +50,7 @@ the identity, so the same code runs every axis size):
   through ``copy_to_region``;
 * the dense MLP: the SwiGLU kernel on this rank's ``F/tp`` columns, its
   partial output reduced once; the MoE block as ``layers.moe_block`` says;
-* ``_vocab_specs``: a vocab-parallel embedding (rows outside the shard
+* ``layers.vocab_specs``: a vocab-parallel embedding (rows outside the shard
   masked, then summed), local-vocab logits and a vocab-parallel
   cross-entropy (the max over the axis, then the sum of exponentials and
   the gold logit summed over it, in fp32) where the vocab divides; the
@@ -100,7 +101,6 @@ global batch (``layers.moe_route``).
 
 from __future__ import annotations
 
-import contextlib
 import math
 from functools import partial
 from typing import Any
@@ -111,25 +111,13 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops
-from ..parallel import (copy_to_region, gather_from_region, reduce_from_region,
-                        scatter_to_region, tp_mesh, tp_size)
+from ..parallel import copy_to_region, reduce_from_region
 from ..serve.flash_decoding import merge_partials
 from . import params as PM
 from .params import TP, P, dp_axes
 from .remat import remat
-from .layers import (blockwise_attention, cache_shard_slot, decode_attention, moe_block,
-                     rms_norm, rope, swiglu)
-
-
-
-
-def _vocab_specs(vocab: int, d_model: int, model_axis: int) -> tuple[tuple, tuple]:
-    """Shard embeddings on vocab when divisible, else on d_model, else replicate."""
-    if vocab % model_axis == 0:
-        return P(TP, None), P(None, TP)
-    if d_model % model_axis == 0:
-        return P(None, TP), P(TP, None)
-    return P(None, None), P(None, None)
+from .layers import (ModelAxis, blockwise_attention, cache_shard_slot, decode_attention,
+                     moe_block, rms_norm, rope, swiglu, vocab_specs)
 
 
 def _expert_specs(cfg: ModelConfig, model_axis: int) -> tuple[tuple, tuple]:
@@ -199,7 +187,7 @@ def _moe_layout(cfg: ModelConfig, model_axis: int) -> dict:
     return lay
 
 
-class DecoderLM(nn.Module):
+class DecoderLM(ModelAxis, nn.Module):
     """Dense GQA / MoE / MLA / VLM decoder (qwen-style options: QKV bias,
     qk-norm, tied unembed)."""
 
@@ -216,30 +204,7 @@ class DecoderLM(nn.Module):
         self.mesh = mesh
         self.device = resolve(device)
         self.dtype = PM.as_dtype(cfg.dtype)
-        self.tp = tp_size(mesh)
-        #: the mesh the regions run over: None without a ``model`` axis above 1,
-        #: where every region is the identity
-        self.tp_mesh = tp_mesh(mesh)
-        self.tp_rank = mesh.coords[TP] if self.tp > 1 else 0
-        self._row_axes: tuple = ()
-        emb_spec = _vocab_specs(cfg.vocab, cfg.d_model, self.tp)[0]
-        self._vocab_cut = (None if self.tp == 1 else "vocab" if emb_spec == P(TP, None) else
-                           "d_model" if emb_spec == P(None, TP) else None)
-
-    @contextlib.contextmanager
-    def rows_split(self, axes):
-        """Within: the rows are one rank's equal part of a batch cut over the
-        mesh's ``axes`` (the experts route the global batch)."""
-        prev, self._row_axes = self._row_axes, tuple(axes)
-        try:
-            yield
-        finally:
-            self._row_axes = prev
-
-    def _check_tp(self) -> None:
-        if self.tp > 1 and self.model_axis != self.tp:
-            raise ValueError(f"{self.cfg.arch}: built for a model axis of {self.model_axis}, "
-                             f"run over one of {self.tp}")
+        self._init_model_axis(mesh)
 
     # -------------------------------------------------------------- layout
     def layer_layout(self, *, moe: bool) -> dict:
@@ -251,7 +216,7 @@ class DecoderLM(nn.Module):
 
     def layout(self) -> dict:
         cfg = self.cfg
-        emb_spec, head_spec = _vocab_specs(cfg.vocab, cfg.d_model, self.model_axis)
+        emb_spec, head_spec = vocab_specs(cfg.vocab, cfg.d_model, self.model_axis)
         lay: dict[str, Any] = {
             "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), emb_spec, scale=0.02),
             "final_ln": PM.ParamInfo((cfg.d_model,), P(None), "ones"),
@@ -265,13 +230,6 @@ class DecoderLM(nn.Module):
         else:
             lay["layers"] = PM.stack(cfg.n_layers, self.layer_layout(moe=is_moe))
         return lay
-
-    def init_params(self, generator: torch.Generator) -> dict:
-        """The full tree by the JAX package's rules; over a ``model`` axis, this
-        rank's shards of it (every rank draws the same tree)."""
-        layout = self.layout()
-        full = PM.init_params(layout, generator, device=self.device, dtype=self.dtype)
-        return PM.shard_params(full, layout, self.mesh) if self.tp > 1 else full
 
     def cache_layout(self, batch: int, seq: int) -> dict:
         """GQA K and V caches (a ring of ``min(seq, window)`` slots with a
@@ -295,29 +253,9 @@ class DecoderLM(nn.Module):
     def init_cache(self, batch: int, seq: int) -> dict:
         """A zero cache for ``batch`` requests of ``seq`` slots; over a ``model``
         axis above 1, this rank's shard of it (``params.cache_shards``)."""
-        layout = self.cache_layout(batch, seq)
-        if self.tp > 1:
-            layout = PM.cache_shards(layout, self.mesh)
-        return PM.zeros_cache(layout, device=self.device, dtype=self.dtype)
+        return self._zero_cache(self.cache_layout(batch, seq))
 
     # ------------------------------------------------------------- pieces
-    def embed(self, params, tokens):
-        if self._vocab_cut == "vocab":
-            rows = params["embed"].shape[0]
-            local = tokens - self.tp_rank * rows
-            mine = (local >= 0) & (local < rows)
-            e = params["embed"][local.clamp(0, rows - 1)].to(self.dtype)
-            return reduce_from_region(torch.where(mine[..., None], e, 0), self.tp_mesh)
-        if self._vocab_cut == "d_model":
-            return gather_from_region(params["embed"][tokens].to(self.dtype), self.tp_mesh, -1)
-        return params["embed"][tokens].to(self.dtype)
-
-    def _head_weight(self, params):
-        return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-
-    def unembed(self, params, h):
-        return h @ self._head_weight(params)
-
     def _mla_latent(self, p, h):
         """MLA's down-projection of the normed input h: (normed latent, k_rope
         before RoPE).  ``w_dkv``'s two column blocks are two products, so each
@@ -326,65 +264,6 @@ class DecoderLM(nn.Module):
         r = self.cfg.mla.kv_lora_rank
         c_kv = rms_norm(h @ p["w_dkv"][:, :r], p["kv_ln"], self.cfg.norm_eps)
         return c_kv, h @ p["w_dkv"][:, r:]
-
-    # ------------------------------------------- heads over the model axis
-    def _head_span(self, n_heads: int) -> tuple[int, int, bool]:
-        """``(lo, hi, local)``: the query heads this rank computes, and whether
-        they are its own columns (whole heads a rank) or every head."""
-        if n_heads % self.tp == 0:
-            per = n_heads // self.tp
-            return self.tp_rank * per, (self.tp_rank + 1) * per, True
-        return 0, n_heads, False
-
-    def _heads(self, t, n_heads: int, width: int, local: bool, pick):
-        """(B, S, h, width): this rank's columns ``t`` of an (n_heads x width)
-        projection as its heads, or with ``local`` False the projection
-        gathered over the axis and the heads ``pick`` (a slice or an index
-        list) taken."""
-        B, S, _ = t.shape
-        if local:
-            return t.view(B, S, -1, width)
-        full = gather_from_region(t, self.tp_mesh, -1, partial=True).view(B, S, n_heads, width)
-        if isinstance(pick, slice):
-            return full[:, :, pick].contiguous()
-        return full.index_select(2, torch.tensor(pick, device=t.device))
-
-    def _kv_pick(self, lo: int, hi: int, q_local: bool) -> tuple[bool, Any]:
-        """``(local, pick)`` of the kv heads that queries ``lo:hi`` read: this
-        rank's own columns where both head counts divide the axis, else the
-        heads of a gathered projection (a slice where the groups stay
-        uniform, one kv head a query otherwise)."""
-        H, Hkv = self.cfg.n_heads, self.cfg.n_kv_heads
-        if q_local and Hkv % self.tp == 0:
-            return True, None
-        G = H // Hkv
-        k0, k1 = lo // G, (hi - 1) // G + 1
-        want = [(lo + i) // G - k0 for i in range(hi - lo)]
-        nq, nk = hi - lo, k1 - k0
-        if nq % nk == 0 and want == [i // (nq // nk) for i in range(nq)]:
-            return False, slice(k0, k1)
-        return False, [(lo + i) // G for i in range(nq)]
-
-    def _gather_columns(self, *parts, dim: int = -1):
-        """Each of ``parts`` (one shape but the last dimension) with every rank's
-        part of it concatenated along ``dim`` in rank order, in one all-gather
-        of the parts side by side."""
-        widths = [t.shape[-1] for t in parts]
-        ranks = self.tp_mesh.all_gather(torch.cat(parts, -1), TP)
-        out, start = [], 0
-        for w in widths:
-            out.append(torch.cat([r[..., start:start + w] for r in ranks], dim))
-            start += w
-        return out
-
-    def _attn_out(self, p, x, out, local: bool):
-        """x plus ``wo`` of the attention output (B, S, heads x v width):
-        row-parallel, summed over the axis; with every head computed, this
-        rank's slice of the output first."""
-        if not local:
-            cols = p["wo"].shape[0]
-            out = out[..., self.tp_rank * cols:(self.tp_rank + 1) * cols]
-        return x + reduce_from_region(out @ p["wo"], self.tp_mesh)
 
     def _attention(self, p, x, positions, *, window: int):
         """Full-sequence causal attention block (the JAX ``_attention``); over
@@ -586,47 +465,10 @@ class DecoderLM(nn.Module):
         h, aux = self.backbone(params, x, positions)
         if n_img:
             h = h[:, n_img:]
-        if self._vocab_cut == "vocab":
-            nll = self._vocab_parallel_nll(params, h, labels.long())
-            return nll + 0.01 * aux, {"nll": nll, "aux": aux}
-        if self._vocab_cut == "d_model":
-            h_part = scatter_to_region(h, self.tp_mesh, -1)
-            logits = reduce_from_region(h_part @ self._head_weight(params), self.tp_mesh).float()
-        else:
-            logits = self.unembed(params, h).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-        nll = (lse - gold).mean()
+        nll = self._nll(params, h, labels.long())
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
-    def _vocab_parallel_nll(self, params, h, labels):
-        """The mean cross-entropy of this rank's vocab columns' fp32 logits:
-        the max over the axis, the sum of exponentials and the gold logit
-        (on the one rank whose columns hold it) summed over it."""
-        mesh = self.tp_mesh
-        logits = (copy_to_region(h, mesh) @ self._head_weight(params)).float()   # (B, S, V/tp)
-        cols = logits.shape[-1]
-        top = mesh.all_reduce(logits.detach().amax(-1), TP, op="max")
-        lse = top + torch.log(reduce_from_region(torch.exp(logits - top[..., None]).sum(-1),
-                                                 mesh))
-        local = labels - self.tp_rank * cols
-        mine = (local >= 0) & (local < cols)
-        gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
-        gold = reduce_from_region(torch.where(mine, gold, 0.0), mesh)
-        return (lse - gold).mean()
-
     # ------------------------------------------------------------ serving
-    def _serve_logits(self, params, h):
-        """The whole fp32 logits of ``h`` on every rank: a vocab cut's local
-        columns gathered, a ``d_model`` cut's row-parallel products summed."""
-        if self._vocab_cut == "vocab":
-            local = h @ self._head_weight(params)
-            return torch.cat(self.tp_mesh.all_gather(local, TP), -1).float()
-        if self._vocab_cut == "d_model":
-            h_part = scatter_to_region(h, self.tp_mesh, -1)
-            return reduce_from_region(h_part @ self._head_weight(params), self.tp_mesh).float()
-        return self.unembed(params, h).float()
-
     @torch.no_grad()
     def prefill(self, params, batch):
         """Full-sequence forward returning the last position's fp32 logits (B, 1,

@@ -8,8 +8,9 @@ The parallel regions are Megatron's conjugate pairs over a mesh axis, as
 ``torch.autograd.Function`` s: :func:`copy_to_region` (identity forward,
 all-reduce backward), :func:`reduce_from_region` (all-reduce forward,
 identity backward), :func:`gather_from_region` and :func:`scatter_to_region`
-along a dimension, and :func:`all_reduce_sum`, the differentiable sum over
-the data axes (a sum both ways).  Their all-reduces sum in fp32 and cast
+along a dimension, :func:`regroup_columns`, which moves columns from one cut
+of a row to another, and :func:`all_reduce_sum`, the differentiable sum over
+an axis (a sum both ways).  Their all-reduces sum in fp32 and cast
 back once, as ``train/sync.py`` does, where JAX's ``psum`` keeps the
 leaf's dtype.  With no mesh, or where this rank is alone on the axes, a
 region is the identity and returns its input as it is, so a model built
@@ -180,6 +181,27 @@ class _ScatterToRegion(torch.autograd.Function):
         return torch.cat(ctx.mesh.all_gather(g.contiguous(), ctx.axes), ctx.dim), None, None, None
 
 
+class _RegroupColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, picks):
+        ctx.mesh, ctx.axes, ctx.picks, ctx.width = mesh, axes, picks, x.shape[-1]
+        full = torch.cat(mesh.all_gather(x.contiguous(), axes), -1)
+        return torch.cat([full[..., s] for s in picks[mesh.index_in(axes)]], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = ctx.mesh.all_gather(g.contiguous(), ctx.axes)
+        full = g.new_empty((*g.shape[:-1], ctx.width * len(parts)))
+        for pick, part in zip(ctx.picks, parts):
+            start = 0
+            for s in pick:
+                n = s.stop - s.start
+                full[..., s] = part[..., start:start + n]
+                start += n
+        i = ctx.mesh.index_in(ctx.axes)
+        return full[..., i * ctx.width:(i + 1) * ctx.width], None, None, None
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -225,6 +247,17 @@ def scatter_to_region(x: torch.Tensor, mesh, dim: int, axes=TP) -> torch.Tensor:
     if _alone(mesh, axes):
         return x
     return _ScatterToRegion.apply(x, mesh, axes, dim)
+
+
+def regroup_columns(x: torch.Tensor, mesh, picks, axes=TP) -> torch.Tensor:
+    """The columns ``picks[i]`` (slices of the whole row, side by side) on the
+    slice's rank ``i``, where each rank holds its contiguous part of the row
+    in ``x``: the ranks' parts gathered and this rank's columns taken.  The
+    picks cover every column once, so the backward moves each column's
+    gradient back to the rank that holds it: one all-gather, no sum."""
+    if _alone(mesh, axes):
+        return torch.cat([x[..., s] for s in picks[0]], -1)
+    return _RegroupColumns.apply(x, mesh, axes, picks)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:

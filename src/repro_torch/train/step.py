@@ -15,10 +15,10 @@ by the batch spec (``registry._batch_spec``; the ranks of one ``model``
 group share their rows), computes its loss and gradients, syncs them over
 (``pod``, ``data``) (``sync.two_level_grad_sync``) and applies the ZeRO-1
 update (``optimizer.zero_update_shards``, ``gather_params``).  A ``model``
-axis above 1 runs a ``DecoderLM`` built over the same mesh tensor-parallel
-(``models/lm.py``): its parameters are the rank's shards
-(``params.shard_params``).  Hymba, xLSTM and the encoder-decoder have no
-tensor-parallel execution and raise.  An MoE model over more than one data
+axis above 1 runs a ``DecoderLM``, ``Hymba`` or ``EncDecLM`` built over the
+same mesh tensor-parallel (``models/lm.py``, ``layers.ModelAxis``): its
+parameters are the rank's shards (``params.shard_params``).  xLSTM has no
+tensor-parallel execution and raises.  An MoE model over more than one data
 rank routes the global batch, as JAX does on it (``layers.moe_route``: the
 global capacity and queue, the aux loss of global means).
 
@@ -41,7 +41,7 @@ import torch
 
 from ..device import resolve
 from ..models import params as PM
-from ..models.registry import _batch_spec, _dp_axes
+from ..models.registry import WHISPER_DECODE_ENC_LEN, _batch_spec, _dp_axes
 from ..parallel import NamedSharding
 from ..roofline import count as _count
 from ..serve.engine import data_rows
@@ -96,8 +96,8 @@ class DataParallelStep:
         if tp > 1 and not model.tensor_parallel:
             raise NotImplementedError(
                 f"{model.cfg.arch}: the {model.cfg.family} family ({type(model).__name__}) has no "
-                f"tensor-parallel execution; a 'model' axis of {tp} is ported for DecoderLM "
-                "only, train it over (pod, data) with model 1")
+                f"tensor-parallel execution; a 'model' axis of {tp} is ported for DecoderLM, "
+                "Hymba and EncDecLM, train it over (pod, data) with model 1")
         if tp > 1 and (model.mesh is not mesh or model.model_axis != tp):
             raise ValueError(f"{model.cfg.arch}: over a model axis of {tp} the model must be "
                              f"built with model_axis={tp} and this mesh")
@@ -227,8 +227,10 @@ def tp_step_costs(model, batch, mesh, *, opt_cfg: Optional[AdamWConfig] = None) 
 def tp_serve_costs(model, mesh, kind: str, batch: int, seq: int) -> dict:
     """The counts (:func:`repro_torch.roofline.count.count`) of one rank's
     ``prefill`` (``kind`` "prefill": ``seq`` positions, a VLM's image ones
-    among them) or ``decode_step`` (``kind`` "decode": the last slot of a cache
-    of ``seq``) for a global ``batch`` of requests, on meta under a
+    among them, an encoder-decoder's ``seq`` frames beside them) or
+    ``decode_step`` (``kind`` "decode": the last slot of a cache of ``seq``,
+    an encoder-decoder's cross cache of ``registry.WHISPER_DECODE_ENC_LEN``
+    frames) for a global ``batch`` of requests, on meta under a
     ``launch.mesh.AbstractMesh``: this rank's parameter shards (of
     ``params.abstract``: nothing drawn), its rows (the batch cut over the data
     axes where it divides, inside ``model.rows_split``; whole otherwise), its
@@ -241,17 +243,22 @@ def tp_serve_costs(model, mesh, kind: str, batch: int, seq: int) -> dict:
     axes, cut = data_rows(mesh, batch)
     rows = cut.stop - cut.start
     meta = torch.device("meta")
+    dt = PM.as_dtype(cfg.dtype)
+    encdec = cfg.family == "encdec"
     if kind == "decode":
         step = model.decode_step
+        cache = (model.init_cache(batch, seq, WHISPER_DECODE_ENC_LEN) if encdec
+                 else model.init_cache(batch, seq))
         inputs = {"tokens": torch.empty((rows, 1), dtype=torch.int32, device=meta),
-                  "cache": model.init_cache(batch, seq), "index": seq - 1}
+                  "cache": cache, "index": seq - 1}
     elif kind == "prefill":
         step = model.prefill
         n_img = cfg.vlm.n_image_tokens if cfg.vlm is not None else 0
         inputs = {"tokens": torch.empty((rows, seq - n_img), dtype=torch.int32, device=meta)}
         if n_img:
-            inputs["img_emb"] = torch.empty((rows, n_img, cfg.d_model),
-                                            dtype=PM.as_dtype(cfg.dtype), device=meta)
+            inputs["img_emb"] = torch.empty((rows, n_img, cfg.d_model), dtype=dt, device=meta)
+        if encdec:
+            inputs["enc_emb"] = torch.empty((rows, seq, cfg.d_model), dtype=dt, device=meta)
     else:
         raise ValueError(f"serving has no step of kind {kind!r}")
     with model.rows_split(axes):

@@ -206,9 +206,23 @@ def zero_world(rank: int, world: int, init: str, cfg, jparams: dict, batch: dict
 
 # ------------------------------------------------------- tensor parallelism
 def _gathered(tree, step) -> dict:
-    """Every leaf of a rank's tree (its ``model`` shards) gathered whole."""
-    shs = iter(PM.tree_leaves(step.param_shardings()))
-    return PM.tree_map(lambda t: next(shs).gather(t), tree)
+    """Every leaf of a rank's tree (its ``model`` shards) gathered whole: the
+    cut leaves side by side in one all-gather over the axis."""
+    mesh, shs, leaves = step.mesh, PM.tree_leaves(step.param_shardings()), PM.tree_leaves(tree)
+    cut = [i for i, sh in enumerate(shs) if sh.axes()]
+    out = list(leaves)
+    if cut:
+        parts = mesh.all_gather(torch.cat([leaves[i].reshape(-1) for i in cut]), "model")
+        start = 0
+        for i in cut:
+            n, shape = leaves[i].numel(), leaves[i].shape
+            out[i] = leaves[i].new_empty(shs[i].full_shape(shape))
+            for rank, part in zip(mesh.group_ranks("model"), parts):
+                out[i][shs[i].index_of(mesh.coords_of(rank), out[i].shape)] = \
+                    part[start:start + n].view(shape)
+            start += n
+    it = iter(out)
+    return PM.tree_map(lambda _: next(it), tree)
 
 
 def _replicated(tree, step) -> dict:
@@ -294,6 +308,33 @@ def tp_case(mesh, cfg, jparams: dict, batch: dict, *, steps: int = 1) -> dict:
     return out
 
 
+#: the counts a real rank's step and the dry-run's meta count of it must share
+COUNT_KEYS = ("flops", "traffic_bytes", "matmul_flops", "aten_bytes", "kernels", "collectives",
+              "collective_bytes", "start_bytes")
+
+
+def train_count(mesh, cfg, jparams: dict, batch: dict) -> dict:
+    """One rank's step of ``make_train_step(model, opt, mesh)`` on the global
+    ``batch`` counted, and the same step on meta under an ``AbstractMesh`` as
+    the dry-run counts it (``train.step.tp_step_costs``)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.roofline import count as C
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import tp_step_costs
+
+    model = build_model(cfg, model_axis=mesh.shape["model"], mesh=mesh, device="cpu")
+    fresh = PM.shard_params(PM.params_from_jax(jparams, device="cpu", dtype=cfg.dtype),
+                            model.layout(), mesh)
+    rows = {k: torch.from_numpy(v) for k, v in batch.items()}
+    step = make_train_step(model, AdamWConfig(), mesh)
+    real = C.count(step, fresh, step.init_opt_state(fresh), rows)[1]
+    abstract = AbstractMesh(tuple(mesh.shape.values()), mesh.axis_names, rank=mesh.rank)
+    meta_model = build_model(cfg, model_axis=mesh.shape["model"], mesh=abstract, device="meta")
+    meta_rows = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in rows.items()}
+    meta = tp_step_costs(meta_model, meta_rows, abstract)
+    return {"real": {k: real[k] for k in COUNT_KEYS}, "meta": {k: meta[k] for k in COUNT_KEYS}}
+
+
 def tp_world(rank: int, world: int, init: str, cases: list, ckpt_dir: str,
              family_cfgs: list) -> dict:
     """Each case ``(name, (data, model), cfg, jparams, batch, steps)`` on a
@@ -301,10 +342,7 @@ def tp_world(rank: int, world: int, init: str, cases: list, ckpt_dir: str,
     state of the first case saved and restored at data 1 x model 4; one
     rank's step counted against the meta count the dry-run makes; the
     families without tensor parallelism refused."""
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.roofline import count as C
     from repro_torch.train import make_train_step
-    from repro_torch.train.step import tp_step_costs
 
     torch.set_num_threads(1)
     meshes, out = {}, {}
@@ -349,21 +387,7 @@ def tp_world(rank: int, world: int, init: str, cases: list, ckpt_dir: str,
                                  for s in PM.tree_leaves(sh["opt"]["mu"]))}
 
         # one rank's step counted, and the same step on meta under an AbstractMesh
-        mesh = step.mesh
-        fresh = PM.shard_params(PM.params_from_jax(cases[0][3], device="cpu", dtype=cfg.dtype),
-                                model.layout(), mesh)
-        rows = {k: torch.from_numpy(v) for k, v in cases[0][4].items()}
-        real = C.count(make_train_step(model, AdamWConfig(), mesh), fresh,
-                       step.init_opt_state(fresh), rows)[1]
-        abstract = AbstractMesh(tuple(mesh.shape.values()), mesh.axis_names, rank=rank)
-        meta_model = build_model(cfg, model_axis=mesh.shape["model"], mesh=abstract,
-                                 device="meta")
-        meta_rows = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
-                     for k, v in rows.items()}
-        meta = tp_step_costs(meta_model, meta_rows, abstract)
-        keys = ("flops", "traffic_bytes", "matmul_flops", "aten_bytes", "kernels",
-                "collectives", "collective_bytes", "start_bytes")
-        out["count"] = {"real": {k: real[k] for k in keys}, "meta": {k: meta[k] for k in keys}}
+        out["count"] = train_count(step.mesh, cfg, cases[0][3], cases[0][4])
 
     refused = []
     mesh = mesh_of((2, 2))
@@ -384,7 +408,10 @@ def tp_serve_case(mesh, cfg, jparams: dict, case: dict) -> dict:
     token of ``tokens`` decoded teacher-forced through ``decode_step`` from
     an empty cache of ``cache_len`` slots (the logits of each step and this
     rank's cache shard at the end), and ``ServingEngine.generate`` (greedy)
-    on the global prompts."""
+    on the global prompts.  An encoder-decoder's case holds ``enc_emb``: the
+    prefill reads its rows, the decode's cross cache is filled from
+    ``encode`` of them (``fill_cross``), the engine's cross cache of as many
+    frames stays zero, as JAX's does."""
     from repro_torch.serve import ServeConfig, ServingEngine
     from repro_torch.serve.engine import data_rows
 
@@ -398,15 +425,24 @@ def tp_serve_case(mesh, cfg, jparams: dict, case: dict) -> dict:
     batch = {"tokens": tokens[rows, :case["prompt"]]}
     if case.get("img_emb") is not None:
         batch["img_emb"] = torch.from_numpy(case["img_emb"])[rows]
+    enc_len = 0
+    if case.get("enc_emb") is not None:
+        batch["enc_emb"] = torch.from_numpy(case["enc_emb"])[rows]
+        enc_len = batch["enc_emb"].shape[1]
     with split:
         prefill = model.prefill(params, batch)
-        cache = model.init_cache(B, case["cache_len"])
+        if enc_len:
+            cache = model.init_cache(B, case["cache_len"], enc_len)
+            with torch.no_grad():
+                model.fill_cross(params, cache, model.encode(params, batch["enc_emb"]))
+        else:
+            cache = model.init_cache(B, case["cache_len"])
         steps = []
         for t in range(L):
             logits, cache = model.decode_step(params, {"tokens": tokens[rows, t:t + 1],
                                                        "cache": cache, "index": t})
             steps.append(logits[:, 0].numpy().copy())
-    engine = ServingEngine(model, params, cache_len=case["cache_len"], batch=B)
+    engine = ServingEngine(model, params, cache_len=case["cache_len"], batch=B, enc_len=enc_len)
     generated = engine.generate(case["tokens"][:, :case["prompt"]],
                                 ServeConfig(max_new_tokens=case["new"]))
     return {"coords": dict(mesh.coords), "rows": (rows.start, rows.stop),
@@ -420,11 +456,6 @@ def tp_serve_world(rank: int, world: int, init: str, cases: list, count_case: tu
     the prefill of ``count_case`` ``(name, (data, model), cfg, jparams, B, S)``
     counted on this rank and on meta under an ``AbstractMesh`` as the dry-run
     counts them (``train.step.tp_serve_costs``)."""
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.roofline import count as C
-    from repro_torch.serve.engine import data_rows
-    from repro_torch.train.step import tp_serve_costs
-
     torch.set_num_threads(1)
     meshes, out = {}, {}
 
@@ -439,25 +470,95 @@ def tp_serve_world(rank: int, world: int, init: str, cases: list, count_case: tu
         out[name] = tp_serve_case(mesh_of(shape), cfg, jparams, case)
 
     name, shape, cfg, jparams, B, S = count_case
-    mesh = mesh_of(shape)
-    model = build_model(cfg, model_axis=shape[1], mesh=mesh, device="cpu")
+    out["count"] = serve_count(mesh_of(shape), cfg, jparams, B, S)
+    return out
+
+
+def serve_count(mesh, cfg, jparams: dict, B: int, S: int) -> dict:
+    """One rank's decode step (the last slot of a cache of ``S``) and prefill
+    (``S`` positions) for ``B`` requests counted, and each on meta under an
+    ``AbstractMesh`` as the dry-run counts them (``train.step.tp_serve_costs``;
+    an encoder-decoder's cross cache of ``registry.WHISPER_DECODE_ENC_LEN``
+    frames, its prefill over ``S`` frames)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.registry import WHISPER_DECODE_ENC_LEN
+    from repro_torch.roofline import count as C
+    from repro_torch.serve.engine import data_rows
+    from repro_torch.train.step import tp_serve_costs
+
+    model = build_model(cfg, model_axis=mesh.shape["model"], mesh=mesh, device="cpu")
     params = PM.shard_params(PM.params_from_jax(jparams, device="cpu", dtype=cfg.dtype),
                              model.layout(), mesh)
     axes, rows = data_rows(mesh, B)
     n = rows.stop - rows.start
-    abstract = AbstractMesh(tuple(mesh.shape.values()), mesh.axis_names, rank=rank)
-    meta_model = build_model(cfg, model_axis=shape[1], mesh=abstract, device="meta")
-    keys = ("flops", "traffic_bytes", "matmul_flops", "aten_bytes", "kernels",
-            "collectives", "collective_bytes", "start_bytes")
-    out["count"] = {}
+    abstract = AbstractMesh(tuple(mesh.shape.values()), mesh.axis_names, rank=mesh.rank)
+    meta_model = build_model(cfg, model_axis=mesh.shape["model"], mesh=abstract, device="meta")
+    encdec = cfg.family == "encdec"
+    cache = (model.init_cache(B, S, WHISPER_DECODE_ENC_LEN) if encdec
+             else model.init_cache(B, S))
+    prefill = {"tokens": torch.zeros((n, S), dtype=torch.int32)}
+    if encdec:
+        prefill["enc_emb"] = torch.zeros((n, S, cfg.d_model))
+    out = {}
     with model.rows_split(axes):
         for kind, step, inputs in (
-                ("decode", model.decode_step,
-                 {"tokens": torch.zeros((n, 1), dtype=torch.int32),
-                  "cache": model.init_cache(B, S), "index": S - 1}),
-                ("prefill", model.prefill, {"tokens": torch.zeros((n, S), dtype=torch.int32)})):
+                ("decode", model.decode_step, {"tokens": torch.zeros((n, 1), dtype=torch.int32),
+                                               "cache": cache, "index": S - 1}),
+                ("prefill", model.prefill, prefill)):
             real = C.count(step, params, inputs)[1]
             meta = tp_serve_costs(meta_model, abstract, kind, B, S)
-            out["count"][kind] = {"real": {k: real[k] for k in keys},
-                                  "meta": {k: meta[k] for k in keys}}
+            out[kind] = {"real": {k: real[k] for k in COUNT_KEYS},
+                         "meta": {k: meta[k] for k in COUNT_KEYS}}
+    return out
+
+
+def hymba_ssm_in(model, jparams: dict) -> dict:
+    """A Hymba rank's in-projection of a seeded input through its shard of the
+    first block's ``w_in`` (``Hymba._ssm_in``), beside the channels of x and
+    z it should hold: its contiguous ``ed/tp`` of each, sliced from every
+    rank's product with its own shard (the values the exchange moves)."""
+    from repro_torch.parallel import NamedSharding
+
+    w = torch.from_numpy(np.asarray(jparams["global_0"]["w_in"], np.float32))
+    h = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 3, w.shape[0])).astype(
+        np.float32))
+    shard = NamedSharding(model.mesh, (None, "model")).shard(w)
+    with torch.no_grad():
+        x, z = model._ssm_in({"w_in": shard}, h)
+    c, ed = model.ed // model.tp, model.ed
+    whole = torch.cat([h @ part.contiguous() for part in w.chunk(model.tp, -1)], -1)
+    r = model.tp_rank
+    return {"x": x.numpy(), "z": z.numpy(), "want_x": whole[..., r * c:(r + 1) * c].numpy(),
+            "want_z": whole[..., ed + r * c:ed + (r + 1) * c].numpy()}
+
+
+def tp_family_world(rank: int, world: int, init: str, train_cases: list, serve_cases: list,
+                    count_case: tuple) -> dict:
+    """One family's cases over the same 4 ranks: each train case ``(name,
+    (data, model), cfg, jparams, batch)`` (``tp_case``), each serving case
+    ``(name, (data, model), cfg, jparams, case)`` (``tp_serve_case``), then
+    ``count_case`` ``((data, model), cfg, jparams, batch, B, S)``: a rank's
+    train step, decode step and prefill counted real and on meta
+    (``train_count``, ``serve_count``)."""
+    torch.set_num_threads(1)
+    meshes, out = {}, {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_test_mesh(data=shape[0], model=shape[1], backend="gloo",
+                                           init_method=init, rank=rank, timeout=TIMEOUT,
+                                           device="cpu")
+        return meshes[shape]
+
+    for name, shape, cfg, jparams, batch in train_cases:
+        res = tp_case(mesh_of(shape), cfg, jparams, batch)
+        model = res.pop("_state")[0]
+        if cfg.family == "hybrid":
+            res["ssm_in"] = hymba_ssm_in(model, jparams)
+        out[name] = res
+    for name, shape, cfg, jparams, case in serve_cases:
+        out[f"serve_{name}"] = tp_serve_case(mesh_of(shape), cfg, jparams, case)
+    shape, cfg, jparams, batch, B, S = count_case
+    out["count"] = {"train": train_count(mesh_of(shape), cfg, jparams, batch),
+                    **serve_count(mesh_of(shape), cfg, jparams, B, S)}
     return out

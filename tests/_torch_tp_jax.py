@@ -23,6 +23,8 @@ from repro_torch.configs import ARCHS
 from repro_torch.models import params as PM
 
 BATCH = (8, 32)
+#: the encoder frames of an encoder-decoder's batch
+FRAMES = 32
 #: loss (absolute), gradients (of the leaf's largest entry), the update
 #: (absolute), grad_norm (relative)
 TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-6, "grad_norm": 1e-5}
@@ -52,7 +54,55 @@ def case_inputs(jcfg, seed: int) -> tuple[dict, dict]:
     if jcfg.vlm is not None:
         batch["img_emb"] = rng.normal(
             size=(BATCH[0], jcfg.vlm.n_image_tokens, jcfg.d_model)).astype(np.float32)
+    if jcfg.family == "encdec":
+        batch["enc_emb"] = rng.normal(size=(BATCH[0], FRAMES, jcfg.d_model)).astype(np.float32)
     return jax.tree.map(np.asarray, jparams), batch
+
+
+def jax_serve(jcfg, jparams: dict, inputs: dict, B: int) -> dict:
+    """JAX's single-device prefill, teacher-forced decode steps from a zero
+    cache (every step's logits, the cache at the end) and greedy engine on
+    ``inputs`` (``tokens`` (B, L), ``prompt``, ``new``, ``cache_len``, and
+    ``img_emb`` or ``enc_emb``, each None where the model takes none).  An
+    encoder-decoder's decode cache holds the cross K and V of its encoder's
+    output of ``enc_emb``, formed by its own ``_qkv``; its engine's cross
+    cache of as many frames is zero."""
+    from repro.serve import ServeConfig as JServeConfig
+    from repro.serve import ServingEngine as JServingEngine
+
+    model = jbuild_model(jcfg, mesh=None)
+    params = jax.tree.map(jnp.asarray, jparams)
+    tokens = inputs["tokens"]
+    batch = {"tokens": jnp.asarray(tokens[:, :inputs["prompt"]], jnp.int32)}
+    enc = inputs.get("enc_emb")
+    for key in ("img_emb", "enc_emb"):
+        if inputs.get(key) is not None:
+            batch[key] = jnp.asarray(inputs[key])
+    prefill = np.asarray(jax.jit(model.prefill)(params, batch))
+    if enc is None:
+        layout = model.cache_layout(B, inputs["cache_len"])
+    else:
+        layout = model.cache_layout(B, inputs["cache_len"], enc.shape[1])
+    cache = JPM.materialize(layout, jax.random.PRNGKey(0), jcfg.dtype)
+    if enc is not None:
+        out = model.encode(params, jnp.asarray(enc))
+        cp = params["dec_layers"]["cross_attn"]
+        kv = [model._qkv(jax.tree.map(lambda t, i=i: t[i], cp), out, out)[1:]
+              for i in range(jcfg.n_layers)]
+        cache["layers"]["cross_k"] = jnp.stack([k for k, _ in kv])
+        cache["layers"]["cross_v"] = jnp.stack([v for _, v in kv])
+    decode = jax.jit(model.decode_step)
+    steps = []
+    for t in range(tokens.shape[1]):
+        logits, cache = decode(params, {"tokens": jnp.asarray(tokens[:, t:t + 1], jnp.int32),
+                                        "cache": cache, "index": jnp.asarray(t, jnp.int32)})
+        steps.append(np.asarray(logits)[:, 0])
+    engine = JServingEngine(model, params, cache_len=inputs["cache_len"], batch=B,
+                            enc_len=0 if enc is None else enc.shape[1])
+    generated = engine.generate(tokens[:, :inputs["prompt"]],
+                                JServeConfig(max_new_tokens=inputs["new"]))
+    return {"prefill": prefill, "steps": np.stack(steps), "generated": np.asarray(generated),
+            "cache": jax.tree.map(np.asarray, cache)}
 
 
 def _jbatch(batch: dict) -> dict:

@@ -26,17 +26,14 @@ decode step and prefill against the dry-run's meta count of them.
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from _torch_ranks import tp_serve_world
-from _torch_tp_jax import configs
+from _torch_tp_jax import configs, jax_serve
 from repro.models import build_model as jbuild_model
 from repro.models import params as JPM
-from repro.serve import ServeConfig as JServeConfig
-from repro.serve import ServingEngine as JServingEngine
 from repro_torch.launch.mesh import AbstractMesh, run_ranks
 from repro_torch.models import build_model
 from repro_torch.models import params as PM
@@ -93,33 +90,9 @@ def started(setup, tmp_path_factory):
                           init_method=f"file://{root}/rendezvous", timeout=240.0)
 
 
-def _jax_serve(jcfg, jparams: dict, inputs: dict) -> dict:
-    """JAX's single-device prefill, teacher-forced decode steps from a zero
-    cache (every step's logits, the cache at the end) and greedy engine."""
-    model = jbuild_model(jcfg, mesh=None)
-    params = jax.tree.map(jnp.asarray, jparams)
-    tokens = inputs["tokens"]
-    batch = {"tokens": jnp.asarray(tokens[:, :inputs["prompt"]], jnp.int32)}
-    if inputs["img_emb"] is not None:
-        batch["img_emb"] = jnp.asarray(inputs["img_emb"])
-    prefill = np.asarray(jax.jit(model.prefill)(params, batch))
-    cache = JPM.materialize(model.cache_layout(B, inputs["cache_len"]), jax.random.PRNGKey(0),
-                            jcfg.dtype)
-    decode = jax.jit(model.decode_step)
-    steps = []
-    for t in range(tokens.shape[1]):
-        logits, cache = decode(params, {"tokens": jnp.asarray(tokens[:, t:t + 1], jnp.int32),
-                                        "cache": cache, "index": jnp.asarray(t, jnp.int32)})
-        steps.append(np.asarray(logits)[:, 0])
-    generated = JServingEngine(model, params, cache_len=inputs["cache_len"], batch=B).generate(
-        tokens[:, :inputs["prompt"]], JServeConfig(max_new_tokens=inputs["new"]))
-    return {"prefill": prefill, "steps": np.stack(steps), "generated": np.asarray(generated),
-            "cache": jax.tree.map(np.asarray, cache)}
-
-
 @pytest.fixture(scope="module")
 def oracle(setup, started):
-    return {case: _jax_serve(jcfg, jparams, inputs)
+    return {case: jax_serve(jcfg, jparams, inputs, B)
             for case, (jcfg, _, jparams, inputs) in setup.items()}
 
 
