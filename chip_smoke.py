@@ -301,7 +301,14 @@ prints no result line):
    step's experts (the ranks' own routing compared and reported first); the
    dropped pairs summed over the data ranks equal the single process's, aux
    within ``TP_AUX_TOL`` and the aux of rank-local means (the fault of a
-   routing that ignores the data axis) outside it.  In both, after step 1 every rank's synced
+   routing that ignores the data axis) outside it.  (c) hymba-1.5b, whisper-large-v3
+   and xlstm-1.3b (``TP_FAMILIES``) over data 2 x model 2, one step each, then
+   served as qwen is; xlstm-1.3b at full width cut to 8 layers (7 mLSTM, 1
+   sLSTM) on 4 x 512, its mLSTM scans at a rank's 2 heads (``TP_MLSTM``), its
+   sLSTM cell whole on every rank; its bf16 runs' loss, gradient and logit
+   gaps are recorded beside the single process's own with its rows in two
+   halves, and the same step and serving run in fp32 take the gates below
+   (``TP_FAMILIES``' ``gates_in``).  In all, after step 1 every rank's synced
    gradient shards within ``GRAD_TOL`` of their slices of the single-process
    gradient (of each leaf's largest entry) and the loss within
    ``TP_LOSS_TOL``; every step's launches exactly ``TRAIN_PER_STEP`` /
@@ -4373,9 +4380,10 @@ TP_AUX_TOL = 2e-4
 #: F / model): qwen's at model 2 and 4, deepseek's layer0 and shared experts
 #: at model 2 and 4; flash (B, Hq, Hkv, S, hd, hdv): qwen's 8 and 4 heads a
 #: rank, MLA's 8 and 4
-TP_RMSNORM = ((2048, 1024), (2048, 2048), (2048, 512), (2176, 1600))
+TP_RMSNORM = ((2048, 1024), (2048, 2048), (2048, 512), (2176, 1600), (1024, 2048),
+              (1024, 4096))
 TP_SWIGLU = ((2048, 1024, 1408), (4096, 1024, 704), (2048, 2048, 5472), (2048, 2048, 2736),
-             (2048, 2048, 1408), (2048, 2048, 704), (2176, 1600, 2752))
+             (2048, 2048, 1408), (2048, 2048, 704), (2176, 1600, 2752), (1024, 2048, 1344))
 TP_FLASH = ((4, 8, 8, 512, 64, 64), (8, 4, 4, 512, 64, 64), (1, 8, 8, 2048, 192, 128),
             (1, 4, 4, 2048, 192, 128))
 #: phase_tp's serving over the model axis: qwen1.5-0.5b at full width and depth
@@ -4394,7 +4402,8 @@ TP_SERVE = dict(requests=8, prompt=16, new=16, cache=32)
 TP_SERVE_PER_STEP = {"qwen": {"rmsnorm": 2 * 24 + 1, "swiglu": 24, "decode_attention": 24},
                      "deepseek": {"rmsnorm": 3 * 4 + 1, "swiglu": 4},
                      "hymba": {"rmsnorm": 4 * 4 + 1, "swiglu": 4, "decode_attention": 4},
-                     "whisper": {"decode_attention": 2 * 2}}
+                     "whisper": {"decode_attention": 2 * 2},
+                     "xlstm": {"rmsnorm": 2 * 7 + 3 + 1, "swiglu": 1}}
 TP_SERVE_ROUTES = {"decode_attention": "split"}
 #: the largest gap of a TP rank's logits from the single process's on the card
 #: (teacher-forced, bf16), relative to the single process's largest logit:
@@ -4404,34 +4413,51 @@ TP_SERVE_ROUTES = {"decode_attention": "split"}
 TP_LOGIT_TOL = 0.05
 #: the shard shapes of phase_tp's serving: rmsnorm (rows, D) and SwiGLU (rows, D,
 #: F / model) of the decode steps (4 or 8 rows a rank) and the prefills (64 or
-#: 128 rows; Hymba's 4 x (16 + 128)); flash (B, Hq, Hkv, S, hd, hdv) of the
+#: 128 rows; Hymba's 4 x (16 + 128); xLSTM's whole mLSTM row of 4096, its sLSTM
+#: FFN at 2688 / 2); flash (B, Hq, Hkv, S, hd, hdv) of the
 #: prefills; the decode kernel's partial mode (B, Hq, Hkv, slots a rank, hd) at
 #: qwen's 2 x 2 and 1 x 4, and every head of Hymba's and Whisper's (the slots
 #: cut, every rank takes every head; Whisper's cross cache 750 frames a rank)
 TP_SERVE_RMSNORM = ((4, 1024), (8, 1024), (64, 1024), (128, 1024), (4, 2048), (4, 512),
-                    (64, 2048), (64, 512), (4, 1600), (576, 1600))
+                    (64, 2048), (64, 512), (4, 1600), (576, 1600), (4, 4096), (64, 4096))
 TP_SERVE_SWIGLU = ((4, 1024, 1408), (8, 1024, 704), (64, 1024, 1408), (128, 1024, 704),
                    (4, 2048, 5472), (4, 2048, 1408), (64, 2048, 5472), (64, 2048, 1408),
-                   (4, 1600, 2752), (576, 1600, 2752))
+                   (4, 1600, 2752), (576, 1600, 2752), (4, 2048, 1344), (64, 2048, 1344))
 TP_SERVE_FLASH = ((4, 8, 8, 16, 64, 64), (8, 4, 4, 16, 64, 64), (4, 8, 8, 16, 192, 128))
 TP_PARTIAL = ((4, 16, 16, 16, 64), (8, 16, 16, 8, 64), (4, 25, 5, 16, 64), (4, 20, 20, 16, 64),
               (4, 20, 20, 750, 64))
-#: phase_tp's Hymba and Whisper parts, over data 2 x model 2, one step each, then
-#: served as qwen is (TP_SERVE): hymba-1.5b at full width cut to 4 layers (global
-#: 0 and 3, a sliding-window run of 2, window 1024) on 2 x (2048 + 128 meta)
-#: positions; whisper-large-v3 at full width cut to 2 + 2 layers on 4 x (1500
-#: frames, 448 tokens), its serving's cross cache filled from ``encode`` of each
-#: request's 1500 frames (750 a rank)
+#: phase_tp's Hymba, Whisper and xLSTM parts, over data 2 x model 2, one step
+#: each, then served as qwen is (TP_SERVE): hymba-1.5b at full width cut to 4
+#: layers (global 0 and 3, a sliding-window run of 2, window 1024) on 2 x (2048 +
+#: 128 meta) positions; whisper-large-v3 at full width cut to 2 + 2 layers on 4 x
+#: (1500 frames, 448 tokens), its serving's cross cache filled from ``encode`` of
+#: each request's 1500 frames (750 a rank); xlstm-1.3b at full width cut to 8 of
+#: its 48 layers (one group: 7 mLSTM blocks and one sLSTM block) on 4 x 512, as
+#: XLSTM_TRAIN cuts the single process.  ``gates_in``: the dtype in which the
+#: loss, gradient and logit gates hold a rank's runs to the single process's,
+#: where bf16 cannot tell a fault from rounding: xLSTM's bf16 forward carries a
+#: rounding on through its blocks (on the H100 the single process with its rows
+#: in two halves lies 8.6e-4 from its own loss, 0.146 of a leaf's largest
+#: gradient entry and 0.070 of the largest prefill logit; a TP rank 1.85e-3,
+#: 0.218 and 0.093), so its bf16 runs record those gaps beside the single
+#: process's own halves' (``tp_reference``, ``tp_serve_reference``) and the
+#: same runs in fp32 (``<name>_fp32``) take TP_LOSS_TOL's, GRAD_TOL's and
+#: TP_LOGIT_TOL's gates
 TP_FAMILIES = {"hymba": dict(arch=HYMBA, layers=4, batch=2, seq=2048),
-               "whisper": dict(arch=WHISPER, layers=2, batch=4, seq=WHISPER_TOKENS)}
+               "whisper": dict(arch=WHISPER, layers=2, batch=4, seq=WHISPER_TOKENS),
+               "xlstm": dict(arch=XLSTM, layers=8, batch=4, seq=512, gates_in="float32")}
 #: their launches a train step (each block's forward kernels twice under remat):
 #: Hymba 4 norms, one attention, one scan and one SwiGLU a block and the final
-#: norm; Whisper one flash attention a layer in the encoder, two in the decoder
+#: norm; Whisper one flash attention a layer in the encoder, two in the decoder;
+#: xLSTM 2 norms and one scan an mLSTM block, 3 norms and one SwiGLU the sLSTM
+#: block, the final norm
 TP_FAMILY_PER_STEP = {
     "hymba": train_launches({"rmsnorm": 4 * 4, "swiglu": 4, "flash_attention": 4,
                              "ssd_scan": 4}, {"rmsnorm": 1}),
-    "whisper": train_launches({"flash_attention": 3 * 2})}
-TP_FAMILY_ROUTES = {"hymba": HYMBA_ROUTES, "whisper": WHISPER_ROUTES}
+    "whisper": train_launches({"flash_attention": 3 * 2}),
+    "xlstm": train_launches({"rmsnorm": 2 * 7 + 3, "swiglu": 1, "mlstm_scan": 7},
+                            {"rmsnorm": 1})}
+TP_FAMILY_ROUTES = {"hymba": HYMBA_ROUTES, "whisper": WHISPER_ROUTES, "xlstm": XLSTM_ROUTES}
 #: (B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window) of their ranks' flash launches:
 #: every Hymba head on a rank's row of 2048 + 128 positions, global and windowed;
 #: Whisper's 10 heads a rank on its 2 rows: encoder, cross and causal decoder
@@ -4450,6 +4476,11 @@ TP_FAMILY_SERVE_FLASH = ((4, 25, 5, 144, 144, 64, 64, True, 1024),
 #: (B, S, H, N, chd, chunk) of their SSD scans: a rank's 4 of Hymba's 8 heads on
 #: its row (timed), and the serving prefill's 4 rows of 144 positions, padded
 TP_SSD = ((1, 2176, 4, 16, 400, 128), (4, 256, 4, 16, 400, 128))
+#: (B, H, S, dqk, dv, chunk) of xLSTM's mLSTM scans: a rank's 2 of the 4 heads on
+#: its 2 rows of 512 (the tensor-core route, forward and backward, timed), and
+#: the serving prefill's 4 rows of 16 positions (one chunk of 16: the CUDA-core
+#: route, forward only)
+TP_MLSTM = ((2, 2, 512, 512, 1024, 128), (4, 2, 16, 512, 1024, 16))
 
 
 def tp_flash_shapes() -> list:
@@ -4464,13 +4495,14 @@ def tp_flash_shapes() -> list:
 
 def check_tp_kernels(gen, ops, ref, rate) -> dict:
     """The shard shapes of phase_tp (TP_RMSNORM, TP_SWIGLU, TP_FLASH,
-    TP_FAMILY_FLASH, TP_SSD) in bf16: the forward within ``TOL`` of the plain
+    TP_FAMILY_FLASH, TP_SSD, TP_MLSTM) in bf16: the forward within ``TOL`` of the plain
     version, the gradients of the wrapper (its backward kernel) within
     ``GRAD_TOL`` of the plain backward's largest entry, each route recorded;
-    flash also in fp32 with its routes asserted (``check_flash_at``), SSD as
-    ``check_tp_ssd`` says.  Times by CUDA events beside the plain version's,
-    the library call's (``F.rms_norm``, three ``@``, SDPA; none computes the
-    SSD scan) and the bound.  Returns each kernel's rows by shape."""
+    flash also in fp32 with its routes asserted (``check_flash_at``), SSD and
+    the mLSTM scan as ``check_tp_ssd`` and ``check_tp_mlstm`` say.  Times by
+    CUDA events beside the plain version's, the library call's
+    (``F.rms_norm``, three ``@``, SDPA; none computes either scan) and the
+    bound.  Returns each kernel's rows by shape."""
     from repro_torch.kernels import rmsnorm as kr
     from repro_torch.kernels import rmsnorm_bwd as krb
     from repro_torch.kernels import swiglu as ks
@@ -4579,6 +4611,7 @@ def check_tp_kernels(gen, ops, ref, rate) -> dict:
             "serving": True,
             "max_abs_err": errs[(B, Hq, Hkv, Sq, Skv, hd, hdv, causal, window, "bfloat16")]})
     out["ssd_scan"], out["ssd_scan_bwd"] = check_tp_ssd(gen, ops, ref, rate)
+    out["mlstm_scan"], out["mlstm_scan_bwd"] = check_tp_mlstm(gen, ref, rate)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[tp] shard-shape kernel checks {json.dumps(out)}")
@@ -4640,6 +4673,70 @@ def check_tp_ssd(gen, ops, ref, rate) -> tuple[list, list]:
         fwd_rows.append(fwd)
         bwd_rows.append(bwd)
         del sets, x, dy
+    return fwd_rows, bwd_rows
+
+
+def check_tp_mlstm(gen, ref, rate) -> tuple[list, list]:
+    """mlstm_scan at TP_MLSTM in bf16, in the model's transposed layout: each
+    shape's route asserted (the tensor-core one at a chunk of 128, the
+    CUDA-core one at 16), against the plain version with the route's
+    roundings (h and n, and C past the first chunk) within MLSTM_TOL of the
+    largest entry; at the training shape the backward too (the five
+    gradients, two calls equal bit for bit) and the times of both beside the
+    plain versions' and the bound (no PyTorch call computes the scan)."""
+    from repro_torch.kernels import mlstm_scan as kf
+    from repro_torch.kernels import mlstm_scan_bwd as kb
+
+    dt, f32 = torch.bfloat16, torch.float32
+    tol = MLSTM_TOL[dt]
+    fwd_rows, bwd_rows = [], []
+    for B, H, S, dqk, dv, chunk in TP_MLSTM:
+        shape = [B, H, S, dqk, dv, chunk]
+        sets = [mlstm_inputs(gen, B, H, S, dqk, dv, dt, model_layout=True) for _ in range(2)]
+        x, dh = sets[0]
+        route = kf.route(chunk, *x[:3], dh)
+        if route != ("wgmma" if chunk == kf.TC_CHUNK else "simt"):
+            raise AssertionError(f"mlstm_scan {shape}: route {route}")
+        tc = route == "wgmma"
+        xr = x if tc else tuple(t.contiguous() for t in x)
+        out, saved = kf.mlstm_scan_cuda(*xr, chunk=chunk)
+        h, C, n, m = ref.mlstm_scan_ref(*x, chunk=chunk, bf16_products=tc)
+        found = [rel_err(out, h, tol), rel_err(saved.n, n, MLSTM_TOL[f32])]
+        if tc and S > chunk:        # C is bf16 on the route, fp32 in the plain version
+            found.append(rel_err(saved.C, C[:, :, 1:], tol))
+        err = max(found, key=lambda e: e[1])
+        fwd = {"shape": shape, "kernel_route": route, "max_abs_err": err[0],
+               "max_rel_err": err[1]}
+        if tc:
+            got = kb.mlstm_scan_bwd_cuda(*x, saved, dh, chunk=chunk)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got, kb.mlstm_scan_bwd_cuda(*x, saved, dh, chunk=chunk))):
+                raise AssertionError(f"mlstm_scan_bwd {shape}: two calls differ")
+            gerr = max((rel_err(a, b, tol) for a, b in
+                        zip(got, ref.mlstm_scan_bwd_ref(*x, C, n, m, dh, chunk=chunk,
+                                                        bf16_products=True))),
+                       key=lambda e: e[1])
+            fwd_sets = [x for x, _ in sets]
+            saved_sets = [(*x, kf.mlstm_scan_cuda(*x, chunk=chunk)[1], dh) for x, dh in sets]
+            plain = [(*x, *ref.mlstm_scan_ref(*x, chunk=chunk, bf16_products=True)[1:], dh)
+                     for x, dh in sets]
+            b_ms, b_by = mlstm_bound(B, H, S, dqk, dv, chunk, rate, backward=False)
+            fwd.update(ms=time_ms(lambda *x: kf.mlstm_scan_cuda(*x, chunk=chunk), fwd_sets, 5),
+                       plain_ms=time_ms(lambda *x: ref.mlstm_scan_ref(
+                           *x, chunk=chunk, bf16_products=True), fwd_sets, 3),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            b_ms, b_by = mlstm_bound(B, H, S, dqk, dv, chunk, rate, backward=True)
+            bwd_rows.append({
+                "shape": shape, "kernel_route": route, "max_abs_err": gerr[0],
+                "max_rel_err": gerr[1],
+                "ms": time_ms(lambda *a: kb.mlstm_scan_bwd_cuda(*a, chunk=chunk), saved_sets, 5),
+                "plain_ms": time_ms(lambda *a: ref.mlstm_scan_bwd_ref(
+                    *a, chunk=chunk, bf16_products=True), plain, 3),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+            del got, fwd_sets, saved_sets, plain
+        fwd_rows.append(fwd)
+        del sets, x, dh, xr, out, saved, h, C, n, m
+        torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
 
 
@@ -4708,7 +4805,8 @@ def _tp_ref_errors(synced, layout, mesh, path: Path) -> float:
 
 
 def tp_run(kernel_modules, mesh, cfg, batch: dict, steps: int, work: str, tag: str,
-           per_step: dict, choices=None, keep: bool = False, routes: dict = TRAIN_ROUTES) -> dict:
+           per_step: dict, choices=None, keep: bool = False, routes: dict = TRAIN_ROUTES,
+           gated: bool = True) -> dict:
     """One model on ``mesh`` (``tp_rank``): ``steps`` steps of
     ``make_train_step(model, opt_cfg, mesh)``, the first in its parts, the
     launch counts and routes checked a step, every launch at a checked shape;
@@ -4718,7 +4816,8 @@ def tp_run(kernel_modules, mesh, cfg, batch: dict, steps: int, work: str, tag: s
     rank's own routing of the same rows compared first); at the end every
     replicated leaf bit-equal across the ranks.  With ``keep`` the result
     holds ``(model, step, params, opt)`` as ``state``; ``routes``: each
-    kernel's route a step must take."""
+    kernel's route a step must take; without ``gated`` the loss's and the
+    gradient's errors are recorded, not gated (TP_FAMILIES' ``gates_in``)."""
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
     from repro_torch.train import AdamWConfig, make_train_step
@@ -4787,11 +4886,12 @@ def tp_run(kernel_modules, mesh, cfg, batch: dict, steps: int, work: str, tag: s
             rec["grad_err_vs_single_process"] = _tp_ref_errors(synced, layout, mesh,
                                                                Path(work) / f"ref_{tag}.pt")
             del synced
-            if not rec["grad_err_vs_single_process"] <= GRAD_TOL[torch.bfloat16]:
+            if gated and not rec["grad_err_vs_single_process"] <= GRAD_TOL[torch.bfloat16]:
                 raise AssertionError(f"{tag} rank {mesh.rank}: gradient "
                                      f"{rec['grad_err_vs_single_process']} of the largest "
                                      "entry from the single-process gradient")
-            if not abs(rec["losses"][0] - want["loss"]) <= TP_LOSS_TOL:
+            rec["loss_gap_vs_single_process"] = abs(rec["losses"][0] - want["loss"])
+            if gated and not rec["loss_gap_vs_single_process"] <= TP_LOSS_TOL:
                 raise AssertionError(f"{tag} rank {mesh.rank}: loss {rec['losses'][0]}, the "
                                      f"single process {want['loss']}")
             if cfg.moe is not None:
@@ -4859,7 +4959,8 @@ def tp_checkpoint(state: tuple, tall, cfg, work: str) -> dict:
                                       for s in PM.tree_leaves(sh["opt"]["mu"]))}
 
 
-def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict) -> dict:
+def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict,
+                 gated: bool = True) -> dict:
     """Serving over the model axis on one rank (``tp_rank``): the model built
     over ``mesh`` with the single process's weights (seed 0), one ``prefill`` of
     this rank's rows of the prompts, then the single process's tokens fed
@@ -4875,7 +4976,9 @@ def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict)
     ``model`` axis's collectives inside them (``Mesh.timed``): one card's
     ``gloo`` ranks, not a deployment's.  An encoder-decoder's prefill takes
     its rows' frames (``tp_frames``) and its cross cache is filled from
-    ``encode`` of them (``EncDecLM.fill_cross``) before the steps."""
+    ``encode`` of them (``EncDecLM.fill_cross``) before the steps.  Without
+    ``gated`` the gaps and the greedy tokens that differ beyond them
+    (``tokens_differing``) are recorded, not gated (TP_FAMILIES' ``gates_in``)."""
     from repro_torch.models import build_model
 
     ref_run = torch.load(Path(work) / f"serve_{tag}.pt", map_location="cpu", mmap=True)
@@ -4892,26 +4995,30 @@ def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict)
             part = c.shape[0] // mesh.shape["data"]
             choices.append(c[mesh.coords["data"] * part:(mesh.coords["data"] + 1) * part])
     rec = {"coords": dict(mesh.coords), "gaps": [], "near_ties": 0, "tokens_compared": 0,
-           "decode_ms": [], "decode_tp_ms": [], "counts": [], "shapes": {}}
+           "tokens_differing": 0, "decode_ms": [], "decode_tp_ms": [], "counts": [],
+           "shapes": {}}
 
     def compare(logits, want, what):
         want = want.cuda()
         top = float(want.abs().max())
         gap = float((logits - want).abs().max())
         rec["gaps"].append(gap / top)
-        if not gap / top <= TP_LOGIT_TOL:
+        if gated and not gap / top <= TP_LOGIT_TOL:
             raise AssertionError(f"{tag} rank {mesh.rank} {what}: logits {gap / top} of the "
                                  f"largest logit from the single process's")
         mine, theirs = logits.argmax(-1), want.argmax(-1)
         rec["tokens_compared"] += mine.numel()
         for i in (mine != theirs).nonzero().tolist():
             two = want[tuple(i)].topk(2).values
-            if float(two[0] - two[1]) > gap:
+            if float(two[0] - two[1]) <= gap:
+                rec["near_ties"] += 1
+            elif gated:
                 raise AssertionError(f"{tag} rank {mesh.rank} {what}: greedy token "
                                      f"{int(mine[tuple(i)])}, the single process "
                                      f"{int(theirs[tuple(i)])}, whose top two lie "
                                      f"{float(two[0] - two[1])} apart (gap {gap})")
-            rec["near_ties"] += 1
+            else:
+                rec["tokens_differing"] += 1
 
     axes = ("data",) if mesh.shape["data"] > 1 else ()
     mesh.timed = True
@@ -4944,9 +5051,13 @@ def tp_serve_run(kernel_modules, mesh, cfg, work: str, tag: str, per_step: dict)
     if pending:
         raise AssertionError(f"{tag} serve rank {mesh.rank}: {len(pending)} routes not replayed")
     rec["shapes"] = {k: set(v) for k, v in shapes.items()}
-    top = cache.get("layers", cache.get("global_0"))
-    rec["cache_slots_a_rank"] = top["c_kv" if cfg.mla is not None else "k"].shape[-2]
-    del params, cache, model, top
+    if "groups" in cache:        # xLSTM: a recurrent state, its C cut on dqk
+        rec["cache_slots_a_rank"] = None
+        rec["state_c_a_rank"] = list(cache["groups"]["mlstm"]["C"].shape)
+    else:
+        top = cache.get("layers", cache.get("global_0"))
+        rec["cache_slots_a_rank"] = top["c_kv" if cfg.mla is not None else "k"].shape[-2]
+    del params, cache, model
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -4997,14 +5108,17 @@ def serve_cache(model, params, inputs: dict, B: int) -> dict:
     return cache
 
 
-def tp_serve_reference(cfg, work: Path, tag: str) -> None:
+def tp_serve_reference(cfg, work: Path, tag: str, halves: bool = False) -> None:
     """The single process's serving run that the ranks are held to: the weights
     of seed 0 on the card, TP_SERVE's prompts (seeded; an encoder-decoder's
     frames ``tp_frames``, its cross cache filled from them), one ``prefill``
     and the prompt then greedy tokens through ``decode_step``; every step's
     fp32 logits, the token sequence and (for an MoE model) every
-    ``moe_route`` call's experts, written under ``work``.  Returns its decode
-    ms a step."""
+    ``moe_route`` call's experts, written under ``work``; with ``halves`` also
+    the largest gap of the prefill's logits with the requests in two halves
+    (each half alone, as a data rank takes it) from the whole's, relative to
+    the largest logit (``halves_prefill_gap``): the single process's own
+    distance from itself.  Returns its decode ms a step."""
     from repro_torch.models import build_model
 
     model = build_model(cfg, device="cuda")
@@ -5019,6 +5133,11 @@ def tp_serve_reference(cfg, work: Path, tag: str) -> None:
         inputs["enc_emb"] = tp_frames(cfg, B)
     with tp_routes(None) as (seen, _), torch.no_grad():
         prefill = model.prefill(params, inputs)[:, 0].cpu()
+        halves_gap = None
+        if halves:
+            parts = [model.prefill(params, {k: v[rows] for k, v in inputs.items()})[:, 0].cpu()
+                     for rows in (slice(0, B // 2), slice(B // 2, None))]
+            halves_gap = float((torch.cat(parts) - prefill).abs().max() / prefill.abs().max())
         cache = serve_cache(model, params, inputs, B)
         for t in range(P + N):
             t0 = _clock()
@@ -5030,7 +5149,7 @@ def tp_serve_reference(cfg, work: Path, tag: str) -> None:
             steps.append(logits[:, 0].cpu())
         routes = [r.idx.cpu() for r in seen]
     torch.save({"tokens": tokens.cpu(), "prefill": prefill, "logits": torch.stack(steps),
-                "routes": routes}, work / f"serve_{tag}.pt")
+                "routes": routes, "halves_prefill_gap": halves_gap}, work / f"serve_{tag}.pt")
     del model, params, cache, seen
     gc.collect()
     torch.cuda.empty_cache()
@@ -5041,7 +5160,7 @@ def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
     """One of ``phase_tp``'s ranks: qwen1.5-0.5b over each of TP["qwen"]'s
     meshes, then deepseek-v2-lite-16b at 4 layers over data 2 x model 2,
     its MoE layers routed through the parent's experts (``tp_run``), then
-    TP_FAMILIES' Hymba and Whisper over the same mesh; each trained and
+    TP_FAMILIES' Hymba, Whisper and xLSTM over the same mesh; each trained and
     served.  ``seconds``: each part's, on this rank."""
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5096,38 +5215,53 @@ def tp_rank(rank: int, world: int, init: str, work: str, batches: dict) -> dict:
         f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
     serve_rank(out["serve"], tag, mesh, cfg, work, "deepseek", say)
     out["seconds"][tag] = time.perf_counter() - t0
-    for name in TP_FAMILIES:                        # over the same data 2 x model 2
+    for name, spec in TP_FAMILIES.items():          # over the same data 2 x model 2
         t0 = time.perf_counter()
         cfg = tp_family_cfg(name)
-        tag = f"{name}_{data}x{model}"
-        out[tag] = tp_run(KERNEL_MODULES, mesh, cfg, card_batch(batches[name], cfg), 1, work,
-                          name, TP_FAMILY_PER_STEP[name], routes=TP_FAMILY_ROUTES[name])
-        say(f"{tag}: step {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, loss "
-            f"{out[tag]['losses']}, peak {out[tag]['peak_gib']:.2f} GiB")
-        serve_rank(out["serve"], tag, mesh, cfg, work, name, say)
-        out["seconds"][tag] = time.perf_counter() - t0
+        fp32 = spec.get("gates_in") == "float32"
+        for ref_tag, c in [(name, cfg)] + [(f"{name}_fp32", dataclasses.replace(
+                cfg, dtype="float32"))] * fp32:
+            tag = f"{ref_tag}_{data}x{model}"
+            gated = not fp32 or c.dtype == "float32"
+            out[tag] = tp_run(KERNEL_MODULES, mesh, c, card_batch(batches[name], c), 1, work,
+                              ref_tag, TP_FAMILY_PER_STEP[name], gated=gated,
+                              routes=TP_FAMILY_ROUTES[name] if c.dtype == "bfloat16" else {})
+            say(f"{tag}: step {out[tag]['step_ms']} ms, TP {out[tag]['tp_ms']} ms, loss "
+                f"{out[tag]['losses']} ({out[tag]['loss_gap_vs_single_process']:.2e} from the "
+                f"single process), peak {out[tag]['peak_gib']:.2f} GiB, gradient "
+                f"{out[tag]['grad_err_vs_single_process']:.3e} of the largest entry")
+            serve_rank(out["serve"], tag, mesh, c, work, ref_tag, say,
+                       TP_SERVE_PER_STEP[name], gated)
+        out["seconds"][f"{name}_{data}x{model}"] = time.perf_counter() - t0
     return out
 
 
-def serve_rank(runs: dict, tag: str, mesh, cfg, work: str, ref_tag: str, say) -> None:
+def serve_rank(runs: dict, tag: str, mesh, cfg, work: str, ref_tag: str, say,
+               per_step: dict | None = None, gated: bool = True) -> None:
     """``tp_serve_run`` on ``mesh`` into ``runs[tag]``, reported by rank 0."""
     from repro_torch.kernels import KERNEL_MODULES
 
     t0 = time.perf_counter()
     rec = runs[tag] = tp_serve_run(KERNEL_MODULES, mesh, cfg, work, ref_tag,
-                                   TP_SERVE_PER_STEP[ref_tag])
+                                   per_step or TP_SERVE_PER_STEP[ref_tag], gated)
     rec["run_s"] = time.perf_counter() - t0
     say(f"serve {tag}: prefill {rec['prefill_ms']:.1f} ms (TP {rec['prefill_tp_ms']:.1f}), "
         f"decode median {statistics.median(rec['decode_ms'][1:]):.1f} ms a step (TP "
         f"{statistics.median(rec['decode_tp_ms'][1:]):.1f}), largest logit gap "
-        f"{max(rec['gaps']):.3e}, near-ties {rec['near_ties']} of {rec['tokens_compared']}, "
+        f"{max(rec['gaps']):.3e}, near-ties {rec['near_ties']} of {rec['tokens_compared']}"
+        f"{'' if gated else ', greedy tokens differing ' + str(rec['tokens_differing'])}, "
         f"{rec['run_s']:.1f} s (one card's gloo ranks)")
 
 
-def tp_reference(cfg, batch: dict, work: Path, tag: str) -> None:
+def tp_reference(cfg, batch: dict, work: Path, tag: str, halves: bool = False) -> None:
     """The single-process step's loss, aux, gradient and (for an MoE model)
     every ``moe_route`` call's experts and each MoE layer's dropped pairs, on
-    the whole batch, written under ``work`` for the ranks."""
+    the whole batch, written under ``work`` for the ranks.  With ``halves``
+    also the largest error, by leaf and over the leaves, of the mean of the
+    gradients of the batch's two halves of rows (each half alone, as a data
+    rank takes it) against the whole batch's, of each leaf's largest entry:
+    the single process's own distance from itself under another cut of the
+    same sums."""
     from repro_torch.models import build_model
     from repro_torch.models import params as PM
     from repro_torch.train.step import _grads
@@ -5140,9 +5274,22 @@ def tp_reference(cfg, batch: dict, work: Path, tag: str) -> None:
     L = cfg.n_layers - (1 if cfg.moe is not None and cfg.moe.first_dense else 0)
     if seen:
         torch.save([r.idx.cpu() for r in seen], work / f"routes_{tag}.pt")
+    floor, halves_loss = {}, None
+    if halves:
+        n = batch["tokens"].shape[0] // 2
+        parts = [_grads(model, params, {k: v[rows] for k, v in batch.items()})
+                 for rows in (slice(0, n), slice(n, None))]
+        halves_loss = (float(parts[0][0]) + float(parts[1][0])) / 2
+        for path, a, b, w in zip(PM._paths(grads), *(PM.tree_leaves(g[2]) for g in parts),
+                                 PM.tree_leaves(grads)):
+            mean = (a.float() + b.float()) / 2
+            floor[path] = float((mean - w.float()).abs().max() / w.float().abs().max())
+        del parts
     (work / f"ref_{tag}.json").write_text(json.dumps({
         "loss": float(loss), "aux": float(metrics["aux"]),
-        "dropped": [int((~r.keep).sum()) for r in seen[:L]]}))
+        "dropped": [int((~r.keep).sum()) for r in seen[:L]],
+        "halves_loss": halves_loss, "halves_grad_err": max(floor.values(), default=None),
+        "halves_grad_err_by_leaf": floor}))
     del model, params, grads, seen
     gc.collect()
     torch.cuda.empty_cache()
@@ -5189,18 +5336,26 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
                                     vocab=cfg.vocab, seed=0)
             tokens, labels = next(corpus_batches(spec, B, str(Path(data_root) / name)))
             batches[name] = {"tokens": tokens, "labels": labels}
-            t0 = time.perf_counter()
-            tp_reference(cfg, card_batch(batches[name], cfg), Path(work), name)
-            print(f"[tp] {name} single-process reference in {time.perf_counter() - t0:.1f} s",
-                  flush=True)
-            t0 = time.perf_counter()
-            serve_ref_ms[name] = tp_serve_reference(cfg, Path(work), name)
-            print(f"[tp] {name} single-process serving reference in "
-                  f"{time.perf_counter() - t0:.1f} s ({serve_ref_ms[name]:.1f} ms a decode step)",
-                  flush=True)
+            fp32 = TP_FAMILIES.get(name, {}).get("gates_in") == "float32"
+            for ref_tag, c in [(name, cfg)] + [(f"{name}_fp32", dataclasses.replace(
+                    cfg, dtype="float32"))] * fp32:
+                t0 = time.perf_counter()
+                halves = fp32 and c.dtype == "bfloat16"
+                tp_reference(c, card_batch(batches[name], c), Path(work), ref_tag, halves)
+                print(f"[tp] {ref_tag} single-process reference in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                t0 = time.perf_counter()
+                serve_ref_ms[ref_tag] = tp_serve_reference(c, Path(work), ref_tag, halves)
+                print(f"[tp] {ref_tag} single-process serving reference in "
+                      f"{time.perf_counter() - t0:.1f} s ({serve_ref_ms[ref_tag]:.1f} ms a decode "
+                      "step)", flush=True)
         want = json.loads((Path(work) / "ref_deepseek.json").read_text())
-        losses = {name: json.loads((Path(work) / f"ref_{name}.json").read_text())["loss"]
-                  for name, _, _ in parts}
+        refs = {tag: json.loads((Path(work) / f"ref_{tag}.json").read_text())
+                for tag in serve_ref_ms}
+        for tag, r in refs.items():
+            r["halves_prefill_gap"] = torch.load(Path(work) / f"serve_{tag}.pt",
+                                                 mmap=True)["halves_prefill_gap"]
+        losses = {tag: r["loss"] for tag, r in refs.items()}
         ranks, world_s = yield tp_rank, (work, batches), TP["world_timeout"]
         # the checkpoint of the qwen data 2 x model 2 state whole onto the one device
         empty = lambda _: torch.empty(0, device="cuda")
@@ -5264,13 +5419,25 @@ def tp_parts(kernel_modules, gen=None, ops=None, ref=None, rate=None):
             "mesh": {a: max(p["coords"][a] for p in per) + 1 for a in per[0]["coords"]},
             **{k: [p[k] for p in per] for k in ("step_ms", "tp_ms", "sync_ms", "update_ms",
                                                  "gather_ms", "peak_gib",
-                                                 "grad_err_vs_single_process")},
+                                                 "grad_err_vs_single_process",
+                                                 "loss_gap_vs_single_process")},
             "losses": per[0]["losses"], "counts_a_step": per[0]["counts"][0],
             "replicated_leaves": per[0]["replicated_leaves"],
             "sharded_leaves": per[0]["sharded_leaves"]}
         for k in ("aux", "aux_rank_local", "own_routing"):
             if k in per[0]:
                 res[run][k] = [p[k] for p in per]
+        ref_run = refs[run.rsplit("_", 1)[0]]
+        if ref_run["halves_grad_err"] is not None:
+            res[run]["single_process_halves"] = {
+                k: ref_run[k] for k in ("halves_loss", "halves_grad_err",
+                                        "halves_grad_err_by_leaf", "halves_prefill_gap")}
+            print(f"[tp] {run} (bf16, not gated): loss {per[0]['losses'][0]}, the single "
+                  f"process's {ref_run['loss']}, its rows in two halves "
+                  f"{ref_run['halves_loss']}; gradient "
+                  f"{[p['grad_err_vs_single_process'] for p in per]} of the largest entry from "
+                  f"the single process's, its halves' {ref_run['halves_grad_err']:.4f}; prefill "
+                  f"logits: its halves' gap {ref_run['halves_prefill_gap']:.4f}", flush=True)
     res["serve"] = tp_serve_summary(ranks, serve_ref_ms)
     if kernel_rows is not None:
         res["kernel_rows"] = kernel_rows
@@ -5307,6 +5474,7 @@ def tp_serve_summary(ranks: list, ref_ms: dict) -> dict:
             "logit_gap_by_step": [max(g) for g in zip(*(p["gaps"] for p in per))],
             "tokens_compared": sum(p["tokens_compared"] for p in per),
             "near_ties": sum(p["near_ties"] for p in per),
+            "tokens_differing": sum(p["tokens_differing"] for p in per),
             "prefill_ms": [p["prefill_ms"] for p in per],
             "prefill_tp_ms": [p["prefill_tp_ms"] for p in per],
             "decode_ms_median": [statistics.median(p["decode_ms"][1:]) for p in per],

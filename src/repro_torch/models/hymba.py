@@ -81,8 +81,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops
-from ..parallel import (all_reduce_sum, copy_to_region, gather_from_region, reduce_from_region,
-                        regroup_columns)
+from ..parallel import all_reduce_sum, copy_to_region, gather_from_region, reduce_from_region
 from ..serve.flash_decoding import merge_partials
 from . import params as PM
 from .params import TP, P, dp_axes
@@ -198,13 +197,7 @@ class Hymba(ModelAxis, nn.Module):
     def _ssm_in(self, p, ht):
         """(x_in, z): this rank's contiguous ``ed/tp`` channels of each from
         the in-projection of ``ht`` (the module's docstring)."""
-        up = ht @ p["w_in"]
-        if self.tp == 1:
-            return up.chunk(2, dim=-1)
-        c = self.ed // self.tp
-        picks = [[slice(r * c, (r + 1) * c), slice(self.ed + r * c, self.ed + (r + 1) * c)]
-                 for r in range(self.tp)]
-        return regroup_columns(up, self.tp_mesh, picks).chunk(2, dim=-1)
+        return self._split_halves(ht @ p["w_in"], self.ed)
 
     def _ssm_path(self, p, ht):
         """Selective scan over the full sequence.  ht: (B, S, D) normed input
@@ -241,10 +234,7 @@ class Hymba(ModelAxis, nn.Module):
         one all-gather (the backward keeps this rank's part)."""
         if self.tp == 1:
             return p["attn_ln"], p["ssm_ln"]
-        n = p["attn_ln"].shape[0]
-        both = gather_from_region(torch.cat([p["attn_ln"], p["ssm_ln"]]), self.tp_mesh, -1)
-        both = both.view(self.tp, 2, n)
-        return both[:, 0].reshape(-1), both[:, 1].reshape(-1)
+        return self._gather_whole((p["attn_ln"], 0), (p["ssm_ln"], 0))
 
     def _fuse(self, p, x, attn, ssm):
         """x plus ``wo`` of the two paths' whole rows (B, S, H * hd), each

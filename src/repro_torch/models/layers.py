@@ -1,7 +1,7 @@
 """Shared model primitives: norms, RoPE, sinusoidal positions, blockwise and
 decode attention, the decode cache's slot rule, MLPs, routed experts, causal
 depthwise convolution, and :class:`ModelAxis`, the pieces of the ``model``
-axis that ``DecoderLM``, ``Hymba`` and ``EncDecLM`` share.
+axis that ``DecoderLM``, ``Hymba``, ``EncDecLM`` and ``XLSTM`` share.
 
 ``rms_norm``, ``blockwise_attention``, ``decode_attention`` and ``swiglu`` go
 through :mod:`repro_torch.kernels.ops`: the hand-written kernels on the
@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..parallel import (TP, all_reduce_sum, copy_to_region, gather_from_region,
-                        reduce_from_region, scatter_to_region, tp_mesh, tp_size)
+                        reduce_from_region, regroup_columns, scatter_to_region, tp_mesh,
+                        tp_size)
 from . import params as PM
 from .params import P
 
@@ -312,8 +313,8 @@ def vocab_specs(vocab: int, d_model: int, model_axis: int) -> tuple[tuple, tuple
 
 class ModelAxis:
     """The ``model`` axis as the port's model classes execute it: a mixin of
-    ``DecoderLM``, ``Hymba`` and ``EncDecLM``, which set ``cfg``, ``mesh``,
-    ``device`` and ``dtype`` and call :meth:`_init_model_axis`.
+    ``DecoderLM``, ``Hymba``, ``EncDecLM`` and ``XLSTM``, which set ``cfg``,
+    ``mesh``, ``device`` and ``dtype`` and call :meth:`_init_model_axis`.
 
     Built over a mesh of one rank's coordinates whose ``model`` axis is above
     1 (``parallel.tp_size``), the parameters are this rank's shards
@@ -422,6 +423,37 @@ class ModelAxis:
             out.append(torch.cat([r[..., start:start + w] for r in ranks], dim))
             start += w
         return out
+
+    def _gather_whole(self, *parts) -> list:
+        """Each ``(shard, dim)`` of ``parts`` whole: every rank's shard
+        concatenated along ``dim`` in rank order, all of them in one
+        all-gather of the shards flattened side by side.  Backward, this
+        rank's part of each gradient, with no sum: every rank computes the
+        same from the whole tensors (or, for a norm's gamma, uses only its
+        own columns of the result)."""
+        flat = gather_from_region(torch.cat([t.reshape(-1) for t, _ in parts]), self.tp_mesh, 0)
+        flat = flat.view(self.tp, -1)
+        out, start = [], 0
+        for t, dim in parts:
+            n, dim = t.numel(), dim % t.dim()
+            piece = flat[:, start:start + n].reshape(self.tp, *t.shape).movedim(0, dim)
+            out.append(piece.reshape(*t.shape[:dim], -1, *t.shape[dim + 1:]))
+            start += n
+        return out
+
+    def _split_halves(self, up, width: int):
+        """(x, z) of an in-projection ``up`` whose ``2 width`` columns the
+        axis cuts (``P(None, TP)``): the ``chunk(2)`` of the whole row would
+        leave x on the low ranks and z on the high ones, so the ranks'
+        products are exchanged (``regroup_columns``: one all-gather, its
+        backward another) and each holds its contiguous ``width/tp`` columns
+        of both."""
+        if self.tp == 1:
+            return up.chunk(2, dim=-1)
+        c = width // self.tp
+        picks = [[slice(r * c, (r + 1) * c), slice(width + r * c, width + (r + 1) * c)]
+                 for r in range(self.tp)]
+        return regroup_columns(up, self.tp_mesh, picks).chunk(2, dim=-1)
 
     def _own_columns(self, t, cols: int):
         """This rank's ``cols`` columns of a whole row ``t`` (its part of a

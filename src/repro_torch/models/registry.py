@@ -24,10 +24,10 @@ WHISPER_DECODE_ENC_LEN = 1536
 def build_model(cfg: ModelConfig, *, model_axis: int = 16, mesh=None,
                 device="cuda") -> DecoderLM | EncDecLM | XLSTM | Hymba:
     """The model of ``cfg``.  ``model_axis`` and ``mesh`` set the layouts'
-    sharding specs, as in JAX; a model whose class runs tensor-parallel
-    (``tensor_parallel``) built over a mesh of one rank's coordinates with a
-    ``model`` axis above 1 also executes them (``lm.py``), and otherwise the
-    arithmetic is the same at any value."""
+    sharding specs, as in JAX; every family's class runs tensor-parallel
+    (``tensor_parallel``): built over a mesh of one rank's coordinates with a
+    ``model`` axis above 1 it also executes them (``layers.ModelAxis``), and
+    otherwise the arithmetic is the same at any value."""
     kw = dict(model_axis=model_axis, mesh=mesh, device=device)
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, **kw)

@@ -24,6 +24,46 @@ the stabiliser cancels from h).  ``decode_step`` updates them IN PLACE and
 returns the same cache object; :func:`mlstm_decode`, plain PyTorch as in JAX
 (no Pallas body), updates C where it lies.  Every norm goes through the
 rmsnorm kernel and the sLSTM post-FFN through the SwiGLU kernel.
+
+**The ``model`` axis.**  Built over a mesh of one rank's coordinates whose
+``model`` axis is above 1, the model executes the layout's specs as the
+other families do (``layers.ModelAxis``): its parameters are this rank's
+shards and the regions of ``repro_torch.parallel`` run between them.
+
+* mLSTM: the normed input copied into the region; ``w_up``'s columns are cut
+  over ``2 ed``, so the ranks' products are exchanged to give each its
+  contiguous ``ed/tp`` channels of x and of z (``ModelAxis._split_halves``);
+  ``conv`` acts on them.  ``wq``, ``wk``, ``wv``, ``w_i`` and ``w_f`` are
+  row-parallel: the five partial products side by side in one all-reduce
+  (fp32, cast once), after which every rank holds whole q, k, v and gates.
+  The scan runs on this rank's ``H/tp`` heads, which give its contiguous
+  ``ed/tp`` columns of the output, or, where H does not divide the axis, on
+  every head, of which the rank keeps its columns.  ``out_ln`` takes its RMS
+  over the whole row: the row is whole (the heads' outputs gathered), the
+  gamma gathered, and the rank keeps its columns, multiplies them by its
+  ``silu(z)`` and feeds the row-parallel ``w_down`` and one reduce.
+* sLSTM: the cell runs whole on every rank.  ``w_gates``, ``b_gates`` and
+  ``r_gates`` (JAX cuts them on dh, the recurrent one on its input dh) are
+  gathered whole in one all-gather a block, and the gate pre-activations and
+  the whole time loop are the single device's: no collective runs inside the
+  loop (an exact copy of JAX's cut would sum the recurrent product over the
+  axis at every step).  ``out_ln`` is replicated; ``w_out`` is
+  column-parallel (the normed row copied in, the output gathered); the
+  post-FFN runs the SwiGLU kernel on ``2688/tp`` columns.
+* The embedding and the unembedding by ``layers.vocab_specs``.
+
+Decoding keeps JAX's cut of the state: mLSTM ``C`` and ``n`` on ``dqk``
+(``P(dp, None, TP, None)``), ``m`` replicated, the conv tail on the rank's
+``ed/tp`` channels, the sLSTM ``c``, ``n``, ``m`` and ``h`` on dh.  An mLSTM
+step takes the rank's ``dqk/tp`` slice of every head's q and k, updates its
+``C`` and ``n`` shards in place and ``m`` identically everywhere, and sums
+the partial numerator and ``q . n`` in one fp32 all-reduce before the
+denominator's ``max(|q . n|, exp(-m))`` (:func:`mlstm_decode_partial`).
+An sLSTM step forms its dh's gate columns from its own ``w_gates`` and
+``b_gates``, and the recurrent term from its own ``h`` shard and input rows
+of ``r_gates``: a partial product over every output, summed over the axis
+once, of which it keeps its dh; ``h_new`` is gathered whole for the
+replicated ``out_ln``.
 """
 
 from __future__ import annotations
@@ -35,10 +75,11 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops
+from ..parallel import copy_to_region, gather_from_region, reduce_from_region, total_fp32
 from . import params as PM
 from .params import TP, P, dp_axes
 from .remat import remat
-from .layers import causal_conv, rms_norm, swiglu
+from .layers import ModelAxis, causal_conv, rms_norm, swiglu, vocab_specs
 
 _NEG = -1e30
 
@@ -53,8 +94,20 @@ def mlstm_decode(q, k, v, i_raw, log_f, state):
     ``baddbmm_``, then read by ``q C``.  JAX forms ``i (k v^T)`` instead, so the sums round in another
     order (within 1e-4 of it).
     """
+    num, qn, m_new = mlstm_decode_partial(q, k, v, i_raw, log_f, state, dqk=q.shape[-1])
+    den = torch.maximum(qn.abs(), torch.exp(-m_new))
+    return num / den[..., None], state
+
+
+def mlstm_decode_partial(q, k, v, i_raw, log_f, state, *, dqk: int):
+    """:func:`mlstm_decode`'s update and reads on a cut of ``dqk``: q and k are
+    this rank's slice (B, H, dqk/tp) of every head's, ``state`` its shards
+    ``(C (B, H, dqk/tp, dv), n (B, H, dqk/tp), m (B, H))``, updated IN PLACE
+    (m whole, the same on every rank).  Returns ``(num (B, H, dv), q . n (B,
+    H), m_new)``: sums over this rank's slice, whose totals over the axis give
+    ``h = num / max(|q . n|, exp(-m_new))``; q is scaled by the whole ``dqk``."""
     C, n, m = state
-    B, H, dqk = q.shape
+    B, H, w = q.shape
     dv = v.shape[-1]
     q = q.float() * dqk ** -0.5
     k, v = k.float(), v.float()
@@ -62,20 +115,20 @@ def mlstm_decode(q, k, v, i_raw, log_f, state):
     f_s = torch.exp(log_f + m - m_new)
     i_s = torch.exp(i_raw - m_new)
     C.mul_(f_s[..., None, None])
-    C.view(B * H, dqk, dv).baddbmm_((i_s[..., None] * k).view(B * H, dqk, 1),
-                                    v.view(B * H, 1, dv))
+    C.view(B * H, w, dv).baddbmm_((i_s[..., None] * k).view(B * H, w, 1),
+                                  v.reshape(B * H, 1, dv))
     n.mul_(f_s[..., None]).add_(i_s[..., None] * k)
     m.copy_(m_new)
-    num = torch.bmm(q.view(B * H, 1, dqk), C.view(B * H, dqk, dv)).view(B, H, dv)
-    den = torch.maximum((q * n).sum(-1).abs(), torch.exp(-m_new))
-    return num / den[..., None], state
+    num = torch.bmm(q.view(B * H, 1, w), C.view(B * H, w, dv)).view(B, H, dv)
+    return num, (q * n).sum(-1), m_new
 
 
-class XLSTM(nn.Module):
+class XLSTM(ModelAxis, nn.Module):
     """48-block stack: one sLSTM block per ``slstm_every``, the rest mLSTM."""
 
-    #: no tensor-parallel execution of a ``model`` axis (``train.step`` raises)
-    tensor_parallel = False
+    #: a ``model`` axis above 1 runs tensor-parallel (``train.step`` and the
+    #: dry-run read this)
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, *, model_axis: int = 16, mesh=None, device="cuda"):
         super().__init__()
@@ -97,6 +150,7 @@ class XLSTM(nn.Module):
         self.sh = cfg.n_heads                 # sLSTM heads
         self.sdh = D // self.sh
         self.s_ff = 2688                      # the JAX model's sLSTM FFN width
+        self._init_model_axis(mesh)
 
     # -------------------------------------------------------------- layout
     def mlstm_layout(self) -> dict:
@@ -137,10 +191,7 @@ class XLSTM(nn.Module):
         cfg = self.cfg
         every = cfg.ssm.slstm_every
         groups = cfg.n_layers // every
-        div_v = cfg.vocab % self.model_axis == 0
-        div_d = cfg.d_model % self.model_axis == 0
-        emb_spec = P(TP, None) if div_v else (P(None, TP) if div_d else P(None, None))
-        head_spec = P(None, TP) if div_v else (P(TP, None) if div_d else P(None, None))
+        emb_spec, head_spec = vocab_specs(cfg.vocab, cfg.d_model, self.model_axis)
         return {
             "embed": PM.ParamInfo((cfg.vocab, cfg.d_model), emb_spec, scale=0.02),
             "groups": PM.stack(
@@ -150,9 +201,6 @@ class XLSTM(nn.Module):
             "final_ln": PM.ParamInfo((cfg.d_model,), P(None), "ones"),
             "lm_head": PM.ParamInfo((cfg.d_model, cfg.vocab), head_spec, scale=0.02),
         }
-
-    def init_params(self, generator: torch.Generator) -> dict:
-        return PM.init_params(self.layout(), generator, device=self.device, dtype=self.dtype)
 
     @staticmethod
     def _group_params(params) -> list[tuple[list[dict], dict]]:
@@ -167,37 +215,76 @@ class XLSTM(nn.Module):
 
     # ------------------------------------------------------------- blocks
     def _mlstm_qkvif(self, p, xc, xv):
+        """q, k (B, H, S, dqk), v (B, H, S, dv), i_raw and log_f (B, H, S) of
+        every head.  Over a ``model`` axis the five row-parallel products of
+        this rank's channels are summed in one all-reduce, side by side, and
+        the biases added; the ranks then read parts of the whole, so its
+        backward sums their gradients."""
         B, S, _ = xc.shape
         H = self.H
-        q = (xc @ p["wq"]).view(B, S, H, self.dqk).transpose(1, 2)
-        k = (xc @ p["wk"]).view(B, S, H, self.dqk).transpose(1, 2)
-        v = (xv @ p["wv"]).view(B, S, H, self.dv).transpose(1, 2)
-        i_raw = (xc @ p["w_i"] + p["b_i"]).transpose(1, 2)
-        log_f = F.logsigmoid(xc @ p["w_f"] + p["b_f"]).transpose(1, 2)
-        return q, k, v, i_raw, log_f
+        if self.tp == 1:
+            q, k, v = xc @ p["wq"], xc @ p["wk"], xv @ p["wv"]
+            i_raw, f_pre = xc @ p["w_i"] + p["b_i"], xc @ p["w_f"] + p["b_f"]
+        else:
+            mesh = self.tp_mesh
+            parts = [xc @ p["wq"], xc @ p["wk"], xv @ p["wv"], xc @ p["w_i"], xc @ p["w_f"]]
+            widths = [t.shape[-1] for t in parts]
+            bias = torch.cat([p["b_i"].new_zeros(sum(widths[:3])), p["b_i"], p["b_f"]])
+            whole = reduce_from_region(torch.cat(parts, -1), mesh) + bias
+            q, k, v, i_raw, f_pre = copy_to_region(whole, mesh).split(widths, -1)
+        q = q.view(B, S, H, self.dqk).transpose(1, 2)
+        k = k.view(B, S, H, self.dqk).transpose(1, 2)
+        v = v.view(B, S, H, self.dv).transpose(1, 2)
+        return q, k, v, i_raw.transpose(1, 2), F.logsigmoid(f_pre).transpose(1, 2)
+
+    def _mlstm_out(self, p, hh, z, local: bool):
+        """``w_down`` of ``out_ln(hh) * silu(z)``: hh (B, S, ed), or over a
+        ``model`` axis the channels of the heads this rank scanned (its own
+        with ``local``, else every head's).  The RMS is taken over the whole
+        row with the gamma gathered; this rank's columns feed the
+        row-parallel ``w_down``, summed over the axis."""
+        eps = self.cfg.norm_eps
+        if self.tp == 1:
+            return (rms_norm(hh, p["out_ln"], eps) * F.silu(z)) @ p["w_down"]
+        mesh = self.tp_mesh
+        if local:
+            hh = gather_from_region(hh, mesh, -1, partial=True)
+        (gamma,) = self._gather_whole((p["out_ln"], 0))
+        hh = self._own_columns(rms_norm(hh, gamma, eps), self.ed // self.tp)
+        return reduce_from_region((hh * F.silu(z)) @ p["w_down"], mesh)
 
     def _mlstm_block(self, p, x):
         cfg = self.cfg
         B, S, _ = x.shape
-        h = rms_norm(x, p["ln"], cfg.norm_eps)
-        x_in, z = (h @ p["w_up"]).chunk(2, dim=-1)
+        h = copy_to_region(rms_norm(x, p["ln"], cfg.norm_eps), self.tp_mesh)
+        x_in, z = self._split_halves(h @ p["w_up"], self.ed)
         xc = F.silu(causal_conv(x_in, p["conv"]))
         q, k, v, i_raw, log_f = self._mlstm_qkvif(p, xc, x_in)
+        lo, hi, local = self._head_span(self.H)
+        if hi - lo < self.H:
+            q, k, v, i_raw, log_f = (t[:, lo:hi] for t in (q, k, v, i_raw, log_f))
         hh = ops.mlstm_scan(q, k, v, i_raw, log_f, chunk=cfg.ssm.chunk)
-        hh = hh.transpose(1, 2).reshape(B, S, self.ed).to(x.dtype)
-        hh = rms_norm(hh, p["out_ln"], cfg.norm_eps) * F.silu(z)
-        return x + hh @ p["w_down"]
+        hh = hh.transpose(1, 2).reshape(B, S, -1).to(x.dtype)
+        return x + self._mlstm_out(p, hh, z, local)
+
+    def _slstm_cell(self, p):
+        """``w_gates``, ``b_gates`` and ``r_gates`` whole: over a ``model``
+        axis, every rank's dh of each gathered in one all-gather."""
+        if self.tp == 1:
+            return p["w_gates"], p["b_gates"], p["r_gates"]
+        return self._gather_whole((p["w_gates"], 2), (p["b_gates"], 1), (p["r_gates"], 1))
 
     def _slstm_block(self, p, x):
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.tp_mesh
         B, S, D = x.shape
         sh, dh = self.sh, self.sdh
+        w_gates, b_gates, r_gates = self._slstm_cell(p)
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         # input-driven gate preactivations; the recurrent term (depends on
         # h_{t-1}) is added inside the loop
-        gates = (h.float() @ p["w_gates"].float().reshape(D, -1)).view(B, S, sh, dh, 4) \
-            + p["b_gates"].float()
-        r = p["r_gates"].float().reshape(sh, dh, dh * 4)
+        gates = (h.float() @ w_gates.float().reshape(D, -1)).view(B, S, sh, dh, 4) \
+            + b_gates.float()
+        r = r_gates.float().reshape(sh, dh, dh * 4)
         c = torch.zeros((B, sh, dh), dtype=torch.float32, device=x.device)
         n = torch.zeros_like(c)
         m = torch.full_like(c, _NEG)
@@ -218,10 +305,11 @@ class XLSTM(nn.Module):
             h_prev = o * c / torch.clamp(n, min=1e-6)
             hs.append(h_prev)
         hh = torch.stack(hs, 1).reshape(B, S, D).to(x.dtype)
-        x = x + rms_norm(hh, p["out_ln"], cfg.norm_eps) @ p["w_out"]
+        y = copy_to_region(rms_norm(hh, p["out_ln"], cfg.norm_eps), mesh) @ p["w_out"]
+        x = x + gather_from_region(y, mesh, -1)
         # post-FFN (xLSTM sLSTM blocks carry a ~4/3 gated projection)
-        h = rms_norm(x, p["ffn_ln"], cfg.norm_eps)
-        return x + swiglu(h, p["ffn_gate"], p["ffn_up"], p["ffn_down"])
+        h = copy_to_region(rms_norm(x, p["ffn_ln"], cfg.norm_eps), mesh)
+        return x + reduce_from_region(swiglu(h, p["ffn_gate"], p["ffn_up"], p["ffn_down"]), mesh)
 
     # ------------------------------------------------------------ forward
     def backbone(self, params, x):
@@ -239,20 +327,19 @@ class XLSTM(nn.Module):
         batch: ``tokens`` and ``labels``, (B, S) integer tensors on the model's
         device.  Logits are cast to fp32 before the log-sum-exp, as in JAX.
         """
-        x = params["embed"][batch["tokens"]].to(self.dtype)
+        self._check_tp()
+        x = self.embed(params, batch["tokens"])
         h = self.backbone(params, x)
-        logits = (h @ params["lm_head"]).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
-        nll = (lse - gold).mean()
+        nll = self._nll(params, h, batch["labels"].long())
         return nll, {"nll": nll, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
     @torch.no_grad()
     def prefill(self, params, batch):
         """Full-sequence forward returning the last position's fp32 logits (B, 1, vocab)."""
-        x = params["embed"][batch["tokens"]].to(self.dtype)
+        self._check_tp()
+        x = self.embed(params, batch["tokens"])
         h = self.backbone(params, x)
-        return (h[:, -1:] @ params["lm_head"]).float()
+        return self._serve_logits(params, h[:, -1:])
 
     # -------------------------------------------------------------- decode
     def cache_layout(self, batch: int, seq: int) -> dict:
@@ -279,33 +366,49 @@ class XLSTM(nn.Module):
                                    {"mlstm": PM.stack(every - 1, m_state), "slstm": s_state})}
 
     def init_cache(self, batch: int, seq: int) -> dict:
-        return PM.zeros_cache(self.cache_layout(batch, seq), device=self.device, dtype=self.dtype)
+        """A zero cache; over a ``model`` axis above 1, this rank's shard of it."""
+        return self._zero_cache(self.cache_layout(batch, seq))
 
     def _mlstm_decode_block(self, p, x, st):
         cfg = self.cfg
         B = x.shape[0]
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        x_in, z = (h @ p["w_up"]).chunk(2, dim=-1)                  # (B, 1, ed)
+        x_in, z = self._split_halves(h @ p["w_up"], self.ed)        # (B, 1, ed / tp)
         conv_in = torch.cat([st["conv"], x_in], dim=1)
         st["conv"].copy_(conv_in[:, 1:])
         W = p["conv"].shape[0]
         xc = F.silu(sum(conv_in[:, i:i + 1] * p["conv"][i] for i in range(W)))
-        q, k, v, i_raw, log_f = self._mlstm_qkvif(p, xc, x_in)
-        hh, _ = mlstm_decode(q[:, :, 0], k[:, :, 0], v[:, :, 0], i_raw[:, :, 0], log_f[:, :, 0],
-                             (st["C"], st["n"], st["m"]))
+        q, k, v, i_raw, log_f = (t[:, :, 0] for t in self._mlstm_qkvif(p, xc, x_in))
+        state = (st["C"], st["n"], st["m"])
+        if self.tp == 1:
+            hh, _ = mlstm_decode(q, k, v, i_raw, log_f, state)
+        else:
+            w = self.dqk // self.tp
+            mine = slice(self.tp_rank * w, (self.tp_rank + 1) * w)
+            num, qn, m_new = mlstm_decode_partial(q[..., mine], k[..., mine], v, i_raw, log_f,
+                                                  state, dqk=self.dqk)
+            total = total_fp32(torch.cat([num, qn[..., None]], -1), self.tp_mesh, TP)
+            den = torch.maximum(total[..., -1].abs(), torch.exp(-m_new))
+            hh = total[..., :-1] / den[..., None]
         hh = hh.reshape(B, 1, self.ed).to(x.dtype)
-        hh = rms_norm(hh, p["out_ln"], cfg.norm_eps) * F.silu(z)
-        return x + hh @ p["w_down"]
+        return x + self._mlstm_out(p, hh, z, local=False)
 
     def _slstm_decode_block(self, p, x, st):
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.tp_mesh
         B, _, D = x.shape
         sh, dh = self.sh, self.sdh
+        w = dh // self.tp                                               # this rank's dh
         h = rms_norm(x, p["ln"], cfg.norm_eps)[:, 0]
-        g = (h.float() @ p["w_gates"].float().reshape(D, -1)).view(B, sh, dh, 4) \
+        g = (h.float() @ p["w_gates"].float().reshape(D, -1)).view(B, sh, w, 4) \
             + p["b_gates"].float()
-        r = p["r_gates"].float().reshape(sh, dh, dh * 4)
-        g = g + torch.bmm(st["h"].transpose(0, 1), r).transpose(0, 1).view(B, sh, dh, 4)
+        r = p["r_gates"].float().reshape(sh, w, dh * 4)
+        rec = torch.bmm(st["h"].transpose(0, 1), r).transpose(0, 1)
+        if self.tp == 1:
+            g = g + rec.view(B, sh, dh, 4)
+        else:
+            # this rank's input rows: a partial sum over every output, summed once
+            rec = total_fp32(rec, mesh, TP).view(B, sh, dh, 4)
+            g = g + rec[:, :, self.tp_rank * w:(self.tp_rank + 1) * w]
         z = torch.tanh(g[..., 0])
         i_raw = g[..., 1]
         lf = F.logsigmoid(g[..., 2])
@@ -317,10 +420,12 @@ class XLSTM(nn.Module):
         n = st["n"].mul_(f_s).add_(i_s)
         st["m"].copy_(m_new)
         h_new = st["h"].copy_(o * c / torch.clamp(n, min=1e-6))
-        x = x + rms_norm(h_new.reshape(B, 1, D).to(x.dtype), p["out_ln"], cfg.norm_eps) \
-            @ p["w_out"]
+        if self.tp > 1:
+            (h_new,) = self._gather_columns(h_new)                      # (B, sh, dh)
+        y = rms_norm(h_new.reshape(B, 1, D).to(x.dtype), p["out_ln"], cfg.norm_eps) @ p["w_out"]
+        x = x + gather_from_region(y, mesh, -1)
         hf = rms_norm(x, p["ffn_ln"], cfg.norm_eps)
-        return x + swiglu(hf, p["ffn_gate"], p["ffn_up"], p["ffn_down"])
+        return x + reduce_from_region(swiglu(hf, p["ffn_gate"], p["ffn_up"], p["ffn_down"]), mesh)
 
     @torch.no_grad()
     def decode_step(self, params, batch):
@@ -328,13 +433,16 @@ class XLSTM(nn.Module):
 
         batch: ``tokens`` (B, 1) integer tensor and ``cache`` from
         :meth:`init_cache` (an ``index`` is not needed).  Returns ``(logits
-        (B, 1, vocab) fp32, cache)``; the cache is updated in place.
+        (B, 1, vocab) fp32, cache)``; the cache is updated in place.  Over a
+        ``model`` axis the cache is this rank's shard (the module's docstring)
+        and the logits are whole.
         """
-        x = params["embed"][batch["tokens"]].to(self.dtype)
+        self._check_tp()
+        x = self.embed(params, batch["tokens"])
         mc, sc = batch["cache"]["groups"]["mlstm"], batch["cache"]["groups"]["slstm"]
         for g, (mlstm, slstm) in enumerate(self._group_params(params)):
             for j, p in enumerate(mlstm):
                 x = self._mlstm_decode_block(p, x, {n: t[g, j] for n, t in mc.items()})
             x = self._slstm_decode_block(slstm, x, {n: t[g] for n, t in sc.items()})
         h = rms_norm(x, params["final_ln"], self.cfg.norm_eps)
-        return (h @ params["lm_head"]).float(), batch["cache"]
+        return self._serve_logits(params, h), batch["cache"]

@@ -15,10 +15,10 @@ by the batch spec (``registry._batch_spec``; the ranks of one ``model``
 group share their rows), computes its loss and gradients, syncs them over
 (``pod``, ``data``) (``sync.two_level_grad_sync``) and applies the ZeRO-1
 update (``optimizer.zero_update_shards``, ``gather_params``).  A ``model``
-axis above 1 runs a ``DecoderLM``, ``Hymba`` or ``EncDecLM`` built over the
-same mesh tensor-parallel (``models/lm.py``, ``layers.ModelAxis``): its
-parameters are the rank's shards (``params.shard_params``).  xLSTM has no
-tensor-parallel execution and raises.  An MoE model over more than one data
+axis above 1 runs a ``DecoderLM``, ``Hymba``, ``EncDecLM`` or ``XLSTM`` built
+over the same mesh tensor-parallel (``models/lm.py``, ``layers.ModelAxis``):
+its parameters are the rank's shards (``params.shard_params``).  An MoE
+model over more than one data
 rank routes the global batch, as JAX does on it (``layers.moe_route``: the
 global capacity and queue, the aux loss of global means).
 
@@ -93,11 +93,6 @@ class DataParallelStep:
 
     def __init__(self, model, opt_cfg: AdamWConfig, mesh, *, compress: bool = False):
         tp = mesh.shape.get("model", 1)
-        if tp > 1 and not model.tensor_parallel:
-            raise NotImplementedError(
-                f"{model.cfg.arch}: the {model.cfg.family} family ({type(model).__name__}) has no "
-                f"tensor-parallel execution; a 'model' axis of {tp} is ported for DecoderLM, "
-                "Hymba and EncDecLM, train it over (pod, data) with model 1")
         if tp > 1 and (model.mesh is not mesh or model.model_axis != tp):
             raise ValueError(f"{model.cfg.arch}: over a model axis of {tp} the model must be "
                              f"built with model_axis={tp} and this mesh")

@@ -335,13 +335,11 @@ def train_count(mesh, cfg, jparams: dict, batch: dict) -> dict:
     return {"real": {k: real[k] for k in COUNT_KEYS}, "meta": {k: meta[k] for k in COUNT_KEYS}}
 
 
-def tp_world(rank: int, world: int, init: str, cases: list, ckpt_dir: str,
-             family_cfgs: list) -> dict:
+def tp_world(rank: int, world: int, init: str, cases: list, ckpt_dir: str) -> dict:
     """Each case ``(name, (data, model), cfg, jparams, batch, steps)`` on a
     mesh of that shape over the same 4 ranks (``tp_case``); the ZeRO + TP
     state of the first case saved and restored at data 1 x model 4; one
-    rank's step counted against the meta count the dry-run makes; the
-    families without tensor parallelism refused."""
+    rank's step counted against the meta count the dry-run makes."""
     from repro_torch.train import make_train_step
 
     torch.set_num_threads(1)
@@ -388,16 +386,6 @@ def tp_world(rank: int, world: int, init: str, cases: list, ckpt_dir: str,
 
         # one rank's step counted, and the same step on meta under an AbstractMesh
         out["count"] = train_count(step.mesh, cfg, cases[0][3], cases[0][4])
-
-    refused = []
-    mesh = mesh_of((2, 2))
-    for fcfg in family_cfgs:
-        try:
-            make_train_step(build_model(fcfg, model_axis=2, mesh=mesh, device="cpu"),
-                            AdamWConfig(), mesh)
-        except NotImplementedError as err:
-            refused.append(str(err))
-    out["refused"] = refused
     return out
 
 

@@ -55,7 +55,7 @@ def started(setup, tmp_path_factory):
     cases = [(_name(case, mesh), mesh, setup[case][1], setup[case][2], setup[case][3], 1)
              for case, mesh in PARAMS]
     with ThreadPoolExecutor(1) as pool:
-        yield pool.submit(run_ranks, tp_world, 4, cases, "", [],
+        yield pool.submit(run_ranks, tp_world, 4, cases, "",
                           init_method=f"file://{root}/rendezvous", timeout=120.0)
 
 

@@ -15,9 +15,9 @@ axis does not divide: embedding columns gathered, ``lm_head`` row-parallel);
 queries cut inside a head too (6 heads on 4 ranks); (g) qwen-like under
 remat "none", "dots" and "full".  The world also saves the ZeRO + TP state
 of (a) and restores it at data 1 x model 4, counts one rank's step against
-the dry-run's meta count of it, and asks xLSTM, the one family without a
-tensor-parallel execution, for a model axis of 2 (Hymba and Whisper:
-``test_torch_tp_hymba.py``, ``test_torch_tp_encdec.py``).
+the dry-run's meta count of it (Hymba, Whisper and xLSTM:
+``test_torch_tp_hymba.py``, ``test_torch_tp_encdec.py``,
+``test_torch_tp_xlstm.py``).
 """
 
 import zlib
@@ -44,7 +44,6 @@ CASES = {
     "g_none": ("qwen1.5-0.5b", {"remat": "none"}, 0, ((2, 2),)),
     "g_full": ("qwen1.5-0.5b", {"remat": "full"}, 0, ((2, 2),)),
 }
-FAMILIES = ("xlstm-1.3b",)
 
 
 def _name(case: str, mesh: tuple) -> str:
@@ -70,7 +69,6 @@ def started(setup, tmp_path_factory):
              for case, (_, _, _, meshes) in CASES.items() for mesh in meshes]
     with ThreadPoolExecutor(1) as pool:
         yield pool.submit(run_ranks, tp_world, 4, cases, str(root / "ckpt"),
-                          [ARCHS[a].smoke() for a in FAMILIES],
                           init_method=f"file://{root}/rendezvous", timeout=120.0), root
 
 
@@ -167,20 +165,11 @@ def test_meta_count_equals_a_real_ranks_count(world):
         assert real["kernels"]["flash_attention"]["calls"] > 0
 
 
-def test_families_without_tensor_parallelism_raise(world):
-    outs, _ = world
-    for out in outs:
-        assert len(out["refused"]) == len(FAMILIES)
-        for arch, msg in zip(FAMILIES, out["refused"]):
-            family = ARCHS[arch].family
-            assert arch in msg and family in msg and "tensor-parallel" in msg
-
-
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-v2-lite-16b", "hymba-1.5b",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", "xlstm-1.3b"])
 def test_dryrun_production_counts_the_tensor_parallel_step(arch, tmp_path):
     """The dry-run's production judgment of a train cell counts one rank's
-    tensor-parallel step on meta for DecoderLM, Hymba and Whisper (the peak
+    tensor-parallel step on meta for DecoderLM, Hymba, Whisper and xLSTM (the peak
     holds the state, so it is at least the weights and optimizer shards); a
     serving cell counts the tensor-parallel decode step too."""
     from repro_torch.configs.base import ShapeConfig
@@ -199,7 +188,8 @@ def test_dryrun_production_counts_the_tensor_parallel_step(arch, tmp_path):
                             shape=ShapeConfig("decode_32k", 64, 4, "decode"))["production"]
     assert serve["executed"]
     assert serve["total_bytes"] >= serve["state_bytes"] > 0
-    assert serve["step"]["kernels"]["decode_attention" if cfg.mla is None else "rmsnorm"]["calls"]
+    attends = cfg.mla is None and cfg.family != "ssm"       # xLSTM and MLA: no decode kernel
+    assert serve["step"]["kernels"]["decode_attention" if attends else "rmsnorm"]["calls"]
     assert serve["fits_80gb"] == (serve["total_bytes"] <= dryrun.HBM_PER_CHIP)
 
 
