@@ -1,0 +1,5 @@
+"""``torch.cuda.max_memory_allocated()`` over the warm-up and the window, in GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2**30
